@@ -1,0 +1,27 @@
+"""mxtpu_torch: the PyTorch/CUDA port of mxtpu, for NVIDIA Hopper.
+
+The namespace mirrors ``import mxtpu as mx`` for the parts ported so far:
+devices, the layout scope, the serving ops, Gluon blocks and layers, the
+ResNet v1 model zoo, initializers and the bucketed Predictor. Kernels that
+the JAX package wrote in Pallas are hand-written CUDA under ``csrc/``,
+built at first use (``mxtpu_torch.kernels``). Entry points run on the CUDA
+device unless the caller passes a CPU device.
+"""
+from .ops.precision_util import apply_policy as _apply_policy
+
+_apply_policy()   # float32 contractions stay float32 (no TF32), as in mxtpu
+
+from . import base, context  # noqa: E402
+from .base import MXNetError  # noqa: E402
+from .context import cpu, default_device, gpu  # noqa: E402
+from .layout import layout  # noqa: E402
+from . import ops  # noqa: E402
+from . import initializer  # noqa: E402
+from . import initializer as init  # noqa: E402
+from . import gluon  # noqa: E402
+from . import serving  # noqa: E402
+from . import convert  # noqa: E402
+
+__all__ = ["MXNetError", "cpu", "gpu", "default_device", "layout", "ops",
+           "initializer", "init", "gluon", "serving", "convert", "base",
+           "context"]

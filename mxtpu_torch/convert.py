@@ -1,0 +1,88 @@
+"""Weights carried between the JAX package and the port.
+
+``load_mxtpu_params(net, arrays)`` takes ``{name: np.ndarray}`` as the JAX
+package's ``collect_params()`` gives it (``p.data().asnumpy()``) and loads
+it into a port block built the same way; ``params_to_numpy(net)`` is the
+inverse. Names match after the top-level block prefix is stripped, so
+``resnetv10_conv2d0_weight`` loads into ``resnetv11_conv2d0_weight`` of the
+second net a process builds. A missing, extra or misshapen array raises.
+
+``seeded_params`` makes reproducible random weights for such a net, with
+BatchNorm statistics far enough from the defaults that a parity test
+compares real signal (the default initializer gives ResNet logits near
+1e-4).
+"""
+from __future__ import annotations
+
+import zlib
+
+import numpy as np
+import torch
+
+from .base import MXNetError
+
+__all__ = ["load_mxtpu_params", "params_to_numpy", "seeded_params"]
+
+
+def _strip_top(names):
+    """{name without its top-level prefix: name}; the prefix is the first
+    '_'-terminated token (block hints hold no '_') and must be shared."""
+    tops = {n.partition("_")[0] for n in names}
+    if len(tops) > 1:
+        raise MXNetError("parameters come from several top-level blocks: %s"
+                         % sorted(tops))
+    return {n.partition("_")[2]: n for n in names}
+
+
+def load_mxtpu_params(net, arrays):
+    """Load ``{mxtpu name: array}`` into ``net``'s parameters, each in the
+    parameter's dtype and on its device."""
+    params = net.collect_params()
+    ours = {n[len(net.prefix):]: p for n, p in params.items()}
+    theirs = _strip_top(list(arrays))
+    missing = sorted(set(ours) - set(theirs))
+    extra = sorted(set(theirs) - set(ours))
+    if missing or extra:
+        raise MXNetError("load_mxtpu_params: missing %s, extra %s"
+                         % (missing[:5], extra[:5]))
+    for key, p in ours.items():
+        a = np.asarray(arrays[theirs[key]])
+        known = p.shape or ()
+        if len(known) != a.ndim or any(
+                s != 0 and s != g for s, g in zip(known, a.shape)):
+            raise MXNetError("load_mxtpu_params: %s has shape %s, the array "
+                             "%s" % (p.name, p.shape, a.shape))
+        p.set_data(a)
+
+
+def params_to_numpy(net):
+    """``{name: np.ndarray}`` of every parameter (bf16 as float32, exact)."""
+    out = {}
+    for name, p in net.collect_params().items():
+        t = p.data().detach().cpu()
+        if t.dtype in (torch.bfloat16, torch.float16):
+            t = t.float()
+        out[name] = t.numpy()
+    return out
+
+
+def seeded_params(shapes, seed=0):
+    """Random weights for ``{name: shape}``, each drawn from its own numpy
+    generator keyed by ``seed`` and the name without its top-level prefix
+    (so the order and the prefix do not matter): He-normal weights (4-D
+    read as HWIO, 2-D as (out, in)), BatchNorm gamma and running_var
+    ~U(0.5, 1.5), beta, running_mean and biases ~N(0, 0.1)."""
+    out = {}
+    for key, name in _strip_top(list(shapes)).items():
+        shape = tuple(shapes[name])
+        rng = np.random.default_rng([int(seed), zlib.crc32(key.encode())])
+        if key.endswith("weight"):
+            fan_in = int(np.prod(shape[:-1])) if len(shape) == 4 else \
+                int(np.prod(shape[1:]))
+            a = rng.standard_normal(shape) * np.sqrt(2.0 / fan_in)
+        elif key.endswith(("gamma", "running_var")):
+            a = rng.uniform(0.5, 1.5, shape)
+        else:
+            a = rng.normal(0.0, 0.1, shape)
+        out[name] = a.astype(np.float32)
+    return out

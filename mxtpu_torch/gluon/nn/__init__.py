@@ -1,0 +1,4 @@
+"""Gluon layers of the port."""
+from .activations import *  # noqa: F401,F403
+from .basic_layers import *  # noqa: F401,F403
+from .conv_layers import *  # noqa: F401,F403

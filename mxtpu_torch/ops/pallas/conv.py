@@ -1,0 +1,225 @@
+"""Fused implicit-GEMM convolution (counterpart of ``mxtpu/ops/pallas/conv.py``).
+
+``fused_conv`` computes ``relu(conv(x, w) * scale + bias + residual)`` for
+NHWC x and HWIO w in one pass. On a CUDA tensor it launches the hand-written
+kernel of ``mxtpu_torch/csrc/fused_conv.cu`` (which replaces the TPU's
+``_conv_kernel``) or raises; on a CPU tensor it runs the plain PyTorch
+version ``fused_conv_reference``, which repeats the kernel's arithmetic.
+
+``pallas_applicable`` is the JAX package's gate, with the same decisions
+and reasons: ``conv_acc.conv_fast`` routes a conv here when the gate admits
+it. The gate keeps the TPU's 128-lane rule for now, so the port runs the
+same convs through its kernel as the JAX package does.
+
+Forward only: the backward (``_core_bwd`` in the JAX package) comes with
+training, so the kernel refuses a tensor that needs a gradient while grad
+mode is on (the plain version on the CPU is differentiable as it is).
+``fused_conv.launches`` counts kernel launches; it never counts a call
+that ran the plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ...base import MXNetError
+
+__all__ = ["fused_conv", "fused_conv_with_raw", "fused_conv_reference",
+           "pallas_applicable", "out_hw"]
+
+_MXU_LANES = 128
+_LOW = (torch.bfloat16, torch.float32)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def out_hw(size, lo, hi, k, s):
+    return (size + lo + hi - k) // s + 1
+
+
+def pallas_applicable(x, w, strides, padding, lhs_dilation, rhs_dilation,
+                      dims, groups):
+    """(True, None) when the conv is in the kernel's domain AND its shape
+    underfills the 128-wide contraction on one side (im2col K =
+    kh*kw*C_in < 128 or C_out < 128), else (False, reason). Decisions and
+    reasons equal ``mxtpu.ops.pallas.conv.pallas_applicable``."""
+    if tuple(dims) != ("NHWC", "HWIO", "NHWC"):
+        return False, "layout not NHWC/HWIO"
+    if x.ndim != 4:
+        return False, "not a 2D conv"
+    if int(groups) != 1:
+        return False, "grouped conv"
+    if tuple(lhs_dilation) != (1, 1):
+        return False, "lhs dilation (transposed conv)"
+    if tuple(rhs_dilation) != (1, 1):
+        return False, "rhs dilation"
+    if x.dtype not in _LOW or w.dtype not in _LOW:
+        return False, "dtype not f32/bf16"
+    if x.dtype != w.dtype:
+        return False, "mixed operand dtypes"
+    if any(p < 0 for pair in padding for p in pair):
+        return False, "negative padding"
+    kh, kw, cin, cout = w.shape
+    k_im2col = kh * kw * cin
+    if k_im2col >= _MXU_LANES and cout >= _MXU_LANES:
+        return False, ("MXU-filled shape (K=%d, C_out=%d): XLA path is "
+                       "already near ceiling" % (k_im2col, cout))
+    sh, sw = tuple(strides)
+    (plo, phi), (qlo, qhi) = (tuple(p) for p in padding)
+    oh = out_hw(x.shape[1], plo, phi, kh, sh)
+    ow = out_hw(x.shape[2], qlo, qhi, kw, sw)
+    if oh < 1 or ow < 1:
+        return False, "degenerate output"
+    return True, None
+
+
+def fused_conv_reference(x, w, strides=(1, 1), padding=((0, 0), (0, 0)),
+                         scale=None, bias=None, residual=None, relu=False):
+    """The plain version: the kernel's arithmetic in PyTorch ops.
+
+    Upcasts to float32, sums the kh*kw strided-slice products
+    ``[M, C_in] @ [C_in, C_out]``, applies the epilogue in float32 and casts
+    to the operands' type. Returns ``(out, craw)``, ``craw`` the float32
+    raw conv when ``scale`` is given, else None."""
+    n, h, wd, cin = x.shape
+    kh, kw, _, cout = w.shape
+    sh, sw = strides
+    (plo, phi), (qlo, qhi) = padding
+    oh, ow = out_hw(h, plo, phi, kh, sh), out_hw(wd, qlo, qhi, kw, sw)
+    xp = torch.nn.functional.pad(x.float(), (0, 0, qlo, qhi, plo, phi))
+    wf = w.float()
+    acc = torch.zeros(n * oh * ow, cout, dtype=torch.float32, device=x.device)
+    for dy in range(kh):
+        for dx in range(kw):
+            patch = xp[:, dy:dy + sh * (oh - 1) + 1:sh,
+                       dx:dx + sw * (ow - 1) + 1:sw, :]
+            acc += patch.reshape(-1, cin) @ wf[dy, dx]
+    acc = acc.reshape(n, oh, ow, cout)
+    pre, craw = acc, None
+    if scale is not None:
+        craw = acc
+        pre = pre * scale.float()
+    if bias is not None:
+        pre = pre + bias.float()
+    if residual is not None:
+        pre = pre + residual.float()
+    if relu:
+        pre = torch.where(pre < 0, torch.zeros_like(pre), pre)
+    return pre.to(x.dtype), craw
+
+
+def _check(x, w, strides, padding, scale, bias, residual):
+    """Validate what the kernel takes; returns (oh, ow)."""
+    if x.ndim != 4 or w.ndim != 4:
+        raise MXNetError("fused_conv: x must be NHWC [N,H,W,C] and w HWIO "
+                         "[kh,kw,C_in,C_out], got %s and %s"
+                         % (tuple(x.shape), tuple(w.shape)))
+    if x.dtype not in _LOW or x.dtype != w.dtype:
+        raise MXNetError("fused_conv: x and w must both be float32 or both "
+                         "bfloat16, got %s and %s" % (x.dtype, w.dtype))
+    n, h, wd, cin = x.shape
+    kh, kw, wcin, cout = w.shape
+    if wcin != cin:
+        raise MXNetError("fused_conv: w has C_in=%d, x has C=%d" % (wcin, cin))
+    (plo, phi), (qlo, qhi) = padding
+    if min(plo, phi, qlo, qhi) < 0 or min(strides) < 1:
+        raise MXNetError("fused_conv: padding must be >= 0 and strides >= 1")
+    oh, ow = out_hw(h, plo, phi, kh, strides[0]), out_hw(wd, qlo, qhi, kw,
+                                                        strides[1])
+    if oh < 1 or ow < 1:
+        raise MXNetError("fused_conv: degenerate output %dx%d" % (oh, ow))
+    for name, v, shape in (("scale", scale, (cout,)), ("bias", bias, (cout,)),
+                           ("residual", residual, (n, oh, ow, cout))):
+        if v is None:
+            continue
+        if tuple(v.shape) != shape:
+            raise MXNetError("fused_conv: %s must have shape %s, got %s"
+                             % (name, shape, tuple(v.shape)))
+        if v.device != x.device:
+            raise MXNetError("fused_conv: %s is on %s, x on %s"
+                             % (name, v.device, x.device))
+    if w.device != x.device:
+        raise MXNetError("fused_conv: w is on %s, x on %s"
+                         % (w.device, x.device))
+    return oh, ow
+
+
+def _launch(x, w, strides, padding, scale, bias, residual, relu, oh, ow):
+    for name, t in (("x", x), ("w", w), ("residual", residual)):
+        if t is not None and not t.is_contiguous():
+            raise MXNetError("fused_conv: %s must be contiguous" % name)
+    if residual is not None and residual.dtype not in (x.dtype,
+                                                       torch.float32):
+        raise MXNetError("fused_conv: residual must be %s or float32, got %s"
+                         % (x.dtype, residual.dtype))
+    from ... import kernels
+    lib = kernels.library("fused_conv")
+    fn = lib.mxtpu_fused_conv_fwd
+    if fn.restype is not ctypes.c_int or fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int]
+                       + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 14
+                       + [ctypes.c_void_p])
+    n, h, wd, cin = x.shape
+    kh, kw, _, cout = w.shape
+    out = torch.empty((n, oh, ow, cout), dtype=x.dtype, device=x.device)
+    craw = (torch.empty((n, oh, ow, cout), dtype=torch.float32,
+                        device=x.device) if scale is not None else None)
+    # per-channel vectors in float32 (exact for f32/bf16; the kernel reads
+    # them as float32 like the TPU kernel's astype)
+    scale = scale.float().contiguous() if scale is not None else None
+    bias = bias.float().contiguous() if bias is not None else None
+
+    def ptr(t):
+        return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        rc = fn(_DTYPE_CODE[x.dtype], ptr(x), ptr(w), ptr(scale), ptr(bias),
+                ptr(residual),
+                int(residual is not None and residual.dtype == torch.float32),
+                ptr(out), ptr(craw), n, h, wd, cin, kh, kw, cout,
+                int(strides[0]), int(strides[1]), int(padding[0][0]),
+                int(padding[1][0]), oh, ow, int(bool(relu)),
+                ctypes.c_void_p(stream))
+    if rc != 0:
+        raise MXNetError("fused_conv kernel launch failed: CUDA error %d" % rc)
+    fused_conv.launches += 1
+    return out, craw
+
+
+def fused_conv_with_raw(x, w, strides=(1, 1), padding=((0, 0), (0, 0)),
+                        scale=None, bias=None, residual=None, relu=False):
+    """``(out, craw)``: ``fused_conv`` plus the float32 raw conv, which is
+    returned when ``scale`` is given (else None) — the tensor the JAX
+    package saves for d(scale)."""
+    strides = tuple(int(s) for s in strides)
+    padding = tuple((int(a), int(b)) for a, b in padding)
+    oh, ow = _check(x, w, strides, padding, scale, bias, residual)
+    if x.device.type == "cpu":
+        return fused_conv_reference(x, w, strides, padding, scale, bias,
+                                    residual, relu)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, w, scale, bias, residual)):
+        raise MXNetError("the fused_conv kernel is forward-only: its "
+                         "backward comes with the training port; run under "
+                         "torch.no_grad()/inference_mode()")
+    if x.device.type != "cuda":
+        raise MXNetError("fused_conv: no kernel for device %s" % x.device)
+    return _launch(x, w, strides, padding, scale, bias, residual, relu,
+                   oh, ow)
+
+
+def fused_conv(x, w, strides=(1, 1), padding=((0, 0), (0, 0)), scale=None,
+               bias=None, residual=None, relu=False):
+    """relu(conv(x, w) * scale + bias + residual) in one fused pass.
+
+    NHWC x [N, H, W, C_in], HWIO w [kh, kw, C_in, C_out], both float32 or
+    both bfloat16; ``scale``/``bias`` per-C_out vectors and ``residual`` an
+    output-shaped tensor, all optional. The output has the operands' type."""
+    return fused_conv_with_raw(x, w, strides, padding, scale, bias,
+                               residual, relu)[0]
+
+
+fused_conv.launches = 0

@@ -1,0 +1,109 @@
+"""Device rules of the port (mxtpu_torch): entry points run on the CUDA
+device unless the caller passes a CPU device, with no CPU fallback; the
+port imports nothing of JAX or of the JAX package; kernels are built from
+csrc/ only when first used."""
+import ast
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import mxtpu_torch as mt
+from mxtpu_torch import context, kernels
+from mxtpu_torch.gluon import nn
+from mxtpu_torch.serving import BucketSpec, Predictor
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_default_device_raises_without_a_card(no_cuda):
+    with pytest.raises(mt.MXNetError, match="no CUDA device"):
+        mt.default_device()
+    with pytest.raises(mt.MXNetError, match="no CUDA device"):
+        context.resolve_device(None)
+
+
+def test_predictor_without_device_raises_without_a_card(no_cuda):
+    net = nn.Dense(3, in_units=4)
+    net.initialize(ctx=mt.cpu())
+    with pytest.raises(mt.MXNetError, match="no CUDA device"):
+        Predictor(net, BucketSpec([2]))
+    with pytest.raises(mt.MXNetError, match="no CUDA device"):
+        nn.Dense(3, in_units=4).initialize()
+    # an explicit CPU device is honoured
+    out = Predictor(net, BucketSpec([2]), device="cpu").predict(
+        np.ones((1, 4), np.float32))
+    assert out.device.type == "cpu" and out.shape == (1, 3)
+
+
+def test_device_names():
+    assert mt.cpu() == torch.device("cpu")
+    assert mt.gpu(1) == torch.device("cuda", 1)
+    assert context.resolve_device("cuda") == torch.device("cuda", 0)
+    assert context.resolve_device(mt.cpu()) == torch.device("cpu")
+
+
+def test_deferred_parameters_follow_the_device():
+    """An unsettled parameter records the device it is moved to and
+    materializes there (here the CPU) in its dtype."""
+    net = nn.Dense(3)
+    net.initialize(ctx=mt.cpu())
+    assert not net.weight.initialized
+    net.cast("bfloat16")
+    net.collect_params().reset_ctx("cpu")
+    net(torch.zeros(2, 5, dtype=torch.bfloat16))
+    w = net.weight.data()
+    assert w.shape == (3, 5) and w.dtype == torch.bfloat16
+    assert dict(net.named_parameters())["weight"] is w
+
+
+def _port_files():
+    pkg = os.path.join(ROOT, "mxtpu_torch")
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(pkg):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    return files
+
+
+def test_port_imports_no_jax_and_no_mxtpu():
+    banned = ("jax", "jaxlib", "mxtpu")
+    seen = 0
+    for path in _port_files():
+        tree = ast.parse(open(path).read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module or ""]
+            else:
+                continue
+            for m in mods:
+                assert m.split(".")[0] not in banned, (path, m)
+            seen += 1
+    assert seen > 20
+
+
+def test_kernel_library_is_keyed_by_source_and_flags(tmp_path, monkeypatch):
+    """Libraries are named by a hash of csrc/ and the nvcc flags; nothing is
+    built until a kernel is first launched."""
+    assert kernels.sources() == ["fused_conv"]
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "k.cu").write_text("// v1\n")
+    monkeypatch.setattr(kernels, "CSRC", src)
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
+    so1, _ = kernels._target("k")
+    assert so1.parent == tmp_path / "build" and not so1.exists()
+    (src / "k.cu").write_text("// v2\n")
+    so2, _ = kernels._target("k")
+    monkeypatch.setattr(kernels, "NVCC_FLAGS", kernels.NVCC_FLAGS + ("-G",))
+    so3, _ = kernels._target("k")
+    assert len({so1, so2, so3}) == 3
+    assert all("sm_90a" in f for f in kernels.NVCC_FLAGS
+               if f.startswith("arch="))
