@@ -4,7 +4,8 @@
 NVIDIA H100.
 
 1. Prints the card's name and power limit (nvidia-smi).
-2. Builds every kernel of ``mxtpu_torch/csrc/`` with nvcc for sm_90a.
+2. Builds every kernel of ``mxtpu_torch/csrc/`` with nvcc for sm_90a, one
+   nvcc per source, all at once.
 3. Holds the hand-written fused conv kernel against its plain PyTorch
    version at the ResNet-50 shapes it serves (batch 8, float32 and
    bfloat16), on an odd stride-2 shape and on the full epilogue, and times
@@ -12,8 +13,22 @@ NVIDIA H100.
 4. Serves ResNet-50 v1 (NHWC, 224x224, 1000 classes, seeded weights)
    through the port's bucketed Predictor on the card, in float32 and then
    bfloat16, checks the logits against the same net on the CPU and that
-   every forward launched the kernel 11 times, and times each bucket.
-5. Prints one JSON line of kernels, the card line again, and last
+   every forward launched the conv kernel 11 times, and times each bucket.
+5. Holds the hand-written flash attention kernel (out and lse) against
+   its plain PyTorch version at the shapes BERT-base serves (batch 8, 12
+   heads, head dim 64, T 128 and 512, causal and not), at a ragged T=77
+   with D=32 and at T=256 with D=128, in float32 and bfloat16, and times
+   the kernel, the plain version and ``F.scaled_dot_product_attention``
+   (a yardstick only).
+6. Serves the BERT-base-shaped TransformerLM (vocab 30522, dim 768, 12
+   heads, 12 layers, max_len 512, bidirectional, seeded weights) through
+   the port's Predictor with batch and sequence buckets (1-8 x 128, 256,
+   512) on the card, in float32 and then bfloat16, checks the logits
+   against the same net on the CPU and that every forward launched the
+   flash kernel 12 times, times each bucket at seq 512 and b8 at 128 and
+   256, and breaks one b8 x 512 forward down by kernel.
+7. Prints one JSON line of kernels (fused_conv and flash_attention, one
+   entry per type each), the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the last
@@ -39,6 +54,21 @@ RESNET50_GATED = [
     ("1x1 256->64 @56", 8, 56, 256, 64, 1, 1, 0, 2),
 ]
 REQUESTS = (1, 3, 8, 5, 11)
+# (name, B, H, T, Tk, D, causal, launches per b8 x 512 forward): the shapes
+# BERT-base serves first, then the ragged tails and the largest head dim
+FLASH_SHAPES = [
+    ("b8 h12 T512 d64", 8, 12, 512, 512, 64, False, 12),
+    ("b8 h12 T512 d64 causal", 8, 12, 512, 512, 64, True, 0),
+    ("b8 h12 T128 d64", 8, 12, 128, 128, 64, False, 0),
+    ("b8 h12 T128 d64 causal", 8, 12, 128, 128, 64, True, 0),
+    ("b2 h3 T77 d32", 2, 3, 77, 77, 32, False, 0),
+    ("b2 h3 T77 d32 causal", 2, 3, 77, 77, 32, True, 0),
+    ("b2 h4 T256 d128", 2, 4, 256, 256, 128, False, 0),
+]
+BERT_BASE = dict(vocab_size=30522, dim=768, num_heads=12, num_layers=12,
+                 max_len=512, causal=False)     # bench.py's configuration
+SEQ_BUCKETS = (128, 256, 512)
+LM_REQUESTS = ((1, 50), (3, 200), (5, 128), (8, 512), (11, 100))
 
 
 def card_line():
@@ -70,17 +100,20 @@ def cuda_ms(fn, launches=20, repeats=5, warmup=3):
     return times[len(times) // 2]
 
 
-def bound_ms(x, w, out_elems, dtype, extra_bytes=0):
+def bound_ms(n_bytes, flops, dtype):
     """Least time for the work: the larger of bytes over HBM bandwidth
-    (each input read once, each output written once) and FLOPs over the
-    card's peak for the type."""
-    isz = x.element_size()
-    n_bytes = (x.numel() + w.numel() + out_elems) * isz + extra_bytes
-    kh, kw, cin, cout = w.shape
-    flops = 2.0 * (out_elems // cout) * kh * kw * cin * cout
+    and FLOPs over the card's peak for the type; and which of the two."""
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def conv_bound_ms(x, w, out_elems, dtype):
+    """A conv's bound: each input read once, each output written once."""
+    n_bytes = (x.numel() + w.numel() + out_elems) * x.element_size()
+    kh, kw, cin, cout = w.shape
+    flops = 2.0 * (out_elems // cout) * kh * kw * cin * cout
+    return bound_ms(n_bytes, flops, dtype)
 
 
 def check(got, ref, dtype, what):
@@ -100,7 +133,7 @@ def check(got, ref, dtype, what):
     return err.max().item()
 
 
-def kernel_phase():
+def conv_kernel_phase():
     import torch
     import torch.nn.functional as F
     from mxtpu_torch.ops.pallas.conv import (fused_conv, fused_conv_reference,
@@ -126,7 +159,7 @@ def kernel_phase():
             ms = cuda_ms(lambda: fused_conv(x, w, (s, s), pad))
             plain = cuda_ms(lambda: fused_conv_reference(x, w, (s, s), pad))
             lib = cuda_ms(lambda: F.conv2d(xn, wn, stride=s, padding=p))
-            bms, by = bound_ms(x, w, out.numel(), dtype)
+            bms, by = conv_bound_ms(x, w, out.numel(), dtype)
             rows.append(dict(shape=name, dtype=dtype, per_forward=per_fwd,
                              max_abs_err=err, ms=ms, plain_ms=plain,
                              library_ms=lib, bound_ms=bms, bound_by=by))
@@ -182,16 +215,37 @@ def build_net(arrays=None):
     return net, arrays
 
 
-def serve(pred, reqs):
+def serve(pred, reqs, kernel):
     """The main path: answer every request once. Returns the outputs, the
-    wall seconds and the kernel launches counted during exactly this run."""
+    wall seconds and the launches of ``kernel`` (a wrapper with a
+    ``launches`` count) counted during exactly this run."""
     import torch
-    from mxtpu_torch.ops.pallas.conv import fused_conv
-    fused_conv.launches = 0
+    kernel.launches = 0
     t0 = time.time()
     outs = [pred.predict(x) for x in reqs]
     torch.cuda.synchronize()
-    return outs, time.time() - t0, fused_conv.launches
+    return outs, time.time() - t0, kernel.launches
+
+
+def closed_loop(pred, x, n=50):
+    """One client, each request synchronised: (median ms, p80 ms, median
+    host-issue ms) over ``n`` requests of ``x`` after 3 warm ones; 50
+    samples give a p80 with 10 samples beyond it."""
+    import torch
+    for _ in range(3):
+        pred.predict(x)
+    torch.cuda.synchronize()
+    samples, enqueue = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        pred.predict(x)
+        t1 = time.perf_counter()   # the host has issued the forward
+        torch.cuda.synchronize()
+        samples.append(1e3 * (time.perf_counter() - t0))
+        enqueue.append(1e3 * (t1 - t0))
+    samples.sort()
+    enqueue.sort()
+    return samples[n // 2], samples[(4 * n) // 5], enqueue[n // 2]
 
 
 def device_breakdown(pred, x, forwards=5):
@@ -213,11 +267,12 @@ def device_breakdown(pred, x, forwards=5):
     return rows
 
 
-def serve_phase(card):
+def resnet_serve_phase(card):
     """Serve resnet50_v1 in f32, then bf16; returns the fused-conv launches
     each main-path run counted."""
     import numpy as np
     import torch
+    from mxtpu_torch.ops.pallas.conv import fused_conv
     from mxtpu_torch.serving import BucketSpec, Predictor
     spec = BucketSpec.pow2(8)
     dispatches = sum(-(-b // spec.max_batch) for b in REQUESTS)
@@ -239,7 +294,7 @@ def serve_phase(card):
                          warmup=True, device="cuda")
         warm_s = time.time() - t0
         xs = [torch.from_numpy(x).to(dt) for x in reqs]
-        outs, wall, launches = serve(pred, xs)
+        outs, wall, launches = serve(pred, xs, fused_conv)
         if launches != 11 * dispatches:
             raise AssertionError("%s: fused_conv launched %d times over %d "
                                  "forwards, expected %d" % (
@@ -263,50 +318,205 @@ def serve_phase(card):
               "fused_conv launches %d (= 11 x %d forwards), max rel err vs "
               "CPU %.3g" % (dtype, warm_s, len(REQUESTS), list(REQUESTS),
                             wall, launches, dispatches, max(errs)))
-        # closed loop, one client: each request's wall time, synchronised;
-        # 50 samples give a p80 with 10 samples beyond it
         per_bucket, latency = {}, {}
-        for b in spec.buckets():
-            x = xs[-1][:b].to("cuda")
-            for _ in range(3):
-                pred.predict(x)
-            torch.cuda.synchronize()
-            samples, enqueue = [], []
-            for _ in range(50):
-                t0 = time.perf_counter()
-                pred.predict(x)
-                t1 = time.perf_counter()   # the host has issued the forward
-                torch.cuda.synchronize()
-                samples.append(1e3 * (time.perf_counter() - t0))
-                enqueue.append(1e3 * (t1 - t0))
-            samples.sort()
-            enqueue.sort()
-            latency[b] = (samples[25], samples[40], enqueue[25])
-            per_bucket[b] = 1e3 * b / samples[25]
+        for b in spec.batch_sizes:
+            latency[b] = closed_loop(pred, xs[-1][:b].to("cuda"))
+            per_bucket[b] = 1e3 * b / latency[b][0]
         print("serve resnet50_v1 %s on %s, per bucket: images/s at the "
               "median latency (median ms, p80 ms, median host-issue ms; "
               "50 requests): %s" % (dtype, card, ", ".join(
                   "b%d %.1f (%.3f, %.3f, %.3f)" % ((b, per_bucket[b])
                                                    + latency[b])
-                  for b in spec.buckets())), flush=True)
+                  for b in spec.batch_sizes)), flush=True)
         b = spec.max_batch
-        rows = device_breakdown(pred, xs[-1][:b].to("cuda"))
-        dev_ms = sum(r[1] for r in rows)
-        wall_ms = latency[b][0]
-        conv_ms = sum(r[1] for r in rows if "fused_conv_kernel" in r[0])
-        if dev_ms > 0:
-            print("serve resnet50_v1 %s b%d per forward: wall %.3f ms "
-                  "(median, unprofiled), device kernels %.3f ms (idle share "
-                  "%.3f), fused_conv kernel %.3f ms, %d kernel launches" % (
-                      dtype, b, wall_ms, dev_ms, 1 - dev_ms / wall_ms,
-                      conv_ms, round(sum(r[2] for r in rows))))
-            for name, ms, count in rows[:8]:
-                print("  %.4f ms  x%-4g %s" % (ms, count, name[:110]))
-        else:
-            print("serve resnet50_v1 %s: device time not measured "
-                  "(torch.profiler saw no CUDA kernels)" % dtype)
+        print_breakdown("serve resnet50_v1 %s b%d" % (dtype, b),
+                        device_breakdown(pred, xs[-1][:b].to("cuda")),
+                        latency[b][0], "fused_conv_kernel")
         launches_by_dtype[dtype] = launches
     return launches_by_dtype
+
+
+def print_breakdown(label, rows, wall_ms, kernel_key):
+    """Device ms per forward, the idle share against the unprofiled median
+    wall time, the named kernel's ms and the top kernels."""
+    dev_ms = sum(r[1] for r in rows)
+    if dev_ms <= 0:
+        print("%s: device time not measured (torch.profiler saw no CUDA "
+              "kernels)" % label)
+        return
+    mine = sum(r[1] for r in rows if kernel_key in r[0])
+    print("%s per forward: wall %.3f ms (median, unprofiled), device "
+          "kernels %.3f ms (idle share %.3f), %s %.3f ms, %d kernel "
+          "launches" % (label, wall_ms, dev_ms, 1 - dev_ms / wall_ms,
+                        kernel_key, mine, round(sum(r[2] for r in rows))))
+    for name, ms, count in rows[:8]:
+        print("  %.4f ms  x%-4g %s" % (ms, count, name[:110]))
+
+
+def flash_phase():
+    """Hold the flash kernel (out and lse) against its plain version at
+    every FLASH_SHAPES entry in f32 and bf16, and time the served ones."""
+    import torch
+    import torch.nn.functional as F
+    from mxtpu_torch.ops.pallas.flash_attention import (
+        flash_attention_reference, flash_attention_with_lse)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    print("flash kernel checks against the plain version: out by the rule "
+          "above, lse (float32) by the float32 rule")
+    rows = []
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        for name, b, h, t, tk, d, causal, per_fwd in FLASH_SHAPES:
+            q = torch.randn(b, h, t, d, device="cuda", generator=gen).to(dt)
+            k = torch.randn(b, h, tk, d, device="cuda", generator=gen).to(dt)
+            v = torch.randn(b, h, tk, d, device="cuda", generator=gen).to(dt)
+            out, lse = flash_attention_with_lse(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            r_out, r_lse = flash_attention_reference(
+                q.float(), k.float(), v.float(), causal)
+            err = check(out, r_out, dtype, "flash %s %s" % (name, dtype))
+            lerr = check(lse, r_lse, "float32", "flash lse %s %s"
+                         % (name, dtype))
+            line = "kernel flash_attention %-22s %-8s err %.3g lse %.3g" % (
+                name, dtype, err, lerr)
+            if not name.startswith("b8"):
+                print(line)
+                rows.append(dict(shape=name, dtype=dtype, per_forward=0,
+                                 max_abs_err=err))
+                continue
+            ms = cuda_ms(lambda: flash_attention_with_lse(q, k, v, causal))
+            plain = cuda_ms(lambda: flash_attention_reference(q, k, v,
+                                                              causal))
+            lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal))
+            n_bytes = (q.numel() + out.numel() + k.numel() + v.numel()) \
+                * q.element_size() + 4 * lse.numel()
+            flops = 4.0 * b * h * t * tk * d * (0.5 if causal else 1.0)
+            bms, by = bound_ms(n_bytes, flops, dtype)
+            rows.append(dict(shape=name, dtype=dtype, per_forward=per_fwd,
+                             max_abs_err=err, ms=ms, plain_ms=plain,
+                             library_ms=lib, bound_ms=bms, bound_by=by))
+            print("%s  kernel %.4f ms  plain %.4f ms  sdpa %.4f ms  bound "
+                  "%.4f ms (%s)  x%d per b8x512 forward" % (
+                      line, ms, plain, lib, bms, by, per_fwd), flush=True)
+    return rows
+
+
+def build_lm(arrays=None):
+    """The BERT-base-shaped TransformerLM on the CPU with seeded weights."""
+    import torch
+    import mxtpu_torch as mt
+    from mxtpu_torch import convert
+    from mxtpu_torch.gluon.model_zoo.transformer import TransformerLM
+    net = TransformerLM(**BERT_BASE)
+    net.initialize(ctx=mt.cpu())
+    with torch.no_grad():   # settle the deferred shapes at a small size
+        net(torch.zeros(1, 8, dtype=torch.int32))
+    if arrays is None:
+        arrays = convert.seeded_params(
+            {k: p.shape for k, p in net.collect_params().items()}, seed=0)
+    convert.load_mxtpu_params(net, arrays)
+    return net, arrays
+
+
+def lm_serve_phase(card):
+    """Serve the TransformerLM in f32, then bf16; returns the flash
+    launches each main-path run counted."""
+    import numpy as np
+    import torch
+    from mxtpu_torch.ops.pallas.flash_attention import flash_attention
+    from mxtpu_torch.serving import BucketSpec, Predictor
+    spec = BucketSpec.pow2(8, seq_lens=SEQ_BUCKETS)
+    layers = BERT_BASE["num_layers"]
+    dispatches = sum(-(-b // spec.max_batch) for b, _ in LM_REQUESTS)
+    rng = np.random.default_rng(3)
+    reqs = [torch.from_numpy(rng.integers(0, BERT_BASE["vocab_size"], (b, t),
+                                          dtype=np.int32))
+            for b, t in LM_REQUESTS]
+    net, arrays = build_lm()
+    cpu_net, _ = build_lm(arrays)
+    cpu_pred = Predictor(cpu_net, spec, device="cpu")
+    launches_by_dtype = {}
+    for dtype, tol in (("float32", 1e-3), ("bfloat16", 5e-2)):
+        if dtype == "bfloat16":
+            net.cast("bfloat16")
+            cpu_net.cast("bfloat16")
+        t0 = time.time()
+        pred = Predictor(net, spec, example=torch.zeros(1, 128,
+                                                        dtype=torch.int32),
+                         warmup=True, device="cuda")
+        warm_s = time.time() - t0
+        outs, wall, launches = serve(pred, reqs, flash_attention)
+        if launches != layers * dispatches:
+            raise AssertionError("%s: flash_attention launched %d times over "
+                                 "%d forwards, expected %d" % (
+                                     dtype, launches, dispatches,
+                                     layers * dispatches))
+        errs, cpu_s = [], []
+        for x, out in zip(reqs, outs):
+            t0 = time.time()
+            ref = cpu_pred.predict(x).float()
+            cpu_s.append(time.time() - t0)
+            got = out.float().cpu()
+            shape = (x.shape[0], spec.seq_bucket(x.shape[1]),
+                     BERT_BASE["vocab_size"])
+            if tuple(got.shape) != shape or \
+                    not bool(torch.isfinite(got).all()):
+                raise AssertionError("%s: bad logits %s, expected %s"
+                                     % (dtype, tuple(got.shape), shape))
+            err = (got - ref).abs().max().item() / ref.abs().max().item()
+            if err > tol:
+                raise AssertionError("%s: logits of request %s differ from "
+                                     "the CPU run by %.3g of max|logit| "
+                                     "(limit %g)" % (dtype, tuple(x.shape),
+                                                     err, tol))
+            errs.append(err)
+        print("serve transformer_lm %s: warmup (%d buckets) %.2f s, requests "
+              "%s in %.3f s, flash_attention launches %d (= %d x %d "
+              "forwards), max rel err vs CPU %.3g; CPU run %.1f s (%s)"
+              % (dtype, len(spec), warm_s, list(LM_REQUESTS), wall, launches,
+                 layers, dispatches, max(errs), sum(cpu_s),
+                 ", ".join("%.1f" % c for c in cpu_s)), flush=True)
+        x = reqs[3].to("cuda")                     # the (8, 512) request
+        cells = [(b, 512) for b in spec.batch_sizes] + [(8, 128), (8, 256)]
+        latency = {c: closed_loop(pred, x[:c[0], :c[1]]) for c in cells}
+        print("serve transformer_lm %s on %s, per bucket: tokens/s at the "
+              "median latency (median ms, p80 ms, median host-issue ms; 50 "
+              "requests): %s" % (dtype, card, ", ".join(
+                  "b%d x %d %.0f (%.3f, %.3f, %.3f)" % (
+                      (b, t, 1e3 * b * t / latency[(b, t)][0])
+                      + latency[(b, t)]) for b, t in cells)), flush=True)
+        print_breakdown("serve transformer_lm %s b8 x 512" % dtype,
+                        device_breakdown(pred, x, forwards=3),
+                        latency[(8, 512)][0], "flash_attention_kernel")
+        launches_by_dtype[dtype] = launches
+    return launches_by_dtype
+
+
+def kernel_entries(rows, launches, name, source, replaces):
+    """One `kernels` entry per type: the per-forward shapes' numbers, each
+    times its launches per forward, summed."""
+    entries = []
+    for dtype in ("float32", "bfloat16"):
+        mine = [r for r in rows if r["dtype"] == dtype]
+        timed = [r for r in mine if r["per_forward"]]
+        tot = {key: sum(r[key] * r["per_forward"] for r in timed)
+               for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        by_bytes = sum(r["bound_ms"] * r["per_forward"] for r in timed
+                       if r["bound_by"] == "bytes")
+        entries.append({
+            "name": name % dtype, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[dtype],
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": tot["bound_ms"],
+            # the kind that bounds the larger share of the summed bound
+            "bound_by": ("bytes" if 2 * by_bytes >= tot["bound_ms"]
+                         else "operations"),
+            "library_ms": tot["library_ms"],
+        })
+    return entries
 
 
 def main():
@@ -315,6 +525,7 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 1
+    t_start = time.time()
     card = card_line()
     print("card:", card, flush=True)
     sys.path.insert(0, ROOT)
@@ -331,31 +542,21 @@ def main():
         for line in kernels.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print("  ptxas %s: %s" % (name, line.strip()))
-    rows = kernel_phase()
-    launches = serve_phase(card)
-    kernels_line = {"kernels": []}
-    for dtype in ("float32", "bfloat16"):
-        mine = [r for r in rows if r["dtype"] == dtype]
-        tot = {key: sum(r[key] * r["per_forward"] for r in mine)
-               for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-        by_bytes = sum(r["bound_ms"] * r["per_forward"] for r in mine
-                       if r["bound_by"] == "bytes")
-        kernels_line["kernels"].append({
-            "name": "fused_conv (%s, the 11 gated convs of one b8 "
-                    "ResNet-50 forward)" % dtype,
-            "route": "cuda",
-            "source": "mxtpu_torch/csrc/fused_conv.cu",
-            "replaces": "mxtpu/ops/pallas/conv.py:313",
-            "launches": launches[dtype],
-            "max_abs_err": max(r["max_abs_err"] for r in mine),
-            "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-            "bound_ms": tot["bound_ms"],
-            # the kind that bounds the larger share of the summed bound
-            "bound_by": ("bytes" if 2 * by_bytes >= tot["bound_ms"]
-                         else "operations"),
-            "library_ms": tot["library_ms"],
-        })
-    print(json.dumps(kernels_line))
+    conv_rows = conv_kernel_phase()
+    conv_launches = resnet_serve_phase(card)
+    flash_rows = flash_phase()
+    flash_launches = lm_serve_phase(card)
+    entries = kernel_entries(
+        conv_rows, conv_launches,
+        "fused_conv (%s, the 11 gated convs of one b8 ResNet-50 forward)",
+        "mxtpu_torch/csrc/fused_conv.cu", "mxtpu/ops/pallas/conv.py:313")
+    entries += kernel_entries(
+        flash_rows, flash_launches,
+        "flash_attention (%s, the 12 attentions of one b8 x 512 BERT-base "
+        "forward)", "mxtpu_torch/csrc/flash_attention.cu",
+        "mxtpu/ops/pallas/flash_attention.py:125")
+    print(json.dumps({"kernels": entries}))
+    print("whole script %.1f s" % (time.time() - t_start))
     print("card:", card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

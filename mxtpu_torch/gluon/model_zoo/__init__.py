@@ -1,2 +1,2 @@
 """Model zoo of the port."""
-from . import vision  # noqa: F401
+from . import transformer, vision  # noqa: F401

@@ -1,0 +1,127 @@
+"""Transformer language model (counterpart of
+``mxtpu/gluon/model_zoo/transformer.py``).
+
+A pre-norm trunk: token and position embeddings, N blocks of
+``x + attn(ln(x))`` and ``x + mlp(ln(x))``, a final LayerNorm and a vocab
+head. ``causal=False`` is the bidirectional (BERT-style encoder) variant.
+Parameter names equal the JAX package's (``wte_``, ``wpe_``, ``h_``,
+``attn_``, ``qkv_``, ``proj_``, ``mlp1_``, ``mlp2_``, ``head_``), so
+``convert.load_mxtpu_params`` carries its weights.
+
+Attention runs through ``parallel.ring_attention.ring_attention_nd``,
+whose single-device branch is the flash kernel. Not in the port yet: the
+sharded ring (a mesh with a sequence axis larger than 1, ROADMAP A8), the
+Switch mixture-of-experts block (``num_experts > 0``, ROADMAP A10 with
+``gluon/contrib/nn``) and the tensor- and expert-parallel rules (A8).
+"""
+from __future__ import annotations
+
+from ...base import MXNetError
+from ...parallel.ring_attention import ring_attention_nd
+from ..block import HybridBlock
+from .. import nn
+
+__all__ = ["TransformerLM", "TransformerBlock", "MultiHeadSelfAttention"]
+
+
+class MultiHeadSelfAttention(HybridBlock):
+    """Multi-head self-attention over ``[B, T, C]`` (causal by default)."""
+
+    def __init__(self, dim, num_heads, mesh=None, seq_axis="sp",
+                 batch_axis="data", causal=True, **kwargs):
+        super().__init__(**kwargs)
+        if dim % num_heads:
+            raise MXNetError("dim %d not divisible by num_heads %d"
+                             % (dim, num_heads))
+        self._dim = dim
+        self._heads = num_heads
+        self._mesh = mesh
+        self._seq_axis = seq_axis
+        self._batch_axis = batch_axis
+        self._causal = causal
+        with self.name_scope():
+            self.qkv = nn.Dense(3 * dim, use_bias=False, flatten=False,
+                                prefix="qkv_")
+            self.proj = nn.Dense(dim, use_bias=False, flatten=False,
+                                 prefix="proj_")
+
+    def hybrid_forward(self, F, x):
+        b, t, _ = x.shape
+        h, d = self._heads, self._dim // self._heads
+        qkv = self.qkv(x)                                  # [B, T, 3C]
+        qkv = F.reshape(qkv, (b, t, 3, h, d))
+        qkv = F.transpose(qkv, (2, 0, 3, 1, 4))            # [3, B, H, T, D]
+        q, k, v = qkv[0], qkv[1], qkv[2]                   # strided views
+        out = ring_attention_nd(q, k, v, mesh=self._mesh,
+                                seq_axis=self._seq_axis,
+                                batch_axis=self._batch_axis,
+                                causal=self._causal)       # [B, H, T, D]
+        out = F.reshape(F.transpose(out, (0, 2, 1, 3)), (b, t, self._dim))
+        return self.proj(out)
+
+
+class TransformerBlock(HybridBlock):
+    """Pre-norm block: x + attn(ln(x)); x + mlp(ln(x))."""
+
+    def __init__(self, dim, num_heads, hidden_mult=4, mesh=None,
+                 seq_axis="sp", batch_axis="data", causal=True,
+                 num_experts=0, capacity_factor=1.25, **kwargs):
+        if num_experts > 0:
+            raise MXNetError(
+                "num_experts=%d: the Switch mixture-of-experts block "
+                "(gluon/contrib/nn SwitchMoE) is not ported yet (ROADMAP "
+                "A10); use num_experts=0" % num_experts)
+        super().__init__(**kwargs)
+        with self.name_scope():
+            self.ln1 = nn.LayerNorm()
+            self.attn = MultiHeadSelfAttention(
+                dim, num_heads, mesh=mesh, seq_axis=seq_axis,
+                batch_axis=batch_axis, causal=causal, prefix="attn_")
+            self.ln2 = nn.LayerNorm()
+            self.fc1 = nn.Dense(hidden_mult * dim, flatten=False,
+                                activation="relu", prefix="mlp1_")
+            self.fc2 = nn.Dense(dim, flatten=False, prefix="mlp2_")
+
+    def hybrid_forward(self, F, x):
+        x = x + self.attn(self.ln1(x))
+        return x + self.fc2(self.fc1(self.ln2(x)))
+
+
+class TransformerLM(HybridBlock):
+    """Decoder-only LM: embed -> N blocks -> LayerNorm -> vocab head.
+
+    Input: int token ids [B, T]; output: logits [B, T, vocab] in the
+    parameters' type. ``causal=False`` gives the bidirectional variant.
+    """
+
+    def __init__(self, vocab_size, dim=256, num_heads=8, num_layers=2,
+                 max_len=2048, hidden_mult=4, mesh=None, seq_axis="sp",
+                 batch_axis="data", causal=True, num_experts=0,
+                 capacity_factor=1.25, **kwargs):
+        super().__init__(**kwargs)
+        self._max_len = max_len
+        with self.name_scope():
+            self.embed = nn.Embedding(vocab_size, dim, prefix="wte_")
+            self.pos_embed = nn.Embedding(max_len, dim, prefix="wpe_")
+            self.blocks = nn.HybridSequential(prefix="h_")
+            with self.blocks.name_scope():
+                for _ in range(num_layers):
+                    self.blocks.add(TransformerBlock(
+                        dim, num_heads, hidden_mult=hidden_mult, mesh=mesh,
+                        seq_axis=seq_axis, batch_axis=batch_axis,
+                        causal=causal, num_experts=num_experts,
+                        capacity_factor=capacity_factor))
+            self.ln_f = nn.LayerNorm()
+            self.head = nn.Dense(vocab_size, use_bias=False, flatten=False,
+                                 prefix="head_")
+
+    def hybrid_forward(self, F, tokens):
+        t = tokens.shape[-1]
+        if t > self._max_len:
+            raise MXNetError(
+                "sequence length %d exceeds max_len %d (positions would be "
+                "clamped to the last positional embedding)" % (t, self._max_len))
+        pos = F.arange(0, t, dtype="int32", ctx=tokens.device)
+        x = self.embed(tokens) + self.pos_embed(pos)
+        x = self.blocks(x)
+        return self.head(self.ln_f(x))

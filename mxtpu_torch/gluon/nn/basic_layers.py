@@ -1,10 +1,12 @@
 """Basic layers (counterpart of ``mxtpu/gluon/nn/basic_layers.py``):
-HybridSequential, Dense, BatchNorm (inference form) and Flatten."""
+HybridSequential, Dense, BatchNorm (inference form), LayerNorm, Embedding
+and Flatten."""
 from __future__ import annotations
 
-from ..block import HybridBlock
+from ..block import Block, HybridBlock
 
-__all__ = ["HybridSequential", "Dense", "BatchNorm", "Flatten"]
+__all__ = ["HybridSequential", "Dense", "BatchNorm", "LayerNorm",
+           "Embedding", "Flatten"]
 
 
 class HybridSequential(HybridBlock):
@@ -22,9 +24,10 @@ class HybridSequential(HybridBlock):
 
 class Dense(HybridBlock):
     """Fully-connected layer with the reference's (units, in_units) weight;
-    ``flatten=True`` collapses the trailing dims."""
+    ``flatten=True`` collapses the trailing dims; ``activation`` (a name or
+    a block) is applied to the output."""
 
-    def __init__(self, units, use_bias=True, flatten=True,
+    def __init__(self, units, activation=None, use_bias=True, flatten=True,
                  dtype="float32", weight_initializer=None,
                  bias_initializer="zeros", in_units=0, **kwargs):
         super().__init__(**kwargs)
@@ -40,6 +43,8 @@ class Dense(HybridBlock):
                     init=bias_initializer, allow_deferred_init=True)
             else:
                 self.bias = None
+            self.act = (None if activation is None
+                        else _make_activation(activation))
 
     def infer_shape(self, x, *args):
         in_units = 1
@@ -53,8 +58,16 @@ class Dense(HybridBlock):
             self.bias._shape_resolved((self._units,))
 
     def hybrid_forward(self, F, x, weight, bias=None):
-        return F.FullyConnected(x, weight, bias, num_hidden=self._units,
-                                no_bias=bias is None, flatten=self._flatten)
+        out = F.FullyConnected(x, weight, bias, num_hidden=self._units,
+                               no_bias=bias is None, flatten=self._flatten)
+        return out if self.act is None else self.act(out)
+
+
+def _make_activation(activation):
+    if isinstance(activation, Block):
+        return activation
+    from .activations import Activation
+    return Activation(activation)
 
 
 class BatchNorm(HybridBlock):
@@ -105,6 +118,55 @@ class BatchNorm(HybridBlock):
     def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
         return F.BatchNorm(x, gamma, beta, running_mean, running_var,
                            **self._kwargs)
+
+
+class LayerNorm(HybridBlock):
+    """Layer normalization over ``axis`` (ref: basic_layers.py:LayerNorm);
+    its gamma and beta follow ``cast`` like any parameter."""
+
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._axis = axis
+        self._epsilon = epsilon
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", grad_req="write" if scale else "null",
+                shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True)
+            self.beta = self.params.get(
+                "beta", grad_req="write" if center else "null",
+                shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True)
+
+    def infer_shape(self, x, *args):
+        channels = x.shape[self._axis]
+        self.gamma._shape_resolved((channels,))
+        self.beta._shape_resolved((channels,))
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.LayerNorm(x, gamma, beta, axis=self._axis, eps=self._epsilon)
+
+
+class Embedding(HybridBlock):
+    """Index -> vector lookup with an (input_dim, output_dim) weight (ref:
+    basic_layers.py:Embedding). Ids are clipped into range; the ids
+    themselves are never cast."""
+
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, **kwargs):
+        super().__init__(**kwargs)
+        self._input_dim = input_dim
+        self._output_dim = output_dim
+        with self.name_scope():
+            self.weight = self.params.get(
+                "weight", shape=(input_dim, output_dim), dtype=dtype,
+                init=weight_initializer)
+
+    def hybrid_forward(self, F, x, weight):
+        return F.Embedding(x, weight, input_dim=self._input_dim,
+                           output_dim=self._output_dim)
 
 
 class Flatten(HybridBlock):

@@ -16,25 +16,11 @@ import torch
 from torch import nn
 
 from .. import initializer as init_mod
-from ..base import MXNetError
+from ..base import MXNetError, torch_dtype
 from ..context import resolve_device
 
 __all__ = ["Parameter", "ParameterDict", "DeferredInitializationError",
            "torch_dtype"]
-
-_DTYPES = {"float32": torch.float32, "float16": torch.float16,
-           "bfloat16": torch.bfloat16, "float64": torch.float64}
-
-
-def torch_dtype(dtype):
-    """A torch dtype from a name, a numpy dtype or a torch dtype."""
-    if isinstance(dtype, torch.dtype):
-        return dtype
-    name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
-    if name not in _DTYPES:
-        raise MXNetError("unsupported dtype %r" % (dtype,))
-    return _DTYPES[name]
-
 
 class DeferredInitializationError(MXNetError):
     """Parameter accessed before its shape is known."""

@@ -1,6 +1,10 @@
 """Operators of the port; this module is the ``F`` namespace that
 ``HybridBlock.hybrid_forward`` receives."""
-from .nn import Activation, BatchNorm, Convolution, FullyConnected, Pooling
+from .init_ops import arange
+from .matrix import Embedding, reshape, transpose
+from .nn import (Activation, BatchNorm, Convolution, FullyConnected,
+                 LayerNorm, Pooling)
 
 __all__ = ["Activation", "BatchNorm", "Convolution", "FullyConnected",
-           "Pooling"]
+           "LayerNorm", "Pooling", "Embedding", "reshape", "transpose",
+           "arange"]

@@ -2,7 +2,8 @@
 
 Plain functions on tensors, with the JAX package's signatures and layout
 handling: ``Convolution`` (through ``conv_acc.conv_fast``), ``Pooling``,
-``Activation``, ``FullyConnected`` and ``BatchNorm`` in inference form.
+``Activation``, ``FullyConnected``, ``BatchNorm`` in inference form and
+``LayerNorm``.
 NHWC tensors go to PyTorch's NCHW operators as permuted views, which are
 channels-last in memory, so no copy is made to change layout.
 """
@@ -16,7 +17,7 @@ from .conv_acc import conv_fast
 from .precision_util import promote
 
 __all__ = ["FullyConnected", "Convolution", "Pooling", "Activation",
-           "BatchNorm"]
+           "BatchNorm", "LayerNorm"]
 
 
 def _pair(v, n=2):
@@ -154,3 +155,18 @@ def BatchNorm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     out = (data.float() - moving_mean.float().reshape(shape)) \
         * (inv * g.float()).reshape(shape) + beta.float().reshape(shape)
     return out.to(data.dtype)
+
+
+def LayerNorm(data, gamma, beta, axis=-1, eps=1e-5):
+    """Layer normalization in the JAX package's order: mean and (biased)
+    variance in float32, normalize and cast back to the input's type, and
+    only then scale by gamma and shift by beta in that type (in bfloat16
+    the order decides the last bit)."""
+    x32 = data.float()
+    mean = x32.mean(dim=axis, keepdim=True)
+    var = x32.var(dim=axis, keepdim=True, unbiased=False)
+    out = ((x32 - mean) * torch.rsqrt(var + eps)).to(data.dtype)
+    shape = [1] * data.ndim
+    ax = axis % data.ndim
+    shape[ax] = data.shape[ax]
+    return out * gamma.reshape(shape) + beta.reshape(shape)

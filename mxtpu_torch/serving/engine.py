@@ -1,15 +1,22 @@
 """Bucketed inference (counterpart of ``mxtpu/serving/engine.py``).
 
-``BucketSpec`` declares the batch buckets a ``Predictor`` serves. A request
-of n items runs at the smallest bucket >= n: it is padded with zeros up to
-the bucket, the block's forward runs under ``torch.inference_mode()``, and
-the output is sliced back to n rows. A request larger than the largest
-bucket goes through it in chunks whose outputs are concatenated.
+``BucketSpec`` declares the batch buckets a ``Predictor`` serves and,
+optionally, sequence buckets (``seq_lens``) for inputs with a sequence
+axis. A request of n items runs at the smallest batch bucket >= n and, with
+sequence buckets, at the smallest one >= its length: ``pad_nd`` pads every
+input with ``pad_value`` up to the bucket on the batch axis and on
+``seq_axis`` (where the input has that axis), the block's forward runs
+under ``torch.inference_mode()``, and the outputs are sliced back to n rows
+on the batch axis only (their sequence axis stays at the bucket's length,
+as in the JAX package). A request larger than the largest batch bucket goes
+through it in chunks whose outputs are concatenated; a sequence longer than
+the largest sequence bucket raises, since a sequence cannot be chunked
+without changing what the model computes.
 
 The predictor's device is ``cuda:0`` unless the caller names one; with no
 card and no device it raises. Not in this slice: int8 weights, replicas,
-the compile service and telemetry spans. Buckets are eager PyTorch runs;
-CUDA-graph capture of each bucket comes later.
+decode slots, the compile service and telemetry spans. Buckets are eager
+PyTorch runs; CUDA-graph capture of each bucket comes later.
 """
 from __future__ import annotations
 
@@ -19,28 +26,55 @@ import torch
 from ..base import MXNetError
 from ..context import resolve_device
 
-__all__ = ["BucketSpec", "Predictor"]
+__all__ = ["BucketSpec", "Predictor", "pad_nd"]
+
+
+def pad_nd(t, batch, seq_len=None, seq_axis=1, pad_value=0):
+    """``t`` padded with ``pad_value`` up to ``batch`` rows on axis 0 and,
+    when ``seq_len`` is given and ``t`` has a ``seq_axis`` dimension, up
+    to ``seq_len`` on that axis; ``t`` itself when nothing is padded."""
+    shape = list(t.shape)
+    if shape[0] > batch:
+        raise MXNetError("pad_nd: batch %d exceeds bucket %d"
+                         % (shape[0], batch))
+    shape[0] = batch
+    if seq_len is not None and t.ndim > seq_axis:
+        if t.shape[seq_axis] > seq_len:
+            raise MXNetError("pad_nd: axis %d size %d exceeds bucket %d"
+                             % (seq_axis, t.shape[seq_axis], seq_len))
+        shape[seq_axis] = seq_len
+    if tuple(shape) == tuple(t.shape):
+        return t
+    out = t.new_full(shape, pad_value)
+    out[tuple(slice(0, n) for n in t.shape)] = t
+    return out
 
 
 class BucketSpec:
-    """The closed set of batch sizes a Predictor runs (ascending)."""
+    """The closed set of shapes a Predictor runs: batch sizes (ascending)
+    and, optionally, sequence lengths along ``seq_axis`` of every input
+    that has it."""
 
-    def __init__(self, batch_sizes):
+    def __init__(self, batch_sizes, seq_lens=None, seq_axis=1, pad_value=0):
         sizes = sorted({int(b) for b in batch_sizes})
         if not sizes or sizes[0] < 1:
             raise MXNetError("BucketSpec: batch_sizes must be >= 1, got %r"
                              % (batch_sizes,))
         self.batch_sizes = tuple(sizes)
+        self.seq_lens = (tuple(sorted({int(s) for s in seq_lens}))
+                         if seq_lens else None)
+        self.seq_axis = int(seq_axis)
+        self.pad_value = pad_value
 
     @classmethod
-    def pow2(cls, max_batch):
+    def pow2(cls, max_batch, seq_lens=None, seq_axis=1):
         """1, 2, 4, ... up to and including ``max_batch``."""
         top, sizes, b = int(max_batch), [], 1
         while b < top:
             sizes.append(b)
             b *= 2
         sizes.append(top)
-        return cls(sizes)
+        return cls(sizes, seq_lens=seq_lens, seq_axis=seq_axis)
 
     @property
     def max_batch(self):
@@ -54,11 +88,32 @@ class BucketSpec:
                 return b
         return None
 
+    def seq_bucket(self, s):
+        """Smallest sequence bucket >= s (None without sequence buckets);
+        raises when s exceeds the largest."""
+        if self.seq_lens is None:
+            return None
+        for n in self.seq_lens:
+            if s <= n:
+                return n
+        raise MXNetError(
+            "request seq length %d exceeds the largest declared bucket %d "
+            "(BucketSpec.seq_lens=%s): sequences cannot be chunked"
+            % (s, self.seq_lens[-1], list(self.seq_lens)))
+
     def buckets(self):
-        return list(self.batch_sizes)
+        """Every (batch, seq or None) pair: the set ``warmup()`` runs."""
+        seqs = self.seq_lens or (None,)
+        return [(b, s) for b in self.batch_sizes for s in seqs]
+
+    def __len__(self):
+        return len(self.batch_sizes) * len(self.seq_lens or (None,))
 
     def __repr__(self):
-        return "BucketSpec(batch=%s)" % (list(self.batch_sizes),)
+        return "BucketSpec(batch=%s%s)" % (
+            list(self.batch_sizes),
+            ", seq=%s@axis%d" % (list(self.seq_lens), self.seq_axis)
+            if self.seq_lens else "")
 
 
 class Predictor:
@@ -112,41 +167,53 @@ class Predictor:
         if self._templates is None:
             raise MXNetError("Predictor.warmup needs input templates: pass "
                              "example= at construction")
-        for b in self._spec.buckets():
-            self._run([torch.zeros((b,) + t, dtype=dt, device=self._device)
+        for b, s in self._spec.buckets():
+            self._run([torch.zeros((b,) + self._bucket_trailing(t, s),
+                                   dtype=dt, device=self._device)
                        for t, dt in self._templates])
         if self._device.type == "cuda":
             torch.cuda.synchronize(self._device)
         return self
+
+    def _bucket_trailing(self, trailing, seq):
+        ax = self._spec.seq_axis - 1   # the trailing shape has no batch axis
+        if seq is None or ax >= len(trailing):
+            return trailing
+        return trailing[:ax] + (seq,) + trailing[ax + 1:]
 
     def _run(self, datas):
         with torch.inference_mode():
             out = self._block(*datas)
         return list(out) if isinstance(out, (tuple, list)) else [out]
 
-    def _dispatch_one(self, datas, bucket):
+    def _dispatch_one(self, datas, seq, bucket):
         n = int(datas[0].shape[0])
-        if n != bucket:
-            datas = [torch.cat([d, d.new_zeros((bucket - n,) + d.shape[1:])])
-                     for d in datas]
+        spec = self._spec
+        datas = [pad_nd(d, bucket, seq_len=seq, seq_axis=spec.seq_axis,
+                        pad_value=spec.pad_value) for d in datas]
         return [o[:n] for o in self._run(datas)]
 
     def predict_flat(self, args):
-        """The block's outputs as a list: ``args`` padded to their bucket,
-        run, and sliced back to the request's batch, chunked through the
-        largest bucket when the request exceeds it. Outputs stay on the
-        device."""
+        """The block's outputs as a list: ``args`` padded to their bucket
+        (batch, and sequence where declared), run, and sliced back to the
+        request's batch, chunked through the largest batch bucket when the
+        request exceeds it. Outputs stay on the device."""
         if self._templates is None:
             self._settle(args)
         datas = [self._to_device(a) for a in args]
         n = int(datas[0].shape[0])
         if n == 0:
             raise MXNetError("predict on an empty batch")
-        b = self._spec.batch_bucket(n)
+        spec = self._spec
+        seq = None
+        if spec.seq_lens is not None:
+            seq = spec.seq_bucket(int(datas[0].shape[spec.seq_axis])
+                                  if datas[0].ndim > spec.seq_axis else 0)
+        b = spec.batch_bucket(n)
         if b is not None:
-            return self._dispatch_one(datas, b)
-        bucket = self._spec.max_batch   # the tail pads to it too
-        chunks = [self._dispatch_one([d[lo:lo + bucket] for d in datas],
+            return self._dispatch_one(datas, seq, b)
+        bucket = spec.max_batch   # the tail pads to it too
+        chunks = [self._dispatch_one([d[lo:lo + bucket] for d in datas], seq,
                                      bucket)
                   for lo in range(0, n, bucket)]
         return [torch.cat([c[i] for c in chunks]) for i in

@@ -92,7 +92,7 @@ def test_port_imports_no_jax_and_no_mxtpu():
 def test_kernel_library_is_keyed_by_source_and_flags(tmp_path, monkeypatch):
     """Libraries are named by a hash of csrc/ and the nvcc flags; nothing is
     built until a kernel is first launched."""
-    assert kernels.sources() == ["fused_conv"]
+    assert kernels.sources() == ["flash_attention", "fused_conv"]
     src = tmp_path / "csrc"
     src.mkdir()
     (src / "k.cu").write_text("// v1\n")

@@ -1,0 +1,156 @@
+"""The port's flash attention (mxtpu_torch/ops/pallas/flash_attention.py)
+against the JAX package's (mxtpu/ops/pallas/flash_attention.py).
+
+On this host the port's wrapper gets CPU tensors, so it runs its plain
+version, which repeats ``_xla_attention_lse``; the JAX Pallas kernel runs
+through the interpreter (MXTPU_FLASH_INTERPRET=1), which takes T a
+multiple of 8 and Tk a multiple of 128. Ragged lengths go to the JAX
+package's own XLA path (``_xla_attention_lse``), which the port's kernel
+replaces with in-kernel masking. Inputs come from seeded numpy.
+
+Tolerances:
+* float32, out and lse: rtol=atol=1e-5 (the reference's own).
+* bfloat16 lse: rtol=atol=1e-5 (float32 scores of bf16 inputs on both
+  sides).
+* bfloat16 out against the same XLA arithmetic: both sides round a float32
+  out once, so they may differ by one bf16 spacing, at most 2^-7 |ref|:
+  |err| <= 2^-7 |ref| + 1e-6.
+* bfloat16 out against the Pallas kernel: besides that, the kernel rounds
+  p to bf16 before p.v and the plain version does not, which moves out by
+  at most 2^-9 max|v|: |err| <= 2^-7 |ref| + 2^-9 max|v|.
+"""
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mxtpu_torch.base import MXNetError
+from mxtpu_torch.ops.pallas import flash_attention as tfa
+
+# the JAX package's ops.pallas exports the function under the module's name
+jfa = importlib.import_module("mxtpu.ops.pallas.flash_attention")
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@pytest.fixture(autouse=True)
+def _interp(monkeypatch):
+    monkeypatch.setenv("MXTPU_FLASH_INTERPRET", "1")
+    jfa.reset_dispatch_stats()
+
+
+def _inputs(seed, b, h, t, tk, d, dtype):
+    """q, k, v as float32 numpy, already rounded to ``dtype``."""
+    rng = np.random.RandomState(seed)
+    arrs = (rng.randn(b, h, t, d), rng.randn(b, h, tk, d),
+            rng.randn(b, h, tk, d))
+    return [torch.from_numpy(a.astype(np.float32)).to(TDT[dtype]).float()
+            .numpy() for a in arrs]
+
+
+def _jax(q, k, v, causal, dtype):
+    out, lse = jfa.flash_attention_with_lse(
+        *(jnp.asarray(a, JDT[dtype]) for a in (q, k, v)), causal=causal)
+    only = jfa.flash_attention(*(jnp.asarray(a, JDT[dtype])
+                                 for a in (q, k, v)), causal=causal)
+    np.testing.assert_array_equal(np.asarray(only.astype(jnp.float32)),
+                                  np.asarray(out.astype(jnp.float32)))
+    return np.asarray(out.astype(jnp.float32)), np.asarray(lse)
+
+
+def _port(q, k, v, causal, dtype):
+    tq, tk, tv = (torch.from_numpy(a).to(TDT[dtype]) for a in (q, k, v))
+    before = tfa.flash_attention.launches
+    out, lse = tfa.flash_attention_with_lse(tq, tk, tv, causal=causal)
+    only = tfa.flash_attention(tq, tk, tv, causal=causal)
+    assert tfa.flash_attention.launches == before   # plain version: no launch
+    assert out.dtype == TDT[dtype] and lse.dtype == torch.float32
+    assert tuple(lse.shape) == q.shape[:3]
+    torch.testing.assert_close(only, out, rtol=0, atol=0)
+    return out.float().numpy(), lse.numpy()
+
+
+def _close_out(got, ref, v, dtype, vs_kernel):
+    if dtype == "float32":
+        np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+    elif vs_kernel:
+        np.testing.assert_allclose(got, ref, rtol=2.0 ** -7,
+                                   atol=2.0 ** -9 * np.abs(v).max())
+    else:
+        np.testing.assert_allclose(got, ref, rtol=2.0 ** -7, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("t", [128, 256])
+def test_flash_matches_pallas_kernel(t, d, causal, dtype):
+    q, k, v = _inputs(t + d, 2, 2, t, t, d, dtype)
+    ref, ref_lse = _jax(q, k, v, causal, dtype)
+    assert jfa.DISPATCH_STATS["pallas"] >= 1    # the kernel, no fallback
+    got, lse = _port(q, k, v, causal, dtype)
+    _close_out(got, ref, v, dtype, vs_kernel=True)
+    np.testing.assert_allclose(lse, ref_lse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_t_neq_tk_matches_pallas_kernel(causal):
+    """128 queries over 256 keys (causal compares absolute positions)."""
+    q, k, v = _inputs(5, 1, 3, 128, 256, 64, "float32")
+    ref, ref_lse = _jax(q, k, v, causal, "float32")
+    assert jfa.DISPATCH_STATS["pallas"] >= 1
+    got, lse = _port(q, k, v, causal, "float32")
+    _close_out(got, ref, v, "float32", vs_kernel=True)
+    np.testing.assert_allclose(lse, ref_lse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("t,tk", [(77, 77), (40, 77)])
+def test_flash_ragged_matches_mxtpu(t, tk, causal, dtype):
+    """Lengths off the TPU granules: the JAX package takes its XLA path,
+    the port's kernel masks the tails (on the card)."""
+    q, k, v = _inputs(t * tk, 2, 3, t, tk, 32, dtype)
+    ref, ref_lse = _jax(q, k, v, causal, dtype)
+    assert jfa.DISPATCH_STATS["pallas"] == 0 and jfa.DISPATCH_STATS["xla"] > 0
+    got, lse = _port(q, k, v, causal, dtype)
+    _close_out(got, ref, v, dtype, vs_kernel=False)
+    np.testing.assert_allclose(lse, ref_lse, rtol=1e-5, atol=1e-5)
+
+
+def test_default_scale_is_inverse_sqrt_d():
+    q, k, v = (torch.from_numpy(a) for a in _inputs(7, 1, 2, 16, 16, 48,
+                                                    "float32"))
+    torch.testing.assert_close(
+        tfa.flash_attention(q, k, v),
+        tfa.flash_attention(q, k, v, scale=1.0 / 48 ** 0.5), rtol=0, atol=0)
+    torch.testing.assert_close(
+        tfa.flash_attention(q, k, v, scale=0.3),
+        tfa.flash_attention_reference(q, k, v, scale=0.3)[0], rtol=0, atol=0)
+
+
+def test_wrapper_refuses_misuse_and_never_falls_back():
+    q = torch.randn(1, 2, 8, 16)
+    with pytest.raises(MXNetError, match="must all be float32 or all bfloat16"):
+        tfa.flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(MXNetError, match="k and v must be"):
+        tfa.flash_attention(q, q, q[:, :, :4, :8])
+    with pytest.raises(MXNetError, match=r"\[B, H, T, D\]"):
+        tfa.flash_attention(q[0], q[0], q[0])
+    big = torch.randn(1, 1, 8, 160)
+    with pytest.raises(MXNetError, match="exceeds the kernel's 128"):
+        tfa.flash_attention(big, big, big)
+    # off the CPU the wrapper launches a kernel or raises; it never runs
+    # the plain version (meta stands in for a device here)
+    qm = q.to("meta")
+    with pytest.raises(MXNetError, match="forward-only"):
+        tfa.flash_attention(qm.requires_grad_(), qm, qm)
+    with torch.no_grad(), pytest.raises(MXNetError,
+                                        match="no kernel for device"):
+        tfa.flash_attention(qm, qm, qm)
+    # the plain version on CPU tensors stays differentiable
+    q.requires_grad_()
+    tfa.flash_attention(q, q, q, causal=True).sum().backward()
+    assert q.grad.shape == q.shape
