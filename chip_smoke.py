@@ -27,9 +27,23 @@ NVIDIA H100.
    against the same net on the CPU and that every forward launched the
    flash kernel 12 times, times each bucket at seq 512 and b8 at 128 and
    256, and breaks one b8 x 512 forward down by kernel.
-7. Prints one JSON line of kernels (fused_conv and flash_attention, one
-   entry per type each), the card line again, and last
-   ``{"ok": true, "device": {...}}``.
+7. rtc: compiles user CUDA C++ at runtime through ``mxtpu_torch.rtc``
+   (kernel B3: ``RTC_SOURCE``, the JAX package's rtc examples axpy,
+   square, double (here ``twice``), square_backward and a bf16 axpy),
+   builds it again from the cache, shows that CPU arrays, a dtype that
+   disagrees with a pointer parameter and a source nvcc rejects raise,
+   holds each kernel against its plain version (``RTC_PLAIN``) at n =
+   ResNet-50 v1's parameter count and times it beside its bound, its
+   plain version and one PyTorch call; and the host time of one launch.
+8. imperative, this slice's main path: mx.nd arrays on the card, the
+   runtime kernels launched on them, and square registered as a
+   differentiable op (square_backward its vjp) under autograd.record()
+   with grad_req write and add; one forward and one backward launch per
+   step; results and gradients checked against the same program through
+   mx.nd on the CPU (the op registered there with the plain versions).
+9. Prints one JSON line of kernels (fused_conv and flash_attention, one
+   entry per type each; one entry per rtc kernel), the card line again,
+   and last ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the last
 line. It imports nothing of JAX or of the JAX package.
@@ -69,6 +83,76 @@ BERT_BASE = dict(vocab_size=30522, dim=768, num_heads=12, num_layers=12,
                  max_len=512, causal=False)     # bench.py's configuration
 SEQ_BUCKETS = (128, 256, 512)
 LM_REQUESTS = ((1, 50), (3, 200), (5, 128), (8, 512), (11, 100))
+
+# User kernels compiled at runtime by mxtpu_torch.rtc (kernel B3): the JAX
+# package's rtc examples (tests/test_contrib_python.py) as CUDA C++, one
+# thread per element. `twice` is the JAX examples' `double`, a C++ keyword.
+RTC_SOURCE = r"""
+#include <cuda_bf16.h>
+
+extern "C" __global__ void axpy(const float* __restrict__ x,
+                                const float* __restrict__ y,
+                                float* __restrict__ out, long long n) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = 2.5f * x[i] + y[i];
+}
+
+extern "C" __global__ void square(const float* __restrict__ x,
+                                  float* __restrict__ out, long long n) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = x[i] * x[i];
+}
+
+extern "C" __global__ void twice(const float* __restrict__ x,
+                                 float* __restrict__ out, long long n) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = 2.0f * x[i];
+}
+
+// the gradient of square: dx = 2 x g
+extern "C" __global__ void square_backward(const float* __restrict__ x,
+                                           const float* __restrict__ g,
+                                           float* __restrict__ dx,
+                                           long long n) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) dx[i] = 2.0f * x[i] * g[i];
+}
+
+// axpy on bfloat16 arrays: bf16 loads and stores, float32 math, one
+// rounding to bf16 at the store
+extern "C" __global__ void axpy_bf16(const __nv_bfloat16* __restrict__ x,
+                                     const __nv_bfloat16* __restrict__ y,
+                                     __nv_bfloat16* __restrict__ out,
+                                     long long n) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) {
+    out[i] = __float2bfloat16(
+        fmaf(2.5f, __bfloat162float(x[i]), __bfloat162float(y[i])));
+  }
+}
+"""
+# the plain PyTorch version of each, on the same tensors
+RTC_PLAIN = {
+    "axpy": lambda x, y: 2.5 * x + y,
+    "square": lambda x: x * x,
+    "twice": lambda x: 2.0 * x,
+    "square_backward": lambda x, g: 2.0 * x * g,
+    "axpy_bf16": lambda x, y: (2.5 * x.float() + y.float()).to(x.dtype),
+}
+# (kernel, inputs, dtype, check rule of rtc_check, one-call PyTorch
+# yardstick or None)
+RTC_KERNELS = [
+    ("axpy", 2, "float32", "rtol", lambda x, y: torch_add(y, x, 2.5)),
+    ("square", 1, "float32", "exact", lambda x: x.square()),
+    ("twice", 1, "float32", "exact", lambda x: x.mul(2)),
+    ("square_backward", 2, "float32", "exact", None),
+    ("axpy_bf16", 2, "bfloat16", "ulp", lambda x, y: torch_add(y, x, 2.5)),
+]
+
+
+def torch_add(a, b, alpha):
+    import torch
+    return torch.add(a, b, alpha=alpha)
 
 
 def card_line():
@@ -251,16 +335,22 @@ def closed_loop(pred, x, n=50):
 def device_breakdown(pred, x, forwards=5):
     """Device kernel time per forward by kernel name, from torch.profiler
     (CUPTI), over ``forwards`` back-to-back predicts of ``x``."""
+    return device_rows(lambda: pred.predict(x), forwards)
+
+
+def device_rows(fn, reps):
+    """(kernel name, device ms per call, launches per call) of ``reps``
+    back-to-back calls of ``fn``, from torch.profiler (CUPTI)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(forwards):
-            pred.predict(x)
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-    rows = sorted(((e.key, e.self_device_time_total / 1e3 / forwards,
-                    e.count / forwards) for e in prof.key_averages()
+    rows = sorted(((e.key, e.self_device_time_total / 1e3 / reps,
+                    e.count / reps) for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA
                    and e.self_device_time_total > 0),
                   key=lambda r: -r[1])
@@ -337,7 +427,7 @@ def resnet_serve_phase(card):
 
 
 def print_breakdown(label, rows, wall_ms, kernel_key):
-    """Device ms per forward, the idle share against the unprofiled median
+    """Device ms per call, the idle share against the unprofiled median
     wall time, the named kernel's ms and the top kernels."""
     dev_ms = sum(r[1] for r in rows)
     if dev_ms <= 0:
@@ -345,7 +435,7 @@ def print_breakdown(label, rows, wall_ms, kernel_key):
               "kernels)" % label)
         return
     mine = sum(r[1] for r in rows if kernel_key in r[0])
-    print("%s per forward: wall %.3f ms (median, unprofiled), device "
+    print("%s per call: wall %.3f ms (median, unprofiled), device "
           "kernels %.3f ms (idle share %.3f), %s %.3f ms, %d kernel "
           "launches" % (label, wall_ms, dev_ms, 1 - dev_ms / wall_ms,
                         kernel_key, mine, round(sum(r[2] for r in rows))))
@@ -494,6 +584,254 @@ def lm_serve_phase(card):
     return launches_by_dtype
 
 
+def resnet50_param_count():
+    """Trainable parameters of the port's resnet50_v1 (shapes settled by
+    a 32x32 forward on the CPU; no weights drawn)."""
+    import torch
+    import mxtpu_torch as mt
+    from mxtpu_torch.gluon.model_zoo import vision
+    with mt.layout("NHWC"):
+        net = vision.resnet50_v1(classes=1000)
+    net.initialize(ctx=mt.cpu())
+    with torch.no_grad():
+        net(torch.zeros(1, 32, 32, 3))
+    return sum(p.data().numel() for p in net.collect_params().values()
+               if p.grad_req != "null")
+
+
+def rtc_check(got, ref, rule, what, mag=None):
+    """Hold a runtime kernel against its plain version by ``rule``:
+    "exact" bit for bit; "rtol" |err| <= 1e-6 mag, where mag is the plain
+    version on the inputs' magnitudes (2.5|x| + |y| for axpy: an FMA and
+    a rounded product differ by one ulp of the operands, not of a result
+    that cancels); "ulp" within one bf16 ulp of ref."""
+    import torch
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    if rule == "exact":
+        ok = torch.equal(got, ref)
+    elif rule == "rtol":
+        ok = bool((err <= 1e-6 * mag.float()).all())
+    else:   # one bf16 ulp of ref: 2^(floor(log2|ref|) - 7)
+        ulp = torch.exp2(torch.floor(torch.log2(
+            ref.abs().clamp_min(2.0 ** -126))) - 7)
+        ok = bool((err <= ulp).all())
+    if not ok or not bool(torch.isfinite(got).all()):
+        raise AssertionError("rtc %s: kernel disagrees with its plain version "
+                             "(rule %s, max abs err %.3g)"
+                             % (what, rule, err.max().item()))
+    return err.max().item()
+
+
+def expect_error(what, fn, match):
+    """Run ``fn``; it must raise MXNetError mentioning ``match``."""
+    from mxtpu_torch.base import MXNetError
+    try:
+        fn()
+    except MXNetError as e:
+        if match not in str(e):
+            raise AssertionError("%s raised %r, expected %r" % (what, str(e),
+                                                                match))
+        print("rtc refuses %s: %s" % (what, str(e).splitlines()[0][:120]))
+        return
+    raise AssertionError("%s did not raise" % what)
+
+
+def rtc_phase(n):
+    """Build the example module at runtime (then again, from the cache),
+    hold each kernel against its plain version at n elements and time it
+    beside its plain version, its bound and a one-call PyTorch yardstick.
+    Returns (module, kernels by name, rows)."""
+    import torch
+    from mxtpu_torch import rtc
+    mod = rtc.CudaModule(RTC_SOURCE).build()
+    print("rtc: built %s with nvcc (%s) in %.2f s" % (
+        mod.kernel_names, mod.build_how, mod.build_seconds), flush=True)
+    for line in mod.build_log().splitlines():
+        if "registers" in line or "spill" in line:
+            print("  ptxas rtc: %s" % line.strip())
+    again = rtc.CudaModule(RTC_SOURCE).build()
+    if again.build_how != "memory" or again.digest != mod.digest:
+        raise AssertionError("rtc: an unchanged source was rebuilt (%s)"
+                             % again.build_how)
+    print("rtc: the same source again: loaded from the %s cache in %.6f s"
+          % (again.build_how, again.build_seconds))
+    ks = {name: mod.get_kernel(name) for name, *_ in RTC_KERNELS}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    expect_error("CPU arrays", lambda: ks["square"].launch(
+        [torch.ones(4), 4], (4,)), "no CPU path")
+    expect_error("a bf16 array for float*", lambda: ks["square"].launch(
+        [torch.ones(4, device="cuda", dtype=torch.bfloat16), 4], (4,),
+        out_dtypes="float32"), "reads torch.float32")
+    expect_error("a source nvcc rejects", lambda: rtc.CudaModule(
+        "__global__ void broken(float* x) { x[0] = no_such_name; }").build(),
+        "nvcc failed")
+    print("rtc kernel checks at n = %d (ResNet-50 v1's parameter count): "
+          "exact = bit-exact, rtol = |err| <= 1e-6 (2.5|x| + |y|), ulp = "
+          "within one bf16 ulp of ref" % n)
+    rows = []
+    for name, n_in, dtype, rule, library in RTC_KERNELS:
+        dt = getattr(torch, dtype)
+        xs = [torch.randn(n, device="cuda", generator=gen).to(dt)
+              for _ in range(n_in)]
+        k, plain = ks[name], RTC_PLAIN[name]
+        out = k.launch(xs + [n], (n,)).to_torch()
+        torch.cuda.synchronize()
+        err = rtc_check(out, plain(*xs), rule, name,
+                        mag=plain(*[t.abs() for t in xs]))
+        ms = cuda_ms(lambda: k.launch(xs + [n], (n,)))
+        plain_ms = cuda_ms(lambda: plain(*xs))
+        lib_ms = cuda_ms(lambda: library(*xs)) if library else None
+        n_bytes = (n_in + 1) * n * xs[0].element_size()
+        flops = 2.0 * n if n_in == 2 else 1.0 * n
+        bms, by = bound_ms(n_bytes, flops, "float32")
+        rows.append(dict(name=name, dtype=dtype, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                         bound_by=by))
+        print("kernel rtc %-16s %-8s %-5s err %.3g  kernel %.4f ms  plain "
+              "%.4f ms  torch %s  bound %.4f ms (%s, %d bytes at 3.35 TB/s)"
+              % (name, dtype, rule, err, ms, plain_ms,
+                 "%.4f ms" % lib_ms if lib_ms is not None else "-", bms, by,
+                 n_bytes), flush=True)
+    # the host's cost of one eager launch (ctypes marshalling included)
+    small = torch.randn(1024, device="cuda", generator=gen)
+    host = {}
+    for label, fn in (("rtc square", lambda: ks["square"].launch(
+            [small, 1024], (1024,))),
+                      ("torch.square", lambda: small.square())):
+        for _ in range(50):
+            fn()
+        samples = []
+        for _ in range(400):
+            t0 = time.perf_counter()
+            fn()
+            samples.append(1e6 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        samples.sort()
+        host[label] = samples[len(samples) // 2]
+    print("rtc host time per launch at n = 1024 (median of 400, not "
+          "synchronised): rtc square %.1f us, torch.square %.1f us"
+          % (host["rtc square"], host["torch.square"]), flush=True)
+    return mod, ks, rows
+
+
+def imperative_phase(ks, n):
+    """The main path of this slice, as an MXNet user writes it: mx.nd
+    arrays on the card, the runtime kernels launched on them, and square
+    registered as a differentiable op (square_backward its vjp) used under
+    autograd.record(), with grad_req write and then add. Checked against
+    the same computation through mx.nd on the CPU, where the op is
+    registered with the plain versions. Returns the launches per kernel
+    counted during exactly this run."""
+    import torch
+    import mxtpu_torch as mt
+    from mxtpu_torch.contrib.external_kernel import register_external_kernel
+    nd = mt.nd
+    sq, sqb = ks["square"], ks["square_backward"]
+    register_external_kernel(
+        "rtc_square", lambda x: sq.launch([x, x.numel()], x.shape),
+        vjp=lambda g, x: sqb.launch([x, g, x.numel()], x.shape))
+    register_external_kernel(
+        "rtc_square_plain", RTC_PLAIN["square"],
+        vjp=lambda g, x: RTC_PLAIN["square_backward"](x, g))
+
+    def run(ctx, op, launch):
+        """The user's program on ``ctx``: (eager results, grads per req)."""
+        mt.random.seed(7)
+        gpu = mt.gpu(0)
+        x = nd.random.normal(shape=(n,), ctx=gpu).as_in_context(ctx)
+        y = nd.random.normal(shape=(n,), ctx=gpu).as_in_context(ctx)
+        w = nd.random.uniform(0.5, 1.5, shape=(n,), ctx=gpu).as_in_context(
+            ctx)
+        u = launch("axpy", [x, y, n])
+        v = launch("twice", [u, n])
+        b = launch("axpy_bf16", [x.astype("bfloat16"), y.astype("bfloat16"),
+                                 n])
+        grads = {}
+        for req, steps in (("write", 2), ("add", 2)):
+            x.attach_grad(req)
+            w.attach_grad(req)
+            for _ in range(steps):
+                before = (sq.launches, sqb.launches)
+                with mt.autograd.record():
+                    z = op(x) * w
+                    loss = z.sum()
+                loss.backward()
+                if ctx.type == "cuda" and (sq.launches - before[0],
+                                           sqb.launches - before[1]) != (1, 1):
+                    raise AssertionError(
+                        "imperative %s step launched square %d and "
+                        "square_backward %d times, expected 1 and 1" % (
+                            req, sq.launches - before[0],
+                            sqb.launches - before[1]))
+            grads[req] = (x.grad.to_torch().cpu(), w.grad.to_torch().cpu(),
+                          loss.asscalar())
+        host = [a.to_torch().detach().cpu() for a in (x, y, w, u, v, b)]
+        return host, grads
+
+    def card_launch(name, args):
+        return ks[name].launch(args, (n,))
+
+    def cpu_launch(name, args):
+        return nd.NDArray(RTC_PLAIN[name](*[a.to_torch() for a in args[:-1]]))
+
+    for k in ks.values():
+        k.launches = 0
+    t0 = time.time()
+    card = run(mt.gpu(0), nd.rtc_square, card_launch)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {name: k.launches for name, k in ks.items()}
+    print("imperative main path on the card: %.2f s, launches %s"
+          % (wall, launches), flush=True)
+    (x, y, w, u, v, b), grads = card
+    cpu_eager, cpu_grads = run(mt.cpu(), nd.rtc_square_plain, cpu_launch)
+    cu, cv, cb = cpu_eager[3:]
+    mag = RTC_PLAIN["axpy"](x.abs(), y.abs())
+    rtc_check(u, cu, "rtol", "imperative axpy vs CPU", mag=mag)
+    rtc_check(v, cv, "rtol", "imperative twice vs CPU", mag=2 * mag)
+    rtc_check(b, cb, "ulp", "imperative axpy_bf16 vs CPU")
+    for req, scale in (("write", 1.0), ("add", 2.0)):
+        gx, gw, loss = grads[req]
+        cgx, cgw, closs = cpu_grads[req]
+        checks = (("x.grad = %g * 2xw" % scale, gx, scale * 2 * x * w),
+                  ("w.grad = %g * x^2" % scale, gw, scale * x * x),
+                  ("x.grad vs CPU", gx, cgx), ("w.grad vs CPU", gw, cgw))
+        for what, got, ref in checks:
+            if tuple(got.shape) != (n,) or \
+                    not bool(((got - ref).abs() <= 1e-5 * ref.abs()).all()):
+                raise AssertionError("imperative %s: %s fails (max abs err "
+                                     "%.3g)" % (req, what,
+                                                (got - ref).abs().max()))
+        print("imperative grad_req=%s (2 steps): x.grad = %g*2xw and w.grad "
+              "= %g*x^2 within rtol 1e-5, and within rtol 1e-5 of the CPU "
+              "run; loss %.7g (CPU %.7g)" % (req, scale, scale, loss, closs))
+    # where one autograd step's time goes (after the counted run)
+    xg, wg = nd.array(x, ctx=mt.gpu(0)), nd.array(w, ctx=mt.gpu(0))
+    xg.attach_grad()
+    wg.attach_grad()
+
+    def step():
+        with mt.autograd.record():
+            loss = (nd.rtc_square(xg) * wg).sum()
+        loss.backward()
+    for _ in range(3):
+        step()
+    samples = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        samples.append(1e3 * (time.perf_counter() - t0))
+    samples.sort()
+    print_breakdown("imperative autograd step (n=%d)" % n,
+                    device_rows(step, 5), samples[len(samples) // 2],
+                    "square")
+    return launches
+
+
 def kernel_entries(rows, launches, name, source, replaces):
     """One `kernels` entry per type: the per-forward shapes' numbers, each
     times its launches per forward, summed."""
@@ -546,6 +884,9 @@ def main():
     conv_launches = resnet_serve_phase(card)
     flash_rows = flash_phase()
     flash_launches = lm_serve_phase(card)
+    n = resnet50_param_count()
+    _, rtc_kernels, rtc_rows = rtc_phase(n)
+    rtc_launches = imperative_phase(rtc_kernels, n)
     entries = kernel_entries(
         conv_rows, conv_launches,
         "fused_conv (%s, the 11 gated convs of one b8 ResNet-50 forward)",
@@ -555,6 +896,19 @@ def main():
         "flash_attention (%s, the 12 attentions of one b8 x 512 BERT-base "
         "forward)", "mxtpu_torch/csrc/flash_attention.cu",
         "mxtpu/ops/pallas/flash_attention.py:125")
+    for r in rtc_rows:
+        if rtc_launches[r["name"]] < 1:
+            raise AssertionError("rtc %s was not launched on the imperative "
+                                 "main path" % r["name"])
+        entries.append({
+            "name": "rtc %s (%s, n=%d, one user kernel launch)"
+                    % (r["name"], r["dtype"], n),
+            "route": "cuda", "source": "chip_smoke.py",
+            "replaces": "mxtpu/rtc.py:170",
+            "launches": rtc_launches[r["name"]],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": entries}))
     print("whole script %.1f s" % (time.time() - t_start))
     print("card:", card)

@@ -1,11 +1,14 @@
 """mxtpu_torch: the PyTorch/CUDA port of mxtpu, for NVIDIA Hopper.
 
 The namespace mirrors ``import mxtpu as mx`` for the parts ported so far:
-devices, the layout scope, the serving ops, Gluon blocks and layers, the
-ResNet v1 model zoo, initializers and the bucketed Predictor. Kernels that
-the JAX package wrote in Pallas are hand-written CUDA under ``csrc/``,
-built at first use (``mxtpu_torch.kernels``). Entry points run on the CUDA
-device unless the caller passes a CPU device.
+devices, the layout scope, the op registry and the imperative ``nd``
+namespace over ``NDArray``, ``autograd``, ``random``, runtime-compiled CUDA
+kernels (``rtc``) and the external-kernel hook (``contrib``), Gluon blocks
+and layers, the ResNet v1 and transformer model zoo, initializers and the
+bucketed Predictor. Kernels that the JAX package wrote in Pallas are
+hand-written CUDA under ``csrc/``, built at first use
+(``mxtpu_torch.kernels``). Entry points run on the CUDA device unless the
+caller passes a CPU device.
 """
 from .ops.precision_util import apply_policy as _apply_policy
 
@@ -16,6 +19,12 @@ from .base import MXNetError  # noqa: E402
 from .context import cpu, default_device, gpu  # noqa: E402
 from .layout import layout  # noqa: E402
 from . import ops  # noqa: E402
+from . import autograd  # noqa: E402
+from . import ndarray  # noqa: E402
+from . import ndarray as nd  # noqa: E402
+from . import random  # noqa: E402
+from . import rtc  # noqa: E402
+from . import contrib  # noqa: E402
 from . import initializer  # noqa: E402
 from . import initializer as init  # noqa: E402
 from . import gluon  # noqa: E402
@@ -23,5 +32,6 @@ from . import serving  # noqa: E402
 from . import convert  # noqa: E402
 
 __all__ = ["MXNetError", "cpu", "gpu", "default_device", "layout", "ops",
+           "autograd", "ndarray", "nd", "random", "rtc", "contrib",
            "initializer", "init", "gluon", "serving", "convert", "base",
            "context"]

@@ -1,13 +1,21 @@
-"""Shape and indexing ops of the transformer path (counterpart of
-``mxtpu/ops/matrix.py``): ``reshape`` with MXNet's special codes,
-``transpose`` and the ``Embedding`` lookup."""
+"""Shape, indexing and dot ops (counterpart of ``mxtpu/ops/matrix.py``):
+``reshape`` with MXNet's special codes, ``transpose``, the ``Embedding``
+lookup, joins and slices, and ``dot``/``batch_dot`` (float32 in full
+float32, bfloat16 accumulated in float32, as the JAX package's
+``contract_acc``)."""
 from __future__ import annotations
 
 import torch
 
-__all__ = ["reshape", "transpose", "Embedding"]
+from .precision_util import promote
+from .registry import register
+
+__all__ = ["reshape", "transpose", "Embedding", "expand_dims", "squeeze",
+           "Concat", "stack", "slice_", "slice_axis", "tile", "repeat",
+           "reverse", "swapaxes", "dot", "batch_dot"]
 
 
+@register("Reshape", aliases=("reshape",), as_method=False)
 def reshape(x, shape=None):
     """MXNet reshape: 0 copies the input dim, -1 infers one dim, -2 copies
     every remaining dim, -3 merges two dims, -4 splits one dim into the
@@ -44,12 +52,14 @@ def reshape(x, shape=None):
     return torch.reshape(x, tuple(tgt))
 
 
+@register("transpose", as_method=False)
 def transpose(x, axes=None):
     """Permute the axes (reverse them when ``axes`` is empty)."""
     axes = tuple(axes) if axes else tuple(range(x.ndim - 1, -1, -1))
     return x.permute(axes)
 
 
+@register("Embedding")
 def Embedding(data, weight, input_dim=None, output_dim=None):
     """Rows of ``weight`` for the ids in ``data``, ids cast to int32 and
     clipped to ``[0, input_dim - 1]`` as the JAX package does (an
@@ -57,3 +67,103 @@ def Embedding(data, weight, input_dim=None, output_dim=None):
     idx = data.to(torch.int32).clamp(0, weight.shape[0] - 1)
     return weight.index_select(0, idx.reshape(-1)).reshape(
         tuple(idx.shape) + tuple(weight.shape[1:]))
+
+
+@register("expand_dims", as_method=False)
+def expand_dims(x, axis):
+    return x.unsqueeze(axis)
+
+
+@register("squeeze", as_method=False)
+def squeeze(x, axis=None):
+    if axis is None:
+        return x.squeeze()
+    axes = (axis,) if isinstance(axis, int) else tuple(axis)
+    return x.squeeze(tuple(a % x.ndim for a in axes)) if axes else x
+
+
+@register("Concat", aliases=("concat", "concatenate"), as_method=False)
+def Concat(*args, dim=1, axis=None, num_args=None):
+    return torch.cat(args, dim=axis if axis is not None else dim)
+
+
+@register("stack", as_method=False)
+def stack(*args, axis=0, num_args=None):
+    return torch.stack(args, dim=axis)
+
+
+def _slice_axis(x, axis, begin, end, step=None):
+    """``x[begin:end:step]`` along ``axis``; a negative step (which torch
+    slicing refuses) gathers the indices Python's slice would give."""
+    if step is None or step > 0:
+        return x[(slice(None),) * axis + (slice(begin, end, step),)]
+    idx = range(*slice(begin, end, step).indices(x.shape[axis]))
+    return x.index_select(axis, torch.tensor(list(idx), dtype=torch.int64,
+                                             device=x.device))
+
+
+@register("slice", aliases=("crop",), as_method=False)
+def slice_(x, begin=(), end=(), step=()):
+    step = step or [None] * len(begin)
+    for ax, (b, e, s) in enumerate(zip(begin, end, step)):
+        x = _slice_axis(x, ax, b, e, s)
+    return x
+
+
+@register("slice_axis", as_method=True)
+def slice_axis(x, axis=0, begin=0, end=None):
+    return _slice_axis(x, axis % x.ndim, begin, end)
+
+
+@register("tile", as_method=True)
+def tile(x, reps=()):
+    return torch.tile(x, tuple(reps))
+
+
+@register("repeat", as_method=True)
+def repeat(x, repeats=1, axis=None):
+    """numpy repeat: each element ``repeats`` times along ``axis``, over
+    the flattened array when ``axis`` is None."""
+    if axis is None:
+        return x.reshape(-1).repeat_interleave(repeats)
+    return x.repeat_interleave(repeats, dim=axis)
+
+
+@register("reverse", aliases=("flip",), as_method=True)
+def reverse(x, axis=()):
+    if isinstance(axis, int):
+        axis = (axis,)
+    return torch.flip(x, dims=tuple(axis))
+
+
+@register("swapaxes", aliases=("SwapAxis",), as_method=False)
+def swapaxes(x, dim1=0, dim2=0):
+    return x.transpose(dim1, dim2)
+
+
+def _contract(fn, a, b, **kw):
+    dt = promote(a.dtype, b.dtype)
+    return fn(a.to(dt), b.to(dt), **kw)
+
+
+@register("dot", as_method=True)
+def dot(lhs, rhs, transpose_a=False, transpose_b=False, forward_stype=None):
+    """General dot (ref: dot-inl.h): contracts the last axis of lhs with
+    the first of rhs; ``transpose_*`` reverses every axis of an operand
+    with more than two (swaps the last two of a 2-D one)."""
+    def flip(t, on):
+        if not on or t.ndim < 2:
+            return t
+        return t.permute(tuple(range(t.ndim))[::-1])
+    a, b = flip(lhs, transpose_a), flip(rhs, transpose_b)
+    if a.ndim == 1 and b.ndim == 1:
+        return _contract(torch.dot, a, b)
+    return _contract(torch.tensordot, a, b, dims=([-1], [0]))
+
+
+@register("batch_dot")
+def batch_dot(lhs, rhs, transpose_a=False, transpose_b=False,
+              forward_stype=None):
+    a = lhs.transpose(-1, -2) if transpose_a else lhs
+    b = rhs.transpose(-1, -2) if transpose_b else rhs
+    return _contract(torch.matmul, a, b)

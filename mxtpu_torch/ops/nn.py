@@ -1,9 +1,9 @@
 """Neural-network ops of the serving path (counterpart of ``mxtpu/ops/nn.py``).
 
 Plain functions on tensors, with the JAX package's signatures and layout
-handling: ``Convolution`` (through ``conv_acc.conv_fast``), ``Pooling``,
-``Activation``, ``FullyConnected``, ``BatchNorm`` in inference form and
-``LayerNorm``.
+handling, each registered for ``mx.nd``: ``Convolution`` (through
+``conv_acc.conv_fast``), ``Pooling``, ``Activation``, ``FullyConnected``,
+``BatchNorm`` in inference form and ``LayerNorm``.
 NHWC tensors go to PyTorch's NCHW operators as permuted views, which are
 channels-last in memory, so no copy is made to change layout.
 """
@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from ..base import MXNetError
 from .conv_acc import conv_fast
 from .precision_util import promote
+from .registry import register
 
 __all__ = ["FullyConnected", "Convolution", "Pooling", "Activation",
            "BatchNorm", "LayerNorm"]
@@ -29,6 +30,7 @@ def _pair(v, n=2):
     return v * n if len(v) == 1 else v
 
 
+@register("FullyConnected")
 def FullyConnected(data, weight, bias=None, num_hidden=None, no_bias=False,
                    flatten=True):
     """y = x W^T + b with the reference's (num_hidden, in_units) weight.
@@ -52,6 +54,7 @@ def _conv_dims(ndim, layout):
     return ("NHWC", "HWIO", "NHWC")
 
 
+@register("Convolution")
 def Convolution(data, weight, bias=None, kernel=None, stride=None, dilate=None,
                 pad=None, num_filter=None, num_group=1, no_bias=False,
                 layout=None):
@@ -79,6 +82,7 @@ def _spatial_axes(ndim, layout):
             else tuple(range(2, 2 + ndim))), channels_last
 
 
+@register("Pooling")
 def Pooling(data, kernel=None, pool_type="max", global_pool=False, stride=None,
             pad=None, pooling_convention="valid", count_include_pad=True,
             layout=None):
@@ -127,6 +131,7 @@ def Pooling(data, kernel=None, pool_type="max", global_pool=False, stride=None,
     return out.permute(0, 2, 3, 1).contiguous() if channels_last else out
 
 
+@register("Activation")
 def Activation(x, act_type="relu"):
     if act_type == "relu":
         return torch.relu(x)
@@ -141,6 +146,7 @@ def Activation(x, act_type="relu"):
     raise MXNetError("unknown act_type " + act_type)
 
 
+@register("BatchNorm")
 def BatchNorm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
               momentum=0.9, fix_gamma=True, use_global_stats=False, axis=1):
     """Batch normalization in inference form: normalizes by the moving
@@ -157,6 +163,7 @@ def BatchNorm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     return out.to(data.dtype)
 
 
+@register("LayerNorm")
 def LayerNorm(data, gamma, beta, axis=-1, eps=1e-5):
     """Layer normalization in the JAX package's order: mean and (biased)
     variance in float32, normalize and cast back to the input's type, and

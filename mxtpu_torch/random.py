@@ -1,0 +1,53 @@
+"""Random state (counterpart of ``mxtpu/random.py``).
+
+One explicit ``torch.Generator`` per device, made on first use from the
+current seed (0 until ``seed`` is called). ``seed(s)`` reseeds every
+device; ``seed(s, ctx)`` only that device's generator. The state is per
+thread, as the JAX package's key is. JAX's keys and torch's generators give
+different numbers from one seed: one seed reproduces one stream, nothing
+more.
+"""
+from __future__ import annotations
+
+import threading
+
+import torch
+
+from .context import resolve_device
+
+__all__ = ["seed", "generator"]
+
+
+class _RngState(threading.local):
+    def __init__(self):
+        self.seed = 0
+        self.gens = {}
+
+
+_STATE = _RngState()
+
+
+def _new(device, seed_state):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed_state))
+    return gen
+
+
+def seed(seed_state, ctx="all"):
+    """Seed the generators (ref: mx.random.seed): every device's with
+    ``ctx="all"``, else only that of ``ctx``."""
+    if ctx == "all":
+        _STATE.seed = int(seed_state)
+        _STATE.gens = {}
+    else:
+        dev = resolve_device(ctx)
+        _STATE.gens[dev] = _new(dev, seed_state)
+
+
+def generator(device=None):
+    """The generator of ``device`` (default: the CUDA device, or raise)."""
+    dev = resolve_device(device)
+    gen = _STATE.gens.get(dev)
+    if gen is None:
+        gen = _STATE.gens[dev] = _new(dev, _STATE.seed)
+    return gen
