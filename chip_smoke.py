@@ -16,10 +16,19 @@ NVIDIA H100.
    every forward launched the conv kernel 11 times, and times each bucket.
 5. Holds the hand-written flash attention kernel (out and lse) against
    its plain PyTorch version at the shapes BERT-base serves (batch 8, 12
-   heads, head dim 64, T 128 and 512, causal and not), at a ragged T=77
-   with D=32 and at T=256 with D=128, in float32 and bfloat16, and times
-   the kernel, the plain version and ``F.scaled_dot_product_attention``
-   (a yardstick only).
+   heads, head dim 64, T 128 and 512, causal and not; as tensors of their
+   own and as the strided q/k/v views of one fused projection that the
+   served model hands it), at a ragged T=77 with D=32 and with D=36 (the
+   element-wise staging), at T=256 with D=128, and at b6 h12 T512 with
+   D=128 and D=36 (where bfloat16 puts two warpgroups in a block), in
+   float32 and bfloat16; at three explicit scales (small, zero, negative)
+   on a ragged T=77; and times the kernel, the plain version and
+   ``F.scaled_dot_product_attention`` (a yardstick only) by CUDA events
+   around 20 eager back-to-back calls, as every kernel of the ``kernels``
+   line is timed, with each timed row's kernel/sdpa ratio and share of its
+   bound; and beside that the device time by CUDA-graph replay (the host
+   out of the way: one eager call's issue takes about as long as the
+   kernel) and the host's issue time per call.
 6. Serves the BERT-base-shaped TransformerLM (vocab 30522, dim 768, 12
    heads, 12 layers, max_len 512, bidirectional, seeded weights) through
    the port's Predictor with batch and sequence buckets (1-8 x 128, 256,
@@ -68,17 +77,31 @@ RESNET50_GATED = [
     ("1x1 256->64 @56", 8, 56, 256, 64, 1, 1, 0, 2),
 ]
 REQUESTS = (1, 3, 8, 5, 11)
-# (name, B, H, T, Tk, D, causal, launches per b8 x 512 forward): the shapes
-# BERT-base serves first, then the ragged tails and the largest head dim
+# (name, B, H, T, Tk, D, causal, launches per b8 x 512 forward, layout):
+# the shapes BERT-base serves first, then the ragged tails and the largest
+# head dim. Layout "qkv" is the served one: q, k and v strided views of one
+# [B, T, 3, H, D] projection, as MultiHeadSelfAttention builds them (the
+# 12 launches of a b8 x 512 forward run on those); "contig" is [B, H, T, D]
+# tensors of their own. Rows that start with "b8" are timed.
 FLASH_SHAPES = [
-    ("b8 h12 T512 d64", 8, 12, 512, 512, 64, False, 12),
-    ("b8 h12 T512 d64 causal", 8, 12, 512, 512, 64, True, 0),
-    ("b8 h12 T128 d64", 8, 12, 128, 128, 64, False, 0),
-    ("b8 h12 T128 d64 causal", 8, 12, 128, 128, 64, True, 0),
-    ("b2 h3 T77 d32", 2, 3, 77, 77, 32, False, 0),
-    ("b2 h3 T77 d32 causal", 2, 3, 77, 77, 32, True, 0),
-    ("b2 h4 T256 d128", 2, 4, 256, 256, 128, False, 0),
+    ("b8 h12 T512 d64", 8, 12, 512, 512, 64, False, 0, "contig"),
+    ("b8 h12 T512 d64 qkv views", 8, 12, 512, 512, 64, False, 12, "qkv"),
+    ("b8 h12 T512 d64 causal", 8, 12, 512, 512, 64, True, 0, "contig"),
+    ("b8 h12 T128 d64", 8, 12, 128, 128, 64, False, 0, "contig"),
+    ("b8 h12 T128 d64 qkv views", 8, 12, 128, 128, 64, False, 0, "qkv"),
+    ("b8 h12 T128 d64 causal", 8, 12, 128, 128, 64, True, 0, "contig"),
+    ("b2 h3 T77 d32", 2, 3, 77, 77, 32, False, 0, "contig"),
+    ("b2 h3 T77 d32 causal", 2, 3, 77, 77, 32, True, 0, "contig"),
+    ("b2 h3 T77 d36", 2, 3, 77, 77, 36, False, 0, "contig"),
+    ("b2 h3 T77 d36 causal", 2, 3, 77, 77, 36, True, 0, "contig"),
+    ("b2 h4 T256 d128", 2, 4, 256, 256, 128, False, 0, "contig"),
+    ("b6 h12 T512 d128", 6, 12, 512, 512, 128, False, 0, "contig"),
+    ("b6 h12 T512 d36 causal", 6, 12, 512, 512, 36, True, 0, "contig"),
 ]
+# explicit scales, each on a ragged causal and a ragged full row: the kernel
+# masks after scaling, so a zero or negative scale still gives masked keys
+# no weight
+FLASH_SCALES = (0.05, 0.0, -0.125)
 BERT_BASE = dict(vocab_size=30522, dim=768, num_heads=12, num_layers=12,
                  max_len=512, causal=False)     # bench.py's configuration
 SEQ_BUCKETS = (128, 256, 512)
@@ -182,6 +205,56 @@ def cuda_ms(fn, launches=20, repeats=5, warmup=3):
         times.append(a.elapsed_time(b) / launches)
     times.sort()
     return times[len(times) // 2]
+
+
+def graph_ms(fn, launches=20, repeats=5):
+    """Device milliseconds per fn() call with the host out of the way: the
+    calls captured once into a CUDA graph of ``launches`` back-to-back
+    calls, the graph replayed between CUDA events; the median of
+    ``repeats`` replays. For calls whose eager issue takes longer than
+    their device time, as the flash rows' do (a Python wrapper or sdpa's
+    dispatch against 5-250 us of device work)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):     # warm up outside the capture
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / launches)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def host_us(fn, n=400):
+    """Median host microseconds to issue one fn() call, over ``n`` calls
+    after 50 warm ones, not synchronised."""
+    import torch
+    for _ in range(50):
+        fn()
+    samples = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        samples.append(1e6 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    samples.sort()
+    return samples[len(samples) // 2]
 
 
 def bound_ms(n_bytes, flops, dtype):
@@ -443,13 +516,25 @@ def print_breakdown(label, rows, wall_ms, kernel_key):
         print("  %.4f ms  x%-4g %s" % (ms, count, name[:110]))
 
 
+def flash_inputs(b, h, t, tk, d, dt, layout, gen):
+    """q, k, v on the card: tensors of their own, or (layout "qkv", t ==
+    tk) the strided views of one [B, T, 3, H, D] projection."""
+    import torch
+    if layout == "qkv":
+        qkv = torch.randn(b, t, 3, h, d, device="cuda", generator=gen).to(dt)
+        qkv = qkv.permute(2, 0, 3, 1, 4)
+        return qkv[0], qkv[1], qkv[2]
+    return [torch.randn(b, h, n, d, device="cuda", generator=gen).to(dt)
+            for n in (t, tk, tk)]
+
+
 def flash_phase():
     """Hold the flash kernel (out and lse) against its plain version at
     every FLASH_SHAPES entry in f32 and bf16, and time the served ones."""
     import torch
     import torch.nn.functional as F
     from mxtpu_torch.ops.pallas.flash_attention import (
-        flash_attention_reference, flash_attention_with_lse)
+        _launch_args, flash_attention_reference, flash_attention_with_lse)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     print("flash kernel checks against the plain version: out by the rule "
@@ -457,10 +542,9 @@ def flash_phase():
     rows = []
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
-        for name, b, h, t, tk, d, causal, per_fwd in FLASH_SHAPES:
-            q = torch.randn(b, h, t, d, device="cuda", generator=gen).to(dt)
-            k = torch.randn(b, h, tk, d, device="cuda", generator=gen).to(dt)
-            v = torch.randn(b, h, tk, d, device="cuda", generator=gen).to(dt)
+        for name, b, h, t, tk, d, causal, per_fwd, layout in FLASH_SHAPES:
+            q, k, v = flash_inputs(b, h, t, tk, d, dt, layout, gen)
+            la = _launch_args(q, k, v, causal, None)
             out, lse = flash_attention_with_lse(q, k, v, causal=causal)
             torch.cuda.synchronize()
             r_out, r_lse = flash_attention_reference(
@@ -468,28 +552,53 @@ def flash_phase():
             err = check(out, r_out, dtype, "flash %s %s" % (name, dtype))
             lerr = check(lse, r_lse, "float32", "flash lse %s %s"
                          % (name, dtype))
-            line = "kernel flash_attention %-22s %-8s err %.3g lse %.3g" % (
-                name, dtype, err, lerr)
+            line = ("kernel flash_attention %-26s %-8s err %.3g lse %.3g "
+                    "(%s staging, %d warpgroup(s) x %d rows)" % (
+                        name, dtype, err, lerr,
+                        "16-byte async" if la.vec else "element-wise",
+                        la.warpgroups, la.block_q))
             if not name.startswith("b8"):
                 print(line)
                 rows.append(dict(shape=name, dtype=dtype, per_forward=0,
                                  max_abs_err=err))
                 continue
-            ms = cuda_ms(lambda: flash_attention_with_lse(q, k, v, causal))
+            kern = lambda: flash_attention_with_lse(q, k, v, causal)
+            sdpa = lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal)
+            ms, lib = cuda_ms(kern), cuda_ms(sdpa)
             plain = cuda_ms(lambda: flash_attention_reference(q, k, v,
                                                               causal))
-            lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=causal))
+            graph, graph_lib = graph_ms(kern), graph_ms(sdpa)
+            host, host_lib = host_us(kern), host_us(sdpa)
             n_bytes = (q.numel() + out.numel() + k.numel() + v.numel()) \
                 * q.element_size() + 4 * lse.numel()
             flops = 4.0 * b * h * t * tk * d * (0.5 if causal else 1.0)
             bms, by = bound_ms(n_bytes, flops, dtype)
             rows.append(dict(shape=name, dtype=dtype, per_forward=per_fwd,
                              max_abs_err=err, ms=ms, plain_ms=plain,
-                             library_ms=lib, bound_ms=bms, bound_by=by))
-            print("%s  kernel %.4f ms  plain %.4f ms  sdpa %.4f ms  bound "
-                  "%.4f ms (%s)  x%d per b8x512 forward" % (
-                      line, ms, plain, lib, bms, by, per_fwd), flush=True)
+                             library_ms=lib, bound_ms=bms, bound_by=by,
+                             graph_ms=graph, library_graph_ms=graph_lib))
+            print("%s  eager back-to-back: kernel %.4f ms  plain %.4f ms  "
+                  "sdpa %.4f ms  bound %.4f ms (%s)  kernel/sdpa %.3f  bound "
+                  "share %.3f  x%d per b8x512 forward; graph replay: kernel "
+                  "%.4f ms  sdpa %.4f ms (kernel/sdpa %.3f); host issue: "
+                  "kernel %.1f us  sdpa %.1f us" % (
+                      line, ms, plain, lib, bms, by, ms / lib, bms / ms,
+                      per_fwd, graph, graph_lib, graph / graph_lib, host,
+                      host_lib), flush=True)
+        for scale in FLASH_SCALES:
+            for causal in (True, False):
+                q, k, v = flash_inputs(2, 3, 77, 77, 64, dt, "contig", gen)
+                out, lse = flash_attention_with_lse(q, k, v, causal, scale)
+                r_out, r_lse = flash_attention_reference(
+                    q.float(), k.float(), v.float(), causal, scale)
+                what = "scale %g%s %s" % (scale, " causal" * causal, dtype)
+                err = check(out, r_out, dtype, "flash b2 h3 T77 d64 " + what)
+                lerr = check(lse, r_lse, "float32", "flash lse " + what)
+                print("kernel flash_attention b2 h3 T77 d64 %s err %.3g lse "
+                      "%.3g" % (what, err, lerr))
+                rows.append(dict(shape="T77 " + what, dtype=dtype,
+                                 per_forward=0, max_abs_err=err))
     return rows
 
 
@@ -579,7 +688,7 @@ def lm_serve_phase(card):
                       + latency[(b, t)]) for b, t in cells)), flush=True)
         print_breakdown("serve transformer_lm %s b8 x 512" % dtype,
                         device_breakdown(pred, x, forwards=3),
-                        latency[(8, 512)][0], "flash_attention_kernel")
+                        latency[(8, 512)][0], "flash_attention_")
         launches_by_dtype[dtype] = launches
     return launches_by_dtype
 
@@ -696,20 +805,8 @@ def rtc_phase(n):
                  n_bytes), flush=True)
     # the host's cost of one eager launch (ctypes marshalling included)
     small = torch.randn(1024, device="cuda", generator=gen)
-    host = {}
-    for label, fn in (("rtc square", lambda: ks["square"].launch(
-            [small, 1024], (1024,))),
-                      ("torch.square", lambda: small.square())):
-        for _ in range(50):
-            fn()
-        samples = []
-        for _ in range(400):
-            t0 = time.perf_counter()
-            fn()
-            samples.append(1e6 * (time.perf_counter() - t0))
-        torch.cuda.synchronize()
-        samples.sort()
-        host[label] = samples[len(samples) // 2]
+    host = {"rtc square": host_us(lambda: ks["square"].launch(
+        [small, 1024], (1024,))), "torch.square": host_us(small.square)}
     print("rtc host time per launch at n = 1024 (median of 400, not "
           "synchronised): rtc square %.1f us, torch.square %.1f us"
           % (host["rtc square"], host["torch.square"]), flush=True)
@@ -839,8 +936,11 @@ def kernel_entries(rows, launches, name, source, replaces):
     for dtype in ("float32", "bfloat16"):
         mine = [r for r in rows if r["dtype"] == dtype]
         timed = [r for r in mine if r["per_forward"]]
+        keys = ["ms", "plain_ms", "library_ms", "bound_ms"]
+        extra = [key for key in ("graph_ms", "library_graph_ms")
+                 if all(key in r for r in timed)]
         tot = {key: sum(r[key] * r["per_forward"] for r in timed)
-               for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+               for key in keys + extra}
         by_bytes = sum(r["bound_ms"] * r["per_forward"] for r in timed
                        if r["bound_by"] == "bytes")
         entries.append({
@@ -854,6 +954,8 @@ def kernel_entries(rows, launches, name, source, replaces):
                          else "operations"),
             "library_ms": tot["library_ms"],
         })
+        # flash: the same sums timed by CUDA-graph replay
+        entries[-1].update((key, tot[key]) for key in extra)
     return entries
 
 

@@ -13,7 +13,7 @@ D <= 128, so the port has none of the TPU's XLA fallback paths or head-dim
 padding; a larger D raises on every device. q, k and v may be strided
 views whose last dim is contiguous. ``block_q``/``block_k`` are the TPU
 kernel's block wants, kept for the reference's signature: the CUDA
-kernel's tiles are 64 x 64 whatever they say.
+kernel picks its own tiles and grid (``_launch_args``) whatever they say.
 
 Forward only: the backward (``_fa_backward_blockwise`` in the JAX package)
 comes with training, so the kernel refuses a tensor that needs a gradient
@@ -23,7 +23,9 @@ points; it never counts a call that ran the plain version.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
 
 import torch
 
@@ -35,6 +37,9 @@ __all__ = ["flash_attention", "flash_attention_with_lse",
 _NEG_INF = -1e30   # mask value: the online rescale never sees -inf - -inf
 _MAX_HEAD_DIM = 128   # the kernel's largest tile width
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_FORWARD_ONLY = ("the flash_attention kernel is forward-only: its backward "
+                 "comes with the training port; run under "
+                 "torch.no_grad()/inference_mode()")
 
 
 def _scale(q, scale):
@@ -83,25 +88,94 @@ def _check(q, k, v):
                          "got %s, %s and %s" % (q.device, k.device, v.device))
 
 
-def _launch(q, k, v, causal, scale):
+LaunchArgs = collections.namedtuple(
+    "LaunchArgs", "dtype d_tile vec warpgroups block_q n_q grid")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _aligned16(t):
+    """The 16-byte async copy can read ``t``: base address and the byte
+    stride of every dim of more than one element are multiples of 16 (a
+    dim of one element never advances its stride)."""
+    es, n, st = t.element_size(), t.shape, t.stride()
+    return (t.data_ptr() % 16 == 0 and (n[0] == 1 or st[0] * es % 16 == 0)
+            and (n[1] == 1 or st[1] * es % 16 == 0)
+            and (n[2] == 1 or st[2] * es % 16 == 0))
+
+
+def _launch_args(q, k, v, causal, scale, sms=None):
+    """What ``_launch`` hands the kernel for these views; the C entry point
+    only refuses what would take it out of bounds. It reads only shapes,
+    strides, dtypes and ``data_ptr``, so CPU tensors do, given ``sms``:
+
+    * ``dtype``: 0 float32, 1 bfloat16; ``d_tile``: the tile width D is
+      zero-filled to, 32, 64 or 128;
+    * ``vec``: the 16-byte async-copy staging takes the views (every row
+      starts 16-byte aligned and D fills whole 16-byte chunks); otherwise
+      the kernel stages element by element;
+    * ``warpgroups``: bfloat16 runs 64 query rows per warpgroup and puts two
+      in a block (128 rows sharing one k/v ring) where ``B*H*ceil(T/128)``
+      fills the ``sms`` SMs (default: those of q's card) at least twice
+      over, else one; float32 runs one 128-thread group over 128 rows;
+    * ``block_q`` rows per block, ``n_q`` blocks per (batch, head),
+      ``grid`` blocks in all (128 threads a warpgroup).
+
+    ``causal`` and ``scale`` do not change the launch; they go to the
+    kernel as arguments.
+    """
+    b, h, t, d = q.shape
+    dtype = _DTYPE_CODE[q.dtype]
+    d_tile = 32 if d <= 32 else 64 if d <= 64 else 128
+    vec = (d * q.element_size()) % 16 == 0 and _aligned16(q) \
+        and _aligned16(k) and _aligned16(v)
+    if dtype == 0:
+        warpgroups, block_q = 1, 128
+    else:
+        if sms is None:
+            sms = _sm_count(q.device.index or 0)
+        warpgroups = 2 if b * h * -(-t // 128) >= 2 * sms else 1
+        block_q = 64 * warpgroups
+    n_q = -(-t // block_q)
+    return LaunchArgs(dtype, d_tile, vec, warpgroups, block_q, n_q,
+                      b * h * n_q)
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    """The kernel's C entry point, its ctypes signature set once."""
     from ... import kernels
     fn = kernels.library("flash_attention").mxtpu_flash_attention_fwd
-    if fn.restype is not ctypes.c_int or fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
-                       + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] * 5 + [ctypes.c_void_p] * 5
+                   + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_void_p])
+    return fn
+
+
+def _launch(q, k, v, causal, scale):
+    _check(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise MXNetError(_FORWARD_ONLY)
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    la = _launch_args(q, k, v, causal, scale)
     b, h, t, d = q.shape
-    out = torch.empty((b, h, t, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        rc = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                b, h, t, k.shape[2], d, int(bool(causal)), scale,
-                ctypes.c_void_p(stream))
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    args = (la.dtype, la.d_tile, la.vec, la.warpgroups, la.n_q, q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], b, h, t,
+            k.shape[2], d, bool(causal), _scale(q, scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if q.device.index == torch.cuda.current_device():
+        rc = _entry()(*args)
+    else:   # the kernel launches on the current device
+        with torch.cuda.device(q.device):
+            rc = _entry()(*args)
     if rc != 0:
         raise MXNetError("flash_attention kernel launch failed: CUDA error %d"
                          % rc)
@@ -114,18 +188,14 @@ def flash_attention_with_lse(q, k, v, causal=False, scale=None, block_q=512,
     """``(out, lse)``: attention ``[B, H, T, D]`` in q's type and the
     float32 per-row log-sum-exp ``[B, H, T]`` (the quantity that merges
     partial attention over disjoint key sets exactly)."""
+    if q.device.type == "cuda":
+        return _launch(q, k, v, causal, scale)
     _check(q, k, v)
-    scale = _scale(q, scale)
     if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, causal, scale)
+        return flash_attention_reference(q, k, v, causal, _scale(q, scale))
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise MXNetError("the flash_attention kernel is forward-only: its "
-                         "backward comes with the training port; run under "
-                         "torch.no_grad()/inference_mode()")
-    if q.device.type != "cuda":
-        raise MXNetError("flash_attention: no kernel for device %s"
-                         % q.device)
-    return _launch(q, k, v, causal, scale)
+        raise MXNetError(_FORWARD_ONLY)
+    raise MXNetError("flash_attention: no kernel for device %s" % q.device)
 
 
 def flash_attention(q, k, v, causal=False, scale=None, block_q=512,

@@ -154,3 +154,113 @@ def test_wrapper_refuses_misuse_and_never_falls_back():
     q.requires_grad_()
     tfa.flash_attention(q, q, q, causal=True).sum().backward()
     assert q.grad.shape == q.shape
+
+
+H100_SMS = 132   # an H100 SXM's SMs: the warpgroup rule's count off the card
+
+
+def _launch_args(q, k, v, causal, scale):
+    return tfa._launch_args(q, k, v, causal, scale, sms=H100_SMS)
+
+
+def _fused_views(b, t, h, d, dtype):
+    """q, k, v exactly as MultiHeadSelfAttention builds them: strided views
+    of one [B, T, 3, H, D] projection."""
+    x = torch.zeros(b, t, 3 * h * d, dtype=TDT[dtype])
+    qkv = x.reshape(b, t, 3, h, d).permute(2, 0, 3, 1, 4)
+    return qkv[0], qkv[1], qkv[2]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,t", [(1, 128), (8, 512), (2, 77)])
+def test_launch_args_take_fused_qkv_views_async(b, t, dtype):
+    """The served layout (row stride 3*H*D, head stride D, k and v offset by
+    H*D elements) goes to the 16-byte async-copy staging, with no copy."""
+    q, k, v = _fused_views(b, t, 12, 64, dtype)
+    assert q.stride() == (t * 3 * 12 * 64, 64, 3 * 12 * 64, 1)
+    la = _launch_args(q, k, v, False, 0.125)
+    assert la.vec and la.d_tile == 64
+    assert la.dtype == (0 if dtype == "float32" else 1)
+    assert la.grid == b * 12 * la.n_q and la.n_q * la.block_q >= t
+
+
+@pytest.mark.parametrize("dtype,d,vec", [
+    ("bfloat16", 36, False),    # 72-byte rows: element-wise staging
+    ("bfloat16", 40, True),
+    ("float32", 36, True),      # 144-byte rows are whole 16-byte chunks
+    ("float32", 34, False),
+])
+def test_launch_args_staging_follows_row_bytes(dtype, d, vec):
+    q = torch.zeros(2, 3, 77, d, dtype=TDT[dtype])
+    assert _launch_args(q, q, q, False, 1.0).vec is vec
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_launch_args_misaligned_view_takes_elementwise_staging(dtype):
+    buf = torch.zeros(2 * 3 * 16 * 64 + 1, dtype=TDT[dtype])
+    q = buf[1:].view(2, 3, 16, 64)             # base off by one element
+    ok = torch.zeros(2, 3, 16, 64, dtype=TDT[dtype])
+    assert _launch_args(ok, ok, ok, False, 1.0).vec
+    assert not _launch_args(ok, q, ok, False, 1.0).vec
+    assert not _launch_args(q, ok, ok, True, 1.0).vec
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,tile", [(8, 32), (32, 32), (33, 64), (36, 64),
+                                    (64, 64), (100, 128), (128, 128)])
+def test_launch_args_head_dim_tile(d, tile, dtype):
+    q = torch.zeros(1, 2, 16, d, dtype=TDT[dtype])
+    assert _launch_args(q, q, q, False, 1.0).d_tile == tile
+
+
+@pytest.mark.parametrize("b,t,wgs", [(1, 128, 1), (8, 128, 1), (8, 256, 1),
+                                     (8, 512, 2), (4, 1024, 2)])
+def test_launch_args_warpgroups_per_block(b, t, wgs):
+    """bfloat16: two warpgroups (128 rows) per block where B*H*ceil(T/128)
+    fills the card's SMs (an H100 SXM's 132 here) at least twice over, else
+    one (64 rows); float32: one 128-thread group over 128 rows whatever the
+    shape."""
+    q, k, v = _fused_views(b, t, 12, 64, "bfloat16")
+    la = _launch_args(q, k, v, False, 0.125)
+    assert (b * 12 * -(-t // 128) >= 2 * H100_SMS) == (wgs == 2)
+    assert (la.warpgroups, la.block_q) == (wgs, 64 * wgs)
+    assert la.n_q == -(-t // la.block_q) and la.grid == b * 12 * la.n_q
+    f = _launch_args(*_fused_views(b, t, 12, 64, "float32"), False, 0.125)
+    assert (f.warpgroups, f.block_q) == (1, 128)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("scale", [0.05, 0.0, -0.125])
+def test_flash_any_scale_matches_pallas_kernel(scale, causal, dtype):
+    """The contract holds for any scale: the TPU kernel masks after
+    scaling, so a zero or negative scale still gives masked keys no
+    weight (the CUDA kernel does the same, checked on the card)."""
+    q, k, v = _inputs(11, 1, 2, 128, 128, 32, dtype)
+    args = [jnp.asarray(a, JDT[dtype]) for a in (q, k, v)]
+    ref, ref_lse = jfa.flash_attention_with_lse(*args, causal=causal,
+                                                scale=scale)
+    assert jfa.DISPATCH_STATS["pallas"] >= 1
+    tq, tk, tv = (torch.from_numpy(a).to(TDT[dtype]) for a in (q, k, v))
+    out, lse = tfa.flash_attention_with_lse(tq, tk, tv, causal=causal,
+                                            scale=scale)
+    _close_out(out.float().numpy(), np.asarray(ref.astype(jnp.float32)), v,
+               dtype, vs_kernel=True)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dim", [0, 1, 2])
+def test_launch_args_ignore_the_stride_of_a_one_element_dim(dim, dtype):
+    """A dim of one element never advances its stride, so an unaligned
+    stride there keeps the 16-byte staging (the C entry point checks the
+    same rule); the same stride on a longer dim does not."""
+    size, stride = [2, 3, 16, 64], [3 * 16 * 64, 16 * 64, 64, 1]
+    stride[dim] = 7
+    buf = torch.zeros(4 * 3 * 16 * 64, dtype=TDT[dtype])
+    ok = torch.zeros(2, 3, 16, 64, dtype=TDT[dtype])
+    assert not _launch_args(buf.as_strided(size, stride), ok, ok, False,
+                            1.0).vec
+    size[dim] = 1
+    assert _launch_args(buf.as_strided(size, stride), ok, ok, False, 1.0).vec
