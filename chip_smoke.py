@@ -5,11 +5,16 @@ NVIDIA H100.
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds every kernel of ``mxtpu_torch/csrc/`` with nvcc for sm_90a, one
-   nvcc per source, all at once.
+   nvcc per source, all at once, and prints the ptxas lines that give
+   each instance's registers and spills or a performance loss.
 3. Holds the hand-written fused conv kernel against its plain PyTorch
-   version at the ResNet-50 shapes it serves (batch 8, float32 and
-   bfloat16), on an odd stride-2 shape and on the full epilogue, and times
-   the kernel, the plain version and ``F.conv2d`` (a yardstick only).
+   version at the ResNet-50 shapes it serves (batch 8, float32 on the CUDA
+   cores and bfloat16 on the tensor cores), on a C_out tile tail (96), on
+   a view whose rows are not 16-byte aligned (element-wise staging), on an
+   odd stride-2 shape and on the full epilogue with both residual types;
+   times the kernel, the plain version and ``F.conv2d`` (a yardstick only)
+   eagerly, by CUDA-graph replay and by the host's issue time per call;
+   prints each launch's route, staging, tile and grid.
 4. Serves ResNet-50 v1 (NHWC, 224x224, 1000 classes, seeded weights)
    through the port's bucketed Predictor on the card, in float32 and then
    bfloat16, checks the logits against the same net on the CPU and that
@@ -51,8 +56,9 @@ NVIDIA H100.
    step; results and gradients checked against the same program through
    mx.nd on the CPU (the op registered there with the plain versions).
 9. Prints one JSON line of kernels (fused_conv and flash_attention, one
-   entry per type each; one entry per rtc kernel), the card line again,
-   and last ``{"ok": true, "device": {...}}``.
+   entry per type each, with graph-replay and host-issue sums beside the
+   eager ones; one entry per rtc kernel), the card line again, and last
+   ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the last
 line. It imports nothing of JAX or of the JAX package.
@@ -178,6 +184,16 @@ def torch_add(a, b, alpha):
     return torch.add(a, b, alpha=alpha)
 
 
+def print_ptxas(name, log):
+    """The ptxas lines of a kernel library that name an instance or give
+    its registers, spills or a performance loss (wgmma serialised:
+    C7520 in a divergent path, C7512 for too few registers)."""
+    for line in log.splitlines():
+        if any(word in line for word in ("entry function", "registers",
+                                         "spill", "Loss", "C75")):
+            print("  ptxas %s: %s" % (name, line.strip()))
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -290,10 +306,23 @@ def check(got, ref, dtype, what):
     return err.max().item()
 
 
+def conv_row_line(name, dtype, err, la):
+    return ("kernel fused_conv %-24s %-8s err %.3g (%s, A %s, B %s, %dx%d "
+            "tile, %d threads, K pad %d, grid %s)" % (
+                name, dtype, err, "tensor cores" if la.route else "CUDA cores",
+                "16-byte" if la.vec_a else "element-wise",
+                "16-byte" if la.vec_b else "element-wise", la.block_m,
+                la.block_n, la.threads, la.k_pad, "x".join(map(str, la.grid))))
+
+
 def conv_kernel_phase():
+    """Hold the conv kernel against its plain version at the gated
+    ResNet-50 shapes (timed), a Cout tile tail, an unaligned view, an odd
+    stride-2 shape and the full epilogue, in f32 and bf16."""
     import torch
     import torch.nn.functional as F
-    from mxtpu_torch.ops.pallas.conv import (fused_conv, fused_conv_reference,
+    from mxtpu_torch.ops.pallas.conv import (_launch_args, fused_conv,
+                                             fused_conv_reference,
                                              fused_conv_with_raw)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -303,36 +332,73 @@ def conv_kernel_phase():
     rows = []
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
-        for name, n, hw, cin, cout, k, s, p, per_fwd in RESNET50_GATED:
-            x = torch.randn(n, hw, hw, cin, device="cuda", generator=gen).to(dt)
+
+        def conv_inputs(n, hw, cin, cout, k, offset=0):
+            """x (at ``offset`` elements into its storage) and w."""
+            buf = torch.randn(n * hw * hw * cin + offset, device="cuda",
+                              generator=gen).to(dt)
+            x = buf[offset:].view(n, hw, hw, cin)
             w = (torch.randn(k, k, cin, cout, device="cuda", generator=gen)
                  * math.sqrt(2.0 / (k * k * cin))).to(dt)
+            return x, w
+
+        for name, n, hw, cin, cout, k, s, p, per_fwd in RESNET50_GATED:
+            x, w = conv_inputs(n, hw, cin, cout, k)
             pad = ((p, p), (p, p))
+            la = _launch_args(x, w, (s, s), pad)
             out = fused_conv(x, w, (s, s), pad)
             torch.cuda.synchronize()
             ref = fused_conv_reference(x.float(), w.float(), (s, s), pad)[0]
             err = check(out, ref, dtype, "%s %s" % (name, dtype))
             xn, wn = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
-            ms = cuda_ms(lambda: fused_conv(x, w, (s, s), pad))
-            plain = cuda_ms(lambda: fused_conv_reference(x, w, (s, s), pad))
-            lib = cuda_ms(lambda: F.conv2d(xn, wn, stride=s, padding=p))
+            kern = lambda: fused_conv(x, w, (s, s), pad)
+            lib = lambda: F.conv2d(xn, wn, stride=s, padding=p)
             bms, by = conv_bound_ms(x, w, out.numel(), dtype)
-            rows.append(dict(shape=name, dtype=dtype, per_forward=per_fwd,
-                             max_abs_err=err, ms=ms, plain_ms=plain,
-                             library_ms=lib, bound_ms=bms, bound_by=by))
-            print("kernel fused_conv %-22s %-8s err %.3g  kernel %.4f ms  "
-                  "plain %.4f ms  F.conv2d %.4f ms  bound %.4f ms (%s)  "
-                  "x%d per forward" % (name, dtype, err, ms, plain, lib, bms,
-                                       by, per_fwd), flush=True)
+            row = dict(shape=name, dtype=dtype, per_forward=per_fwd,
+                       max_abs_err=err, ms=cuda_ms(kern),
+                       plain_ms=cuda_ms(lambda: fused_conv_reference(
+                           x, w, (s, s), pad)),
+                       library_ms=cuda_ms(lib), bound_ms=bms, bound_by=by,
+                       graph_ms=graph_ms(kern), library_graph_ms=graph_ms(lib),
+                       host_us=host_us(kern), library_host_us=host_us(lib))
+            rows.append(row)
+            print("%s  eager: kernel %.4f ms  plain %.4f ms  F.conv2d %.4f ms;"
+                  "  graph replay: kernel %.4f ms  F.conv2d %.4f ms "
+                  "(kernel/F.conv2d %.3f);  bound %.4f ms (%s), share %.3f of "
+                  "it by graph replay;  host issue: kernel %.1f us  F.conv2d "
+                  "%.1f us;  x%d per forward" % (
+                      conv_row_line(name, dtype, err, la), row["ms"],
+                      row["plain_ms"], row["library_ms"], row["graph_ms"],
+                      row["library_graph_ms"],
+                      row["graph_ms"] / row["library_graph_ms"], bms, by,
+                      bms / row["graph_ms"], row["host_us"],
+                      row["library_host_us"], per_fwd), flush=True)
+        # a Cout tile tail (96 = 64 + 32), and x at a storage offset that
+        # breaks 16-byte alignment (element-wise A staging)
+        for name, n, hw, cin, cout, k, s, p, offset in (
+                ("3x3 64->96 @28 tail", 4, 28, 64, 96, 3, 1, 1, 0),
+                ("1x1 64->64 @56 view+1", 2, 56, 64, 64, 1, 1, 0, 1)):
+            x, w = conv_inputs(n, hw, cin, cout, k, offset)
+            pad = ((p, p), (p, p))
+            la = _launch_args(x, w, (s, s), pad)
+            out = fused_conv(x, w, (s, s), pad)
+            ref = fused_conv_reference(x.float(), w.float(), (s, s), pad)[0]
+            err = check(out, ref, dtype, "%s %s" % (name, dtype))
+            print(conv_row_line(name, dtype, err, la))
+            rows.append(dict(shape=name, dtype=dtype, per_forward=0,
+                             max_abs_err=err))
         # odd shape, stride 2, asymmetric padding, through the plain check
         x = torch.randn(3, 17, 13, 5, device="cuda", generator=gen).to(dt)
         w = (0.3 * torch.randn(3, 3, 5, 24, device="cuda",
                                generator=gen)).to(dt)
         pad = ((1, 0), (2, 1))
+        la = _launch_args(x, w, (2, 2), pad)
         out = fused_conv(x, w, (2, 2), pad)
         ref = fused_conv_reference(x.float(), w.float(), (2, 2), pad)[0]
-        print("kernel fused_conv odd 17x13 s2 %s err %.3g" % (
-            dtype, check(out, ref, dtype, "odd stride-2 " + dtype)))
+        err = check(out, ref, dtype, "odd stride-2 " + dtype)
+        print(conv_row_line("odd 17x13 s2", dtype, err, la))
+        rows.append(dict(shape="odd 17x13 s2", dtype=dtype, per_forward=0,
+                         max_abs_err=err))
         # the full epilogue: scale + bias + residual + relu, raw conv too
         x = torch.randn(2, 28, 28, 64, device="cuda", generator=gen).to(dt)
         w = (0.05 * torch.randn(3, 3, 64, 64, device="cuda",
@@ -351,6 +417,8 @@ def conv_kernel_phase():
             e2 = check(craw, r_craw, "float32", "epilogue raw conv " + dtype)
             print("kernel fused_conv epilogue %s residual %s err out %.3g "
                   "raw %.3g" % (dtype, str(res_dt).split(".")[-1], e1, e2))
+            rows.append(dict(shape="epilogue", dtype=dtype, per_forward=0,
+                             max_abs_err=max(e1, e2)))
     return rows
 
 
@@ -494,7 +562,7 @@ def resnet_serve_phase(card):
         b = spec.max_batch
         print_breakdown("serve resnet50_v1 %s b%d" % (dtype, b),
                         device_breakdown(pred, xs[-1][:b].to("cuda")),
-                        latency[b][0], "fused_conv_kernel")
+                        latency[b][0], "fused_conv_")
         launches_by_dtype[dtype] = launches
     return launches_by_dtype
 
@@ -577,7 +645,8 @@ def flash_phase():
             rows.append(dict(shape=name, dtype=dtype, per_forward=per_fwd,
                              max_abs_err=err, ms=ms, plain_ms=plain,
                              library_ms=lib, bound_ms=bms, bound_by=by,
-                             graph_ms=graph, library_graph_ms=graph_lib))
+                             graph_ms=graph, library_graph_ms=graph_lib,
+                             host_us=host, library_host_us=host_lib))
             print("%s  eager back-to-back: kernel %.4f ms  plain %.4f ms  "
                   "sdpa %.4f ms  bound %.4f ms (%s)  kernel/sdpa %.3f  bound "
                   "share %.3f  x%d per b8x512 forward; graph replay: kernel "
@@ -937,7 +1006,8 @@ def kernel_entries(rows, launches, name, source, replaces):
         mine = [r for r in rows if r["dtype"] == dtype]
         timed = [r for r in mine if r["per_forward"]]
         keys = ["ms", "plain_ms", "library_ms", "bound_ms"]
-        extra = [key for key in ("graph_ms", "library_graph_ms")
+        extra = [key for key in ("graph_ms", "library_graph_ms", "host_us",
+                                 "library_host_us")
                  if all(key in r for r in timed)]
         tot = {key: sum(r[key] * r["per_forward"] for r in timed)
                for key in keys + extra}
@@ -954,7 +1024,8 @@ def kernel_entries(rows, launches, name, source, replaces):
                          else "operations"),
             "library_ms": tot["library_ms"],
         })
-        # flash: the same sums timed by CUDA-graph replay
+        # the same sums timed by CUDA-graph replay, and the host us to
+        # issue the calls of one forward
         entries[-1].update((key, tot[key]) for key in extra)
     return entries
 
@@ -979,9 +1050,7 @@ def main():
     print("built %s from mxtpu_torch/csrc with nvcc for sm_90a in %.1f s"
           % (names, time.time() - t0), flush=True)
     for name in names:
-        for line in kernels.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print("  ptxas %s: %s" % (name, line.strip()))
+        print_ptxas(name, kernels.build_log(name))
     conv_rows = conv_kernel_phase()
     conv_launches = resnet_serve_phase(card)
     flash_rows = flash_phase()

@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""A/B of the flash attention kernel and of the TransformerLM serve across
-checkouts of this repo, on one NVIDIA card:
+"""A/B of the port's kernels and of the served models across checkouts of
+this repo, on one NVIDIA card:
 
-    python3 flash_ab.py NAME=DIR NAME=DIR [...]
+    python3 flash_ab.py [--conv] NAME=DIR NAME=DIR [...]
 
 runs each checkout's ``mxtpu_torch`` in a fresh process of its own, in the
 order A B ... B A (each checkout twice, mirrored, so a drift of the card or
-the host over the call falls on both alike). Each run
+the host over the call falls on both alike). Without ``--conv`` each run
 
 * holds the flash kernel against its plain version, then times it at
   b8 h12 T512 d64 on the strided q/k/v views the served model hands it,
@@ -16,11 +16,21 @@ the host over the call falls on both alike). Each run
   (``chip_smoke.host_us``), with ``F.scaled_dot_product_attention`` timed
   the same three ways;
 * serves the BERT-base TransformerLM (seeded weights) at b8 x 512 through
-  the Predictor, float32 then bfloat16: the median and p80 latency and the
-  median host-issue ms of 50 closed-loop requests
-  (``chip_smoke.closed_loop``), the flash launches per forward, and the
-  device ms per forward, flash's share of it and the idle share
-  (``chip_smoke.device_breakdown``).
+  the Predictor, float32 then bfloat16.
+
+With ``--conv`` each run
+
+* holds the fused conv kernel against its plain version at the 5 gated
+  ResNet-50 shapes (batch 8), bfloat16 and float32, and times each by
+  graph replay, eagerly and by host us, with ``F.conv2d`` beside it; the
+  sums over the 11 gated launches of one forward;
+* serves ResNet-50 v1 (seeded weights) at b8 through the Predictor,
+  float32 then bfloat16.
+
+A serve reports the median and p80 latency and the median host-issue ms
+of 50 closed-loop requests (``chip_smoke.closed_loop``), the kernel's
+launches per forward, and the device ms per forward, the kernel's share
+of it and the idle share (``chip_smoke.device_breakdown``).
 
 The measuring helpers come from the ``chip_smoke.py`` beside this script,
 the package from the checkout under test. Prints one line per run and a
@@ -36,8 +46,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 TAG = "AB_RESULT "
 
 
-def worker(tree):
-    """One run against the checkout at ``tree``; prints one TAG line."""
+def load(tree):
+    """chip_smoke (beside this script) with the checkout at ``tree`` first
+    on the path; returns (chip_smoke, tree)."""
     tree = os.path.realpath(tree)
     sys.path[:] = [tree] + [p for p in sys.path
                             if os.path.realpath(p or ".") != HERE]
@@ -45,12 +56,40 @@ def worker(tree):
         "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
-    import torch
-    import torch.nn.functional as F
     import mxtpu_torch
     if not os.path.realpath(mxtpu_torch.__file__).startswith(tree + os.sep):
         raise AssertionError("imported %s, not the checkout %s"
                              % (mxtpu_torch.__file__, tree))
+    return cs, tree
+
+
+def serve_row(cs, pred, x, kernel, per_forward, key):
+    """One forward's launches of ``kernel`` (must be ``per_forward``), then
+    the closed-loop latency and the profiler's device time of ``x``."""
+    import torch
+    kernel.launches = 0
+    out = pred.predict(x)
+    torch.cuda.synchronize()
+    if kernel.launches != per_forward or \
+            not bool(torch.isfinite(out.float()).all()):
+        raise AssertionError("%d launches in one forward (expected %d), or "
+                             "outputs not finite" % (kernel.launches,
+                                                     per_forward))
+    launches = kernel.launches
+    med, p80, host = cs.closed_loop(pred, x)
+    rows = cs.device_breakdown(pred, x, forwards=3)
+    dev = sum(r[1] for r in rows)
+    mine = sum(r[1] for r in rows if key in r[0])
+    return {"median_ms": med, "p80_ms": p80, "host_issue_ms": host,
+            "device_ms": dev, "kernel_ms": mine, "idle_share": 1 - dev / med,
+            "launches": launches}
+
+
+def flash_worker(tree):
+    """One flash run against the checkout at ``tree``."""
+    cs, tree = load(tree)
+    import torch
+    import torch.nn.functional as F
     from mxtpu_torch import kernels
     from mxtpu_torch.ops.pallas.flash_attention import (
         flash_attention, flash_attention_reference, flash_attention_with_lse)
@@ -82,29 +121,74 @@ def worker(tree):
         if dtype == "bfloat16":
             net.cast("bfloat16")
         pred = Predictor(net, spec, device="cuda")
-        flash_attention.launches = 0
-        logits = pred.predict(x)
-        torch.cuda.synchronize()
-        if flash_attention.launches != cs.BERT_BASE["num_layers"] or \
-                not bool(torch.isfinite(logits.float()).all()):
-            raise AssertionError("%s: %d flash launches in one forward, or "
-                                 "logits not finite" % (dtype,
-                                                        flash_attention.launches))
-        med, p80, host = cs.closed_loop(pred, x)
-        rows = cs.device_breakdown(pred, x, forwards=3)
-        dev = sum(r[1] for r in rows)
-        fl = sum(r[1] for r in rows if "flash_attention_" in r[0])
-        res["serve " + dtype] = {
-            "median_ms": med, "p80_ms": p80, "host_issue_ms": host,
-            "device_ms": dev, "flash_ms": fl, "idle_share": 1 - dev / med,
-            "flash_launches": flash_attention.launches}
-    print(TAG + json.dumps(res), flush=True)
+        res["serve " + dtype] = serve_row(
+            cs, pred, x, flash_attention, cs.BERT_BASE["num_layers"],
+            "flash_attention_")
+    return res
+
+
+def conv_worker(tree):
+    """One fused-conv run against the checkout at ``tree``."""
+    cs, tree = load(tree)
+    import math
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from mxtpu_torch import kernels
+    from mxtpu_torch.ops.pallas.conv import fused_conv, fused_conv_reference
+    from mxtpu_torch.serving import BucketSpec, Predictor
+    kernels.build_all(["fused_conv"])
+    res = {"tree": tree}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        row = {"err": 0.0, "graph_ms": 0.0, "conv2d_graph_ms": 0.0,
+               "eager_ms": 0.0, "conv2d_eager_ms": 0.0, "host_us": 0.0,
+               "conv2d_host_us": 0.0}
+        for name, n, hw, cin, cout, k, s, p, per in cs.RESNET50_GATED:
+            x = torch.randn(n, hw, hw, cin, device="cuda",
+                            generator=gen).to(dt)
+            w = (torch.randn(k, k, cin, cout, device="cuda", generator=gen)
+                 * math.sqrt(2.0 / (k * k * cin))).to(dt)
+            pad = ((p, p), (p, p))
+            out = fused_conv(x, w, (s, s), pad)
+            ref = fused_conv_reference(x.float(), w.float(), (s, s), pad)[0]
+            row["err"] = max(row["err"], cs.check(out, ref, dtype, name))
+            xn, wn = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+            kern = lambda: fused_conv(x, w, (s, s), pad)
+            lib = lambda: F.conv2d(xn, wn, stride=s, padding=p)
+            g = cs.graph_ms(kern)
+            row[name + " graph_ms"] = g
+            row["graph_ms"] += per * g
+            row["conv2d_graph_ms"] += per * cs.graph_ms(lib)
+            row["eager_ms"] += per * cs.cuda_ms(kern)
+            row["conv2d_eager_ms"] += per * cs.cuda_ms(lib)
+            row["host_us"] += per * cs.host_us(kern)
+            row["conv2d_host_us"] += per * cs.host_us(lib)
+        res["conv " + dtype] = row
+    net, _ = cs.build_net()
+    spec = BucketSpec.pow2(8)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (8, 224, 224, 3)).astype(np.float32)).to("cuda")
+    for dtype in ("float32", "bfloat16"):
+        if dtype == "bfloat16":
+            net.cast("bfloat16")
+        pred = Predictor(net, spec, device="cuda")
+        res["serve " + dtype] = serve_row(
+            cs, pred, x.to(getattr(torch, dtype)), fused_conv, 11,
+            "fused_conv_")
+    return res
 
 
 def main(argv):
-    if len(argv) >= 2 and argv[0] == "--run":
-        worker(argv[1])
+    if len(argv) >= 3 and argv[0] == "--run":
+        res = (conv_worker if argv[2] == "conv" else flash_worker)(argv[1])
+        print(TAG + json.dumps(res), flush=True)
         return 0
+    mode = "flash"
+    if argv and argv[0] == "--conv":
+        mode, argv = "conv", argv[1:]
     trees = [a.split("=", 1) for a in argv]
     if len(trees) < 2 or any(len(t) != 2 for t in trees):
         print(__doc__, file=sys.stderr)
@@ -119,8 +203,8 @@ def main(argv):
     runs = []
     for name, tree in trees + trees[::-1]:
         p = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--run", tree], capture_output=True, text=True,
-                           timeout=900)
+                            "--run", tree, mode], capture_output=True,
+                           text=True, timeout=900)
         lines = [ln for ln in p.stdout.splitlines() if ln.startswith(TAG)]
         if p.returncode != 0 or not lines:
             print("run %s (%s) failed, rc %d:\n%s" % (
@@ -129,10 +213,11 @@ def main(argv):
         res = json.loads(lines[-1][len(TAG):])
         runs.append((name, res))
         print("run %s %s" % (name, json.dumps(res)), flush=True)
-    for part in ("flash bfloat16", "flash float32", "serve bfloat16",
-                 "serve float32"):
+    for part in runs[0][1]:
+        if part == "tree":
+            continue
         for key in runs[0][1][part]:
-            print("%-15s %-16s %s" % (part, key, "  ".join(
+            print("%-15s %-24s %s" % (part, key, "  ".join(
                 "%s %.6g" % (name, res[part][key]) for name, res in runs)))
     return 0
 

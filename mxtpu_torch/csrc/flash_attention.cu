@@ -79,10 +79,7 @@
 // shared memory at D 64 leave one block (4 warps) per SM, which with the
 // two barriers a tile is what holds it at about 40% of the CUDA cores' peak.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stddef.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
@@ -103,66 +100,7 @@ struct FaArgs {
   float scale_log2;              // scale * log2(e)
 };
 
-// ---------------------------------------------------------------- PTX helpers
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy global -> shared; src_bytes 0 zero-fills and reads nothing
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// make this thread's shared-memory writes visible to wgmma (the async proxy)
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keep the compiler from moving register reads or writes across a wgmma
-template <int N> __device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading and stride
-// byte offsets (16-byte units), layout (1 = B128 swizzle, 2 = B64)
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
-                                              uint32_t layout) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)layout << 62);
-}
+// ------------------------------------------------------- wgmma instructions
 
 // D[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B in shared memory
 // (K-major, descriptors da and db); scale_d = 0 clears D first
@@ -262,34 +200,7 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);   // round to nearest even
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ uint16_t bf16_bits(float x) {
-  __nv_bfloat16 h = __float2bfloat16(x);
-  return *reinterpret_cast<uint16_t*>(&h);
-}
-
 // ------------------------------------------------- bfloat16: the tensor cores
-
-// A [rows, DP] bf16 tile in shared memory as wgmma reads it: blocks of
-// HALF columns (all of DP, or 64 for DP = 128), each [rows][HALF] with
-// ROWB-byte rows, 16-byte chunks XOR-swizzled by the row (B128: chunk ^
-// (row % 8); B64: chunk ^ ((row / 2) % 4)).
-template <int DP>
-struct Tile {
-  static constexpr int HALF = DP < 64 ? DP : 64;
-  static constexpr int ROWB = HALF * 2;
-  static constexpr int BITS = DP < 64 ? 2 : 3;
-  static constexpr uint32_t LAYOUT = DP < 64 ? 2 : 1;
-  // byte offset of the 8-column chunk at (r, c) in a tile of R rows
-  __device__ static __forceinline__ uint32_t off(int r, int c, int R) {
-    const uint32_t o = r * ROWB + (c % HALF) * 2;
-    return (c / HALF) * R * ROWB + (o ^ (((o >> 7) & ((1u << BITS) - 1)) << 4));
-  }
-};
 
 // Stage rows row0 .. row0+R-1 of a [rows, d] bf16 matrix (row stride st)
 // into a swizzled tile at shared address dst; rows past nrows and columns
@@ -742,22 +653,6 @@ __global__ void __launch_bounds__(F32_THREADS) flash_attention_f32_kernel(FaArgs
 }
 
 // ------------------------------------------------------------------ launchers
-
-template <void (*KERNEL)(FaArgs)>
-int launch_kernel(const FaArgs& a, unsigned blocks, int threads, size_t smem, cudaStream_t s) {
-  // above 48 KB a block's shared memory must be opted into, once per device
-  static unsigned long long opted = 0;   // bit i: device i has opted in
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if (dev >= 64 || !((opted >> dev) & 1)) {
-    e = cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    if (dev < 64) opted |= 1ull << dev;
-  }
-  KERNEL<<<blocks, threads, smem, s>>>(a);
-  return (int)cudaGetLastError();
-}
 
 template <int DP, int NWG>
 int launch_bf16(const FaArgs& a, bool vec, unsigned blocks, cudaStream_t s) {

@@ -16,10 +16,17 @@ training, so the kernel refuses a tensor that needs a gradient while grad
 mode is on (the plain version on the CPU is differentiable as it is).
 ``fused_conv.launches`` counts kernel launches; it never counts a call
 that ran the plain version.
+
+The kernel's launch (bfloat16 on the tensor cores, float32 on the CUDA
+cores; 16-byte or element-wise staging; tiles, padded K and grid) is
+decided by the pure ``_launch_args`` alone; the C entry point only
+refuses what would go out of bounds.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
 
 import torch
 
@@ -31,6 +38,7 @@ __all__ = ["fused_conv", "fused_conv_with_raw", "fused_conv_reference",
 _MXU_LANES = 128
 _LOW = (torch.bfloat16, torch.float32)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+CUDA_CORES, TENSOR_CORES = 0, 1   # the kernel's two routes
 
 
 def out_hw(size, lo, hi, k, s):
@@ -144,6 +152,68 @@ def _check(x, w, strides, padding, scale, bias, residual):
     return oh, ow
 
 
+LaunchArgs = collections.namedtuple(
+    "LaunchArgs", "dtype route vec_a vec_b block_m block_n threads k_pad grid")
+
+
+def _launch_args(x, w, strides, padding, sms=None):
+    """What ``_launch`` hands the kernel for these operands; the C entry
+    point only refuses what would take it out of bounds. It reads only
+    shapes, dtypes and ``data_ptr``, so CPU tensors do, given ``sms``:
+
+    * ``dtype``: 0 float32, 1 bfloat16; ``route``: ``TENSOR_CORES`` (1,
+      bfloat16: ``wgmma``, 64 pixels per warpgroup) or ``CUDA_CORES`` (0,
+      float32, TF32 off: 8 x 8 register micro-tiles);
+    * ``vec_a`` / ``vec_b``: A (x's pixel rows) / B (w's rows) are staged
+      by 16-byte copies when their rows fill whole 16-byte pieces
+      (``C_in * size % 16 == 0``, resp. ``C_out * size % 16 == 0``) and
+      the tensor starts 16-byte aligned; otherwise element by element;
+    * ``block_n`` output channels a block: 64 up to C_out 64, else 128;
+      ``block_m`` pixels a block: in bfloat16 128 where 128-pixel blocks
+      fill the ``sms`` SMs (default: those of x's card) at least twice
+      over, else 64; in float32 128 with ``block_n`` 64, else 64 (128
+      threads either way); ``threads`` a block;
+    * ``k_pad``: K = kh*kw*C_in rounded up to 16 (the kernel zero-fills
+      past K); ``grid``: (blocks over the pixels, blocks over C_out).
+    """
+    n, h, wd, cin = x.shape
+    kh, kw, _, cout = w.shape
+    (plo, phi), (qlo, qhi) = padding
+    m = n * out_hw(h, plo, phi, kh, strides[0]) * out_hw(wd, qlo, qhi, kw,
+                                                        strides[1])
+    es = x.element_size()
+    dtype = _DTYPE_CODE[x.dtype]
+    route = TENSOR_CORES if dtype == 1 else CUDA_CORES
+    vec_a = (cin * es) % 16 == 0 and x.data_ptr() % 16 == 0
+    vec_b = (cout * es) % 16 == 0 and w.data_ptr() % 16 == 0
+    if sms is None:
+        from .flash_attention import _sm_count
+        sms = _sm_count(x.device.index or 0)
+    k_pad = -(-(kh * kw * cin) // 16) * 16
+    block_n = 64 if cout <= 64 else 128
+    grid_n = -(-cout // block_n)
+    if route == TENSOR_CORES:
+        block_m = 128 if -(-m // 128) * grid_n >= 2 * sms else 64
+        threads = block_m // 64 * 128
+    else:
+        block_m = 128 if block_n == 64 else 64
+        threads = block_m * block_n // 64
+    return LaunchArgs(dtype, route, vec_a, vec_b, block_m, block_n, threads,
+                      k_pad, (-(-m // block_m), grid_n))
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    """The kernel's C entry point, its ctypes signature set once."""
+    from ... import kernels
+    fn = kernels.library("fused_conv").mxtpu_fused_conv_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] * 9 + [ctypes.c_void_p] * 5
+                   + [ctypes.c_int] + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int] * 14 + [ctypes.c_void_p])
+    return fn
+
+
 def _launch(x, w, strides, padding, scale, bias, residual, relu, oh, ow):
     for name, t in (("x", x), ("w", w), ("residual", residual)):
         if t is not None and not t.is_contiguous():
@@ -152,14 +222,7 @@ def _launch(x, w, strides, padding, scale, bias, residual, relu, oh, ow):
                                                        torch.float32):
         raise MXNetError("fused_conv: residual must be %s or float32, got %s"
                          % (x.dtype, residual.dtype))
-    from ... import kernels
-    lib = kernels.library("fused_conv")
-    fn = lib.mxtpu_fused_conv_fwd
-    if fn.restype is not ctypes.c_int or fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int]
-                       + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 14
-                       + [ctypes.c_void_p])
+    la = _launch_args(x, w, strides, padding)
     n, h, wd, cin = x.shape
     kh, kw, _, cout = w.shape
     out = torch.empty((n, oh, ow, cout), dtype=x.dtype, device=x.device)
@@ -171,17 +234,21 @@ def _launch(x, w, strides, padding, scale, bias, residual, relu, oh, ow):
     bias = bias.float().contiguous() if bias is not None else None
 
     def ptr(t):
-        return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+        return t.data_ptr() if t is not None else None
 
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        rc = fn(_DTYPE_CODE[x.dtype], ptr(x), ptr(w), ptr(scale), ptr(bias),
-                ptr(residual),
-                int(residual is not None and residual.dtype == torch.float32),
-                ptr(out), ptr(craw), n, h, wd, cin, kh, kw, cout,
-                int(strides[0]), int(strides[1]), int(padding[0][0]),
-                int(padding[1][0]), oh, ow, int(bool(relu)),
-                ctypes.c_void_p(stream))
+    args = (la.dtype, la.route, la.vec_a, la.vec_b, la.block_m, la.block_n,
+            la.k_pad, *la.grid, ptr(x), ptr(w), ptr(scale),
+            ptr(bias), ptr(residual),
+            int(residual is not None and residual.dtype == torch.float32),
+            ptr(out), ptr(craw), n, h, wd, cin, kh, kw, cout,
+            int(strides[0]), int(strides[1]), int(padding[0][0]),
+            int(padding[1][0]), oh, ow, int(bool(relu)),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if x.device.index == torch.cuda.current_device():
+        rc = _entry()(*args)
+    else:   # the kernel launches on the current device
+        with torch.cuda.device(x.device):
+            rc = _entry()(*args)
     if rc != 0:
         raise MXNetError("fused_conv kernel launch failed: CUDA error %d" % rc)
     fused_conv.launches += 1

@@ -65,7 +65,8 @@ def test_deferred_parameters_follow_the_device():
 
 def _port_files():
     pkg = os.path.join(ROOT, "mxtpu_torch")
-    files = [os.path.join(ROOT, n) for n in ("chip_smoke.py", "flash_ab.py")]
+    files = [os.path.join(ROOT, n)
+             for n in ("chip_smoke.py", "flash_ab.py", "conv_search.py")]
     for d, _, names in os.walk(pkg):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return files
