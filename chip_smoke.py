@@ -25,9 +25,10 @@ NVIDIA H100.
    own and as the strided q/k/v views of one fused projection that the
    served model hands it), at a ragged T=77 with D=32 and with D=36 (the
    element-wise staging), at T=256 with D=128, and at b6 h12 T512 with
-   D=128 and D=36 (where bfloat16 puts two warpgroups in a block), in
-   float32 and bfloat16; at three explicit scales (small, zero, negative)
-   on a ragged T=77; and times the kernel, the plain version and
+   D=128 and D=36 (where bfloat16 puts two warpgroups in a block), at head
+   dims 160, 256, 300 and 320 (the sliced kernels; D=256 also on the
+   strided views), in float32 and bfloat16; at three explicit scales
+   (small, zero, negative) on a ragged T=77; and times the kernel, the plain version and
    ``F.scaled_dot_product_attention`` (a yardstick only) by CUDA events
    around 20 eager back-to-back calls, as every kernel of the ``kernels``
    line is timed, with each timed row's kernel/sdpa ratio and share of its
@@ -41,21 +42,28 @@ NVIDIA H100.
    against the same net on the CPU and that every forward launched the
    flash kernel 12 times, times each bucket at seq 512 and b8 at 128 and
    256, and breaks one b8 x 512 forward down by kernel.
-7. rtc: compiles user CUDA C++ at runtime through ``mxtpu_torch.rtc``
+7. Gluon on NDArrays: ResNet-50 v1 called on an mx.nd array on the card
+   equals the tensor path bit for bit with 11 conv launches (float32 and
+   bfloat16), and a Dense -> BatchNorm -> Dense net trained two steps on
+   NDArrays under autograd.record() matches the same program on the CPU
+   (outputs, p.grad() and moving statistics).
+8. rtc: compiles user CUDA C++ at runtime through ``mxtpu_torch.rtc``
    (kernel B3: ``RTC_SOURCE``, the JAX package's rtc examples axpy,
-   square, double (here ``twice``), square_backward and a bf16 axpy),
-   builds it again from the cache, shows that CPU arrays, a dtype that
-   disagrees with a pointer parameter and a source nvcc rejects raise,
-   holds each kernel against its plain version (``RTC_PLAIN``) at n =
-   ResNet-50 v1's parameter count and times it beside its bound, its
-   plain version and one PyTorch call; and the host time of one launch.
-8. imperative, this slice's main path: mx.nd arrays on the card, the
+   square, double (here ``twice``), square_backward and a bf16 axpy, as
+   16-byte streaming kernels), builds it again from the cache, shows that
+   CPU arrays, a dtype that disagrees with a pointer parameter and a
+   source nvcc rejects raise, holds each kernel against its plain version
+   (``RTC_PLAIN``) at n = ResNet-50 v1's parameter count, at n + 5 and on
+   views one element off (the element-wise path), and times it beside its
+   bound, its plain version, one PyTorch call and the ``__ldcs``/``__stcs``
+   variant; and the host time of one launch, stage by stage.
+9. imperative, the main path of slice 3: mx.nd arrays on the card, the
    runtime kernels launched on them, and square registered as a
    differentiable op (square_backward its vjp) under autograd.record()
    with grad_req write and add; one forward and one backward launch per
    step; results and gradients checked against the same program through
    mx.nd on the CPU (the op registered there with the plain versions).
-9. Prints one JSON line of kernels (fused_conv and flash_attention, one
+10. Prints one JSON line of kernels (fused_conv and flash_attention, one
    entry per type each, with graph-replay and host-issue sums beside the
    eager ones; one entry per rtc kernel), the card line again, and last
    ``{"ok": true, "device": {...}}``.
@@ -103,6 +111,16 @@ FLASH_SHAPES = [
     ("b2 h4 T256 d128", 2, 4, 256, 256, 128, False, 0, "contig"),
     ("b6 h12 T512 d128", 6, 12, 512, 512, 128, False, 0, "contig"),
     ("b6 h12 T512 d36 causal", 6, 12, 512, 512, 36, True, 0, "contig"),
+    # head dims past 128: 128-column slices of out, each recomputing S
+    ("b2 h4 T256 d160", 2, 4, 256, 256, 160, False, 0, "contig"),
+    ("b2 h4 T256 d160 causal", 2, 4, 256, 256, 160, True, 0, "contig"),
+    ("b8 h12 T512 d256", 8, 12, 512, 512, 256, False, 0, "contig"),
+    ("b8 h12 T512 d256 causal", 8, 12, 512, 512, 256, True, 0, "contig"),
+    ("b2 h3 T77 d256 qkv views", 2, 3, 77, 77, 256, False, 0, "qkv"),
+    ("b2 h3 T77 d256 qkv views causal", 2, 3, 77, 77, 256, True, 0, "qkv"),
+    ("b2 h4 T200 d320", 2, 4, 200, 200, 320, False, 0, "contig"),
+    ("b2 h4 T200 d320 causal", 2, 4, 200, 200, 320, True, 0, "contig"),
+    ("b1 h2 T77 d300 causal", 1, 2, 77, 77, 300, True, 0, "contig"),
 ]
 # explicit scales, each on a ragged causal and a ragged full row: the kernel
 # masks after scaling, so a zero or negative scale still gives masked keys
@@ -114,28 +132,110 @@ SEQ_BUCKETS = (128, 256, 512)
 LM_REQUESTS = ((1, 50), (3, 200), (5, 128), (8, 512), (11, 100))
 
 # User kernels compiled at runtime by mxtpu_torch.rtc (kernel B3): the JAX
-# package's rtc examples (tests/test_contrib_python.py) as CUDA C++, one
-# thread per element. `twice` is the JAX examples' `double`, a C++ keyword.
+# package's rtc examples (tests/test_contrib_python.py) as CUDA C++.
+# `twice` is the JAX examples' `double`, a C++ keyword. Each is a streaming
+# kernel: bound by bytes, so it moves 16-byte vectors (a float4, or 8 bf16
+# in a uint4), RTC_UNROLL of each input a thread, all loaded before the
+# first is used (1 measured as fast as 2-8, variant_search.py), over a
+# grid that covers the array in one pass
+# (rtc_launch_dims; the loop strides over the grid for any other grid);
+# the ragged tail (n % vector width), and the whole array when any pointer
+# is not 16-byte aligned, go element by element. The arithmetic is the
+# one-element-a-thread kernels' own, so nvcc contracts it the same way and
+# the results are bit-identical to theirs. LD/ST are plain loads and
+# stores; RTC_STREAMING swaps in the evict-first hints __ldcs/__stcs (a
+# variant chip_smoke.py times).
+RTC_UNROLL = 1     # UNROLL in RTC_SOURCE
+RTC_BLOCK = 256
 RTC_SOURCE = r"""
 #include <cuda_bf16.h>
+#include <stdint.h>
+
+#define UNROLL 1
+#define LD(p) (*(p))
+#define ST(p, v) (*(p) = (v))
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// out[j] = f(x) with x[k] = in[k][j], over vectors j = 0 .. nv-1: each
+// thread takes UNROLL vectors `step` apart (the whole grid apart), loads
+// all of them (those below nv) before it uses the first, and moves a pass
+// of the grid on
+template <int NI, typename V, typename F>
+__device__ __forceinline__ void stream_vectors(const V* const (&in)[NI], V* out,
+                                               long long nv, F f) {
+  const long long step = (long long)gridDim.x * blockDim.x;
+  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  for (long long i = first; i < nv; i += UNROLL * (long long)gridDim.x * blockDim.x) {
+    V x[UNROLL][NI];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      if (i + u * step < nv) {
+#pragma unroll
+        for (int k = 0; k < NI; ++k) x[u][k] = LD(in[k] + i + u * step);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      if (i + u * step < nv) ST(out + i + u * step, f(x[u]));
+    }
+  }
+}
+
+// this thread's first element and the grid's stride, for the element-wise
+// loops: the tail past the last whole vector, or every element when a
+// pointer is not 16-byte aligned (a view at an odd offset)
+#define ELEMENTS(done)                                                     \
+  for (long long i = (done) + (long long)blockIdx.x * blockDim.x + threadIdx.x; \
+       i < n; i += (long long)gridDim.x * blockDim.x)
 
 extern "C" __global__ void axpy(const float* __restrict__ x,
                                 const float* __restrict__ y,
                                 float* __restrict__ out, long long n) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = 2.5f * x[i] + y[i];
+  long long done = 0;
+  if (aligned16(x) && aligned16(y) && aligned16(out)) {
+    const float4* const in[2] = {reinterpret_cast<const float4*>(x),
+                                 reinterpret_cast<const float4*>(y)};
+    stream_vectors(in, reinterpret_cast<float4*>(out), n / 4,
+                   [](const float4 (&v)[2]) {
+                     return make_float4(2.5f * v[0].x + v[1].x, 2.5f * v[0].y + v[1].y,
+                                        2.5f * v[0].z + v[1].z, 2.5f * v[0].w + v[1].w);
+                   });
+    done = n / 4 * 4;
+  }
+  ELEMENTS(done) out[i] = 2.5f * x[i] + y[i];
 }
 
 extern "C" __global__ void square(const float* __restrict__ x,
                                   float* __restrict__ out, long long n) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = x[i] * x[i];
+  long long done = 0;
+  if (aligned16(x) && aligned16(out)) {
+    const float4* const in[1] = {reinterpret_cast<const float4*>(x)};
+    stream_vectors(in, reinterpret_cast<float4*>(out), n / 4,
+                   [](const float4 (&v)[1]) {
+                     return make_float4(v[0].x * v[0].x, v[0].y * v[0].y,
+                                        v[0].z * v[0].z, v[0].w * v[0].w);
+                   });
+    done = n / 4 * 4;
+  }
+  ELEMENTS(done) out[i] = x[i] * x[i];
 }
 
 extern "C" __global__ void twice(const float* __restrict__ x,
                                  float* __restrict__ out, long long n) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = 2.0f * x[i];
+  long long done = 0;
+  if (aligned16(x) && aligned16(out)) {
+    const float4* const in[1] = {reinterpret_cast<const float4*>(x)};
+    stream_vectors(in, reinterpret_cast<float4*>(out), n / 4,
+                   [](const float4 (&v)[1]) {
+                     return make_float4(2.0f * v[0].x, 2.0f * v[0].y, 2.0f * v[0].z,
+                                        2.0f * v[0].w);
+                   });
+    done = n / 4 * 4;
+  }
+  ELEMENTS(done) out[i] = 2.0f * x[i];
 }
 
 // the gradient of square: dx = 2 x g
@@ -143,23 +243,53 @@ extern "C" __global__ void square_backward(const float* __restrict__ x,
                                            const float* __restrict__ g,
                                            float* __restrict__ dx,
                                            long long n) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) dx[i] = 2.0f * x[i] * g[i];
+  long long done = 0;
+  if (aligned16(x) && aligned16(g) && aligned16(dx)) {
+    const float4* const in[2] = {reinterpret_cast<const float4*>(x),
+                                 reinterpret_cast<const float4*>(g)};
+    stream_vectors(in, reinterpret_cast<float4*>(dx), n / 4,
+                   [](const float4 (&v)[2]) {
+                     return make_float4(2.0f * v[0].x * v[1].x, 2.0f * v[0].y * v[1].y,
+                                        2.0f * v[0].z * v[1].z, 2.0f * v[0].w * v[1].w);
+                   });
+    done = n / 4 * 4;
+  }
+  ELEMENTS(done) dx[i] = 2.0f * x[i] * g[i];
 }
 
-// axpy on bfloat16 arrays: bf16 loads and stores, float32 math, one
-// rounding to bf16 at the store
+// axpy on bfloat16 arrays: bf16 loads and stores (8 a vector), float32
+// math, one rounding to bf16 (to nearest even) at the store
+__device__ __forceinline__ uint32_t axpy_bf16x2(uint32_t x, uint32_t y) {
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&y));
+  __nv_bfloat162 r = __floats2bfloat162_rn(fmaf(2.5f, a.x, b.x), fmaf(2.5f, a.y, b.y));
+  return *reinterpret_cast<uint32_t*>(&r);
+}
+
 extern "C" __global__ void axpy_bf16(const __nv_bfloat16* __restrict__ x,
                                      const __nv_bfloat16* __restrict__ y,
                                      __nv_bfloat16* __restrict__ out,
                                      long long n) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) {
+  long long done = 0;
+  if (aligned16(x) && aligned16(y) && aligned16(out)) {
+    const uint4* const in[2] = {reinterpret_cast<const uint4*>(x),
+                                reinterpret_cast<const uint4*>(y)};
+    stream_vectors(in, reinterpret_cast<uint4*>(out), n / 8,
+                   [](const uint4 (&v)[2]) {
+                     return make_uint4(axpy_bf16x2(v[0].x, v[1].x), axpy_bf16x2(v[0].y, v[1].y),
+                                       axpy_bf16x2(v[0].z, v[1].z), axpy_bf16x2(v[0].w, v[1].w));
+                   });
+    done = n / 8 * 8;
+  }
+  ELEMENTS(done) {
     out[i] = __float2bfloat16(
         fmaf(2.5f, __bfloat162float(x[i]), __bfloat162float(y[i])));
   }
 }
 """
+RTC_STREAMING = RTC_SOURCE.replace(
+    "#define LD(p) (*(p))\n#define ST(p, v) (*(p) = (v))",
+    "#define LD(p) __ldcs(p)\n#define ST(p, v) __stcs((p), (v))")
 # the plain PyTorch version of each, on the same tensors
 RTC_PLAIN = {
     "axpy": lambda x, y: 2.5 * x + y,
@@ -621,10 +751,10 @@ def flash_phase():
             lerr = check(lse, r_lse, "float32", "flash lse %s %s"
                          % (name, dtype))
             line = ("kernel flash_attention %-26s %-8s err %.3g lse %.3g "
-                    "(%s staging, %d warpgroup(s) x %d rows)" % (
-                        name, dtype, err, lerr,
-                        "16-byte async" if la.vec else "element-wise",
-                        la.warpgroups, la.block_q))
+                    "(%s staging, %d warpgroup(s) x %d rows, %d slice(s))"
+                    % (name, dtype, err, lerr,
+                       "16-byte async" if la.vec else "element-wise",
+                       la.warpgroups, la.block_q, la.slices))
             if not name.startswith("b8"):
                 print(line)
                 rows.append(dict(shape=name, dtype=dtype, per_forward=0,
@@ -773,7 +903,7 @@ def resnet50_param_count():
     net.initialize(ctx=mt.cpu())
     with torch.no_grad():
         net(torch.zeros(1, 32, 32, 3))
-    return sum(p.data().numel() for p in net.collect_params().values()
+    return sum(p.data().size for p in net.collect_params().values()
                if p.grad_req != "null")
 
 
@@ -815,11 +945,73 @@ def expect_error(what, fn, match):
     raise AssertionError("%s did not raise" % what)
 
 
+def rtc_launch_dims(n, dtype):
+    """(grid, block) of an example kernel over n elements: RTC_BLOCK
+    threads a block and enough blocks that each thread moves its
+    RTC_UNROLL 16-byte vectors once (one pass; a grid of 8 blocks per SM
+    walking the array measured 3-6% slower, PERF.md)."""
+    per_thread = RTC_UNROLL * 16 // (4 if dtype == "float32" else 2)
+    return (max(1, -(-n // (RTC_BLOCK * per_thread))),), (RTC_BLOCK,)
+
+
+def rtc_launch(k, args, n, dtype, shape=None):
+    """One launch of an example kernel over n elements (an output of
+    ``shape``, default (n,))."""
+    grid, block = rtc_launch_dims(n, dtype)
+    return k.launch(args, shape or (n,), grid=grid, block=block)
+
+
+def rtc_inputs(name, n, gen, offset=0):
+    """The inputs of example ``name`` over n elements, each ``offset``
+    elements into a storage of its own (1: a view that is not 16-byte
+    aligned, so the kernel takes its element-wise path)."""
+    import torch
+    n_in, dtype = {r[0]: r[1:3] for r in RTC_KERNELS}[name]
+    return [torch.randn(n + offset, device="cuda", generator=gen).to(
+        getattr(torch, dtype))[offset:] for _ in range(n_in)]
+
+
+def rtc_host_stages(k, x):
+    """Host us of each stage of one eager launch of ``k`` (square) on
+    [x, n], and of the whole launch: the median of 400 calls each, not
+    synchronised. Returns {stage: us}."""
+    import torch
+    from mxtpu_torch import rtc
+    from mxtpu_torch.ndarray import NDArray
+    n, dev = x.numel(), x.device
+    args = [x, n]
+    grid, block = rtc_launch_dims(n, "float32")
+    values, _ = k._inputs(args)
+    outs = k._outputs(args, (n,), None, dev)
+    g, b = rtc.launch_dims(grid, block, n)
+    stream = rtc._current_stream(dev.index)
+
+    def argv():
+        for (h, pointer), v in zip(k._in_holders, values):
+            h.value = v.data_ptr() if pointer else v
+        for h, o in zip(k._out_holders, outs):
+            h.value = o.data_ptr()
+
+    stages = {
+        "argument checks": lambda: k._inputs(args),
+        "output allocation": lambda: k._outputs(args, (n,), None, dev),
+        "argv": argv,
+        "stream lookup": lambda: rtc._current_stream(dev.index),
+        "device check": lambda: dev.index == rtc._current_device(),
+        "ctypes call": lambda: k._run(values, outs, g, b, 0, stream),
+        "NDArray wrapping": lambda: NDArray(outs[0]),
+        "whole launch": lambda: k.launch(args, (n,), grid=grid, block=block),
+    }
+    return {name: host_us(fn) for name, fn in stages.items()}
+
+
 def rtc_phase(n):
     """Build the example module at runtime (then again, from the cache),
-    hold each kernel against its plain version at n elements and time it
-    beside its plain version, its bound and a one-call PyTorch yardstick.
-    Returns (module, kernels by name, rows)."""
+    hold each kernel against its plain version at n elements, at a ragged
+    n + 5 and on inputs offset by one element (the element-wise path), and
+    time it beside its plain version, its bound, a one-call PyTorch
+    yardstick and the streaming-hint variant; then the host time of one
+    launch, stage by stage. Returns (module, kernels by name, rows)."""
     import torch
     from mxtpu_torch import rtc
     mod = rtc.CudaModule(RTC_SOURCE).build()
@@ -834,7 +1026,11 @@ def rtc_phase(n):
                              % again.build_how)
     print("rtc: the same source again: loaded from the %s cache in %.6f s"
           % (again.build_how, again.build_seconds))
+    if RTC_STREAMING == RTC_SOURCE:
+        raise AssertionError("rtc: the streaming variant is the plain source")
+    streaming = rtc.CudaModule(RTC_STREAMING).build()
     ks = {name: mod.get_kernel(name) for name, *_ in RTC_KERNELS}
+    ks_cs = {name: streaming.get_kernel(name) for name, *_ in RTC_KERNELS}
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
     expect_error("CPU arrays", lambda: ks["square"].launch(
@@ -845,40 +1041,50 @@ def rtc_phase(n):
     expect_error("a source nvcc rejects", lambda: rtc.CudaModule(
         "__global__ void broken(float* x) { x[0] = no_such_name; }").build(),
         "nvcc failed")
-    print("rtc kernel checks at n = %d (ResNet-50 v1's parameter count): "
-          "exact = bit-exact, rtol = |err| <= 1e-6 (2.5|x| + |y|), ulp = "
-          "within one bf16 ulp of ref" % n)
+    print("rtc kernel checks at n = %d (ResNet-50 v1's parameter count), "
+          "at n + 5 and on views offset by one element: exact = bit-exact, "
+          "rtol = |err| <= 1e-6 (2.5|x| + |y|), ulp = within one bf16 ulp "
+          "of ref; launched on %s blocks of %d threads (float32; bf16 "
+          "half as many)" % (n, rtc_launch_dims(n, "float32")[0][0],
+                             RTC_BLOCK))
     rows = []
     for name, n_in, dtype, rule, library in RTC_KERNELS:
-        dt = getattr(torch, dtype)
-        xs = [torch.randn(n, device="cuda", generator=gen).to(dt)
-              for _ in range(n_in)]
-        k, plain = ks[name], RTC_PLAIN[name]
-        out = k.launch(xs + [n], (n,)).to_torch()
-        torch.cuda.synchronize()
-        err = rtc_check(out, plain(*xs), rule, name,
-                        mag=plain(*[t.abs() for t in xs]))
-        ms = cuda_ms(lambda: k.launch(xs + [n], (n,)))
+        k, k_cs, plain = ks[name], ks_cs[name], RTC_PLAIN[name]
+        errs = []
+        for m, offset in ((n, 0), (n + 5, 0), (n + 5, 1)):
+            xs = rtc_inputs(name, m, gen, offset)
+            for kern in (k, k_cs):
+                out = rtc_launch(kern, xs + [m], m, dtype).to_torch()
+                torch.cuda.synchronize()
+                errs.append(rtc_check(out, plain(*xs), rule, "%s n=%d%s" % (
+                    name, m, " view+1" if offset else ""),
+                    mag=plain(*[t.abs() for t in xs])))
+        xs = rtc_inputs(name, n, gen)
+        ms = cuda_ms(lambda: rtc_launch(k, xs + [n], n, dtype))
+        cs_ms = cuda_ms(lambda: rtc_launch(k_cs, xs + [n], n, dtype))
         plain_ms = cuda_ms(lambda: plain(*xs))
         lib_ms = cuda_ms(lambda: library(*xs)) if library else None
         n_bytes = (n_in + 1) * n * xs[0].element_size()
         flops = 2.0 * n if n_in == 2 else 1.0 * n
         bms, by = bound_ms(n_bytes, flops, "float32")
-        rows.append(dict(name=name, dtype=dtype, max_abs_err=err, ms=ms,
-                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
-                         bound_by=by))
-        print("kernel rtc %-16s %-8s %-5s err %.3g  kernel %.4f ms  plain "
-              "%.4f ms  torch %s  bound %.4f ms (%s, %d bytes at 3.35 TB/s)"
-              % (name, dtype, rule, err, ms, plain_ms,
+        rows.append(dict(name=name, dtype=dtype, max_abs_err=max(errs),
+                         ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bms, bound_by=by, streaming_ms=cs_ms))
+        print("kernel rtc %-16s %-8s %-5s err %.3g  kernel %.4f ms  "
+              "__ldcs/__stcs variant %.4f ms  plain %.4f ms  torch %s  "
+              "bound %.4f ms (%s, %d bytes at 3.35 TB/s), share %.3f of it"
+              % (name, dtype, rule, max(errs), ms, cs_ms, plain_ms,
                  "%.4f ms" % lib_ms if lib_ms is not None else "-", bms, by,
-                 n_bytes), flush=True)
-    # the host's cost of one eager launch (ctypes marshalling included)
+                 n_bytes, bms / ms), flush=True)
+    # the host's cost of one eager launch, stage by stage
     small = torch.randn(1024, device="cuda", generator=gen)
-    host = {"rtc square": host_us(lambda: ks["square"].launch(
-        [small, 1024], (1024,))), "torch.square": host_us(small.square)}
-    print("rtc host time per launch at n = 1024 (median of 400, not "
-          "synchronised): rtc square %.1f us, torch.square %.1f us"
-          % (host["rtc square"], host["torch.square"]), flush=True)
+    stages = rtc_host_stages(ks["square"], small)
+    square_us = host_us(small.square)
+    print("rtc host us per launch of square at n = 1024 (median of 400 "
+          "calls, not synchronised), by stage: %s; torch.square %.2f us "
+          "(rtc / torch.square %.2f)" % (
+              ", ".join("%s %.2f" % kv for kv in stages.items()), square_us,
+              stages["whole launch"] / square_us), flush=True)
     return mod, ks, rows
 
 
@@ -896,8 +1102,10 @@ def imperative_phase(ks, n):
     nd = mt.nd
     sq, sqb = ks["square"], ks["square_backward"]
     register_external_kernel(
-        "rtc_square", lambda x: sq.launch([x, x.numel()], x.shape),
-        vjp=lambda g, x: sqb.launch([x, g, x.numel()], x.shape))
+        "rtc_square", lambda x: rtc_launch(sq, [x, x.numel()], x.numel(),
+                                           "float32", x.shape),
+        vjp=lambda g, x: rtc_launch(sqb, [x, g, x.numel()], x.numel(),
+                                    "float32", x.shape))
     register_external_kernel(
         "rtc_square_plain", RTC_PLAIN["square"],
         vjp=lambda g, x: RTC_PLAIN["square_backward"](x, g))
@@ -937,7 +1145,8 @@ def imperative_phase(ks, n):
         return host, grads
 
     def card_launch(name, args):
-        return ks[name].launch(args, (n,))
+        return rtc_launch(ks[name], args, n, {r[0]: r[2] for r in
+                                              RTC_KERNELS}[name])
 
     def cpu_launch(name, args):
         return nd.NDArray(RTC_PLAIN[name](*[a.to_torch() for a in args[:-1]]))
@@ -998,6 +1207,102 @@ def imperative_phase(ks, n):
     return launches
 
 
+def gluon_nd_phase():
+    """Gluon on NDArrays on the card. ResNet-50 v1 (seeded weights) called
+    on an mx.nd array equals the tensor path bit for bit and launches the
+    conv kernel 11 times a forward, in float32 and bfloat16; and a Dense ->
+    BatchNorm -> Dense net trained two steps on NDArrays under
+    autograd.record() (training-mode BatchNorm) gives the outputs,
+    ``p.grad()`` and moving statistics of the same program on the CPU
+    (float32: outputs within 1e-5, gradients within 1e-4 of max(1,
+    max|ref|)). Returns the conv launches of the NDArray forwards."""
+    import numpy as np
+    import torch
+    import mxtpu_torch as mt
+    from mxtpu_torch.ops.pallas.conv import fused_conv
+    nd = mt.nd
+    net, _ = build_net()
+    net.collect_params().reset_ctx(mt.gpu(0))
+    x = np.random.default_rng(5).standard_normal(
+        (2, 224, 224, 3)).astype(np.float32)
+    launches = {}
+    for dtype in ("float32", "bfloat16"):
+        if dtype == "bfloat16":
+            net.cast("bfloat16")
+        xa = nd.array(x, ctx=mt.gpu(0), dtype=dtype)
+        with torch.no_grad():
+            ref = net(xa.to_torch())
+        fused_conv.launches = 0
+        out = net(xa)
+        torch.cuda.synchronize()
+        launches[dtype] = fused_conv.launches
+        if not isinstance(out, nd.NDArray) or \
+                not torch.equal(out.to_torch(), ref) or \
+                launches[dtype] != 11:
+            raise AssertionError(
+                "gluon resnet50_v1 %s on an NDArray: %s, %d conv launches "
+                "(expected 11), equal to the tensor path: %s" % (
+                    dtype, type(out).__name__, launches[dtype],
+                    isinstance(out, nd.NDArray)
+                    and torch.equal(out.to_torch(), ref)))
+        print("gluon resnet50_v1 %s net(mx.nd array) on the card: %s %s, "
+              "bit-equal to net(tensor), fused_conv launches %d"
+              % (dtype, out.shape, out.dtype, launches[dtype]), flush=True)
+
+    rng = np.random.default_rng(6)
+    weights = {"dense0_weight": rng.standard_normal((512, 256)) / 16,
+               "dense0_bias": rng.normal(0, 0.1, 512),
+               "batchnorm0_gamma": rng.uniform(0.5, 1.5, 512),
+               "batchnorm0_beta": rng.normal(0, 0.1, 512),
+               "batchnorm0_running_mean": np.zeros(512),
+               "batchnorm0_running_var": np.ones(512),
+               "dense1_weight": rng.standard_normal((10, 512)) / 22,
+               "dense1_bias": rng.normal(0, 0.1, 10)}
+    data = [(rng.standard_normal((64, 256)), rng.standard_normal((64, 10)))
+            for _ in range(2)]
+
+    def program(ctx):
+        net = mt.gluon.nn.HybridSequential(prefix="mlp_")
+        with net.name_scope():
+            net.add(mt.gluon.nn.Dense(512, in_units=256),
+                    mt.gluon.nn.BatchNorm(in_channels=512),
+                    mt.gluon.nn.Dense(10, in_units=512))
+        net.initialize(ctx=ctx)
+        for name, p in net.collect_params().items():
+            p.set_data(weights[name[len("mlp_"):]].astype(np.float32))
+        res = []
+        for xs, head in data:
+            with mt.autograd.record():
+                out = net(nd.array(xs, ctx=ctx))
+                loss = (out * nd.array(head, ctx=ctx)).sum()
+            loss.backward()
+            res.append({"out": out.asnumpy()})
+            res[-1].update((name, p.grad().asnumpy()) for name, p in
+                           net.collect_params().items()
+                           if p.grad_req != "null")
+        res[-1].update((name, p.data().asnumpy()) for name, p in
+                       net.collect_params().items()
+                       if name.endswith(("running_mean", "running_var")))
+        return res
+
+    card, host = program(mt.gpu(0)), program(mt.cpu())
+    worst = {}
+    for step, (c, h) in enumerate(zip(card, host)):
+        for key, ref in h.items():
+            tol = 1e-5 if key == "out" or "running" in key else 1e-4
+            err = float(np.abs(c[key] - ref).max())
+            if c[key].shape != ref.shape or not np.isfinite(c[key]).all() \
+                    or err > tol * max(1.0, float(np.abs(ref).max())):
+                raise AssertionError("gluon mlp step %d %s: card differs from "
+                                     "the CPU by %.3g" % (step, key, err))
+            worst[key] = max(worst.get(key, 0.0), err)
+    print("gluon Dense(512) -> BatchNorm -> Dense(10) on NDArrays, 2 steps "
+          "under autograd.record() on the card against the CPU: max abs "
+          "err %s" % ", ".join("%s %.3g" % kv for kv in sorted(
+              worst.items())), flush=True)
+    return launches
+
+
 def kernel_entries(rows, launches, name, source, replaces):
     """One `kernels` entry per type: the per-forward shapes' numbers, each
     times its launches per forward, summed."""
@@ -1055,6 +1360,7 @@ def main():
     conv_launches = resnet_serve_phase(card)
     flash_rows = flash_phase()
     flash_launches = lm_serve_phase(card)
+    gluon_nd_phase()
     n = resnet50_param_count()
     _, rtc_kernels, rtc_rows = rtc_phase(n)
     rtc_launches = imperative_phase(rtc_kernels, n)

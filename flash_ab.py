@@ -2,7 +2,7 @@
 """A/B of the port's kernels and of the served models across checkouts of
 this repo, on one NVIDIA card:
 
-    python3 flash_ab.py [--conv] NAME=DIR NAME=DIR [...]
+    python3 flash_ab.py [--conv | --rtc] NAME=DIR NAME=DIR [...]
 
 runs each checkout's ``mxtpu_torch`` in a fresh process of its own, in the
 order A B ... B A (each checkout twice, mirrored, so a drift of the card or
@@ -26,6 +26,20 @@ With ``--conv`` each run
   sums over the 11 gated launches of one forward;
 * serves ResNet-50 v1 (seeded weights) at b8 through the Predictor,
   float32 then bfloat16.
+
+With ``--rtc`` each run builds the checkout's own ``chip_smoke.py``
+runtime examples (kernel B3, ``RTC_SOURCE``) through its ``mxtpu_torch.rtc``
+and launches them as that checkout does (its ``rtc_launch`` where it has
+one, else the default one-thread-per-element grid):
+
+* holds each against its plain version at n = 25,557,032 and times it
+  eagerly, with its one-call PyTorch equivalent beside it;
+* the host us to issue one launch of square at n = 1024, with
+  ``torch.square``'s beside it;
+* the median wall ms of one imperative autograd step (square registered
+  as a differentiable op through ``contrib.external_kernel``, times w,
+  summed, backward) at n = 25,557,032 and at n = 1024, where the host's
+  issue is all of it.
 
 A serve reports the median and p80 latency and the median host-issue ms
 of 50 closed-loop requests (``chip_smoke.closed_loop``), the kernel's
@@ -181,14 +195,96 @@ def conv_worker(tree):
     return res
 
 
+def tree_chip_smoke(tree):
+    """The checkout's own chip_smoke.py (its runtime examples)."""
+    spec = importlib.util.spec_from_file_location(
+        "tree_chip_smoke", os.path.join(tree, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def rtc_worker(tree):
+    """One run of the checkout's runtime examples at ``tree``."""
+    cs, tree = load(tree)
+    import time
+    import torch
+    import mxtpu_torch as mt
+    from mxtpu_torch import rtc
+    from mxtpu_torch.contrib.external_kernel import register_external_kernel
+    tcs = tree_chip_smoke(tree)
+    mod = rtc.CudaModule(tcs.RTC_SOURCE).build()
+    ks = {name: mod.get_kernel(name) for name, *_ in tcs.RTC_KERNELS}
+    types = {name: dtype for name, _, dtype, *_ in tcs.RTC_KERNELS}
+
+    def launch(name, args, shape):
+        n = 1
+        for s in shape:
+            n *= s
+        if hasattr(tcs, "rtc_launch"):
+            return tcs.rtc_launch(ks[name], args, n, types[name], shape)
+        return ks[name].launch(args, shape)
+
+    res = {"tree": tree}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    n = 25557032
+    for name, n_in, dtype, rule, library in tcs.RTC_KERNELS:
+        xs = [torch.randn(n, device="cuda", generator=gen).to(
+            getattr(torch, dtype)) for _ in range(n_in)]
+        plain = tcs.RTC_PLAIN[name]
+        out = launch(name, xs + [n], (n,)).to_torch()
+        err = cs.rtc_check(out, plain(*xs), rule, name,
+                           mag=plain(*[t.abs() for t in xs]))
+        row = {"err": err,
+               "eager_ms": cs.cuda_ms(lambda: launch(name, xs + [n], (n,)))}
+        if library is not None:
+            row["torch_ms"] = cs.cuda_ms(lambda: library(*xs))
+        res["rtc " + name] = row
+    small = torch.randn(1024, device="cuda", generator=gen)
+    host = {"rtc_square_us": cs.host_us(
+        lambda: launch("square", [small, 1024], (1024,))),
+        "torch_square_us": cs.host_us(small.square)}
+    register_external_kernel(
+        "ab_square", lambda x: launch("square", [x, x.numel()], x.shape),
+        vjp=lambda g, x: launch("square_backward", [x, g, x.numel()],
+                                x.shape))
+    for m in (n, 1024):
+        x = mt.nd.array(torch.randn(m, device="cuda", generator=gen))
+        w = mt.nd.array(torch.randn(m, device="cuda", generator=gen))
+        x.attach_grad()
+        w.attach_grad()
+
+        def step():
+            with mt.autograd.record():
+                loss = (mt.nd.ab_square(x) * w).sum()
+            loss.backward()
+        for _ in range(3):
+            step()
+        samples = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            samples.append(1e3 * (time.perf_counter() - t0))
+        samples.sort()
+        host["autograd_step_ms n=%d" % m] = samples[len(samples) // 2]
+    res["host"] = host
+    return res
+
+
+WORKERS = {"flash": flash_worker, "conv": conv_worker, "rtc": rtc_worker}
+
+
 def main(argv):
     if len(argv) >= 3 and argv[0] == "--run":
-        res = (conv_worker if argv[2] == "conv" else flash_worker)(argv[1])
+        res = WORKERS[argv[2]](argv[1])
         print(TAG + json.dumps(res), flush=True)
         return 0
     mode = "flash"
-    if argv and argv[0] == "--conv":
-        mode, argv = "conv", argv[1:]
+    if argv and argv[0] in ("--conv", "--rtc"):
+        mode, argv = argv[0][2:], argv[1:]
     trees = [a.split("=", 1) for a in argv]
     if len(trees) < 2 or any(len(t) != 2 for t in trees):
         print(__doc__, file=sys.stderr)
@@ -218,7 +314,8 @@ def main(argv):
             continue
         for key in runs[0][1][part]:
             print("%-15s %-24s %s" % (part, key, "  ".join(
-                "%s %.6g" % (name, res[part][key]) for name, res in runs)))
+                "%s %.6g" % (name, res[part][key]) for name, res in runs
+                if key in res.get(part, {}))))
     return 0
 
 

@@ -59,7 +59,7 @@ def params_to_numpy(net):
     """``{name: np.ndarray}`` of every parameter (bf16 as float32, exact)."""
     out = {}
     for name, p in net.collect_params().items():
-        t = p.data().detach().cpu()
+        t = p.data().to_torch().detach().cpu()
         if t.dtype in (torch.bfloat16, torch.float16):
             t = t.float()
         out[name] = t.numpy()

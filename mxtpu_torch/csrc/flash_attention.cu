@@ -2,7 +2,7 @@
 //
 // Replaces mxtpu/ops/pallas/flash_attention.py:_fa_kernel (launched there by
 // _fa_forward_pallas through pl.pallas_call). For q [B, H, T, D] and k, v
-// [B, H, Tk, D], all float32 or all bfloat16, D <= 128, it computes
+// [B, H, Tk, D], all float32 or all bfloat16, any D >= 1, it computes
 //
 //     s   = (q . k^T) * scale      in float32, -1e30 where causal and q_pos < k_pos
 //     out = softmax(s) . v         in the input type, [B, H, T, D] contiguous
@@ -97,6 +97,7 @@ struct FaArgs {
   long long ksb, ksh, kst;
   long long vsb, vsh, vst;
   int h, t, tk, d, causal, n_q;
+  int slices;                    // 128-column slices of out per (row block, head); > 1 past D 128
   float scale_log2;              // scale * log2(e)
 };
 
@@ -652,6 +653,429 @@ __global__ void __launch_bounds__(F32_THREADS) flash_attention_f32_kernel(FaArgs
   }
 }
 
+// ------------------------------------------------ head dims past 128: slices
+//
+// For D > 128 each block owns one 128-column slice of out (grid dimension
+// `slices`, the fastest-varying one, so the slices of a row block run side
+// by side and share Q and K through L2). It computes all of S = Q K^T,
+// walking D in 64-column chunks, then P V and out for its own slice only;
+// slice 0 writes lse. S is recomputed once per slice (D 256: 1.5x the
+// FLOPs of one pass). Every staged piece -- a chunk of the Q rows and of
+// the K tile, or the V tile's slice -- is one item of a ring of
+// STAGES slots: the copies of the next STAGES - 1 items are in flight while
+// item i is used (item i+STAGES-1's are issued right after item i's
+// barrier), so shared memory does not grow with D and every D runs.
+
+constexpr int WIDE_DV = 128;   // columns of out per slice
+
+// bfloat16: one warpgroup of 64 query rows, 64-key tiles; a ring slot is a
+// Q chunk and a K chunk (8 KB each, B128 swizzle) or the V tile's slice
+// (16 KB, two 64-column halves). 128-column chunks and rings of 3 or 4
+// slots measured slower over D 160, 256 and 320 (variant_search.py,
+// PERF.md).
+constexpr int WIDE_BF16_DC = 64;
+constexpr uint32_t WIDE_BF16_SLOT = 16384;
+constexpr int WIDE_BF16_STAGES = 2;
+
+template <bool VEC>
+__global__ void __launch_bounds__(128) flash_attention_bf16_wide_kernel(FaArgs a) {
+  using TV = Tile<WIDE_DV>;
+  constexpr int BQ = 64;
+  constexpr int BK = 64;
+  constexpr uint32_t SBO = 1024;   // 8 rows of 128 bytes
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t ring = (smem_u32(smem_raw) + 1023) & ~1023u;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int sl = (int)(blockIdx.x % a.slices);
+  const int rest = (int)(blockIdx.x / a.slices);
+  const int qi = a.n_q - 1 - rest % a.n_q;   // longest causal rows first
+  const int bh = rest / a.n_q;
+  const int bi = bh / a.h;
+  const int hi = bh - bi * a.h;
+  const int q0 = qi * BQ;
+  const int c0 = sl * WIDE_DV;               // this block's first column of out
+  const uint16_t* __restrict__ q =
+      static_cast<const uint16_t*>(a.q) + bi * a.qsb + hi * a.qsh;
+  const uint16_t* __restrict__ k =
+      static_cast<const uint16_t*>(a.k) + bi * a.ksb + hi * a.ksh;
+  const uint16_t* __restrict__ v =
+      static_cast<const uint16_t*>(a.v) + bi * a.vsb + hi * a.vsh;
+
+  const int k_end = a.causal ? min(a.tk, q0 + BQ) : a.tk;
+  const int n_tiles = (k_end + BK - 1) / BK;
+  const int nc = (a.d + WIDE_BF16_DC - 1) / WIDE_BF16_DC;
+  const int ni = nc + 1;                     // items per k tile: nc chunks, then V
+  const int n_items = n_tiles * ni;
+
+  // one commit group per item, an empty one past the last, so that
+  // waiting for all but the newest STAGES - 2 groups means item i is in
+  auto issue = [&](int i) {
+    if (i >= n_items) {
+      cp_async_commit();
+      return;
+    }
+    const int t = i / ni;
+    const int c = i - t * ni;
+    const uint32_t slot = ring + (i % WIDE_BF16_STAGES) * WIDE_BF16_SLOT;
+    if (c < nc) {
+      const int cc = c * WIDE_BF16_DC;
+      stage_bf16<WIDE_BF16_DC, BQ, 128, VEC>(slot, q + cc, a.qst, q0, a.t, a.d - cc, tid);
+      stage_bf16<WIDE_BF16_DC, BK, 128, VEC>(slot + WIDE_BF16_SLOT / 2, k + cc, a.kst,
+                                             t * BK, a.tk, a.d - cc, tid);
+    } else {
+      stage_bf16<WIDE_DV, BK, 128, VEC>(slot, v + c0, a.vst, t * BK, a.tk, a.d - c0, tid);
+    }
+    cp_async_commit();
+  };
+
+  const int r0 = warp * 16 + (lane >> 2);    // this thread's rows: r0 and r0 + 8
+  const int qc = lane & 3;                   // and columns 8j + 2qc, 8j + 2qc + 1
+  float o[WIDE_DV / 2], s[32];
+#pragma unroll
+  for (int i = 0; i < WIDE_DV / 2; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+  float m[2] = {NEG, NEG};
+  float l[2] = {0.f, 0.f};
+
+  for (int i = 0; i < WIDE_BF16_STAGES - 1; ++i) issue(i);
+  for (int i = 0; i < n_items; ++i) {
+    cp_async_wait<WIDE_BF16_STAGES - 2>();
+    fence_proxy_async();
+    __syncthreads();   // item i is in for everyone; item i-1's slot is free
+    issue(i + WIDE_BF16_STAGES - 1);
+    const int t = i / ni;
+    const int c = i - t * ni;
+    const uint32_t slot = ring + (i % WIDE_BF16_STAGES) * WIDE_BF16_SLOT;
+    if (c < nc) {
+      // S (+)= Q_c K_c^T, 16 columns a k-step (a chunk of 128 columns
+      // would be two 64-column halves, 64 rows of 128 bytes apart); the
+      // first clears S
+      fence_regs(s);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < WIDE_BF16_DC / 16; ++kk) {
+        const uint32_t off = (kk / 4) * 64 * TV::ROWB + (kk % 4) * 32;
+        wgmma_ss_n64(s, gmma_desc(slot + off, 16, SBO, 1),
+                     gmma_desc(slot + WIDE_BF16_SLOT / 2 + off, 16, SBO, 1),
+                     c > 0 || kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+      continue;
+    }
+    const int k0 = t * BK;
+    const bool mask = k0 + BK > a.tk || (a.causal && k0 + BK - 1 > q0);
+    float alpha[2];
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int row = q0 + r0 + 8 * h2;
+      float mc[2] = {NEG, NEG};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x = s[4 * j + 2 * h2 + e] * a.scale_log2;
+          if (mask) {
+            const int key = k0 + 8 * j + 2 * qc + e;
+            if (key >= a.tk || (a.causal && key > row)) x = NEG;
+          }
+          s[4 * j + 2 * h2 + e] = x;
+          mc[e] = fmaxf(mc[e], x);
+        }
+      }
+      float mx = fmaxf(mc[0], mc[1]);
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+      const float m_new = fmaxf(m[h2], mx);
+      alpha[h2] = ex2(m[h2] - m_new);
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = ex2(s[4 * j + 2 * h2 + e] - m_new);
+          rs[e] += p;
+          s[4 * j + 2 * h2 + e] = p;
+        }
+      }
+      l[h2] = l[h2] * alpha[h2] + (rs[0] + rs[1]);
+      m[h2] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < WIDE_DV / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[4 * j + e] *= alpha[e >> 1];
+    }
+    uint32_t pf[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pf[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+      fence_regs(pf[kk]);
+    }
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_pv<WIDE_DV>(o, pf[kk], gmma_desc(slot + kk * 16 * TV::ROWB, BK * TV::ROWB, SBO,
+                                             TV::LAYOUT));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+  }
+
+  uint16_t* out = static_cast<uint16_t*>(a.out) + (size_t)bh * a.t * a.d;
+  const bool pairs = (a.d & 1) == 0;
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    float lt = l[h2] + __shfl_xor_sync(FULL, l[h2], 1);
+    lt += __shfl_xor_sync(FULL, lt, 2);
+    const float den = fmaxf(lt, 1e-30f);
+    const int row = q0 + r0 + 8 * h2;
+    if (row >= a.t) continue;
+    uint16_t* orow = out + (size_t)row * a.d;
+#pragma unroll
+    for (int j = 0; j < WIDE_DV / 8; ++j) {
+      const int col = c0 + 8 * j + 2 * qc;
+      const float x0 = o[4 * j + 2 * h2] / den;
+      const float x1 = o[4 * j + 2 * h2 + 1] / den;
+      if (pairs && col + 1 < a.d) {
+        *reinterpret_cast<uint32_t*>(orow + col) = pack_bf16(x0, x1);
+      } else {
+        if (col < a.d) orow[col] = bf16_bits(x0);
+        if (col + 1 < a.d) orow[col + 1] = bf16_bits(x1);
+      }
+    }
+    if (sl == 0 && qc == 0) a.lse[(size_t)bh * a.t + row] = m[h2] * LN2 + logf(den);
+  }
+}
+
+// float32: the 8 x 8 register blocks of flash_attention_f32_kernel over
+// 128 query rows and 32-key tiles; a ring slot is Q^T's and K^T's chunk
+// [64][BQ + 8] and [64][BK + 8], or the V tile's slice [BK][128]
+constexpr int WIDE_DC = 64;
+constexpr int WIDE_F32_BK = 32;
+constexpr int WIDE_F32_SLOT =   // floats
+    WIDE_DC * (F32_BQ + 8) + WIDE_DC * (WIDE_F32_BK + 8);
+
+constexpr size_t wide_f32_smem_bytes() {
+  return sizeof(float) * (size_t)(2 * WIDE_F32_SLOT + WIDE_F32_BK * F32_BQ);
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(F32_THREADS) flash_attention_f32_wide_kernel(FaArgs a) {
+  constexpr int BQ = F32_BQ;
+  constexpr int NT = F32_THREADS;
+  constexpr int BK = WIDE_F32_BK;
+  constexpr int DV = WIDE_DV;
+  constexpr int KN = BK / 8;      // keys per thread (4tx .. 4tx+3)
+  constexpr int CG = DV / 32;     // float4 column groups per thread
+  constexpr int CN = 4 * CG;
+  constexpr int QS = BQ + 8;
+  constexpr int KS = BK + 8;
+  static_assert(KN == 4, "one float4 of keys per thread");
+  extern __shared__ float4 smem4[];
+  float* ring = reinterpret_cast<float*>(smem4);
+  float* Pt = ring + 2 * WIDE_F32_SLOT;           // [BK][BQ], swizzled by p_col
+
+  const int tid = threadIdx.x;
+  const int ty = tid >> 3;
+  const int tx = tid & 7;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int sl = (int)(blockIdx.x % a.slices);
+  const int rest = (int)(blockIdx.x / a.slices);
+  const int qi = a.n_q - 1 - rest % a.n_q;
+  const int bh = rest / a.n_q;
+  const int bi = bh / a.h;
+  const int hi = bh - bi * a.h;
+  const int q0 = qi * BQ;
+  const int c0 = sl * DV;
+  const float* __restrict__ q = static_cast<const float*>(a.q) + bi * a.qsb + hi * a.qsh;
+  const float* __restrict__ k = static_cast<const float*>(a.k) + bi * a.ksb + hi * a.ksh;
+  const float* __restrict__ v = static_cast<const float*>(a.v) + bi * a.vsb + hi * a.vsh;
+
+  const int k_end = a.causal ? min(a.tk, q0 + BQ) : a.tk;
+  const int n_tiles = (k_end + BK - 1) / BK;
+  const int nc = (a.d + WIDE_DC - 1) / WIDE_DC;
+  const int ni = nc + 1;
+  const int n_items = n_tiles * ni;
+  const int dv = a.d - c0;                        // columns of V left from c0
+
+  auto issue = [&](int i) {
+    const int t = i / ni;
+    const int c = i - t * ni;
+    float* slot = ring + (i & 1) * WIDE_F32_SLOT;
+    if (c < nc) {
+      const int cc = c * WIDE_DC;
+      stage_f32_t<WIDE_DC, BQ, QS, NT>(slot, q + cc, a.qst, q0, a.t, a.d - cc, warp, lane);
+      stage_f32_t<WIDE_DC, BK, KS, NT>(slot + WIDE_DC * QS, k + cc, a.kst, t * BK, a.tk,
+                                       a.d - cc, warp, lane);
+    } else if constexpr (VEC) {
+      const int k0 = t * BK;
+#pragma unroll
+      for (int e = tid; e < BK * DV / 4; e += NT) {
+        const int r = e / (DV / 4);
+        const int cv = (e % (DV / 4)) * 4;
+        const bool ok = k0 + r < a.tk && cv < dv;
+        cp_async16(smem_u32(slot + r * DV + cv), ok ? v + (k0 + r) * a.vst + c0 + cv : v,
+                   ok ? 16 : 0);
+      }
+    } else {
+      const int k0 = t * BK;
+#pragma unroll 4
+      for (int e = tid; e < BK * DV; e += NT) {
+        const int r = e / DV;
+        const int cv = e % DV;
+        const bool ok = k0 + r < a.tk && cv < dv;
+        cp_async4(smem_u32(slot + e), ok ? v + (k0 + r) * a.vst + c0 + cv : v, ok ? 4 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[8][CN];
+  float s[8][KN];
+  float m[8], l[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = NEG;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < CN; ++j) acc[i][j] = 0.f;
+#pragma unroll
+    for (int j = 0; j < KN; ++j) s[i][j] = 0.f;
+  }
+
+  issue(0);
+  for (int i = 0; i < n_items; ++i) {
+    cp_async_wait_all();
+    __syncthreads();   // item i is in for everyone; item i-1's slot and P^T are free
+    if (i + 1 < n_items) issue(i + 1);
+    const int t = i / ni;
+    const int c = i - t * ni;
+    const float* slot = ring + (i & 1) * WIDE_F32_SLOT;
+    if (c < nc) {
+      if (c == 0) {
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+#pragma unroll
+          for (int j = 0; j < KN; ++j) s[r][j] = 0.f;
+      }
+      const float* Qt = slot;
+      const float* Kt = slot + WIDE_DC * QS;
+#pragma unroll 4
+      for (int cc = 0; cc < WIDE_DC; ++cc) {
+        const float4 qa = *reinterpret_cast<const float4*>(Qt + cc * QS + 4 * ty);
+        const float4 qb = *reinterpret_cast<const float4*>(Qt + cc * QS + 64 + 4 * ty);
+        const float qr[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
+        const float4 kb = *reinterpret_cast<const float4*>(Kt + cc * KS + 4 * tx);
+        const float kr[4] = {kb.x, kb.y, kb.z, kb.w};
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+#pragma unroll
+          for (int j = 0; j < KN; ++j) s[r][j] = fmaf(qr[r], kr[j], s[r][j]);
+      }
+      continue;
+    }
+    const int k0 = t * BK;
+    const bool mask = k0 + BK > a.tk || (a.causal && k0 + BK - 1 > q0);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int row = q0 + (r < 4 ? 4 * ty + r : 64 + 4 * ty + r - 4);
+      float mc[2] = {NEG, NEG};
+#pragma unroll
+      for (int j = 0; j < KN; ++j) {
+        float x = s[r][j] * a.scale_log2;
+        if (mask) {
+          const int key = k0 + 4 * tx + j;
+          if (key >= a.tk || (a.causal && key > row)) x = NEG;
+        }
+        s[r][j] = x;
+        mc[j & 1] = fmaxf(mc[j & 1], x);
+      }
+      float mx = fmaxf(mc[0], mc[1]);
+#pragma unroll
+      for (int off = 1; off < 8; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
+      const float m_new = fmaxf(m[r], mx);
+      const float alpha = ex2(m[r] - m_new);
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < KN; ++j) {
+        s[r][j] = ex2(s[r][j] - m_new);
+        rs[j & 1] += s[r][j];
+      }
+      l[r] = l[r] * alpha + (rs[0] + rs[1]);
+      m[r] = m_new;
+#pragma unroll
+      for (int j = 0; j < CN; ++j) acc[r][j] *= alpha;
+    }
+#pragma unroll
+    for (int j = 0; j < KN; ++j) {
+      const int key = 4 * tx + j;
+      *reinterpret_cast<float4*>(Pt + key * BQ + p_col(key, ty)) =
+          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+      *reinterpret_cast<float4*>(Pt + key * BQ + p_col(key, 16 + ty)) =
+          make_float4(s[4][j], s[5][j], s[6][j], s[7][j]);
+    }
+    __syncthreads();
+    const float* vt = slot;                      // [BK][DV]
+#pragma unroll 4
+    for (int kk = 0; kk < BK; ++kk) {
+      const float4 pa = *reinterpret_cast<const float4*>(Pt + kk * BQ + p_col(kk, ty));
+      const float4 pb = *reinterpret_cast<const float4*>(Pt + kk * BQ + p_col(kk, 16 + ty));
+      const float pr[8] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
+      float vr[CN];
+#pragma unroll
+      for (int g = 0; g < CG; ++g) {
+        const float4 vb = *reinterpret_cast<const float4*>(vt + kk * DV + 32 * g + 4 * tx);
+        vr[4 * g] = vb.x;
+        vr[4 * g + 1] = vb.y;
+        vr[4 * g + 2] = vb.z;
+        vr[4 * g + 3] = vb.w;
+      }
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int j = 0; j < CN; ++j) acc[r][j] = fmaf(pr[r], vr[j], acc[r][j]);
+    }
+  }
+
+  float* out = static_cast<float*>(a.out) + (size_t)bh * a.t * a.d;
+  const bool quads = (a.d & 3) == 0;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    float lt = l[r];
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1) lt += __shfl_xor_sync(FULL, lt, off);
+    const float den = fmaxf(lt, 1e-30f);
+    const int row = q0 + (r < 4 ? 4 * ty + r : 64 + 4 * ty + r - 4);
+    if (row >= a.t) continue;
+    float* orow = out + (size_t)row * a.d;
+#pragma unroll
+    for (int g = 0; g < CG; ++g) {
+      const int col = c0 + 32 * g + 4 * tx;
+      const float4 x = make_float4(acc[r][4 * g] / den, acc[r][4 * g + 1] / den,
+                                   acc[r][4 * g + 2] / den, acc[r][4 * g + 3] / den);
+      if (quads && col < a.d) {
+        *reinterpret_cast<float4*>(orow + col) = x;
+      } else {
+        if (col < a.d) orow[col] = x.x;
+        if (col + 1 < a.d) orow[col + 1] = x.y;
+        if (col + 2 < a.d) orow[col + 2] = x.z;
+        if (col + 3 < a.d) orow[col + 3] = x.w;
+      }
+    }
+    if (sl == 0 && tx == 0) a.lse[(size_t)bh * a.t + row] = m[r] * LN2 + logf(den);
+  }
+}
+
 // ------------------------------------------------------------------ launchers
 
 template <int DP, int NWG>
@@ -674,6 +1098,17 @@ int launch_f32(const FaArgs& a, bool vec, unsigned blocks, cudaStream_t s) {
   return launch_kernel<flash_attention_f32_kernel<DP, BK, false>>(a, blocks, F32_THREADS, smem, s);
 }
 
+int launch_wide(const FaArgs& a, int dtype, bool vec, unsigned blocks, cudaStream_t s) {
+  if (dtype == 0) {
+    constexpr size_t smem = wide_f32_smem_bytes();
+    if (vec) return launch_kernel<flash_attention_f32_wide_kernel<true>>(a, blocks, F32_THREADS, smem, s);
+    return launch_kernel<flash_attention_f32_wide_kernel<false>>(a, blocks, F32_THREADS, smem, s);
+  }
+  constexpr size_t smem = 1024 + WIDE_BF16_STAGES * WIDE_BF16_SLOT;
+  if (vec) return launch_kernel<flash_attention_bf16_wide_kernel<true>>(a, blocks, 128, smem, s);
+  return launch_kernel<flash_attention_bf16_wide_kernel<false>>(a, blocks, 128, smem, s);
+}
+
 // the precondition of the 16-byte copies (VEC): the base address and the
 // byte stride of every dim of more than one element are multiples of 16 (a
 // dim of one element never advances its stride); the same rule as the
@@ -689,25 +1124,29 @@ bool aligned16(const void* p, const long long (&st)[3], const int (&n)[3], int e
 
 // Plain C entry point for ctypes. The wrapper
 // (ops/pallas/flash_attention.py:_launch_args) decides the launch: dtype (0
-// float32, 1 bfloat16), d_tile (32, 64 or 128, >= d), vec (1: the 16-byte
-// async-copy staging; 0: element-wise), wgs (the bfloat16 kernel's
-// warpgroups per block, 1 or 2; float32 takes 1) and n_q (blocks per
-// (batch, head)). This function only refuses what would take the kernel out
-// of bounds: an unknown dtype or tile, d past the tile, a warpgroup count
-// with no instance, 16-byte copies from unaligned rows, a grid too large.
-// Then come the element strides of q's, k's and v's batch, head and row
-// (the last dim contiguous), b, h, t, tk, d and causal. Launches on
-// `stream` and returns a CUDA error code (0 on success); never
+// float32, 1 bfloat16), d_tile (32, 64 or 128, the tile width of out, so
+// d <= d_tile * slices), vec (1: the 16-byte async-copy staging; 0:
+// element-wise), wgs (the bfloat16 kernel's warpgroups per block, 1 or 2;
+// float32 and the sliced kernels take 1), n_q (row blocks per (batch,
+// head)) and slices (128-column slices of out per row block: 1 up to D 128,
+// more for the sliced kernels). This function only refuses what would take
+// a kernel out of bounds: an unknown dtype or tile, d past the slices, a
+// warpgroup count with no instance, 16-byte copies from unaligned rows, a
+// grid too large. Then come the element strides of q's, k's and v's batch,
+// head and row (the last dim contiguous), b, h, t, tk, d and causal.
+// Launches on `stream` and returns a CUDA error code (0 on success); never
 // synchronises.
 extern "C" int mxtpu_flash_attention_fwd(int dtype, int d_tile, int vec, int wgs, int n_q,
-                                         const void* q, const void* k, const void* v,
-                                         void* out, void* lse, long long qsb, long long qsh,
-                                         long long qst, long long ksb, long long ksh,
-                                         long long kst, long long vsb, long long vsh,
-                                         long long vst, int b, int h, int t, int tk, int d,
-                                         int causal, float scale, void* stream) {
-  if (b < 1 || h < 1 || t < 1 || tk < 1 || d < 1 || n_q < 1 || d > d_tile ||
+                                         int slices, const void* q, const void* k,
+                                         const void* v, void* out, void* lse, long long qsb,
+                                         long long qsh, long long qst, long long ksb,
+                                         long long ksh, long long kst, long long vsb,
+                                         long long vsh, long long vst, int b, int h, int t,
+                                         int tk, int d, int causal, float scale, void* stream) {
+  if (b < 1 || h < 1 || t < 1 || tk < 1 || d < 1 || n_q < 1 || slices < 1 ||
+      (long long)d > (long long)d_tile * slices ||
       (d_tile != 32 && d_tile != 64 && d_tile != 128) || (dtype != 0 && dtype != 1) ||
+      (slices > 1 && (d_tile != WIDE_DV || wgs != 1)) ||
       (wgs != 1 && (dtype == 0 || wgs != 2)))
     return (int)cudaErrorInvalidValue;
   const int es = dtype == 0 ? 4 : 2;
@@ -721,11 +1160,13 @@ extern "C" int mxtpu_flash_attention_fwd(int dtype, int d_tile, int vec, int wgs
   a.ksb = ksb; a.ksh = ksh; a.kst = kst;
   a.vsb = vsb; a.vsh = vsh; a.vst = vst;
   a.h = h; a.t = t; a.tk = tk; a.d = d; a.causal = causal; a.n_q = n_q;
+  a.slices = slices;
   a.scale_log2 = (float)((double)scale * 1.4426950408889634);
-  const long long blocks = (long long)n_q * b * h;
+  const long long blocks = (long long)n_q * b * h * slices;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned nb = (unsigned)blocks;
+  if (slices > 1) return launch_wide(a, dtype, vec, nb, s);
   if (dtype == 0) {
     if (d_tile == 32) return launch_f32<32, 64>(a, vec, nb, s);
     if (d_tile == 64) return launch_f32<64, 64>(a, vec, nb, s);

@@ -6,16 +6,22 @@ The reference's auto-naming is kept (``_BlockScope``, ``name_scope()``), so
 ``resnetv10_conv2d0_weight``. Children are ``nn.Module`` submodules and
 parameter tensors live in ``nn.Module._parameters`` (see parameter.py).
 ``HybridBlock.forward`` runs ``hybrid_forward(F, x, **params)`` with ``F``
-the port's op namespace. ``hybridize()`` does nothing yet: PyTorch runs
+the port's op namespace, which works on tensors: ``net(tensor)`` returns
+tensors (the Predictors feed them), and ``net(ndarray)`` runs the same
+forward on the arrays' tensors, taped only under ``autograd.record()``,
+and returns NDArrays. ``hybridize()`` does nothing yet: PyTorch runs
 eagerly, and CUDA-graph capture comes in a later slice.
 """
 from __future__ import annotations
 
 import threading
 
+import torch
 from torch import nn
 
+from .. import autograd
 from ..base import MXNetError
+from ..ndarray import NDArray
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
 __all__ = ["Block", "HybridBlock"]
@@ -160,13 +166,26 @@ class HybridBlock(Block):
             "shapes from its inputs" % self.__class__.__name__)
 
     def forward(self, *args):
+        for a in args:
+            if isinstance(a, NDArray):
+                return self._forward_nd(args)
         try:
-            params = {k: p.data() for k, p in self._reg_params.items()}
+            params = {k: p._tensor() for k, p in self._reg_params.items()}
         except DeferredInitializationError:
             self.infer_shape(*args)
-            params = {k: p.data() for k, p in self._reg_params.items()}
+            params = {k: p._tensor() for k, p in self._reg_params.items()}
         from .. import ops as F
         return self.hybrid_forward(F, *args, **params)
+
+    def _forward_nd(self, args):
+        """NDArrays in and out: the forward on their tensors, taped only
+        while recording (as ``ndarray._apply`` runs an op)."""
+        args = [a._data if isinstance(a, NDArray) else a for a in args]
+        with torch.set_grad_enabled(autograd.is_recording()):
+            out = self.forward(*args)
+        if isinstance(out, (tuple, list)):
+            return type(out)(NDArray(o) for o in out)
+        return NDArray(out)
 
     def hybrid_forward(self, F, *args, **kwargs):  # pragma: no cover
         raise NotImplementedError

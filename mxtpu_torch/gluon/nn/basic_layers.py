@@ -1,8 +1,8 @@
 """Basic layers (counterpart of ``mxtpu/gluon/nn/basic_layers.py``):
-HybridSequential, Dense, BatchNorm (inference form), LayerNorm, Embedding
-and Flatten."""
+HybridSequential, Dense, BatchNorm, LayerNorm, Embedding and Flatten."""
 from __future__ import annotations
 
+from ... import autograd
 from ..block import Block, HybridBlock
 
 __all__ = ["HybridSequential", "Dense", "BatchNorm", "LayerNorm",
@@ -72,8 +72,11 @@ def _make_activation(activation):
 
 class BatchNorm(HybridBlock):
     """Batch normalization with moving statistics as parameters; the layer's
-    eps is 1e-5. The port runs it in inference form (moving statistics);
-    the batch-statistics training branch comes with the training port."""
+    eps is 1e-5. In autograd training mode (unless ``use_global_stats``)
+    it normalizes by the batch statistics and then moves the running ones
+    toward them by ``momentum`` (the biased batch variance, no gradient),
+    as the JAX package's layer does; otherwise it normalizes by the
+    running statistics."""
 
     def __init__(self, axis=None, momentum=0.9, epsilon=1e-5, center=True,
                  scale=True, use_global_stats=False, beta_initializer="zeros",
@@ -87,6 +90,7 @@ class BatchNorm(HybridBlock):
                             fix_gamma=not scale,
                             use_global_stats=use_global_stats)
         self._axis = axis
+        self._momentum = momentum
         with self.name_scope():
             self.gamma = self.params.get(
                 "gamma", grad_req="write" if scale else "null",
@@ -116,8 +120,17 @@ class BatchNorm(HybridBlock):
         return super().cast(dtype)
 
     def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
-        return F.BatchNorm(x, gamma, beta, running_mean, running_var,
-                           **self._kwargs)
+        train = autograd.is_training() and not self._kwargs["use_global_stats"]
+        out = F.BatchNorm(x, gamma, beta, running_mean, running_var,
+                          output_mean_var=train, **self._kwargs)
+        if train:
+            out, mean, var = out
+            m = self._momentum
+            self.running_mean._update_aux(running_mean * m
+                                          + mean.detach() * (1 - m))
+            self.running_var._update_aux(running_var * m
+                                         + var.detach() * (1 - m))
+        return out
 
 
 class LayerNorm(HybridBlock):

@@ -8,8 +8,18 @@ its shape is known the tensor is a ``torch.nn.UninitializedParameter``,
 which follows ``module.to(device)`` like any parameter; the first forward
 (``infer_shape``) or loaded weights (``set_data``) settle the shape and
 materialize it on the device and in the dtype the placeholder carries.
+
+``data()`` is an ``NDArray`` over that same ``torch.nn.Parameter`` (one
+storage, one autograd leaf), made once and rebound whenever the tensor is
+replaced (``set_data``, ``cast``, ``reset_ctx``). The leaf points back at
+it (``_mx_owner``) and it holds a gradient buffer following ``grad_req``,
+so ``autograd.backward`` fills ``grad()`` as it fills an array's after
+``attach_grad``. A write through the array (``p.data()[:] = v``) goes to
+the parameter.
 """
 from __future__ import annotations
+
+import weakref
 
 import numpy as np
 import torch
@@ -18,6 +28,7 @@ from torch import nn
 from .. import initializer as init_mod
 from ..base import MXNetError, torch_dtype
 from ..context import resolve_device
+from ..ndarray import NDArray
 
 __all__ = ["Parameter", "ParameterDict", "DeferredInitializationError",
            "torch_dtype"]
@@ -30,6 +41,21 @@ def _seeded_generator(seed=0):
     gen = torch.Generator(device="cpu")
     gen.manual_seed(seed)
     return gen
+
+
+class _ParamArray(NDArray):
+    """The NDArray of a Parameter: its payload is the parameter's own
+    ``torch.nn.Parameter``, already an autograd leaf."""
+
+    __slots__ = ("_param",)
+
+    def _set_data(self, new_data):
+        # a write through the array replaces the parameter's tensor
+        self._param._put(new_data.detach())
+        self._version += 1
+
+    def _make_leaf(self, grad_buf, grad_req):
+        self._grad, self._grad_req = grad_buf, grad_req
 
 
 class Parameter:
@@ -47,6 +73,7 @@ class Parameter:
         self._allow_deferred_init = allow_deferred_init
         self._deferred_init = None   # (init, default_init, generator)
         self._owner = None           # (module, attribute) holding the tensor
+        self._nd = None              # the _ParamArray data() returns
         self._own = self._placeholder(torch.device("cpu"))
 
     def __repr__(self):
@@ -56,6 +83,18 @@ class Parameter:
     @property
     def grad_req(self):
         return self._grad_req
+
+    @grad_req.setter
+    def grad_req(self, req):
+        if req not in ("write", "add", "null"):
+            raise MXNetError("grad_req must be 'write', 'add' or 'null', got "
+                             "%r" % (req,))
+        self._grad_req = req
+        t = self._get()
+        if isinstance(t, nn.UninitializedParameter):
+            self._put(self._placeholder(t.device, t.dtype))
+        else:
+            self._put(t.detach())
 
     # ------------------------------------------------------------- storage
     def _requires_grad(self):
@@ -81,6 +120,27 @@ class Parameter:
         else:
             module, attr = self._owner
             module._parameters[attr] = tensor
+        if not isinstance(tensor, nn.UninitializedParameter):
+            self._bind(tensor)
+
+    def _bind(self, tensor):
+        """Point the NDArray of ``data()`` at ``tensor`` and the leaf back
+        at it; the gradient buffer is kept while it still fits."""
+        nd = self._nd
+        if nd is None:
+            nd = self._nd = _ParamArray(tensor)
+            nd._param = self
+        nd._data = tensor
+        if not tensor.requires_grad:
+            nd._grad, nd._grad_req = None, "null"
+            return
+        g = nd._grad
+        if g is None or g._data.shape != tensor.shape \
+                or g._data.dtype != tensor.dtype \
+                or g._data.device != tensor.device:
+            nd._grad = NDArray(torch.zeros_like(tensor.detach()))
+        nd._grad_req = self._grad_req
+        tensor._mx_owner = weakref.ref(nd)
 
     def _attach(self, module, attr):
         """Move the tensor into ``module._parameters[attr]`` (Block.__setattr__)."""
@@ -145,7 +205,8 @@ class Parameter:
             self._finish_init(*self._deferred_init)
 
     # -------------------------------------------------------------- access
-    def data(self):
+    def _tensor(self):
+        """The parameter's tensor (what a layer's ``hybrid_forward`` gets)."""
         t = self._get()
         if isinstance(t, nn.UninitializedParameter):
             if self._deferred_init is not None:
@@ -155,6 +216,40 @@ class Parameter:
             raise MXNetError("Parameter %s has not been initialized"
                              % self.name)
         return t
+
+    def data(self, ctx=None):
+        """The parameter as an NDArray over its own tensor (ref:
+        Parameter.data; one copy, so ``ctx`` is not read)."""
+        t = self._tensor()
+        if self._nd is None or self._nd._data is not t:
+            self._bind(t)   # the module replaced the tensor (module.to)
+        return self._nd
+
+    def list_data(self):
+        return [self.data()]
+
+    def grad(self, ctx=None):
+        """The gradient buffer that ``autograd.backward`` writes
+        (``grad_req='write'``) or adds to (``'add'``)."""
+        g = self.data()._grad
+        if g is None:
+            raise MXNetError("Cannot get gradient array for Parameter %s "
+                             "because grad_req='null'" % self.name)
+        return g
+
+    def list_grad(self):
+        return [self.grad()]
+
+    def zero_grad(self):
+        g = self.data()._grad
+        if g is not None:
+            g._set_data(torch.zeros_like(g._data))
+
+    def _update_aux(self, value):
+        """Overwrite a statistic (BatchNorm's moving mean and variance) in
+        place, outside autograd."""
+        with torch.no_grad():
+            self._tensor().copy_(value)
 
     def set_data(self, data):
         """Load ``data`` (numpy array or tensor) in this parameter's dtype,
@@ -253,3 +348,7 @@ class ParameterDict:
     def reset_ctx(self, ctx):
         for p in self._params.values():
             p.reset_ctx(ctx)
+
+    def zero_grad(self):
+        for p in self._params.values():
+            p.zero_grad()

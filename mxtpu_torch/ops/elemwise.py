@@ -39,7 +39,16 @@ def _float(x):
 
 # ---------------------------------------------------------------- unary math
 abs_ = _u("abs", torch.abs)
-sign = _u("sign", torch.sign)
+
+
+def _sign(x):
+    """jnp.sign: NaN stays NaN and a zero keeps its sign (torch.sign maps
+    both to +0); the gradient stays zero everywhere."""
+    s = torch.sign(x)
+    return torch.where(s == 0, x.detach(), s)
+
+
+sign = _u("sign", _sign)
 rint = _u("rint", torch.round)            # half to even, as jnp.rint
 round_ = _u("round", torch.round)         # jnp.round is half to even too
 ceil = _u("ceil", torch.ceil)

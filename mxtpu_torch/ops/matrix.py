@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import torch
 
+from ..base import MXNetError
 from .precision_util import promote
 from .registry import register
 
@@ -15,14 +16,9 @@ __all__ = ["reshape", "transpose", "Embedding", "expand_dims", "squeeze",
            "reverse", "swapaxes", "dot", "batch_dot"]
 
 
-@register("Reshape", aliases=("reshape",), as_method=False)
-def reshape(x, shape=None):
-    """MXNet reshape: 0 copies the input dim, -1 infers one dim, -2 copies
-    every remaining dim, -3 merges two dims, -4 splits one dim into the
-    next two values (either may be -1) (ref: matrix_op.cc ReshapeParam)."""
-    if shape is None:
-        raise ValueError("reshape requires target shape")
-    src, tgt, shape = list(x.shape), [], list(shape)
+def _reshape_target(src, shape):
+    """The target shape of MXNet's special codes, read left to right."""
+    tgt, shape = [], list(shape)
     src_i = i = 0
     while i < len(shape):
         s = shape[i]
@@ -49,6 +45,39 @@ def reshape(x, shape=None):
             tgt.append(s)
             src_i += 1
         i += 1
+    return tgt
+
+
+def _resolve(tgt, numel):
+    """``tgt`` with its -1 inferred."""
+    known = 1
+    for s in tgt:
+        if s != -1:
+            known *= s
+    return tuple(numel // known if s == -1 and known else s for s in tgt)
+
+
+@register("Reshape", aliases=("reshape",), as_method=False)
+def reshape(x, shape=None, reverse=False, **_ig):
+    """MXNet reshape: 0 copies the input dim, -1 infers one dim, -2 copies
+    every remaining dim, -3 merges two dims, -4 splits one dim into the
+    next two values (either may be -1) (ref: matrix_op.cc ReshapeParam).
+    Other keywords are ignored, as the JAX package does. The JAX package
+    also ignores ``reverse``; MXNet reads the codes right to left with it.
+    Where the two readings give the same shape that shape is returned, and
+    where they differ the call raises rather than pick one."""
+    if shape is None:
+        raise ValueError("reshape requires target shape")
+    src = list(x.shape)
+    tgt = _reshape_target(src, shape)
+    if reverse:
+        if -4 in list(shape) or _resolve(tgt, x.numel()) != _resolve(
+                _reshape_target(src[::-1], list(shape)[::-1])[::-1],
+                x.numel()):
+            raise MXNetError(
+                "reshape(shape=%s, reverse=True) of %s: MXNet's right-to-left "
+                "reading differs from the JAX package's, which ignores "
+                "reverse" % (tuple(shape), tuple(src)))
     return torch.reshape(x, tuple(tgt))
 
 
@@ -60,10 +89,13 @@ def transpose(x, axes=None):
 
 
 @register("Embedding")
-def Embedding(data, weight, input_dim=None, output_dim=None):
+def Embedding(data, weight, input_dim=None, output_dim=None, dtype="float32",
+              sparse_grad=False):
     """Rows of ``weight`` for the ids in ``data``, ids cast to int32 and
     clipped to ``[0, input_dim - 1]`` as the JAX package does (an
-    out-of-range id reads the first or last row, never raises)."""
+    out-of-range id reads the first or last row, never raises). The output
+    has the weight's type; ``dtype`` and ``sparse_grad`` are accepted and
+    ignored, as the JAX package does (the gradient is dense)."""
     idx = data.to(torch.int32).clamp(0, weight.shape[0] - 1)
     return weight.index_select(0, idx.reshape(-1)).reshape(
         tuple(idx.shape) + tuple(weight.shape[1:]))

@@ -3,7 +3,9 @@
 Plain functions on tensors, with the JAX package's signatures and layout
 handling, each registered for ``mx.nd``: ``Convolution`` (through
 ``conv_acc.conv_fast``), ``Pooling``, ``Activation``, ``FullyConnected``,
-``BatchNorm`` in inference form and ``LayerNorm``.
+``BatchNorm`` and ``LayerNorm``. Keywords that only tune the reference's
+cuDNN calls (``workspace``, ``cudnn_tune``, ``cudnn_off``) are accepted and
+ignored, as the JAX package does.
 NHWC tensors go to PyTorch's NCHW operators as permuted views, which are
 channels-last in memory, so no copy is made to change layout.
 """
@@ -12,6 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .. import autograd
 from ..base import MXNetError
 from .conv_acc import conv_fast
 from .precision_util import promote
@@ -57,7 +60,7 @@ def _conv_dims(ndim, layout):
 @register("Convolution")
 def Convolution(data, weight, bias=None, kernel=None, stride=None, dilate=None,
                 pad=None, num_filter=None, num_group=1, no_bias=False,
-                layout=None):
+                layout=None, workspace=None, cudnn_tune=None, cudnn_off=None):
     """2-D convolution; the bias is handed to conv_fast so every dispatch
     path (fused kernel or plain conv) owns it."""
     ndim = data.ndim - 2
@@ -85,7 +88,7 @@ def _spatial_axes(ndim, layout):
 @register("Pooling")
 def Pooling(data, kernel=None, pool_type="max", global_pool=False, stride=None,
             pad=None, pooling_convention="valid", count_include_pad=True,
-            layout=None):
+            layout=None, cudnn_off=None, p_value=None):
     """2-D max/avg/sum pooling, or global pooling over the spatial axes.
     Padding reads -inf for max and 0 for avg/sum, and ``"full"`` (ceil)
     convention adds the missing right padding, as the JAX package's
@@ -148,27 +151,45 @@ def Activation(x, act_type="relu"):
 
 @register("BatchNorm")
 def BatchNorm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
-              momentum=0.9, fix_gamma=True, use_global_stats=False, axis=1):
-    """Batch normalization in inference form: normalizes by the moving
-    statistics, computing in float32 and casting back to the input's type
-    (the JAX package's predict-mode branch). Batch statistics and the
-    moving-stat update come with the training port."""
+              momentum=0.9, fix_gamma=True, use_global_stats=False,
+              output_mean_var=False, axis=1, cudnn_off=False):
+    """Batch normalization, computed in float32 and cast back to the
+    input's type (ref: mxtpu/ops/nn.py:BatchNorm). In autograd training
+    mode, unless ``use_global_stats``, it normalizes by the batch
+    statistics in the JAX package's default one-pass form (``mean = E[x]``,
+    ``var = max(E[x^2] - mean^2, 0)``; gradients flow through them);
+    otherwise by the moving statistics. The moving-stat update belongs to
+    the layer (gluon.nn.BatchNorm). ``output_mean_var`` also returns the
+    statistics used."""
     shape = [1] * data.ndim
     ax = axis % data.ndim
     shape[ax] = data.shape[ax]
     g = torch.ones_like(gamma) if fix_gamma else gamma
-    inv = torch.rsqrt(moving_var.float() + eps)
-    out = (data.float() - moving_mean.float().reshape(shape)) \
-        * (inv * g.float()).reshape(shape) + beta.float().reshape(shape)
-    return out.to(data.dtype)
+    if autograd.is_training() and not use_global_stats:
+        x32 = data.float()
+        red = [i for i in range(data.ndim) if i != ax]
+        mean = x32.mean(dim=red)
+        var = torch.clamp_min(x32.square().mean(dim=red) - mean.square(),
+                              0.0)
+        inv = torch.rsqrt(var + eps)
+        out = (x32 - mean.reshape(shape)) * (inv * g.float()).reshape(shape) \
+            + beta.float().reshape(shape)
+    else:
+        mean, var = moving_mean, moving_var
+        inv = torch.rsqrt(moving_var.float() + eps)
+        out = (data.float() - moving_mean.float().reshape(shape)) \
+            * (inv * g.float()).reshape(shape) + beta.float().reshape(shape)
+    out = out.to(data.dtype)
+    return (out, mean, var) if output_mean_var else out
 
 
 @register("LayerNorm")
-def LayerNorm(data, gamma, beta, axis=-1, eps=1e-5):
+def LayerNorm(data, gamma, beta, axis=-1, eps=1e-5, output_mean_var=False):
     """Layer normalization in the JAX package's order: mean and (biased)
     variance in float32, normalize and cast back to the input's type, and
     only then scale by gamma and shift by beta in that type (in bfloat16
-    the order decides the last bit)."""
+    the order decides the last bit). ``output_mean_var`` also returns the
+    float32 mean and variance with ``axis`` squeezed out."""
     x32 = data.float()
     mean = x32.mean(dim=axis, keepdim=True)
     var = x32.var(dim=axis, keepdim=True, unbiased=False)
@@ -176,4 +197,7 @@ def LayerNorm(data, gamma, beta, axis=-1, eps=1e-5):
     shape = [1] * data.ndim
     ax = axis % data.ndim
     shape[ax] = data.shape[ax]
-    return out * gamma.reshape(shape) + beta.reshape(shape)
+    out = out * gamma.reshape(shape) + beta.reshape(shape)
+    if output_mean_var:
+        return [out, mean.squeeze(ax), var.squeeze(ax)]
+    return out

@@ -9,9 +9,10 @@ run the plain PyTorch version ``flash_attention_reference``, which repeats
 the JAX package's ``_xla_attention_lse``.
 
 The kernel takes any T and Tk (it masks the ragged tails itself) and any
-D <= 128, so the port has none of the TPU's XLA fallback paths or head-dim
-padding; a larger D raises on every device. q, k and v may be strided
-views whose last dim is contiguous. ``block_q``/``block_k`` are the TPU
+D >= 1 (past 128 in 128-column slices of out, each recomputing the scores
+over all of D), so the port has none of the TPU's XLA fallback paths or
+head-dim padding. q, k and v may be strided views whose last dim is
+contiguous. ``block_q``/``block_k`` are the TPU
 kernel's block wants, kept for the reference's signature: the CUDA
 kernel picks its own tiles and grid (``_launch_args``) whatever they say.
 
@@ -35,7 +36,7 @@ __all__ = ["flash_attention", "flash_attention_with_lse",
            "flash_attention_reference"]
 
 _NEG_INF = -1e30   # mask value: the online rescale never sees -inf - -inf
-_MAX_HEAD_DIM = 128   # the kernel's largest tile width
+_SLICE = 128   # columns of out per block past D 128 (the sliced kernels)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FORWARD_ONLY = ("the flash_attention kernel is forward-only: its backward "
                  "comes with the training port; run under "
@@ -80,16 +81,13 @@ def _check(q, k, v):
                                             tuple(v.shape)))
     if min(b, h, t, d, k.shape[2]) < 1:
         raise MXNetError("flash_attention: empty input %s" % (tuple(q.shape),))
-    if d > _MAX_HEAD_DIM:
-        raise MXNetError("flash_attention: head dim %d exceeds the kernel's "
-                         "%d" % (d, _MAX_HEAD_DIM))
     if k.device != q.device or v.device != q.device:
         raise MXNetError("flash_attention: q, k and v must share a device, "
                          "got %s, %s and %s" % (q.device, k.device, v.device))
 
 
 LaunchArgs = collections.namedtuple(
-    "LaunchArgs", "dtype d_tile vec warpgroups block_q n_q grid")
+    "LaunchArgs", "dtype d_tile vec warpgroups block_q n_q slices grid")
 
 
 @functools.lru_cache(maxsize=None)
@@ -112,8 +110,12 @@ def _launch_args(q, k, v, causal, scale, sms=None):
     only refuses what would take it out of bounds. It reads only shapes,
     strides, dtypes and ``data_ptr``, so CPU tensors do, given ``sms``:
 
-    * ``dtype``: 0 float32, 1 bfloat16; ``d_tile``: the tile width D is
-      zero-filled to, 32, 64 or 128;
+    * ``dtype``: 0 float32, 1 bfloat16; ``d_tile``: the tile width of out
+      that D is zero-filled to, 32, 64 or 128; ``slices``: 1 up to D 128,
+      past it ``ceil(D / 128)`` blocks of 128 columns of out per row block
+      (the sliced kernels: each computes the scores over all of D in
+      64-column chunks, then P V for its own slice; bfloat16 runs one
+      warpgroup of 64 rows, float32 128 rows);
     * ``vec``: the 16-byte async-copy staging takes the views (every row
       starts 16-byte aligned and D fills whole 16-byte chunks); otherwise
       the kernel stages element by element;
@@ -121,7 +123,7 @@ def _launch_args(q, k, v, causal, scale, sms=None):
       in a block (128 rows sharing one k/v ring) where ``B*H*ceil(T/128)``
       fills the ``sms`` SMs (default: those of q's card) at least twice
       over, else one; float32 runs one 128-thread group over 128 rows;
-    * ``block_q`` rows per block, ``n_q`` blocks per (batch, head),
+    * ``block_q`` rows per block, ``n_q`` row blocks per (batch, head),
       ``grid`` blocks in all (128 threads a warpgroup).
 
     ``causal`` and ``scale`` do not change the launch; they go to the
@@ -129,19 +131,22 @@ def _launch_args(q, k, v, causal, scale, sms=None):
     """
     b, h, t, d = q.shape
     dtype = _DTYPE_CODE[q.dtype]
-    d_tile = 32 if d <= 32 else 64 if d <= 64 else 128
+    d_tile = 32 if d <= 32 else 64 if d <= 64 else _SLICE
+    slices = -(-d // _SLICE)
     vec = (d * q.element_size()) % 16 == 0 and _aligned16(q) \
         and _aligned16(k) and _aligned16(v)
     if dtype == 0:
         warpgroups, block_q = 1, 128
+    elif slices > 1:
+        warpgroups, block_q = 1, 64
     else:
         if sms is None:
             sms = _sm_count(q.device.index or 0)
         warpgroups = 2 if b * h * -(-t // 128) >= 2 * sms else 1
         block_q = 64 * warpgroups
     n_q = -(-t // block_q)
-    return LaunchArgs(dtype, d_tile, vec, warpgroups, block_q, n_q,
-                      b * h * n_q)
+    return LaunchArgs(dtype, d_tile, vec, warpgroups, block_q, n_q, slices,
+                      b * h * n_q * slices)
 
 
 @functools.lru_cache(maxsize=None)
@@ -150,7 +155,7 @@ def _entry():
     from ... import kernels
     fn = kernels.library("flash_attention").mxtpu_flash_attention_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] * 5 + [ctypes.c_void_p] * 5
+    fn.argtypes = ([ctypes.c_int] * 6 + [ctypes.c_void_p] * 5
                    + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_void_p])
     return fn
@@ -166,7 +171,8 @@ def _launch(q, k, v, causal, scale):
     b, h, t, d = q.shape
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    args = (la.dtype, la.d_tile, la.vec, la.warpgroups, la.n_q, q.data_ptr(),
+    args = (la.dtype, la.d_tile, la.vec, la.warpgroups, la.n_q, la.slices,
+            q.data_ptr(),
             k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], b, h, t,
             k.shape[2], d, bool(causal), _scale(q, scale),

@@ -24,6 +24,13 @@ C++ source and ``PallasModule`` only raises with that guidance.
   device and returns NDArrays (one, or a list). Inputs that are not
   contiguous are copied to contiguous tensors first (a raw pointer sees
   storage, not a view); outputs are fresh and contiguous.
+* The host path of a launch is kept short, since an eager launch's issue
+  can take as long as a streaming kernel's device time: each ``Kernel``
+  keeps one ``void*`` argument array whose typed holders are all set in
+  place on every launch (under a lock, with the tensors alive until
+  ``cudaLaunchKernel`` returns), reads the stream handle without building
+  a ``torch.cuda.Stream``, and enters the device context only when the
+  arguments' device is not the current one.
 
 No fallback hides the device or the kernel: a launch on CPU tensors, on
 tensors of several devices, with a dtype that disagrees with a pointer
@@ -36,6 +43,7 @@ from __future__ import annotations
 import ctypes
 import numbers
 import re
+import threading
 import time
 
 import torch
@@ -77,8 +85,10 @@ _KERNEL_RE = re.compile(
     r"__global__\s+(?:__launch_bounds__\s*\([^)]*\)\s*)?void\s+"
     r"(?:__launch_bounds__\s*\([^)]*\)\s*)?([A-Za-z_]\w*)\s*\(([^)]*)\)")
 _DEFAULT_BLOCK = (256, 1, 1)
-_LAUNCHER_ARGTYPES = ([ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_uint] * 7
-                      + [ctypes.c_void_p])
+# launcher(void** argv, unsigned dims[7] = {gx, gy, gz, bx, by, bz, shared
+# bytes}, stream), every argument passed as an address (the cheapest
+# ctypes conversion)
+_LAUNCHER_ARGTYPES = [ctypes.c_void_p] * 3
 
 
 class Param:
@@ -144,26 +154,27 @@ def parse_kernels(source):
 def launcher_source(names):
     """The ``extern "C"`` launchers appended to a module's source: one per
     kernel, calling ``cudaLaunchKernel`` with the ``void**`` argument array
-    (raising the dynamic shared-memory limit first when a launch asks for
-    more than 48 KB), plus an error-string helper."""
+    and the launch's grid, block and shared-memory bytes read from one
+    ``unsigned[7]`` (raising the dynamic shared-memory limit first when a
+    launch asks for more than 48 KB), plus an error-string helper."""
     lines = ["", "// launchers generated by mxtpu_torch.rtc",
              "#include <cuda_runtime.h>",
              'extern "C" const char* mxrtc_error_string(int e) {',
              "  return cudaGetErrorString((cudaError_t)e);", "}"]
     for name in names:
         lines += [
-            'extern "C" int mxrtc_launch_%s(void** args, unsigned gx, '
-            "unsigned gy, unsigned gz, unsigned bx, unsigned by, unsigned bz, "
-            "unsigned shared, void* stream) {" % name,
-            "  if (shared > 49152) {",
+            'extern "C" int mxrtc_launch_%s(void** args, '
+            "const unsigned* dims, void* stream) {" % name,
+            "  if (dims[6] > 49152) {",
             "    cudaError_t e = cudaFuncSetAttribute((const void*)%s, "
-            "cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);"
+            "cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dims[6]);"
             % name,
             "    if (e != cudaSuccess) return (int)e;",
             "  }",
             "  return (int)cudaLaunchKernel((const void*)%s, "
-            "dim3(gx, gy, gz), dim3(bx, by, bz), args, (size_t)shared, "
-            "(cudaStream_t)stream);"
+            "dim3(dims[0], dims[1], dims[2]), "
+            "dim3(dims[3], dims[4], dims[5]), "
+            "args, (size_t)dims[6], (cudaStream_t)stream);"
             % name,
             "}"]
     return "\n".join(lines) + "\n"
@@ -279,6 +290,19 @@ def launch_dims(grid, block, numel):
     return grid, block
 
 
+def _public_stream(index):
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+# the raw handle of a device's current CUDA stream (by index), without
+# building a torch.cuda.Stream, and the current device's index: torch's
+# own bindings, or the public calls where a build of torch lacks them
+_current_stream = getattr(torch._C, "_cuda_getCurrentRawStream",
+                          _public_stream)
+_current_device = getattr(torch._C, "_cuda_getDevice",
+                          torch.cuda.current_device)
+
+
 class Kernel:
     """A launchable kernel of a ``CudaModule`` (ref: rtc.py:Kernel)."""
 
@@ -297,6 +321,35 @@ class Kernel:
                         if i not in self._out_idx]
         self._fn = None
         self.launches = 0
+        # the prepared argument array: one typed holder per parameter, each
+        # set in place by every launch (cudaLaunchKernel reads them through
+        # argv and copies them before it returns)
+        self._holders = [ctypes.c_void_p() if p.pointer else p.scalar()
+                         for p in params]
+        self._argv = (ctypes.c_void_p * max(1, len(params)))(
+            *[ctypes.addressof(h) for h in self._holders])
+        # per input: (param, the number type a scalar takes or None for a
+        # pointer, the conversion of a scalar)
+        self._in_specs = []
+        for i in self._in_idx:
+            p = params[i]
+            real = p.scalar in (ctypes.c_float, ctypes.c_double)
+            self._in_specs.append(
+                (p, None, None) if p.pointer else
+                (p, numbers.Real, float) if real else
+                (p, numbers.Integral, int))
+        self._in_holders = [(self._holders[i], params[i].pointer)
+                            for i in self._in_idx]
+        self._out_holders = [self._holders[i] for i in self._out_idx]
+        self._argv_addr = ctypes.addressof(self._argv)
+        self._dims = (ctypes.c_uint * 7)()
+        self._dims_addr = ctypes.addressof(self._dims)
+        self._dims_key = None
+        # the last launch's (grid, block) and (out_shapes, out_dtypes), and
+        # what they normalized to: a caller that repeats them pays for one
+        # check
+        self._last_dims = self._last_spec = (None, None)
+        self._lock = threading.Lock()
 
     def __repr__(self):
         return "Kernel %s(%s) -> %d output(s)" % (
@@ -304,16 +357,15 @@ class Kernel:
 
     def _inputs(self, args):
         """(values in declaration order of the inputs, device)."""
-        if len(args) != len(self._in_idx):
+        if len(args) != len(self._in_specs):
             raise MXNetError("kernel %r takes %d arguments (%s), got %d" % (
                 self.name, len(self._in_idx), ", ".join(
                     repr(self.params[i]) for i in self._in_idx), len(args)))
-        values, devices = [], set()
-        for i, a in zip(self._in_idx, args):
-            p = self.params[i]
+        values, device = [], None
+        for (p, kind, conv), a in zip(self._in_specs, args):
             if isinstance(a, NDArray):
                 a = a._data
-            if p.pointer:
+            if kind is None:   # a pointer
                 if not isinstance(a, torch.Tensor):
                     raise MXNetError("kernel %r: parameter %r takes an array, "
                                      "got %s" % (self.name, p,
@@ -322,56 +374,89 @@ class Kernel:
                     raise MXNetError("kernel %r: parameter %r reads %s, got a "
                                      "%s array" % (self.name, p, p.dtype,
                                                    a.dtype))
-                devices.add(a.device)
-                a = a.detach()
+                if device is None:
+                    device = a.device
+                elif a.device != device:
+                    raise MXNetError("kernel %r: arrays on several devices %s"
+                                     % (self.name, sorted({str(device),
+                                                           str(a.device)})))
                 values.append(a if a.is_contiguous() else a.contiguous())
             else:
-                real = p.scalar in (ctypes.c_float, ctypes.c_double)
-                if not isinstance(a, numbers.Real if real
-                                  else numbers.Integral):
+                if not isinstance(a, kind):
                     raise MXNetError("kernel %r: parameter %r takes a number, "
                                      "got %s" % (self.name, p,
                                                  type(a).__name__))
-                values.append(float(a) if real else int(a))
-        if len(devices) > 1:
-            raise MXNetError("kernel %r: arrays on several devices %s"
-                             % (self.name, sorted(map(str, devices))))
-        device = devices.pop() if devices else resolve_device(None)
+                values.append(conv(a))
+        if device is None:
+            device = resolve_device(None)
         if device.type != "cuda":
             raise MXNetError("kernel %r: CUDA C++ source has no CPU path; "
                              "launch it on CUDA arrays (got %s)"
                              % (self.name, device))
         return values, device
 
-    def _outputs(self, args, out_shapes, out_dtypes, device):
-        if isinstance(out_shapes, (tuple, list)) and (
-                not out_shapes or isinstance(out_shapes[0], numbers.Integral)):
-            out_shapes = [tuple(out_shapes)]
-        n_out = len(out_shapes)
-        if out_dtypes is None:
-            first = next((a for a in args
-                          if isinstance(a, (NDArray, torch.Tensor))), None)
-            dt = first.to_torch().dtype if isinstance(first, NDArray) \
-                else (first.dtype if first is not None else torch.float32)
-            out_dtypes = [dt] * n_out
-        elif not isinstance(out_dtypes, (list, tuple)):
-            out_dtypes = [out_dtypes] * n_out
-        if len(out_dtypes) != n_out:
-            raise MXNetError("launch: %d out_dtypes for %d out_shapes"
-                             % (len(out_dtypes), n_out))
+    def _out_spec(self, out_shapes, out_dtypes):
+        """(shapes, torch dtypes or None for "the first array's") of a
+        launch's outputs, checked against the output parameters."""
+        key, spec = self._last_spec
+        if key is not None and key == (out_shapes, out_dtypes):
+            return spec
+        shapes = out_shapes
+        if isinstance(shapes, (tuple, list)) and (
+                not shapes or isinstance(shapes[0], numbers.Integral)):
+            shapes = [shapes]
+        shapes = [tuple(sh) for sh in shapes]
+        n_out = len(shapes)
+        dtypes = out_dtypes
+        if dtypes is not None:
+            if not isinstance(dtypes, (list, tuple)):
+                dtypes = [dtypes] * n_out
+            if len(dtypes) != n_out:
+                raise MXNetError("launch: %d out_dtypes for %d out_shapes"
+                                 % (len(dtypes), n_out))
+            dtypes = [torch_dtype(dt) for dt in dtypes]
         if n_out != self._num_outputs:
             raise MXNetError("kernel %r declared num_outputs=%d but launch "
                              "got %d out_shapes" % (self.name,
                                                     self._num_outputs, n_out))
-        outs = []
-        for i, shape, dt in zip(self._out_idx, out_shapes, out_dtypes):
-            dt = torch_dtype(dt)
+        if dtypes is not None:
+            self._check_out_dtypes(dtypes)
+        spec = (shapes, dtypes)
+        self._last_spec = ((out_shapes, out_dtypes), spec)
+        return spec
+
+    def _check_out_dtypes(self, dtypes):
+        for i, dt in zip(self._out_idx, dtypes):
             p = self.params[i]
             if p.dtype is not None and dt != p.dtype:
                 raise MXNetError("kernel %r: output %r writes %s, but its "
                                  "out_dtype is %s" % (self.name, p, p.dtype,
                                                       dt))
-            outs.append(torch.empty(tuple(shape), dtype=dt, device=device))
+
+    def _outputs(self, args, out_shapes, out_dtypes, device):
+        """Fresh contiguous outputs; one of the first array argument's
+        shape, type and device is its ``empty_like`` (the cheaper call)."""
+        shapes, dtypes = self._out_spec(out_shapes, out_dtypes)
+        first = None
+        for a in args:
+            if isinstance(a, NDArray):
+                first = a._data
+                break
+            if isinstance(a, torch.Tensor):
+                first = a
+                break
+        if dtypes is None:
+            dtypes = [torch.float32 if first is None else first.dtype] \
+                * len(shapes)
+            self._check_out_dtypes(dtypes)
+        outs = []
+        for sh, dt in zip(shapes, dtypes):
+            if first is not None and first.dtype == dt \
+                    and first.device == device and first.shape == sh \
+                    and first.is_contiguous():
+                outs.append(torch.empty_like(first))
+            else:
+                outs.append(torch.empty(sh, dtype=dt, device=device))
         return outs
 
     def launch(self, args, out_shapes, out_dtypes=None, grid=None,
@@ -385,40 +470,59 @@ class Kernel:
             ``grid`` to enough blocks to cover the first output's numel.
         shared_mem : dynamic shared memory in bytes.
         """
-        values, device = self._inputs(list(args))
+        values, device = self._inputs(args)
         outs = self._outputs(args, out_shapes, out_dtypes, device)
-        g, b = launch_dims(grid, block, outs[0].numel())
-        full = [None] * len(self.params)
-        for i, v in zip(self._in_idx, values):
-            full[i] = v
-        for i, o in zip(self._out_idx, outs):
-            full[i] = o
-        self._call(full, g, b, int(shared_mem), device)
-        res = [NDArray(o) for o in outs]
-        return res[0] if len(res) == 1 else res
+        key, dims = self._last_dims
+        if grid is None or key != (grid, block):
+            dims = launch_dims(grid, block, outs[0].numel())
+            self._last_dims = ((grid, block), dims) if grid is not None \
+                else (None, None)
+        self._call(values, outs, *dims, int(shared_mem), device)
+        if len(outs) == 1:
+            return NDArray(outs[0])
+        return [NDArray(o) for o in outs]
 
-    def _call(self, values, grid, block, shared_mem, device):
-        if self._fn is None:
-            self._fn = self._module._launcher(self.name)
-        holders = pack_args(self.params, values)
-        argv = (ctypes.c_void_p * len(holders))(
-            *[ctypes.addressof(h) for h in holders])
-        stream = torch.cuda.current_stream(device).cuda_stream
-        with torch.cuda.device(device):
-            rc = self._fn(argv, *grid, *block, shared_mem,
-                          ctypes.c_void_p(stream))
+    def _call(self, values, outs, grid, block, shared_mem, device):
+        """Launch on ``device``'s current stream, entering its context only
+        when it is not the current device; raises on a nonzero code."""
+        stream = _current_stream(device.index)
+        if device.index == _current_device():
+            rc = self._run(values, outs, grid, block, shared_mem, stream)
+        else:
+            with torch.cuda.device(device):
+                rc = self._run(values, outs, grid, block, shared_mem, stream)
         if rc != 0:
             raise MXNetError("rtc kernel %r launch failed: CUDA error %d (%s)"
                              % (self.name, rc,
                                 self._module._error_string(rc)))
         self.launches += 1
 
+    def _run(self, values, outs, grid, block, shared_mem, stream):
+        """Set every holder of the prepared argv (the inputs' pointers and
+        scalars, the outputs' pointers: ``pack_args``'s values) and the
+        dims when they changed, and call the launcher; returns its CUDA
+        code. The caller keeps ``values`` and ``outs`` alive until this
+        returns."""
+        if self._fn is None:
+            self._fn = self._module._launcher(self.name)
+        key = (grid, block, shared_mem)
+        with self._lock:
+            for (h, pointer), v in zip(self._in_holders, values):
+                h.value = v.data_ptr() if pointer else v
+            for h, o in zip(self._out_holders, outs):
+                h.value = o.data_ptr()
+            if key != self._dims_key:
+                self._dims[:] = [*grid, *block, shared_mem]
+                self._dims_key = key
+            return self._fn(self._argv_addr, self._dims_addr, stream)
+
 
 def pack_args(params, values):
     """One ctypes value per parameter, in order: a tensor's data pointer or
-    the scalar in its C type. ``cudaLaunchKernel`` reads each through the
-    address of its holder, so the caller keeps the list alive until the
-    launch returns."""
+    the scalar in its C type; the values ``Kernel._run`` sets in its
+    prepared holders. ``cudaLaunchKernel`` reads each through the address
+    of its holder, so a caller that launches with these keeps the list
+    alive until the launch returns."""
     return [ctypes.c_void_p(v.data_ptr()) if p.pointer else p.scalar(v)
             for p, v in zip(params, values)]
 

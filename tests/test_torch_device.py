@@ -58,7 +58,7 @@ def test_deferred_parameters_follow_the_device():
     net.cast("bfloat16")
     net.collect_params().reset_ctx("cpu")
     net(torch.zeros(2, 5, dtype=torch.bfloat16))
-    w = net.weight.data()
+    w = net.weight.data().to_torch()
     assert w.shape == (3, 5) and w.dtype == torch.bfloat16
     assert dict(net.named_parameters())["weight"] is w
 
@@ -66,7 +66,8 @@ def test_deferred_parameters_follow_the_device():
 def _port_files():
     pkg = os.path.join(ROOT, "mxtpu_torch")
     files = [os.path.join(ROOT, n)
-             for n in ("chip_smoke.py", "flash_ab.py", "conv_search.py")]
+             for n in ("chip_smoke.py", "flash_ab.py", "conv_search.py",
+                       "variant_search.py")]
     for d, _, names in os.walk(pkg):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return files

@@ -139,9 +139,10 @@ def test_wrapper_refuses_misuse_and_never_falls_back():
         tfa.flash_attention(q, q, q[:, :, :4, :8])
     with pytest.raises(MXNetError, match=r"\[B, H, T, D\]"):
         tfa.flash_attention(q[0], q[0], q[0])
-    big = torch.randn(1, 1, 8, 160)
-    with pytest.raises(MXNetError, match="exceeds the kernel's 128"):
-        tfa.flash_attention(big, big, big)
+    big = torch.randn(1, 1, 8, 160)   # any head dim runs (sliced past 128)
+    torch.testing.assert_close(
+        tfa.flash_attention(big, big, big),
+        tfa.flash_attention_reference(big, big, big)[0], rtol=0, atol=0)
     # off the CPU the wrapper launches a kernel or raises; it never runs
     # the plain version (meta stands in for a device here)
     qm = q.to("meta")
@@ -264,3 +265,55 @@ def test_launch_args_ignore_the_stride_of_a_one_element_dim(dim, dtype):
                             1.0).vec
     size[dim] = 1
     assert _launch_args(buf.as_strided(size, stride), ok, ok, False, 1.0).vec
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [160, 256, 320])
+def test_flash_wide_head_dim_matches_pallas_kernel(d, causal, dtype):
+    """Head dims past 128: the JAX package zero-pads D to the 128-lane
+    granule (``_pad_head_dim``) and runs its kernel; the port runs any D
+    (on the card in 128-column slices of out)."""
+    q, k, v = _inputs(d + causal, 1, 2, 128, 128, d, dtype)
+    ref, ref_lse = _jax(q, k, v, causal, dtype)
+    assert jfa.DISPATCH_STATS["pallas"] >= 1
+    got, lse = _port(q, k, v, causal, dtype)
+    _close_out(got, ref, v, dtype, vs_kernel=True)
+    np.testing.assert_allclose(lse, ref_lse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,slices", [(129, 2), (160, 2), (256, 2),
+                                      (257, 3), (320, 3), (1000, 8)])
+def test_launch_args_slice_head_dims_past_128(d, slices, dtype):
+    """Past D 128 each row block is ``ceil(D / 128)`` blocks of 128 columns
+    of out; bfloat16 runs one warpgroup (64 rows) a block, float32 128
+    rows; the grid counts every slice. D <= 128 keeps one slice."""
+    for b, t in ((8, 512), (1, 77)):
+        q = torch.zeros(b, 12, t, d, dtype=TDT[dtype])
+        la = _launch_args(q, q, q, True, 0.1)
+        assert (la.d_tile, la.slices) == (128, slices)
+        assert la.d_tile * la.slices >= d > la.d_tile * (la.slices - 1)
+        assert (la.warpgroups, la.block_q) == \
+            ((1, 64) if dtype == "bfloat16" else (1, 128))
+        assert la.n_q == -(-t // la.block_q)
+        assert la.grid == b * 12 * la.n_q * slices
+        assert la.vec == ((d * q.element_size()) % 16 == 0)
+    assert _launch_args(*_fused_views(8, 512, 12, 128, dtype), False,
+                        0.1).slices == 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_wide_head_dim_on_strided_views(dtype):
+    """D 256 on the strided q/k/v views of one fused projection (the
+    served layout) equals the same attention on contiguous copies."""
+    x = torch.from_numpy(np.random.RandomState(3).randn(
+        2, 64, 3 * 2 * 256).astype(np.float32)).to(TDT[dtype])
+    qkv = x.reshape(2, 64, 3, 2, 256).permute(2, 0, 3, 1, 4)
+    q, k, v = qkv[0], qkv[1], qkv[2]
+    assert _launch_args(q, k, v, False, None).vec
+    got = tfa.flash_attention_with_lse(q, k, v, causal=True)
+    ref = tfa.flash_attention_with_lse(q.contiguous(), k.contiguous(),
+                                       v.contiguous(), causal=True)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)

@@ -92,7 +92,7 @@ def test_batchnorm_layer_eps_and_bf16_cast_keep_f32_stats():
     bn.initialize(ctx=mt.cpu())
     bn(torch.zeros(1, 2, 2, 3))
     bn.cast("bfloat16")
-    assert all(p.data().dtype == torch.float32
+    assert all(p.data().to_torch().dtype == torch.float32
                for p in bn.collect_params().values())
 
 

@@ -86,7 +86,8 @@ def test_names_and_shapes_equal_mxtpu(nets):
     assert _shapes(mine) == _shapes(jnet.collect_params())
     assert [k.partition("_")[2] for k in mine] == \
         [k.partition("_")[2] for k in jnet.collect_params()]
-    assert all(p.data().dtype == torch.float32 for p in mine.values())
+    assert all(p.data().to_torch().dtype == torch.float32
+               for p in mine.values())
 
 
 def test_ragged_batch_matches_mxtpu_predictor(nets, jax_predictor):

@@ -92,7 +92,8 @@ def test_exports_and_generated_launchers():
     gen = mod.generated_source
     assert gen.startswith(SOURCE)
     for name in ("ints", "scale_add"):
-        assert 'extern "C" int mxrtc_launch_%s(void** args' % name in gen
+        assert ('extern "C" int mxrtc_launch_%s(void** args, const unsigned* '
+                'dims, void* stream)' % name) in gen
         assert "cudaLaunchKernel((const void*)%s," % name in gen
     assert "mxrtc_launch_no_args" not in gen
     assert 'extern "C" const char* mxrtc_error_string' in gen
@@ -203,6 +204,44 @@ def test_output_dtypes_and_counts():
     kb = _k("axpy_bf16")
     x = mt.nd.array(np.ones(2, np.float32), ctx=mt.cpu(), dtype="bfloat16")
     assert kb._outputs([x], (2,), None, dev)[0].dtype == torch.bfloat16
+
+
+def _argv_values(k, argv):
+    """What cudaLaunchKernel would read through each entry of ``argv``."""
+    return [ctypes.cast(argv[i], ctypes.POINTER(
+        ctypes.c_void_p if p.pointer else p.scalar))[0]
+        for i, p in enumerate(k.params)]
+
+
+def test_prepared_argv_gives_pack_args_values_on_every_launch(fake_nvcc):
+    """The argv a Kernel reuses holds exactly pack_args's values at each
+    launch, for tensors and scalars that change from launch to launch (a
+    stale pointer or scalar never reaches a later launch)."""
+    k = rtc.CudaModule(SOURCE).build().get_kernel("scale_add",
+                                                  num_outputs=2)
+    seen = []
+    def record(argv, dims, stream):
+        argv = ctypes.cast(argv, ctypes.POINTER(ctypes.c_void_p))
+        dims = ctypes.cast(dims, ctypes.POINTER(ctypes.c_uint))
+        seen.append((_argv_values(k, argv), tuple(dims[:7]) + (stream,)))
+        return 0
+    launcher = ctypes.CFUNCTYPE(ctypes.c_int, *[ctypes.c_void_p] * 3)(record)
+    k._fn = launcher
+    r = np.random.RandomState(3)
+    for i in range(4):
+        ins = [torch.from_numpy(r.randn(4 + i).astype(np.float32)),
+               torch.zeros(3 + i, dtype=torch.float16),
+               torch.zeros(i + 1, dtype=torch.int8),
+               float(r.randn()), float(r.randn()), int(r.randint(-9, 9)),
+               int(r.randint(0, 2 ** 40)), i, -i, 10 * i, bool(i % 2)]
+        outs = [torch.empty(5 + i), torch.empty(2 + i, dtype=torch.int32)]
+        assert k._run(ins, outs, (i + 1, 1, 1), (32, 1, 1), 0, 1234) == 0
+        want = [h.value for h in rtc.pack_args(k.params, ins + outs)]
+        got, dims = seen[-1]
+        assert got[3] == pytest.approx(want[3]) and got[4] == want[4]
+        assert got[:3] + got[5:] == want[:3] + want[5:]
+        assert dims == (i + 1, 1, 1, 32, 1, 1, 0, 1234)
+    assert len(seen) == 4 and k.launches == 0   # _run counts nothing
 
 
 # ------------------------------------------------------------------ build

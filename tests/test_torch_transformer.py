@@ -86,7 +86,7 @@ def test_layernorm_layer_matches_mxtpu_and_casts():
     _close(_np(ln(_t(x))), mln(mx.nd.array(x)).asnumpy(), "float32")
     ln.cast("bfloat16")
     mln.cast("bfloat16")
-    assert all(p.data().dtype == torch.bfloat16
+    assert all(p.data().to_torch().dtype == torch.bfloat16
                for p in ln.collect_params().values())
     ref = mln(mx.nd.array(x).astype("bfloat16")).astype("float32").asnumpy()
     _close(_np(ln(_t(x, torch.bfloat16))), ref, "bfloat16")
@@ -124,7 +124,7 @@ def test_embedding_layer_matches_mxtpu_and_casts_its_weight():
     emb.cast("bfloat16")
     tokens = torch.from_numpy(ids)
     out = emb(tokens)
-    assert emb.weight.data().dtype == torch.bfloat16
+    assert emb.weight.data().to_torch().dtype == torch.bfloat16
     assert out.dtype == torch.bfloat16 and tokens.dtype == torch.int32
 
 

@@ -184,3 +184,30 @@ def test_warmup_runs_every_batch_and_seq_bucket():
     pred.warmup()
     assert seen == [((b, s), torch.int32) for b in (1, 2, 4)
                     for s in (128, 256)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_head_dim_160_serves_like_mxtpu(dtype):
+    """dim / heads = 160, past the 128 the port's kernel once took: the JAX
+    package pads D to 256 for its kernel, the port runs D = 160."""
+    cfg = dict(vocab_size=97, dim=320, num_heads=2, num_layers=1,
+               max_len=128, causal=False)
+    spec = dict(batch_sizes=(1, 2), seq_lens=(128,))
+    jnet = jtr.TransformerLM(**cfg)
+    jnet.initialize()
+    jnet(mx.nd.array(np.zeros((1, 8)), dtype="int32"))
+    params = jnet.collect_params()
+    arrays = convert.seeded_params({k: p.shape for k, p in params.items()},
+                                   seed=9)
+    for k, p in params.items():
+        p.set_data(mx.nd.array(arrays[k]))
+    net = ttr.TransformerLM(**cfg)
+    convert.load_mxtpu_params(net, arrays)
+    jnet.cast(dtype)
+    net.cast(dtype)
+    x = _tokens(5, 2, 90)
+    jfa.reset_dispatch_stats()
+    ref = _jax_predict(JPredictor(jnet, JBucketSpec(**spec)), x)
+    assert jfa.DISPATCH_STATS["pallas"] == 1
+    got = Predictor(net, BucketSpec(**spec), device="cpu").predict(x)
+    _check(dtype, got, ref, 2, 128)
