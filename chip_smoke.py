@@ -63,10 +63,29 @@ NVIDIA H100.
    with grad_req write and add; one forward and one backward launch per
    step; results and gradients checked against the same program through
    mx.nd on the CPU (the op registered there with the plain versions).
-10. Prints one JSON line of kernels (fused_conv and flash_attention, one
+10. Training, the main path of slice 4. The conv's backward: at each
+   gated ResNet-50 shape (b8) and on the full epilogue, f32 and bf16, the
+   gradients of the kernel path (the kernel forward, the ported
+   backward) against autograd through the plain version on the card,
+   forward + backward timed by CUDA-graph replay beside ``F.conv2d``'s,
+   and the gradient convolutions on channels-last views beside NCHW
+   copies. The flash backward: dq, dk, dv through out and lse at b8 h12
+   T512 d64 on the served strided views (causal and not) and at D 160,
+   against autograd through the plain version, timed beside sdpa's
+   forward + backward (a yardstick). ResNet-50 v1 trained through
+   ``gluon.Trainer`` (SGD-momentum): b8 f32, 2 steps on the card against
+   the same steps on the CPU (losses, step-1 gradients, weights,
+   momenta, BatchNorm statistics; 11 conv launches a step), a bf16 step
+   against the f32 CPU step, then b64 f32 and b128 bf16 timed (step ms,
+   images/s, host issue, device ms and idle share, peak memory, a
+   profiled step by kernel category, train_mfu). The BERT-base-shaped
+   TransformerLM trained with Adam: 2 layers at b2 x 512 f32 against the
+   CPU (2 flash launches a step), then 12 layers at b8 x 512 bf16 timed.
+11. Prints one JSON line of kernels (fused_conv and flash_attention, one
    entry per type each, with graph-replay and host-issue sums beside the
-   eager ones; one entry per rtc kernel), the card line again, and last
-   ``{"ok": true, "device": {...}}``.
+   eager ones and the launches of one training step; one entry per rtc
+   kernel), the card line again, and last ``{"ok": true, "device":
+   {...}}``.
 
 Any failed phase raises and the script exits non-zero without the last
 line. It imports nothing of JAX or of the JAX package.
@@ -1303,9 +1322,657 @@ def gluon_nd_phase():
     return launches
 
 
-def kernel_entries(rows, launches, name, source, replaces):
+# ------------------------------------------------------------- training
+# ResNet-50 training: bench.py's count, 3 x 2 x 4.089 GMAC per image
+RESNET50_TRAIN_FLOPS = 3 * 2 * 4.089e9
+SGD_PARAMS = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+ADAM_PARAMS = {"learning_rate": 1e-4}
+# (name, batch, H=W, C_in, C_out, k, stride, pad): the gated ResNet-50
+# convs, each differentiated at b8 with the full epilogue case after them
+CONV_BWD_SHAPES = [row[:8] for row in RESNET50_GATED] + [
+    ("epilogue 3x3 64->64 @28", 2, 28, 64, 64, 3, 1, 1)]
+
+
+def grad_check(got, ref, dtype, what):
+    """A gradient against autograd through the plain version: float32
+    max|err| <= 1e-4 max(1, max|ref|) (test_pallas_conv.py's 1e-4, taken
+    of the largest magnitude since a gradient here sums 10^3-10^5 terms
+    in two orders); bfloat16 max|err| <= 1e-2 max|ref|, since the kernel
+    path rounds the cotangent and the gradient to bf16 (2^-9 relative
+    each) where the plain version keeps float32."""
+    import torch
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs().max().item()
+    mag = ref.abs().max().item()
+    limit = 1e-4 * max(1.0, mag) if dtype == "float32" else 1e-2 * mag
+    if not err <= limit or not bool(torch.isfinite(got).all()):
+        raise AssertionError("%s: gradient differs from autograd through the "
+                             "plain version by %.3g (limit %.3g, max|ref| "
+                             "%.3g)" % (what, err, limit, mag))
+    return err
+
+
+def conv_backward_phase():
+    """The conv's backward on the card: at each gated ResNet-50 shape (b8)
+    and on the full epilogue, f32 and bf16, the gradients of x and w (and
+    scale, bias, residual) of the kernel path (``_FusedConv``: the kernel
+    forward, ``fused_conv_backward``) against autograd through
+    ``fused_conv_reference`` on the card; forward + backward timed by
+    CUDA-graph replay beside ``F.conv2d``'s, and the gradient convolutions
+    on channels-last views beside the same on NCHW copies."""
+    import torch
+    import torch.nn.functional as F
+    from mxtpu_torch.ops.pallas.conv import (fused_conv,
+                                             fused_conv_reference)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    print("conv backward checks against autograd through the plain version "
+          "(cuDNN TF32 allowed: %s): float32 max|err| <= 1e-4 max(1, "
+          "max|ref|), bfloat16 max|err| <= 1e-2 max|ref|"
+          % torch.backends.cudnn.allow_tf32)
+    rows = []
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        for name, n, hw, cin, cout, k, s, p in CONV_BWD_SHAPES:
+            epi = name.startswith("epilogue")
+            x = torch.randn(n, hw, hw, cin, device="cuda",
+                            generator=gen).to(dt)
+            w = (torch.randn(k, k, cin, cout, device="cuda", generator=gen)
+                 * math.sqrt(2.0 / (k * k * cin))).to(dt)
+            oh = (hw + 2 * p - k) // s + 1
+            extra = {}
+            if epi:
+                extra = dict(
+                    scale=torch.rand(cout, device="cuda", generator=gen)
+                    + 0.5,
+                    bias=0.1 * torch.randn(cout, device="cuda",
+                                           generator=gen),
+                    residual=torch.randn(n, oh, oh, cout, device="cuda",
+                                         generator=gen).to(dt), relu=True)
+            head = torch.randn(n, oh, oh, cout, device="cuda", generator=gen)
+            pad = ((p, p), (p, p))
+            inputs = [x, w] + [extra[k_] for k_ in ("scale", "bias",
+                                                    "residual") if epi]
+            mine = [t.detach().requires_grad_() for t in inputs]
+            plain = [t.detach().float().requires_grad_() for t in inputs]
+            kw = dict(zip(("scale", "bias", "residual"), mine[2:]))
+            out = fused_conv(mine[0], mine[1], (s, s), pad,
+                             relu=extra.get("relu", False), **kw)
+            got = torch.autograd.grad((out.float() * head).sum(), mine)
+            pkw = dict(zip(("scale", "bias", "residual"), plain[2:]))
+            ref_out = fused_conv_reference(plain[0], plain[1], (s, s), pad,
+                                           relu=extra.get("relu", False),
+                                           **pkw)[0]
+            ref = torch.autograd.grad((ref_out.float() * head).sum(), plain)
+            errs = [grad_check(g, r, dtype, "conv bwd %s %s d%s"
+                               % (name, dtype, label))
+                    for g, r, label in zip(got, ref, ("x", "w", "scale",
+                                                      "bias", "residual"))]
+            if got[0].dtype != dt or got[1].dtype != dt:
+                raise AssertionError("conv bwd %s: dx %s, dw %s, expected %s"
+                                     % (name, got[0].dtype, got[1].dtype, dt))
+            line = ("conv backward %-24s %-8s max err %s" % (
+                name, dtype, " ".join("d%s %.3g" % kv for kv in zip(
+                    ("x", "w", "scale", "bias", "residual"), errs))))
+            if epi:
+                print(line)
+                continue
+            # fresh leaves: a leaf whose graph was built on the default
+            # stream (the check above) cannot join a capture
+            del out, got, ref, ref_out, mine, plain
+            xg, wg = x.detach().requires_grad_(), w.detach().requires_grad_()
+            xn = x.permute(0, 3, 1, 2).detach().requires_grad_()
+            wn = w.permute(3, 2, 0, 1).detach().requires_grad_()
+            dz = head.to(dt)
+            hn = dz.permute(0, 3, 1, 2)
+
+            def kern():
+                o = fused_conv(xg, wg, (s, s), pad)
+                return torch.autograd.grad(o, (xg, wg), dz)
+
+            def lib():
+                o = F.conv2d(xn, wn, stride=s, padding=p)
+                return torch.autograd.grad(o, (xn, wn), hn)
+            # the two gradient convolutions alone: channels-last views
+            # (what fused_conv_backward hands cuDNN) and NCHW copies
+            wv = w.permute(3, 2, 0, 1)
+            xv = x.permute(0, 3, 1, 2)
+            dzv = dz.permute(0, 3, 1, 2)
+
+            def grads_views():
+                return torch.ops.aten.convolution_backward(
+                    dzv, xv, wv, None, [s, s], [p, p], [1, 1], False,
+                    [0, 0], 1, [True, True, False])
+
+            def grads_copies():
+                return torch.ops.aten.convolution_backward(
+                    dzv.contiguous(), xv.contiguous(), wv.contiguous(), None,
+                    [s, s], [p, p], [1, 1], False, [0, 0], 1,
+                    [True, True, False])
+            row = dict(shape=name, dtype=dtype, train_graph_ms=graph_ms(kern),
+                       library_train_graph_ms=graph_ms(lib),
+                       views_ms=graph_ms(grads_views),
+                       copies_ms=graph_ms(grads_copies), max_abs_err=max(
+                           errs))
+            rows.append(row)
+            print("%s;  fwd+bwd by graph replay: kernel path %.4f ms  "
+                  "F.conv2d %.4f ms (ratio %.3f);  gradient convs on "
+                  "channels-last views %.4f ms, on NCHW copies %.4f ms"
+                  % (line, row["train_graph_ms"],
+                     row["library_train_graph_ms"],
+                     row["train_graph_ms"] / row["library_train_graph_ms"],
+                     row["views_ms"], row["copies_ms"]), flush=True)
+    return rows
+
+
+# (name, B, H, T, D, causal, layout)
+FLASH_BWD_SHAPES = [
+    ("b8 h12 T512 d64 qkv views", 8, 12, 512, 64, False, "qkv"),
+    ("b8 h12 T512 d64 qkv views causal", 8, 12, 512, 64, True, "qkv"),
+    ("b2 h4 T256 d160 causal", 2, 4, 256, 160, True, "contig"),
+]
+
+
+def flash_backward_phase():
+    """The flash backward on the card: dq, dk and dv of the kernel path
+    (``_Flash``: the kernel forward, ``flash_attention_backward``) through
+    out and lse, against autograd through ``flash_attention_reference`` on
+    the card, at b8 h12 T512 d64 on the served strided q/k/v views (causal
+    and not) and at D 160, f32 and bf16; forward + backward timed by
+    CUDA-graph replay beside sdpa's (a yardstick: the port calls no
+    sdpa)."""
+    import torch
+    import torch.nn.functional as F
+    from mxtpu_torch.ops.pallas.flash_attention import (
+        flash_attention, flash_attention_reference,
+        flash_attention_with_lse)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    rows = []
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        for name, b, h, t, d, causal, layout in FLASH_BWD_SHAPES:
+            if layout == "qkv":
+                base = torch.randn(b, t, 3, h, d, device="cuda",
+                                   generator=gen).to(dt)
+            else:
+                base = torch.randn(3, b, h, t, d, device="cuda",
+                                   generator=gen).to(dt)
+            g_out = torch.randn(b, h, t, d, device="cuda", generator=gen)
+            g_lse = torch.randn(b, h, t, device="cuda", generator=gen)
+
+            def views(src):
+                return src.permute(2, 0, 3, 1, 4) if layout == "qkv" \
+                    else src
+            mine = base.detach().requires_grad_()
+            q, k, v = views(mine)
+            out, lse = flash_attention_with_lse(q, k, v, causal=causal)
+            got = torch.autograd.grad(
+                (out.float() * g_out).sum() + (lse * g_lse).sum(), mine)[0]
+            plain = base.detach().float().requires_grad_()
+            rq, rk, rv = views(plain)
+            r_out, r_lse = flash_attention_reference(rq, rk, rv, causal)
+            ref = torch.autograd.grad(
+                (r_out * g_out).sum() + (r_lse * g_lse).sum(), plain)[0]
+            gv, rv_ = views(got), views(ref)
+            errs = [grad_check(gv[i], rv_[i], dtype, "flash bwd %s %s d%s"
+                               % (name, dtype, "qkv"[i])) for i in range(3)]
+            if got.dtype != dt:
+                raise AssertionError("flash bwd %s: gradient %s, expected %s"
+                                     % (name, got.dtype, dt))
+            line = ("flash backward %-32s %-8s max err dq %.3g dk %.3g dv "
+                    "%.3g (through out and lse)" % ((name, dtype) + tuple(errs)))
+            if not name.startswith("b8"):
+                print(line)
+                continue
+            # fresh leaves, as in the conv phase
+            del out, lse, got, ref, r_out, r_lse, q, k, v, mine, plain
+            go = g_out.to(dt)
+            leaf = base.detach().requires_grad_()
+            sq, sk, sv = (x_.detach().requires_grad_() for x_ in views(base))
+
+            def kern():
+                kq, kk, kv = views(leaf)
+                o = flash_attention(kq, kk, kv, causal=causal)
+                return torch.autograd.grad(o, leaf, go)
+
+            def sdpa():
+                o = F.scaled_dot_product_attention(sq, sk, sv,
+                                                   is_causal=causal)
+                return torch.autograd.grad(o, (sq, sk, sv), go)
+            row = dict(shape=name, dtype=dtype, max_abs_err=max(errs),
+                       train_graph_ms=graph_ms(kern, launches=10),
+                       library_train_graph_ms=graph_ms(sdpa, launches=10))
+            rows.append(row)
+            print("%s;  fwd+bwd by graph replay: kernel path %.4f ms  sdpa "
+                  "%.4f ms (ratio %.3f)" % (
+                      line, row["train_graph_ms"],
+                      row["library_train_graph_ms"],
+                      row["train_graph_ms"] / row["library_train_graph_ms"]),
+                  flush=True)
+    return rows
+
+
+def _step_program(net, trainer, loss_fn, x, y, reshape):
+    """One step of the user's loop (train_cifar10.py): record, net, loss,
+    backward, trainer.step. Returns (loss, logits) NDArrays."""
+    import mxtpu_torch as mt
+    with mt.autograd.record():
+        logits = net(x)
+        flat = logits if reshape is None else logits.reshape((-1, reshape))
+        loss = loss_fn(flat, y.reshape((-1,)))
+    loss.backward()
+    trainer.step(y.size)
+    return loss, logits
+
+
+def _host_copy(state):
+    """An optimizer state (NDArrays in nested tuples) copied to the CPU."""
+    from mxtpu_torch.ndarray import NDArray
+    if isinstance(state, tuple):
+        return tuple(_host_copy(s) for s in state)
+    return None if state is None else NDArray(
+        state.to_torch().detach().cpu().clone())
+
+
+def _leaves(state):
+    if isinstance(state, tuple):
+        return [x for s in state for x in _leaves(s)]
+    return [] if state is None else [state]
+
+
+# A float32 gradient of this depth is not reproducible to 1e-4: a ReLU or
+# max-pool mask that flips under rounding moves its BatchNorm channel's
+# gradient by a few percent. Measured on the CPU for ResNet-50 b8, step 1
+# (train_sensitivity.py): float32 against float64 1.9% relative L2
+# (median over the parameters, 2.7% worst; 1.9% with a two-pass
+# variance too), 8 threads against 1 0.8% (1.0% of max(1, max|ref|)
+# elementwise). Card and CPU are held elementwise where no gradient
+# enters (losses, logits, BatchNorm statistics), and by the relative L2
+# error per tensor where one does (gradients, each step's weight change,
+# optimizer states).
+TRAIN_L2 = 5e-2
+# bf16 training-mode logits against float32's: the same net on the CPU in
+# bf16 gives 0.092 of max|logit| at b8 step 1 (0.0077 in inference mode,
+# with the running statistics; train_sensitivity.py), the card 0.089
+BF16_VS_F32 = 0.15
+
+
+def lockstep_train(label, card_net, cpu_net, batches, optimizer, params,
+                   reshape=None, kernel=None):
+    """The same float32 training steps on the card and on the CPU, each
+    from the same state: before every step after the first the CPU takes
+    the card's weights, BatchNorm statistics and optimizer states, so each
+    step is held on its own (a step of lr 0.1 is chaotic enough that two
+    devices' trajectories part after it). Per step, against the CPU:
+    per-sample losses within 1e-5 of max|ref| and logits within 1e-4 of
+    max|ref| (elementwise), BatchNorm running statistics within 1e-4 of
+    max(1, max|ref|); gradients, the step's weight change and the
+    optimizer states within TRAIN_L2 relative L2 per tensor. ``kernel``'s
+    launches are counted from 0 over each card step. Returns (per-step
+    launches, per-step mean card losses, worst errors, the CPU's step-1
+    (loss, logits))."""
+    import numpy as np
+    import mxtpu_torch as mt
+    nd = mt.nd
+    tr = {d: mt.gluon.Trainer(n.collect_params(), optimizer, dict(params))
+          for d, n in (("card", card_net), ("cpu", cpu_net))}
+    loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    cps = list(card_net.collect_params().values())
+    hps = list(cpu_net.collect_params().values())
+    worst, launches, losses, first = {}, [], [], None
+
+    def note(key, err):
+        worst[key] = max(worst.get(key, 0.0), err)
+
+    def elementwise(key, what, got, ref, tol, floor=0.0):
+        mag = max(floor, float(np.abs(ref).max()))
+        err = float(np.abs(got - ref).max()) / mag
+        if got.shape != ref.shape or not np.isfinite(got).all() \
+                or err > tol:
+            raise AssertionError("%s %s: card differs from the CPU by %.3g "
+                                 "of its scale (limit %g)" % (label, what,
+                                                              err, tol))
+        note(key, err)
+
+    def l2(key, what, got, ref):
+        norm = float(np.linalg.norm(ref.ravel()))
+        diff = float(np.linalg.norm((got - ref).ravel()))
+        err = diff / norm if norm else diff
+        if got.shape != ref.shape or not np.isfinite(got).all() \
+                or err > TRAIN_L2:
+            raise AssertionError("%s %s: relative L2 error %.3g against the "
+                                 "CPU (limit %g)" % (label, what, err,
+                                                     TRAIN_L2))
+        note(key, err)
+
+    def host(a):
+        return a.astype("float32").asnumpy()
+    for step, (x, y) in enumerate(batches):
+        if step:   # the CPU resumes from the card's state
+            for c, h in zip(cps, hps):
+                h.set_data(c.data().to_torch().detach().cpu())
+            tr["cpu"]._updaters[0].states = {
+                i: _host_copy(st) for i, st in
+                tr["card"]._updaters[0].states.items()}
+        before = [host(p.data()) for p in hps]
+        out = {}
+        for dev, net, ctx in (("card", card_net, mt.gpu(0)),
+                              ("cpu", cpu_net, mt.cpu())):
+            xa = nd.array(x, ctx=ctx, dtype="float32" if x.dtype.kind == "f"
+                          else "int32")
+            if dev == "card" and kernel is not None:
+                kernel.launches = 0
+            loss, logits = _step_program(net, tr[dev], loss_fn, xa,
+                                         nd.array(y, ctx=ctx), reshape)
+            if dev == "card" and kernel is not None:
+                launches.append(kernel.launches)
+            out[dev] = (host(loss), host(logits))
+        s = "step %d " % (step + 1)
+        elementwise("losses", s + "losses", out["card"][0], out["cpu"][0],
+                    1e-5)
+        elementwise("logits", s + "logits", out["card"][1], out["cpu"][1],
+                    1e-4)
+        losses.append(float(out["card"][0].mean()))
+        if step == 0:
+            first = out["cpu"]
+        for c, h, b in zip(cps, hps, before):
+            name = s + h.name.partition("_")[2]
+            if h.grad_req == "null":
+                elementwise("bn statistics", name, host(c.data()),
+                            host(h.data()), 1e-4, floor=1.0)
+                continue
+            l2("gradients", name + " gradient", host(c.grad()),
+               host(h.grad()))
+            note("gradients elementwise (not gated)", float(np.abs(
+                host(c.grad()) - host(h.grad())).max()) / max(
+                    1.0, float(np.abs(host(h.grad())).max())))
+            l2("weight changes", name + " change", host(c.data()) - b,
+               host(h.data()) - b)
+        for i, st in tr["cpu"]._updaters[0].states.items():
+            mine = tr["card"]._updaters[0].states[i]
+            for j, (c, h) in enumerate(zip(_leaves(mine), _leaves(st))):
+                l2("optimizer states", s + "state %d.%d" % (i, j), host(c),
+                   host(h))
+    return launches, losses, worst, first
+
+
+def one_step(net, ctx, batch, optimizer, params, dtype, kernel=None,
+             reshape=None):
+    """One training step of ``net`` on ``batch``: (loss, logits) as
+    float32 numpy and ``kernel``'s launches counted from 0 over it."""
+    import mxtpu_torch as mt
+    x, y = batch
+    trainer = mt.gluon.Trainer(net.collect_params(), optimizer, dict(params))
+    if kernel is not None:
+        kernel.launches = 0
+    loss, logits = _step_program(
+        net, trainer, mt.gluon.loss.SoftmaxCrossEntropyLoss(),
+        mt.nd.array(x, ctx=ctx, dtype=dtype if x.dtype.kind == "f"
+                    else "int32"), mt.nd.array(y, ctx=ctx), reshape)
+    n = None if kernel is None else kernel.launches
+    return (loss.astype("float32").asnumpy(),
+            logits.astype("float32").asnumpy(), n)
+
+
+def worst_line(worst):
+    return ", ".join("%s %.3g" % kv for kv in sorted(worst.items()))
+
+
+def resnet_batches(batch, steps, seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [(rng.standard_normal((batch, 224, 224, 3)).astype(np.float32),
+             rng.integers(0, 1000, batch).astype(np.float32))
+            for _ in range(steps)]
+
+
+def timed_steps(step, warm=3, n=10):
+    """(median ms, p80 ms, median host-issue ms) of ``n`` synchronised
+    training steps after ``warm``; host issue is the time until the step's
+    last call returns."""
+    import torch
+    for _ in range(warm):
+        step()
+    torch.cuda.synchronize()
+    wall, issue = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        step()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        wall.append(1e3 * (time.perf_counter() - t0))
+        issue.append(1e3 * (t1 - t0))
+    wall.sort()
+    issue.sort()
+    return wall[n // 2], wall[(4 * n) // 5], issue[n // 2]
+
+
+# kernel-name categories of a training step's breakdown, first match wins
+STEP_CATEGORIES = [
+    ("fused conv forward (B1)", ("fused_conv",)),
+    ("flash forward (B2)", ("flash_attention",)),
+    ("foreach optimizer update", ("multi_tensor_apply", "foreach")),
+    ("cuDNN convs (fwd, dgrad, wgrad)", ("fprop", "dgrad", "wgrad", "cudnn",
+                                         "conv2d", "convolution")),
+    ("GEMMs", ("gemm", "cutlass", "nvjet")),
+    ("reductions (BN/LN statistics, sums)", ("reduce", "Reduce")),
+    ("elementwise (BN/LN apply, casts, adds, ReLU)", ("elementwise",
+                                                      "vectorized", "copy",
+                                                      "Elementwise")),
+]
+
+
+def print_step_breakdown(label, rows, wall_ms, flops_per_s, dtype, card):
+    """A step's device time by category and by top kernel, its idle share
+    against the unprofiled median, and train_mfu."""
+    dev_ms = sum(r[1] for r in rows)
+    cats = {}
+    for name, ms, count in rows:
+        cat = next((c for c, keys in STEP_CATEGORIES
+                    if any(k_ in name for k_ in keys)), "other")
+        ms0, n0 = cats.get(cat, (0.0, 0.0))
+        cats[cat] = (ms0 + ms, n0 + count)
+    peak = PEAK_FLOPS[dtype]
+    print("%s per step: wall %.3f ms (median, unprofiled), device kernels "
+          "%.3f ms (idle share %.3f), %d kernel launches; train_mfu %.4f "
+          "(%.4g FLOP/s of %.4g peak %s) on %s" % (
+              label, wall_ms, dev_ms, 1 - dev_ms / wall_ms,
+              round(sum(r[2] for r in rows)), flops_per_s / peak,
+              flops_per_s, peak, dtype, card))
+    for cat, (ms, count) in sorted(cats.items(), key=lambda kv: -kv[1][0]):
+        print("  %-45s %.3f ms  x%g" % (cat, ms, round(count)))
+    for name, ms, count in rows[:10]:
+        print("    %.4f ms  x%-4g %s" % (ms, count, name[:100]))
+    return dev_ms
+
+
+def train_timing(label, net, x, y, optimizer, params, reshape, card,
+                 flops_per_item, items, dtype):
+    """Time ``net``'s training step on the card (3 warm-up, 10 timed),
+    profile one step, and print items/s, host issue, device ms, idle
+    share, peak memory and train_mfu."""
+    import torch
+    import mxtpu_torch as mt
+    trainer = mt.gluon.Trainer(net.collect_params(), optimizer, dict(params))
+    loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def step():
+        with mt.autograd.record():
+            logits = net(x)
+            if reshape is not None:
+                logits = logits.reshape((-1, reshape))
+            loss = loss_fn(logits, y.reshape((-1,)))
+        loss.backward()
+        trainer.step(y.size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    med, p80, issue = timed_steps(step)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    rate = items * 1e3 / med
+    print("train %s on %s: %.1f %s/s at the median step %.3f ms (p80 %.3f, "
+          "median host issue %.3f ms; 10 steps after 3), peak memory %.2f "
+          "GiB" % (label, card, rate, "images" if reshape is None
+                   else "tokens", med, p80, issue, peak_gb), flush=True)
+    dev_ms = print_step_breakdown("train " + label, device_rows(step, 2),
+                                  med, flops_per_item * rate, dtype, card)
+    return dict(step_ms=med, p80_ms=p80, issue_ms=issue, device_ms=dev_ms,
+                rate=rate, peak_gib=peak_gb,
+                mfu=flops_per_item * rate / PEAK_FLOPS[dtype])
+
+
+def resnet_train_phase(card):
+    """ResNet-50 v1 trained through gluon.Trainer (SGD lr 0.1, momentum
+    0.9, wd 1e-4; SoftmaxCrossEntropyLoss): b8 f32, 2 steps on the card
+    against the same 2 steps on the CPU (11 fused_conv launches a step);
+    one bf16 step against the f32 CPU step; then b64 f32 and b128 bf16
+    timed. Returns the fused_conv launches per step by type."""
+    import numpy as np
+    import torch
+    import mxtpu_torch as mt
+    from mxtpu_torch.ops.pallas.conv import fused_conv
+    batches = resnet_batches(8, 2, 11)
+    net, arrays = build_net()
+    net.collect_params().reset_ctx(mt.gpu(0))
+    cpu_net, _ = build_net(arrays)
+    t0 = time.time()
+    launches, losses, worst, (ref_loss, ref_logits) = lockstep_train(
+        "resnet50 train f32", net, cpu_net, batches, "sgd", SGD_PARAMS,
+        kernel=fused_conv)
+    if launches != [11, 11]:
+        raise AssertionError("resnet50 training: fused_conv launched %s "
+                             "times per step, expected 11 each" % launches)
+    print("train resnet50_v1 f32 b8, 2 SGD steps on the card, each against "
+          "the same step on the CPU from the card's state (%.1f s): "
+          "fused_conv launches %s; mean losses %s; worst errors "
+          "(elementwise of the scale, or relative L2): %s" % (
+              time.time() - t0, launches, losses, worst_line(worst)),
+          flush=True)
+    # bf16: one step from the same weights against the f32 CPU step
+    net16, _ = build_net(arrays)
+    net16.collect_params().reset_ctx(mt.gpu(0))
+    net16.cast("bfloat16")
+    loss16, logits16, launches16 = one_step(
+        net16, mt.gpu(0), batches[0], "sgd",
+        dict(SGD_PARAMS, multi_precision=True), "bfloat16", fused_conv)
+    if launches16 != 11:
+        raise AssertionError("resnet50 bf16 step launched fused_conv %d "
+                             "times" % launches16)
+    errs = {}
+    for key, got, ref in (("logits", logits16, ref_logits),
+                          ("loss", loss16, ref_loss)):
+        errs[key] = float(np.abs(got - ref).max() / np.abs(ref).max())
+        if not np.isfinite(got).all() or errs[key] > BF16_VS_F32:
+            raise AssertionError("resnet50 bf16 step-1 %s differs from the "
+                                 "f32 CPU step by %.3g of max|ref| (limit "
+                                 "%g)" % (key, errs[key], BF16_VS_F32))
+    print("train resnet50_v1 bf16 b8 step 1 against the f32 CPU step: "
+          "logits %.3g, loss %.3g of max|ref| (limit %g); fused_conv "
+          "launches %d" % (errs["logits"], errs["loss"], BF16_VS_F32,
+                           launches16), flush=True)
+    del cpu_net
+    timing = {}
+    for dtype, batch, params in (
+            ("float32", 64, SGD_PARAMS),
+            ("bfloat16", 128, dict(SGD_PARAMS, multi_precision=True))):
+        tnet = net if dtype == "float32" else net16
+        rng = np.random.default_rng(12)
+        x = mt.nd.array(rng.standard_normal((batch, 224, 224, 3)),
+                        ctx=mt.gpu(0), dtype=dtype)
+        y = mt.nd.array(rng.integers(0, 1000, batch).astype(np.float32),
+                        ctx=mt.gpu(0))
+        timing[dtype] = train_timing(
+            "resnet50_v1 %s b%d (SGD-momentum%s)" % (
+                dtype, batch, ", multi_precision" if dtype != "float32"
+                else ""), tnet, x, y, "sgd", params, None, card,
+            RESNET50_TRAIN_FLOPS, batch, dtype)
+        del x, y
+        torch.cuda.empty_cache()
+    return {"float32": launches[0], "bfloat16": launches16}, timing
+
+
+def lm_batches(b, t, steps, seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    vocab = BERT_BASE["vocab_size"]
+    return [(rng.integers(0, vocab, (b, t), dtype=np.int32),
+             rng.integers(0, vocab, (b, t)).astype(np.float32))
+            for _ in range(steps)]
+
+
+def lm_train_phase(card):
+    """The TransformerLM trained through gluon.Trainer (Adam lr 1e-4,
+    SoftmaxCrossEntropyLoss over the vocab, as bench.py's BERT-base step):
+    2 layers at BERT-base widths, b2 x 512 f32, 2 steps on the card
+    against the CPU (one flash launch per layer a step); then the full 12
+    layers at b8 x 512 bf16 timed. Returns flash launches per step by
+    type."""
+    import numpy as np
+    import torch
+    import mxtpu_torch as mt
+    from mxtpu_torch import convert
+    from mxtpu_torch.gluon.model_zoo.transformer import TransformerLM
+    from mxtpu_torch.ops.pallas.flash_attention import flash_attention
+    vocab = BERT_BASE["vocab_size"]
+
+    def build(layers, arrays=None):
+        net = TransformerLM(**dict(BERT_BASE, num_layers=layers))
+        net.initialize(ctx=mt.cpu())
+        with torch.no_grad():
+            net(torch.zeros(1, 8, dtype=torch.int32))
+        if arrays is None:
+            arrays = convert.seeded_params(
+                {k: p.shape for k, p in net.collect_params().items()},
+                seed=0)
+        convert.load_mxtpu_params(net, arrays)
+        return net, arrays
+    batches = lm_batches(2, 512, 2, 13)
+    net, arrays = build(2)
+    net.collect_params().reset_ctx(mt.gpu(0))
+    cpu_net, _ = build(2, arrays)
+    t0 = time.time()
+    launches, losses, worst, _ = lockstep_train(
+        "transformer_lm train f32", net, cpu_net, batches, "adam",
+        ADAM_PARAMS, reshape=vocab, kernel=flash_attention)
+    if launches != [2, 2]:
+        raise AssertionError("transformer_lm training: flash launched %s "
+                             "times per step, expected 2 each" % launches)
+    print("train transformer_lm (2 layers, BERT-base widths) f32 b2 x 512, "
+          "2 Adam steps on the card, each against the same step on the CPU "
+          "from the card's state (%.1f s): flash launches %s; mean losses "
+          "%s; worst errors (elementwise of the scale, or relative L2): %s"
+          % (time.time() - t0, launches, losses, worst_line(worst)),
+          flush=True)
+    del net, cpu_net
+    layers, b, t = BERT_BASE["num_layers"], 8, 512
+    big, _ = build(layers)
+    big.collect_params().reset_ctx(mt.gpu(0))
+    big.cast("bfloat16")
+    (tokens, labels), = lm_batches(b, t, 1, 14)
+    x = mt.nd.array(tokens, ctx=mt.gpu(0), dtype="int32")
+    y = mt.nd.array(labels, ctx=mt.gpu(0))
+    loss, _, step_launches = one_step(
+        big, mt.gpu(0), (tokens, labels), "adam",
+        dict(ADAM_PARAMS, multi_precision=True), "bfloat16", flash_attention,
+        reshape=vocab)
+    if step_launches != layers or not np.isfinite(loss).all():
+        raise AssertionError("transformer_lm bf16 step: %d flash launches "
+                             "(expected %d), finite loss %s" % (
+                                 step_launches, layers,
+                                 np.isfinite(loss).all()))
+    dim = BERT_BASE["dim"]
+    flops = 3 * 2 * (layers * (12 * dim * dim + 2 * t * dim) + dim * vocab)
+    timing = train_timing(
+        "transformer_lm bf16 b%d x %d (12 layers, Adam, multi_precision)"
+        % (b, t), big, x, y, "adam", dict(ADAM_PARAMS, multi_precision=True),
+        vocab, card, flops, b * t, "bfloat16")
+    return {"float32": launches[0], "bfloat16": step_launches}, timing
+
+
+def kernel_entries(rows, launches, train_launches, name, source, replaces):
     """One `kernels` entry per type: the per-forward shapes' numbers, each
-    times its launches per forward, summed."""
+    times its launches per forward, summed; ``train_launches`` are the
+    kernel's launches in one training step of that type."""
     entries = []
     for dtype in ("float32", "bfloat16"):
         mine = [r for r in rows if r["dtype"] == dtype]
@@ -1328,6 +1995,7 @@ def kernel_entries(rows, launches, name, source, replaces):
             "bound_by": ("bytes" if 2 * by_bytes >= tot["bound_ms"]
                          else "operations"),
             "library_ms": tot["library_ms"],
+            "train_launches": train_launches[dtype],
         })
         # the same sums timed by CUDA-graph replay, and the host us to
         # issue the calls of one forward
@@ -1361,15 +2029,19 @@ def main():
     flash_rows = flash_phase()
     flash_launches = lm_serve_phase(card)
     gluon_nd_phase()
+    conv_backward_phase()
+    flash_backward_phase()
+    conv_train, _ = resnet_train_phase(card)
+    flash_train, _ = lm_train_phase(card)
     n = resnet50_param_count()
     _, rtc_kernels, rtc_rows = rtc_phase(n)
     rtc_launches = imperative_phase(rtc_kernels, n)
     entries = kernel_entries(
-        conv_rows, conv_launches,
+        conv_rows, conv_launches, conv_train,
         "fused_conv (%s, the 11 gated convs of one b8 ResNet-50 forward)",
         "mxtpu_torch/csrc/fused_conv.cu", "mxtpu/ops/pallas/conv.py:313")
     entries += kernel_entries(
-        flash_rows, flash_launches,
+        flash_rows, flash_launches, flash_train,
         "flash_attention (%s, the 12 attentions of one b8 x 512 BERT-base "
         "forward)", "mxtpu_torch/csrc/flash_attention.cu",
         "mxtpu/ops/pallas/flash_attention.py:125")

@@ -4,8 +4,9 @@ The namespace mirrors ``import mxtpu as mx`` for the parts ported so far:
 devices, the layout scope, the op registry and the imperative ``nd``
 namespace over ``NDArray``, ``autograd``, ``random``, runtime-compiled CUDA
 kernels (``rtc``) and the external-kernel hook (``contrib``), Gluon blocks
-and layers, the ResNet v1 and transformer model zoo, initializers and the
-bucketed Predictor. Kernels that the JAX package wrote in Pallas are
+and layers, the ResNet v1 and transformer model zoo, initializers, the
+bucketed Predictor, and training: Gluon losses and ``Trainer``, the
+optimizers with their fused updater, lr schedulers and metrics. Kernels that the JAX package wrote in Pallas are
 hand-written CUDA under ``csrc/``, built at first use
 (``mxtpu_torch.kernels``). Entry points run on the CUDA device unless the
 caller passes a CPU device.
@@ -27,6 +28,9 @@ from . import rtc  # noqa: E402
 from . import contrib  # noqa: E402
 from . import initializer  # noqa: E402
 from . import initializer as init  # noqa: E402
+from . import lr_scheduler  # noqa: E402
+from . import optimizer  # noqa: E402
+from . import metric  # noqa: E402
 from . import gluon  # noqa: E402
 from . import serving  # noqa: E402
 from . import convert  # noqa: E402
@@ -34,4 +38,4 @@ from . import convert  # noqa: E402
 __all__ = ["MXNetError", "cpu", "gpu", "default_device", "layout", "ops",
            "autograd", "ndarray", "nd", "random", "rtc", "contrib",
            "initializer", "init", "gluon", "serving", "convert", "base",
-           "context"]
+           "context", "optimizer", "lr_scheduler", "metric"]

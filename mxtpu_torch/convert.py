@@ -11,9 +11,18 @@ second net a process builds. A missing, extra or misshapen array raises.
 BatchNorm statistics far enough from the defaults that a parity test
 compares real signal (the default initializer gives ResNet logits near
 1e-4).
+
+``load_mxtpu_optimizer_states(trainer, blob)`` resumes a port Trainer from
+what the JAX package's ``Updater.get_states(dump_optimizer=False)`` wrote:
+a pickle of ``{index: state}`` with numpy arrays, tuples and None. It
+unpickles numpy types only; a blob that holds a pickled ``mxtpu``
+optimizer (``dump_optimizer=True``) or any other class raises, and the
+JAX package is never imported to read it.
 """
 from __future__ import annotations
 
+import io
+import pickle
 import zlib
 
 import numpy as np
@@ -21,7 +30,8 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["load_mxtpu_params", "params_to_numpy", "seeded_params"]
+__all__ = ["load_mxtpu_params", "params_to_numpy", "seeded_params",
+           "load_mxtpu_optimizer_states"]
 
 
 def _strip_top(names):
@@ -56,13 +66,15 @@ def load_mxtpu_params(net, arrays):
 
 
 def params_to_numpy(net):
-    """``{name: np.ndarray}`` of every parameter (bf16 as float32, exact)."""
+    """``{name: np.ndarray}`` of every parameter, a copy (bf16 as float32,
+    exact)."""
     out = {}
     for name, p in net.collect_params().items():
-        t = p.data().to_torch().detach().cpu()
-        if t.dtype in (torch.bfloat16, torch.float16):
-            t = t.float()
-        out[name] = t.numpy()
+        t = p.data().to_torch().detach()
+        # a copy: an optimizer step writes into the parameter in place
+        t = t.float() if t.dtype in (torch.bfloat16, torch.float16) \
+            else t.clone()
+        out[name] = t.cpu().numpy()
     return out
 
 
@@ -86,3 +98,38 @@ def seeded_params(shapes, seed=0):
             a = rng.normal(0.0, 0.1, shape)
         out[name] = a.astype(np.float32)
     return out
+
+
+class _NumpyOnly(pickle.Unpickler):
+    """Unpickles numpy arrays, dtypes and scalars, and plain containers."""
+
+    _ALLOWED = {("numpy", "ndarray"), ("numpy", "dtype"),
+                ("numpy.core.multiarray", "_reconstruct"),
+                ("numpy._core.multiarray", "_reconstruct"),
+                ("numpy.core.multiarray", "scalar"),
+                ("numpy._core.multiarray", "scalar")}
+
+    def find_class(self, module, name):
+        if (module, name) in self._ALLOWED:
+            return super().find_class(module, name)
+        if module.split(".")[0] == "mxtpu":
+            raise MXNetError(
+                "the optimizer-state blob holds a pickled %s.%s of the JAX "
+                "package: write it with get_states(dump_optimizer=False), "
+                "which holds numpy arrays only" % (module, name))
+        raise MXNetError("the optimizer-state blob holds %s.%s; only numpy "
+                         "arrays, tuples and None are read" % (module, name))
+
+
+def load_mxtpu_optimizer_states(trainer, blob):
+    """Set ``trainer``'s optimizer states from the JAX package's
+    ``Updater.get_states(dump_optimizer=False)`` bytes (keys are the
+    indices of the trainer's parameter list, in the same order). Each
+    state moves to its weight's device and type at its first update;
+    update counts stay the port optimizer's own."""
+    states = _NumpyOnly(io.BytesIO(blob)).load()
+    if not isinstance(states, dict):
+        raise MXNetError("the optimizer-state blob holds %s, not {index: "
+                         "state}" % type(states).__name__)
+    for updater in trainer._updaters:
+        updater.set_numpy_states(states)

@@ -1,7 +1,9 @@
 """Gluon API of the port (counterpart of ``mxtpu/gluon``)."""
-from . import model_zoo, nn
+from . import loss, model_zoo, nn
 from .block import Block, HybridBlock
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
+from .trainer import Trainer
 
 __all__ = ["Block", "HybridBlock", "Parameter", "ParameterDict",
-           "DeferredInitializationError", "nn", "model_zoo"]
+           "DeferredInitializationError", "Trainer", "loss", "nn",
+           "model_zoo"]

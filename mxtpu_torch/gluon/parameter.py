@@ -15,7 +15,13 @@ replaced (``set_data``, ``cast``, ``reset_ctx``). The leaf points back at
 it (``_mx_owner``) and it holds a gradient buffer following ``grad_req``,
 so ``autograd.backward`` fills ``grad()`` as it fills an array's after
 ``attach_grad``. A write through the array (``p.data()[:] = v``) goes to
-the parameter.
+the parameter. An optimizer step writes into that same tensor in place,
+under ``torch.no_grad()``, so an array taken from ``data()`` before a
+step shows the new values after it and the leaf keeps its link.
+
+``lr_mult`` and ``wd_mult`` scale the optimizer's learning rate and
+weight decay for this parameter; ``_trainer`` is the Trainer that owns
+it.
 """
 from __future__ import annotations
 
@@ -62,8 +68,12 @@ class Parameter:
     """A weight/bias/aux tensor owned by a Block (ref: gluon/parameter.py)."""
 
     def __init__(self, name, grad_req="write", shape=None, dtype="float32",
-                 init=None, allow_deferred_init=False, differentiable=True):
+                 lr_mult=1.0, wd_mult=1.0, init=None,
+                 allow_deferred_init=False, differentiable=True):
         self.name = name
+        self.lr_mult = lr_mult
+        self.wd_mult = wd_mult
+        self._trainer = None
         self._grad_req = grad_req if differentiable else "null"
         if isinstance(shape, int):
             shape = (shape,)

@@ -157,9 +157,13 @@ class NDArray:
         return self
 
     def asnumpy(self) -> _np.ndarray:
+        """A copy on the host (a CPU tensor's ``numpy()`` would share its
+        memory, which later in-place writes, an optimizer step's, change)."""
         d = self._data.detach()
         if d.dtype == torch.bfloat16:
-            d = d.float()
+            return d.float().cpu().numpy()
+        if d.device.type == "cpu":
+            return d.numpy().copy()
         return d.cpu().numpy()
 
     def asscalar(self):

@@ -1,12 +1,18 @@
 """Operators of the port; this module is the ``F`` namespace that
 ``HybridBlock.hybrid_forward`` receives. Importing it registers every op
 module with the registry, from which ``mx.nd`` is built."""
-from . import elemwise, reduce  # noqa: F401  (registration)
+from . import elemwise, optimizer_ops, reduce  # noqa: F401  (registration)
+from .elemwise import (abs_ as abs, broadcast_add,  # noqa: A004
+                       broadcast_mul, broadcast_sub, exp, log, relu, square,
+                       where)
 from .init_ops import arange
-from .matrix import Embedding, reshape, transpose
+from .matrix import Embedding, reshape, swapaxes, transpose
 from .nn import (Activation, BatchNorm, Convolution, FullyConnected,
-                 LayerNorm, Pooling)
+                 LayerNorm, Pooling, log_softmax, softmax)
+from .reduce import mean, pick, sum_ as sum  # noqa: A004
 
 __all__ = ["Activation", "BatchNorm", "Convolution", "FullyConnected",
            "LayerNorm", "Pooling", "Embedding", "reshape", "transpose",
-           "arange"]
+           "swapaxes", "arange", "softmax", "log_softmax", "abs",
+           "broadcast_add", "broadcast_mul", "broadcast_sub", "exp", "log",
+           "relu", "square", "where", "mean", "pick", "sum"]

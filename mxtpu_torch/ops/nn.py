@@ -3,7 +3,7 @@
 Plain functions on tensors, with the JAX package's signatures and layout
 handling, each registered for ``mx.nd``: ``Convolution`` (through
 ``conv_acc.conv_fast``), ``Pooling``, ``Activation``, ``FullyConnected``,
-``BatchNorm`` and ``LayerNorm``. Keywords that only tune the reference's
+``BatchNorm``, ``LayerNorm``, ``softmax`` and ``log_softmax``. Keywords that only tune the reference's
 cuDNN calls (``workspace``, ``cudnn_tune``, ``cudnn_off``) are accepted and
 ignored, as the JAX package does.
 NHWC tensors go to PyTorch's NCHW operators as permuted views, which are
@@ -21,7 +21,7 @@ from .precision_util import promote
 from .registry import register
 
 __all__ = ["FullyConnected", "Convolution", "Pooling", "Activation",
-           "BatchNorm", "LayerNorm"]
+           "BatchNorm", "LayerNorm", "softmax", "log_softmax"]
 
 
 def _pair(v, n=2):
@@ -201,3 +201,24 @@ def LayerNorm(data, gamma, beta, axis=-1, eps=1e-5, output_mean_var=False):
     if output_mean_var:
         return [out, mean.squeeze(ax), var.squeeze(ax)]
     return out
+
+
+@register("softmax", aliases=("Softmax",), as_method=True)
+def softmax(x, axis=-1, temperature=None, length=None, **_ig):
+    """softmax(x / temperature) over ``axis``; ``length`` (one count per
+    row of a 2-D input) masks the positions at and past it to -inf first."""
+    if temperature is not None and temperature != 1.0:
+        x = x / temperature
+    if length is not None:
+        pos = torch.arange(x.shape[axis], device=x.device)
+        x = torch.where(pos < length.to(torch.int32).unsqueeze(-1), x,
+                        float("-inf"))
+    return torch.softmax(x, dim=axis)
+
+
+@register("log_softmax", as_method=True)
+def log_softmax(x, axis=-1, temperature=None, **_ig):
+    """log(softmax(x / temperature)) over ``axis``."""
+    if temperature is not None and temperature != 1.0:
+        x = x / temperature
+    return torch.log_softmax(x, dim=axis)

@@ -11,11 +11,21 @@ and reasons: ``conv_acc.conv_fast`` routes a conv here when the gate admits
 it. The gate keeps the TPU's 128-lane rule for now, so the port runs the
 same convs through its kernel as the JAX package does.
 
-Forward only: the backward (``_core_bwd`` in the JAX package) comes with
-training, so the kernel refuses a tensor that needs a gradient while grad
-mode is on (the plain version on the CPU is differentiable as it is).
-``fused_conv.launches`` counts kernel launches; it never counts a call
-that ran the plain version.
+Differentiable in x, w, scale, bias and residual: where grad mode is on
+and an input needs a gradient, the call runs as ``_FusedConv``, a
+``torch.autograd.Function`` whose forward is the kernel (the plain version
+on a CPU tensor) and whose backward is ``fused_conv_backward``, one port of
+the JAX package's ``_core_bwd`` and ``_conv_grads_blockwise`` that runs on
+both devices (plain array code there too, no Pallas kernel): the ReLU
+mask, ``d_residual`` in the residual's type, ``d_bias = sum g``,
+``d_scale = sum g * craw``, and ``dz = g * scale`` cast to the operands'
+type before the two gradient convolutions (``convolution_backward`` on
+channels-last views; f32 accumulation, TF32 off by the precision policy).
+The forward saves what ``_core_fwd_impl`` saves: x, w, scale, bias, out
+only under ``relu`` and craw only with ``scale``. Off the CPU and the
+card the call raises "no kernel for device", with or without a gradient.
+``fused_conv.launches`` counts forward kernel launches; it never counts
+a call that ran the plain version, nor a backward.
 
 The kernel's launch (bfloat16 on the tensor cores, float32 on the CUDA
 cores; 16-byte or element-wise staging; tiles, padded K and grid) is
@@ -29,11 +39,13 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from ...base import MXNetError
+from ..precision_util import promote
 
 __all__ = ["fused_conv", "fused_conv_with_raw", "fused_conv_reference",
-           "pallas_applicable", "out_hw"]
+           "fused_conv_backward", "pallas_applicable", "out_hw"]
 
 _MXU_LANES = 128
 _LOW = (torch.bfloat16, torch.float32)
@@ -255,27 +267,117 @@ def _launch(x, w, strides, padding, scale, bias, residual, relu, oh, ow):
     return out, craw
 
 
+def _forward(x, w, strides, padding, scale, bias, residual, relu, oh, ow):
+    """(out, craw): the kernel on a CUDA tensor, the plain version on a
+    CPU tensor."""
+    if x.device.type == "cuda":
+        return _launch(x, w, strides, padding, scale, bias, residual, relu,
+                       oh, ow)
+    return fused_conv_reference(x, w, strides, padding, scale, bias,
+                                residual, relu)
+
+
+def _conv_grads(x, w, dz, strides, padding, need_x=True, need_w=True):
+    """(dx, dw) of the conv from its cotangent ``dz`` [N, OH, OW, C_out]:
+    ``convolution_backward`` on NCHW views of the NHWC tensors (channels
+    last in memory, so no layout copy is made), which accumulates in
+    float32; asymmetric padding is applied to x first and sliced off dx.
+    dx comes back in x's type and dw in w's type."""
+    n, h, wd, _ = x.shape
+    (plo, phi), (qlo, qhi) = padding
+    xn = x.permute(0, 3, 1, 2)
+    if plo == phi and qlo == qhi:
+        pad = [plo, qlo]
+    else:
+        xn = F.pad(xn, (qlo, qhi, plo, phi))
+        pad = [0, 0]
+    dx, dw, _ = torch.ops.aten.convolution_backward(
+        dz.permute(0, 3, 1, 2), xn, w.permute(3, 2, 0, 1), None,
+        list(strides), pad, [1, 1], False, [0, 0], 1,
+        [bool(need_x), bool(need_w), False])
+    if dx is not None:
+        if pad == [0, 0] and (plo or phi or qlo or qhi):
+            dx = dx[:, :, plo:plo + h, qlo:qlo + wd]
+        dx = dx.permute(0, 2, 3, 1).to(x.dtype)
+    if dw is not None:
+        dw = dw.permute(2, 3, 1, 0).contiguous().to(w.dtype)
+    return dx, dw
+
+
+def fused_conv_backward(x, w, g, strides, padding, scale=None, bias=None,
+                        out=None, craw=None, relu=False, res_dtype=None,
+                        needs=(True, True, True, True, True)):
+    """(dx, dw, d_scale, d_bias, d_residual) of ``fused_conv`` from the
+    output's cotangent ``g``: the JAX package's ``_core_bwd``. ``out`` is
+    needed under ``relu`` (its mask), ``craw`` with ``scale``;
+    ``res_dtype`` is the residual's type, None without one; ``needs``
+    says which of the five gradients to compute (None for the others)."""
+    # the reference upcasts g to float32 first; masking, casting and
+    # summing in float32 from g itself give the same values without the
+    # float32 copy of g where no scale multiplies it
+    if relu:
+        g = torch.where(out > 0, g, 0.0)
+    d_res = g.to(res_dtype) if res_dtype is not None and needs[4] else None
+    d_bias = g.sum(dim=(0, 1, 2), dtype=torch.float32).to(bias.dtype) \
+        if bias is not None and needs[3] else None
+    d_scale = None
+    if scale is not None:
+        g32 = g.float()
+        if needs[2]:
+            d_scale = (g32 * craw).sum(dim=(0, 1, 2)).to(scale.dtype)
+        g = g32 * scale.float()
+    dx = dw = None
+    if needs[0] or needs[1]:
+        # the cotangent meets the saved operands in their type; the
+        # gradient convolutions accumulate in float32
+        dz = g.to(promote(x.dtype, w.dtype))
+        dx, dw = _conv_grads(x, w, dz, strides, padding, needs[0], needs[1])
+    return dx, dw, d_scale, d_bias, d_res
+
+
+class _FusedConv(torch.autograd.Function):
+    """``fused_conv`` with its backward (see the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, w, scale, bias, residual, cfg):
+        strides, padding, relu, oh, ow = cfg
+        out, craw = _forward(x, w, strides, padding, scale, bias, residual,
+                             relu, oh, ow)
+        ctx.cfg = cfg
+        ctx.res_dtype = None if residual is None else residual.dtype
+        ctx.save_for_backward(x, w, scale, bias, out if relu else None,
+                              craw)
+        if craw is not None:
+            ctx.mark_non_differentiable(craw)
+        return out, craw
+
+    @staticmethod
+    def backward(ctx, g, _g_craw):
+        x, w, scale, bias, out, craw = ctx.saved_tensors
+        strides, padding, relu, _, _ = ctx.cfg
+        grads = fused_conv_backward(
+            x, w, g, strides, padding, scale, bias, out, craw, relu,
+            ctx.res_dtype, ctx.needs_input_grad[:5])
+        return grads + (None,)
+
+
 def fused_conv_with_raw(x, w, strides=(1, 1), padding=((0, 0), (0, 0)),
                         scale=None, bias=None, residual=None, relu=False):
     """``(out, craw)``: ``fused_conv`` plus the float32 raw conv, which is
     returned when ``scale`` is given (else None) — the tensor the JAX
-    package saves for d(scale)."""
+    package saves for d(scale); craw carries no gradient."""
     strides = tuple(int(s) for s in strides)
     padding = tuple((int(a), int(b)) for a, b in padding)
     oh, ow = _check(x, w, strides, padding, scale, bias, residual)
-    if x.device.type == "cpu":
-        return fused_conv_reference(x, w, strides, padding, scale, bias,
-                                    residual, relu)
+    if x.device.type not in ("cuda", "cpu"):
+        raise MXNetError("fused_conv: no kernel for device %s" % x.device)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (x, w, scale, bias, residual)):
-        raise MXNetError("the fused_conv kernel is forward-only: its "
-                         "backward comes with the training port; run under "
-                         "torch.no_grad()/inference_mode()")
-    if x.device.type != "cuda":
-        raise MXNetError("fused_conv: no kernel for device %s" % x.device)
-    return _launch(x, w, strides, padding, scale, bias, residual, relu,
-                   oh, ow)
+        return _FusedConv.apply(x, w, scale, bias, residual,
+                                (strides, padding, bool(relu), oh, ow))
+    return _forward(x, w, strides, padding, scale, bias, residual, relu,
+                    oh, ow)
 
 
 def fused_conv(x, w, strides=(1, 1), padding=((0, 0), (0, 0)), scale=None,

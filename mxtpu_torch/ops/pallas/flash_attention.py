@@ -16,11 +16,19 @@ contiguous. ``block_q``/``block_k`` are the TPU
 kernel's block wants, kept for the reference's signature: the CUDA
 kernel picks its own tiles and grid (``_launch_args``) whatever they say.
 
-Forward only: the backward (``_fa_backward_blockwise`` in the JAX package)
-comes with training, so the kernel refuses a tensor that needs a gradient
-while grad mode is on (the plain version on the CPU is differentiable as
-it is). ``flash_attention.launches`` counts kernel launches of both entry
-points; it never counts a call that ran the plain version.
+Differentiable in q, k and v through both outputs: where grad mode is on
+and an input needs a gradient, the call runs as ``_Flash``, a
+``torch.autograd.Function`` whose forward is the kernel (the plain version
+on a CPU tensor) and saves q, k, v, out and lse, and whose backward is
+``flash_attention_backward``, one port of the JAX package's
+``_fa_backward_blockwise`` that runs on both devices (plain array code
+there too): P recomputed from lse in float32 blocks of ``block_k`` keys,
+so no [B, H, T, Tk] matrix is held at long T, and the lse cotangent folded
+into the row constant. The gradients flow back to strided q/k/v views as
+to any tensor. Off the CPU and the card the call raises "no kernel for
+device", with or without a gradient. ``flash_attention.launches`` counts
+forward kernel launches of both entry points; it never counts a call that
+ran the plain version, nor a backward.
 """
 from __future__ import annotations
 
@@ -33,14 +41,12 @@ import torch
 from ...base import MXNetError
 
 __all__ = ["flash_attention", "flash_attention_with_lse",
-           "flash_attention_reference"]
+           "flash_attention_reference", "flash_attention_backward"]
 
 _NEG_INF = -1e30   # mask value: the online rescale never sees -inf - -inf
 _SLICE = 128   # columns of out per block past D 128 (the sliced kernels)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_FORWARD_ONLY = ("the flash_attention kernel is forward-only: its backward "
-                 "comes with the training port; run under "
-                 "torch.no_grad()/inference_mode()")
+_BWD_BLOCK_K = 512   # keys per block of the backward (the JAX default)
 
 
 def _scale(q, scale):
@@ -162,10 +168,6 @@ def _entry():
 
 
 def _launch(q, k, v, causal, scale):
-    _check(q, k, v)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise MXNetError(_FORWARD_ONLY)
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     la = _launch_args(q, k, v, causal, scale)
     b, h, t, d = q.shape
@@ -189,19 +191,78 @@ def _launch(q, k, v, causal, scale):
     return out, lse
 
 
+def flash_attention_backward(q, k, v, out, lse, g, causal, scale,
+                             g_lse=None, block_k=_BWD_BLOCK_K):
+    """(dq, dk, dv) from the cotangents of out (``g``, None for zero) and
+    of lse (``g_lse``, None for zero): the JAX package's
+    ``_fa_backward_blockwise`` in float32, over blocks of ``block_k``
+    keys: P = exp(S - lse), dv = P^T g, ds = P (g v^T - delta) scale with
+    delta = sum(out g) - g_lse, dq += ds k, dk = ds^T q. Masked scores
+    are -1e30, as in the forward. Each gradient comes back in its input's
+    type."""
+    f32 = torch.float32
+    q32, k32, v32 = q.to(f32), k.to(f32), v.to(f32)
+    g32 = torch.zeros_like(q32) if g is None else g.to(f32)
+    delta = (out.to(f32) * g32).sum(dim=-1)
+    if g_lse is not None:
+        delta = delta - g_lse.to(f32)
+    t, tk = q.shape[2], k.shape[2]
+    dq = torch.zeros_like(q32)
+    dk = torch.empty(k.shape, dtype=f32, device=k.device)
+    dv = torch.empty(v.shape, dtype=f32, device=v.device)
+    q_pos = torch.arange(t, device=q.device)[:, None]
+    for j in range(0, tk, block_k):
+        ks, vs = k32[:, :, j:j + block_k], v32[:, :, j:j + block_k]
+        s = torch.matmul(q32, ks.transpose(-1, -2)) * scale
+        if causal:
+            k_pos = torch.arange(j, j + ks.shape[2], device=q.device)
+            s = torch.where(q_pos >= k_pos[None, :], s, _NEG_INF)
+        p = torch.exp(s - lse[..., None])
+        dv[:, :, j:j + block_k] = torch.matmul(p.transpose(-1, -2), g32)
+        dp = torch.matmul(g32, vs.transpose(-1, -2))
+        ds = p * (dp - delta[..., None]) * scale
+        dq += torch.matmul(ds, ks)
+        dk[:, :, j:j + block_k] = torch.matmul(ds.transpose(-1, -2), q32)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _Flash(torch.autograd.Function):
+    """``flash_attention_with_lse`` with its backward (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        if q.device.type == "cuda":
+            out, lse = _launch(q, k, v, causal, scale)
+        else:
+            out, lse = flash_attention_reference(q, k, v, causal, scale)
+        ctx.causal, ctx.scale = causal, scale
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, g_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, g,
+                                              ctx.causal, ctx.scale, g_lse)
+        return dq, dk, dv, None, None
+
+
 def flash_attention_with_lse(q, k, v, causal=False, scale=None, block_q=512,
                              block_k=512):
     """``(out, lse)``: attention ``[B, H, T, D]`` in q's type and the
     float32 per-row log-sum-exp ``[B, H, T]`` (the quantity that merges
     partial attention over disjoint key sets exactly)."""
+    _check(q, k, v)
+    if q.device.type not in ("cuda", "cpu"):
+        raise MXNetError("flash_attention: no kernel for device %s"
+                         % q.device)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _Flash.apply(q, k, v, bool(causal), _scale(q, scale))
     if q.device.type == "cuda":
         return _launch(q, k, v, causal, scale)
-    _check(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, causal, _scale(q, scale))
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise MXNetError(_FORWARD_ONLY)
-    raise MXNetError("flash_attention: no kernel for device %s" % q.device)
+    return flash_attention_reference(q, k, v, causal, _scale(q, scale))
 
 
 def flash_attention(q, k, v, causal=False, scale=None, block_q=512,
