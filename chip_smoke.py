@@ -17,8 +17,15 @@ NVIDIA H100.
    prints each launch's route, staging, tile and grid.
 4. Serves ResNet-50 v1 (NHWC, 224x224, 1000 classes, seeded weights)
    through the port's bucketed Predictor on the card, in float32 and then
-   bfloat16, checks the logits against the same net on the CPU and that
-   every forward launched the conv kernel 11 times, and times each bucket.
+   bfloat16, each bucket one captured CUDA graph (one graph per bucket,
+   and the builds at the Predictor's retrace site still equal to the
+   number of buckets after all traffic), checks the logits against the
+   same net on the CPU, that every forward launched the conv kernel 11
+   times (the wrapper's count, which a replay carries, and the profiler's
+   kernels by name) and that a replay equals the same forward run
+   eagerly on the card, and times each bucket by graph replay and eagerly
+   (median and p80 latency, host issue, and for b8 the device time and
+   idle share), with the peak memory after warm-up.
 5. Holds the hand-written flash attention kernel (out and lse) against
    its plain PyTorch version at the shapes BERT-base serves (batch 8, 12
    heads, head dim 64, T 128 and 512, causal and not; as tensors of their
@@ -38,10 +45,22 @@ NVIDIA H100.
 6. Serves the BERT-base-shaped TransformerLM (vocab 30522, dim 768, 12
    heads, 12 layers, max_len 512, bidirectional, seeded weights) through
    the port's Predictor with batch and sequence buckets (1-8 x 128, 256,
-   512) on the card, in float32 and then bfloat16, checks the logits
-   against the same net on the CPU and that every forward launched the
-   flash kernel 12 times, times each bucket at seq 512 and b8 at 128 and
-   256, and breaks one b8 x 512 forward down by kernel.
+   512) on the card, in float32 and then bfloat16, 12 captured graphs
+   each, with the same checks (the flash kernel 12 times a forward),
+   times each bucket at seq 512 and b8 at 128 and 256 by replay and
+   eagerly, and breaks one b8 x 512 forward down by kernel both ways.
+   Then the rest of the serving plane: int8 weights (ResNet-50 and the
+   TransformerLM in float32 with ``int8=True`` against the port's int8
+   Predictor on the CPU, 1e-3 of max|logit|, beside the float32 logits,
+   with each Predictor's parameter snapshot bytes and the device memory
+   its build and warm-up took at peak and holds after);
+   ``net.hybridize()`` (ResNet-50 bf16 at two signatures and one in
+   train mode, bit-equal to eager, one graph each); the
+   TransformerLM bf16 through a MicroBatcher over a one-replica
+   ReplicaSet on cuda:0 (8 threads x 16 requests of random length, each
+   held to its direct predict, none shed); and ResNet-50 bf16 behind the
+   ModelServer on 127.0.0.1 (8 threads x 8 single-image POSTs held to
+   direct predict, /healthz, /metrics, drain).
 7. Gluon on NDArrays: ResNet-50 v1 called on an mx.nd array on the card
    equals the tensor path bit for bit with 11 conv launches (float32 and
    bfloat16), and a Dense -> BatchNorm -> Dense net trained two steps on
@@ -83,7 +102,10 @@ NVIDIA H100.
    CPU (2 flash launches a step), then 12 layers at b8 x 512 bf16 timed.
 11. Prints one JSON line of kernels (fused_conv and flash_attention, one
    entry per type each, with graph-replay and host-issue sums beside the
-   eager ones and the launches of one training step; one entry per rtc
+   eager ones, the launches of one training step, and forward + backward
+   by graph replay beside its plain version, the library's and its bound
+   (the 5 gated convs once each; one non-causal b8 x 512 attention on the
+   served views); one entry per rtc
    kernel), the card line again, and last ``{"ok": true, "device":
    {...}}``.
 
@@ -605,14 +627,20 @@ def closed_loop(pred, x, n=50):
     """One client, each request synchronised: (median ms, p80 ms, median
     host-issue ms) over ``n`` requests of ``x`` after 3 warm ones; 50
     samples give a p80 with 10 samples beyond it."""
+    return closed_loop_fn(lambda: pred.predict(x), n)
+
+
+def closed_loop_fn(fn, n=50):
+    """closed_loop for any call ``fn`` (the eager forward beside the
+    captured one)."""
     import torch
     for _ in range(3):
-        pred.predict(x)
+        fn()
     torch.cuda.synchronize()
     samples, enqueue = [], []
     for _ in range(n):
         t0 = time.perf_counter()
-        pred.predict(x)
+        fn()
         t1 = time.perf_counter()   # the host has issued the forward
         torch.cuda.synchronize()
         samples.append(1e3 * (time.perf_counter() - t0))
@@ -622,34 +650,128 @@ def closed_loop(pred, x, n=50):
     return samples[n // 2], samples[(4 * n) // 5], enqueue[n // 2]
 
 
+def eager(pred, x):
+    """The Predictor's forward over its snapshot run eagerly on ``x`` (a
+    bucket-shaped input on its device): what one bucket computed before
+    it was captured, for comparison only; the Predictor never serves
+    this way on the card."""
+    import torch
+    with torch.no_grad():
+        return pred._forward(x)[0]
+
+
+def check_graphs(pred, spec, what):
+    """One captured CUDA graph per bucket, and the builds at the
+    Predictor's own retrace site still equal to the number of buckets."""
+    from mxtpu_torch.graphs import CapturedGraph
+    graphs = [g for g in pred._buckets.values()
+              if isinstance(g, CapturedGraph)]
+    compiles = pred.compile_stats()["compiles"]
+    if len(graphs) != len(spec) or len(pred._buckets) != len(spec) or \
+            compiles != len(spec):
+        raise AssertionError("%s: %d captured graphs, %d buckets, %d builds "
+                             "at %s; expected %d of each" % (
+                                 what, len(graphs), len(pred._buckets),
+                                 compiles, pred.site, len(spec)))
+    return len(graphs)
+
+
+def replay_vs_eager(pred, x, what):
+    """The replayed bucket against the same forward run eagerly on the
+    card; the largest difference (0 when bit-equal)."""
+    got = pred.predict(x).to_torch()
+    ref = eager(pred, x)
+    diff = (got.float() - ref.float()).abs().max().item()
+    if got.shape != ref.shape or not bool(got.isfinite().all()):
+        raise AssertionError("%s: replay gave %s, eager %s" % (
+            what, tuple(got.shape), tuple(ref.shape)))
+    return diff
+
+
 def device_breakdown(pred, x, forwards=5):
     """Device kernel time per forward by kernel name, from torch.profiler
     (CUPTI), over ``forwards`` back-to-back predicts of ``x``."""
     return device_rows(lambda: pred.predict(x), forwards)
 
 
+PROFILE_WARMUP_S = 0.05   # traced but not counted (see device_rows)
+
+
 def device_rows(fn, reps):
     """(kernel name, device ms per call, launches per call) of ``reps``
-    back-to-back calls of ``fn``, from torch.profiler (CUPTI)."""
+    back-to-back calls of ``fn``, from torch.profiler (CUPTI). Calls of
+    ``fn`` for at least ``PROFILE_WARMUP_S`` and then a marker kernel
+    (``torch.cuda._sleep``) run first in the trace, and only the device
+    events that start after the marker count: a trace loses kernels while
+    tracing starts (one run counted 22 fused convs over three
+    graph-replayed ResNet-50 forwards that launch 11 each; another lost a
+    marker that followed one 0.5 ms imperative step)."""
+    import collections
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        while True:
+            fn()
+            torch.cuda.synchronize()
+            if time.perf_counter() - t0 >= PROFILE_WARMUP_S:
+                break
+        torch.cuda._sleep(1000)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    rows = sorted(((e.key, e.self_device_time_total / 1e3 / reps,
-                    e.count / reps) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total > 0),
-                  key=lambda r: -r[1])
-    return rows
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    marks = [e.time_range.start for e in events if "spin_kernel" in e.name]
+    if len(marks) != 1:
+        raise AssertionError("torch.profiler: %d marker kernels in the "
+                             "trace, expected 1" % len(marks))
+    ms, count = collections.Counter(), collections.Counter()
+    for e in events:
+        if e.time_range.start > marks[0] and e.time_range.elapsed_us() > 0:
+            ms[e.name] += e.time_range.elapsed_us() / 1e3 / reps
+            count[e.name] += 1.0 / reps
+    return sorted(((k, ms[k], count[k]) for k in ms), key=lambda r: -r[1])
+
+
+def served_buckets(label, pred, cases, card, kernel_key, per_forward,
+                   rate):
+    """Per bucket: the closed-loop latency of the captured graph and of the
+    same forward run eagerly, side by side, then a profiled call of the
+    largest case both ways (device ms, idle share); the builds stay at
+    the number of buckets throughout. ``cases``: [(name, x, items)]."""
+    parts = []
+    for name, x, items in cases:
+        graph = closed_loop(pred, x)
+        plain = closed_loop_fn(lambda: eager(pred, x))
+        idle = [1 - sum(r[1] for r in device_rows(fn, 3)) / wall
+                for fn, wall in ((lambda: pred.predict(x), graph[0]),
+                                 (lambda: eager(pred, x), plain[0]))]
+        parts.append("%s %s/s %.0f (%.3f, %.3f, %.3f, idle %.3f) eager %.0f "
+                     "(%.3f, %.3f, %.3f, idle %.3f)" % (
+                         (name, rate, 1e3 * items / graph[0]) + graph
+                         + (idle[0], 1e3 * items / plain[0]) + plain
+                         + (idle[1],)))
+        last = (x, graph, plain)
+    print("serve %s on %s, per bucket: %s at the median latency (median "
+          "ms, p80 ms, median host-issue ms; 50 requests; idle share of a "
+          "profiled call against that median), captured graph then eager: "
+          "%s" % (label, card, rate, ", ".join(parts)), flush=True)
+    x, graph, plain = last
+    name = cases[-1][0]
+    print_breakdown("serve %s %s graph" % (label, name),
+                    device_rows(lambda: pred.predict(x), 3), graph[0],
+                    kernel_key, per_forward)
+    print_breakdown("serve %s %s eager" % (label, name),
+                    device_rows(lambda: eager(pred, x), 3), plain[0],
+                    kernel_key, per_forward)
+    check_graphs(pred, pred.spec, label)
 
 
 def resnet_serve_phase(card):
-    """Serve resnet50_v1 in f32, then bf16; returns the fused-conv launches
-    each main-path run counted."""
+    """Serve resnet50_v1 in f32, then bf16, each bucket a captured CUDA
+    graph; returns the fused-conv launches each main-path run counted."""
     import numpy as np
     import torch
     from mxtpu_torch.ops.pallas.conv import fused_conv
@@ -661,18 +783,24 @@ def resnet_serve_phase(card):
             for b in REQUESTS]
     net, arrays = build_net()
     cpu_net, _ = build_net(arrays)
-    cpu_pred = Predictor(cpu_net, spec, device="cpu")
     launches_by_dtype = {}
     for dtype, tol in (("float32", 1e-3), ("bfloat16", 5e-2)):
         dt = getattr(torch, dtype)
         if dtype == "bfloat16":
             net.cast("bfloat16")
             cpu_net.cast("bfloat16")
+        cpu_pred = Predictor(cpu_net, spec, device="cpu",
+                             site="cpu.resnet50." + dtype)
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
         pred = Predictor(net, spec, example=torch.zeros(1, 224, 224, 3,
                                                         dtype=dt),
-                         warmup=True, device="cuda")
+                         warmup=True, device="cuda",
+                         site="serving.predict.resnet50." + dtype)
+        torch.cuda.synchronize()
         warm_s = time.time() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        graphs = check_graphs(pred, spec, "resnet50_v1 " + dtype)
         xs = [torch.from_numpy(x).to(dt) for x in reqs]
         outs, wall, launches = serve(pred, xs, fused_conv)
         if launches != 11 * dispatches:
@@ -680,10 +808,11 @@ def resnet_serve_phase(card):
                                  "forwards, expected %d" % (
                                      dtype, launches, dispatches,
                                      11 * dispatches))
+        check_graphs(pred, spec, "resnet50_v1 %s after traffic" % dtype)
         errs = []
         for x, out in zip(xs, outs):
-            ref = cpu_pred.predict(x).float()
-            got = out.float().cpu()
+            ref = cpu_pred.predict(x).to_torch().float()
+            got = out.to_torch().float().cpu()
             if tuple(got.shape) != (x.shape[0], 1000) or \
                     not bool(torch.isfinite(got).all()):
                 raise AssertionError("%s: bad logits %s" % (dtype,
@@ -694,41 +823,43 @@ def resnet_serve_phase(card):
                                      "%.3g of max|logit| (limit %g)"
                                      % (dtype, err, tol))
             errs.append(err)
-        print("serve resnet50_v1 %s: warmup %.2f s, %d requests %s in %.3f s, "
+        x8 = xs[-1][:spec.max_batch].to("cuda")
+        diff = replay_vs_eager(pred, x8, "resnet50_v1 " + dtype)
+        print("serve resnet50_v1 %s: warmup (%d graphs captured) %.2f s, "
+              "peak memory after warmup %.3f GiB, %d requests %s in %.3f s, "
               "fused_conv launches %d (= 11 x %d forwards), max rel err vs "
-              "CPU %.3g" % (dtype, warm_s, len(REQUESTS), list(REQUESTS),
-                            wall, launches, dispatches, max(errs)))
-        per_bucket, latency = {}, {}
-        for b in spec.batch_sizes:
-            latency[b] = closed_loop(pred, xs[-1][:b].to("cuda"))
-            per_bucket[b] = 1e3 * b / latency[b][0]
-        print("serve resnet50_v1 %s on %s, per bucket: images/s at the "
-              "median latency (median ms, p80 ms, median host-issue ms; "
-              "50 requests): %s" % (dtype, card, ", ".join(
-                  "b%d %.1f (%.3f, %.3f, %.3f)" % ((b, per_bucket[b])
-                                                   + latency[b])
-                  for b in spec.batch_sizes)), flush=True)
-        b = spec.max_batch
-        print_breakdown("serve resnet50_v1 %s b%d" % (dtype, b),
-                        device_breakdown(pred, xs[-1][:b].to("cuda")),
-                        latency[b][0], "fused_conv_")
+              "CPU %.3g, b8 replay vs eager on the card max abs diff %.3g"
+              % (dtype, graphs, warm_s, peak, len(REQUESTS), list(REQUESTS),
+                 wall, launches, dispatches, max(errs), diff), flush=True)
+        cases = [("b%d" % b, xs[-1][:b].to("cuda"), b)
+                 for b in spec.batch_sizes]
+        served_buckets("resnet50_v1 " + dtype, pred, cases, card,
+                       "fused_conv_", 11, "images")
         launches_by_dtype[dtype] = launches
     return launches_by_dtype
 
 
-def print_breakdown(label, rows, wall_ms, kernel_key):
+def print_breakdown(label, rows, wall_ms, kernel_key, per_call=None):
     """Device ms per call, the idle share against the unprofiled median
-    wall time, the named kernel's ms and the top kernels."""
+    wall time, the named kernel's ms and the top kernels. ``per_call``:
+    the named kernel's launches one call
+    must show in the profiler (a graph's replayed kernels appear there by
+    name, so this cross-checks the wrappers' launch counts)."""
     dev_ms = sum(r[1] for r in rows)
     if dev_ms <= 0:
-        print("%s: device time not measured (torch.profiler saw no CUDA "
-              "kernels)" % label)
-        return
+        raise AssertionError("%s: torch.profiler saw no CUDA kernels"
+                             % label)
     mine = sum(r[1] for r in rows if kernel_key in r[0])
+    count = sum(r[2] for r in rows if kernel_key in r[0])
+    if per_call is not None and round(count) != per_call:
+        raise AssertionError("%s: the profiler counts %g %s kernels per "
+                             "call, expected %d" % (label, count, kernel_key,
+                                                    per_call))
     print("%s per call: wall %.3f ms (median, unprofiled), device "
-          "kernels %.3f ms (idle share %.3f), %s %.3f ms, %d kernel "
+          "kernels %.3f ms (idle share %.3f), %s %.3f ms x%g, %d kernel "
           "launches" % (label, wall_ms, dev_ms, 1 - dev_ms / wall_ms,
-                        kernel_key, mine, round(sum(r[2] for r in rows))))
+                        kernel_key, mine, count,
+                        round(sum(r[2] for r in rows))))
     for name, ms, count in rows[:8]:
         print("  %.4f ms  x%-4g %s" % (ms, count, name[:110]))
 
@@ -838,8 +969,8 @@ def build_lm(arrays=None):
 
 
 def lm_serve_phase(card):
-    """Serve the TransformerLM in f32, then bf16; returns the flash
-    launches each main-path run counted."""
+    """Serve the TransformerLM in f32, then bf16, each bucket a captured
+    CUDA graph; returns the flash launches each main-path run counted."""
     import numpy as np
     import torch
     from mxtpu_torch.ops.pallas.flash_attention import flash_attention
@@ -853,29 +984,36 @@ def lm_serve_phase(card):
             for b, t in LM_REQUESTS]
     net, arrays = build_lm()
     cpu_net, _ = build_lm(arrays)
-    cpu_pred = Predictor(cpu_net, spec, device="cpu")
     launches_by_dtype = {}
     for dtype, tol in (("float32", 1e-3), ("bfloat16", 5e-2)):
         if dtype == "bfloat16":
             net.cast("bfloat16")
             cpu_net.cast("bfloat16")
+        cpu_pred = Predictor(cpu_net, spec, device="cpu",
+                             site="cpu.transformer_lm." + dtype)
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
         pred = Predictor(net, spec, example=torch.zeros(1, 128,
                                                         dtype=torch.int32),
-                         warmup=True, device="cuda")
+                         warmup=True, device="cuda",
+                         site="serving.predict.transformer_lm." + dtype)
+        torch.cuda.synchronize()
         warm_s = time.time() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        graphs = check_graphs(pred, spec, "transformer_lm " + dtype)
         outs, wall, launches = serve(pred, reqs, flash_attention)
         if launches != layers * dispatches:
             raise AssertionError("%s: flash_attention launched %d times over "
                                  "%d forwards, expected %d" % (
                                      dtype, launches, dispatches,
                                      layers * dispatches))
+        check_graphs(pred, spec, "transformer_lm %s after traffic" % dtype)
         errs, cpu_s = [], []
         for x, out in zip(reqs, outs):
             t0 = time.time()
-            ref = cpu_pred.predict(x).float()
+            ref = cpu_pred.predict(x).to_torch().float()
             cpu_s.append(time.time() - t0)
-            got = out.float().cpu()
+            got = out.to_torch().float().cpu()
             shape = (x.shape[0], spec.seq_bucket(x.shape[1]),
                      BERT_BASE["vocab_size"])
             if tuple(got.shape) != shape or \
@@ -889,26 +1027,386 @@ def lm_serve_phase(card):
                                      "(limit %g)" % (dtype, tuple(x.shape),
                                                      err, tol))
             errs.append(err)
-        print("serve transformer_lm %s: warmup (%d buckets) %.2f s, requests "
-              "%s in %.3f s, flash_attention launches %d (= %d x %d "
-              "forwards), max rel err vs CPU %.3g; CPU run %.1f s (%s)"
-              % (dtype, len(spec), warm_s, list(LM_REQUESTS), wall, launches,
-                 layers, dispatches, max(errs), sum(cpu_s),
-                 ", ".join("%.1f" % c for c in cpu_s)), flush=True)
         x = reqs[3].to("cuda")                     # the (8, 512) request
+        diff = replay_vs_eager(pred, x, "transformer_lm " + dtype)
+        print("serve transformer_lm %s: warmup (%d graphs captured) %.2f s, "
+              "peak memory after warmup %.3f GiB, requests %s in %.3f s, "
+              "flash_attention launches %d (= %d x %d forwards), max rel "
+              "err vs CPU %.3g, b8 x 512 replay vs eager on the card max "
+              "abs diff %.3g; CPU run %.1f s (%s)"
+              % (dtype, graphs, warm_s, peak, list(LM_REQUESTS), wall,
+                 launches, layers, dispatches, max(errs), diff, sum(cpu_s),
+                 ", ".join("%.1f" % c for c in cpu_s)), flush=True)
         cells = [(b, 512) for b in spec.batch_sizes] + [(8, 128), (8, 256)]
-        latency = {c: closed_loop(pred, x[:c[0], :c[1]]) for c in cells}
-        print("serve transformer_lm %s on %s, per bucket: tokens/s at the "
-              "median latency (median ms, p80 ms, median host-issue ms; 50 "
-              "requests): %s" % (dtype, card, ", ".join(
-                  "b%d x %d %.0f (%.3f, %.3f, %.3f)" % (
-                      (b, t, 1e3 * b * t / latency[(b, t)][0])
-                      + latency[(b, t)]) for b, t in cells)), flush=True)
-        print_breakdown("serve transformer_lm %s b8 x 512" % dtype,
-                        device_breakdown(pred, x, forwards=3),
-                        latency[(8, 512)][0], "flash_attention_")
+        cases = [("b%d x %d" % (b, t), x[:b, :t], b * t) for b, t in
+                 cells[-2:] + cells[:-2]]
+        served_buckets("transformer_lm " + dtype, pred, cases, card,
+                       "flash_attention_", layers, "tokens")
         launches_by_dtype[dtype] = launches
     return launches_by_dtype
+
+
+def int8_phase():
+    """int8 weights on the card: ResNet-50 v1 and the TransformerLM in
+    float32 with ``int8=True``, each against the port's int8 Predictor on
+    the CPU from the same weights (1e-3 of max|logit|: the dequantized
+    weights are the same, the float32 forwards differ by rounding) and
+    beside the float32 logits. For each card Predictor: the bytes of its
+    parameter snapshot, and the device memory that its build and warm-up
+    took at peak (``max_memory_allocated`` over what was allocated before)
+    and that it holds after (``memory_reserved`` growth after
+    ``empty_cache``: its snapshot, static buffers and graph pool)."""
+    import numpy as np
+    import torch
+    from mxtpu_torch.serving import BucketSpec, Predictor
+    rng = np.random.default_rng(7)
+    cells = [
+        ("resnet50_v1", build_net, BucketSpec.pow2(8),
+         torch.zeros(1, 224, 224, 3),
+         [torch.from_numpy(rng.standard_normal((b, 224, 224, 3)).astype(
+             np.float32)) for b in (3, 8)]),
+        ("transformer_lm", build_lm, BucketSpec.pow2(8, seq_lens=SEQ_BUCKETS),
+         torch.zeros(1, 128, dtype=torch.int32),
+         [torch.from_numpy(rng.integers(0, BERT_BASE["vocab_size"], shape,
+                                        dtype=np.int32))
+          for shape in ((2, 200), (1, 512))]),
+    ]
+    for name, build, spec, example, reqs in cells:
+        net, _ = build()
+        preds, mem = {}, {}
+        for kind, device, int8 in (("int8", "cuda", True),
+                                   ("int8 cpu", "cpu", True),
+                                   ("float32", "cuda", False)):
+            if device == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                alloc0 = torch.cuda.memory_allocated()
+                reserved0 = torch.cuda.memory_reserved()
+                torch.cuda.reset_peak_memory_stats()
+            preds[kind] = Predictor(
+                net, spec, example=example, warmup=device == "cuda",
+                device=device, int8=int8,
+                site="serving.predict.%s.%s" % (name, kind))
+            if device == "cuda":
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated() - alloc0
+                torch.cuda.empty_cache()
+                mem[kind] = (peak, torch.cuda.memory_reserved() - reserved0)
+        check_graphs(preds["int8"], spec, name + " int8")
+        errs, vs_f32 = [], []
+        for x in reqs:
+            got = preds["int8"].predict(x).to_torch().float().cpu()
+            ref = preds["int8 cpu"].predict(x).to_torch().float()
+            f32 = preds["float32"].predict(x).to_torch().float().cpu()
+            if got.shape != ref.shape or not bool(got.isfinite().all()):
+                raise AssertionError("%s int8: bad logits %s" % (
+                    name, tuple(got.shape)))
+            scale = ref.abs().max().item()
+            errs.append((got - ref).abs().max().item() / scale)
+            vs_f32.append((got - f32).abs().max().item() / scale)
+            if errs[-1] > 1e-3:
+                raise AssertionError("%s int8 on the card differs from int8 "
+                                     "on the CPU by %.3g of max|logit|"
+                                     % (name, errs[-1]))
+        check_graphs(preds["int8"], spec, name + " int8 after traffic")
+        print("int8 %s: requests %s, card vs CPU int8 max rel err %.3g "
+              "(limit 1e-3), int8 vs float32 logits on the card %.3g of "
+              "max|logit|; parameter snapshot bytes int8 %d, float32 %d "
+              "(%.3f); device bytes at peak in build+warmup int8 %d, "
+              "float32 %d; held after warmup int8 %d, float32 %d" % (
+                  name, [tuple(x.shape) for x in reqs], max(errs),
+                  max(vs_f32), preds["int8"].param_bytes(),
+                  preds["float32"].param_bytes(),
+                  preds["int8"].param_bytes()
+                  / preds["float32"].param_bytes(),
+                  mem["int8"][0], mem["float32"][0], mem["int8"][1],
+                  mem["float32"][1]), flush=True)
+        del preds
+        torch.cuda.empty_cache()
+
+
+def hybridize_phase():
+    """``net.hybridize(); net(x)`` on the card: ResNet-50 v1 in bf16, two
+    input signatures called three times each with autograd's gradient
+    mode on (not recording: the calls are captured all the same), equal
+    to the eager forward bit for bit, one graph captured per signature
+    (retrace site ``cached_op``), 11 conv launches per call; then one
+    call in train mode (not recording), a graph of its own, equal to the
+    eager train-mode forward (BatchNorm by the batch's statistics)."""
+    import numpy as np
+    import torch
+    import mxtpu_torch as mt
+    from mxtpu_torch import telemetry
+    from mxtpu_torch.ops.pallas.conv import fused_conv
+    net, _ = build_net()
+    net.collect_params().reset_ctx(mt.gpu(0))
+    net.cast("bfloat16")
+    rng = np.random.default_rng(8)
+    xs = [torch.from_numpy(rng.standard_normal((b, 224, 224, 3)).astype(
+        np.float32)).to("cuda", torch.bfloat16) for b in (2, 8)]
+    with torch.no_grad():
+        # first the train-mode forward: it reads only the batch's
+        # statistics, and its update of the moving ones is in place
+        # before the predict-mode refs read them
+        with mt.autograd.train_mode():
+            ref_train = net(xs[1])
+        refs = [net(x) for x in xs]
+    before = (telemetry.retrace_stats("cached_op") or {}).get("compiles", 0)
+    net.hybridize()
+    calls = 0
+    for rnd in range(3):
+        if rnd == 1:   # the captures' eager warm-up runs launched too
+            torch.cuda.synchronize()
+            fused_conv.launches, calls = 0, 0
+        for x, ref in zip(xs, refs):
+            out = net(x)
+            calls += 1
+            if not torch.equal(out, ref):
+                raise AssertionError(
+                    "hybridized resnet50_v1 b%d differs from eager by "
+                    "%.3g" % (x.shape[0], (out.float() - ref.float())
+                              .abs().max().item()))
+    torch.cuda.synchronize()
+    captures = telemetry.retrace_stats("cached_op")["compiles"] - before
+    if captures != len(xs) or len(net._cached_op._graphs) != len(xs) or \
+            fused_conv.launches != 11 * calls:
+        raise AssertionError("hybridize: %d captures for %d signatures, %d "
+                             "conv launches over %d calls" % (
+                                 captures, len(xs), fused_conv.launches,
+                                 calls))
+    launches = fused_conv.launches
+    with mt.autograd.train_mode():
+        out = net(xs[1])
+    captures = telemetry.retrace_stats("cached_op")["compiles"] - before
+    if not torch.equal(out, ref_train) or captures != len(xs) + 1:
+        raise AssertionError(
+            "hybridize in train mode: %d captures for %d signatures, "
+            "differs from the eager train-mode forward by %.3g" % (
+                captures, len(xs) + 1,
+                (out.float() - ref_train.float()).abs().max().item()))
+    net.hybridize(False)
+    print("hybridize resnet50_v1 bf16 on the card: 6 calls at b2 and b8 "
+          "with gradient mode on, bit-equal to eager, %d graphs captured "
+          "(one per signature, the train-mode b8 call its own, bit-equal "
+          "to eager train mode), fused_conv launches %d over the 4 calls "
+          "after the first round (= 11 x %d)" % (
+              captures, launches, calls), flush=True)
+
+
+def _percentile(vals, q):
+    vals = sorted(vals)
+    return vals[min(len(vals) - 1, int(round(q * (len(vals) - 1))))]
+
+
+def _stage_medians(breakdowns):
+    """The median ms of each stage over the requests' breakdowns
+    (``{stage: ms}`` each)."""
+    stages = sorted({k for b in breakdowns for k in b})
+    return ", ".join("%s %.3f" % (k.replace("serving.", ""), _percentile(
+        [b.get(k, 0.0) for b in breakdowns], 0.5)) for k in stages)
+
+
+def _run_clients(n_threads, per_thread, work):
+    """Run ``work(k, i)`` for i < per_thread on each of n_threads threads;
+    every join has a timeout and any failure raises."""
+    import threading
+    errors = []
+
+    def client(k):
+        for i in range(per_thread):
+            try:
+                work(k, i)
+            except Exception as e:  # noqa: BLE001 — raised below
+                errors.append("%s: %s" % (type(e).__name__, e))
+                return
+
+    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(n_threads)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError("clients failed or hung: %s" % errors[:3])
+    return wall
+
+
+def batcher_phase(card):
+    """The TransformerLM in bf16 through a MicroBatcher (max_batch 8,
+    max_wait 5 ms) over a one-replica ReplicaSet on cuda:0: 8 client
+    threads send 16 single-sequence requests each, lengths drawn from
+    {40, 100, 200, 300, 512}; each answer held to the same request's
+    direct predict within 5e-2 of max|logit|; no request shed."""
+    import numpy as np
+    import torch
+    from mxtpu_torch import telemetry
+    from mxtpu_torch.ops.pallas.flash_attention import flash_attention
+    from mxtpu_torch.serving import BucketSpec, ReplicaDispatcher, ReplicaSet
+    net, _ = build_lm()
+    net.cast("bfloat16")
+    spec = BucketSpec.pow2(8, seq_lens=SEQ_BUCKETS)
+    telemetry.reset()   # the phase's counters, its captures included
+    rs = ReplicaSet(net, spec, n=1, example=torch.zeros(1, 128,
+                                                        dtype=torch.int32))
+    pred = rs.replicas[0].predictor
+    if str(rs.replicas[0].device) != "cuda:0":
+        raise AssertionError("the replica is on %s" % rs.replicas[0].device)
+    rng = np.random.default_rng(9)
+    lengths = rng.choice([40, 100, 200, 300, 512], size=(8, 16))
+    reqs = [[rng.integers(0, BERT_BASE["vocab_size"], (1, int(t)),
+                          dtype=np.int32) for t in row] for row in lengths]
+    answers = {}
+    flash_attention.launches = 0
+    bat = ReplicaDispatcher(rs, max_batch_size=8, max_wait_ms=5)
+
+    breakdowns = []
+
+    def work(k, i):
+        t0 = time.perf_counter()
+        fut = bat.submit(reqs[k][i])
+        out = fut.result(timeout=120)
+        ms = 1e3 * (time.perf_counter() - t0)
+        breakdowns.append({k_: 1e3 * v for k_, v in fut.breakdown.items()})
+        # the request's own positions, copied: the answer is a view of
+        # its whole batch's logits
+        answers[(k, i)] = (out[:, :reqs[k][i].shape[1]].copy(), ms)
+
+    try:
+        wall = _run_clients(8, 16, work)
+    finally:
+        bat.close(timeout=60)
+    launches = flash_attention.launches
+    batches = telemetry.value("serving.batches")
+    shed = telemetry.value("serving.shed")
+    fill = telemetry.snapshot()["histograms"]["serving.batch_fill"]
+    if len(answers) != 128 or shed != 0 or \
+            launches != BERT_BASE["num_layers"] * batches:
+        raise AssertionError("batcher: %d answers, %d shed, %d flash "
+                             "launches over %d batches" % (
+                                 len(answers), shed, launches, batches))
+    check_graphs(pred, spec, "batcher transformer_lm bf16")
+    worst = 0.0
+    for (k, i), (out, _) in list(answers.items()):
+        t = reqs[k][i].shape[1]
+        ref = pred.predict(reqs[k][i]).asnumpy()[:, :t]
+        answers[(k, i)] = (None, answers[(k, i)][1])
+        if out.shape != ref.shape or not np.isfinite(out).all():
+            raise AssertionError("batcher: answer %s vs direct %s"
+                                 % (out.shape, ref.shape))
+        err = float(np.abs(out - ref).max() / np.abs(ref).max())
+        if err > 5e-2:
+            raise AssertionError("batcher: request (%d, %d) differs from "
+                                 "its direct predict by %.3g of max|logit|"
+                                 % (k, i, err))
+        worst = max(worst, err)
+    check_graphs(pred, spec, "batcher transformer_lm bf16 after traffic")
+    e2e = [ms for _, ms in answers.values()]
+    print("batcher transformer_lm bf16 on %s (MicroBatcher max_batch 8, "
+          "max_wait 5 ms, one replica on cuda:0; 8 threads x 16 requests, "
+          "lengths %s): %.1f requests/s, end-to-end p50 %.3f ms p99 %.3f ms, "
+          "%d batches, mean batch fill %.3f, shed %d, flash launches %d (= "
+          "12 x %d batches), max rel err vs direct predict %.3g; median ms "
+          "by stage: %s" % (
+              card, sorted(set(int(t) for t in lengths.flat)), 128 / wall,
+              _percentile(e2e, 0.5), _percentile(e2e, 0.99), batches,
+              fill["mean"], shed, launches, batches, worst,
+              _stage_medians(breakdowns)), flush=True)
+
+
+def http_phase(card):
+    """ModelServer on 127.0.0.1:0 over ResNet-50 v1 bf16: 8 client threads
+    send 8 single-image POST /predict each, held to direct predict within
+    5e-2 of max|logit|; /healthz answers ok and /metrics counts 64
+    requests; after begin_drain() the requests already queued finish and
+    a POST gets 503."""
+    import json
+    import urllib.error
+    import urllib.request
+    import numpy as np
+    import torch
+    from mxtpu_torch import telemetry
+    from mxtpu_torch.serving import (BucketSpec, MicroBatcher, ModelServer,
+                                     Predictor)
+    net, _ = build_net()
+    net.cast("bfloat16")
+    spec = BucketSpec.pow2(8)
+    telemetry.reset()   # the phase's counters, its captures included
+    pred = Predictor(net, spec, example=torch.zeros(1, 224, 224, 3,
+                                                    dtype=torch.bfloat16),
+                     warmup=True, device="cuda",
+                     site="serving.predict.http")
+    srv = ModelServer(MicroBatcher(pred, max_batch_size=8, max_wait_ms=5))
+    srv.start()
+    url = "http://%s:%d" % srv.address
+    rng = np.random.default_rng(10)
+    images = [[rng.standard_normal((1, 224, 224, 3)).astype(np.float32)
+               for _ in range(8)] for _ in range(8)]
+    bodies = [[json.dumps({"data": x.tolist()}).encode() for x in row]
+              for row in images]
+    answers = {}
+
+    def post(body):
+        req = urllib.request.Request(url + "/predict", data=body, headers={
+            "Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    def work(k, i):
+        t0 = time.perf_counter()
+        code, out = post(bodies[k][i])
+        if code != 200:
+            raise AssertionError("POST /predict answered %d: %s"
+                                 % (code, out))
+        answers[(k, i)] = (np.asarray(out["outputs"][0], np.float32),
+                           1e3 * (time.perf_counter() - t0), out)
+
+    try:
+        wall = _run_clients(8, 8, work)
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+            metrics = json.loads(r.read())
+        if health["status"] != "ok" or \
+                metrics["counters"]["serving.requests"] != 64:
+            raise AssertionError("healthz %s, metrics serving.requests %s"
+                                 % (health, metrics["counters"].get(
+                                     "serving.requests")))
+        queued = [srv.batcher.submit(images[0][i]) for i in range(4)]
+        drained = srv.begin_drain(timeout=60)
+        done = [f.result(timeout=60) for f in queued]
+        code, out = post(bodies[0][0])
+        if not drained or code != 503 or len(done) != 4:
+            raise AssertionError("drain: drained %s, %d queued finished, "
+                                 "POST after it answered %d" % (
+                                     drained, len(done), code))
+    finally:
+        srv.close(timeout=60)
+    worst = 0.0
+    for (k, i), (got, _, _) in answers.items():
+        ref = pred.predict(images[k][i]).asnumpy()
+        err = float(np.abs(got - ref).max() / np.abs(ref).max())
+        if got.shape != (1, 1000) or err > 5e-2:
+            raise AssertionError("http: answer %s differs from direct "
+                                 "predict by %.3g" % (got.shape, err))
+        worst = max(worst, err)
+    check_graphs(pred, spec, "http resnet50_v1 bf16 after traffic")
+    e2e = [ms for _, ms, _ in answers.values()]
+    print("http resnet50_v1 bf16 on %s (ModelServer on 127.0.0.1, "
+          "MicroBatcher max_batch 8, max_wait 5 ms; 8 threads x 8 "
+          "single-image POSTs): %.1f requests/s, client p50 %.3f ms p99 "
+          "%.3f ms, server e2e_ms p50 %.3f, max rel err vs direct predict "
+          "%.3g; /healthz %s, /metrics serving.requests 64; drain: 4 queued "
+          "finished, then 503; median ms by stage: %s" % (
+              card, 64 / wall, _percentile(e2e, 0.5), _percentile(e2e, 0.99),
+              _percentile([a[2]["e2e_ms"] for a in answers.values()], 0.5),
+              worst, health["status"], _stage_medians(
+                  [a[2]["breakdown_ms"] for a in answers.values()])),
+          flush=True)
 
 
 def resnet50_param_count():
@@ -1433,6 +1931,10 @@ def conv_backward_phase():
             def lib():
                 o = F.conv2d(xn, wn, stride=s, padding=p)
                 return torch.autograd.grad(o, (xn, wn), hn)
+
+            def plain_fb():
+                o = fused_conv_reference(xg, wg, (s, s), pad)[0]
+                return torch.autograd.grad(o, (xg, wg), dz)
             # the two gradient convolutions alone: channels-last views
             # (what fused_conv_backward hands cuDNN) and NCHW copies
             wv = w.permute(3, 2, 0, 1)
@@ -1449,19 +1951,40 @@ def conv_backward_phase():
                     dzv.contiguous(), xv.contiguous(), wv.contiguous(), None,
                     [s, s], [p, p], [1, 1], False, [0, 0], 1,
                     [True, True, False])
+            # forward + backward as one function: x, w and dz read once,
+            # out, dx and dw written once; the forward's 2*M*K FLOPs and
+            # the two gradient convs' as many again each
+            out_elems = n * oh * oh * cout
+            bms, by = bound_ms(
+                (2 * x.numel() + 2 * w.numel() + 2 * out_elems)
+                * x.element_size(),
+                3 * 2.0 * n * oh * oh * k * k * cin * cout, dtype)
             row = dict(shape=name, dtype=dtype, train_graph_ms=graph_ms(kern),
                        library_train_graph_ms=graph_ms(lib),
+                       plain_train_graph_ms=graph_ms(plain_fb),
+                       train_bound_ms=bms, train_bound_by=by,
                        views_ms=graph_ms(grads_views),
                        copies_ms=graph_ms(grads_copies), max_abs_err=max(
                            errs))
             rows.append(row)
             print("%s;  fwd+bwd by graph replay: kernel path %.4f ms  "
-                  "F.conv2d %.4f ms (ratio %.3f);  gradient convs on "
-                  "channels-last views %.4f ms, on NCHW copies %.4f ms"
+                  "F.conv2d %.4f ms (ratio %.3f)  plain version %.4f ms  "
+                  "bound %.4f ms (%s);  gradient convs on channels-last "
+                  "views %.4f ms, on NCHW copies %.4f ms"
                   % (line, row["train_graph_ms"],
                      row["library_train_graph_ms"],
                      row["train_graph_ms"] / row["library_train_graph_ms"],
+                     row["plain_train_graph_ms"], bms, by,
                      row["views_ms"], row["copies_ms"]), flush=True)
+    for dtype in ("float32", "bfloat16"):
+        mine = [r for r in rows if r["dtype"] == dtype]
+        print("conv fwd+bwd %s, the %d gated shapes once each, by graph "
+              "replay: kernel path %.4f ms, plain version %.4f ms, F.conv2d "
+              "%.4f ms, bound %.4f ms" % (dtype, len(mine), *(
+                  sum(r[key] for r in mine) for key in (
+                      "train_graph_ms", "plain_train_graph_ms",
+                      "library_train_graph_ms", "train_bound_ms"))),
+              flush=True)
     return rows
 
 
@@ -1540,16 +2063,33 @@ def flash_backward_phase():
                 o = F.scaled_dot_product_attention(sq, sk, sv,
                                                    is_causal=causal)
                 return torch.autograd.grad(o, (sq, sk, sv), go)
+
+            def plain_fb():
+                pq, pk, pv = views(leaf)
+                o = flash_attention_reference(pq, pk, pv, causal)[0]
+                return torch.autograd.grad(o, leaf, go)
+            # forward + backward as one function: q, k, v and g read once,
+            # out, lse, dq, dk and dv written once; 7 matmuls of 2BHT^2D
+            # (forward QK^T, PV; backward QK^T again, P^T g, g V^T, dS K,
+            # dS^T Q), half of it under the causal mask
+            el = base.element_size()
+            bms, by = bound_ms(
+                (8 * b * h * t * d) * el + 4 * b * h * t,
+                7 * 2.0 * b * h * t * t * d * (0.5 if causal else 1.0),
+                dtype)
             row = dict(shape=name, dtype=dtype, max_abs_err=max(errs),
                        train_graph_ms=graph_ms(kern, launches=10),
-                       library_train_graph_ms=graph_ms(sdpa, launches=10))
+                       library_train_graph_ms=graph_ms(sdpa, launches=10),
+                       plain_train_graph_ms=graph_ms(plain_fb, launches=10),
+                       train_bound_ms=bms, train_bound_by=by)
             rows.append(row)
             print("%s;  fwd+bwd by graph replay: kernel path %.4f ms  sdpa "
-                  "%.4f ms (ratio %.3f)" % (
+                  "%.4f ms (ratio %.3f)  plain version %.4f ms  bound %.4f "
+                  "ms (%s)" % (
                       line, row["train_graph_ms"],
                       row["library_train_graph_ms"],
-                      row["train_graph_ms"] / row["library_train_graph_ms"]),
-                  flush=True)
+                      row["train_graph_ms"] / row["library_train_graph_ms"],
+                      row["plain_train_graph_ms"], bms, by), flush=True)
     return rows
 
 
@@ -1969,10 +2509,13 @@ def lm_train_phase(card):
     return {"float32": launches[0], "bfloat16": step_launches}, timing
 
 
-def kernel_entries(rows, launches, train_launches, name, source, replaces):
+def kernel_entries(rows, launches, train_launches, name, source, replaces,
+                   bwd_rows=()):
     """One `kernels` entry per type: the per-forward shapes' numbers, each
     times its launches per forward, summed; ``train_launches`` are the
-    kernel's launches in one training step of that type."""
+    kernel's launches in one training step of that type. ``bwd_rows``:
+    forward + backward by graph replay (the kernel path, its plain
+    version, the library's) and its bound, summed over the rows given."""
     entries = []
     for dtype in ("float32", "bfloat16"):
         mine = [r for r in rows if r["dtype"] == dtype]
@@ -2000,6 +2543,11 @@ def kernel_entries(rows, launches, train_launches, name, source, replaces):
         # the same sums timed by CUDA-graph replay, and the host us to
         # issue the calls of one forward
         entries[-1].update((key, tot[key]) for key in extra)
+        bwd = [r for r in bwd_rows if r["dtype"] == dtype]
+        entries[-1].update(
+            (key, sum(r[key] for r in bwd)) for key in (
+                "train_graph_ms", "plain_train_graph_ms",
+                "library_train_graph_ms", "train_bound_ms") if bwd)
     return entries
 
 
@@ -2028,9 +2576,13 @@ def main():
     conv_launches = resnet_serve_phase(card)
     flash_rows = flash_phase()
     flash_launches = lm_serve_phase(card)
+    int8_phase()
+    hybridize_phase()
+    batcher_phase(card)
+    http_phase(card)
     gluon_nd_phase()
-    conv_backward_phase()
-    flash_backward_phase()
+    conv_bwd = conv_backward_phase()
+    flash_bwd = flash_backward_phase()
     conv_train, _ = resnet_train_phase(card)
     flash_train, _ = lm_train_phase(card)
     n = resnet50_param_count()
@@ -2039,12 +2591,14 @@ def main():
     entries = kernel_entries(
         conv_rows, conv_launches, conv_train,
         "fused_conv (%s, the 11 gated convs of one b8 ResNet-50 forward)",
-        "mxtpu_torch/csrc/fused_conv.cu", "mxtpu/ops/pallas/conv.py:313")
+        "mxtpu_torch/csrc/fused_conv.cu", "mxtpu/ops/pallas/conv.py:313",
+        conv_bwd)
     entries += kernel_entries(
         flash_rows, flash_launches, flash_train,
         "flash_attention (%s, the 12 attentions of one b8 x 512 BERT-base "
         "forward)", "mxtpu_torch/csrc/flash_attention.cu",
-        "mxtpu/ops/pallas/flash_attention.py:125")
+        "mxtpu/ops/pallas/flash_attention.py:125",
+        [r for r in flash_bwd if r["shape"] == FLASH_BWD_SHAPES[0][0]])
     for r in rtc_rows:
         if rtc_launches[r["name"]] < 1:
             raise AssertionError("rtc %s was not launched on the imperative "

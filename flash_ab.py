@@ -83,6 +83,7 @@ def serve_row(cs, pred, x, kernel, per_forward, key):
     import torch
     kernel.launches = 0
     out = pred.predict(x)
+    out = out.to_torch() if hasattr(out, "to_torch") else out  # NDArray
     torch.cuda.synchronize()
     if kernel.launches != per_forward or \
             not bool(torch.isfinite(out.float()).all()):

@@ -32,10 +32,13 @@ from . import lr_scheduler  # noqa: E402
 from . import optimizer  # noqa: E402
 from . import metric  # noqa: E402
 from . import gluon  # noqa: E402
+from . import telemetry  # noqa: E402
+from . import resilience  # noqa: E402
 from . import serving  # noqa: E402
 from . import convert  # noqa: E402
 
 __all__ = ["MXNetError", "cpu", "gpu", "default_device", "layout", "ops",
            "autograd", "ndarray", "nd", "random", "rtc", "contrib",
            "initializer", "init", "gluon", "serving", "convert", "base",
-           "context", "optimizer", "lr_scheduler", "metric"]
+           "context", "optimizer", "lr_scheduler", "metric", "telemetry",
+           "resilience"]

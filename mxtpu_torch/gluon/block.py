@@ -9,22 +9,80 @@ parameter tensors live in ``nn.Module._parameters`` (see parameter.py).
 the port's op namespace, which works on tensors: ``net(tensor)`` returns
 tensors (the Predictors feed them), and ``net(ndarray)`` runs the same
 forward on the arrays' tensors, taped only under ``autograd.record()``,
-and returns NDArrays. ``hybridize()`` does nothing yet: PyTorch runs
-eagerly, and CUDA-graph capture comes in a later slice.
+and returns NDArrays. ``hybridize()`` turns on a ``CachedOp``: on a
+CUDA device, one captured CUDA graph per input signature and train/predict
+mode for calls made while autograd is not recording (``graphs.CapturedGraph``,
+the helper the serving Predictor's buckets use); a recording call and any
+call on the CPU run eagerly, with the same numbers.
+
+``reading_params(fn)`` makes every layer forward on this thread read each
+parameter tensor ``t`` as ``fn(t)``: the int8 Predictor dequantizes
+there, so each float copy lives only through the layer that uses it.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import torch
 from torch import nn
 
-from .. import autograd
+from .. import autograd, graphs, telemetry
 from ..base import MXNetError
 from ..ndarray import NDArray
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
-__all__ = ["Block", "HybridBlock"]
+__all__ = ["Block", "HybridBlock", "CachedOp", "reading_params"]
+
+_PARAM_READ = threading.local()
+
+
+@contextlib.contextmanager
+def reading_params(fn):
+    """Within the context a layer forward on this thread passes each of
+    its parameter tensors through ``fn`` (``None``: read them as they
+    are)."""
+    prev = getattr(_PARAM_READ, "fn", None)
+    _PARAM_READ.fn = fn
+    try:
+        yield
+    finally:
+        _PARAM_READ.fn = prev
+
+
+def _flatten(out, fmt):
+    """Flatten nested tuples/lists of tensors, recording their structure
+    in ``fmt`` (the reference's ``_flatten_nd`` codes: 0 a tensor, -1
+    None, n a sequence of n, -2 an opaque value)."""
+    if isinstance(out, torch.Tensor):
+        fmt.append(0)
+        return [out]
+    if out is None:
+        fmt.append(-1)
+        return []
+    if isinstance(out, (list, tuple)):
+        fmt.append(len(out))
+        flat = []
+        for o in out:
+            flat.extend(_flatten(o, fmt))
+        return flat
+    fmt.append(-2)
+    return [out]
+
+
+def _regroup(flat, fmt, pos=0, idx=0):
+    """Inverse of ``_flatten``; returns (value, new_pos, new_idx)."""
+    code = fmt[idx]
+    if code in (0, -2):
+        return flat[pos], pos + 1, idx + 1
+    if code == -1:
+        return None, pos, idx + 1
+    items = []
+    idx += 1
+    for _ in range(code):
+        v, pos, idx = _regroup(flat, fmt, pos, idx)
+        items.append(v)
+    return tuple(items), pos, idx
 
 
 class _BlockScope:
@@ -154,9 +212,83 @@ class Block(nn.Module):
         raise NotImplementedError
 
 
+class CachedOp:
+    """Captured forwards of a hybridized block (ref: block.py:CachedOp):
+    one CUDA graph per input signature (shapes, dtypes, device) and
+    ``autograd.is_training()``, reported at retrace site ``cached_op``.
+    The graph reads the block's parameter tensors at the addresses it was
+    captured with: an optimizer step writes them in place and is seen,
+    and a tensor replaced since (a ``set_data``) is copied into the
+    captured storage, which the parameter then shares, before the replay.
+    One call at a time holds the static inputs, the replay and the copies
+    of its outputs."""
+
+    def __init__(self, block):
+        self._block = block
+        self._graphs = {}
+        self._out_fmt = []
+        self._lock = threading.Lock()
+
+    def __call__(self, *args):
+        key = (autograd.is_training(),) + tuple(
+            (tuple(a.shape), a.dtype, a.device) for a in args)
+        with self._lock:
+            entry = self._graphs.get(key)
+            if entry is None:
+                entry = self._capture(key, args)
+            graph, params, fmt = entry
+            for p, t in params:
+                cur = p._tensor()
+                if cur.data_ptr() != t.data_ptr():
+                    with torch.no_grad():
+                        t.copy_(cur)
+                    p._put(t)
+            for static, a in zip(graph.static_inputs, args):
+                static.copy_(a)
+            flat = [o.clone() if isinstance(o, torch.Tensor) else o
+                    for o in graph.replay()]
+        return _regroup(flat, fmt)[0]
+
+    def _forward(self, *args):
+        fmt = []
+        flat = _flatten(self._block._forward_eager(*args), fmt)
+        self._out_fmt = fmt
+        return flat
+
+    def _capture(self, key, args):
+        block = self._block
+        statics = [a.detach().clone() for a in args]
+        with torch.no_grad():   # the warm-up run settles deferred shapes
+            graph = graphs.CapturedGraph(self._forward, statics)
+        params = [(p, p._tensor()) for p in block.collect_params().values()]
+        telemetry.record_retrace("cached_op", {
+            "block": type(block).__name__, "training": key[0],
+            "shapes": [list(k[0]) for k in key[1:]]})
+        self._graphs[key] = (graph, params, list(self._out_fmt))
+        return self._graphs[key]
+
+
 class HybridBlock(Block):
     """A Block written as ``hybrid_forward(F, x, **params)``
     (ref: block.py:HybridBlock)."""
+
+    _active = False      # hybridize() sets both on the instance
+    _cached_op = None
+
+    def hybridize(self, active=True, static_alloc=False, static_shape=False,
+                  **kwargs):
+        """Capture the forward per input signature on CUDA devices (ref:
+        block.py:hybridize; ``static_alloc``/``static_shape`` are what a
+        captured graph does anyway and are accepted for the reference's
+        API). Drops the graphs captured so far."""
+        self._active = bool(active)
+        self._cached_op = None
+        super().hybridize(active, static_alloc=static_alloc,
+                          static_shape=static_shape, **kwargs)
+
+    def cast(self, dtype):
+        self._cached_op = None
+        return super().cast(dtype)
 
     def infer_shape(self, *args):
         """Resolve deferred parameter shapes from the inputs; leaf layers
@@ -169,11 +301,25 @@ class HybridBlock(Block):
         for a in args:
             if isinstance(a, NDArray):
                 return self._forward_nd(args)
+        if self._active and not graphs.capturing() \
+                and not autograd.is_recording() and args and all(
+                    isinstance(a, torch.Tensor) and a.device.type == "cuda"
+                    for a in args):
+            if self._cached_op is None:
+                self._cached_op = CachedOp(self)
+            with torch.no_grad():
+                return self._cached_op(*args)
+        return self._forward_eager(*args)
+
+    def _forward_eager(self, *args):
         try:
             params = {k: p._tensor() for k, p in self._reg_params.items()}
         except DeferredInitializationError:
             self.infer_shape(*args)
             params = {k: p._tensor() for k, p in self._reg_params.items()}
+        read = getattr(_PARAM_READ, "fn", None)
+        if read is not None:
+            params = {k: read(t) for k, t in params.items()}
         from .. import ops as F
         return self.hybrid_forward(F, *args, **params)
 

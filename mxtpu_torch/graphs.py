@@ -1,0 +1,116 @@
+"""CUDA-graph capture of a forward: the one helper that the serving
+Predictor's buckets and ``HybridBlock.hybridize``'s ``CachedOp`` share
+(the counterpart of the JAX package's one jit per bucket or signature).
+
+``CapturedGraph(fn, static_inputs, pool)`` (``fn`` returns a list of
+tensors, the flat outputs) runs ``fn`` once eagerly on a
+side stream (cuBLAS handles and workspaces come into being there, outside
+the capture), then captures one call of ``fn`` on ``static_inputs`` into a
+``torch.cuda.CUDAGraph`` in ``capture_error_mode="thread_local"``, holding
+``CAPTURE_LOCK``: a capture never overlaps another one, nor a block's
+eager forward that the Predictor runs under the same lock. ``replay()``
+runs the recorded kernels on the current stream and returns the static
+outputs, which the next replay overwrites: a caller copies what it keeps.
+A capture that fails raises; nothing falls back to eager.
+
+Launch counts. A kernel wrapper counts its launches in Python
+(``fused_conv.launches``, ``flash_attention.launches``, an rtc
+``Kernel.launches``) through ``launched(obj)``, and a replay runs no
+Python. While this thread captures, ``launched`` adds to the capture's
+own tally and not to ``obj.launches`` (the capture ran no kernel); every
+replay then adds the tally. Other threads count as before meanwhile, and
+every change to a count is made under one lock, so the counts read as if
+every forward had run eagerly, whatever the threads.
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+
+import torch
+
+from .base import MXNetError
+
+__all__ = ["CAPTURE_LOCK", "CapturedGraph", "launched", "capturing"]
+
+# one lock for every capture and every eager forward of a shared block:
+# the Predictor's forward swaps its parameter snapshot into the block
+# (functional_call), and a block is shared by the Predictors of every
+# device, so the lock is per process
+CAPTURE_LOCK = threading.RLock()
+_COUNT_LOCK = threading.Lock()
+_STATE = threading.local()
+
+
+def launched(obj):
+    """Count one launch of ``obj``'s kernel (``obj.launches``, an int); a
+    wrapper calls it where it launches. During a capture on this thread
+    the launch goes to the capture's tally, which each replay adds."""
+    tally = getattr(_STATE, "tally", None)
+    if tally is not None:
+        tally.setdefault(id(obj), [obj, 0])[1] += 1
+        return
+    with _COUNT_LOCK:
+        obj.launches += 1
+
+
+@contextlib.contextmanager
+def _tally():
+    """Collect this thread's ``launched`` calls: yields ``{id: [obj, n]}``."""
+    prev = getattr(_STATE, "tally", None)
+    _STATE.tally = tally = {}
+    try:
+        yield tally
+    finally:
+        _STATE.tally = prev
+
+
+def capturing():
+    """True on a thread that is capturing a graph: a hybridized child
+    called inside its parent's capture runs eagerly into that graph."""
+    return getattr(_STATE, "depth", 0) > 0
+
+
+class CapturedGraph:
+    """One CUDA graph of ``fn(*static_inputs)`` on the inputs' device.
+
+    ``pool`` is a ``torch.cuda.graph_pool_handle()`` shared by graphs that
+    never replay at once (a Predictor's buckets), so their intermediate
+    buffers share one private pool; capture the largest first."""
+
+    def __init__(self, fn, static_inputs, pool=None):
+        device = static_inputs[0].device
+        if device.type != "cuda":
+            raise MXNetError("CapturedGraph needs CUDA inputs, got %s"
+                             % device)
+        self.static_inputs = list(static_inputs)
+        self.device = device
+        with CAPTURE_LOCK, torch.cuda.device(device):
+            _STATE.depth = getattr(_STATE, "depth", 0) + 1
+            try:
+                cur = torch.cuda.current_stream(device)
+                side = torch.cuda.Stream(device)
+                side.wait_stream(cur)
+                with torch.cuda.stream(side):
+                    fn(*self.static_inputs)
+                cur.wait_stream(side)
+                graph = torch.cuda.CUDAGraph()
+                with _tally() as tally, \
+                        torch.cuda.graph(graph, pool=pool,
+                                         capture_error_mode="thread_local"):
+                    out = fn(*self.static_inputs)
+            finally:
+                _STATE.depth -= 1
+        self.launches = [tuple(e) for e in tally.values()]
+        self.graph = graph
+        self.outputs = list(out)
+
+    def replay(self):
+        """Run the graph on the current stream; returns the static outputs
+        (overwritten by the next replay)."""
+        self.graph.replay()
+        if self.launches:
+            with _COUNT_LOCK:
+                for obj, n in self.launches:
+                    obj.launches += n
+        return self.outputs

@@ -23,7 +23,7 @@ import weakref
 import numpy as _np
 import torch
 
-from .. import autograd
+from .. import autograd, telemetry
 from ..base import MXNetError, canonical_dtype, numpy_dtype
 from ..context import resolve_device
 
@@ -158,7 +158,9 @@ class NDArray:
 
     def asnumpy(self) -> _np.ndarray:
         """A copy on the host (a CPU tensor's ``numpy()`` would share its
-        memory, which later in-place writes, an optimizer step's, change)."""
+        memory, which later in-place writes, an optimizer step's, change).
+        Counted as one device-to-host sync (``telemetry.record_d2h``)."""
+        telemetry.record_d2h()
         d = self._data.detach()
         if d.dtype == torch.bfloat16:
             return d.float().cpu().numpy()

@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from ...base import MXNetError
+from ...graphs import launched
 from ..precision_util import promote
 
 __all__ = ["fused_conv", "fused_conv_with_raw", "fused_conv_reference",
@@ -263,7 +264,7 @@ def _launch(x, w, strides, padding, scale, bias, residual, relu, oh, ow):
             rc = _entry()(*args)
     if rc != 0:
         raise MXNetError("fused_conv kernel launch failed: CUDA error %d" % rc)
-    fused_conv.launches += 1
+    launched(fused_conv)
     return out, craw
 
 

@@ -39,6 +39,7 @@ import functools
 import torch
 
 from ...base import MXNetError
+from ...graphs import launched
 
 __all__ = ["flash_attention", "flash_attention_with_lse",
            "flash_attention_reference", "flash_attention_backward"]
@@ -187,7 +188,7 @@ def _launch(q, k, v, causal, scale):
     if rc != 0:
         raise MXNetError("flash_attention kernel launch failed: CUDA error %d"
                          % rc)
-    flash_attention.launches += 1
+    launched(flash_attention)
     return out, lse
 
 

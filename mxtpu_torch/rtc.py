@@ -51,6 +51,7 @@ import torch
 from . import kernels
 from .base import MXNetError, torch_dtype
 from .context import resolve_device
+from .graphs import launched
 from .ndarray import NDArray
 
 __all__ = ["CudaModule", "Kernel", "PallasModule"]
@@ -495,7 +496,7 @@ class Kernel:
             raise MXNetError("rtc kernel %r launch failed: CUDA error %d (%s)"
                              % (self.name, rc,
                                 self._module._error_string(rc)))
-        self.launches += 1
+        launched(self)
 
     def _run(self, values, outs, grid, block, shared_mem, stream):
         """Set every holder of the prepared argv (the inputs' pointers and

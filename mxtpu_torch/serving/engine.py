@@ -1,30 +1,56 @@
 """Bucketed inference (counterpart of ``mxtpu/serving/engine.py``).
 
-``BucketSpec`` declares the batch buckets a ``Predictor`` serves and,
-optionally, sequence buckets (``seq_lens``) for inputs with a sequence
-axis. A request of n items runs at the smallest batch bucket >= n and, with
-sequence buckets, at the smallest one >= its length: ``pad_nd`` pads every
-input with ``pad_value`` up to the bucket on the batch axis and on
-``seq_axis`` (where the input has that axis), the block's forward runs
-under ``torch.inference_mode()``, and the outputs are sliced back to n rows
-on the batch axis only (their sequence axis stays at the bucket's length,
-as in the JAX package). A request larger than the largest batch bucket goes
-through it in chunks whose outputs are concatenated; a sequence longer than
-the largest sequence bucket raises, since a sequence cannot be chunked
-without changing what the model computes.
+``BucketSpec`` declares the closed set of shapes a ``Predictor`` serves:
+batch buckets and, optionally, sequence buckets (``seq_lens``) along
+``seq_axis`` of every input that has it. A request of n items runs at the
+smallest batch bucket >= n and, with sequence buckets, at the smallest one
+>= its length; a request past the largest batch bucket goes through it in
+chunks, and a sequence past the largest sequence bucket raises.
 
-The predictor's device is ``cuda:0`` unless the caller names one; with no
-card and no device it raises. Not in this slice: int8 weights, replicas,
-decode slots, the compile service and telemetry spans. Buckets are eager
-PyTorch runs; CUDA-graph capture of each bucket comes later.
+The ``Predictor`` keeps its own snapshot of the block's parameters on its
+device (``_snapshot_params``) and runs the block functionally over it
+(``torch.func.functional_call``): the block stays where it is, a later
+``set_data`` on it changes nothing until ``refresh_params()``, and
+Predictors over one block on several devices never move each other's
+weights. With ``int8=True`` every floating parameter of ndim >= 2 is
+stored as symmetric int8 with a per-tensor range (``ops.quantization``)
+and dequantized inside the forward where its layer reads it
+(``gluon.block.reading_params``): each float copy lives only through that
+layer, so a captured graph's pool never holds them all.
+
+On a CUDA device each bucket is one captured CUDA graph
+(``graphs.CapturedGraph``), with static input buffers and one memory pool
+shared by the Predictor's buckets, captured largest first by ``warmup()``
+or at a bucket's first request. A request pads straight into its bucket's
+static inputs, replays the graph and gets copies of the outputs sliced to
+its batch (the next replay overwrites the static outputs). An input is
+cast to its template's dtype on that copy. Nothing on that path syncs the
+host. ``refresh_params()`` copies new values into the
+captured parameter storage, so it never captures again. A capture that
+fails raises: the Predictor never serves eagerly on the card. On the CPU a
+bucket runs eagerly over the same static inputs. Either way each bucket
+counts one build at the Predictor's retrace site (``compile_stats()``),
+and traffic adds none.
+
+``predict_flat`` returns the reference's ``(flat NDArrays, out_fmt,
+bucket)``; ``predict`` regroups them into the block's output structure of
+NDArrays. Not ported yet: ``from_checkpoint`` (needs the symbol API) and
+``from_trainer_checkpoint`` (needs ``contrib.async_checkpoint``), the
+compile service and its disk cache, the memory pre-flight and the decode
+engine's hooks.
 """
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
 
-from ..base import MXNetError
+from .. import resilience, telemetry
+from ..base import MXNetError, canonical_dtype
 from ..context import resolve_device
+from ..graphs import CAPTURE_LOCK, CapturedGraph
+from ..ndarray import NDArray
 
 __all__ = ["BucketSpec", "Predictor", "pad_nd"]
 
@@ -102,7 +128,7 @@ class BucketSpec:
             % (s, self.seq_lens[-1], list(self.seq_lens)))
 
     def buckets(self):
-        """Every (batch, seq or None) pair: the set ``warmup()`` runs."""
+        """Every (batch, seq or None) pair: the set ``warmup()`` builds."""
         seqs = self.seq_lens or (None,)
         return [(b, s) for b in self.batch_sizes for s in seqs]
 
@@ -116,91 +142,348 @@ class BucketSpec:
             if self.seq_lens else "")
 
 
+def _request_tensor(a):
+    """A request input as a tensor where it lies (the copy into the
+    bucket's static input moves it), in the JAX package's dtypes."""
+    if isinstance(a, NDArray):
+        t = a._data
+    elif isinstance(a, torch.Tensor):
+        t = a
+    else:
+        t = torch.as_tensor(np.asarray(a))
+    dt = canonical_dtype(t.dtype)
+    return t if t.dtype == dt else t.to(dt)
+
+
+class _EagerBucket:
+    """A bucket on the CPU: the forward run eagerly over static inputs, in
+    the same bookkeeping as a captured graph."""
+
+    def __init__(self, fn, static_inputs):
+        self.static_inputs = static_inputs
+        self._fn = fn
+
+    def replay(self):
+        return self._fn(*self.static_inputs)
+
+
 class Predictor:
     """Bucketed inference over a HybridBlock, pinned to one device.
 
-    ``example`` (one input, or a tuple of inputs, with a batch axis) records
-    each input's trailing shape and dtype, the templates ``warmup()`` runs
-    every bucket with, and settles any deferred parameter shapes. Without
-    it the first ``predict`` does both.
+    ``example`` (one input, or a tuple of inputs, with a batch axis)
+    records each input's trailing shape and dtype, the templates
+    ``warmup()`` builds every bucket with, and settles deferred parameter
+    shapes; without it the first ``predict`` does both. ``site`` names the
+    retrace site the builds count at (``serving.predict.r<i>`` for a
+    ReplicaSet member); ``name`` labels the provenance. ``int8=True``
+    stores weights as int8 (the ``MXTPU_SERVE_INT8`` lever of the JAX
+    package, off by default).
+
+    One request runs at a time (a lock around pad, replay and copy-out),
+    so a MicroBatcher's worker and direct callers may share a Predictor.
     """
 
-    def __init__(self, block, spec, example=None, warmup=False, device=None):
+    def __init__(self, block, spec, example=None, warmup=False,
+                 name="predictor", device=None, site="serving.predict",
+                 int8=False):
         if not hasattr(block, "collect_params"):
             raise MXNetError("Predictor serves HybridBlock-family models "
                              "(got %s)" % type(block).__name__)
         self._block = block
         self._spec = spec
+        self._name = name
         self._device = resolve_device(device)
-        self._templates = None
-        block.collect_params().reset_ctx(self._device)
+        self._site = site
+        self._int8 = bool(int8)
+        self.param_version = None
+        self._params = None      # ordered Parameters, fixed at settle
+        self._keys = None        # their functional_call names
+        self._stored = None      # per-param storage on the device
+        self._ranges = None      # per-param int8 range (None: exact)
+        self._qdtypes = None     # per-param original dtype (None: exact)
+        self._deq = {}           # id(int8 storage) -> (range, dtype)
+        self._templates = None   # [(trailing_shape, dtype)] per input
+        self._buckets = {}       # ((shape, dtype), ...) -> bucket
+        self._out_fmt = None
+        self._pool = None
+        self._lock = threading.Lock()
         if example is not None:
             self._settle(example if isinstance(example, (tuple, list))
                          else (example,))
         if warmup:
             self.warmup()
 
+    # ------------------------------------------------------------ templates
+    def _settle(self, args):
+        """Record each input's trailing shape and dtype, run one eager
+        forward where the block sits if deferred shapes are unsettled, and
+        take the parameter snapshot."""
+        datas = [_request_tensor(a) for a in args]
+        params = list(self._block.collect_params().values())
+        if not params or any(not p.initialized for p in params):
+            dev = params[0]._get().device if params else torch.device("cpu")
+            with CAPTURE_LOCK, torch.no_grad():
+                self._block(*[d.to(dev) for d in datas])
+            params = list(self._block.collect_params().values())
+        if any(not p.initialized for p in params):
+            raise MXNetError("Predictor: parameters still uninitialized "
+                             "after the example forward")
+        paths = {id(m): path for path, m in self._block.named_modules()}
+        keys = []
+        for p in params:
+            module, attr = p._owner
+            path = paths[id(module)]
+            keys.append(path + "." + attr if path else attr)
+        self._params, self._keys = params, keys
+        self._snapshot_params()
+        self._templates = [(tuple(d.shape[1:]), d.dtype) for d in datas]
+
+    def _snapshot_params(self):
+        """Copy the block's parameters into this Predictor's storage on its
+        device (int8-quantized under ``int8``). The first snapshot
+        allocates; a refresh writes in place, so captured graphs read the
+        new values at the addresses they were captured with."""
+        datas = [p._tensor().detach() for p in self._params]
+        stored, ranges, qdts = self._quantize_params(
+            datas, sticky=self._qdtypes)
+        if self._stored is None:
+            self._stored = [d.to(self._device, copy=True) for d in stored]
+            self._ranges = [None if r is None else r.to(self._device)
+                            for r in ranges]
+        else:
+            for p, dst, src in zip(self._params, self._stored, stored):
+                if dst.shape != src.shape or dst.dtype != src.dtype:
+                    raise MXNetError(
+                        "refresh_params: %s is now %s %s, the snapshot holds "
+                        "%s %s (a new shape or dtype needs a new Predictor)"
+                        % (p.name, tuple(src.shape), src.dtype,
+                           tuple(dst.shape), dst.dtype))
+                dst.copy_(src)
+            for dst, src in zip(self._ranges, ranges):
+                if dst is not None:
+                    dst.copy_(src)
+        self._qdtypes = qdts
+        self._deq = {id(t): (r, qdt) for t, r, qdt in
+                     zip(self._stored, self._ranges, qdts) if qdt is not None}
+
+    def _quantize_params(self, datas, sticky=None):
+        """int8 storage: eligible parameters (floating, ndim >= 2) become
+        symmetric int8 with a per-tensor range ``r = max|w|``. ``sticky``
+        (the previous per-parameter dtypes) pins eligibility after the
+        first snapshot: a weight that turns all-zero keeps its int8 slot
+        on a unit grid, where zeros stay exact. The range is read on the
+        host here, at snapshot time, never on the served path."""
+        n = len(datas)
+        if not self._int8:
+            return datas, [None] * n, [None] * n
+        from ..ops.quantization import quantize
+        out, ranges, qdts = [], [], []
+        for i, d in enumerate(datas):
+            if sticky is not None:
+                eligible = sticky[i] is not None
+            else:
+                eligible = d.ndim >= 2 and d.is_floating_point()
+            r = float(d.abs().max()) if eligible else 0.0
+            if eligible and not 0.0 < r < float("inf"):
+                if sticky is None:
+                    eligible = False
+                else:
+                    r = 1.0
+            if not eligible:
+                out.append(d)
+                ranges.append(None)
+                qdts.append(None)
+                continue
+            q, _lo, _hi = quantize(d, -r, r)
+            out.append(q)
+            ranges.append(torch.tensor(r, dtype=torch.float32))
+            qdts.append(d.dtype)
+        return out, ranges, qdts
+
+    def _read_param(self, t):
+        """A parameter as its layer reads it: int8 storage dequantized to
+        its original dtype, anything else as it is."""
+        q = self._deq.get(id(t))
+        if q is None:
+            return t
+        from ..ops.quantization import dequantize
+        r, qdt = q
+        return dequantize(t, -r, r).to(qdt)
+
+    def _forward(self, *datas):
+        """The block over this Predictor's snapshot (each int8 weight
+        dequantized where its layer reads it); what each bucket runs or
+        captures."""
+        from ..gluon.block import _flatten, reading_params
+        params = dict(zip(self._keys, self._stored))
+        with torch.no_grad(), \
+                reading_params(self._read_param if self._deq else None):
+            out = torch.func.functional_call(self._block, params, datas)
+        fmt = []
+        flat = _flatten(out, fmt)
+        self._out_fmt = fmt
+        return flat
+
+    @property
+    def spec(self):
+        return self._spec
+
+    @property
+    def device(self):
+        return self._device
+
+    @property
+    def site(self):
+        """The retrace site this Predictor's builds count at."""
+        return self._site
+
+    @property
+    def int8(self):
+        """True when weights are stored as int8 with a per-tensor range."""
+        return self._int8
+
     @property
     def input_templates(self):
         """[(trailing_shape, dtype)] per input (None before settle)."""
         return self._templates
 
-    def _to_device(self, a):
-        t = a if isinstance(a, torch.Tensor) else torch.as_tensor(
-            np.asarray(a))
-        return t.to(self._device)
+    @property
+    def warmed(self):
+        """True once every bucket of the spec is built."""
+        return self._templates is not None and all(
+            self._bucket_key(b, s) in self._buckets
+            for b, s in self._spec.buckets())
 
-    def _settle(self, args):
-        datas = [self._to_device(a) for a in args]
-        params = list(self._block.collect_params().values())
-        if any(not p.initialized for p in params):
-            with torch.no_grad():   # deferred shapes settle on first forward
-                self._block(*datas)
-        if any(not p.initialized for p in params):
-            raise MXNetError("Predictor: parameters still uninitialized "
-                             "after the example forward")
-        self._templates = [(tuple(d.shape[1:]), d.dtype) for d in datas]
+    def param_bytes(self):
+        """Bytes of this Predictor's parameter snapshot (int8 storage and
+        ranges under ``int8``). The device also holds the buckets' inputs,
+        outputs and intermediates (on CUDA, the graphs' memory pool)."""
+        return sum(t.numel() * t.element_size() for t in self._stored) + \
+            sum(4 for r in self._ranges if r is not None)
 
-    def warmup(self):
-        """Run every bucket once on zero inputs (the first launch of each
-        kernel builds its library); returns self."""
-        if self._templates is None:
-            raise MXNetError("Predictor.warmup needs input templates: pass "
-                             "example= at construction")
-        for b, s in self._spec.buckets():
-            self._run([torch.zeros((b,) + self._bucket_trailing(t, s),
-                                   dtype=dt, device=self._device)
-                       for t, dt in self._templates])
-        if self._device.type == "cuda":
-            torch.cuda.synchronize(self._device)
-        return self
+    def refresh_params(self, version=None):
+        """Copy the block's current parameters into the snapshot in place
+        (re-quantizing under int8) without building a bucket again;
+        ``version`` stamps ``param_version``."""
+        with self._lock:
+            self._snapshot_params()
+        if version is not None:
+            self.param_version = version
+        telemetry.inc("serving.param_refreshes", tag=self._site)
 
+    # ------------------------------------------------------------- building
     def _bucket_trailing(self, trailing, seq):
         ax = self._spec.seq_axis - 1   # the trailing shape has no batch axis
         if seq is None or ax >= len(trailing):
             return trailing
         return trailing[:ax] + (seq,) + trailing[ax + 1:]
 
-    def _run(self, datas):
-        with torch.inference_mode():
-            out = self._block(*datas)
-        return list(out) if isinstance(out, (tuple, list)) else [out]
+    def _bucket_key(self, b, s):
+        return tuple(((b,) + self._bucket_trailing(t, s), dt)
+                     for t, dt in self._templates)
 
+    def _bucket(self, key):
+        """The bucket of ``key``, built (captured on CUDA) at first use."""
+        entry = self._buckets.get(key)
+        if entry is not None:
+            return entry
+        statics = [torch.full(shape, self._spec.pad_value, dtype=dt,
+                              device=self._device) for shape, dt in key]
+        if self._device.type == "cuda":
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            entry = CapturedGraph(self._forward, statics, pool=self._pool)
+        else:
+            def run(*datas):
+                # the functional call swaps this Predictor's snapshot into
+                # the shared block: one forward of a block at a time
+                with CAPTURE_LOCK:
+                    return self._forward(*datas)
+            entry = _EagerBucket(run, statics)
+        telemetry.record_retrace(self._site, {
+            "predictor": self._name, "block": type(self._block).__name__,
+            "device": str(self._device), "int8": self._int8,
+            "shapes": [list(s) for s, _ in key]})
+        self._buckets[key] = entry
+        return entry
+
+    def warmup(self):
+        """Build every bucket, largest first (on CUDA each capture runs its
+        bucket once eagerly first, then records it); returns self. Buckets
+        already built are kept."""
+        if self._templates is None:
+            raise MXNetError("Predictor.warmup needs input templates: pass "
+                             "example= at construction")
+        with self._lock:
+            for b, s in sorted(self._spec.buckets(),
+                               key=lambda bs: (-bs[0], -(bs[1] or 0))):
+                self._bucket(self._bucket_key(b, s))
+        return self.finish_warmup()
+
+    def finish_warmup(self):
+        """Run each bucket once on its padding (a model that builds but
+        cannot run fails here, not on the first request) and gauge the
+        bucket count; returns self."""
+        for b, s in self._spec.buckets():
+            self.run_bucket(b, s)
+        telemetry.gauge("serving.buckets", len(self._spec))
+        return self
+
+    def run_bucket(self, b, s=None):
+        """Run bucket (``b``, ``s``) once on its padding and wait for it
+        (the warm-up check and a replica's half-open probe)."""
+        with self._lock:
+            entry = self._bucket(self._bucket_key(b, s))
+            for static in entry.static_inputs:
+                static.fill_(self._spec.pad_value)
+            resilience.maybe_oom()
+            entry.replay()
+        if self._device.type == "cuda":
+            torch.cuda.synchronize(self._device)
+
+    def compile_stats(self):
+        """The retrace watchdog's view of this Predictor's site:
+        {compiles, trips, last} (None before any build)."""
+        return telemetry.retrace_stats(self._site)
+
+    # ----------------------------------------------------------- predicting
     def _dispatch_one(self, datas, seq, bucket):
+        """Pad ``datas`` into the bucket's static inputs, run it, and return
+        the outputs sliced to the request's batch (copies on CUDA)."""
         n = int(datas[0].shape[0])
-        spec = self._spec
-        datas = [pad_nd(d, bucket, seq_len=seq, seq_axis=spec.seq_axis,
-                        pad_value=spec.pad_value) for d in datas]
-        return [o[:n] for o in self._run(datas)]
+        key = tuple(((bucket,) + self._bucket_trailing(tuple(d.shape[1:]),
+                                                       seq), dt)
+                    for d, (_, dt) in zip(datas, self._templates))
+        with self._lock:
+            entry = self._bucket(key)
+            for static, d in zip(entry.static_inputs, datas):
+                if tuple(d.shape) == tuple(static.shape):
+                    static.copy_(d)
+                else:
+                    static.fill_(self._spec.pad_value)
+                    static[tuple(slice(0, k) for k in d.shape)].copy_(d)
+            resilience.maybe_oom()
+            outs = entry.replay()
+            if self._device.type == "cuda":
+                outs = [o[:n].clone() for o in outs]
+            elif n != bucket:
+                outs = [o[:n] for o in outs]
+        telemetry.observe("serving.batch_fill", n / float(bucket))
+        return outs
 
     def predict_flat(self, args):
-        """The block's outputs as a list: ``args`` padded to their bucket
-        (batch, and sequence where declared), run, and sliced back to the
-        request's batch, chunked through the largest batch bucket when the
-        request exceeds it. Outputs stay on the device."""
+        """Pad ``args`` (per-input arrays sharing batch axis 0) to their
+        bucket, run it, and slice back: ``(flat_outputs, out_fmt,
+        bucket_batch)`` with the outputs NDArrays on the device, sliced to
+        the request's batch. A request past the largest batch bucket is
+        chunked through it and concatenated on the device. No host sync
+        happens here: fetching the outputs is the caller's."""
         if self._templates is None:
             self._settle(args)
-        datas = [self._to_device(a) for a in args]
+        datas = [_request_tensor(a) for a in args]
+        if len(datas) != len(self._templates):
+            raise MXNetError("predict: the model takes %d input(s), got %d"
+                             % (len(self._templates), len(datas)))
         n = int(datas[0].shape[0])
         if n == 0:
             raise MXNetError("predict on an empty batch")
@@ -209,18 +492,43 @@ class Predictor:
         if spec.seq_lens is not None:
             seq = spec.seq_bucket(int(datas[0].shape[spec.seq_axis])
                                   if datas[0].ndim > spec.seq_axis else 0)
-        b = spec.batch_bucket(n)
-        if b is not None:
-            return self._dispatch_one(datas, seq, b)
-        bucket = spec.max_batch   # the tail pads to it too
-        chunks = [self._dispatch_one([d[lo:lo + bucket] for d in datas], seq,
-                                     bucket)
-                  for lo in range(0, n, bucket)]
-        return [torch.cat([c[i] for c in chunks]) for i in
-                range(len(chunks[0]))]
+        with telemetry.span("serving.predict", d2h=True):
+            b = spec.batch_bucket(n)
+            if b is None:
+                b = spec.max_batch   # the tail pads to it too
+                chunks = [self._dispatch_one([d[lo:lo + b] for d in datas],
+                                             seq, b)
+                          for lo in range(0, n, b)]
+                outs = [torch.cat([c[i] for c in chunks])
+                        for i in range(len(chunks[0]))]
+            else:
+                outs = self._dispatch_one(datas, seq, b)
+            telemetry.inc("serving.items", n)
+        return [NDArray(o) for o in outs], list(self._out_fmt), b
 
     def predict(self, *args):
-        """The user-facing call: numpy arrays or tensors in, the block's
-        output (one tensor or a tuple) for the request's batch out."""
-        flat = self.predict_flat(args)
-        return flat[0] if len(flat) == 1 else tuple(flat)
+        """The user-facing call: NDArrays, tensors or numpy arrays in, the
+        block's output structure (one NDArray or a tuple) for the
+        request's batch out, on the device."""
+        from ..gluon.block import _regroup
+        flat, fmt, _ = self.predict_flat(args)
+        out, _, _ = _regroup(flat, fmt)
+        return out
+
+    # ----------------------------------------------------------- load paths
+    @classmethod
+    def from_checkpoint(cls, prefix, epoch, spec, input_names=("data",),
+                        example=None, warmup=False, name=None):
+        """Not ported yet: a symbol-json checkpoint needs the symbol API
+        (ROADMAP A7)."""
+        raise MXNetError("Predictor.from_checkpoint is not ported yet: it "
+                         "needs the symbol API (ROADMAP A7)")
+
+    @classmethod
+    def from_trainer_checkpoint(cls, block, directory, spec, step=None,
+                                example=None, warmup=False, name=None):
+        """Not ported yet: a Trainer checkpoint needs
+        ``contrib.async_checkpoint`` (ROADMAP A9)."""
+        raise MXNetError("Predictor.from_trainer_checkpoint is not ported "
+                         "yet: it needs contrib.async_checkpoint (ROADMAP "
+                         "A9)")

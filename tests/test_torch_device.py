@@ -39,7 +39,7 @@ def test_predictor_without_device_raises_without_a_card(no_cuda):
     # an explicit CPU device is honoured
     out = Predictor(net, BucketSpec([2]), device="cpu").predict(
         np.ones((1, 4), np.float32))
-    assert out.device.type == "cpu" and out.shape == (1, 3)
+    assert out.context.type == "cpu" and out.shape == (1, 3)
 
 
 def test_device_names():
@@ -89,6 +89,21 @@ def test_port_imports_no_jax_and_no_mxtpu():
                 assert m.split(".")[0] not in banned, (path, m)
             seen += 1
     assert seen > 20
+
+
+def test_port_reads_no_environment_variable_of_its_own():
+    """The port takes its levers as arguments and setters; the only
+    variables it reads are the CUDA toolkit's location (kernels.py)."""
+    import re
+    seen = {}
+    for path in _port_files():
+        src = open(path).read()
+        for m in re.finditer(r"environ(?:\.get)?\(?\[?\s*[\"']([A-Z_]+)"
+                             r"|getenv\(\s*[\"']([A-Z_]+)", src):
+            seen.setdefault(m.group(1) or m.group(2), set()).add(
+                os.path.relpath(path, ROOT))
+    assert seen == {"CUDA_HOME": {"mxtpu_torch/kernels.py"},
+                    "CUDA_PATH": {"mxtpu_torch/kernels.py"}}, seen
 
 
 def test_kernel_library_is_keyed_by_source_and_flags(tmp_path, monkeypatch):

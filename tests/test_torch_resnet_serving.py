@@ -95,9 +95,10 @@ def test_ragged_batch_matches_mxtpu_predictor(nets, jax_predictor):
     ref = _jax_predict(jax_predictor, x)
     assert jpc.DISPATCH_STATS["pallas"] > 0    # JAX really ran its kernel
     got = Predictor(nets[2], BucketSpec([4]), device="cpu").predict(x)
-    assert got.shape == (3, 10) and got.device.type == "cpu"
+    assert isinstance(got, mt.nd.NDArray)
+    assert got.shape == (3, 10) and got.context.type == "cpu"
     assert np.abs(ref).max() > 1e-2            # real signal, not near-zeros
-    _close(got.numpy(), ref)
+    _close(got.asnumpy(), ref)
 
 
 def test_chunked_batch_matches_mxtpu_predictor(nets, jax_predictor):
@@ -106,11 +107,12 @@ def test_chunked_batch_matches_mxtpu_predictor(nets, jax_predictor):
     ref = _jax_predict(jax_predictor, x)
     pred = Predictor(nets[2], BucketSpec([4]), device="cpu")
     calls = []
-    real = pred._run
-    pred._run = lambda datas: calls.append(datas[0].shape[0]) or real(datas)
+    real = pred._dispatch_one
+    pred._dispatch_one = lambda datas, seq, bucket: calls.append(
+        (datas[0].shape[0], bucket)) or real(datas, seq, bucket)
     got = pred.predict(torch.from_numpy(x))
-    assert calls == [4, 4, 4]
-    _close(got.numpy(), ref)
+    assert calls == [(4, 4), (4, 4), (1, 4)]
+    _close(got.asnumpy(), ref)
 
 
 def test_params_to_numpy_round_trip(nets):
@@ -152,12 +154,14 @@ def test_bucket_spec_matches_mxtpu():
 
 def test_warmup_runs_every_bucket_with_templates(nets):
     pred = Predictor(nets[2], BucketSpec.pow2(4), device="cpu",
-                     example=np.zeros((1, HW, HW, 3), np.float32))
+                     example=np.zeros((1, HW, HW, 3), np.float32),
+                     site="test.warmup_templates")
     assert pred.input_templates == [((HW, HW, 3), torch.float32)]
     seen = []
-    real = pred._run
-    pred._run = lambda datas: seen.append(datas[0].shape[0]) or real(datas)
+    real = pred.run_bucket
+    pred.run_bucket = lambda b, s=None: seen.append(b) or real(b, s)
     assert pred.warmup() is pred and seen == [1, 2, 4]
+    assert pred.compile_stats()["compiles"] == 3
     with pytest.raises(mt.MXNetError, match="example"):
         Predictor(nets[2], BucketSpec([2]), device="cpu").warmup()
 

@@ -80,10 +80,12 @@ def _jax_predict(jpred, x):
 
 
 def _check(dtype, got, ref, n, seq):
+    assert isinstance(got, mt.nd.NDArray)
     assert tuple(got.shape) == (n, seq, 97) and ref.shape == got.shape
-    assert got.dtype == getattr(torch, dtype) and got.device.type == "cpu"
+    assert got.to_torch().dtype == getattr(torch, dtype)
+    assert got.context.type == "cpu"
     assert np.abs(ref).max() > 1.0
-    np.testing.assert_allclose(got.float().numpy(), ref, rtol=0,
+    np.testing.assert_allclose(got.asnumpy(), ref, rtol=0,
                                atol=TOL[dtype] * np.abs(ref).max())
 
 
@@ -103,13 +105,13 @@ def test_chunked_request_matches_mxtpu_predictor(served):
     x = _tokens(11, 6, 100)
     ref = _jax_predict(jpred, x)
     calls = []
-    real = pred._run
-    pred._run = lambda datas: calls.append(tuple(datas[0].shape)) or \
-        real(datas)
+    real = pred._dispatch_one
+    pred._dispatch_one = lambda datas, seq, bucket: calls.append(
+        (bucket, seq)) or real(datas, seq, bucket)
     try:
         got = pred.predict(torch.from_numpy(x))
     finally:
-        del pred._run
+        del pred._dispatch_one
     assert calls == [(4, 128), (4, 128)]
     _check(dtype, got, ref, 6, 128)
 
@@ -131,8 +133,8 @@ def test_logits_depend_on_the_bucket_as_in_mxtpu(served):
     long = np.zeros((2, 200), np.int32)
     long[0, :50] = x[0]
     long[1] = _tokens(14, 1, 200)[0]
-    short_port = pred.predict(x)[0, :50].float().numpy()
-    long_port = pred.predict(long)[0, :50].float().numpy()
+    short_port = pred.predict(x).asnumpy()[0, :50]
+    long_port = pred.predict(long).asnumpy()[0, :50]
     short_ref = _jax_predict(jpred, x)[0, :50]
     long_ref = _jax_predict(jpred, long)[0, :50]
     assert np.abs(short_ref - long_ref).max() > 0.1
@@ -175,15 +177,18 @@ def test_warmup_runs_every_batch_and_seq_bucket():
     net = ttr.TransformerLM(**SMALL)
     net.initialize(ctx=mt.cpu())
     pred = Predictor(net, BucketSpec(**SPEC), device="cpu",
-                     example=np.zeros((1, 40), np.int32))
+                     example=np.zeros((1, 40), np.int32),
+                     site="test.warmup_buckets")
     assert pred.input_templates == [((40,), torch.int32)]
     seen = []
-    real = pred._run
-    pred._run = lambda datas: seen.append(
-        (tuple(datas[0].shape), datas[0].dtype)) or real(datas)
+    real = pred.run_bucket
+    pred.run_bucket = lambda b, s=None: seen.append(
+        [(tuple(t.shape), t.dtype) for t in
+         pred._buckets[pred._bucket_key(b, s)].static_inputs]) or real(b, s)
     pred.warmup()
-    assert seen == [((b, s), torch.int32) for b in (1, 2, 4)
+    assert seen == [[((b, s), torch.int32)] for b in (1, 2, 4)
                     for s in (128, 256)]
+    assert pred.compile_stats()["compiles"] == 6
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
