@@ -61,6 +61,24 @@ NVIDIA H100.
    held to its direct predict, none shed); and ResNet-50 bf16 behind the
    ModelServer on 127.0.0.1 (8 threads x 8 single-image POSTs held to
    direct predict, /healthz, /metrics, drain).
+   The serving control plane: ResNet-50 bf16 through a ReplicaDispatcher
+   over two replicas on cuda:0 with a ServingController (threaded, real
+   clock): the latency model warmed (predicted beside observed p90),
+   requests with half the predicted latency as deadline all shed
+   ``predicted_miss``, r1 failed until its breaker opened and replaced by
+   r2 captured on a thread of its own while r0 served (bring-up seconds,
+   p50/p99 before and during), a scale-down after one idle cooldown and a
+   scale-up refused on the one card (``warmup_failed``); every answer
+   within 5e-2 of max|logit| of direct predict, 11 conv launches per
+   forward. The model zoo: ResNet-50 and the TransformerLM in bf16 in one
+   ZooScheduler on cuda:0: six alternations under a count cap of one
+   (page-in seconds, footprints beside the allocated bytes, each eviction
+   giving its bytes back within 64 MiB), eviction by a byte budget, a
+   ResNet-50 canary split by crc32 of the request id with each arm
+   answering as its version, promoted without a capture, a canary rolled
+   back by the injected fault with every future answered, and HTTP by
+   model name with a 404 that lists both; 11 conv / 12 flash launches per
+   forward on every arm and no nvcc during the phase.
 7. Gluon on NDArrays: ResNet-50 v1 called on an mx.nd array on the card
    equals the tensor path bit for bit with 11 conv launches (float32 and
    bfloat16), and a Dense -> BatchNorm -> Dense net trained two steps on
@@ -106,8 +124,9 @@ NVIDIA H100.
    by graph replay beside its plain version, the library's and its bound
    (the 5 gated convs once each; one non-causal b8 x 512 attention on the
    served views); one entry per rtc
-   kernel), the card line again, and last ``{"ok": true, "device":
-   {...}}``.
+   kernel; the bf16 conv entry adds its launches on the controller and
+   zoo paths, the bf16 flash entry on the zoo's), the card line again,
+   and last ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the last
 line. It imports nothing of JAX or of the JAX package.
@@ -1233,6 +1252,47 @@ def _run_clients(n_threads, per_thread, work):
     return wall
 
 
+def _run_clients_for(n_threads, least, window_s, work):
+    """Run ``work(k, i)`` on n_threads threads until at least ``least``
+    calls have finished and ``window_s`` seconds have passed; every join
+    has a timeout and any failure raises. Returns (calls, seconds)."""
+    import threading
+    errors, lock, done = [], threading.Lock(), [0]
+
+    def client(k):
+        i = 0
+        while True:
+            with lock:
+                if done[0] >= least and \
+                        time.perf_counter() - t0 >= window_s:
+                    return
+            try:
+                work(k, i)
+            except Exception as e:  # noqa: BLE001 — raised below
+                errors.append("%s: %s" % (type(e).__name__, e))
+                return
+            with lock:
+                done[0] += 1
+            i += 1
+
+    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(n_threads)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300 + window_s)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError("clients failed or hung: %s" % errors[:3])
+    return done[0], wall
+
+
+def _spread(xs):
+    """(max - min) / mean of a list of rates."""
+    return (max(xs) - min(xs)) / (sum(xs) / len(xs))
+
+
 def batcher_phase(card):
     """The TransformerLM in bf16 through a MicroBatcher (max_batch 8,
     max_wait 5 ms) over a one-replica ReplicaSet on cuda:0: 8 client
@@ -1407,6 +1467,636 @@ def http_phase(card):
               worst, health["status"], _stage_medians(
                   [a[2]["breakdown_ms"] for a in answers.values()])),
           flush=True)
+
+
+RESNET_EXAMPLE_SHAPE = (1, 224, 224, 3)
+# the control plane's decay horizon in these phases: short enough that the
+# predictive sheds of one step stop counting as scale-up pressure a few
+# seconds later (the reference's 60 s would hold them for minutes)
+CONTROL_HORIZON_S = 2.0
+# the zoo's HTTP rates: runs per model, and the least seconds of each run
+HTTP_RUNS = 2
+HTTP_WINDOW_S = 10.0
+
+
+def _log_decisions(ctrl):
+    """(t, action, reason) of every decision ``ctrl`` records, in order."""
+    log = []
+    record = ctrl._record
+
+    def logged(action, reason, now, mark=True):
+        log.append((time.perf_counter(), action, reason))
+        return record(action, reason, now, mark)
+
+    ctrl._record = logged
+    return log
+
+
+def _wait_for(what, cond, timeout):
+    """Poll ``cond()`` every 10 ms until true; raises after ``timeout`` s."""
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError("timed out after %.0f s waiting for %s"
+                                 % (timeout, what))
+        time.sleep(0.01)
+    return time.perf_counter() - t0
+
+
+class _Traffic:
+    """``n_threads`` closed-loop clients on a dispatcher until ``stop()``:
+    each sends single-image requests from ``images`` and records (t0, ms,
+    image index, answer or the error)."""
+
+    def __init__(self, bat, images, n_threads=4):
+        import threading
+        self.records = []
+        self._stop = threading.Event()
+        self._lock = threading.Lock()
+        self._threads = [threading.Thread(target=self._client, daemon=True,
+                                          args=(bat, images, k))
+                         for k in range(n_threads)]
+        for t in self._threads:
+            t.start()
+
+    def _client(self, bat, images, k):
+        i = k
+        while not self._stop.is_set():
+            x = images[i % len(images)]
+            t0 = time.perf_counter()
+            try:
+                out = bat.submit(x).result(timeout=120)
+            except Exception as e:  # noqa: BLE001 — recorded, gated later
+                out = e
+            with self._lock:
+                self.records.append(
+                    (t0, 1e3 * (time.perf_counter() - t0),
+                     i % len(images), out))
+            i += len(self._threads)
+
+    def stop(self):
+        self._stop.set()
+        for t in self._threads:
+            t.join(180)
+        if any(t.is_alive() for t in self._threads):
+            raise AssertionError("a client thread hung")
+        return self.records
+
+
+def controller_phase(card):
+    """The serving control plane on the card: ResNet-50 v1 bf16
+    (``BucketSpec.pow2(8)``) through a ReplicaDispatcher over
+    ``ReplicaSet(devices=["cuda:0", "cuda:0"])`` with
+    ``ServingController(min 1, max 2, replace_after 2000 ms, cooldown
+    1000 ms)``, threaded with the real clock. 1) warm the latency model
+    with single-image and b8 requests; 2) requests whose deadline is half
+    the predicted latency all shed ``predicted_miss``, none queued; 3) r1's
+    dispatches fail until its breaker opens, the controller replaces it
+    with r2 on cuda:0, captured on a thread of its own while r0 serves; 4)
+    traffic stops and the controller scales down to one replica; 5) a
+    scale-up on the one card is recorded and refused (``warmup_failed``).
+    Returns the fused_conv launches of the phase."""
+    import numpy as np
+    import torch
+    from mxtpu_torch import telemetry
+    from mxtpu_torch.ops.pallas.conv import fused_conv
+    from mxtpu_torch.serving import (BucketSpec, QueueFull,
+                                     ReplicaDispatcher, ReplicaFailure,
+                                     ReplicaSet, ServingController)
+    net, _ = build_net()
+    net.cast("bfloat16")
+    spec = BucketSpec.pow2(8)
+    telemetry.reset()   # the phase's counters, its captures included
+    t0 = time.perf_counter()
+    # an hour-long probe backoff: r1's breaker stays open until replaced
+    rs = ReplicaSet(net, spec, devices=["cuda:0", "cuda:0"],
+                    example=torch.zeros(RESNET_EXAMPLE_SHAPE,
+                                        dtype=torch.bfloat16),
+                    breaker_backoff_ms=3600e3)
+    warm_s = time.perf_counter() - t0
+    bat = ReplicaDispatcher(rs, max_batch_size=8, max_wait_ms=5)
+    ctrl = ServingController(bat, min_replicas=1, max_replicas=2,
+                             replace_after_ms=2000, scale_cooldown_ms=1000,
+                             horizon_s=CONTROL_HORIZON_S)
+    log = _log_decisions(ctrl)
+    failing = {"on": False}
+    execute = bat._execute
+
+    def fail_r1(rep, joined, idx, live=()):
+        # the replica_fail fault aimed at r1: the resilience schedule names
+        # dispatch indices, which land on either replica in threaded mode
+        if failing["on"] and rep.index == 1:
+            raise ReplicaFailure("injected replica_fail on r1 (dispatch "
+                                 "%d)" % idx)
+        return execute(rep, joined, idx, live)
+
+    bat._execute = fail_r1
+
+    def shed_half(n):
+        """Submit ``n`` images whose deadline is half the predicted
+        latency; each submit's outcome."""
+        out = []
+        for i in range(n):
+            p = ctrl.predicted_s(None)
+            if p is None:
+                raise AssertionError("the latency model went cold")
+            try:
+                bat.submit(images[i], deadline_ms=0.5e3 * p)
+                out.append("admitted")
+            except QueueFull as e:
+                out.append(str(e))
+        return out
+
+    rng = np.random.default_rng(11)
+    images = [rng.standard_normal((1, 224, 224, 3)).astype(np.float32)
+              for _ in range(16)]
+    b8 = [rng.standard_normal((8, 224, 224, 3)).astype(np.float32)
+          for _ in range(2)]
+    answers = []            # (input, answer) of every delivered request
+    fused_conv.launches = 0
+    try:
+        # 1) warm the latency model: single images and b8 requests
+        totals = {1: [], 8: []}
+
+        def work(k, i):
+            x = b8[i % 2] if (k + i) % 4 == 0 else images[(k + i) % 16]
+            fut = bat.submit(x)
+            out = fut.result(timeout=120)
+            answers.append((x, out))
+            totals[x.shape[0]].append(sum(fut.breakdown.get(s, 0.0) for s in (
+                "serving.queue_wait", "serving.pad", "serving.predict")))
+
+        _run_clients(8, 12, work)
+        predicted = ctrl.predicted_s(None)
+        m = ctrl._models[None]
+        hist = m["total"].quantile(0.9, bat._clock())
+        print("controller warm: replicas r0, r1 on cuda:0 warmed in %.2f s "
+              "(%d graphs each); latency model (one bucket key: ResNet-50 "
+              "has no sequence buckets) from %d samples in the %.0f s "
+              "horizon: predicted %.3f ms (windowed p90 of totals %.3f ms, "
+              "the live bound decides at an empty queue); observed p90 of "
+              "queue wait + pad + predict: b1 requests %.3f ms (%d), b8 "
+              "requests %.3f ms (%d); on %s" % (
+                  warm_s, len(spec), m["total"].count(bat._clock()),
+                  CONTROL_HORIZON_S, 1e3 * predicted, 1e3 * hist,
+                  1e3 * _percentile(totals[1], 0.9), len(totals[1]),
+                  1e3 * _percentile(totals[8], 0.9), len(totals[8]), card),
+              flush=True)
+        # 2) predictive admission: half the predicted latency sheds
+        requests0 = telemetry.value("serving.requests")
+        shed = shed_half(8)
+        if shed != ["request shed: predicted_miss"] * 8 or \
+                telemetry.value("serving.requests") != requests0 or \
+                bat.queue_depth != 0:
+            raise AssertionError("predictive admission: %s, %d queued"
+                                 % (shed, telemetry.value("serving.requests")
+                                    - requests0))
+        print("controller predictive admission: 8 requests with deadline = "
+              "predicted / 2 (%.3f ms) all shed predicted_miss at submit, "
+              "none queued" % (0.5e3 * ctrl.predicted_s(None)), flush=True)
+        # 3) self-healing: r1 fails until its breaker opens; replaced
+        traffic = _Traffic(bat, images)
+        time.sleep(1.0)
+        t_fault = time.perf_counter()
+        failing["on"] = True
+        _wait_for("r1's breaker", lambda: rs.replicas[1].state
+                  == "quarantined", 30)
+        failing["on"] = False
+        _wait_for("the replace decision", lambda: any(
+            a == "replace" for _, a, _ in log), 30)
+        t_replace = [t for t, a, _ in log if a == "replace"][0]
+        _wait_for("r2", lambda: any(r.index == 2 for r in rs.replicas), 30)
+        r2 = [r for r in rs.replicas if r.index == 2]
+        if str(r2[0].device) != "cuda:0":
+            raise AssertionError("replacement: replicas %s" % rs.states())
+        bringup = _wait_for("r2 to join", lambda: r2[0].state == "healthy",
+                            120)
+        t_joined = time.perf_counter()
+        time.sleep(1.0)
+        records = traffic.stop()
+        # 4) scale-down: idle for one cooldown, with nothing failed
+        down = _wait_for("scale_down", lambda: any(
+            a == "scale_down" for _, a, _ in log), 60)
+        _wait_for("the retired replica to leave", lambda: [
+            r.index for r in rs.replicas] == [0], 30)
+        # 5) a scale-up on the one card: recorded, then refused
+        _run_clients(4, 8, lambda k, i: answers.append(
+            (images[(k + i) % 16],
+             bat.submit(images[(k + i) % 16]).result(timeout=120))))
+        shed_half(4)
+        _wait_for("the refused scale-up", lambda: [
+            a for _, a, _ in log if a in ("scale_up", "warmup_failed")]
+            == ["scale_up", "warmup_failed"], 30)
+    finally:
+        bat.close(timeout=60)
+    launches = fused_conv.launches
+    batches = telemetry.value("serving.batches")
+    failures = [r for r in records if isinstance(r[3], Exception)]
+    ok = [r for r in records if not isinstance(r[3], Exception)]
+    answers += [(images[r[2]], r[3]) for r in ok]
+    actions = [a for _, a, _ in log if a != "predicted_shed"]
+    if actions != ["replace", "scale_down", "scale_up", "warmup_failed"]:
+        raise AssertionError("controller decisions: %s" % log)
+    if any(not isinstance(r[3], ReplicaFailure) for r in failures) or \
+            telemetry.value("serving.replica.failures", tag="r1") != 3:
+        raise AssertionError("failures other than r1's three: %s, %s" % (
+            [type(r[3]).__name__ for r in failures],
+            telemetry.tagged("serving.replica.failures")))
+    late = [r for r in failures if r[0] > t_replace]
+    if late:
+        raise AssertionError("%d requests failed after the replacement"
+                             % len(late))
+    # every forward: the served batches, and r2's bring-up (one eager run
+    # before each capture and one run per bucket after)
+    if launches != 11 * (batches + 2 * len(spec)):
+        raise AssertionError("fused_conv launched %d times, expected 11 x "
+                             "(%d batches + %d bring-up forwards)" % (
+                                 launches, batches, 2 * len(spec)))
+    for site in ("serving.predict.r0", "serving.predict.r1",
+                 "serving.predict.r2"):
+        if telemetry.retrace_stats(site)["compiles"] != len(spec):
+            raise AssertionError("%s captured %s" % (
+                site, telemetry.retrace_stats(site)))
+    if telemetry.retrace_stats("serving.predict.r3") is not None:
+        raise AssertionError("the refused scale-up built a replica")
+    ref_pred = rs.replicas[0].predictor
+    worst = 0.0
+    for x, got in answers:
+        ref = ref_pred.predict(x).asnumpy()
+        err = float(np.abs(got - ref).max() / np.abs(ref).max())
+        if got.shape != ref.shape or not np.isfinite(got).all() or \
+                err > 5e-2:
+            raise AssertionError("controller: answer %s differs from direct "
+                                 "predict by %.3g" % (got.shape, err))
+        worst = max(worst, err)
+    before = [r[1] for r in ok if r[0] < t_fault]
+    during = [r[1] for r in ok if t_replace <= r[0] < t_joined]
+    print("controller self-healing on %s: r1's breaker opened after 3 "
+          "failed dispatches (%d requests failed, all ReplicaFailure on "
+          "r1); replace %.2f s after the fault; r2 on cuda:0 captured %d "
+          "graphs on its own thread in %.3f s while r0 served (%d "
+          "requests); client p50/p99 ms before the fault %.3f / %.3f (%d), "
+          "during the bring-up %.3f / %.3f (%d); decisions %s; scale_down "
+          "%.2f s after the traffic stopped; then the scale-up on one card "
+          "was refused: %s" % (
+              card, len(failures), t_replace - t_fault, len(spec), bringup,
+              len(during), _percentile(before, 0.5),
+              _percentile(before, 0.99), len(before),
+              _percentile(during, 0.5) if during else float("nan"),
+              _percentile(during, 0.99) if during else float("nan"),
+              len(during), actions, down,
+              [r for _, a, r in log if a == "warmup_failed"][0][:90]),
+          flush=True)
+    print("controller gates: %d answers within %.3g of max|logit| of "
+          "direct predict (limit 5e-2); fused_conv launches %d = 11 x (%d "
+          "batches + %d bring-up forwards); captures per site r0/r1/r2 = "
+          "%d each, none on the serving path" % (
+              len(answers), worst, launches, batches, 2 * len(spec),
+              len(spec)), flush=True)
+    return launches
+
+
+def zoo_phase(card):
+    """The model zoo on the card: ResNet-50 v1 bf16 (``pow2(8)``) and the
+    BERT-base TransformerLM bf16 (batch 1/2/4 x seq 128/512) in one
+    ZooScheduler on cuda:0, threaded. 1) count cap 1: alternating requests
+    evict and page in six times (page-in seconds, footprint beside the
+    change in allocated and reserved bytes, the bytes each eviction gives
+    back); 2) a byte budget evicts; 3) a canary of ResNet-50 (v2: the
+    classifier x 1.01) at half the traffic, split by crc32 of the request
+    id, each arm answering as its own version, then promoted without a
+    capture, and v2x2 (the classifier x 2) refused by the same parity
+    probe; 4) a v3 canary rolled back by the injected ``canary_rollback``
+    with every future answered; 5) HTTP over the zoo, requests/s per model
+    over ``HTTP_RUNS`` runs of at least ``HTTP_WINDOW_S``. Returns
+    (fused_conv launches, flash_attention launches) of the phase."""
+    import json
+    import urllib.error
+    import urllib.request
+    import zlib
+    import numpy as np
+    import torch
+    from mxtpu_torch import kernels, resilience, telemetry, xprof
+    from mxtpu_torch.ops.pallas.conv import fused_conv
+    from mxtpu_torch.ops.pallas.flash_attention import flash_attention
+    from mxtpu_torch.serving import (BucketSpec, ModelServer, ModelZoo,
+                                     ZooScheduler)
+    resnet, _ = build_net()
+    resnet.cast("bfloat16")
+    lm, _ = build_lm()
+    lm.cast("bfloat16")
+    telemetry.reset()
+    zoo = ModelZoo()
+    specs = {"resnet50_v1": BucketSpec.pow2(8),
+             "transformer_lm": BucketSpec([1, 2, 4], seq_lens=(128, 512))}
+    zoo.register("resnet50_v1", resnet, specs["resnet50_v1"],
+                 example=torch.zeros(RESNET_EXAMPLE_SHAPE,
+                                     dtype=torch.bfloat16))
+    zoo.register("transformer_lm", lm, specs["transformer_lm"],
+                 example=torch.zeros(1, 128, dtype=torch.int32))
+    sched = ZooScheduler(zoo, devices=["cuda:0"], start=True,
+                         max_resident=1)
+    forwards = {"resnet50_v1": 0, "transformer_lm": 0}
+    builds = {"resnet50_v1": 0, "transformer_lm": 0}
+    pageins, evictions, mem = [], [], {}
+    pagein, evict, build_arm = sched._pagein, sched._evict, sched._build_arm
+
+    def timed_pagein(model):
+        t0 = time.perf_counter()
+        res = pagein(model)
+        pageins.append((model, time.perf_counter() - t0))
+        return res
+
+    def levels():
+        # allocated and reserved bytes with the cache emptied: reserved then
+        # counts the segments still in use, the graphs' private pools too
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+
+    def measured_evict(model, reason):
+        a = levels()
+        n = evict(model, reason)
+        b = levels()
+        evictions.append((model, reason, (a[0] - b[0], a[1] - b[1]), b))
+        return n
+
+    def counted_build(model, version, dslot, site):
+        before = levels()
+        arm, summary = build_arm(model, version, dslot, site)
+        after = levels()
+        mem.setdefault(site, []).append(
+            (before, (after[0] - before[0], after[1] - before[1])))
+        builds[model] += 1
+        pred = arm.predictor
+        dispatch = pred._dispatch_one
+
+        def counted(*args, **kw):
+            forwards[model] += 1
+            return dispatch(*args, **kw)
+
+        pred._dispatch_one = counted
+        return arm, summary
+
+    sched._pagein, sched._evict = timed_pagein, measured_evict
+    sched._build_arm = counted_build
+    spawned = []
+    spawn = kernels._spawn
+
+    def no_nvcc(*args, **kw):
+        spawned.append(args)
+        return spawn(*args, **kw)
+
+    kernels._spawn = no_nvcc
+    rng = np.random.default_rng(12)
+    images = [rng.standard_normal((1, 224, 224, 3)).astype(np.float32)
+              for _ in range(8)]
+    tokens = [rng.integers(0, BERT_BASE["vocab_size"], (1, t),
+                           dtype=np.int32) for t in (100, 300, 512, 60)]
+
+    def request(model, i, **kw):
+        x = images[i % 8] if model == "resnet50_v1" else tokens[i % 4]
+        return x, sched.submit(model, x, **kw)
+
+    fused_conv.launches = flash_attention.launches = 0
+    t_phase = time.perf_counter()
+    try:
+        # 1) count cap: every switch evicts and pages in
+        for k in range(6):
+            model = ("resnet50_v1", "transformer_lm")[k % 2]
+            futs = [request(model, k * 3 + j) for j in range(3)]
+            for _, f in futs:
+                f.result(timeout=300)
+        order = [m for m, _ in pageins]
+        if order != ["resnet50_v1", "transformer_lm"] * 3 or \
+                [m for m, _, _, _ in evictions] != order[:5]:
+            raise AssertionError("count cap: page-ins %s, evictions %s"
+                                 % (order, evictions))
+        lines = []
+        for model in specs:
+            site = "serving.predict.zoo." + model
+            secs = [s for m, s in pageins if m == model]
+            fp = sched._footprints[model]
+            back = [(r, b) for m, _, r, b in evictions if m == model]
+            # each eviction against the levels before the page-in it undid:
+            # allocated, and reserved (the graphs' pools) after empty_cache
+            drift = []
+            for (_returned, level), (before, _grew) in zip(back, mem[site]):
+                drift.append(tuple((level[j] - before[j]) / 2**20
+                                   for j in (0, 1)))
+                for j, what in enumerate(("allocated", "reserved")):
+                    if abs(level[j] - before[j]) > 64 << 20:
+                        raise AssertionError(
+                            "%s: after its eviction %d bytes are %s, %d "
+                            "before its page-in" % (model, level[j], what,
+                                                    before[j]))
+            lines.append("%s page-in %.2f s first, later %s s; "
+                         "site_footprint %d bytes beside allocated +%s and "
+                         "reserved +%s; evictions gave back allocated %s, "
+                         "reserved %s bytes (level after minus before its "
+                         "page-in, allocated/reserved: %s MiB)" % (
+                             model, secs[0], ", ".join(
+                                 "%.2f" % s for s in secs[1:]), fp,
+                             [g[0] for _, g in mem[site]],
+                             [g[1] for _, g in mem[site]],
+                             [r[0] for r, _ in back],
+                             [r[1] for r, _ in back],
+                             ", ".join("%.1f/%.1f" % d for d in drift)))
+        print("zoo count cap 1 on %s, 6 alternations (3 requests each), "
+              "no future dropped: %s" % (card, "; ".join(lines)),
+              flush=True)
+        # 2) byte budget, no count cap
+        fps = sorted(sched._footprints.values())
+        budget = int(1.5 * fps[1])
+        rule = "1.5 x the larger"
+        if budget >= fps[0] + fps[1]:
+            budget = (fps[1] + fps[0] + fps[1]) // 2
+            rule = "halfway between the larger and both (1.5 x would fit both)"
+        sched.max_resident, sched.hbm_budget = 0, budget
+        n_evict = len(evictions)
+        request("resnet50_v1", 0)[1].result(timeout=300)
+        if [e[:2] for e in evictions[n_evict:]] != [
+                ("transformer_lm", "capacity")]:
+            raise AssertionError("byte budget: %s" % evictions[n_evict:])
+        print("zoo byte budget %d bytes (%s; footprints %s), no count cap: "
+              "paging ResNet-50 in evicted the TransformerLM by bytes"
+              % (budget, rule, fps), flush=True)
+        sched.hbm_budget = 0
+        # 3) canary of v2 and promote
+        name = "resnet50_v1"
+        v1 = zoo.version(name, "v1").params
+        head = [k for k in v1 if "dense" in k]
+        zoo.add_version(name, "v2", params={
+            k: v * 1.01 if k in head else v for k, v in v1.items()})
+        res = sched._residents[name]
+        stable = res.stable.predictor
+        probe = images[0]
+        v1_out = stable.predict(probe).to_torch().float()
+        tol = 5e-2 * v1_out.abs().max().item()
+        compiles = telemetry.retrace_stats(stable.site)["compiles"]
+        out = zoo.deploy(name, "v2", canary_frac=0.5, parity_example=probe,
+                         parity_tol=tol)
+        if out["mode"] != "canary":
+            raise AssertionError("deploy v2: %s" % out)
+        routed = []
+        for arm in (res.stable, res.canary):
+            submit = arm.batcher.submit
+
+            def logged(inputs, _submit=submit, **kw):
+                routed.append(kw["meta"]["version"])
+                return _submit(inputs, **kw)
+
+            arm.batcher.submit = logged
+        futs = []
+        for i in range(64):
+            futs.append((i, request(name, i, request_id=i)[1]))
+        outs = [(i, f.result(timeout=300)) for i, f in futs]
+        want = ["v2" if zlib.crc32(str(i).encode()) % 10**6 < 0.5 * 10**6
+                else "v1" for i in range(64)]
+        if routed != want:
+            raise AssertionError("canary split %s, crc32 rule %s"
+                                 % (routed, want))
+        worst = 0.0
+        for i, got in outs:
+            arm = res.canary if want[i] == "v2" else res.stable
+            ref = arm.predictor.predict(images[i % 8]).asnumpy()
+            err = float(np.abs(got - ref).max() / np.abs(ref).max())
+            if err > 5e-2:
+                raise AssertionError("canary: id %d (%s) differs from its "
+                                     "arm's direct predict by %.3g"
+                                     % (i, want[i], err))
+            worst = max(worst, err)
+        v2_out = res.canary.predictor.predict(probe).to_torch().float()
+        sched.promote(name)
+        after = stable.predict(probe).to_torch().float()
+        err_v2 = ((after - v2_out).abs().max() / v2_out.abs().max()).item()
+        off_v1 = ((after - v1_out).abs().max() / v1_out.abs().max()).item()
+        if res.canary is not None or err_v2 > 5e-2 or \
+                telemetry.retrace_stats(stable.site)["compiles"] != compiles:
+            raise AssertionError("promote: stable vs v2 %.3g, captures %s"
+                                 % (err_v2, telemetry.retrace_stats(
+                                     stable.site)))
+        print("zoo canary v2 (classifier x 1.01, parity probe within %.4g) "
+              "at 0.5: 64 requests split %d v1 / %d v2, exactly the crc32 "
+              "rule; each within %.3g of max|logit| of its arm's direct "
+              "predict; promote: the stable arm answers as v2 (%.3g off "
+              "v2, %.3g off v1) with no new capture" % (
+                  tol, want.count("v1"), want.count("v2"), worst, err_v2,
+                  off_v1), flush=True)
+        # the same probe and tolerance must refuse a version that is off:
+        # the classifier x 2 doubles every logit
+        zoo.add_version(name, "v2x2", params={
+            k: v * 2 if k in head else v for k, v in v1.items()})
+        out = zoo.deploy(name, "v2x2", canary_frac=0.5, parity_example=probe,
+                         parity_tol=tol)
+        if out["mode"] != "rolled_back" or out.get("reason") != "parity" \
+                or res.canary is not None or \
+                zoo.active_version(name) != "v2" or telemetry.value(
+                    "zoo.rollbacks", tag="parity") != 1:
+            raise AssertionError("deploy v2x2 (classifier x 2): %s" % out)
+        print("zoo canary v2x2 (classifier x 2) refused by the same parity "
+              "probe: rolled back (parity), diff %.4g against the tolerance "
+              "%.4g; v2 stays active" % (out["diff"], tol), flush=True)
+        # 4) canary v3 rolled back by the injected fault, mid-traffic
+        zoo.add_version(name, "v3", params={
+            k: v * 0.99 if k in head else v for k, v in v1.items()})
+        if zoo.deploy(name, "v3", canary_frac=0.5)["mode"] != "canary":
+            raise AssertionError("deploy v3")
+        # 32 requests queued on both arms, then the fault: the next gate
+        # tick rolls back while the canary's cohorts are queued or running
+        futs = [request(name, 100 + i, request_id=100 + i)[1]
+                for i in range(32)]
+        queued = res.canary.batcher.queue_depth
+        resilience.set_faults("canary_rollback@0")
+        _wait_for("the rollback", lambda: telemetry.value(
+            "zoo.rollbacks", tag="injected") == 1, 30)
+        done = [f.result(timeout=300) for f in futs]
+        if len(done) != 32 or telemetry.value(
+                "zoo.rollbacks", tag="injected") != 1 or \
+                zoo.active_version(name) != "v2":
+            raise AssertionError("rollback: %d of 32 answered, rollbacks %s"
+                                 % (len(done), telemetry.tagged(
+                                     "zoo.rollbacks")))
+        resilience.reset_faults()
+        print("zoo canary v3 rolled back by canary_rollback with %d "
+              "requests queued on its arm: 32 of 32 futures answered, none "
+              "dropped or hung; v2 stays active" % queued, flush=True)
+        # 5) HTTP over the zoo
+        srv = ModelServer(sched).start()
+        url = "http://%s:%d/predict" % srv.address
+
+        def post(body):
+            req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                         headers={"Content-Type":
+                                                  "application/json"})
+            try:
+                with urllib.request.urlopen(req, timeout=300) as r:
+                    return r.status, json.loads(r.read())
+            except urllib.error.HTTPError as e:
+                return e.code, json.loads(e.read())
+
+        rates = {}
+        try:
+            # HTTP_RUNS runs per model, each at least min POSTs and a window
+            # of seconds. The TransformerLM answers with a bucket's whole
+            # logits as JSON (128 x 30522 floats for a 60-token request)
+            for model, threads, least, data in (
+                    ("resnet50_v1", 4, 64, images),
+                    ("transformer_lm", 2, 4, [t[:, :60] for t in tokens])):
+                bodies = [{"model": model, "data": x.tolist()}
+                          for x in data]
+                sched.ensure_resident(model)
+
+                def work(k, i, _bodies=bodies):
+                    code, out = post(_bodies[(k + i) % len(_bodies)])
+                    if code != 200:
+                        raise AssertionError("POST %d: %s" % (code, out))
+
+                rates[model] = [_run_clients_for(threads, least,
+                                                 HTTP_WINDOW_S, work)
+                                for _ in range(HTTP_RUNS)]
+            code, out = post({"model": "nope", "data": [[1]]})
+            if code != 404 or sorted(out["known_models"]) != sorted(specs):
+                raise AssertionError("unknown model: %d %s" % (code, out))
+        finally:
+            srv.close(timeout=60)
+    finally:
+        kernels._spawn = spawn
+        sched.close(timeout=60)
+    wall = time.perf_counter() - t_phase
+    conv_l, flash_l = fused_conv.launches, flash_attention.launches
+    want_conv = 11 * (forwards["resnet50_v1"]
+                      + 2 * len(specs["resnet50_v1"]) * builds["resnet50_v1"])
+    want_flash = BERT_BASE["num_layers"] * (
+        forwards["transformer_lm"]
+        + 2 * len(specs["transformer_lm"]) * builds["transformer_lm"])
+    if conv_l != want_conv or flash_l != want_flash or spawned:
+        raise AssertionError(
+            "zoo launches: fused_conv %d (expected %d), flash %d (expected "
+            "%d); nvcc runs during page-ins %d" % (
+                conv_l, want_conv, flash_l, want_flash, len(spawned)))
+    for model in specs:
+        st = telemetry.retrace_stats("serving.predict.zoo." + model)
+        if st["compiles"] != len(specs[model]) * sum(
+                1 for m, _ in pageins if m == model):
+            raise AssertionError("%s: %s captures over %d page-ins" % (
+                model, st, sum(1 for m, _ in pageins if m == model)))
+    print("zoo gates on %s: fused_conv launches %d = 11 x (%d forwards + "
+          "2 x 4 x %d builds), flash launches %d = 12 x (%d forwards + 2 x "
+          "6 x %d builds), on every arm; captures = buckets x page-ins at "
+          "each model's site; no nvcc during the phase; HTTP requests/s "
+          "in %d runs of at least %.0f s (ResNet-50 4 threads, single-image "
+          "POSTs, at least 64 a run; the TransformerLM 2 threads, 60 "
+          "tokens): %s; phase %.1f s" % (
+              card, conv_l, forwards["resnet50_v1"], builds["resnet50_v1"],
+              flash_l, forwards["transformer_lm"], builds["transformer_lm"],
+              HTTP_RUNS, HTTP_WINDOW_S, "; ".join(
+                  "%s %s (POSTs %s; spread (max - min) / mean %.3f)" % (
+                      m, ", ".join("%.3f" % (n / w) for n, w in runs),
+                      [n for n, _ in runs], _spread([n / w for n, w in runs]))
+                  for m, runs in rates.items()), wall),
+          flush=True)
+    return conv_l, flash_l
 
 
 def resnet50_param_count():
@@ -2580,6 +3270,8 @@ def main():
     hybridize_phase()
     batcher_phase(card)
     http_phase(card)
+    controller_conv = controller_phase(card)
+    zoo_conv, zoo_flash = zoo_phase(card)
     gluon_nd_phase()
     conv_bwd = conv_backward_phase()
     flash_bwd = flash_backward_phase()
@@ -2599,6 +3291,11 @@ def main():
         "forward)", "mxtpu_torch/csrc/flash_attention.cu",
         "mxtpu/ops/pallas/flash_attention.py:125",
         [r for r in flash_bwd if r["shape"] == FLASH_BWD_SHAPES[0][0]])
+    # the bf16 entries' launches on the control plane's paths (each
+    # counted from 0 over its phase)
+    entries[1].update(controller_launches=controller_conv,
+                      zoo_launches=zoo_conv)
+    entries[3].update(zoo_launches=zoo_flash)
     for r in rtc_rows:
         if rtc_launches[r["name"]] < 1:
             raise AssertionError("rtc %s was not launched on the imperative "

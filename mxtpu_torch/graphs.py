@@ -5,7 +5,9 @@ Predictor's buckets and ``HybridBlock.hybridize``'s ``CachedOp`` share
 ``CapturedGraph(fn, static_inputs, pool)`` (``fn`` returns a list of
 tensors, the flat outputs) runs ``fn`` once eagerly on a
 side stream (cuBLAS handles and workspaces come into being there, outside
-the capture), then captures one call of ``fn`` on ``static_inputs`` into a
+the capture; one side stream per device serves every capture, since cuBLAS
+keeps a workspace for each stream it has run on for as long as the
+process lives), then captures one call of ``fn`` on ``static_inputs`` into a
 ``torch.cuda.CUDAGraph`` in ``capture_error_mode="thread_local"``, holding
 ``CAPTURE_LOCK``: a capture never overlaps another one, nor a block's
 eager forward that the Predictor runs under the same lock. ``replay()``
@@ -40,6 +42,7 @@ __all__ = ["CAPTURE_LOCK", "CapturedGraph", "launched", "capturing"]
 CAPTURE_LOCK = threading.RLock()
 _COUNT_LOCK = threading.Lock()
 _STATE = threading.local()
+_SIDE_STREAMS = {}   # device -> the warm-up stream, used under CAPTURE_LOCK
 
 
 def launched(obj):
@@ -89,7 +92,9 @@ class CapturedGraph:
             _STATE.depth = getattr(_STATE, "depth", 0) + 1
             try:
                 cur = torch.cuda.current_stream(device)
-                side = torch.cuda.Stream(device)
+                side = _SIDE_STREAMS.get(device)
+                if side is None:
+                    side = _SIDE_STREAMS[device] = torch.cuda.Stream(device)
                 side.wait_stream(cur)
                 with torch.cuda.stream(side):
                     fn(*self.static_inputs)

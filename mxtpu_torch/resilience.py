@@ -9,8 +9,10 @@ call counter supplies the index. The serving plane's kinds:
 ``serve_overload`` (submit index: that submit sheds), ``serve_timeout``
 (batch index: that batch expires), ``replica_fail`` (dispatch index: the
 replica raises), ``replica_wedge`` (dispatch index: the dispatch never
-answers) and ``oom`` (``maybe_oom``: the Predictor's dispatch raises
-``ResourceExhausted``).
+answers), ``oom`` (``maybe_oom``: the Predictor's dispatch raises
+``ResourceExhausted``), ``zoo_cold`` (call count: that zoo submit sheds as
+if its model were cold and unpageable) and ``canary_rollback`` (call
+count: that canary gate evaluation rules a regression).
 
 The training half of the reference's module (numerics sentinel, loss
 scaling, preemption-safe checkpoints, watchdogs) is not ported yet.

@@ -8,17 +8,26 @@
 * ``ReplicaSet`` / ``ReplicaDispatcher`` (``replicas``): one warmed
   Predictor per device, least-loaded routing, a wedge watchdog with
   exactly-once re-dispatch and per-replica circuit breakers;
+* ``ServingController`` (``controller``): predictive admission from a
+  per-bucket latency model, autoscaling of a ReplicaSet with hysteresis,
+  and replacement of a replica whose breaker stays open;
+* ``ModelZoo`` / ``ZooScheduler`` / ``ZooVersion`` (``zoo``): several
+  models over one device pool, placement by count and device bytes,
+  page-in and eviction, tenant classes, canary rollout with promote and
+  rollback;
 * ``ModelServer`` (``server``): the HTTP front with ``/predict``,
-  ``/healthz``, ``/metrics`` and drain.
+  ``/healthz``, ``/metrics`` and drain, over one model or a zoo.
 
-Not ported yet (ROADMAP A2): ``ServingController``, ``ModelZoo`` /
-``ZooScheduler`` and ``DecodeEngine``.
+Not ported yet (ROADMAP A2): ``DecodeEngine`` and ``KVCacheAccountant``.
 """
 from .batcher import DeadlineExceeded, MicroBatcher, QueueFull
+from .controller import ServingController
 from .engine import BucketSpec, Predictor, pad_nd
 from .replicas import Replica, ReplicaDispatcher, ReplicaFailure, ReplicaSet
 from .server import ModelServer
+from .zoo import ModelZoo, ZooScheduler, ZooVersion
 
 __all__ = ["BucketSpec", "Predictor", "pad_nd", "MicroBatcher", "QueueFull",
            "DeadlineExceeded", "Replica", "ReplicaSet", "ReplicaDispatcher",
-           "ReplicaFailure", "ModelServer"]
+           "ReplicaFailure", "ModelServer", "ServingController", "ModelZoo",
+           "ZooScheduler", "ZooVersion"]

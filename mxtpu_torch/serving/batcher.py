@@ -20,6 +20,12 @@ as ONE padded bucket through the Predictor (``predict_flat``).
 * **Faults**: ``serve_timeout`` (batch index: the batch expires) and
   ``serve_overload`` (submit index: the submit sheds), scheduled with
   ``resilience.set_faults``.
+* **SLO control plane**: with a
+  :class:`~mxtpu_torch.serving.controller.ServingController` attached
+  (``attach_controller``), a submit whose predicted completion misses its
+  deadline sheds ``predicted_miss``; every shed, eviction and expiry is
+  reported to it, and every delivery feeds its latency model with the
+  request's stage breakdown and ``meta`` (the zoo's tenant stamp).
 * **Testable time**: the clock is injected (``clock=``); a stopped batcher
   (``start=False``) dispatches only through :meth:`poll`.
 
@@ -28,10 +34,9 @@ arrays, the worker joins a cohort on the host, runs it, fetches the
 outputs once per batch and splits them per request. The defaults of
 ``max_batch_size`` (8), ``max_wait_ms`` (5), ``max_queue`` (256 items) and
 ``batch_aging_ms`` (1000) are those of the reference's ``MXTPU_SERVE_*``
-levers; the port reads no environment variable. Not ported yet: the SLO
-controller's hooks (``attach_controller``, the request ``meta`` it reads,
-``queue_depths``; ROADMAP A2), the decode engine's ``admission_gate``
-(A2) and the flight recorder's dump on a worker crash (A9).
+levers; the port reads no environment variable. Not ported yet: the decode
+engine's ``admission_gate`` (ROADMAP A2) and the flight recorder's dump on
+a worker crash (A9).
 
 Telemetry: ``serving.requests`` / ``serving.batches`` /
 ``serving.shed{reason}`` / ``serving.deadline_expired`` counters, the
@@ -110,16 +115,19 @@ class _Future:
 
 class _Request:
     __slots__ = ("inputs", "n", "bucket_key", "deadline", "t_enq", "future",
-                 "redispatched", "trace", "priority")
+                 "redispatched", "trace", "priority", "meta")
 
     def __init__(self, inputs, n, bucket_key, deadline, t_enq, trace=None,
-                 priority="interactive"):
+                 priority="interactive", meta=None):
         self.inputs = inputs
         self.n = n
         self.bucket_key = bucket_key
         self.deadline = deadline
         self.t_enq = t_enq
         self.priority = priority
+        # attribution handed to the controller with this request's verdict
+        # (the zoo stamps model, tenant and version)
+        self.meta = meta
         self.future = _Future()
         # set when a wedge-watchdog trip re-enqueues this request on a
         # healthy replica: re-dispatch happens exactly once (replicas.py)
@@ -164,6 +172,7 @@ class MicroBatcher:
         self._batch_index = 0
         self._inflight = 0     # popped, not yet delivered: drain waits
         self._thread = None
+        self._controller = None  # the SLO control plane, when attached
         if start:
             if not allow_cold and not getattr(predictor, "warmed", True):
                 raise MXNetError(
@@ -172,23 +181,34 @@ class MicroBatcher:
             self.start()
 
     # ------------------------------------------------------------- admission
-    def submit(self, inputs, deadline_ms=None, priority="interactive"):
+    def attach_controller(self, controller):
+        """Wire the SLO control plane in (``ServingController.__init__``
+        does it): admission consults ``controller.admit``, delivery feeds
+        ``controller.observe``, sheds and expiries its pressure signals.
+        Returns self."""
+        self._controller = controller
+        return self
+
+    def submit(self, inputs, deadline_ms=None, priority="interactive",
+               meta=None):
         """Enqueue one request: an array or a tuple of arrays sharing batch
         axis 0, kept on the host until dispatch. Returns a future; raises
         :class:`QueueFull` when shed and ``MXNetError`` when malformed.
-        ``priority`` is ``interactive`` or ``batch``. Each admitted request
-        starts a trace here, whose stage breakdown comes back on the
-        future."""
+        ``priority`` is ``interactive`` or ``batch``; ``meta`` is an opaque
+        attribution dict handed to the controller with the request's
+        verdict. Each admitted request starts a trace here, whose stage
+        breakdown comes back on the future."""
         trace = telemetry.new_trace()
         t0 = time.perf_counter()
         with telemetry.trace_handoff(trace), \
                 telemetry.span("serving.submit"):
-            req = self._admit(inputs, deadline_ms, trace, priority)
+            req = self._admit(inputs, deadline_ms, trace, priority, meta)
         telemetry.add_stage(trace, "serving.submit",
                             time.perf_counter() - t0)
         return req.future
 
-    def _admit(self, inputs, deadline_ms, trace, priority="interactive"):
+    def _admit(self, inputs, deadline_ms, trace, priority="interactive",
+               meta=None):
         if priority not in PRIORITIES:
             raise MXNetError("submit: unknown priority %r (expected one "
                              "of %s)" % (priority, "|".join(PRIORITIES)))
@@ -213,10 +233,22 @@ class MicroBatcher:
                 if inputs[0].ndim > spec.seq_axis else 0)
         if inject("serve_overload"):
             self._shed("injected_overload")
+        if self._controller is not None:
+            # predictive admission: shed now when the latency model already
+            # predicts a deadline miss, before the depth bound fills
+            queued_ahead = sum(r.n for r in list(self._q)
+                               if r.bucket_key == bucket_key)
+            reason = self._controller.admit(
+                n, bucket_key,
+                None if deadline_ms is None else deadline_ms / 1e3,
+                priority, queued_ahead=queued_ahead)
+            if reason:
+                telemetry.trace_mark(trace, "serving.controller.shed")
+                self._shed(str(reason))
         now = self._clock()
         deadline = None if deadline_ms is None else now + deadline_ms / 1e3
         req = _Request(inputs, n, bucket_key, deadline, now, trace,
-                       priority)
+                       priority, meta)
         evicted, shed_reason = (), None
         with self._cond:
             if self._crashed:
@@ -276,6 +308,8 @@ class MicroBatcher:
             telemetry.inc("serving.shed", tag="priority_evict")
         if victims:
             telemetry.gauge("serving.queue_depth", self._items)
+            if self._controller is not None:
+                self._controller.note_shed("priority_evict", self._clock())
         return victims
 
     def _validate_shapes(self, inputs, spec):
@@ -305,11 +339,26 @@ class MicroBatcher:
 
     def _shed(self, reason):
         telemetry.inc("serving.shed", tag=reason)
+        if self._controller is not None:
+            self._controller.note_shed(reason, self._clock())
         raise QueueFull("request shed: %s" % reason)
 
     @property
     def queue_depth(self):
         return self._items
+
+    def queue_depths(self):
+        """Queued items per priority class (the controller's ``/healthz``
+        view)."""
+        out = dict.fromkeys(PRIORITIES, 0)
+        with self._cond:
+            for r in self._q:
+                out[r.priority] += r.n
+        return out
+
+    @property
+    def draining(self):
+        return self._draining
 
     # ------------------------------------------------------------ coalescing
     def _lead_locked(self, now):
@@ -505,11 +554,24 @@ class MicroBatcher:
                 r.future.trace_id = r.trace.trace_id
                 r.future.breakdown = telemetry.trace_breakdown(r.trace)
                 r.future.e2e_s = done - r.t_enq
+            if self._controller is not None:
+                # the observe half of the control loop; without tracing
+                # there is no breakdown, so the enqueue-to-deliver interval
+                # (same injected clock) stands in for the total
+                bd = r.future.breakdown
+                if not bd:
+                    bd = {"serving.queue_wait": max(0.0, done - r.t_enq)}
+                self._controller.observe(
+                    r.bucket_key, bd,
+                    hit=r.deadline is None or done <= r.deadline,
+                    now=done, n=r.n, meta=r.meta)
             r.future._event.set()
             telemetry.observe("serving.latency_s", done - r.t_enq)
 
     def _expire(self, req):
         telemetry.inc("serving.deadline_expired")
+        if self._controller is not None:
+            self._controller.note_expired(self._clock(), meta=req.meta)
         self._fail(req, DeadlineExceeded(
             "deadline passed before dispatch (queued %.1f ms)"
             % ((self._clock() - req.t_enq) * 1e3)))

@@ -34,10 +34,19 @@ and traffic adds none.
 
 ``predict_flat`` returns the reference's ``(flat NDArrays, out_fmt,
 bucket)``; ``predict`` regroups them into the block's output structure of
-NDArrays. Not ported yet: ``from_checkpoint`` (needs the symbol API) and
+NDArrays.
+
+Memory: before ``warmup()`` builds, the pre-flight
+(``xprof.preflight``) holds the site's last recorded footprint (else the
+snapshot and static inputs) plus the bytes ``co_resident()`` reports held
+by other models on the device against the device's limit, and counts
+``memory.overcommit`` past it; after warm-up the bytes the Predictor holds
+are recorded at its site (``xprof.site_footprint``). ``release()`` drops
+the graphs, their pool and the snapshot (a zoo eviction).
+
+Not ported yet: ``from_checkpoint`` (needs the symbol API) and
 ``from_trainer_checkpoint`` (needs ``contrib.async_checkpoint``), the
-compile service and its disk cache, the memory pre-flight and the decode
-engine's hooks.
+compile service and its disk cache, and the decode engine's hooks.
 """
 from __future__ import annotations
 
@@ -46,7 +55,7 @@ import threading
 import numpy as np
 import torch
 
-from .. import resilience, telemetry
+from .. import resilience, telemetry, xprof
 from ..base import MXNetError, canonical_dtype
 from ..context import resolve_device
 from ..graphs import CAPTURE_LOCK, CapturedGraph
@@ -177,7 +186,10 @@ class Predictor:
     retrace site the builds count at (``serving.predict.r<i>`` for a
     ReplicaSet member); ``name`` labels the provenance. ``int8=True``
     stores weights as int8 (the ``MXTPU_SERVE_INT8`` lever of the JAX
-    package, off by default).
+    package, off by default). ``co_resident`` is a callable returning the
+    bytes other models already hold on this device (the zoo's), which the
+    pre-flight adds. ``param_version`` names the parameters served (the
+    zoo's version, stamped by ``refresh_params``).
 
     One request runs at a time (a lock around pad, replay and copy-out),
     so a MicroBatcher's worker and direct callers may share a Predictor.
@@ -185,7 +197,7 @@ class Predictor:
 
     def __init__(self, block, spec, example=None, warmup=False,
                  name="predictor", device=None, site="serving.predict",
-                 int8=False):
+                 int8=False, co_resident=None):
         if not hasattr(block, "collect_params"):
             raise MXNetError("Predictor serves HybridBlock-family models "
                              "(got %s)" % type(block).__name__)
@@ -195,6 +207,7 @@ class Predictor:
         self._device = resolve_device(device)
         self._site = site
         self._int8 = bool(int8)
+        self._co_resident = co_resident
         self.param_version = None
         self._params = None      # ordered Parameters, fixed at settle
         self._keys = None        # their functional_call names
@@ -409,11 +422,15 @@ class Predictor:
 
     def warmup(self):
         """Build every bucket, largest first (on CUDA each capture runs its
-        bucket once eagerly first, then records it); returns self. Buckets
-        already built are kept."""
+        bucket once eagerly first, then records it), after the memory
+        pre-flight; returns self. Buckets already built are kept."""
         if self._templates is None:
             raise MXNetError("Predictor.warmup needs input templates: pass "
                              "example= at construction")
+        xprof.preflight(
+            self._site, self._device,
+            extra_bytes=int(self._co_resident()) if self._co_resident else 0,
+            need=xprof.site_footprint(self._site) or self._static_bytes())
         with self._lock:
             for b, s in sorted(self._spec.buckets(),
                                key=lambda bs: (-bs[0], -(bs[1] or 0))):
@@ -422,24 +439,58 @@ class Predictor:
 
     def finish_warmup(self):
         """Run each bucket once on its padding (a model that builds but
-        cannot run fails here, not on the first request) and gauge the
-        bucket count; returns self."""
-        for b, s in self._spec.buckets():
-            self.run_bucket(b, s)
+        cannot run fails here, not on the first request), gauge the bucket
+        count and record the bytes held at the site; returns self."""
+        out_bytes = sum(self.run_bucket(b, s) for b, s in
+                        self._spec.buckets())
         telemetry.gauge("serving.buckets", len(self._spec))
+        if self._device.type == "cuda":
+            out_bytes = self._pool_bytes()   # the outputs live in the pool
+        xprof.record_footprint(self._site, self._static_bytes() + out_bytes)
         return self
 
     def run_bucket(self, b, s=None):
         """Run bucket (``b``, ``s``) once on its padding and wait for it
-        (the warm-up check and a replica's half-open probe)."""
+        (the warm-up check and a replica's half-open probe); returns the
+        bytes of its outputs."""
         with self._lock:
             entry = self._bucket(self._bucket_key(b, s))
             for static in entry.static_inputs:
                 static.fill_(self._spec.pad_value)
             resilience.maybe_oom()
-            entry.replay()
+            outs = entry.replay()
         if self._device.type == "cuda":
             torch.cuda.synchronize(self._device)
+        return sum(o.numel() * o.element_size() for o in outs)
+
+    def _static_bytes(self):
+        """The snapshot's bytes and every bucket's static inputs'."""
+        inputs = 0
+        for b, s in self._spec.buckets():
+            for shape, dt in self._bucket_key(b, s):
+                inputs += int(np.prod(shape)) * \
+                    torch.empty((), dtype=dt).element_size()
+        return self.param_bytes() + inputs
+
+    def _pool_bytes(self):
+        """Bytes of the segments of this Predictor's graph memory pool on
+        its device."""
+        if self._pool is None:
+            return 0
+        pool = tuple(self._pool)
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if seg["device"] == self._device.index
+                   and tuple(seg["segment_pool_id"]) == pool)
+
+    def release(self):
+        """Drop the captured graphs, their memory pool and the parameter
+        snapshot, giving the device memory back (a zoo eviction). A later
+        request settles and builds again."""
+        with self._lock:
+            self._buckets = {}
+            self._pool = None
+            self._stored = self._ranges = self._templates = None
+            self._deq = {}
 
     def compile_stats(self):
         """The retrace watchdog's view of this Predictor's site:

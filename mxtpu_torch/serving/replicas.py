@@ -5,8 +5,15 @@
   Predictor` per device, each with its own parameter snapshot on its
   device and its builds counted at retrace site ``serving.predict.r<i>``.
   With no ``devices`` it takes every visible CUDA device (``n`` of them
-  when given) and raises when there is none; the CPU runs replicas only
-  when asked (``devices=["cpu", "cpu"]``).
+  when given, from :func:`visible_devices`) and raises when there is none;
+  the CPU runs replicas only when asked (``devices=["cpu", "cpu"]``).
+* **Elasticity** -- ``add_replica`` grows the set by a replica in state
+  ``warming``, never routed until ``warm_replica`` has captured every
+  bucket at its own site (indices are never reused);
+  ``remove_replica`` retires one, which stops pulling work and leaves the
+  set once its in-flight work drained (``finalize_retiring``). The
+  :class:`~mxtpu_torch.serving.controller.ServingController` drives both
+  through the dispatcher, whose bring-up runs off the serving path.
 * :class:`ReplicaDispatcher` -- a :class:`~mxtpu_torch.serving.batcher.
   MicroBatcher` with one dispatch worker per replica, all fed from the
   same FIFO cohorts (a busy or quarantined replica stops pulling work;
@@ -26,10 +33,10 @@
 Fault kinds (``resilience.set_faults``): ``replica_fail@i`` -- the replica
 running serving dispatch *i* raises; ``replica_wedge@i`` -- that dispatch
 never answers. The defaults are the reference's ``MXTPU_SERVE_*`` levers;
-the port reads no environment variable. Not ported yet: elastic growth
-and retirement (``add_replica``/``remove_replica``, which the SLO
-controller drives), the KV-cache accountant (decode) and the flight
-recorder's dumps.
+the port reads no environment variable. Not ported yet: the KV-cache
+accountant's hooks (``attach_accountant``, ``kv_admissible`` and the
+``kv_residency`` shed, its rows in ``states()``), which come with decode
+(ROADMAP A2), and the flight recorder's dumps (A9).
 """
 from __future__ import annotations
 
@@ -47,7 +54,7 @@ from .batcher import DeadlineExceeded, MicroBatcher, QueueFull
 from .engine import Predictor
 
 __all__ = ["Replica", "ReplicaSet", "ReplicaDispatcher", "ReplicaFailure",
-           "DISPATCH_TIMEOUT_MS", "BREAKER_THRESHOLD", "BREAKER_BACKOFF_MS",
+           "visible_devices", "DISPATCH_TIMEOUT_MS", "BREAKER_THRESHOLD", "BREAKER_BACKOFF_MS",
            "BREAKER_BACKOFF_MAX_MS"]
 
 _log = logging.getLogger("mxtpu_torch.serving")
@@ -63,6 +70,14 @@ BREAKER_BACKOFF_MAX_MS = 30000.0
 _WEDGED = object()
 
 
+def visible_devices():
+    """The CUDA devices this process sees (``cuda:<i>``), where a replica
+    goes when no device is named; empty without a card."""
+    if not torch.cuda.is_available():
+        return []
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
 class ReplicaFailure(MXNetError):
     """A replica-level dispatch failure (a device error or the injected
     ``replica_fail``): it counts toward that replica's breaker."""
@@ -71,22 +86,29 @@ class ReplicaFailure(MXNetError):
 class Replica:
     """One serving replica: a warmed Predictor on a device and its health.
     States: ``healthy`` (routable) -> ``quarantined`` (breaker open or
-    wedged; a probe is due at ``probe_at``) -> ``probing`` -> back."""
+    wedged; a probe is due at ``probe_at``) -> ``probing`` -> back; and the
+    elastic ones: ``warming`` (bring-up, never routed) -> ``healthy``, and
+    ``retiring`` (drains its in-flight work) -> ``removed``."""
 
     __slots__ = ("index", "device", "predictor", "state", "consecutive",
-                 "inflight", "dispatches", "wedged", "backoff_s", "probe_at")
+                 "inflight", "dispatches", "wedged", "backoff_s", "probe_at",
+                 "down_since")
 
-    def __init__(self, index, device, predictor, backoff_s):
+    def __init__(self, index, device, predictor, backoff_s,
+                 state="healthy"):
         self.index = index
         self.device = device
         self.predictor = predictor
-        self.state = "healthy"
+        self.state = state
         self.consecutive = 0      # consecutive dispatch failures (breaker)
         self.inflight = 0         # batches executing here now
         self.dispatches = 0
         self.wedged = False       # a dispatch never returned
         self.backoff_s = backoff_s
         self.probe_at = None
+        # clock of the breaker's opening: the continuous outage the
+        # controller's replacement bound reads; a restore clears it
+        self.down_since = None
 
     @property
     def tag(self):
@@ -107,21 +129,20 @@ class ReplicaSet:
                  breaker_backoff_ms=BREAKER_BACKOFF_MS,
                  breaker_backoff_max_ms=BREAKER_BACKOFF_MAX_MS, int8=False):
         if devices is None:
-            avail = torch.cuda.device_count() \
-                if torch.cuda.is_available() else 0
-            if avail == 0:
+            avail = visible_devices()
+            if not avail:
                 raise MXNetError(
                     "ReplicaSet: no CUDA device is visible and no devices "
                     "were given: pass devices=['cpu', ...] to run replicas "
                     "on the host")
-            count = avail if n is None else int(n)
+            count = len(avail) if n is None else int(n)
             if count < 1:
                 raise MXNetError("ReplicaSet: need at least 1 replica")
-            if count > avail:
+            if count > len(avail):
                 raise MXNetError(
                     "ReplicaSet: %d replicas requested but only %d device"
-                    "(s) visible" % (count, avail))
-            devices = ["cuda:%d" % i for i in range(count)]
+                    "(s) visible" % (count, len(avail)))
+            devices = avail[:count]
         if not devices:
             raise MXNetError("ReplicaSet: empty device list")
         self.spec = spec
@@ -129,16 +150,26 @@ class ReplicaSet:
         self.backoff0_s = float(breaker_backoff_ms) / 1e3
         self.backoff_max_s = float(breaker_backoff_max_ms) / 1e3
         self._lock = threading.Lock()
+        # what elastic growth builds a new replica from
+        self._block, self._example = block, example
+        self._name, self._int8 = name, int8
         self.replicas = []
         for i, dev in enumerate(devices):
-            dev = resolve_device(dev)
-            pred = Predictor(block, spec, example=example, warmup=False,
-                             name="%s.r%d" % (name, i), device=dev,
-                             site="serving.predict.r%d" % i, int8=int8)
-            self.replicas.append(Replica(i, dev, pred, self.backoff0_s))
+            self.replicas.append(self._new_replica(i, dev))
+        # replica indices are identities, never positions: a retired
+        # replica's retrace site and telemetry tags are never reused
+        self._next_index = len(self.replicas)
         telemetry.gauge("serving.replicas", len(self.replicas))
         if warmup:
             self.warmup()
+
+    def _new_replica(self, index, device, state="healthy"):
+        dev = resolve_device(device)
+        pred = Predictor(self._block, self.spec, example=self._example,
+                         warmup=False, name="%s.r%d" % (self._name, index),
+                         device=dev, site="serving.predict.r%d" % index,
+                         int8=self._int8)
+        return Replica(index, dev, pred, self.backoff0_s, state=state)
 
     # --------------------------------------------------- batcher interface
     @property
@@ -147,8 +178,10 @@ class ReplicaSet:
 
     @property
     def warmed(self):
-        """True once every replica built its buckets."""
-        return all(r.predictor.warmed for r in self.replicas)
+        """True once every serving replica built its buckets (one still in
+        its bring-up is not serving yet)."""
+        reps = [r for r in self.replicas if r.state != "warming"]
+        return bool(reps) and all(r.predictor.warmed for r in reps)
 
     def warmup(self):
         """Build every bucket on every replica; returns self."""
@@ -159,12 +192,99 @@ class ReplicaSet:
     def __len__(self):
         return len(self.replicas)
 
+    # ------------------------------------------------------------ elasticity
     def _find_locked(self, index):
         for r in self.replicas:
             if r.index == index:
                 return r
         raise MXNetError("ReplicaSet: no replica with index %d (live: %s)"
                          % (index, [r.index for r in self.replicas]))
+
+    def _free_devices_locked(self):
+        return [d for d in visible_devices()
+                if not any(d == r.device for r in self.replicas)]
+
+    def free_devices(self):
+        """Visible devices no current replica (in any state) is on: where
+        a replacement or a scale-up replica goes first."""
+        with self._lock:
+            return self._free_devices_locked()
+
+    def add_replica(self, device=None, warm=True):
+        """Grow the set by one replica in state ``warming``: listed in
+        ``states()``, never routed until :meth:`warm_replica` has captured
+        every bucket at its own new site ``serving.predict.r<i>``. With no
+        ``device`` it takes the first free one and raises when every
+        visible device hosts a replica. ``warm=False`` leaves the bring-up
+        to the caller (the dispatcher runs it off the serving path).
+        Returns the new replica."""
+        with self._lock:
+            idx = self._next_index
+            self._next_index += 1
+            if device is None:
+                free = self._free_devices_locked()
+                if not free:
+                    raise MXNetError(
+                        "ReplicaSet.add_replica: every visible device "
+                        "already hosts a replica — pass device= to double "
+                        "up explicitly")
+                device = free[0]
+            rep = self._new_replica(idx, device, state="warming")
+            self.replicas.append(rep)
+            telemetry.gauge("serving.replicas", len(self.replicas))
+        if warm:
+            self.warm_replica(rep)
+        return rep
+
+    def warm_replica(self, rep):
+        """Capture the warming replica's buckets, then make it routable
+        (``healthy``). A failed warm-up removes the replica and raises: a
+        member that cannot build never joins. Returns the replica."""
+        try:
+            rep.predictor.warmup()
+        except Exception:
+            with self._lock:
+                if rep in self.replicas:
+                    self.replicas.remove(rep)
+                telemetry.gauge("serving.replicas", len(self.replicas))
+            raise
+        with self._lock:
+            if rep.state == "warming":
+                rep.state = "healthy"
+                telemetry.inc("serving.replica.joins", tag=rep.tag)
+                _log.info("serving replica %d warmed and joined the "
+                          "dispatch pool", rep.index)
+        return rep
+
+    def remove_replica(self, index):
+        """Start retiring a replica (scale-down, or the dead half of a
+        replacement): it turns ``retiring``, is never picked or probed, and
+        leaves the set once its in-flight work drained
+        (:meth:`finalize_retiring`): its in-flight futures always complete.
+        Returns the replica."""
+        with self._lock:
+            rep = self._find_locked(index)
+            if rep.state != "retiring":
+                rep.state = "retiring"
+                rep.probe_at = None
+                telemetry.inc("serving.replica.retirements", tag=rep.tag)
+                _log.info("serving replica %d retiring (inflight=%d)",
+                          rep.index, rep.inflight)
+            return rep
+
+    def finalize_retiring(self):
+        """Drop the retiring replicas whose in-flight work drained; their
+        dispatch workers exit on state ``removed``. Returns them."""
+        done = []
+        with self._lock:
+            for rep in [r for r in self.replicas
+                        if r.state == "retiring" and r.inflight == 0]:
+                rep.state = "removed"
+                self.replicas.remove(rep)
+                done.append(rep)
+            if done:
+                telemetry.gauge("serving.replicas", len(self.replicas))
+        return done
 
     # ------------------------------------------------------------- routing
     def pick(self, exclude=()):
@@ -230,6 +350,8 @@ class ReplicaSet:
     def _open_locked(self, rep, now):
         rep.state = "quarantined"
         rep.probe_at = now + rep.backoff_s
+        if rep.down_since is None:
+            rep.down_since = now
         telemetry.inc("serving.replica.quarantines", tag=rep.tag)
         _log.warning("serving replica %d quarantined (wedged=%s, "
                      "consecutive_failures=%d); half-open probe in %.1f s",
@@ -261,12 +383,15 @@ class ReplicaSet:
         """Half-open verdict: success restores the replica, failure doubles
         the backoff and quarantines it again."""
         with self._lock:
+            if rep.state in ("retiring", "removed"):
+                return  # written off mid-probe: a verdict cannot revive it
             if ok:
                 rep.state = "healthy"
                 rep.wedged = False
                 rep.consecutive = 0
                 rep.backoff_s = self.backoff0_s
                 rep.probe_at = None
+                rep.down_since = None
                 telemetry.inc("serving.replica.restores", tag=rep.tag)
                 _log.info("serving replica %d restored by half-open probe",
                           rep.index)
@@ -282,10 +407,10 @@ class ReplicaSet:
         """Per-replica health for ``/healthz``."""
         with self._lock:
             return [{"replica": r.index, "device": str(r.device),
-                     "state": r.state, "inflight": r.inflight,
-                     "dispatches": r.dispatches,
-                     "consecutive_failures": r.consecutive,
-                     "wedged": r.wedged, "probe_at": r.probe_at}
+                    "state": r.state, "inflight": r.inflight,
+                    "dispatches": r.dispatches,
+                    "consecutive_failures": r.consecutive,
+                    "wedged": r.wedged, "probe_at": r.probe_at}
                     for r in self.replicas]
 
 
@@ -330,14 +455,56 @@ class ReplicaDispatcher(MicroBatcher):
         with self._cond:
             self._cond.notify_all()
 
-    def submit(self, inputs, deadline_ms=None, priority="interactive"):
+    def submit(self, inputs, deadline_ms=None, priority="interactive",
+               meta=None):
         if self._set.healthy_count() == 0:
             # a due probe may restore a replica before this refuses
             self._maintain()
             if self._set.healthy_count() == 0:
                 self._shed("no_healthy_replica")
         return super().submit(inputs, deadline_ms=deadline_ms,
-                              priority=priority)
+                              priority=priority, meta=meta)
+
+    # ---------------------------------------------------------- elasticity
+    def add_replica(self, device=None):
+        """Grow the pool by one replica. Its bring-up (a capture of every
+        bucket at its new ``serving.predict.r<i>`` site) runs off the
+        serving path: on a thread of its own in threaded mode, inline under
+        :meth:`poll`. It joins dispatch once warm, with a worker of its own
+        in threaded mode; a failed bring-up is reported to the controller
+        as ``warmup_failed``. Returns the (maybe still warming) replica."""
+        rep = self._set.add_replica(device=device, warm=False)
+
+        def bringup():
+            try:
+                self._set.warm_replica(rep)  # a failure removes the replica
+            except Exception as e:  # noqa: BLE001 — recorded, not lost
+                _log.exception("serving: replica %d bring-up failed",
+                               rep.index)
+                if self._controller is not None:
+                    self._controller.note_warmup_failed(e, self._clock())
+                return
+            with self._cond:
+                self._cond.notify_all()
+            if self._threads:
+                self._spawn_worker(rep)
+
+        if self._threads:
+            threading.Thread(target=bringup, daemon=True,
+                             name="mxtpu-serving-warmup-r%d"
+                             % rep.index).start()
+        else:
+            bringup()
+        return rep
+
+    def remove_replica(self, index):
+        """Retire a replica through the drain: it stops pulling work at
+        once, its in-flight futures complete, and the next maintenance pass
+        removes it."""
+        rep = self._set.remove_replica(index)
+        with self._cond:
+            self._cond.notify_all()
+        return rep
 
     # --------------------------------------------------------- maintenance
     @staticmethod
@@ -360,6 +527,16 @@ class ReplicaDispatcher(MicroBatcher):
                 due.append((rep, entry))
         for rep, entry in due:
             self._probe(rep, entry)
+        self._post_maintain()
+
+    def _post_maintain(self):
+        """The elastic tail of every maintenance pass: drop the drained
+        retiring replicas, then tick the attached controller (outside every
+        lock: a bring-up is device work). Under a fake clock this is how
+        :meth:`poll` drives the whole control plane."""
+        self._set.finalize_retiring()
+        if self._controller is not None:
+            self._controller.tick(self._clock())
 
     def poll(self):
         self._maintain()
@@ -555,6 +732,8 @@ class ReplicaDispatcher(MicroBatcher):
                 while batch is None:
                     if self._closed and not self._q:
                         return
+                    if rep.state == "removed":
+                        return  # retired and drained
                     now = self._clock()
                     self._scan_wedges_locked(now)
                     if rep.state != "healthy":
@@ -594,6 +773,7 @@ class ReplicaDispatcher(MicroBatcher):
                 threading.Thread(
                     target=self._probe, args=(rep, entry), daemon=True,
                     name="mxtpu-serving-probe-%d" % rep.index).start()
+            self._post_maintain()
             self._stop.wait(interval)
 
     # ------------------------------------------------------- drain / close

@@ -2,10 +2,16 @@
 (counterpart of ``mxtpu/serving/server.py``).
 
 * **Admission control**: a full queue answers 503 now (``serving.shed``
-  by reason), a missed deadline 504, a request that admission refuses as
-  malformed 400. A batch that fails after admission answers 503 for a
-  replica failure and 500 for any other error (the JAX package answers
-  400 for every ``MXNetError``, which blames the client for the server).
+  by reason) with a ``Retry-After`` from the attached
+  :class:`~mxtpu_torch.serving.controller.ServingController`'s predicted
+  drain time (1 s without one), a missed deadline 504, a request that
+  admission refuses as malformed 400. A batch that fails after admission
+  answers 503 for a replica failure and 500 for any other error (the JAX
+  package answers 400 for every ``MXNetError``, which blames the client
+  for the server).
+* **Several models**: over a :class:`~mxtpu_torch.serving.zoo.
+  ZooScheduler` a request names its ``model`` (and may pin a
+  ``version``); an unknown one answers 404 with the known names.
 * **Observability**: ``/metrics`` returns ``telemetry.snapshot()`` as JSON,
   or the Prometheus text exposition for ``Accept: text/plain``.
 * **Graceful drain**: SIGTERM (``install_signal_handlers``) or
@@ -20,18 +26,22 @@ in and out; inputs are converted to the Predictor's template dtypes
 Endpoints::
 
     POST /predict   {"data": [[...], ...], "deadline_ms": 250,
-                     "priority": "interactive"|"batch"}
+                     "priority": "interactive"|"batch",
+                     "model": name, "version": v, "tenant": t}  (the last
+                    three over a ZooScheduler)
                     -> 200 {"outputs": [...], "n": k, "trace_id": ...,
                             "e2e_ms": ..., "breakdown_ms": {stage: ms}}
-                    -> 503 shed/draining/replica failure (Retry-After:
-                       1), 504 deadline, 400 bad request, 500 failed batch
+                    -> 503 shed/draining/replica failure (Retry-After),
+                       504 deadline, 400 bad request, 404 unknown model
+                       or version, 500 failed batch
     GET  /healthz   {"status": "ok"|"degraded"|"unhealthy"|"draining",
-                     "queue_depth": d, "replicas": [...]}
+                     "queue_depth": d, "replicas": [...],
+                     "controller": {...}, "zoo": {...}}
+                    (each block where it applies)
     GET  /metrics   telemetry.snapshot() as JSON, or Prometheus text
 
-Not ported yet: the model zoo's multi-model routing and the SLO
-controller's ``Retry-After`` estimate and ``/healthz`` block (ROADMAP A2),
-the flight recorder's dump and the telemetry sink's flush on SIGTERM (A9).
+Not ported yet: the flight recorder's dump and the telemetry sink's flush
+on SIGTERM (ROADMAP A9).
 """
 from __future__ import annotations
 
@@ -48,6 +58,7 @@ from .. import telemetry
 from ..base import MXNetError, numpy_dtype
 from .batcher import DeadlineExceeded, MicroBatcher, QueueFull
 from .replicas import ReplicaDispatcher, ReplicaFailure, ReplicaSet
+from .zoo import ZooScheduler
 
 __all__ = ["ModelServer"]
 
@@ -65,12 +76,16 @@ def _json_dtype(dt):
 class ModelServer:
     """HTTP front for a :class:`~mxtpu_torch.serving.batcher.MicroBatcher`
     (a bare Predictor gets a default MicroBatcher, a ReplicaSet a
-    ReplicaDispatcher). ``port=0`` picks a free port; ``address`` is the
-    bound (host, port)."""
+    ReplicaDispatcher) or a :class:`~mxtpu_torch.serving.zoo.ZooScheduler`
+    (requests route by their ``model`` field). ``port=0`` picks a free
+    port; ``address`` is the bound (host, port)."""
 
     def __init__(self, batcher, host="127.0.0.1", port=0,
                  request_timeout_s=30.0):
-        if isinstance(batcher, ReplicaSet):
+        self._zoo = None
+        if isinstance(batcher, ZooScheduler):
+            self._zoo = batcher
+        elif isinstance(batcher, ReplicaSet):
             batcher = ReplicaDispatcher(batcher)
         elif not isinstance(batcher, MicroBatcher):
             batcher = MicroBatcher(batcher)
@@ -152,18 +167,50 @@ class ModelServer:
         return self
 
     # ---------------------------------------------------------------- request
+    def _retry_after(self):
+        """The 503's ``Retry-After`` seconds: the attached controller's
+        predicted time to drain the queue, 1 without a controller."""
+        ctrl = getattr(self._batcher, "_controller", None)
+        if ctrl is not None:
+            try:
+                return ctrl.retry_after_s()
+            except Exception:  # noqa: BLE001 — a header, not control flow
+                _log.debug("retry_after_s failed", exc_info=True)
+        return 1
+
     def _handle_predict(self, body):
         """(status, payload, extra headers or None), on the handler
         thread, which parks on the future while the batcher coalesces."""
         if self.draining:
             telemetry.inc("serving.shed", tag="draining")
-            return 503, {"error": "draining"}, {"Retry-After": "1"}
+            return 503, {"error": "draining"}, \
+                {"Retry-After": str(self._retry_after())}
         raw = body.get("inputs")
         if raw is None:
             raw = [body.get("data")]
         if not raw or raw[0] is None:
             return 400, {"error": "missing 'data' (or 'inputs') field"}, None
-        templates = getattr(self._batcher._pred, "input_templates", None)
+        model = version = None
+        if self._zoo is not None:
+            # the body names the model (404 with the known names) and may
+            # pin a version (404 with that model's versions)
+            reg = self._zoo.registry
+            model = body.get("model")
+            if not model:
+                return 400, {"error": "missing 'model' field",
+                             "known_models": reg.models()}, None
+            if model not in reg.models():
+                return 404, {"error": "unknown model %r" % (model,),
+                             "known_models": reg.models()}, None
+            version = body.get("version")
+            if version is not None and version not in reg.versions(model):
+                return 404, {"error": "unknown version %r of model %r"
+                             % (version, model),
+                             "known_versions": reg.versions(model)}, None
+            templates = self._zoo.input_templates(model)
+        else:
+            templates = getattr(self._batcher._pred, "input_templates",
+                                None)
         arrays = []
         for i, a in enumerate(raw):
             dtype = None
@@ -178,18 +225,27 @@ class ModelServer:
             # the batcher's deadline defaults to the handler's timeout: a
             # request the handler gave up on expires instead of running
             deadline_ms = body.get("deadline_ms", self._timeout * 1e3)
-            fut = self._batcher.submit(
-                tuple(arrays), deadline_ms=deadline_ms,
-                priority=body.get("priority", "interactive"))
+            if self._zoo is not None:
+                fut = self._zoo.submit(model, tuple(arrays),
+                                       tenant=body.get("tenant"),
+                                       deadline_ms=deadline_ms,
+                                       priority=body.get("priority"),
+                                       version=version)
+            else:
+                fut = self._batcher.submit(
+                    tuple(arrays), deadline_ms=deadline_ms,
+                    priority=body.get("priority", "interactive"))
         except QueueFull as e:
-            return 503, {"error": str(e)}, {"Retry-After": "1"}
+            return 503, {"error": str(e)}, \
+                {"Retry-After": str(self._retry_after())}
         except MXNetError as e:
             # admission refuses malformed requests: the client's fault
             return 400, {"error": str(e)}, None
         try:
             out = fut.result(timeout=self._timeout)
         except (QueueFull, ReplicaFailure) as e:
-            return 503, {"error": str(e)}, {"Retry-After": "1"}
+            return 503, {"error": str(e)}, \
+                {"Retry-After": str(self._retry_after())}
         except DeadlineExceeded as e:
             return 504, {"error": str(e)}, None
         except Exception as e:  # noqa: BLE001 — the batch failed server-side
@@ -239,6 +295,11 @@ def _make_handler(srv):
                     if not srv.draining and healthy < len(reps):
                         payload["status"] = ("degraded" if healthy
                                              else "unhealthy")
+                if srv._zoo is not None:
+                    payload["zoo"] = srv._zoo.view()
+                ctrl = getattr(srv._batcher, "_controller", None)
+                if ctrl is not None:
+                    payload["controller"] = ctrl.view()
                 self._reply(200, payload)
             elif self.path == "/metrics":
                 accept = self.headers.get("Accept", "")

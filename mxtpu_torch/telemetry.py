@@ -21,6 +21,13 @@ The part of the JAX package's telemetry that the serving plane calls:
   handed across threads only by ``trace_handoff``; ``add_stage`` credits
   a stage's seconds to a trace and ``trace_breakdown`` folds them into
   the per-request latency breakdown the HTTP front returns.
+* **Metric families of the serving plane** -- ``serving.*`` (the
+  batcher, replicas and front), ``serving.controller.decisions{action}``,
+  ``serving.controller.replica_target`` and
+  ``serving.tenant_attainment{tenant}`` (the controller), ``zoo.*`` (the
+  model zoo's page-ins, evictions, rollouts and residency) and
+  ``memory.*`` (``xprof``'s footprints and pre-flight); each module's
+  docstring lists its own.
 
 The JAX package reads ``MXTPU_TELEMETRY``, ``MXTPU_TRACE`` and
 ``MXTPU_RETRACE_BUDGET``; the port reads no environment variable and takes

@@ -6,9 +6,13 @@ side, ``resilience.set_faults`` on the port's) and the same fake-clock
 script through both ReplicaDispatchers. After every step the replica
 states and each future's outcome must agree, and every answer agrees
 within 1e-5 of max|output| (float32): routing, the breaker and its
-half-open probe, and the wedge watchdog's exactly-once re-dispatch."""
+half-open probe, the wedge watchdog's exactly-once re-dispatch, and
+retirement through the drain; then the port's elastic growth (indices
+never reused, the first free device, bring-up on a thread of its own
+while traffic flows)."""
 import json
 import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -30,6 +34,7 @@ from mxtpu_torch import telemetry as ttel
 from mxtpu_torch.gluon import nn as tnn
 from mxtpu_torch.serving import (BucketSpec, ModelServer, ReplicaDispatcher,
                                  ReplicaSet)
+from mxtpu_torch.serving import replicas as replicas_mod
 
 IN_DIM, OUT_DIM = 12, 4
 T = 30
@@ -423,3 +428,103 @@ def test_threaded_replicas_serve_a_burst_with_no_hang():
     for i in range(2):
         st = ttel.retrace_stats("serving.predict.r%d" % i)
         assert st["compiles"] == len(rs.spec) and st["trips"] == 0
+
+
+# ------------------------------------------------------------------ elasticity
+def test_retiring_replica_drains_its_inflight_then_leaves_like_mxtpu(
+        monkeypatch):
+    """A retiring replica stops pulling work at once and leaves the set
+    only when its in-flight dispatch is over (here a wedged one, released
+    by the watchdog); the batch re-dispatches on the survivor."""
+    _faults(monkeypatch, "replica_wedge@0")
+    jrs, rs, _ = _sets()
+    jbat, jclk, bat, clk = _dispatchers(jrs, rs)
+    states = []
+    for b, c, s in ((jbat, jclk, jrs), (bat, clk, rs)):
+        f = b.submit(_x(1))
+        c.advance(0.006)
+        b.poll()                                  # wedges on r0
+        b.remove_replica(0)
+        b.poll()                                  # inflight 1: stays
+        row = [(r.index, r.state, r.inflight) for r in s.replicas]
+        c.advance(2.5)
+        b.poll()                                  # watchdog: release, move
+        b.poll()                                  # finalize, serve on r1
+        states.append((row, [(r.index, r.state) for r in s.replicas],
+                       f.done() and f._error is None))
+    assert states[0] == states[1] == (
+        [(0, "retiring", 1), (1, "healthy", 0)], [(1, "healthy")], True)
+    assert ttel.value("serving.replica.retirements", tag="r0") == 1
+
+
+def test_probe_verdict_cannot_revive_a_retired_replica_like_mxtpu():
+    jrs, rs, _ = _sets()
+    for s in (jrs, rs):
+        rep = s.force_quarantine(1, now=0.0)
+        assert rep.down_since == 0.0
+        s.due_probes(5.0)                         # claimed: probing
+        s.remove_replica(1)
+        s.probe_result(rep, True, 6.0)
+        assert rep.state == "retiring"
+        assert [r.index for r in s.finalize_retiring()] == [1]
+        assert rep.state == "removed" and len(s.replicas) == 1
+
+
+def test_add_replica_indices_are_never_reused_and_free_devices(monkeypatch):
+    devs = [torch.device("cpu", i) for i in range(3)]
+    monkeypatch.setattr(replicas_mod, "visible_devices", lambda: devs)
+    _, net = _mlps()
+    rs = ReplicaSet(net, BucketSpec.pow2(2), devices=devs[:1],
+                    example=np.zeros((1, IN_DIM), np.float32))
+    assert rs.free_devices() == devs[1:]
+    r1 = rs.add_replica()
+    assert (r1.index, r1.device, r1.state) == (1, devs[1], "healthy")
+    rs.remove_replica(1)
+    rs.finalize_retiring()
+    r2 = rs.add_replica()
+    assert (r2.index, r2.device) == (2, devs[1])   # a new index, a free device
+    r3 = rs.add_replica(device=devs[0])            # doubling up, explicitly
+    assert r3.index == 3 and rs.free_devices() == [devs[2]]
+    rs.add_replica()
+    with pytest.raises(mt.MXNetError, match="every visible device"):
+        rs.add_replica()
+    assert [r.index for r in rs.replicas] == [0, 2, 3, 4]
+    for i in (2, 3, 4):
+        st = ttel.retrace_stats("serving.predict.r%d" % i)
+        assert st["compiles"] == len(rs.spec)
+    assert ttel.retrace_stats("serving.predict.r5") is None   # refused
+
+
+def test_threaded_bring_up_joins_while_traffic_flows():
+    """In threaded mode the new replica warms on a thread of its own while
+    r0 keeps serving, then gets a worker and takes traffic; no request
+    fails and no capture happens on the serving path."""
+    _, rs, _ = _sets(n=1, max_batch=4)
+    bat = ReplicaDispatcher(rs, max_batch_size=4, max_wait_ms=1,
+                            max_queue=4096)
+    errors = []
+    try:
+        rep = bat.add_replica(device="cpu")
+        assert rep.index == 1
+        futs = [bat.submit(_x(1 + i % 3, seed=i)) for i in range(40)]
+        for f in futs:
+            try:
+                f.result(timeout=T)
+            except Exception as e:  # noqa: BLE001
+                errors.append(e)
+        deadline = time.monotonic() + T
+        while rep.state != "healthy" and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert rep.state == "healthy"
+        more = [bat.submit(_x(2, seed=100 + i)) for i in range(40)]
+        for f in more:
+            assert f.result(timeout=T).shape == (2, OUT_DIM)
+    finally:
+        bat.close(timeout=T)
+    assert not errors, errors[:3]
+    assert len(bat._threads) == 2 and not any(t.is_alive()
+                                              for t in bat._threads)
+    for i in range(2):
+        st = ttel.retrace_stats("serving.predict.r%d" % i)
+        assert st["compiles"] == len(rs.spec) and st["trips"] == 0
+    assert ttel.value("serving.replica.joins", tag="r1") == 1

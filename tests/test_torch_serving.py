@@ -30,13 +30,16 @@ from mxtpu.serving import DeadlineExceeded as JDeadlineExceeded
 from mxtpu.serving import MicroBatcher as JMicroBatcher
 from mxtpu.serving import QueueFull as JQueueFull
 from mxtpu.serving import Predictor as JPredictor
+from mxtpu.serving import ServingController as JServingController
 import mxtpu_torch as mt
 from mxtpu_torch import convert
 from mxtpu_torch import resilience as tres
 from mxtpu_torch import telemetry as ttel
+from mxtpu_torch import xprof
 from mxtpu_torch.gluon import nn as tnn
 from mxtpu_torch.serving import (BucketSpec, DeadlineExceeded, MicroBatcher,
-                                 ModelServer, Predictor, QueueFull)
+                                 ModelServer, Predictor, QueueFull,
+                                 ServingController)
 
 IN_DIM, OUT_DIM = 12, 4
 TOL = 1e-5
@@ -392,6 +395,82 @@ def test_batcher_cohorts_and_outputs_match_mxtpu():
         assert {k: mine[k] for k in ("count", "min", "max", "sum")} == \
             pytest.approx({k: ref[k] for k in ("count", "min", "max",
                                                "sum")})
+
+
+def test_batcher_controller_hooks_match_mxtpu():
+    """A controller on a plain MicroBatcher: predictive admission, the
+    per-class queue depths, ``draining``, and each verdict reaching the
+    controller with the request's ``meta`` (per-tenant attainment)."""
+    jnet, net = _mlps()
+    jbat, jclk, bat, clk = _batchers(
+        _jax_pred(jnet, JBucketSpec.pow2(4)),
+        _port_pred(net, BucketSpec.pow2(4)), max_batch_size=4,
+        max_wait_ms=5, max_queue=4)
+    got = []
+    for cls, b, c in ((JServingController, jbat, jclk),
+                      (ServingController, bat, clk)):
+        ctrl = cls(b, min_replicas=1, max_replicas=1, min_samples=2)
+        assert b._controller is ctrl and not b.draining
+        futs = [b.submit(_x(1, seed=i), deadline_ms=1000,
+                         meta={"tenant": "gold"}) for i in range(2)]
+        futs.append(b.submit(_x(1, seed=2), deadline_ms=50,
+                             meta={"tenant": "free"}))
+        futs.append(b.submit(_x(1, seed=3), priority="batch",
+                             meta={"tenant": "free"}))
+        depths = b.queue_depths()
+        # the queue is full: the interactive submit evicts the batch one
+        futs.append(b.submit(_x(1, seed=4), meta={"tenant": "gold"}))
+        c.advance(0.2)
+        b.poll()         # the 50 ms request expired in the queue
+        with pytest.raises(Exception, match="predicted_miss"):
+            b.submit(_x(1, seed=5), deadline_ms=2)
+        b.drain(timeout=1)
+        got.append((depths, b.draining, ctrl.tenant_attainment(c()),
+                    round(ctrl._sheds, 9),
+                    [type(f._error).__name__ for f in futs],
+                    # warm: its value holds host-measured pad and predict
+                    ctrl.predicted_s(None, now=c()) is not None))
+    assert got[0] == got[1]
+    assert got[1][0] == {"interactive": 3, "batch": 1} and got[1][1]
+    assert got[1][2] == {"gold": 1.0, "free": 0.0}
+    assert got[1][4] == ["NoneType", "NoneType", "DeadlineExceeded",
+                         "QueueFull", "NoneType"]
+    for name in ("serving.shed", "serving.controller.decisions"):
+        assert ttel.tagged(name) == jtel.tagged(name), name
+
+
+def test_predictor_footprint_preflight_and_release(monkeypatch):
+    """The bytes a warmed Predictor holds are recorded at its site (on the
+    CPU: the snapshot, the static inputs and the buckets' outputs); the
+    pre-flight before the build adds ``co_resident()`` and counts
+    ``memory.overcommit`` past the device's limit; ``release()`` drops the
+    buckets and the snapshot, and a later request builds again."""
+    _, net = _mlps()
+    spec = BucketSpec.pow2(4)
+    site = "serving.predict.footprint"
+    xprof.drop(site)
+    pred = _port_pred(net, spec, site=site)
+    params = sum(p.data().size * 4 for p in net.collect_params().values())
+    statics = sum(b * IN_DIM * 4 for b in spec.batch_sizes)
+    outs = sum(b * OUT_DIM * 4 for b in spec.batch_sizes)
+    assert pred.param_bytes() == params
+    assert xprof.site_footprint(site) == params + statics + outs
+    assert ttel.value("memory.overcommit", tag=site) == 0
+    monkeypatch.setattr(xprof, "CPU_BYTES_LIMIT", params + statics)
+    other = Predictor(net, spec, example=np.zeros((1, IN_DIM), np.float32),
+                      device="cpu", site=site + ".b", co_resident=lambda: 1)
+    other.warmup()
+    assert ttel.value("memory.overcommit", tag=site + ".b") == 1
+    assert ttel.gauge_value("memory.preflight_bytes", tag=site + ".b") == \
+        params + statics + 1
+    x = _x(3, seed=8)
+    before = pred.predict(x).asnumpy()
+    pred.release()
+    assert pred._buckets == {} and pred._stored is None
+    np.testing.assert_array_equal(pred.predict(x).asnumpy(), before)
+    assert pred.compile_stats()["compiles"] == len(spec) + 1
+    xprof.drop(site)
+    assert xprof.site_footprint(site, family=True) == 0
 
 
 def test_batcher_fifo_within_seq_bucket_matches_mxtpu():
