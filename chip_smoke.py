@@ -79,6 +79,27 @@ NVIDIA H100.
    back by the injected fault with every future answered, and HTTP by
    model name with a 404 that lists both; 11 conv / 12 flash launches per
    forward on every arm and no nvcc during the phase.
+   Continuous-batching decode (slice 7, ``decode_phase``), every engine
+   on cuda:0 and none of B1-B3 on its path: the phase runs after every
+   other, so that each kernel of B1-B3 exists when its count is set to 0
+   before it, and each count read after it goes into the ``kernels``
+   line (``decode_launches``; ``fused_conv`` and ``flash_attention``
+   keep one count over both types, so their two entries carry it as
+   ``decode_launches_both_dtypes``): at the
+   reference bench's configuration (vocab 256, dim 128, prompts up to 48,
+   max_new 32, 8 slots, 80 requests, seeded weights) the card's tokens
+   equal the port's CPU tokens and an eager full-prefix greedy loop on
+   the card, rowed, paged, with the prefix cache and with speculation
+   (fewer target steps), continuous in fewer steps than restart-per-batch,
+   no capture after warm-up and no sync inside the step's dispatch
+   (``set_sync_debug_mode("error")``), int8 KV equal to the CPU's int8
+   at most half f32's bytes, and after an injected wedge (fake clock) the
+   carry reset in place and the captured graphs decoding every request to
+   the eager tokens; then the same builder at BERT-base's vocabulary and
+   width, 16 slots, rowed and paged, timed over eight bursts of 64
+   requests: tokens/s per burst with median and spread, TTFT p50/p99,
+   step ms by replay per cohort bucket, host ms a step, the idle share of
+   a profiled stretch and KV resident bytes.
 7. Gluon on NDArrays: ResNet-50 v1 called on an mx.nd array on the card
    equals the tensor path bit for bit with 11 conv launches (float32 and
    bfloat16), and a Dense -> BatchNorm -> Dense net trained two steps on
@@ -2099,6 +2120,526 @@ def zoo_phase(card):
     return conv_l, flash_l
 
 
+# the decode workload (slice 7): the reference bench's configuration
+# (tools/serve_bench.py:run_decode's defaults) for the gates, and the same
+# builder at BERT-base's vocabulary and width for the timed cells
+DECODE_GATE = dict(vocab=256, dim=128, max_prompt=48, max_new=32, slots=8,
+                   requests=80, seed=11)
+DECODE_TIMED = dict(vocab=30522, dim=768, max_len=512, slots=16,
+                    requests=64, prompt=(16, 448), max_new=(2, 64), seed=5,
+                    bursts=8)
+DECODE_PAGE_TOKENS = 16
+DECODE_SPEC_K = 4
+DECODE_WEDGE_STEP = 3       # the cohort step the wedge gate wedges
+DECODE_TIE_TOL = 1e-5       # of max|logit|: a divergence must be a near-tie
+DECODE_INT8_TIE_TOL = 1e-3  # int8 KV: one quantum moved by float rounding
+
+
+def decode_drive(eng, reqs):
+    """Submit every (prompt, max_new) to a poll-mode engine at once and
+    poll to the end: (token lists, decode steps)."""
+    from mxtpu_torch import telemetry
+    s0 = telemetry.value("serving.decode.steps")
+    futs = [eng.submit(p, max_new=m) for p, m in reqs]
+    polls = 0
+    while not all(f.done() for f in futs):
+        eng.poll()
+        polls += 1
+        if polls > 100000:
+            raise AssertionError("decode: requests never finished")
+    return ([f.result(timeout=5).tolist() for f in futs],
+            telemetry.value("serving.decode.steps") - s0)
+
+
+def eager_logits_fn(model, device):
+    """The full-prefix forward of ``model``'s weights on ``device`` (no KV
+    cache, no engine executable): prefix -> last-position logits."""
+    import numpy as np
+    import torch
+    params = {k: v.detach().to(device) for k, v in model.named_parameters()}
+
+    def logits(prefix):
+        t = torch.tensor(np.asarray(prefix, np.int32)[None], device=device)
+        with torch.no_grad():
+            out = torch.func.functional_call(model, params, (t,))[0]
+        return out[0, len(prefix) - 1].float().cpu().numpy()
+
+    return logits
+
+
+def eager_greedy(logits, prompt, max_new, max_len):
+    """Greedy tokens by full-prefix forwards, with the engine's stop rule
+    (``max_new`` tokens, the last at position ``max_len`` - 1)."""
+    import numpy as np
+    toks, out = list(prompt), []
+    while len(out) < min(max_new, max_len - len(prompt) + 1):
+        nxt = int(np.argmax(logits(toks)))
+        out.append(nxt)
+        toks.append(nxt)
+    return out
+
+
+def decode_agree(what, got, ref, reqs, oracle, tol):
+    """Each request's tokens equal the reference's, or differ first at a
+    near-tie: both tokens there within ``tol`` x max|logit| of the largest
+    logit of ``oracle(prompt, prefix)``. Returns the near-ties as (request,
+    token index, margin / max|logit|)."""
+    import numpy as np
+    ties = []
+    for i, (g, r, (p, _m)) in enumerate(zip(got, ref, reqs)):
+        if g == r:
+            continue
+        j = next((k for k, (a, b) in enumerate(zip(g, r)) if a != b),
+                 min(len(g), len(r)))
+        if j >= min(len(g), len(r)):
+            raise AssertionError("%s: request %d stops at %d tokens against "
+                                 "%d" % (what, i, len(g), len(r)))
+        lg = oracle(p, list(g[:j]))
+        top = float(lg.max())
+        scale = float(np.abs(lg).max())
+        gap = max(top - float(lg[g[j]]), top - float(lg[r[j]]))
+        if gap > tol * scale:
+            raise AssertionError(
+                "%s: request %d differs at token %d (%d against %d) with a "
+                "margin of %.3g of max|logit|, above %.0e" % (
+                    what, i, j, g[j], r[j], gap / scale, tol))
+        ties.append((i, j, gap / scale))
+    return ties
+
+
+def engine_logits(eng, prompt, prefix):
+    """The logits an engine decided ``prefix``'s next token from: the
+    prefill's for an empty prefix, else its last decode step's (slot 0 of
+    an otherwise idle engine)."""
+    import numpy as np
+    if not prefix:
+        return eng.prefill_logits(prompt)
+    fut = eng.submit(prompt, max_new=len(prefix) + 1)
+    while not fut.done():
+        eng.poll()
+    got = fut.result(timeout=5).tolist()
+    if got[:len(prefix)] != list(prefix):
+        raise AssertionError("engine_logits: the engine's own stream left "
+                             "the prefix")
+    return np.asarray(eng._last_logits[0].float().cpu().numpy())
+
+
+def decode_phase(card):
+    """Continuous-batching decode on the card (slice 7), every engine on
+    cuda:0. (a) Gates at the reference bench's configuration (vocab 256,
+    dim 128, prompts up to 48, max_new 32, a pow2 cohort of 8, the 80
+    requests of ``decode_workload(seed=11)``, weights seeded on the host):
+    the card's tokens equal the port's CPU tokens and an eager full-prefix
+    greedy loop on the card for every request (a difference passes only as
+    a near-tie, which is printed), rowed, paged (pages of 16), with the
+    prefix cache on templated prompts and with speculation (k = 4, draft =
+    target, strictly fewer target steps); continuous decoding takes
+    strictly fewer steps than restart-per-batch; no capture at
+    ``serving.decode``/``serving.draft`` after warm-up and no read inside
+    the decode span (and a poll-driven stretch with
+    ``torch.cuda.set_sync_debug_mode("error")`` around every step's
+    dispatch); int8 KV tokens equal the CPU port's int8 tokens, at most
+    half f32's bytes a slot; a wedge injected under a fake clock, rowed
+    and paged, resets the carry in place and the captured graphs then
+    decode all 80 requests to the eager tokens. (b) Timed, the same builder at BERT-base's
+    vocabulary and width (one head, max_len 512), f32, 16 slots, rowed
+    and paged: 64 requests (prompts of 16-448 tokens, max_new 2-64)
+    submitted at once to a threaded engine, eight bursts over: tokens/s
+    of each burst with their median and spread, TTFT p50/p99 over every
+    burst's requests, step
+    ms by replay per cohort bucket, host ms a step, the idle share of a
+    profiled stretch of steps and KV resident bytes. Returns (b)'s
+    numbers."""
+    t_phase = time.perf_counter()
+    decode_gates(card)
+    timed = decode_timed(card)
+    print("decode phase %.1f s" % (time.perf_counter() - t_phase),
+          flush=True)
+    return timed
+
+
+def decode_gates(card):
+    """Part (a) of ``decode_phase`` on cuda:0 against the CPU (see
+    there)."""
+    import numpy as np
+    import torch
+    from mxtpu_torch import telemetry
+    from mxtpu_torch.serving import KVCacheAccountant
+    from mxtpu_torch.serving.decode_bench import (build_decode_engine,
+                                                  build_decode_model,
+                                                  decode_workload)
+    g = DECODE_GATE
+    model = build_decode_model(vocab=g["vocab"], dim=g["dim"],
+                               max_len=g["max_prompt"] + g["max_new"],
+                               seed=0)
+    reqs = decode_workload(g["requests"], g["vocab"], g["max_prompt"],
+                           g["max_new"], seed=g["seed"])
+    max_len = g["max_prompt"] + g["max_new"]
+    rng = np.random.RandomState(3)
+    tmpl = rng.randint(0, g["vocab"], 2 * DECODE_PAGE_TOKENS).astype(
+        np.int32)
+    templated = [(np.concatenate([tmpl, rng.randint(
+        0, g["vocab"], rng.randint(1, 16)).astype(np.int32)]),
+        int(rng.randint(2, g["max_new"] + 1))) for _ in range(40)]
+    engines = {}
+
+    def run(label, device, workload=reqs, guard=False, **kw):
+        # each engine's builds and counters from 0 (eleven engines share
+        # the serving.decode site, past the retrace budget together)
+        telemetry.reset()
+        acct = KVCacheAccountant(overcommit=float(len(workload)) * 64)
+        eng = build_decode_engine(
+            model, slots=g["slots"], max_prompt=g["max_prompt"],
+            max_new=g["max_new"], accountant=acct, device=device, **kw)
+        sites = (eng._site, eng._draft_site)
+        c0 = [(telemetry.retrace_stats(s) or {}).get("compiles", 0)
+              for s in sites]
+        d0 = telemetry.value("serving.decode.d2h")
+        guarded = [0]
+        if guard and torch.device(device).type == "cuda":
+            real = eng._dispatch_step
+
+            def dispatch(b, ptab):
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    return real(b, ptab)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                    guarded[0] += 1
+
+            eng._dispatch_step = dispatch
+        toks, steps = decode_drive(eng, workload)
+        c1 = [(telemetry.retrace_stats(s) or {}).get("compiles", 0)
+              for s in sites]
+        if c1 != c0 or telemetry.value("serving.decode.d2h") != d0:
+            raise AssertionError(
+                "decode %s: captures %s -> %s after warm-up, %d reads "
+                "inside serving.decode" % (label, c0, c1, telemetry.value(
+                    "serving.decode.d2h") - d0))
+        if guarded[0] and guarded[0] != steps:
+            raise AssertionError("decode %s: %d guarded dispatches, %d "
+                                 "steps" % (label, guarded[0], steps))
+        engines[label] = eng
+        return toks, steps, eng, guarded[0]
+
+    cuda = torch.device("cuda")
+    card_logits = eager_logits_fn(model, cuda)
+    cpu_logits = eager_logits_fn(model, "cpu")
+
+    def oracle(prompt, prefix):
+        return cpu_logits(list(prompt) + prefix)
+
+    ties = {}
+    out = {}
+    for label, kw, workload in (
+            ("rowed", {}, reqs),
+            ("paged", {"page_tokens": DECODE_PAGE_TOKENS}, reqs),
+            ("prefix", {"page_tokens": DECODE_PAGE_TOKENS,
+                        "prefix_cache": True}, templated),
+            ("spec", {"page_tokens": DECODE_PAGE_TOKENS,
+                      "draft_model": model, "spec_k": DECODE_SPEC_K}, reqs),
+            ("int8", {"int8": True}, reqs)):
+        c_toks, c_steps, _, guarded = run(label, cuda, workload,
+                                          guard=label != "prefix", **kw)
+        hits = telemetry.value("serving.prefix.hits")
+        if label == "spec":
+            proposed = telemetry.value("serving.decode.spec_proposed")
+            accepted = telemetry.value("serving.decode.spec_accepted")
+        h_toks, h_steps, _, _ = run(label + "_cpu", "cpu", workload, **kw)
+        if label == "int8":
+            ties[label] = decode_agree(
+                "int8 card vs CPU", c_toks, h_toks, workload,
+                lambda p, pre: engine_logits(engines["int8_cpu"], p, pre),
+                DECODE_INT8_TIE_TOL)
+        else:
+            ties[label] = decode_agree("%s card vs CPU" % label, c_toks,
+                                       h_toks, workload, oracle,
+                                       DECODE_TIE_TOL)
+        out[label] = (c_toks, c_steps, h_steps, guarded, hits)
+        if c_steps != h_steps and not ties[label]:
+            raise AssertionError("decode %s: %d steps on the card, %d on "
+                                 "the CPU" % (label, c_steps, h_steps))
+    t0 = time.perf_counter()
+    eager = [eager_greedy(card_logits, p, m, max_len) for p, m in reqs]
+    eager_s = time.perf_counter() - t0
+    eager_t = [eager_greedy(card_logits, p, m, max_len)
+               for p, m in templated]
+    for label in ("rowed", "paged", "spec", "int8", "prefix"):
+        if label == "int8":
+            continue
+        ties[label] += decode_agree(
+            "%s card vs eager on the card" % label, out[label][0],
+            eager_t if label == "prefix" else eager,
+            templated if label == "prefix" else reqs, oracle,
+            DECODE_TIE_TOL)
+    restart, r_steps, _, _ = run("restart", cuda, continuous=False)
+    ties["restart"] = decode_agree("restart vs continuous", restart,
+                                   out["rowed"][0], reqs, oracle,
+                                   DECODE_TIE_TOL)
+    if not r_steps > out["rowed"][1]:
+        raise AssertionError("decode: continuous %d steps, restart %d"
+                             % (out["rowed"][1], r_steps))
+    if not out["spec"][1] < out["paged"][1]:
+        raise AssertionError("decode: speculation %d target steps, paged "
+                             "%d" % (out["spec"][1], out["paged"][1]))
+    if out["prefix"][4] < 1:
+        raise AssertionError("decode: no prefix hit on templated prompts")
+    kv_f32 = engines["rowed"].per_slot_kv_bytes()
+    kv_int8 = engines["int8"].per_slot_kv_bytes()
+    if not 2 * kv_int8 <= kv_f32:
+        raise AssertionError("decode: int8 KV %d bytes a slot against f32 "
+                             "%d" % (kv_int8, kv_f32))
+    wedge = {layout: decode_wedge_gate(model, reqs, eager, oracle, pt)
+             for layout, pt in (("rowed", 0), ("paged", DECODE_PAGE_TOKENS))}
+    for layout, r in wedge.items():
+        ties["wedge_" + layout] = r["ties"]
+    n_tokens = sum(len(t) for t in out["rowed"][0])
+    for eng in engines.values():
+        eng.close(timeout=10)
+    print("decode gates on %s (vocab %d, dim %d, %d requests, %d tokens, "
+          "slots %d): card tokens = CPU tokens = eager full-prefix greedy "
+          "on the card for rowed, paged (pages of %d), prefix (40 templated "
+          "prompts, %d hits), spec (k=%d, draft = target) and int8 KV "
+          "(card = CPU int8); near-ties %s; steps continuous %d / restart "
+          "%d, paged %d / spec %d (target steps; spec accepted %d of %d "
+          "proposed); card steps = CPU steps; no capture after warm-up at "
+          "serving.decode or serving.draft, serving.decode.d2h 0, %d / %d "
+          "/ %d / %d step dispatches under set_sync_debug_mode('error') "
+          "(rowed / paged / spec / int8); KV bytes a slot f32 %d, int8 %d "
+          "(%.3f); eager greedy on the card %.1f s; after an injected "
+          "wedge at step %d (fake clock) the carry was reset in place and "
+          "the %d requests replayed the captured graphs to the eager "
+          "tokens, no capture added (rowed: %d failed as wedged, paged: %d)"
+          % (card, g["vocab"], g["dim"], len(reqs), n_tokens, g["slots"],
+             DECODE_PAGE_TOKENS, out["prefix"][4], DECODE_SPEC_K,
+             {k: v for k, v in ties.items() if v} or "none",
+             out["rowed"][1], r_steps, out["paged"][1], out["spec"][1],
+             accepted, proposed, out["rowed"][3], out["paged"][3],
+             out["spec"][3], out["int8"][3], kv_f32, kv_int8,
+             kv_int8 / kv_f32, eager_s, DECODE_WEDGE_STEP, len(reqs),
+             wedge["rowed"]["wedged"], wedge["paged"]["wedged"]),
+          flush=True)
+
+
+def decode_wedge_gate(model, reqs, eager, oracle, page_tokens):
+    """A fault-injected wedge on the card under a fake clock: the cohort
+    of the first ``slots`` requests is wedged at step
+    ``DECODE_WEDGE_STEP``, the watchdog fails it past the dispatch
+    timeout and the carry is zeroed in place; then every request of
+    ``reqs`` runs through the same captured graphs, no capture is added,
+    the carry keeps its storage and the tokens equal ``eager`` (the eager
+    full-prefix greedy loop on the card). Returns {"wedged": futures
+    failed as wedged, "ties": near-ties}."""
+    import torch
+    from mxtpu_torch import resilience, telemetry
+    from mxtpu_torch.serving import DeadlineExceeded, KVCacheAccountant
+    from mxtpu_torch.serving.decode_bench import build_decode_engine
+    g = DECODE_GATE
+    now = [0.0]
+    telemetry.reset()
+    resilience.reset_faults()
+    eng = build_decode_engine(
+        model, slots=g["slots"], max_prompt=g["max_prompt"],
+        max_new=g["max_new"], page_tokens=page_tokens,
+        accountant=KVCacheAccountant(overcommit=float(len(reqs)) * 64),
+        clock=lambda: now[0], device="cuda")
+    c = eng._carry
+    leaves = c["kv"] + [c[k] for k in ("tok", "pos", "active", "rem")]
+    ptrs = [t.data_ptr() for t in leaves]
+    c0 = (telemetry.retrace_stats(eng._site) or {}).get("compiles", 0)
+    what = "decode wedge (%s)" % ("paged" if page_tokens else "rowed")
+    resilience.set_faults("decode_wedge@%d" % DECODE_WEDGE_STEP)
+    try:
+        stuck = [eng.submit(p, max_new=m) for p, m in reqs[:g["slots"]]]
+        for _ in range(1000):
+            if resilience.FAULT_STATS["fired"]:
+                break
+            eng.poll()
+        if resilience.FAULT_STATS["fired"] != [("decode_wedge",
+                                               DECODE_WEDGE_STEP)]:
+            raise AssertionError("%s: fired %s" % (
+                what, resilience.FAULT_STATS["fired"]))
+    finally:
+        resilience.reset_faults()
+    now[0] += eng._timeout_s + 1.0
+    eng.poll()
+    wedged = 0
+    for f in stuck:
+        if not f.done():
+            raise AssertionError("%s: a stuck future is still open" % what)
+        try:
+            f.result(timeout=0)
+        except DeadlineExceeded as e:
+            if "wedged" not in str(e):
+                raise
+            wedged += 1
+    if not wedged or telemetry.value("serving.decode.wedges") != 1 or \
+            not eng._carry_stale or eng.live_slots:
+        raise AssertionError("%s: %d futures failed as wedged, %d wedges, "
+                             "stale %s, %d live slots" % (
+                                 what, wedged, telemetry.value(
+                                     "serving.decode.wedges"),
+                                 eng._carry_stale, eng.live_slots))
+    toks, _steps = decode_drive(eng, reqs)
+    ties = decode_agree(what + " vs eager on the card", toks, eager, reqs,
+                        oracle, DECODE_TIE_TOL)
+    c1 = (telemetry.retrace_stats(eng._site) or {}).get("compiles", 0)
+    if c1 != c0 or eng._carry is not c or eng._carry_stale or \
+            [t.data_ptr() for t in leaves] != ptrs or \
+            bool(c["active"].any()):
+        raise AssertionError("%s: captures %d -> %d, carry replaced %s, "
+                             "stale %s, storage moved %s" % (
+                                 what, c0, c1, eng._carry is not c,
+                                 eng._carry_stale,
+                                 [t.data_ptr() for t in leaves] != ptrs))
+    torch.cuda.synchronize()
+    eng.close(timeout=10)
+    return {"wedged": wedged, "ties": ties}
+
+
+def decode_timed(card):
+    """Part (b) of ``decode_phase``: the BERT-base-width builder, rowed and
+    paged, timed (see there). Returns the per-layout numbers."""
+    import threading
+    import numpy as np
+    from mxtpu_torch import telemetry
+    from mxtpu_torch.serving import KVCacheAccountant
+    from mxtpu_torch.serving.decode_bench import (build_decode_engine,
+                                                  build_decode_model)
+    t = DECODE_TIMED
+    t0 = time.perf_counter()
+    model = build_decode_model(vocab=t["vocab"], dim=t["dim"],
+                               max_len=t["max_len"], seed=0)
+    build_s = time.perf_counter() - t0
+    rng = np.random.RandomState(t["seed"])
+    reqs = [(rng.randint(0, t["vocab"], rng.randint(
+        t["prompt"][0], t["prompt"][1] + 1)).astype(np.int32),
+        int(rng.randint(t["max_new"][0], t["max_new"][1] + 1)))
+        for _ in range(t["requests"])]
+    max_new = t["max_len"] - t["prompt"][1]
+    long_new = t["max_len"] - 72     # the profiled stretch's budget
+    results = {}
+    for layout, pt in (("rowed", 0), ("paged", DECODE_PAGE_TOKENS)):
+        telemetry.reset()
+        acct = KVCacheAccountant(overcommit=float(t["requests"]))
+        t0 = time.perf_counter()
+        eng = build_decode_engine(model, slots=t["slots"],
+                                  max_prompt=t["prompt"][1],
+                                  max_new=max_new, accountant=acct,
+                                  page_tokens=pt, device="cuda")
+        warm_s = time.perf_counter() - t0
+        # step ms by replay per cohort bucket, on the idle cohort (every
+        # lane computes; the writes are masked)
+        step_ms = {b: cuda_ms(lambda b=b: eng._get_step_exec(b)())
+                   for b in eng._decode_spec.decode_slots}
+        # a profiled stretch of full-cohort steps, poll-driven
+        long = [(rng.randint(0, t["vocab"], 64).astype(np.int32), long_new)
+                for _ in range(t["slots"])]
+        futs = [eng.submit(p, max_new=m) for p, m in long]
+        while eng.live_slots < t["slots"]:
+            eng.poll()
+        reps = 20
+        rows = device_rows(eng.poll, reps)
+        dev_ms = sum(r[1] for r in rows)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            eng.poll()
+        wall_step = 1e3 * (time.perf_counter() - t0) / reps
+        if eng.live_slots < t["slots"]:
+            raise AssertionError("decode timed %s: the profiled stretch "
+                                 "ended with %d live slots" % (
+                                     layout, eng.live_slots))
+        while not all(f.done() for f in futs):
+            eng.poll()
+        # the timed bursts, threaded: the same 64 requests submitted at
+        # once, t["bursts"] times over
+        telemetry.reset()
+        eng.start()
+        peak, samples, stop = [0], [], threading.Event()
+
+        def sample():
+            while not stop.is_set():
+                b = acct.resident_bytes("r0")
+                peak[0] = max(peak[0], b)
+                samples.append(b)
+                stop.wait(0.001)
+
+        sampler = threading.Thread(target=sample, daemon=True)
+        sampler.start()
+        runs, ttft_all, wall_all, tokens_all = [], [], 0.0, 0
+        for _ in range(t["bursts"]):
+            tok0 = telemetry.value("serving.decode.tokens")
+            t0 = time.perf_counter()
+            futs = [eng.submit(p, max_new=m) for p, m in reqs]
+            outs = [f.result(timeout=300) for f in futs]
+            wall = time.perf_counter() - t0
+            tokens = sum(len(o) for o in outs)
+            if tokens != telemetry.value("serving.decode.tokens") - tok0 \
+                    or any(len(o) != m for o, (_p, m) in zip(outs, reqs)):
+                raise AssertionError("decode timed %s: %d tokens delivered"
+                                     % (layout, tokens))
+            ttft = sorted(f.ttft_s for f in futs)
+            runs.append({"tok_per_s": tokens / wall, "wall_s": wall,
+                         "ttft_p50_ms": 1e3 * _percentile(ttft, 0.5),
+                         "ttft_max_ms": 1e3 * ttft[-1]})
+            ttft_all += ttft
+            wall_all += wall
+            tokens_all += tokens
+        stop.set()
+        sampler.join(10)
+        steps = telemetry.value("serving.decode.steps")
+        hist = telemetry.snapshot()["histograms"]
+        rates = sorted(r["tok_per_s"] for r in runs)
+        ttft_all.sort()
+        results[layout] = {
+            "tok_per_s_median": float(np.median(rates)),
+            "tok_per_s_min": rates[0], "tok_per_s_max": rates[-1],
+            "tok_per_s_spread": (rates[-1] - rates[0]) / float(
+                np.median(rates)),
+            "bursts": runs, "tokens_a_burst": tokens_all // len(runs),
+            "steps": steps, "warm_s": warm_s,
+            "ttft_p50_ms": 1e3 * _percentile(ttft_all, 0.5),
+            "ttft_p99_ms": 1e3 * _percentile(ttft_all, 0.99),
+            "ttft_samples": len(ttft_all),
+            "step_replay_ms": step_ms,
+            "decode_span_p50_ms": 1e3 * hist["serving.decode"]["p50"],
+            "fetch_span_p50_ms": 1e3 * hist["serving.fetch"]["p50"],
+            "wall_ms_per_step": 1e3 * wall_all / steps,
+            "profiled_step_device_ms": dev_ms,
+            "profiled_step_wall_ms": wall_step,
+            "idle_share": 1.0 - dev_ms / wall_step,
+            "kv_resident_peak_bytes": peak[0],
+            "kv_resident_mean_bytes": float(np.mean(samples)),
+            "kv_bytes_a_slot": eng.per_slot_kv_bytes(),
+            "kv_page_bytes": eng.page_bytes() if pt else None,
+            "gather_bytes_a_step_b16": (
+                2 * t["slots"] * eng._maxp * pt * t["dim"] * 4 if pt else 0),
+            "top_kernels": [(n[:60], round(ms, 4)) for n, ms, _c in rows[:6]],
+        }
+        eng.close(timeout=30)
+        print("decode timed %s on %s (vocab %d, dim %d, max_len %d, %d "
+              "slots, f32): %s" % (layout, card, t["vocab"], t["dim"],
+                                   t["max_len"], t["slots"],
+                                   json.dumps(results[layout])), flush=True)
+    print("decode timed: model built on the host in %.1f s; KV resident "
+          "bytes peak rowed %d / paged %d, mean rowed %.0f / paged %.0f"
+          % (build_s, results["rowed"]["kv_resident_peak_bytes"],
+             results["paged"]["kv_resident_peak_bytes"],
+             results["rowed"]["kv_resident_mean_bytes"],
+             results["paged"]["kv_resident_mean_bytes"]), flush=True)
+    for layout, r in results.items():
+        print("decode timed %s over %d bursts: tokens/s median %r (min %r, "
+              "max %r, spread (max - min) / median %r); each burst %s; "
+              "TTFT over all %d requests p50 %r ms, p99 %r ms" % (
+                  layout, len(r["bursts"]), r["tok_per_s_median"],
+                  r["tok_per_s_min"], r["tok_per_s_max"],
+                  r["tok_per_s_spread"],
+                  [round(b["tok_per_s"], 1) for b in r["bursts"]],
+                  r["ttft_samples"], r["ttft_p50_ms"], r["ttft_p99_ms"]),
+              flush=True)
+    return results
+
+
 def resnet50_param_count():
     """Trainable parameters of the port's resnet50_v1 (shapes settled by
     a 32x32 forward on the CPU; no weights drawn)."""
@@ -3280,6 +3821,25 @@ def main():
     n = resnet50_param_count()
     _, rtc_kernels, rtc_rows = rtc_phase(n)
     rtc_launches = imperative_phase(rtc_kernels, n)
+    # the decode path runs none of B1-B3 (its model is plain torch, as the
+    # reference's is jnp): every kernel's launches from 0 over the phase,
+    # run last so that the B3 kernels exist
+    from mxtpu_torch.ops.pallas.conv import fused_conv
+    from mxtpu_torch.ops.pallas.flash_attention import flash_attention
+    fused_conv.launches = flash_attention.launches = 0
+    for k in rtc_kernels.values():
+        k.launches = 0
+    decode_phase(card)
+    decode_launches = {"conv": fused_conv.launches,
+                       "flash": flash_attention.launches}
+    decode_launches.update((name, k.launches)
+                           for name, k in rtc_kernels.items())
+    print("decode phase launches (fused_conv and flash_attention over "
+          "both types, each rtc kernel its own): %s" % decode_launches,
+          flush=True)
+    if any(decode_launches.values()):
+        raise AssertionError("decode: a kernel of B1-B3 was launched on the "
+                             "decode path: %s" % decode_launches)
     entries = kernel_entries(
         conv_rows, conv_launches, conv_train,
         "fused_conv (%s, the 11 gated convs of one b8 ResNet-50 forward)",
@@ -3296,6 +3856,9 @@ def main():
     entries[1].update(controller_launches=controller_conv,
                       zoo_launches=zoo_conv)
     entries[3].update(zoo_launches=zoo_flash)
+    for i, e in enumerate(entries):
+        e["decode_launches_both_dtypes"] = decode_launches[
+            "conv" if i < 2 else "flash"]
     for r in rtc_rows:
         if rtc_launches[r["name"]] < 1:
             raise AssertionError("rtc %s was not launched on the imperative "
@@ -3308,7 +3871,8 @@ def main():
             "launches": rtc_launches[r["name"]],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "decode_launches": decode_launches[r["name"]]})
     print(json.dumps({"kernels": entries}))
     print("whole script %.1f s" % (time.time() - t_start))
     print("card:", card)

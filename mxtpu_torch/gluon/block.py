@@ -32,7 +32,8 @@ from ..base import MXNetError
 from ..ndarray import NDArray
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
-__all__ = ["Block", "HybridBlock", "CachedOp", "reading_params"]
+__all__ = ["Block", "HybridBlock", "CachedOp", "reading_params",
+           "read_params"]
 
 _PARAM_READ = threading.local()
 
@@ -48,6 +49,17 @@ def reading_params(fn):
         yield
     finally:
         _PARAM_READ.fn = prev
+
+
+def read_params(block):
+    """``{attribute: tensor}`` of ``block``'s own parameters as its layer
+    forward reads them: each through this thread's ``reading_params``
+    function, where one is set."""
+    params = {k: p._tensor() for k, p in block._reg_params.items()}
+    read = getattr(_PARAM_READ, "fn", None)
+    if read is not None:
+        params = {k: read(t) for k, t in params.items()}
+    return params
 
 
 def _flatten(out, fmt):
@@ -313,13 +325,10 @@ class HybridBlock(Block):
 
     def _forward_eager(self, *args):
         try:
-            params = {k: p._tensor() for k, p in self._reg_params.items()}
+            params = read_params(self)
         except DeferredInitializationError:
             self.infer_shape(*args)
-            params = {k: p._tensor() for k, p in self._reg_params.items()}
-        read = getattr(_PARAM_READ, "fn", None)
-        if read is not None:
-            params = {k: read(t) for k, t in params.items()}
+            params = read_params(self)
         from .. import ops as F
         return self.hybrid_forward(F, *args, **params)
 

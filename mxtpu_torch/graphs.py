@@ -79,10 +79,13 @@ class CapturedGraph:
 
     ``pool`` is a ``torch.cuda.graph_pool_handle()`` shared by graphs that
     never replay at once (a Predictor's buckets), so their intermediate
-    buffers share one private pool; capture the largest first."""
+    buffers share one private pool; capture the largest first. ``device``
+    names the device when ``fn`` takes no input (a decode step reads only
+    state it was captured over)."""
 
-    def __init__(self, fn, static_inputs, pool=None):
-        device = static_inputs[0].device
+    def __init__(self, fn, static_inputs, pool=None, device=None):
+        device = static_inputs[0].device if device is None \
+            else torch.device(device)
         if device.type != "cuda":
             raise MXNetError("CapturedGraph needs CUDA inputs, got %s"
                              % device)

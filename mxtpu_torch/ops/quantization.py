@@ -38,9 +38,9 @@ def _real_range(min_range, max_range, like=None):
 
 
 def _to_int8(real, r8):
-    q = torch.sign(real) * torch.minimum(real.abs() * (_QMAX / r8) + 0.5,
-                                         torch.tensor(_QMAX,
-                                                      device=real.device))
+    # clamp by a Python number: a device constant made here would be a
+    # host-to-device copy, which a CUDA-graph capture refuses
+    q = torch.sign(real) * (real.abs() * (_QMAX / r8) + 0.5).clamp(max=_QMAX)
     return q.to(torch.int8)
 
 

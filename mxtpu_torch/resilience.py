@@ -9,7 +9,8 @@ call counter supplies the index. The serving plane's kinds:
 ``serve_overload`` (submit index: that submit sheds), ``serve_timeout``
 (batch index: that batch expires), ``replica_fail`` (dispatch index: the
 replica raises), ``replica_wedge`` (dispatch index: the dispatch never
-answers), ``oom`` (``maybe_oom``: the Predictor's dispatch raises
+answers), ``decode_wedge`` (decode step index: that step never answers),
+``oom`` (``maybe_oom``: the Predictor's dispatch or the decode loop raises
 ``ResourceExhausted``), ``zoo_cold`` (call count: that zoo submit sheds as
 if its model were cold and unpageable) and ``canary_rollback`` (call
 count: that canary gate evaluation rules a regression).

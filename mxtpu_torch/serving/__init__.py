@@ -15,13 +15,18 @@
   models over one device pool, placement by count and device bytes,
   page-in and eviction, tenant classes, canary rollout with promote and
   rollback;
+* ``DecodeEngine`` / ``DecodeModel`` / ``DecodeFuture`` /
+  ``KVCacheAccountant`` (``decode``): continuous-batching autoregressive
+  decode over KV-cache slots, one captured graph per cohort bucket,
+  rowed or paged KV, a prefix cache, speculative decoding, int8 KV, and
+  the ledger that sheds by KV residency (``decode_bench`` holds the
+  reference decode model);
 * ``ModelServer`` (``server``): the HTTP front with ``/predict``,
   ``/healthz``, ``/metrics`` and drain, over one model or a zoo.
-
-Not ported yet (ROADMAP A2): ``DecodeEngine`` and ``KVCacheAccountant``.
 """
 from .batcher import DeadlineExceeded, MicroBatcher, QueueFull
 from .controller import ServingController
+from .decode import DecodeEngine, DecodeFuture, DecodeModel, KVCacheAccountant
 from .engine import BucketSpec, Predictor, pad_nd
 from .replicas import Replica, ReplicaDispatcher, ReplicaFailure, ReplicaSet
 from .server import ModelServer
@@ -30,4 +35,5 @@ from .zoo import ModelZoo, ZooScheduler, ZooVersion
 __all__ = ["BucketSpec", "Predictor", "pad_nd", "MicroBatcher", "QueueFull",
            "DeadlineExceeded", "Replica", "ReplicaSet", "ReplicaDispatcher",
            "ReplicaFailure", "ModelServer", "ServingController", "ModelZoo",
-           "ZooScheduler", "ZooVersion"]
+           "ZooScheduler", "ZooVersion", "DecodeEngine", "DecodeFuture",
+           "DecodeModel", "KVCacheAccountant"]

@@ -34,9 +34,10 @@ arrays, the worker joins a cohort on the host, runs it, fetches the
 outputs once per batch and splits them per request. The defaults of
 ``max_batch_size`` (8), ``max_wait_ms`` (5), ``max_queue`` (256 items) and
 ``batch_aging_ms`` (1000) are those of the reference's ``MXTPU_SERVE_*``
-levers; the port reads no environment variable. Not ported yet: the decode
-engine's ``admission_gate`` (ROADMAP A2) and the flight recorder's dump on
-a worker crash (A9).
+levers; the port reads no environment variable. ``admission_gate`` is the
+hook a resource ledger sheds through beyond queue depth (the decode
+engine's ``KVCacheAccountant.gate``: ``serving.shed{kv_residency}``). Not
+ported yet: the flight recorder's dump on a worker crash (ROADMAP A9).
 
 Telemetry: ``serving.requests`` / ``serving.batches`` /
 ``serving.shed{reason}`` / ``serving.deadline_expired`` counters, the
@@ -156,8 +157,12 @@ class MicroBatcher:
     def __init__(self, predictor, max_batch_size=MAX_BATCH,
                  max_wait_ms=MAX_WAIT_MS, max_queue=MAX_QUEUE,
                  clock=time.monotonic, start=True, allow_cold=False,
-                 batch_aging_ms=BATCH_AGING_MS):
+                 batch_aging_ms=BATCH_AGING_MS, admission_gate=None):
         self._pred = predictor
+        # called with the request's item count: a shed reason to refuse,
+        # None to admit; the unit is the gate's (the accountant's
+        # register() decides worst-case rows or free pages)
+        self._gate = admission_gate
         self.max_batch = int(max_batch_size)
         self.max_wait_s = float(max_wait_ms) / 1e3
         self.max_queue = int(max_queue)
@@ -233,6 +238,10 @@ class MicroBatcher:
                 if inputs[0].ndim > spec.seq_axis else 0)
         if inject("serve_overload"):
             self._shed("injected_overload")
+        if self._gate is not None:
+            reason = self._gate(n)
+            if reason:
+                self._shed(str(reason))
         if self._controller is not None:
             # predictive admission: shed now when the latency model already
             # predicts a deadline miss, before the depth bound fills

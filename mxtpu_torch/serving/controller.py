@@ -15,10 +15,11 @@ injected clock as the rest of the serving plane (sleep-free under
 * **Autoscaling** -- :meth:`ServingController.tick` grows or shrinks the
   ReplicaSet between ``min_replicas`` and ``max_replicas`` on queue
   pressure, recent sheds, decayed SLO attainment and, where the
-  ReplicaSet carries a KV-cache ``accountant`` (decode, ROADMAP A2), its
-  residency; actions are spaced by the cooldown,
-  and scale-down also needs a whole cooldown of idleness. A new replica
-  captures its buckets off the serving path and joins only then.
+  ReplicaSet carries a KV-cache ``accountant``
+  (``ReplicaSet.attach_accountant``), its residency; actions are spaced
+  by the cooldown, and scale-down also needs a whole cooldown of
+  idleness. A new replica captures its buckets off the serving path and
+  joins only then.
 * **Self-healing** -- a replica whose breaker has been open continuously
   for ``replace_after_ms`` is replaced: a fresh replica on a free device,
   or on the dead one's own device when none is free (one card), and the

@@ -44,12 +44,18 @@ by other models on the device against the device's limit, and counts
 are recorded at its site (``xprof.site_footprint``). ``release()`` drops
 the graphs, their pool and the snapshot (a zoo eviction).
 
+The decode engine (``serving.decode``) prefills through a Predictor and
+runs its steps under ``bound()``: the block's parameters read as the
+snapshot for the body, so decode answers change with ``refresh_params()``
+and never with a bare ``set_data``.
+
 Not ported yet: ``from_checkpoint`` (needs the symbol API) and
-``from_trainer_checkpoint`` (needs ``contrib.async_checkpoint``), the
-compile service and its disk cache, and the decode engine's hooks.
+``from_trainer_checkpoint`` (needs ``contrib.async_checkpoint``), and the
+compile service and its disk cache.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import numpy as np
@@ -62,6 +68,17 @@ from ..graphs import CAPTURE_LOCK, CapturedGraph
 from ..ndarray import NDArray
 
 __all__ = ["BucketSpec", "Predictor", "pad_nd"]
+
+
+def pool_bytes(pool, device):
+    """Bytes of the segments of graph memory pool ``pool`` on ``device``
+    (0 without a pool)."""
+    if pool is None:
+        return 0
+    pool = tuple(pool)
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if seg["device"] == device.index
+               and tuple(seg["segment_pool_id"]) == pool)
 
 
 def pad_nd(t, batch, seq_len=None, seq_axis=1, pad_value=0):
@@ -88,28 +105,97 @@ def pad_nd(t, batch, seq_len=None, seq_axis=1, pad_value=0):
 class BucketSpec:
     """The closed set of shapes a Predictor runs: batch sizes (ascending)
     and, optionally, sequence lengths along ``seq_axis`` of every input
-    that has it."""
+    that has it.
 
-    def __init__(self, batch_sizes, seq_lens=None, seq_axis=1, pad_value=0):
+    ``decode_slots`` is the third spelling, exclusive of both: the
+    capacity buckets of a continuous-batching decode cohort
+    (:class:`~mxtpu_torch.serving.decode.DecodeEngine`). A slot carries
+    its KV cache across steps, so there is no sequence axis to bucket and
+    no request batch to pad: a bucket says how many live slots one step
+    covers. A Predictor refuses a decode spec and a DecodeEngine a
+    prefill spec as its cohort, both loudly."""
+
+    def __init__(self, batch_sizes=None, seq_lens=None, seq_axis=1,
+                 pad_value=0, decode_slots=None):
+        if decode_slots is not None:
+            if batch_sizes is not None:
+                raise MXNetError(
+                    "BucketSpec: decode_slots=%r cannot combine with "
+                    "batch_sizes=%r: a decode cohort's buckets are its slot "
+                    "capacities; prefill batch buckets belong to the "
+                    "separate prefill BucketSpec"
+                    % (decode_slots, batch_sizes))
+            if seq_lens is not None:
+                raise MXNetError(
+                    "BucketSpec: decode_slots=%r cannot combine with "
+                    "seq_lens=%r: decode slots carry KV caches of the "
+                    "engine's fixed max_len; there is no seq axis to bucket"
+                    % (decode_slots, seq_lens))
+            batch_sizes = decode_slots
+        elif batch_sizes is None:
+            raise MXNetError(
+                "BucketSpec: pass batch_sizes (a served shape set) or "
+                "decode_slots (a decode-cohort capacity set)")
         sizes = sorted({int(b) for b in batch_sizes})
         if not sizes or sizes[0] < 1:
-            raise MXNetError("BucketSpec: batch_sizes must be >= 1, got %r"
-                             % (batch_sizes,))
+            raise MXNetError("BucketSpec: %s must be >= 1, got %r"
+                             % ("decode_slots" if decode_slots is not None
+                                else "batch_sizes", batch_sizes))
         self.batch_sizes = tuple(sizes)
+        self.decode_slots = (self.batch_sizes if decode_slots is not None
+                             else None)
         self.seq_lens = (tuple(sorted({int(s) for s in seq_lens}))
                          if seq_lens else None)
         self.seq_axis = int(seq_axis)
         self.pad_value = pad_value
 
     @classmethod
-    def pow2(cls, max_batch, seq_lens=None, seq_axis=1):
-        """1, 2, 4, ... up to and including ``max_batch``."""
-        top, sizes, b = int(max_batch), [], 1
+    def pow2(cls, max_batch=None, seq_lens=None, seq_axis=1,
+             decode_slots=None):
+        """1, 2, 4, ... up to and including ``max_batch``; or, with
+        ``decode_slots=n`` instead, the same ladder as decode-cohort
+        capacities."""
+        if (max_batch is None) == (decode_slots is None):
+            raise MXNetError(
+                "BucketSpec.pow2: pass exactly one of max_batch (a "
+                "request-batch ladder) or decode_slots (a decode-cohort "
+                "capacity ladder), got max_batch=%r decode_slots=%r"
+                % (max_batch, decode_slots))
+        if decode_slots is not None and seq_lens is not None:
+            raise MXNetError(
+                "BucketSpec.pow2: decode_slots=%r cannot combine with "
+                "seq_lens=%r: decode slots carry KV caches of the engine's "
+                "fixed max_len" % (decode_slots, seq_lens))
+        top = int(max_batch if max_batch is not None else decode_slots)
+        sizes, b = [], 1
         while b < top:
             sizes.append(b)
             b *= 2
         sizes.append(top)
+        if decode_slots is not None:
+            return cls(decode_slots=sizes)
         return cls(sizes, seq_lens=seq_lens, seq_axis=seq_axis)
+
+    @property
+    def is_decode(self):
+        """True for a decode-cohort spec (the ``decode_slots=`` spelling)."""
+        return self.decode_slots is not None
+
+    @property
+    def max_slots(self):
+        """Largest cohort capacity (decode specs only)."""
+        if not self.is_decode:
+            raise MXNetError("BucketSpec.max_slots on a non-decode spec "
+                             "(declare it with decode_slots=)")
+        return self.batch_sizes[-1]
+
+    def slot_bucket(self, n_live):
+        """Smallest capacity bucket >= ``n_live`` slots (decode specs only;
+        None past the largest)."""
+        if not self.is_decode:
+            raise MXNetError("BucketSpec.slot_bucket on a non-decode spec "
+                             "(declare it with decode_slots=)")
+        return self.batch_bucket(n_live)
 
     @property
     def max_batch(self):
@@ -145,6 +231,8 @@ class BucketSpec:
         return len(self.batch_sizes) * len(self.seq_lens or (None,))
 
     def __repr__(self):
+        if self.is_decode:
+            return "BucketSpec(decode_slots=%s)" % (list(self.decode_slots),)
         return "BucketSpec(batch=%s%s)" % (
             list(self.batch_sizes),
             ", seq=%s@axis%d" % (list(self.seq_lens), self.seq_axis)
@@ -201,6 +289,13 @@ class Predictor:
         if not hasattr(block, "collect_params"):
             raise MXNetError("Predictor serves HybridBlock-family models "
                              "(got %s)" % type(block).__name__)
+        if getattr(spec, "is_decode", False):
+            raise MXNetError(
+                "Predictor cannot serve a decode-cohort BucketSpec "
+                "(decode_slots=%s): slot-capacity buckets describe a "
+                "DecodeEngine cohort, not request shapes; declare "
+                "batch_sizes/seq_lens for a Predictor"
+                % (list(spec.decode_slots),))
         self._block = block
         self._spec = spec
         self._name = name
@@ -337,6 +432,28 @@ class Predictor:
         self._out_fmt = fmt
         return flat
 
+    @contextlib.contextmanager
+    def bound(self):
+        """For the body, the block's parameters are this Predictor's
+        snapshot, each int8 weight dequantized where its layer reads it
+        (``gluon.block.read_params``), as the forward sees them through
+        ``functional_call``. Holds ``CAPTURE_LOCK``, as every forward of
+        the shared block does."""
+        from ..gluon.block import reading_params
+        with CAPTURE_LOCK:
+            saved = []
+            try:
+                for p, t in zip(self._params, self._stored):
+                    module, attr = p._owner
+                    saved.append((module, attr, module._parameters[attr]))
+                    module._parameters[attr] = t
+                with torch.no_grad(), reading_params(
+                        self._read_param if self._deq else None):
+                    yield
+            finally:
+                for module, attr, old in saved:
+                    module._parameters[attr] = old
+
     @property
     def spec(self):
         return self._spec
@@ -445,7 +562,8 @@ class Predictor:
                         self._spec.buckets())
         telemetry.gauge("serving.buckets", len(self._spec))
         if self._device.type == "cuda":
-            out_bytes = self._pool_bytes()   # the outputs live in the pool
+            # the outputs live in the pool
+            out_bytes = pool_bytes(self._pool, self._device)
         xprof.record_footprint(self._site, self._static_bytes() + out_bytes)
         return self
 
@@ -471,16 +589,6 @@ class Predictor:
                 inputs += int(np.prod(shape)) * \
                     torch.empty((), dtype=dt).element_size()
         return self.param_bytes() + inputs
-
-    def _pool_bytes(self):
-        """Bytes of the segments of this Predictor's graph memory pool on
-        its device."""
-        if self._pool is None:
-            return 0
-        pool = tuple(self._pool)
-        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                   if seg["device"] == self._device.index
-                   and tuple(seg["segment_pool_id"]) == pool)
 
     def release(self):
         """Drop the captured graphs, their memory pool and the parameter

@@ -33,10 +33,15 @@
 Fault kinds (``resilience.set_faults``): ``replica_fail@i`` -- the replica
 running serving dispatch *i* raises; ``replica_wedge@i`` -- that dispatch
 never answers. The defaults are the reference's ``MXTPU_SERVE_*`` levers;
-the port reads no environment variable. Not ported yet: the KV-cache
-accountant's hooks (``attach_accountant``, ``kv_admissible`` and the
-``kv_residency`` shed, its rows in ``states()``), which come with decode
-(ROADMAP A2), and the flight recorder's dumps (A9).
+the port reads no environment variable.
+
+KV residency: ``attach_accountant`` takes a
+:class:`~mxtpu_torch.serving.decode.KVCacheAccountant` whose pools are
+tagged ``r<i>``; ``states()`` then reports each replica's resident KV
+bytes (and a paged pool's pages), ``kv_admissible()`` is True while a
+healthy replica's pool admits, the dispatcher sheds ``kv_residency`` when
+none does, and the ServingController reads the accountant's pressure. Not
+ported yet: the flight recorder's dumps (ROADMAP A9).
 """
 from __future__ import annotations
 
@@ -153,6 +158,7 @@ class ReplicaSet:
         # what elastic growth builds a new replica from
         self._block, self._example = block, example
         self._name, self._int8 = name, int8
+        self._accountant = None
         self.replicas = []
         for i, dev in enumerate(devices):
             self.replicas.append(self._new_replica(i, dev))
@@ -402,16 +408,53 @@ class ReplicaSet:
                 _log.warning("serving replica %d probe failed; next probe "
                              "in %.1f s", rep.index, rep.backoff_s)
 
+    # ----------------------------------------------------- KV accountability
+    def attach_accountant(self, accountant):
+        """Attach a ``KVCacheAccountant`` whose pools are tagged ``r<i>``
+        (a rowed decode engine registers worst-case slots, a paged one its
+        page pool): ``states()`` reports resident KV bytes and the
+        dispatcher sheds ``kv_residency`` when no healthy replica admits.
+        Returns self."""
+        self._accountant = accountant
+        return self
+
+    @property
+    def accountant(self):
+        return self._accountant
+
+    def kv_admissible(self):
+        """True while at least one healthy replica's KV pool admits
+        (always without an accountant)."""
+        acct = self._accountant
+        if acct is None:
+            return True
+        with self._lock:
+            tags = [r.tag for r in self.replicas if r.state == "healthy"]
+        return any(acct.would_admit(t) for t in tags)
+
     # ------------------------------------------------------------ reporting
     def states(self):
-        """Per-replica health for ``/healthz``."""
+        """Per-replica health for ``/healthz``, with each replica's KV rows
+        when an accountant is attached."""
+        acct = self._accountant
         with self._lock:
-            return [{"replica": r.index, "device": str(r.device),
+            out = [{"replica": r.index, "device": str(r.device),
                     "state": r.state, "inflight": r.inflight,
                     "dispatches": r.dispatches,
                     "consecutive_failures": r.consecutive,
                     "wedged": r.wedged, "probe_at": r.probe_at}
-                    for r in self.replicas]
+                   for r in self.replicas]
+        if acct is not None:
+            snap = acct.snapshot()
+            for row in out:
+                tag = "r%d" % row["replica"]
+                row["kv_resident_bytes"] = acct.resident_bytes(tag)
+                pool = snap.get(tag)
+                if pool is not None and pool.get("page_tokens"):
+                    row["kv_page_tokens"] = pool["page_tokens"]
+                    row["kv_pages"] = pool["slots"]
+                    row["kv_pages_live"] = pool["live"]
+        return out
 
 
 class ReplicaDispatcher(MicroBatcher):
@@ -462,6 +505,10 @@ class ReplicaDispatcher(MicroBatcher):
             self._maintain()
             if self._set.healthy_count() == 0:
                 self._shed("no_healthy_replica")
+        if not self._set.kv_admissible():
+            # every healthy replica's KV pool is over budget: shed by
+            # residency, not queue depth
+            self._shed("kv_residency")
         return super().submit(inputs, deadline_ms=deadline_ms,
                               priority=priority, meta=meta)
 

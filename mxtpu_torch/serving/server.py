@@ -36,7 +36,8 @@ Endpoints::
                        or version, 500 failed batch
     GET  /healthz   {"status": "ok"|"degraded"|"unhealthy"|"draining",
                      "queue_depth": d, "replicas": [...],
-                     "controller": {...}, "zoo": {...}}
+                     "kv": {tag: {...}}, "controller": {...},
+                     "zoo": {...}}
                     (each block where it applies)
     GET  /metrics   telemetry.snapshot() as JSON, or Prometheus text
 
@@ -295,6 +296,11 @@ def _make_handler(srv):
                     if not srv.draining and healthy < len(reps):
                         payload["status"] = ("degraded" if healthy
                                              else "unhealthy")
+                acct = getattr(getattr(srv._batcher, "replica_set", None),
+                               "accountant", None)
+                if acct is not None:
+                    # KV residency per replica pool
+                    payload["kv"] = acct.snapshot()
                 if srv._zoo is not None:
                     payload["zoo"] = srv._zoo.view()
                 ctrl = getattr(srv._batcher, "_controller", None)

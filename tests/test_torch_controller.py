@@ -509,33 +509,73 @@ def test_scale_up_refused_on_one_device_like_mxtpu(monkeypatch):
     p.same()
 
 
-class _KVStandIn:
-    """The port has no KV-cache accountant yet (decode brings it with the
-    ReplicaSet's ``attach_accountant``): a stand-in with the ``pressure()``
-    the controller reads."""
-
-    def __init__(self, pressure):
-        self._p = pressure
-
-    def pressure(self):
-        return self._p
-
-
 def test_kv_pressure_is_a_scale_signal_like_mxtpu(monkeypatch):
+    """Each package's accountant, attached to its ReplicaSet, at the same
+    residency: the port's controller reads the real accountant's pressure
+    and scales up as the reference's does."""
+    from mxtpu_torch.serving import KVCacheAccountant
     p = Pair(monkeypatch, ctrl_kw={"min_samples": 999,
                                    "scale_cooldown_ms": 0})
-    acct = JKVCacheAccountant(overcommit=2.0)
-    acct.register("r0", per_slot_bytes=64, slots=2)
-    for _ in range(4):
-        assert acct.try_admit("r0")
-    p.jrs.attach_accountant(acct)
-    p.rs.accountant = _KVStandIn(acct.pressure())
+    for s, acct in ((p.jrs, JKVCacheAccountant(overcommit=2.0)),
+                    (p.rs, KVCacheAccountant(overcommit=2.0))):
+        acct.register("r0", per_slot_bytes=64, slots=2)
+        for _ in range(4):
+            assert acct.try_admit("r0")
+        s.attach_accountant(acct)
+    assert p.rs.accountant.pressure() == p.jrs.accountant.pressure() == 1.0
     p.advance(0.01)
     p.poll()
     assert p.log == [("scale_up",
                       "pressure=0.00 sheds=0.0 attainment=n/a kv=1.00")]
     assert len(p.rs.replicas) == 2
     p.same()
+
+
+def test_kv_pressure_from_decode_engines_scales_like_mxtpu(monkeypatch):
+    """The pressure comes from a live DecodeEngine in each package: queued
+    prompts against two slots at overcommit 2 reach the controller's
+    ``kv_pressure_high`` and it scales up; below it, it holds."""
+    import os
+    import sys
+    from mxtpu.serving import DecodeEngine as JDecodeEngine
+    from mxtpu_torch.serving import DecodeEngine, KVCacheAccountant
+    from mxtpu_torch.serving import decode_bench
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools"))
+    import serve_bench as sb
+    jmodel = sb.build_decode_model(vocab=16, dim=8, max_len=16, seed=2)
+    model = decode_bench.build_decode_model(16, 8, 16, seed=2)
+    p = Pair(monkeypatch, ctrl_kw={"min_samples": 999,
+                                   "scale_cooldown_ms": 0,
+                                   "kv_pressure_high": 0.75})
+    engines = []
+    for s, E, B, A, m, kw in (
+            (p.jrs, JDecodeEngine, JBucketSpec, JKVCacheAccountant, jmodel,
+             {}),
+            (p.rs, DecodeEngine, BucketSpec, KVCacheAccountant, model,
+             {"device": "cpu"})):
+        acct = A(overcommit=2.0)
+        s.attach_accountant(acct)
+        engines.append(E(m, B([1], seq_lens=[4, 8]),
+                         B.pow2(decode_slots=2), max_len=12,
+                         accountant=acct, **kw))
+    for i in range(2):
+        for e in engines:
+            e.submit(np.arange(2 + i).astype(np.int32), max_new=3)
+    p.advance(0.01)
+    p.poll()
+    assert p.log == [] and p.rs.accountant.pressure() == 0.5
+    for e in engines:
+        e.submit(np.arange(3).astype(np.int32), max_new=3)
+    assert p.rs.accountant.pressure() == p.jrs.accountant.pressure() == 0.75
+    p.advance(0.01)
+    p.poll()
+    assert p.log == [("scale_up",
+                      "pressure=0.00 sheds=0.0 attainment=n/a kv=0.75")]
+    p.same()
+    for e in engines:
+        e.close(timeout=5.0)
+    assert p.rs.accountant.pressure() == 0.0
 
 
 # ----------------------------------------------------------------- HTTP front

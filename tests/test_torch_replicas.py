@@ -528,3 +528,46 @@ def test_threaded_bring_up_joins_while_traffic_flows():
         st = ttel.retrace_stats("serving.predict.r%d" % i)
         assert st["compiles"] == len(rs.spec) and st["trips"] == 0
     assert ttel.value("serving.replica.joins", tag="r1") == 1
+
+
+# ------------------------------------------------------- KV accountability
+def test_attach_accountant_admission_and_shed_like_mxtpu():
+    """A KV accountant attached to both ReplicaSets: the same states rows
+    (resident bytes, a paged pool's pages), ``kv_admissible`` and the
+    dispatcher's ``kv_residency`` shed once no healthy replica admits."""
+    from mxtpu.serving import KVCacheAccountant as JKVCacheAccountant
+    from mxtpu_torch.serving import KVCacheAccountant
+    jrs, rs, _ = _sets()
+    jbat, jclk, bat, clk = _dispatchers(jrs, rs)
+    accts = []
+    for s, A in ((jrs, JKVCacheAccountant), (rs, KVCacheAccountant)):
+        assert s.accountant is None and s.kv_admissible()
+        acct = A(overcommit=1.0)
+        assert s.attach_accountant(acct) is s and s.accountant is acct
+        acct.register("r0", per_slot_bytes=64, slots=1)
+        acct.register("r1", per_slot_bytes=16, slots=2, page_tokens=8)
+        accts.append(acct)
+    assert rs.states() == [
+        {**row, "device": "cpu"} for row in jrs.states()]
+    for a in accts:
+        assert a.try_admit("r0")
+        a.occupy("r0")
+    assert rs.kv_admissible() == jrs.kv_admissible() is True   # r1 admits
+    for a in accts:
+        assert a.try_admit("r1", n=2)
+        a.occupy("r1", n=2)
+    assert rs.kv_admissible() == jrs.kv_admissible() is False
+    assert [r["kv_resident_bytes"] for r in rs.states()] == \
+        [r["kv_resident_bytes"] for r in jrs.states()] == [64, 32]
+    assert rs.states()[1]["kv_pages_live"] == 2
+    for b in (jbat, bat):
+        with pytest.raises(Exception, match="kv_residency") as e:
+            b.submit(_x(1))
+        assert type(e.value).__name__ == "QueueFull"
+    _counters("serving.shed")
+    # a quarantined replica's headroom does not count
+    for a in accts:
+        a.release("r1", n=2)
+    for s in (jrs, rs):
+        s.force_quarantine(1, 0.0, backoff_s=3600)
+    assert rs.kv_admissible() == jrs.kv_admissible() is False

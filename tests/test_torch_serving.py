@@ -837,3 +837,69 @@ def test_server_reads_json_in_the_template_dtype():
         assert pred.compile_stats()["compiles"] == 1
     finally:
         srv.close()
+
+
+# ------------------------------------------------------- KV residency hooks
+def test_batcher_admission_gate_sheds_like_mxtpu():
+    """A KV accountant's gate plugs into the plain MicroBatcher of either
+    package: a full pool sheds ``kv_residency`` at submit, a freed one
+    admits again, and the counters agree."""
+    from mxtpu.serving import KVCacheAccountant as JKVCacheAccountant
+    from mxtpu_torch.serving import KVCacheAccountant
+    jnet, net = _mlps()
+    accts = [JKVCacheAccountant(capacity_bytes=100, overcommit=1.0),
+             KVCacheAccountant(capacity_bytes=100, overcommit=1.0)]
+    for a in accts:
+        a.register("r0", per_slot_bytes=100, slots=1)
+    jclk, clk = FakeClock(), FakeClock()
+    jbat = JMicroBatcher(_jax_pred(jnet, JBucketSpec([2])), clock=jclk,
+                         start=False, max_batch_size=2, max_wait_ms=5,
+                         admission_gate=accts[0].gate("r0"))
+    bat = MicroBatcher(_port_pred(net, BucketSpec([2])), clock=clk,
+                       start=False, max_batch_size=2, max_wait_ms=5,
+                       admission_gate=accts[1].gate("r0"))
+    futs = []
+    for b, a, qf in ((jbat, accts[0], JQueueFull),
+                     (bat, accts[1], QueueFull)):
+        futs.append(b.submit(_x(1, seed=1)))     # the pool is empty
+        assert a.try_admit("r0")
+        a.occupy("r0")                           # now it is full
+        with pytest.raises(qf, match="kv_residency"):
+            b.submit(_x(1, seed=2))
+        a.release("r0")
+        futs.append(b.submit(_x(1, seed=3)))
+    for c in (jclk, clk):
+        c.advance(0.006)
+    assert jbat.poll() == bat.poll() == 2
+    for mine, ref in zip(futs[2:], futs[:2]):
+        _close(mine.result(T), ref.result(T))
+    assert ttel.value("serving.shed", "kv_residency") == \
+        jtel.value("serving.shed", "kv_residency") == 1
+
+
+def test_server_healthz_kv_block():
+    """Over a ReplicaDispatcher whose ReplicaSet carries a KV accountant,
+    ``/healthz`` reports its snapshot under ``kv`` and each replica's
+    resident bytes; without one, no ``kv`` block."""
+    from mxtpu_torch.serving import KVCacheAccountant, ReplicaSet
+    _, net = _mlps()
+    rs = ReplicaSet(net, BucketSpec.pow2(4), devices=["cpu"],
+                    example=np.zeros((1, IN_DIM), np.float32), warmup=True)
+    srv = ModelServer(rs).start()
+    try:
+        code, health = _http(srv.address, "/healthz")
+        assert code == 200 and "kv" not in health
+        acct = KVCacheAccountant(overcommit=2.0)
+        rs.attach_accountant(acct)
+        acct.register("r0", per_slot_bytes=48, slots=4, bucket_slots=(2, 4))
+        assert acct.try_admit("r0", n=3)
+        acct.occupy("r0", n=2)
+        code, health = _http(srv.address, "/healthz")
+        assert code == 200 and health["status"] == "ok"
+        assert health["kv"] == {"r0": {
+            "capacity_bytes": 192, "per_slot_bytes": 48, "slots": 4,
+            "page_tokens": 0, "live": 2, "queued": 1,
+            "resident_bytes": 96, "bucket_bytes": {"2": 96, "4": 192}}}
+        assert health["replicas"][0]["kv_resident_bytes"] == 96
+    finally:
+        srv.close()
