@@ -3324,26 +3324,28 @@ def flash_backward_phase():
     return rows
 
 
-def _step_program(net, trainer, loss_fn, x, y, reshape):
+def _step_program(net, trainer, loss_fn, x, y, reshape, batch_size=None):
     """One step of the user's loop (train_cifar10.py): record, net, loss,
-    backward, trainer.step. Returns (loss, logits) NDArrays."""
+    backward, trainer.step (``batch_size`` default: the labels' count).
+    Returns (loss, logits) NDArrays."""
     import mxtpu_torch as mt
     with mt.autograd.record():
         logits = net(x)
         flat = logits if reshape is None else logits.reshape((-1, reshape))
         loss = loss_fn(flat, y.reshape((-1,)))
     loss.backward()
-    trainer.step(y.size)
+    trainer.step(batch_size or y.size)
     return loss, logits
 
 
-def _host_copy(state):
-    """An optimizer state (NDArrays in nested tuples) copied to the CPU."""
+def _host_copy(state, device="cpu"):
+    """An optimizer state (NDArrays in nested tuples) copied to ``device``
+    (default the CPU)."""
     from mxtpu_torch.ndarray import NDArray
     if isinstance(state, tuple):
-        return tuple(_host_copy(s) for s in state)
+        return tuple(_host_copy(s, device) for s in state)
     return None if state is None else NDArray(
-        state.to_torch().detach().cpu().clone())
+        state.to_torch().detach().to(device, copy=True))
 
 
 def _leaves(state):
@@ -3370,7 +3372,8 @@ BF16_VS_F32 = 0.15
 
 
 def lockstep_train(label, card_net, cpu_net, batches, optimizer, params,
-                   reshape=None, kernel=None):
+                   reshape=None, kernel=None, eager_net=None, trainers=None,
+                   schedule=None):
     """The same float32 training steps on the card and on the CPU, each
     from the same state: before every step after the first the CPU takes
     the card's weights, BatchNorm statistics and optimizer states, so each
@@ -3380,17 +3383,32 @@ def lockstep_train(label, card_net, cpu_net, batches, optimizer, params,
     max|ref| (elementwise), BatchNorm running statistics within 1e-4 of
     max(1, max|ref|); gradients, the step's weight change and the
     optimizer states within TRAIN_L2 relative L2 per tensor. ``kernel``'s
-    launches are counted from 0 over each card step. Returns (per-step
-    launches, per-step mean card losses, worst errors, the CPU's step-1
-    (loss, logits))."""
+    launches are counted over each card step. ``eager_net``, when
+    given, is one more reference held the same way: the same net on the
+    card run eagerly (not hybridized, the fused step off) from the card's
+    state; ``cpu_net`` may then be None. A hybridized ``card_net`` gets a
+    hybridized loss. ``trainers`` keeps each net's (Trainer, loss) across
+    calls (the captured graphs live in them); ``schedule`` gives per step
+    (lr or None, batch-size multiplier) for ``trainer.step``. Returns
+    (per-step launches, per-step mean card losses, worst errors, the CPU's
+    step-1 (loss, logits))."""
     import numpy as np
     import mxtpu_torch as mt
+    from mxtpu_torch import optimizer_fused
     nd = mt.nd
-    tr = {d: mt.gluon.Trainer(n.collect_params(), optimizer, dict(params))
-          for d, n in (("card", card_net), ("cpu", cpu_net))}
-    loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    refs = [] if cpu_net is None else [("cpu", cpu_net, mt.cpu())]
+    if eager_net is not None:
+        refs.append(("card eager", eager_net, mt.gpu(0)))
+    nets = [("card", card_net, mt.gpu(0))] + refs
+    tr = {} if trainers is None else trainers
+    for dev, net, _ in nets:
+        if dev not in tr:
+            loss = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+            if dev == "card" and card_net._active:
+                loss.hybridize()
+            tr[dev] = (mt.gluon.Trainer(net.collect_params(), optimizer,
+                                        dict(params)), loss)
     cps = list(card_net.collect_params().values())
-    hps = list(cpu_net.collect_params().values())
     worst, launches, losses, first = {}, [], [], None
 
     def note(key, err):
@@ -3420,51 +3438,59 @@ def lockstep_train(label, card_net, cpu_net, batches, optimizer, params,
     def host(a):
         return a.astype("float32").asnumpy()
     for step, (x, y) in enumerate(batches):
-        if step:   # the CPU resumes from the card's state
-            for c, h in zip(cps, hps):
-                h.set_data(c.data().to_torch().detach().cpu())
-            tr["cpu"]._updaters[0].states = {
-                i: _host_copy(st) for i, st in
-                tr["card"]._updaters[0].states.items()}
-        before = [host(p.data()) for p in hps]
+        lr, mult = (schedule[step] if schedule else (None, 1))
+        for dev, net, ctx in refs:   # each reference resumes from the card
+            for c, h in zip(cps, net.collect_params().values()):
+                h.set_data(c.data().to_torch().detach())
+            tr[dev][0]._updaters[0].states = {
+                i: _host_copy(st, mt.context.resolve_device(ctx))
+                for i, st in tr["card"][0]._updaters[0].states.items()}
+        if lr is not None:
+            for dev, _, _ in nets:
+                tr[dev][0].set_learning_rate(lr)
+        before = [host(p.data()) for p in cps]
         out = {}
-        for dev, net, ctx in (("card", card_net, mt.gpu(0)),
-                              ("cpu", cpu_net, mt.cpu())):
+        for dev, net, ctx in nets:
             xa = nd.array(x, ctx=ctx, dtype="float32" if x.dtype.kind == "f"
                           else "int32")
+            start = None if kernel is None else kernel.launches
+            prev = optimizer_fused.set_enabled(dev != "card eager")
+            try:
+                loss, logits = _step_program(
+                    net, tr[dev][0], tr[dev][1], xa, nd.array(y, ctx=ctx),
+                    reshape, batch_size=y.size * mult)
+            finally:
+                optimizer_fused.set_enabled(prev)
             if dev == "card" and kernel is not None:
-                kernel.launches = 0
-            loss, logits = _step_program(net, tr[dev], loss_fn, xa,
-                                         nd.array(y, ctx=ctx), reshape)
-            if dev == "card" and kernel is not None:
-                launches.append(kernel.launches)
+                launches.append(kernel.launches - start)
             out[dev] = (host(loss), host(logits))
-        s = "step %d " % (step + 1)
-        elementwise("losses", s + "losses", out["card"][0], out["cpu"][0],
-                    1e-5)
-        elementwise("logits", s + "logits", out["card"][1], out["cpu"][1],
-                    1e-4)
         losses.append(float(out["card"][0].mean()))
-        if step == 0:
+        if step == 0 and cpu_net is not None:
             first = out["cpu"]
-        for c, h, b in zip(cps, hps, before):
-            name = s + h.name.partition("_")[2]
-            if h.grad_req == "null":
-                elementwise("bn statistics", name, host(c.data()),
-                            host(h.data()), 1e-4, floor=1.0)
-                continue
-            l2("gradients", name + " gradient", host(c.grad()),
-               host(h.grad()))
-            note("gradients elementwise (not gated)", float(np.abs(
-                host(c.grad()) - host(h.grad())).max()) / max(
-                    1.0, float(np.abs(host(h.grad())).max())))
-            l2("weight changes", name + " change", host(c.data()) - b,
-               host(h.data()) - b)
-        for i, st in tr["cpu"]._updaters[0].states.items():
-            mine = tr["card"]._updaters[0].states[i]
-            for j, (c, h) in enumerate(zip(_leaves(mine), _leaves(st))):
-                l2("optimizer states", s + "state %d.%d" % (i, j), host(c),
-                   host(h))
+        for dev, net, _ in refs:
+            s = "step %d %s " % (step + 1, dev)
+            elementwise("losses", s + "losses", out["card"][0], out[dev][0],
+                        1e-5)
+            elementwise("logits", s + "logits", out["card"][1],
+                        out[dev][1], 1e-4)
+            for c, h, b in zip(cps, net.collect_params().values(), before):
+                name = s + h.name.partition("_")[2]
+                if h.grad_req == "null":
+                    elementwise("bn statistics", name, host(c.data()),
+                                host(h.data()), 1e-4, floor=1.0)
+                    continue
+                l2("gradients", name + " gradient", host(c.grad()),
+                   host(h.grad()))
+                note("gradients elementwise (not gated)", float(np.abs(
+                    host(c.grad()) - host(h.grad())).max()) / max(
+                        1.0, float(np.abs(host(h.grad())).max())))
+                l2("weight changes", name + " change", host(c.data()) - b,
+                   host(h.data()) - b)
+            for i, st in tr[dev][0]._updaters[0].states.items():
+                mine = tr["card"][0]._updaters[0].states[i]
+                for j, (c, h) in enumerate(zip(_leaves(mine), _leaves(st))):
+                    l2("optimizer states", s + "state %d.%d" % (i, j),
+                       host(c), host(h))
     return launches, losses, worst, first
 
 
@@ -3498,14 +3524,16 @@ def resnet_batches(batch, steps, seed):
             for _ in range(steps)]
 
 
-def timed_steps(step, warm=3, n=10):
+def timed_steps(step, warm=3, n=10, on_warm=None):
     """(median ms, p80 ms, median host-issue ms) of ``n`` synchronised
-    training steps after ``warm``; host issue is the time until the step's
-    last call returns."""
+    training steps after ``warm`` (``on_warm()`` is called between); host
+    issue is the time until the step's last call returns."""
     import torch
     for _ in range(warm):
         step()
     torch.cuda.synchronize()
+    if on_warm is not None:
+        on_warm()
     wall, issue = [], []
     for _ in range(n):
         t0 = time.perf_counter()
@@ -3558,15 +3586,30 @@ def print_step_breakdown(label, rows, wall_ms, flops_per_s, dtype, card):
     return dev_ms
 
 
+def _builds():
+    """Builds so far at the training step's two retrace sites."""
+    from mxtpu_torch import telemetry
+    return {site: (telemetry.retrace_stats(site) or {}).get("compiles", 0)
+            for site in ("cached_op", "fused_optimizer")}
+
+
 def train_timing(label, net, x, y, optimizer, params, reshape, card,
-                 flops_per_item, items, dtype):
+                 flops_per_item, items, dtype, kernel=None):
     """Time ``net``'s training step on the card (3 warm-up, 10 timed),
     profile one step, and print items/s, host issue, device ms, idle
-    share, peak memory and train_mfu."""
+    share, peak memory and train_mfu. A hybridized ``net`` gets a
+    hybridized loss, and the result also holds the builds at
+    ``cached_op``/``fused_optimizer`` after the warm-up steps and
+    ``kernel``'s launches in one more step."""
+    import gc
     import torch
     import mxtpu_torch as mt
+    gc.collect()   # nets dropped before (the port's blocks hold cycles)
+    torch.cuda.empty_cache()
     trainer = mt.gluon.Trainer(net.collect_params(), optimizer, dict(params))
     loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    if net._active:
+        loss_fn.hybridize()
 
     def step():
         with mt.autograd.record():
@@ -3578,18 +3621,36 @@ def train_timing(label, net, x, y, optimizer, params, reshape, card,
         trainer.step(y.size)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    med, p80, issue = timed_steps(step)
-    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    warm = {}
+
+    def on_warm():   # the steady peak leaves the captures' warm-up out
+        warm.update(_builds(), peak=torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+    med, p80, issue = timed_steps(step, on_warm=on_warm)
+    steady_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    peak_gb = max(warm.pop("peak") / 2 ** 30, steady_gb)
     rate = items * 1e3 / med
+    after = _builds()
+    launches = None
+    if kernel is not None:
+        start = kernel.launches
+        step()
+        torch.cuda.synchronize()
+        launches = kernel.launches - start
+    built = {k: after[k] - warm[k] for k in after}
     print("train %s on %s: %.1f %s/s at the median step %.3f ms (p80 %.3f, "
           "median host issue %.3f ms; 10 steps after 3), peak memory %.2f "
-          "GiB" % (label, card, rate, "images" if reshape is None
-                   else "tokens", med, p80, issue, peak_gb), flush=True)
+          "GiB (%.2f GiB over the timed steps); builds in the timed steps "
+          "%s; launches in one step %s" % (
+              label, card, rate, "images" if reshape is None else "tokens",
+              med, p80, issue, peak_gb, steady_gb, built, launches),
+          flush=True)
     dev_ms = print_step_breakdown("train " + label, device_rows(step, 2),
                                   med, flops_per_item * rate, dtype, card)
     return dict(step_ms=med, p80_ms=p80, issue_ms=issue, device_ms=dev_ms,
-                rate=rate, peak_gib=peak_gb,
-                mfu=flops_per_item * rate / PEAK_FLOPS[dtype])
+                rate=rate, peak_gib=peak_gb, steady_peak_gib=steady_gb,
+                mfu=flops_per_item * rate / PEAK_FLOPS[dtype],
+                builds_after_warmup=built, launches=launches)
 
 
 def resnet_train_phase(card):
@@ -3671,6 +3732,24 @@ def lm_batches(b, t, steps, seed):
             for _ in range(steps)]
 
 
+def build_train_lm(layers, arrays=None):
+    """The TransformerLM at BERT-base widths with ``layers`` layers on the
+    CPU, with seeded weights (or ``arrays``): (net, arrays)."""
+    import torch
+    import mxtpu_torch as mt
+    from mxtpu_torch import convert
+    from mxtpu_torch.gluon.model_zoo.transformer import TransformerLM
+    net = TransformerLM(**dict(BERT_BASE, num_layers=layers))
+    net.initialize(ctx=mt.cpu())
+    with torch.no_grad():
+        net(torch.zeros(1, 8, dtype=torch.int32))
+    if arrays is None:
+        arrays = convert.seeded_params(
+            {k: p.shape for k, p in net.collect_params().items()}, seed=0)
+    convert.load_mxtpu_params(net, arrays)
+    return net, arrays
+
+
 def lm_train_phase(card):
     """The TransformerLM trained through gluon.Trainer (Adam lr 1e-4,
     SoftmaxCrossEntropyLoss over the vocab, as bench.py's BERT-base step):
@@ -3681,22 +3760,9 @@ def lm_train_phase(card):
     import numpy as np
     import torch
     import mxtpu_torch as mt
-    from mxtpu_torch import convert
-    from mxtpu_torch.gluon.model_zoo.transformer import TransformerLM
     from mxtpu_torch.ops.pallas.flash_attention import flash_attention
     vocab = BERT_BASE["vocab_size"]
-
-    def build(layers, arrays=None):
-        net = TransformerLM(**dict(BERT_BASE, num_layers=layers))
-        net.initialize(ctx=mt.cpu())
-        with torch.no_grad():
-            net(torch.zeros(1, 8, dtype=torch.int32))
-        if arrays is None:
-            arrays = convert.seeded_params(
-                {k: p.shape for k, p in net.collect_params().items()},
-                seed=0)
-        convert.load_mxtpu_params(net, arrays)
-        return net, arrays
+    build = build_train_lm
     batches = lm_batches(2, 512, 2, 13)
     net, arrays = build(2)
     net.collect_params().reset_ctx(mt.gpu(0))
@@ -3738,6 +3804,222 @@ def lm_train_phase(card):
         % (b, t), big, x, y, "adam", dict(ADAM_PARAMS, multi_precision=True),
         vocab, card, flops, b * t, "bfloat16")
     return {"float32": launches[0], "bfloat16": step_launches}, timing
+
+
+CAPTURED_LR = 0.05        # the lr of the schedule check's step
+CAPTURED_BATCH_MULT = 2   # the batch-size check steps with 2x the labels
+
+
+def captured_train_phase(card, eager_timing):
+    """The training step captured (ROADMAP A2.4): ``net.hybridize()`` and
+    ``loss_fn.hybridize()`` in the user's loop (``_step_program``), so each
+    recorded call replays a forward/backward graph pair and each
+    ``Trainer.step`` replays one update graph per parameter group.
+
+    Gates: ResNet-50 v1 f32 b8 and the 2-layer BERT-base TransformerLM f32
+    b2 x 512, two captured steps each against the same steps on the CPU
+    and eagerly on the card (``lockstep_train``); then on ResNet-50 a step
+    after ``set_learning_rate`` and one with twice the batch size in
+    ``step``, against the card's eager step, with no new build at
+    ``cached_op`` or ``fused_optimizer``; two recorded forwards before one
+    backward, gradients against the eager ones (TRAIN_L2); the trained
+    net saved with ``save_parameters`` and loaded into a fresh one serves
+    the same logits. Timed: ResNet-50 f32 b64 and bf16 b128 and the
+    12-layer TransformerLM bf16 b8 x 512 (``train_timing``, beside the
+    eager numbers of this run), with 11 fused_conv / 12 flash launches
+    and no build in a step after the warm-up. Returns the launches per
+    captured step by kernel and type."""
+    import numpy as np
+    import torch
+    import mxtpu_torch as mt
+    from mxtpu_torch.ops.pallas.conv import fused_conv
+    from mxtpu_torch.ops.pallas.flash_attention import flash_attention
+    from mxtpu_torch.serving import BucketSpec, Predictor
+    import gc
+    nd, gpu = mt.nd, mt.gpu(0)
+    t_phase = time.time()
+
+    def on_card(net, hybrid=False):
+        net.collect_params().reset_ctx(gpu)
+        if hybrid:
+            net.hybridize()
+        return net
+
+    # ResNet-50 v1 f32 b8: lockstep with the CPU and the card's eager step
+    gnet, arrays = build_net()
+    on_card(gnet, True)
+    enet = on_card(build_net(arrays)[0])
+    cpu_net, _ = build_net(arrays)
+    batches = resnet_batches(8, 4, 21)
+    tr = {}
+    t0 = time.time()
+    launches, losses, worst, _ = lockstep_train(
+        "resnet50 captured train f32", gnet, cpu_net, batches[:2], "sgd",
+        SGD_PARAMS, kernel=fused_conv, eager_net=enet, trainers=tr)
+    del cpu_net
+    if launches[1] != 11:
+        raise AssertionError("resnet50 captured step: fused_conv launched "
+                             "%s times per step, expected 11" % launches)
+    print("captured train resnet50_v1 f32 b8, 2 SGD steps, each against the "
+          "same step on the CPU and eagerly on the card from the captured "
+          "net's state (%.1f s): fused_conv launches %s (the first step "
+          "captures); mean losses %s; builds %s; worst errors: %s" % (
+              time.time() - t0, launches, losses, _builds(),
+              worst_line(worst)), flush=True)
+    built = _builds()
+    t0 = time.time()
+    launches2, losses2, worst2, _ = lockstep_train(
+        "resnet50 captured train f32 (lr, batch size)", gnet, None,
+        batches[2:4], "sgd", SGD_PARAMS, kernel=fused_conv, eager_net=enet,
+        trainers=tr, schedule=[(CAPTURED_LR, 1), (None, CAPTURED_BATCH_MULT)])
+    if _builds() != built or launches2 != [11, 11]:
+        raise AssertionError(
+            "resnet50 captured step after an lr change / a batch-size "
+            "change: builds %s -> %s, fused_conv launches %s" % (
+                built, _builds(), launches2))
+    print("captured train resnet50_v1: a step at lr %g, then one with "
+          "step(%d x batch), each against the card's eager step (%.1f s): "
+          "no new build (%s), fused_conv launches %s; worst errors: %s" % (
+              CAPTURED_LR, CAPTURED_BATCH_MULT, time.time() - t0, built,
+              launches2, worst_line(worst2)), flush=True)
+    # two recorded forwards of one signature before one backward
+    for c, h in zip(gnet.collect_params().values(),
+                    enet.collect_params().values()):
+        h.set_data(c.data().to_torch().detach())
+    before = _builds()
+    grads = []
+    for net, loss_fn in ((gnet, tr["card"][1]),
+                         (enet, mt.gluon.loss.SoftmaxCrossEntropyLoss())):
+        net.collect_params().zero_grad()
+        with mt.autograd.record():
+            total = None
+            for x, y in batches[:2]:
+                part = loss_fn(net(nd.array(x, ctx=gpu)), nd.array(y, ctx=gpu))
+                total = part if total is None else total + part
+        total.backward()
+        grads.append([p.grad().asnumpy() for p in
+                      net.collect_params().values() if p.grad_req != "null"])
+    err = 0.0
+    for a, b in zip(*grads):
+        e = float(np.linalg.norm((a - b).ravel())
+                  / max(np.linalg.norm(b.ravel()), 1e-30))
+        err = max(err, e)
+    added = {k: _builds()[k] - before[k] for k in before}
+    if not np.isfinite(err) or err > TRAIN_L2:
+        raise AssertionError("two forwards, one backward: gradients differ "
+                             "from the eager ones by relative L2 %.3g "
+                             "(limit %g)" % (err, TRAIN_L2))
+    print("captured resnet50_v1: two recorded forwards before one backward: "
+          "gradients against the card's eager ones, worst relative L2 %.3g "
+          "(limit %g); builds added %s (the net's and the loss's second "
+          "pair)" % (err, TRAIN_L2, added), flush=True)
+    # save, load into a fresh net, serve both
+    path = os.path.join(ROOT, "build", "captured_resnet50_v1.params")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    gnet.save_parameters(path)
+    fresh = on_card(build_net()[0])
+    fresh.load_parameters(path)
+    x = np.random.default_rng(22).standard_normal(
+        (8, 224, 224, 3)).astype(np.float32)
+    served = [Predictor(n, BucketSpec([8]), device=gpu).predict(x).asnumpy()
+              for n in (gnet, fresh)]
+    mag = float(np.abs(served[0]).max())
+    err = float(np.abs(served[0] - served[1]).max())
+    print("captured resnet50_v1: save_parameters (%d bytes) -> "
+          "load_parameters into a fresh net: served b8 logits differ by %.3g "
+          "(max|logit| %.3g)" % (os.path.getsize(path), err, mag), flush=True)
+    os.remove(path)
+    if not np.isfinite(served[1]).all() or err > 1e-6 * mag:
+        raise AssertionError("the loaded net serves other logits (%.3g of "
+                             "max|logit|)" % (err / mag))
+    del fresh, enet, served, grads, tr
+    # the 2-layer TransformerLM f32 b2 x 512
+    vocab = BERT_BASE["vocab_size"]
+    glm, lm_arrays = build_train_lm(2)
+    on_card(glm, True)
+    elm = on_card(build_train_lm(2, lm_arrays)[0])
+    clm, _ = build_train_lm(2, lm_arrays)
+    t0 = time.time()
+    lm_launches, lm_losses, lm_worst, _ = lockstep_train(
+        "transformer_lm captured train f32", glm, clm,
+        lm_batches(2, 512, 2, 23), "adam", ADAM_PARAMS, reshape=vocab,
+        kernel=flash_attention, eager_net=elm)
+    if lm_launches[1] != 2:
+        raise AssertionError("transformer_lm captured step: flash launched "
+                             "%s times per step, expected 2" % lm_launches)
+    print("captured train transformer_lm (2 layers, BERT-base widths) f32 "
+          "b2 x 512, 2 Adam steps against the CPU and the card's eager step "
+          "(%.1f s): flash launches %s; mean losses %s; worst errors: %s" % (
+              time.time() - t0, lm_launches, lm_losses,
+              worst_line(lm_worst)), flush=True)
+    del glm, elm, clm, gnet
+    # timed, captured, each on a fresh net
+    timing = {}
+    rng = np.random.default_rng(12)
+    for dtype, batch in (("float32", 64), ("bfloat16", 128)):
+        params = SGD_PARAMS if dtype == "float32" else dict(
+            SGD_PARAMS, multi_precision=True)
+        net = on_card(build_net(arrays)[0])
+        net.cast(dtype)
+        net.hybridize()
+        x = nd.array(rng.standard_normal((batch, 224, 224, 3)), ctx=gpu,
+                     dtype=dtype)
+        y = nd.array(rng.integers(0, 1000, batch).astype(np.float32),
+                     ctx=gpu)
+        timing["resnet50 " + dtype] = train_timing(
+            "resnet50_v1 %s b%d captured (SGD-momentum%s)" % (
+                dtype, batch, ", multi_precision" if dtype != "float32"
+                else ""), net, x, y, "sgd", params, None, card,
+            RESNET50_TRAIN_FLOPS, batch, dtype, kernel=fused_conv)
+        del net, x, y
+    layers, b, t = BERT_BASE["num_layers"], 8, 512
+    big = on_card(build_train_lm(layers)[0])
+    big.cast("bfloat16")
+    big.hybridize()
+    (tokens, labels), = lm_batches(b, t, 1, 14)
+    dim = BERT_BASE["dim"]
+    flops = 3 * 2 * (layers * (12 * dim * dim + 2 * t * dim) + dim * vocab)
+    timing["transformer_lm bfloat16"] = train_timing(
+        "transformer_lm bf16 b%d x %d captured (12 layers, Adam, "
+        "multi_precision)" % (b, t), big,
+        nd.array(tokens, ctx=gpu, dtype="int32"), nd.array(labels, ctx=gpu),
+        "adam", dict(ADAM_PARAMS, multi_precision=True), vocab, card, flops,
+        b * t, "bfloat16", kernel=flash_attention)
+    del big
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = {"resnet50 float32": 11, "resnet50 bfloat16": 11,
+            "transformer_lm bfloat16": layers}
+    print("captured training step beside the step of this run's training "
+          "phases on %s (eager forward and backward; their Trainer's update "
+          "is captured too, as every Trainer's on the card now is) "
+          "(items/s, median ms, p80 ms, host issue ms, device ms, idle "
+          "share, peak GiB, peak GiB over the timed steps, train_mfu):"
+          % card)
+    for key, tm in timing.items():
+        ea = eager_timing.get(key)
+        for name, row in (("captured", tm), ("eager f/b", ea)):
+            if row is None:
+                continue
+            print("  %-24s %-9s %10.1f %9.3f %9.3f %9.3f %9.3f %6.3f %6.2f "
+                  "%6.2f %.4f" % (key, name, row["rate"], row["step_ms"],
+                                  row["p80_ms"], row["issue_ms"],
+                                  row["device_ms"],
+                                  1 - row["device_ms"] / row["step_ms"],
+                                  row["peak_gib"], row["steady_peak_gib"],
+                                  row["mfu"]))
+        if tm["launches"] != want[key] or any(tm["builds_after_warmup"]
+                                              .values()):
+            raise AssertionError(
+                "captured %s: %s launches in a step (expected %d), builds "
+                "after the warm-up %s" % (key, tm["launches"], want[key],
+                                          tm["builds_after_warmup"]))
+    print("captured training phase %.1f s" % (time.time() - t_phase),
+          flush=True)
+    return {"conv": {"float32": launches[1], "bfloat16":
+                     timing["resnet50 bfloat16"]["launches"]},
+            "flash": {"float32": lm_launches[1], "bfloat16":
+                      timing["transformer_lm bfloat16"]["launches"]}}
 
 
 def kernel_entries(rows, launches, train_launches, name, source, replaces,
@@ -3816,16 +4098,29 @@ def main():
     gluon_nd_phase()
     conv_bwd = conv_backward_phase()
     flash_bwd = flash_backward_phase()
-    conv_train, _ = resnet_train_phase(card)
-    flash_train, _ = lm_train_phase(card)
+    conv_train, conv_timing = resnet_train_phase(card)
+    flash_train, lm_timing = lm_train_phase(card)
+    # the captured training step's path: B1's and B2's launches from 0
+    from mxtpu_torch.ops.pallas.conv import fused_conv
+    from mxtpu_torch.ops.pallas.flash_attention import flash_attention
+    fused_conv.launches = flash_attention.launches = 0
+    captured = captured_train_phase(card, {
+        "resnet50 float32": conv_timing["float32"],
+        "resnet50 bfloat16": conv_timing["bfloat16"],
+        "transformer_lm bfloat16": lm_timing})
+    captured_path = {"conv": fused_conv.launches,
+                     "flash": flash_attention.launches}
+    print("captured training phase launches (over both types): %s"
+          % captured_path, flush=True)
+    if not all(captured_path.values()):
+        raise AssertionError("captured training: a kernel of its path was "
+                             "not launched: %s" % captured_path)
     n = resnet50_param_count()
     _, rtc_kernels, rtc_rows = rtc_phase(n)
     rtc_launches = imperative_phase(rtc_kernels, n)
     # the decode path runs none of B1-B3 (its model is plain torch, as the
     # reference's is jnp): every kernel's launches from 0 over the phase,
     # run last so that the B3 kernels exist
-    from mxtpu_torch.ops.pallas.conv import fused_conv
-    from mxtpu_torch.ops.pallas.flash_attention import flash_attention
     fused_conv.launches = flash_attention.launches = 0
     for k in rtc_kernels.values():
         k.launches = 0
@@ -3857,8 +4152,11 @@ def main():
                       zoo_launches=zoo_conv)
     entries[3].update(zoo_launches=zoo_flash)
     for i, e in enumerate(entries):
-        e["decode_launches_both_dtypes"] = decode_launches[
-            "conv" if i < 2 else "flash"]
+        kind = "conv" if i < 2 else "flash"
+        e["decode_launches_both_dtypes"] = decode_launches[kind]
+        e["captured_train_step_launches"] = captured[kind][
+            "float32" if i % 2 == 0 else "bfloat16"]
+        e["captured_train_launches_both_dtypes"] = captured_path[kind]
     for r in rtc_rows:
         if rtc_launches[r["name"]] < 1:
             raise AssertionError("rtc %s was not launched on the imperative "

@@ -1,15 +1,17 @@
 """mxtpu_torch: the PyTorch/CUDA port of mxtpu, for NVIDIA Hopper.
 
 The namespace mirrors ``import mxtpu as mx`` for the parts ported so far:
-devices, the layout scope, the op registry and the imperative ``nd``
-namespace over ``NDArray``, ``autograd``, ``random``, runtime-compiled CUDA
+devices and contexts (``with mx.cpu():``), the layout scope, the op
+registry and the imperative ``nd`` namespace over ``NDArray`` (with
+``.params`` files: ``nd.save``/``nd.load``), ``autograd``, ``random``,
+runtime-compiled CUDA
 kernels (``rtc``) and the external-kernel hook (``contrib``), Gluon blocks
 and layers, the ResNet v1 and transformer model zoo, initializers, the
 bucketed Predictor, and training: Gluon losses and ``Trainer``, the
 optimizers with their fused updater, lr schedulers and metrics. Kernels that the JAX package wrote in Pallas are
 hand-written CUDA under ``csrc/``, built at first use
 (``mxtpu_torch.kernels``). Entry points run on the CUDA device unless the
-caller passes a CPU device.
+caller passes a CPU device or opens a CPU context.
 """
 from .ops.precision_util import apply_policy as _apply_policy
 
@@ -17,7 +19,8 @@ _apply_policy()   # float32 contractions stay float32 (no TF32), as in mxtpu
 
 from . import base, context  # noqa: E402
 from .base import MXNetError  # noqa: E402
-from .context import cpu, default_device, gpu  # noqa: E402
+from .context import (Context, cpu, current_context, default_device,  # noqa: E402
+                      gpu, num_gpus)
 from .layout import layout  # noqa: E402
 from . import ops  # noqa: E402
 from . import autograd  # noqa: E402
@@ -37,7 +40,8 @@ from . import resilience  # noqa: E402
 from . import serving  # noqa: E402
 from . import convert  # noqa: E402
 
-__all__ = ["MXNetError", "cpu", "gpu", "default_device", "layout", "ops",
+__all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
+           "num_gpus", "default_device", "layout", "ops",
            "autograd", "ndarray", "nd", "random", "rtc", "contrib",
            "initializer", "init", "gluon", "serving", "convert", "base",
            "context", "optimizer", "lr_scheduler", "metric", "telemetry",

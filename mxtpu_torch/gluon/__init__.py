@@ -1,9 +1,10 @@
 """Gluon API of the port (counterpart of ``mxtpu/gluon``)."""
 from . import loss, model_zoo, nn
 from .block import Block, HybridBlock
-from .parameter import DeferredInitializationError, Parameter, ParameterDict
+from .parameter import (Constant, DeferredInitializationError, Parameter,
+                        ParameterDict)
 from .trainer import Trainer
 
-__all__ = ["Block", "HybridBlock", "Parameter", "ParameterDict",
+__all__ = ["Block", "HybridBlock", "Parameter", "Constant", "ParameterDict",
            "DeferredInitializationError", "Trainer", "loss", "nn",
            "model_zoo"]

@@ -12,8 +12,15 @@ forward on the arrays' tensors, taped only under ``autograd.record()``,
 and returns NDArrays. ``hybridize()`` turns on a ``CachedOp``: on a
 CUDA device, one captured CUDA graph per input signature and train/predict
 mode for calls made while autograd is not recording (``graphs.CapturedGraph``,
-the helper the serving Predictor's buckets use); a recording call and any
-call on the CPU run eagerly, with the same numbers.
+the helper the serving Predictor's buckets use), and for a call made under
+``autograd.record()`` a captured forward/backward pair
+(``graphs.CapturedPair``) taped as one node, as the reference tapes its
+jitted forward with a jitted backward. A call on the CPU, and the
+deferred-init first call, run eagerly, with the same numbers.
+
+``save_parameters``/``load_parameters`` write and read ``.params`` files
+by attribute path (``features.0.weight``), in the reference's byte format
+(``ndarray/utils.py``).
 
 ``reading_params(fn)`` makes every layer forward on this thread read each
 parameter tensor ``t`` as ``fn(t)``: the int8 Predictor dequantizes
@@ -23,6 +30,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
+import weakref
 
 import torch
 from torch import nn
@@ -108,20 +116,27 @@ class _BlockScope:
         self._old_scope = None
 
     @staticmethod
-    def create(prefix, hint):
-        """(block prefix, its ParameterDict) for a new block."""
+    def create(prefix, params, hint):
+        """(block prefix, its ParameterDict) for a new block; ``params``
+        (another block's dict) is shared: the new dict takes its prefix
+        and hands out its parameters."""
         current = getattr(_BlockScope._current, "value", None)
         if current is None:
             if prefix is None:
                 prefix = "%s%d_" % (hint, _NameManager.next(hint))
-            return prefix, ParameterDict(prefix)
+            params = ParameterDict(prefix) if params is None \
+                else ParameterDict(params.prefix, params)
+            return prefix, params
         if prefix is None:
             count = current._counter.get(hint, 0)
             current._counter[hint] = count + 1
             prefix = "%s%d_" % (hint, count)
-        parent = current._block.params
-        return (current._block.prefix + prefix,
-                ParameterDict(parent.prefix + prefix))
+        if params is None:
+            parent = current._block.params
+            params = ParameterDict(parent.prefix + prefix, parent._shared)
+        else:
+            params = ParameterDict(params.prefix, params)
+        return current._block.prefix + prefix, params
 
     def __enter__(self):
         if self._block._empty_prefix:
@@ -151,10 +166,11 @@ class _NameManager:
 class Block(nn.Module):
     """Base container for layers and models (ref: gluon/block.py:Block)."""
 
-    def __init__(self, prefix=None):
+    def __init__(self, prefix=None, params=None):
         super().__init__()
         self._empty_prefix = prefix == ""
-        self._prefix, self._params = _BlockScope.create(prefix, self._alias())
+        self._prefix, self._params = _BlockScope.create(prefix, params,
+                                                        self._alias())
         self._name = (self._prefix[:-1] if self._prefix.endswith("_")
                       else self._prefix)
         self._scope = _BlockScope(self)
@@ -220,26 +236,167 @@ class Block(nn.Module):
             p.cast(dtype)
         return self
 
+    def save_parameters(self, filename):
+        """Write every parameter to ``filename`` under its attribute path
+        (``features.0.weight``), so the file does not depend on the
+        block's prefix (ref: block.py:save_parameters)."""
+        from ..ndarray.utils import save as nd_save
+        nd_save(filename, {k: v.data() for k, v in
+                           self._collect_params_with_prefix().items()})
+
+    def load_parameters(self, filename, ctx=None, allow_missing=False,
+                        ignore_extra=False):
+        """Load ``filename`` (either package's file) by attribute path,
+        through ``set_data``: the values land on each parameter's device,
+        and a hybridized block's graphs and a Trainer's captured update
+        read them at the next replay. ``ctx`` is accepted for the
+        reference's API."""
+        from ..context import cpu
+        from ..ndarray.utils import load as nd_load
+        with cpu():   # staged on the host; set_data moves each array
+            loaded = nd_load(filename)
+        params = self._collect_params_with_prefix()
+        if not allow_missing:
+            for name in params:
+                if name not in loaded:
+                    raise MXNetError("Parameter %s missing in %s"
+                                     % (name, filename))
+        for name, v in loaded.items():
+            if name not in params:
+                if ignore_extra:
+                    continue
+                raise MXNetError("Parameter %s in file not found in Block"
+                                 % name)
+            params[name].set_data(v)
+        return self
+
+    save_params = save_parameters   # the reference's names before 1.3
+    load_params = load_parameters
+
+    def _collect_params_with_prefix(self, prefix=""):
+        if prefix:
+            prefix += "."
+        ret = {prefix + k: v for k, v in self._reg_params.items()}
+        for name, child in self._modules.items():
+            if isinstance(child, Block):
+                ret.update(child._collect_params_with_prefix(prefix + name))
+        return ret
+
     def forward(self, *args):  # pragma: no cover - abstract
         raise NotImplementedError
 
 
+def _signature(args):
+    return tuple((tuple(a.shape), a.dtype, a.device, a.requires_grad)
+                 for a in args)
+
+
+class _Pair:
+    """A ``graphs.CapturedPair`` and its bookkeeping: the parameters it
+    was captured with, and whether a taped call still holds its
+    activations (``busy``: from its forward replay until its backward
+    replay or the tape node's release, whichever comes first). ``gen``
+    counts forward replays, so a backward for an older one raises."""
+
+    def __init__(self, graphs_pair, params, diff_params, fmt, lock):
+        self.graphs = graphs_pair
+        self.params = params
+        self.diff_params = diff_params
+        self.fmt = fmt
+        self.lock = lock
+        self.busy = False
+        self.gen = 0
+
+    def release(self, gen):
+        if self.gen == gen:
+            self.busy = False
+
+
+class _Held:
+    """Held by a taped call's autograd context; its finalizer frees the
+    pair when the tape node goes away without a backward."""
+
+
+class _Recorded(torch.autograd.Function):
+    """One taped node for a recorded call of a hybridized block (the
+    reference's ``record_op(..., name="CachedOp")``): its forward copies
+    the inputs into the pair's static inputs and replays the forward
+    graph; its backward copies the cotangents into the static ones,
+    replays the backward graph and returns copies of the gradients."""
+
+    @staticmethod
+    def forward(ctx, pair, n_args, *tensors):
+        pair.busy = True
+        pair.gen += 1
+        ctx.pair, ctx.gen, ctx.n_args = pair, pair.gen, n_args
+        ctx.held = _Held()
+        weakref.finalize(ctx.held, pair.release, pair.gen)
+        fwd = pair.graphs.forward
+        for static, a in zip(fwd.static_inputs, tensors[:n_args]):
+            static.copy_(a)
+        outs = [o.clone() for o in fwd.replay()]
+        ctx.mark_non_differentiable(*[
+            o for k, o in enumerate(outs)
+            if k not in pair.graphs.diff_outputs])
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        pair = ctx.pair
+        with pair.lock:
+            if pair.gen != ctx.gen:
+                raise MXNetError(
+                    "a hybridized block's recorded call was replayed again "
+                    "before this backward (backward twice with "
+                    "retain_graph=True across another forward): its "
+                    "activations are gone")
+            for static, k in zip(pair.graphs.cotangents,
+                                 pair.graphs.diff_outputs):
+                if grads[k] is None:
+                    static.zero_()
+                else:
+                    static.copy_(grads[k])
+            got = [None if g is None else g.clone()
+                   for g in pair.graphs.backward.replay()]
+            pair.busy = False
+        n_in = ctx.n_args
+        needs = ctx.needs_input_grad[2:]
+        in_grads = []
+        it = iter(got)
+        for k in range(n_in):
+            g = next(it) if pair.graphs.forward.static_inputs[k].requires_grad \
+                else None
+            in_grads.append(g if needs[k] else None)
+        param_grads = list(it)
+        return (None, None) + tuple(in_grads) + tuple(param_grads)
+
+
 class CachedOp:
-    """Captured forwards of a hybridized block (ref: block.py:CachedOp):
-    one CUDA graph per input signature (shapes, dtypes, device) and
-    ``autograd.is_training()``, reported at retrace site ``cached_op``.
-    The graph reads the block's parameter tensors at the addresses it was
-    captured with: an optimizer step writes them in place and is seen,
-    and a tensor replaced since (a ``set_data``) is copied into the
-    captured storage, which the parameter then shares, before the replay.
-    One call at a time holds the static inputs, the replay and the copies
-    of its outputs."""
+    """Captured calls of a hybridized block (ref: block.py:CachedOp).
+
+    Calls made while autograd is not recording: one CUDA graph per input
+    signature (shapes, dtypes, device) and ``autograd.is_training()``.
+    Recorded calls (``autograd.record()``): a ``graphs.CapturedPair`` per
+    signature, with the inputs' ``requires_grad``, and train mode, taped as
+    one node (``_Recorded``); a call made while every pair of its
+    signature holds another call's activations (two forwards before one
+    backward) captures one more. Each capture is one build at retrace
+    site ``cached_op`` (a pair counts once). The graphs read the block's
+    parameter tensors at the addresses they were captured with: an
+    optimizer step writes them in place and is seen, and a tensor replaced
+    since (a ``set_data``) is copied into the captured storage, which the
+    parameter then shares, before the replay. BatchNorm's running
+    statistics move once per call, in the forward graph. One call at a
+    time holds the static inputs, the replay and the copies of its
+    outputs."""
 
     def __init__(self, block):
         self._block = block
         self._graphs = {}
+        self._pairs = {}
         self._out_fmt = []
-        self._lock = threading.Lock()
+        self._takes_grad = None
+        self._lock = threading.RLock()
 
     def __call__(self, *args):
         key = (autograd.is_training(),) + tuple(
@@ -249,17 +406,42 @@ class CachedOp:
             if entry is None:
                 entry = self._capture(key, args)
             graph, params, fmt = entry
-            for p, t in params:
-                cur = p._tensor()
-                if cur.data_ptr() != t.data_ptr():
-                    with torch.no_grad():
-                        t.copy_(cur)
-                    p._put(t)
+            self._refresh(params)
             for static, a in zip(graph.static_inputs, args):
                 static.copy_(a)
             flat = [o.clone() if isinstance(o, torch.Tensor) else o
                     for o in graph.replay()]
         return _regroup(flat, fmt)[0]
+
+    def record(self, *args):
+        """A recorded call: the forward graph's outputs, taped as one node
+        whose backward is the backward graph."""
+        if self._takes_grad is None:
+            self._takes_grad = any(p.grad_req != "null" for p in
+                                   self._block.collect_params().values())
+        if not self._takes_grad and not any(a.requires_grad for a in args):
+            with torch.no_grad():   # nothing to differentiate: no tape
+                return self(*args)
+        key = (True, autograd.is_training()) + _signature(args)
+        with self._lock:
+            pair = next((p for p in self._pairs.get(key, ()) if not p.busy),
+                        None)
+            if pair is None:
+                pair = self._capture_pair(key, args)
+            self._refresh(pair.params)
+            tensors = list(args) + [p._tensor() for p in pair.diff_params]
+            with torch.enable_grad():
+                flat = _Recorded.apply(pair, len(args), *tensors)
+        return _regroup(list(flat), pair.fmt)[0]
+
+    @staticmethod
+    def _refresh(params):
+        for p, t in params:
+            cur = p._tensor()
+            if cur.data_ptr() != t.data_ptr():
+                with torch.no_grad():
+                    t.copy_(cur)
+                p._put(t)
 
     def _forward(self, *args):
         fmt = []
@@ -267,17 +449,56 @@ class CachedOp:
         self._out_fmt = fmt
         return flat
 
-    def _capture(self, key, args):
+    def _provenance(self, key, recording):
         block = self._block
+        return {"block": type(block).__name__, "train": key[int(recording)],
+                "recording": recording,
+                "shapes": [list(k[0]) for k in key[1 + int(recording):]]}
+
+    def _state(self):
+        """(every (parameter, tensor) of the block, the tensors a forward
+        moves in place: those that take no gradient)."""
+        params = [(p, p._tensor())
+                  for p in self._block.collect_params().values()]
+        return params, [t for _, t in params if not t.requires_grad]
+
+    def _capture(self, key, args):
         statics = [a.detach().clone() for a in args]
-        with torch.no_grad():   # the warm-up run settles deferred shapes
+        params, keep = self._state()
+        with torch.no_grad(), graphs.keeping(keep):
             graph = graphs.CapturedGraph(self._forward, statics)
-        params = [(p, p._tensor()) for p in block.collect_params().values()]
-        telemetry.record_retrace("cached_op", {
-            "block": type(block).__name__, "training": key[0],
-            "shapes": [list(k[0]) for k in key[1:]]})
+        telemetry.record_retrace("cached_op", self._provenance(key, False))
         self._graphs[key] = (graph, params, list(self._out_fmt))
         return self._graphs[key]
+
+    def _capture_pair(self, key, args):
+        statics = [a.detach().clone().requires_grad_(a.requires_grad)
+                   for a in args]
+        params, keep = self._state()
+        by_ptr = {t.data_ptr(): t for _, t in params}
+        outer = getattr(_PARAM_READ, "fn", None)
+
+        def captured(t):   # the tensors captured, whatever the parameter
+            t = by_ptr.get(t.data_ptr(), t)   # holds now (same storage)
+            return t if outer is None else outer(t)
+
+        def forward(*xs):
+            with reading_params(captured):
+                return self._forward(*xs)
+
+        diff = [(p, t) for p, t in params if t.requires_grad]
+        pair = _Pair(graphs.CapturedPair(forward, statics,
+                                         [t for _, t in diff], keep),
+                     params, [p for p, _ in diff], list(self._out_fmt),
+                     self._lock)
+        if any(not isinstance(o, torch.Tensor)
+               for o in pair.graphs.forward.outputs):
+            raise MXNetError("a recorded call of a hybridized %s returns a "
+                             "value that is not a tensor"
+                             % type(self._block).__name__)
+        telemetry.record_retrace("cached_op", self._provenance(key, True))
+        self._pairs.setdefault(key, []).append(pair)
+        return pair
 
 
 class HybridBlock(Block):
@@ -313,15 +534,23 @@ class HybridBlock(Block):
         for a in args:
             if isinstance(a, NDArray):
                 return self._forward_nd(args)
-        if self._active and not graphs.capturing() \
-                and not autograd.is_recording() and args and all(
-                    isinstance(a, torch.Tensor) and a.device.type == "cuda"
-                    for a in args):
+        if self._active and not graphs.capturing() and args and all(
+                isinstance(a, torch.Tensor) for a in args) \
+                and graphs.captures(args[0].device):
             if self._cached_op is None:
+                if not self._params_ready():
+                    return self._forward_eager(*args)
                 self._cached_op = CachedOp(self)
+            if autograd.is_recording():
+                return self._cached_op.record(*args)
             with torch.no_grad():
                 return self._cached_op(*args)
         return self._forward_eager(*args)
+
+    def _params_ready(self):
+        """False until every parameter's shape is known: the deferred-init
+        first call runs eagerly and settles them (as the reference's)."""
+        return all(p.initialized for p in self.collect_params().values())
 
     def _forward_eager(self, *args):
         try:

@@ -19,8 +19,9 @@ class _Conv(HybridBlock):
     """Shared conv implementation (ref: conv_layers.py:_Conv)."""
 
     def __init__(self, channels, kernel_size, strides, padding, dilation,
-                 groups, layout, in_channels=0, use_bias=True,
-                 weight_initializer=None, bias_initializer="zeros", **kwargs):
+                 groups, layout, in_channels=0, activation=None,
+                 use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", **kwargs):
         super().__init__(**kwargs)
         self._channels = channels
         self._in_channels = in_channels
@@ -41,6 +42,11 @@ class _Conv(HybridBlock):
                     allow_deferred_init=True)
             else:
                 self.bias = None
+            if activation is not None:
+                from .activations import Activation
+                self.act = Activation(activation)
+            else:
+                self.act = None
 
     def _weight_shape(self, in_channels):
         groups = self._kwargs["num_group"]
@@ -58,19 +64,20 @@ class _Conv(HybridBlock):
             self.bias._shape_resolved((self._channels,))
 
     def hybrid_forward(self, F, x, weight, bias=None):
-        return F.Convolution(x, weight, bias, **self._kwargs)
+        out = F.Convolution(x, weight, bias, **self._kwargs)
+        return out if self.act is None else self.act(out)
 
 
 class Conv2D(_Conv):
     def __init__(self, channels, kernel_size, strides=(1, 1), padding=(0, 0),
-                 dilation=(1, 1), groups=1, layout=None, use_bias=True,
-                 weight_initializer=None, bias_initializer="zeros",
-                 in_channels=0, **kwargs):
+                 dilation=(1, 1), groups=1, layout=None, activation=None,
+                 use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", in_channels=0, **kwargs):
         super().__init__(channels, _tuplify(kernel_size, 2),
                          _tuplify(strides, 2), _tuplify(padding, 2),
                          _tuplify(dilation, 2), groups, layout, in_channels,
-                         use_bias, weight_initializer, bias_initializer,
-                         **kwargs)
+                         activation, use_bias, weight_initializer,
+                         bias_initializer, **kwargs)
 
 
 class _Pooling(HybridBlock):

@@ -36,8 +36,8 @@ from ..base import MXNetError, torch_dtype
 from ..context import resolve_device
 from ..ndarray import NDArray
 
-__all__ = ["Parameter", "ParameterDict", "DeferredInitializationError",
-           "torch_dtype"]
+__all__ = ["Parameter", "Constant", "ParameterDict",
+           "DeferredInitializationError", "torch_dtype"]
 
 class DeferredInitializationError(MXNetError):
     """Parameter accessed before its shape is known."""
@@ -153,10 +153,11 @@ class Parameter:
         tensor._mx_owner = weakref.ref(nd)
 
     def _attach(self, module, attr):
-        """Move the tensor into ``module._parameters[attr]`` (Block.__setattr__)."""
+        """Move the tensor into ``module._parameters[attr]`` (Block.__setattr__).
+        A parameter that another block holds already is shared: it stays
+        there, and both blocks read the one tensor."""
         if self._owner is not None and self._owner != (module, attr):
-            raise MXNetError("Parameter %s is already held by another block; "
-                             "sharing parameters is not ported" % self.name)
+            return
         tensor = self._get()
         self._owner = (module, attr)
         self._own = None
@@ -265,6 +266,8 @@ class Parameter:
         """Load ``data`` (numpy array or tensor) in this parameter's dtype,
         on its device. An unknown dim takes the data's size; a known one
         must match."""
+        if isinstance(data, NDArray):
+            data = data._data
         src = data if isinstance(data, torch.Tensor) else torch.tensor(
             np.asarray(data))
         if self.shape is None or any(s == 0 for s in self.shape):
@@ -295,12 +298,37 @@ class Parameter:
             self._put(t.detach().to(device))
 
 
-class ParameterDict:
-    """Ordered name -> Parameter mapping with a prefix (ref: ParameterDict)."""
+class Constant(Parameter):
+    """A parameter that holds a fixed value and takes no gradient (ref:
+    gluon/parameter.py:Constant). The value stays where it is given until
+    ``initialize(ctx=...)`` moves it (host data: to the default device)."""
 
-    def __init__(self, prefix=""):
+    def __init__(self, name, value):
+        if isinstance(value, NDArray):
+            value = value._data
+        if not isinstance(value, torch.Tensor):
+            value = torch.tensor(np.asarray(value))
+        self.value = value
+        super().__init__(name, grad_req="null", shape=tuple(value.shape),
+                         dtype=str(value.dtype).split(".")[-1],
+                         init=init_mod.Constant(0.0), differentiable=False)
+        self._put(value.detach().clone())
+
+    def initialize(self, init=None, ctx=None, default_init=None,
+                   force_reinit=False, generator=None):
+        if ctx is not None or self._get().device.type == "cpu":
+            self.reset_ctx(ctx)
+
+
+class ParameterDict:
+    """Ordered name -> Parameter mapping with a prefix; ``shared`` is a
+    dict whose parameters ``get`` hands out by name instead of making new
+    ones (ref: ParameterDict)."""
+
+    def __init__(self, prefix="", shared=None):
         self._prefix = prefix
         self._params = {}
+        self._shared = shared
 
     @property
     def prefix(self):
@@ -332,11 +360,31 @@ class ParameterDict:
             "  %r\n" % p for p in self._params.values()))
 
     def get(self, name, **kwargs):
-        """Create ``prefix + name`` (ref: ParameterDict.get); a name that
-        exists is returned as it is (sharing parameters is not ported)."""
+        """Create or retrieve ``prefix + name`` (ref: ParameterDict.get): a
+        name that exists is returned with its unknown attributes filled
+        from ``kwargs``, one in the shared dict is shared."""
+        name = self._prefix + name
+        if name in self._params:
+            param = self._params[name]
+            for k, v in kwargs.items():
+                if k == "shape" and v is not None and param.shape is not None:
+                    continue
+                if getattr(param, k, None) in (None, 0) and v is not None:
+                    setattr(param, k, v)
+            return param
+        if self._shared is not None and name in self._shared:
+            self._params[name] = self._shared[name]
+            return self._params[name]
+        self._params[name] = Parameter(name, **kwargs)
+        return self._params[name]
+
+    def get_constant(self, name, value=None):
+        """Create or retrieve the Constant ``prefix + name``."""
         name = self._prefix + name
         if name not in self._params:
-            self._params[name] = Parameter(name, **kwargs)
+            if value is None:
+                raise MXNetError("No constant named %s: give its value" % name)
+            self._params[name] = Constant(name, value)
         return self._params[name]
 
     def update(self, other):
@@ -362,3 +410,39 @@ class ParameterDict:
     def zero_grad(self):
         for p in self._params.values():
             p.zero_grad()
+
+    def save(self, filename, strip_prefix=""):
+        """Write every parameter to ``filename`` by name, less
+        ``strip_prefix`` (ref: ParameterDict.save)."""
+        from ..ndarray.utils import save as nd_save
+        arg = {}
+        for p in self._params.values():
+            name = p.name
+            if strip_prefix and name.startswith(strip_prefix):
+                name = name[len(strip_prefix):]
+            arg[name] = p.data()
+        nd_save(filename, arg)
+
+    def load(self, filename, ctx=None, allow_missing=False,
+             ignore_extra=False, restore_prefix=""):
+        """Load ``filename`` by name, ``restore_prefix`` put back and the
+        checkpoints' ``arg:``/``aux:`` markers dropped, through
+        ``set_data`` (ref: ParameterDict.load)."""
+        from ..context import cpu
+        from ..ndarray.utils import load as nd_load
+        with cpu():   # staged on the host; set_data moves each array
+            loaded = nd_load(filename)
+        loaded = {restore_prefix + (k[4:] if k.startswith(("arg:", "aux:"))
+                                    else k): v for k, v in loaded.items()}
+        if not allow_missing:
+            for name in self._params:
+                if name not in loaded:
+                    raise MXNetError("Parameter %s missing in file %s"
+                                     % (name, filename))
+        for name, v in loaded.items():
+            if name not in self._params:
+                if ignore_extra:
+                    continue
+                raise MXNetError("Parameter %s in file is not in this dict"
+                                 % name)
+            self._params[name].set_data(v)

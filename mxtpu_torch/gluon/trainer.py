@@ -3,7 +3,10 @@
 
 ``step(batch_size)`` sets ``rescale_grad = scale / batch_size``, reduces
 the gradients and updates every parameter whose ``grad_req`` is not
-'null' in one ``update_batch`` call of the ``FusedUpdater``. The
+'null' in one ``update_batch`` call of the ``FusedUpdater``: on a CUDA
+device one captured graph per parameter group, its lr, wd and
+``rescale_grad`` read from static device tensors, so neither an lr
+schedule nor a new batch size builds a graph again. The
 parameters live on one device, so the reduction is the identity that the
 JAX package's local store computes there (``push`` of one copy, ``pull``
 of the same copy): ``kvstore`` None, ``'device'`` or ``'local'`` all run

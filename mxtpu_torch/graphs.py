@@ -1,6 +1,8 @@
-"""CUDA-graph capture of a forward: the one helper that the serving
-Predictor's buckets and ``HybridBlock.hybridize``'s ``CachedOp`` share
-(the counterpart of the JAX package's one jit per bucket or signature).
+"""CUDA-graph capture: the one helper that the serving Predictor's
+buckets, ``HybridBlock.hybridize``'s ``CachedOp`` and the
+``FusedUpdater``'s update share (the counterpart of the JAX package's one
+jit per bucket, signature or optimizer step), and ``CapturedPair``, a
+captured forward with its captured backward for recorded calls.
 
 ``CapturedGraph(fn, static_inputs, pool)`` (``fn`` returns a list of
 tensors, the flat outputs) runs ``fn`` once eagerly on a
@@ -27,13 +29,15 @@ every forward had run eagerly, whatever the threads.
 from __future__ import annotations
 
 import contextlib
+import gc
 import threading
 
 import torch
 
 from .base import MXNetError
 
-__all__ = ["CAPTURE_LOCK", "CapturedGraph", "launched", "capturing"]
+__all__ = ["CAPTURE_LOCK", "CapturedGraph", "CapturedPair", "launched",
+           "capturing", "captures", "keeping", "allow_generator"]
 
 # one lock for every capture and every eager forward of a shared block:
 # the Predictor's forward swaps its parameter snapshot into the block
@@ -74,6 +78,34 @@ def capturing():
     return getattr(_STATE, "depth", 0) > 0
 
 
+def captures(device):
+    """True where a hybridized call and a fused optimizer step run as
+    captured graphs: on a CUDA device. (The CPU tests replace it, and
+    ``CapturedGraph``, with stand-ins.)"""
+    return torch.device(device).type == "cuda"
+
+
+def allow_generator(gen):
+    """Whether a draw from the port's generator ``gen`` may happen on this
+    thread now: always outside a capture; inside one only when the graph
+    registered it (a replay would otherwise repeat the captured draw)."""
+    return not capturing() or id(gen) in getattr(_STATE, "generators", ())
+
+
+@contextlib.contextmanager
+def keeping(tensors):
+    """Give ``tensors`` back their values when the block ends: a warm-up
+    run must not move the state (BatchNorm's running statistics) that
+    every replay moves once."""
+    saved = [t.detach().clone() for t in tensors]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for t, v in zip(tensors, saved):
+                t.copy_(v)
+
+
 class CapturedGraph:
     """One CUDA graph of ``fn(*static_inputs)`` on the inputs' device.
 
@@ -83,7 +115,8 @@ class CapturedGraph:
     names the device when ``fn`` takes no input (a decode step reads only
     state it was captured over)."""
 
-    def __init__(self, fn, static_inputs, pool=None, device=None):
+    def __init__(self, fn, static_inputs, pool=None, device=None,
+                 generators=()):
         device = static_inputs[0].device if device is None \
             else torch.device(device)
         if device.type != "cuda":
@@ -103,10 +136,25 @@ class CapturedGraph:
                     fn(*self.static_inputs)
                 cur.wait_stream(side)
                 graph = torch.cuda.CUDAGraph()
-                with _tally() as tally, \
-                        torch.cuda.graph(graph, pool=pool,
-                                         capture_error_mode="thread_local"):
-                    out = fn(*self.static_inputs)
+                for gen in generators:
+                    graph.register_generator_state(gen.graphsafe_get_state())
+                prev_gens = getattr(_STATE, "generators", ())
+                _STATE.generators = set(prev_gens) | {id(g) for g in
+                                                      generators}
+                # a garbage collection during the capture may free another
+                # graph, whose teardown invalidates this capture
+                collecting = gc.isenabled()
+                gc.disable()
+                try:
+                    with _tally() as tally, \
+                            torch.cuda.graph(
+                                graph, pool=pool,
+                                capture_error_mode="thread_local"):
+                        out = fn(*self.static_inputs)
+                finally:
+                    _STATE.generators = prev_gens
+                    if collecting:
+                        gc.enable()
             finally:
                 _STATE.depth -= 1
         self.launches = [tuple(e) for e in tally.values()]
@@ -122,3 +170,54 @@ class CapturedGraph:
                 for obj, n in self.launches:
                     obj.launches += n
         return self.outputs
+
+
+class CapturedPair:
+    """A captured forward and its captured backward, sharing one private
+    pool (the counterpart of the reference's jitted forward and its
+    companion jitted backward).
+
+    ``fn(*static_inputs)`` returns the flat outputs, computed with grad
+    enabled from the static inputs and the leaves ``params``; the forward
+    graph is ``CapturedGraph(fn)``, warmed with ``keep`` (the state a
+    forward moves in place) given back its values. The backward graph runs
+    ``torch.autograd.grad`` from static cotangents (``cotangents``, one per
+    output that requires grad) to the static inputs that require grad and
+    to ``params``, keeping the forward's autograd graph for the next
+    replay. It is captured after one replay of the forward, so its warm-up
+    reads this call's activations (a max-pool's indices among them), and
+    ``keep`` is given back its values after that replay too: the caller's
+    replay moves the state once. The forward's activations live in the
+    pool, so one pair serves one outstanding call: the caller replays the
+    backward before the next forward (``CachedOp`` keeps a pair busy until
+    then)."""
+
+    def __init__(self, fn, static_inputs, params, keep=()):
+        device = static_inputs[0].device
+        pool = torch.cuda.graph_pool_handle() if device.type == "cuda" \
+            else None
+        self._live = []
+
+        def forward(*xs):
+            with torch.enable_grad():
+                self._live = list(fn(*xs))
+            return self._live
+
+        with keeping(keep):
+            self.forward = CapturedGraph(forward, static_inputs, pool=pool)
+            self.diff_outputs = [k for k, o in enumerate(self._live)
+                                 if isinstance(o, torch.Tensor)
+                                 and o.requires_grad]
+            diff_in = [x for x in self.forward.static_inputs
+                       if x.requires_grad] + list(params)
+            self.forward.replay()
+            cots = [torch.zeros_like(self._live[k])
+                    for k in self.diff_outputs]
+
+            def backward(*cts):
+                return list(torch.autograd.grad(
+                    [self._live[k] for k in self.diff_outputs], diff_in,
+                    cts, retain_graph=True, allow_unused=True))
+
+            self.backward = CapturedGraph(backward, cots, pool=pool)
+        self.cotangents = self.backward.static_inputs

@@ -56,6 +56,7 @@ contrib.__getattr__ = _contrib_getattr
 _internal.__getattr__ = _internal_getattr
 
 from . import random  # noqa: E402,F401
+from .utils import load, save  # noqa: E402,F401
 
 
 def __getattr__(name):

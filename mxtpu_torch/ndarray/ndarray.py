@@ -25,7 +25,7 @@ import torch
 
 from .. import autograd, telemetry
 from ..base import MXNetError, canonical_dtype, numpy_dtype
-from ..context import resolve_device
+from ..context import Context, resolve_device
 
 __all__ = ["NDArray", "array", "_apply", "from_torch", "waitall"]
 
@@ -223,7 +223,7 @@ class NDArray:
                 dtype=other._data.dtype, device=other._data.device,
                 copy=True))
             return other
-        if isinstance(other, (torch.device, str)):
+        if isinstance(other, (Context, torch.device, str)):
             return NDArray(self._data.detach().to(resolve_device(other),
                                                   copy=True))
         raise TypeError("copyto does not support type " + str(type(other)))

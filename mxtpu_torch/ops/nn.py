@@ -33,7 +33,7 @@ def _pair(v, n=2):
     return v * n if len(v) == 1 else v
 
 
-@register("FullyConnected")
+@register("FullyConnected", aliases=("fully_connected",))
 def FullyConnected(data, weight, bias=None, num_hidden=None, no_bias=False,
                    flatten=True):
     """y = x W^T + b with the reference's (num_hidden, in_units) weight.
@@ -57,7 +57,7 @@ def _conv_dims(ndim, layout):
     return ("NHWC", "HWIO", "NHWC")
 
 
-@register("Convolution")
+@register("Convolution", aliases=("convolution",))
 def Convolution(data, weight, bias=None, kernel=None, stride=None, dilate=None,
                 pad=None, num_filter=None, num_group=1, no_bias=False,
                 layout=None, workspace=None, cudnn_tune=None, cudnn_off=None):
@@ -85,7 +85,7 @@ def _spatial_axes(ndim, layout):
             else tuple(range(2, 2 + ndim))), channels_last
 
 
-@register("Pooling")
+@register("Pooling", aliases=("pooling",))
 def Pooling(data, kernel=None, pool_type="max", global_pool=False, stride=None,
             pad=None, pooling_convention="valid", count_include_pad=True,
             layout=None, cudnn_off=None, p_value=None):
@@ -134,7 +134,7 @@ def Pooling(data, kernel=None, pool_type="max", global_pool=False, stride=None,
     return out.permute(0, 2, 3, 1).contiguous() if channels_last else out
 
 
-@register("Activation")
+@register("Activation", aliases=("activation",))
 def Activation(x, act_type="relu"):
     if act_type == "relu":
         return torch.relu(x)
@@ -149,7 +149,7 @@ def Activation(x, act_type="relu"):
     raise MXNetError("unknown act_type " + act_type)
 
 
-@register("BatchNorm")
+@register("BatchNorm", aliases=("batch_norm",))
 def BatchNorm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
               momentum=0.9, fix_gamma=True, use_global_stats=False,
               output_mean_var=False, axis=1, cudnn_off=False):
@@ -183,7 +183,7 @@ def BatchNorm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     return (out, mean, var) if output_mean_var else out
 
 
-@register("LayerNorm")
+@register("LayerNorm", aliases=("layer_norm",))
 def LayerNorm(data, gamma, beta, axis=-1, eps=1e-5, output_mean_var=False):
     """Layer normalization in the JAX package's order: mean and (biased)
     variance in float32, normalize and cast back to the input's type, and

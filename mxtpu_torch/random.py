@@ -13,6 +13,8 @@ import threading
 
 import torch
 
+from . import graphs
+from .base import MXNetError
 from .context import resolve_device
 
 __all__ = ["seed", "generator"]
@@ -45,9 +47,15 @@ def seed(seed_state, ctx="all"):
 
 
 def generator(device=None):
-    """The generator of ``device`` (default: the CUDA device, or raise)."""
+    """The generator of ``device`` (default: the CUDA device, or raise).
+    Inside a graph capture it raises unless the graph registered it: every
+    replay would repeat the captured draw."""
     dev = resolve_device(device)
     gen = _STATE.gens.get(dev)
     if gen is None:
         gen = _STATE.gens[dev] = _new(dev, _STATE.seed)
+    if not graphs.allow_generator(gen):
+        raise MXNetError(
+            "a random draw inside a CUDA-graph capture would repeat on every "
+            "replay: register the generator with the graph")
     return gen

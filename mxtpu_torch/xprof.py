@@ -28,6 +28,7 @@ import threading
 import torch
 
 from . import telemetry
+from .context import resolve_device
 
 __all__ = ["device_memory", "record_footprint", "site_footprint", "drop",
            "preflight", "CPU_BYTES_LIMIT"]
@@ -48,7 +49,7 @@ def device_memory(device=None):
     ``cuda:0``)."""
     if device is None or isinstance(device, int):
         device = torch.device("cuda", device or 0)
-    device = torch.device(device)
+    device = resolve_device(device)
     if device.type != "cuda":
         return {"bytes_in_use": 0, "bytes_limit": CPU_BYTES_LIMIT,
                 "peak_bytes_in_use": 0, "bytes_free": CPU_BYTES_LIMIT}

@@ -7,7 +7,16 @@
 * ``BatchNorm`` in autograd training mode normalizes by the batch
   statistics and the Gluon layer moves its running statistics;
 * Gluon blocks take and return NDArrays, and ``Parameter.data()`` /
-  ``grad()`` are NDArrays that ``autograd.backward`` fills.
+  ``grad()`` are NDArrays that ``autograd.backward`` fills;
+* C8: the registry's lower-case aliases (``mx.nd.convolution`` ...);
+* C9: the initializers, held by shapes and by moments against the
+  reference's scale formulas (the draws differ from JAX's keys), and
+  exactly where they are deterministic;
+* C10: ``Context``, the ``with ctx:`` scope that ``current_context()`` and
+  the array constructors read, and ``num_gpus()``;
+* C11: ``Conv2D(activation=)``;
+* C12: ``Block(params=)`` sharing another block's parameters,
+  ``ParameterDict(shared=)``, ``get_constant`` and ``gluon.Constant``.
 
 Tolerances: float32 forward rtol=atol=1e-5 and gradients 1e-4, the
 reference's f32 conv tolerances (tests/test_pallas_conv.py). The JAX side
@@ -428,3 +437,301 @@ def test_resnet18_thumbnail_trains_on_ndarrays_like_mxtpu(resnet18_pair):
     with torch.no_grad():
         t = net(torch.from_numpy(x))
     assert isinstance(t, torch.Tensor)
+
+
+# ------------------------------------------------------------ C8: aliases
+def _alias_case(name, r):
+    x4 = r.randn(2, 3, 6, 6).astype(np.float32)
+    x2 = r.randn(4, 5).astype(np.float32)
+    if name == "convolution":
+        w, b = r.randn(4, 3, 3, 3).astype(np.float32), r.randn(4).astype(
+            np.float32)
+        return (x4, w, b), dict(kernel=(3, 3), num_filter=4, pad=(1, 1))
+    if name == "fully_connected":
+        w, b = r.randn(3, 5).astype(np.float32), r.randn(3).astype(
+            np.float32)
+        return (x2, w, b), dict(num_hidden=3)
+    if name == "pooling":
+        return (x4,), dict(kernel=(2, 2), stride=(2, 2), pool_type="max")
+    if name == "activation":
+        return (x2,), dict(act_type="tanh")
+    if name == "batch_norm":
+        c = [r.rand(3).astype(np.float32) + 0.5 for _ in range(4)]
+        return (x4, *c), dict(fix_gamma=False, eps=1e-5)
+    g, b = r.rand(5).astype(np.float32), r.randn(5).astype(np.float32)
+    return (x2, g, b), dict(axis=-1)
+
+
+@pytest.mark.parametrize("name", ["convolution", "fully_connected",
+                                  "pooling", "activation", "batch_norm",
+                                  "layer_norm"])
+def test_lower_case_op_aliases_match_mxtpu(name):
+    """C8: mx.nd's lower-case names of the six nn ops."""
+    args, kw = _alias_case(name, _rng(30))
+    ref = getattr(mx.nd, name)(*[mx.nd.array(a) for a in args], **kw)
+    got = getattr(mt.nd, name)(*[_nd(a) for a in args], **kw)
+    _close(got, ref, FWD)
+
+
+# -------------------------------------------------------- C9: initializers
+def _init_param(pkg, init, shape, name="fc_weight"):
+    p = pkg.gluon.Parameter(name, shape=shape)
+    if pkg is mt:
+        p.initialize(init=init, ctx=mt.cpu())
+    else:
+        p.initialize(init=init)
+    return p.data().asnumpy()
+
+
+def _xavier_scale(shape, factor_type, magnitude):
+    hw = float(np.prod(shape[2:])) if len(shape) > 2 else 1.0
+    fan_in, fan_out = shape[1] * hw, shape[0] * hw
+    factor = {"in": fan_in, "out": fan_out}.get(factor_type,
+                                                (fan_in + fan_out) / 2.0)
+    return np.sqrt(magnitude / factor)
+
+
+XAVIER = [(rnd, fac) for rnd in ("uniform", "gaussian")
+          for fac in ("in", "out", "avg")]
+
+
+@pytest.mark.parametrize("rnd_type,factor_type", XAVIER,
+                         ids=["%s-%s" % c for c in XAVIER])
+def test_xavier_moments_match_mxtpu(rnd_type, factor_type):
+    """C9: Xavier's scale sqrt(magnitude / factor) for every rnd_type and
+    factor_type: both packages' draws have the formula's standard
+    deviation (uniform: scale / sqrt(3)) and mean 0, within 4%."""
+    shape = (64, 32, 3, 3)
+    scale = _xavier_scale(shape, factor_type, 2.0)
+    want = scale / np.sqrt(3.0) if rnd_type == "uniform" else scale
+    for pkg in (mt, mx):
+        a = _init_param(pkg, pkg.init.Xavier(rnd_type, factor_type, 2),
+                        shape)
+        assert a.shape == shape and a.dtype == np.float32
+        assert abs(a.std() / want - 1) < 0.04, (pkg.__name__, a.std())
+        assert abs(a.mean()) < 0.04 * want
+        if rnd_type == "uniform":
+            assert np.abs(a).max() <= scale * (1 + 1e-6)
+
+
+@pytest.mark.parametrize("kind", ["normal", "msraprelu", "uniform",
+                                  "xavier_1d", "orthogonal"])
+def test_random_initializers_moments_match_mxtpu(kind):
+    """C9: Normal(sigma), MSRAPrelu (gaussian Xavier of magnitude
+    2 / (1 + slope^2)), Uniform, Xavier on a 1-D parameter (U(-0.07,
+    0.07)) and Orthogonal (rows orthonormal times ``scale``): shapes and
+    moments in both packages."""
+    for pkg in (mt, mx):
+        if kind == "normal":
+            a = _init_param(pkg, pkg.init.Normal(0.02), (300, 200))
+            assert abs(a.std() / 0.02 - 1) < 0.03 and abs(a.mean()) < 1e-3
+        elif kind == "msraprelu":
+            shape = (64, 48, 3, 3)
+            want = _xavier_scale(shape, "avg", 2.0 / (1 + 0.25 ** 2))
+            a = _init_param(pkg, pkg.init.MSRAPrelu(), shape)
+            assert abs(a.std() / want - 1) < 0.04
+        elif kind == "uniform":
+            a = _init_param(pkg, pkg.init.Uniform(0.3), (400, 100))
+            assert np.abs(a).max() <= 0.3 and \
+                abs(a.std() / (0.3 / np.sqrt(3)) - 1) < 0.03
+        elif kind == "xavier_1d":
+            a = _init_param(pkg, pkg.init.Xavier(), (5000,), "fc_weight")
+            assert np.abs(a).max() <= 0.07 and \
+                abs(a.std() / (0.07 / np.sqrt(3)) - 1) < 0.05
+        else:
+            a = _init_param(pkg, pkg.init.Orthogonal(scale=1.5), (16, 40))
+            np.testing.assert_allclose(a @ a.T, 2.25 * np.eye(16),
+                                       atol=1e-4)
+            b = _init_param(pkg, pkg.init.Orthogonal(rand_type="normal"),
+                            (30, 3, 2, 2))
+            assert b.shape == (30, 3, 2, 2)
+            flat = b.reshape(30, 12)
+            np.testing.assert_allclose(flat.T @ flat,
+                                       1.414 ** 2 * np.eye(12), atol=1e-4)
+
+
+def test_deterministic_initializers_equal_mxtpu():
+    """C9: Constant, Bilinear, LSTMBias and Mixed's routing give the
+    reference's values exactly; the name rules still send *bias to 0 and
+    *gamma to 1."""
+    cases = [(lambda pkg: pkg.init.Constant(0.25), (3, 4), "fc_weight"),
+             (lambda pkg: pkg.init.Bilinear(), (2, 3, 4, 4), "up_weight"),
+             (lambda pkg: pkg.init.Bilinear(), (1, 1, 5, 5), "up_weight"),
+             (lambda pkg: pkg.init.LSTMBias(2.0), (16,), "lstm_i2h_bias")]
+    for make, shape, name in cases:
+        got = _init_param(mt, make(mt), shape, name)
+        ref = _init_param(mx, make(mx), shape, name)
+        np.testing.assert_array_equal(got, ref)
+    mixed = [(pkg, pkg.init.Mixed([".*alpha", ".*"],
+                                  [pkg.init.Constant(1.0),
+                                   pkg.init.Constant(2.0)]))
+             for pkg in (mt, mx)]
+    for name, want in (("fc_alpha", 1.0), ("fc_weight", 2.0),
+                       ("fc_bias", 0.0)):
+        got = torch.zeros(2, 3)
+        mixed[0][1](mt.init.InitDesc(name), got, torch.Generator())
+        ref = mx.nd.zeros((2, 3))
+        mixed[1][1](mx.init.InitDesc(name), ref)
+        np.testing.assert_array_equal(got.numpy(), ref.asnumpy())
+        np.testing.assert_array_equal(got.numpy(), np.full((2, 3), want))
+    with pytest.raises(MXNetError, match="did not match"):
+        mt.init.Mixed(["^w"], [mt.init.One()])(
+            mt.init.InitDesc("bias"), torch.zeros(2), torch.Generator())
+    for name, want in (("fc_bias", 0.0), ("bn_gamma", 1.0)):
+        np.testing.assert_array_equal(
+            _init_param(mt, mt.init.Constant(5.0), (3,), name),
+            _init_param(mx, mx.init.Constant(5.0), (3,), name))
+
+
+def test_initializer_registry_matches_mxtpu():
+    """C9: create by name (with keywords) and from dumps(), and register
+    for a user's class."""
+    for name in ("zeros", "ones", "constant", "uniform", "normal", "xavier",
+                 "msraprelu", "orthogonal", "bilinear", "lstmbias"):
+        assert type(mt.init.create(name)).__name__ == \
+            type(mx.init.create(name)).__name__
+    x = mt.init.Xavier("gaussian", "in", 2.5)
+    assert x.dumps() == mx.init.Xavier("gaussian", "in", 2.5).dumps()
+    back = mt.init.create(x.dumps())
+    assert isinstance(back, mt.init.Xavier) and back == x
+    assert mt.init.create("normal", sigma=0.5).sigma == 0.5
+
+    @mt.init.register
+    class Halves(mt.init.Initializer):
+        def _init_weight(self, desc, arr, gen):
+            arr.fill_(0.5)
+    np.testing.assert_array_equal(
+        _init_param(mt, "halves", (2, 2)), np.full((2, 2), 0.5))
+    with pytest.raises(MXNetError):
+        mt.init.create("no_such_init")
+
+
+# ---------------------------------------------------------- C10: contexts
+def test_context_scope_matches_mxtpu():
+    """C10: ``with mx.cpu():`` places arrays on the CPU and is what
+    current_context() reads; contexts compare and print as the
+    reference's; num_gpus() counts the cards (none on this host)."""
+    with mx.cpu():
+        ref = mx.nd.zeros((2,))
+        jctx = mx.current_context()
+    with mt.cpu():
+        got = mt.nd.zeros((2,))
+        ones = mt.nd.array(np.ones(3, np.float32))
+        ctx = mt.current_context()
+        with mt.Context("cpu", 1):
+            assert mt.current_context() == mt.cpu(1)
+        assert mt.current_context() == mt.cpu()
+    assert got.context == torch.device("cpu") and ones.context.type == "cpu"
+    np.testing.assert_array_equal(got.asnumpy(), ref.asnumpy())
+    assert repr(ctx) == repr(jctx) == "cpu(0)"
+    assert ctx == mt.cpu() and ctx.device_type == jctx.device_type
+    assert mt.Context("gpu", 1) == mt.gpu(1) and \
+        hash(mt.gpu(1)) == hash(mt.Context(mt.gpu(1)))
+    assert mt.cpu() == torch.device("cpu") and \
+        torch.device("cuda", 1) == mt.gpu(1)
+    assert (mt.gpu(1).type, mt.gpu(1).index, mt.cpu().type) == \
+        ("cuda", 1, "cpu")
+    assert mt.num_gpus() == mx.num_gpus() == 0
+    # outside any scope the default is the card; with none, it raises
+    assert mt.current_context() == mt.gpu(0)
+    with pytest.raises(MXNetError, match="no CUDA device"):
+        mt.nd.zeros((2,))
+
+
+# ------------------------------------------------- C11: Conv2D(activation)
+def test_conv2d_activation_matches_mxtpu():
+    """C11: Conv2D(activation=...) appends the activation."""
+    with mx.layout("NHWC"):
+        jnet = mx.gluon.nn.Conv2D(4, 3, padding=1, activation="relu",
+                                  in_channels=2)
+    with mt.layout("NHWC"):
+        net = mt.gluon.nn.Conv2D(4, 3, padding=1, activation="relu",
+                                 in_channels=2)
+    jnet.initialize()
+    net.initialize(ctx=mt.cpu())
+    _load_same(jnet, net, 31)
+    x = _rng(32).randn(2, 5, 5, 2).astype(np.float32)
+    got, ref = net(_nd(x)), jnet(mx.nd.array(x))
+    _close(got, ref, FWD)
+    assert got.asnumpy().min() == 0.0 and got.asnumpy().max() > 0
+
+
+# ----------------------------------------------------------- C12: sharing
+def _shared_pair(pkg):
+    d1 = pkg.gluon.nn.Dense(4, in_units=3)
+    d2 = pkg.gluon.nn.Dense(4, in_units=3, params=d1.params)
+    if pkg is mt:
+        d1.initialize(ctx=mt.cpu())
+        d2.initialize(ctx=mt.cpu())
+    else:
+        d1.initialize()
+        d2.initialize()
+    return d1, d2
+
+
+def test_parameter_sharing_matches_mxtpu():
+    """C12: a block made with another's ``params`` holds the same
+    Parameters (one tensor): a step through one moves the other's
+    weights, as in the reference."""
+    res = {}
+    for pkg in (mt, mx):
+        d1, d2 = _shared_pair(pkg)
+        assert d2.weight is d1.weight and d2.bias is d1.bias
+        assert list(d2.collect_params().keys()) == \
+            list(d1.collect_params().keys())
+        w = np.arange(12, dtype=np.float32).reshape(4, 3) / 10
+        d1.weight.set_data(w)
+        d1.bias.set_data(np.zeros(4, np.float32))
+        x = _arr_for(pkg, np.ones((2, 3), np.float32))
+        tr = pkg.gluon.Trainer(d2.collect_params(), "sgd",
+                               {"learning_rate": 0.1})
+        with pkg.autograd.record():
+            loss = (d2(x) * d2(x)).sum()
+        loss.backward()
+        tr.step(1)
+        res[pkg] = (d1.weight.data().asnumpy(), d1(x).asnumpy())
+        assert not np.array_equal(res[pkg][0], w)
+    _close(res[mt][0], res[mx][0], FWD)
+    _close(res[mt][1], res[mx][1], FWD)
+
+
+def _arr_for(pkg, a):
+    return _nd(a) if pkg is mt else mx.nd.array(a)
+
+
+def test_shared_parameter_dict_and_constants_match_mxtpu():
+    """C12: ParameterDict(shared=) hands out the shared dict's parameters
+    by name; get_constant and gluon.Constant hold a value with no
+    gradient that a forward reads."""
+    for pkg in (mt, mx):
+        base = pkg.gluon.ParameterDict("m_")
+        w = base.get("w", shape=(2, 2))
+        child = pkg.gluon.ParameterDict("m_", shared=base)
+        assert child.get("w") is w and child.get("v", shape=(3,)) is not w
+        c = child.get_constant("c", [1.0, 2.0])
+        assert c.grad_req == "null" and child.get_constant("c") is c
+        assert isinstance(c, pkg.gluon.Constant)
+    net = _ScaledDense(mt)
+    jnet = _ScaledDense(mx)
+    net.initialize(ctx=mt.cpu())
+    jnet.initialize()
+    jnet.dense.weight.set_data(mx.nd.array(np.eye(3, dtype=np.float32)))
+    net.dense.weight.set_data(np.eye(3, dtype=np.float32))
+    x = np.arange(6, dtype=np.float32).reshape(2, 3)
+    _close(net(_nd(x)), jnet(mx.nd.array(x)), FWD)
+    np.testing.assert_array_equal(net(_nd(x)).asnumpy(), x * [1, 2, 3])
+
+
+def _ScaledDense(pkg):
+    class ScaledDense(pkg.gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.dense = pkg.gluon.nn.Dense(3, in_units=3,
+                                                use_bias=False)
+                self.scale = self.params.get_constant(
+                    "scale", np.array([1.0, 2.0, 3.0], np.float32))
+
+        def hybrid_forward(self, F, x, scale):
+            return self.dense(x) * scale.reshape((1, 3))
+    return ScaledDense()
