@@ -139,14 +139,41 @@ NVIDIA H100.
    profiled step by kernel category, train_mfu). The BERT-base-shaped
    TransformerLM trained with Adam: 2 layers at b2 x 512 f32 against the
    CPU (2 flash launches a step), then 12 layers at b8 x 512 bf16 timed.
-11. Prints one JSON line of kernels (fused_conv and flash_attention, one
+11. The vision zoo and the rest of Gluon (slice 9). The fused conv held
+   against its plain version, f32 and bf16, at one conv of each shape
+   class the zoo adds (C_out 16/24/48/80/96/144, the 11x11/4 and 3x3/2
+   stems on 3 channels, a 5x5, the s2d stem's 4x4 with padding (2, 1)),
+   each timed by graph replay beside ``F.conv2d``. ``zoo_serve_phase``:
+   alexnet, vgg16, squeezenet1_1, mobilenet1_0, mobilenet_v2_1_0,
+   densenet121, inception_v3 (299x299) and resnet50_v2 built with
+   ``get_model`` channels-last with seeded weights, each served through
+   ``Predictor`` in one captured b8 bucket, f32 then bf16: logits against
+   the CPU run, replay against eager, the conv kernel's launches per
+   forward (1, 2, 19, 3, 28, 61, 28, 11), median/p80 latency, host issue,
+   device ms, idle share, kernels a forward, and the kernel's convs of a
+   forward by graph replay beside ``F.conv2d``'s. ``zoo_train_phase``:
+   Inception v3 trained with ``hybridize()`` on net and loss and
+   ``gluon.utils.clip_global_norm`` before each step: f32 b2 3 steps
+   against the CPU and the card's eager step with the Dropout at rate 0;
+   the Dropout gates in a captured pair (replays draw new masks, the
+   kept share, the gradient mask * g / (1 - p) exactly, an unregistered
+   draw raises, captured against eager draws from one generator state);
+   2 steps with dropout 0.5 against the card's eager step where the draws
+   agree; bf16 b64 timed eager forward/backward beside captured (28
+   launches a step, 0 builds after the warm-up). ``s2d_phase``: ResNet-50
+   v1 served at b8 with ``contrib.s2d_stem.apply_to_resnet`` modes 1 and 2
+   beside the plain stem (11, 11, 10 launches a forward), each stem alone
+   by graph replay.
+12. Prints one JSON line of kernels (fused_conv and flash_attention, one
    entry per type each, with graph-replay and host-issue sums beside the
    eager ones, the launches of one training step, and forward + backward
    by graph replay beside its plain version, the library's and its bound
    (the 5 gated convs once each; one non-causal b8 x 512 attention on the
    served views); one entry per rtc
    kernel; the bf16 conv entry adds its launches on the controller and
-   zoo paths, the bf16 flash entry on the zoo's), the card line again,
+   zoo paths, the bf16 flash entry on the zoo's; each conv entry its
+   launches per served zoo model, per captured Inception v3 step and per
+   s2d-stem forward, and its zoo shape classes), the card line again,
    and last ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the last
@@ -3324,16 +3351,23 @@ def flash_backward_phase():
     return rows
 
 
-def _step_program(net, trainer, loss_fn, x, y, reshape, batch_size=None):
+def _step_program(net, trainer, loss_fn, x, y, reshape, batch_size=None,
+                  clip=None):
     """One step of the user's loop (train_cifar10.py): record, net, loss,
-    backward, trainer.step (``batch_size`` default: the labels' count).
-    Returns (loss, logits) NDArrays."""
+    backward, ``gluon.utils.clip_global_norm`` of the gradients to
+    ``clip`` where given (it reads the norm back to the host), then
+    trainer.step (``batch_size`` default: the labels' count). Returns
+    (loss, logits) NDArrays."""
     import mxtpu_torch as mt
     with mt.autograd.record():
         logits = net(x)
         flat = logits if reshape is None else logits.reshape((-1, reshape))
         loss = loss_fn(flat, y.reshape((-1,)))
     loss.backward()
+    if clip is not None:
+        mt.gluon.utils.clip_global_norm(
+            [p.grad() for p in net.collect_params().values()
+             if p.grad_req != "null"], clip)
     trainer.step(batch_size or y.size)
     return loss, logits
 
@@ -3369,11 +3403,17 @@ TRAIN_L2 = 5e-2
 # bf16 gives 0.092 of max|logit| at b8 step 1 (0.0077 in inference mode,
 # with the running statistics; train_sensitivity.py), the card 0.089
 BF16_VS_F32 = 0.15
+# Inception v3 at b2 (299², 94 BatchNorms, the last ones over 2 x 8 x 8
+# values): float32 step-1 gradients against float64 on the CPU 2.6%
+# relative L2 median, 4.0% worst (train_sensitivity.py inception); its
+# gate is about twice that worst, as TRAIN_L2 is about twice ResNet-50's
+INCEPTION_TRAIN_L2 = 8e-2
 
 
 def lockstep_train(label, card_net, cpu_net, batches, optimizer, params,
                    reshape=None, kernel=None, eager_net=None, trainers=None,
-                   schedule=None):
+                   schedule=None, clip=None, generator=None,
+                   l2_tol=TRAIN_L2):
     """The same float32 training steps on the card and on the CPU, each
     from the same state: before every step after the first the CPU takes
     the card's weights, BatchNorm statistics and optimizer states, so each
@@ -3382,14 +3422,18 @@ def lockstep_train(label, card_net, cpu_net, batches, optimizer, params,
     per-sample losses within 1e-5 of max|ref| and logits within 1e-4 of
     max|ref| (elementwise), BatchNorm running statistics within 1e-4 of
     max(1, max|ref|); gradients, the step's weight change and the
-    optimizer states within TRAIN_L2 relative L2 per tensor. ``kernel``'s
+    optimizer states within ``l2_tol`` (TRAIN_L2 unless given) relative L2
+    per tensor. ``kernel``'s
     launches are counted over each card step. ``eager_net``, when
     given, is one more reference held the same way: the same net on the
     card run eagerly (not hybridized, the fused step off) from the card's
     state; ``cpu_net`` may then be None. A hybridized ``card_net`` gets a
     hybridized loss. ``trainers`` keeps each net's (Trainer, loss) across
     calls (the captured graphs live in them); ``schedule`` gives per step
-    (lr or None, batch-size multiplier) for ``trainer.step``. Returns
+    (lr or None, batch-size multiplier) for ``trainer.step``; ``clip``
+    clips the gradients by their global norm before it; ``generator``
+    (the card's) is set to one state before each net's step, so the
+    card's Dropout masks are drawn from the same offset. Returns
     (per-step launches, per-step mean card losses, worst errors, the CPU's
     step-1 (loss, logits))."""
     import numpy as np
@@ -3429,10 +3473,10 @@ def lockstep_train(label, card_net, cpu_net, batches, optimizer, params,
         diff = float(np.linalg.norm((got - ref).ravel()))
         err = diff / norm if norm else diff
         if got.shape != ref.shape or not np.isfinite(got).all() \
-                or err > TRAIN_L2:
+                or err > l2_tol:
             raise AssertionError("%s %s: relative L2 error %.3g against the "
                                  "CPU (limit %g)" % (label, what, err,
-                                                     TRAIN_L2))
+                                                     l2_tol))
         note(key, err)
 
     def host(a):
@@ -3450,7 +3494,10 @@ def lockstep_train(label, card_net, cpu_net, batches, optimizer, params,
                 tr[dev][0].set_learning_rate(lr)
         before = [host(p.data()) for p in cps]
         out = {}
+        rng_state = None if generator is None else generator.get_state()
         for dev, net, ctx in nets:
+            if rng_state is not None:
+                generator.set_state(rng_state)
             xa = nd.array(x, ctx=ctx, dtype="float32" if x.dtype.kind == "f"
                           else "int32")
             start = None if kernel is None else kernel.launches
@@ -3458,7 +3505,7 @@ def lockstep_train(label, card_net, cpu_net, batches, optimizer, params,
             try:
                 loss, logits = _step_program(
                     net, tr[dev][0], tr[dev][1], xa, nd.array(y, ctx=ctx),
-                    reshape, batch_size=y.size * mult)
+                    reshape, batch_size=y.size * mult, clip=clip)
             finally:
                 optimizer_fused.set_enabled(prev)
             if dev == "card" and kernel is not None:
@@ -3594,13 +3641,15 @@ def _builds():
 
 
 def train_timing(label, net, x, y, optimizer, params, reshape, card,
-                 flops_per_item, items, dtype, kernel=None):
+                 flops_per_item, items, dtype, kernel=None, clip=None):
     """Time ``net``'s training step on the card (3 warm-up, 10 timed),
     profile one step, and print items/s, host issue, device ms, idle
     share, peak memory and train_mfu. A hybridized ``net`` gets a
     hybridized loss, and the result also holds the builds at
     ``cached_op``/``fused_optimizer`` after the warm-up steps and
-    ``kernel``'s launches in one more step."""
+    ``kernel``'s launches in one more step. ``clip``: the gradients are
+    clipped by their global norm between backward and the update (a read
+    of the norm to the host each step, inside the timed step)."""
     import gc
     import torch
     import mxtpu_torch as mt
@@ -3618,7 +3667,11 @@ def train_timing(label, net, x, y, optimizer, params, reshape, card,
                 logits = logits.reshape((-1, reshape))
             loss = loss_fn(logits, y.reshape((-1,)))
         loss.backward()
+        if clip is not None:
+            mt.gluon.utils.clip_global_norm(grads, clip)
         trainer.step(y.size)
+    grads = [p.grad() for p in net.collect_params().values()
+             if p.grad_req != "null"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     warm = {}
@@ -4022,6 +4075,531 @@ def captured_train_phase(card, eager_timing):
                       timing["transformer_lm bfloat16"]["launches"]}}
 
 
+# ---------------------------------------------------------------- slice 9
+# B1's shape classes that the zoo's paths add to ResNet-50's, one conv of
+# each at b8 (name, batch, H, W, C_in, C_out, kh, kw, stride, padding)
+ZOO_CONV_SHAPES = [
+    ("1x1 64->16 @55 squeezenet1_1", 8, 55, 55, 64, 16, 1, 1, 1,
+     ((0, 0), (0, 0))),
+    ("1x1 96->24 @56 mobilenet_v2", 8, 56, 56, 96, 24, 1, 1, 1,
+     ((0, 0), (0, 0))),
+    ("1x1 256->48 @13 squeezenet1_1", 8, 13, 13, 256, 48, 1, 1, 1,
+     ((0, 0), (0, 0))),
+    ("1x1 64->80 @73 inception_v3", 8, 73, 73, 64, 80, 1, 1, 1,
+     ((0, 0), (0, 0))),
+    ("3x3 64->96 @35 inception_v3", 8, 35, 35, 64, 96, 3, 3, 1,
+     ((1, 1), (1, 1))),
+    ("1x1 24->144 @56 mobilenet_v2", 8, 56, 56, 24, 144, 1, 1, 1,
+     ((0, 0), (0, 0))),
+    ("11x11/4 3->64 @224 alexnet", 8, 224, 224, 3, 64, 11, 11, 4,
+     ((2, 2), (2, 2))),
+    ("5x5 48->64 @35 inception_v3", 8, 35, 35, 48, 64, 5, 5, 1,
+     ((2, 2), (2, 2))),
+    ("3x3/2 3->32 @224 mobilenet", 8, 224, 224, 3, 32, 3, 3, 2,
+     ((1, 1), (1, 1))),
+    ("4x4 12->64 @112 s2d stem", 8, 112, 112, 12, 64, 4, 4, 1,
+     ((2, 1), (2, 1))),
+]
+# (model, input side, B1 launches per forward at that side, channels-last)
+ZOO_SERVE = [("alexnet", 224, 1), ("vgg16", 224, 2),
+             ("squeezenet1_1", 224, 19), ("mobilenet1_0", 224, 3),
+             ("mobilenet_v2_1_0", 224, 28), ("densenet121", 224, 61),
+             ("inception_v3", 299, 28), ("resnet50_v2", 224, 11)]
+INCEPTION_B1 = 28        # B1 launches per Inception v3 forward
+CLIP_NORM = 1.0          # clip_global_norm's max_norm in the zoo training
+DROPOUT_N = 1 << 22      # elements of the Dropout gates' input
+
+
+def _lib_conv(x, w, stride, padding, bias=None):
+    """``F.conv2d`` on channels-last views of the same conv (asymmetric
+    padding applied first), a yardstick only."""
+    import torch.nn.functional as F
+    (plo, phi), (qlo, qhi) = padding
+    xn = x.permute(0, 3, 1, 2)
+    if plo != phi or qlo != qhi:
+        xn = F.pad(xn, (qlo, qhi, plo, phi))
+        pad = (0, 0)
+    else:
+        pad = (plo, qlo)
+    wn = w.permute(3, 2, 0, 1)
+    return lambda: F.conv2d(xn, wn, bias, stride=stride, padding=pad)
+
+
+def zoo_conv_phase():
+    """B1 against its plain version on the card, float32 and bfloat16, at
+    one conv of each shape class the zoo's paths add (ZOO_CONV_SHAPES:
+    C_out 16/24/48/80/96/144 tile tails, the 11x11/4 and 3x3/2 stems on 3
+    channels (element-wise staging of A), a 5x5, the s2d stem's 4x4 with
+    asymmetric padding); each timed by graph replay beside ``F.conv2d``.
+    Returns the rows."""
+    import torch
+    from mxtpu_torch.ops.pallas.conv import (_launch_args, fused_conv,
+                                             fused_conv_reference)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    rows = []
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        for name, n, h, w_, cin, cout, kh, kw, s, pad in ZOO_CONV_SHAPES:
+            x = torch.randn(n, h, w_, cin, device="cuda", generator=gen).to(dt)
+            w = (torch.randn(kh, kw, cin, cout, device="cuda", generator=gen)
+                 * math.sqrt(2.0 / (kh * kw * cin))).to(dt)
+            la = _launch_args(x, w, (s, s), pad)
+            out = fused_conv(x, w, (s, s), pad)
+            torch.cuda.synchronize()
+            ref = fused_conv_reference(x.float(), w.float(), (s, s), pad)[0]
+            err = check(out, ref, dtype, "%s %s" % (name, dtype))
+            kern = lambda: fused_conv(x, w, (s, s), pad)
+            lib = _lib_conv(x, w, (s, s), pad)
+            bms, by = conv_bound_ms(x, w, out.numel(), dtype)
+            row = dict(shape=name, dtype=dtype, max_abs_err=err,
+                       graph_ms=graph_ms(kern), library_graph_ms=graph_ms(lib),
+                       bound_ms=bms, bound_by=by)
+            rows.append(row)
+            print("%s  graph replay: kernel %.4f ms  F.conv2d %.4f ms "
+                  "(kernel/F.conv2d %.3f); bound %.4f ms (%s)" % (
+                      conv_row_line(name, dtype, err, la), row["graph_ms"],
+                      row["library_graph_ms"],
+                      row["graph_ms"] / row["library_graph_ms"], bms, by),
+                  flush=True)
+    return rows
+
+
+def build_zoo(name, side, arrays=None):
+    """A zoo model on the CPU, channels-last, 1000 classes, its shapes
+    settled by a b1 forward at ``side``, with seeded weights
+    (``convert.seeded_params``) or ``arrays``."""
+    import torch
+    import mxtpu_torch as mt
+    from mxtpu_torch import convert
+    from mxtpu_torch.gluon.model_zoo import vision
+    with mt.layout("NHWC"):
+        net = vision.get_model(name, classes=1000)
+    net.initialize(ctx=mt.cpu())
+    with torch.no_grad():
+        net(torch.zeros(1, side, side, 3))
+    if arrays is None:
+        arrays = convert.seeded_params(
+            {k: p.shape for k, p in net.collect_params().items()}, seed=0)
+    convert.load_mxtpu_params(net, arrays)
+    return net, arrays
+
+
+def b1_calls(fn):
+    """The B1 convs that one call of ``fn`` launches: {(x shape, w shape,
+    stride, padding, biased, dtype): count}, read from the arguments of
+    the wrapper's ``_forward`` (looked up at each call)."""
+    import collections
+    from mxtpu_torch.ops.pallas import conv as pconv
+    calls = collections.Counter()
+    orig = pconv._forward
+
+    def spy(x, w, strides, padding, scale, bias, residual, relu, oh, ow):
+        calls[(tuple(x.shape), tuple(w.shape), tuple(strides),
+               tuple(map(tuple, padding)), bias is not None,
+               str(x.dtype))] += 1
+        return orig(x, w, strides, padding, scale, bias, residual, relu,
+                    oh, ow)
+    pconv._forward = spy
+    try:
+        fn()
+    finally:
+        pconv._forward = orig
+    return calls
+
+
+def b1_vs_library(calls):
+    """(B1 ms, F.conv2d ms) per forward by graph replay, summed over
+    ``calls`` (b1_calls) on random inputs of those shapes."""
+    import torch
+    from mxtpu_torch.ops.pallas.conv import fused_conv
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    mine = lib = 0.0
+    for (xs, ws, s, pad, biased, dts), count in calls.items():
+        dt = getattr(torch, dts.split(".")[-1])
+        x = torch.randn(*xs, device="cuda", generator=gen).to(dt)
+        w = (0.1 * torch.randn(*ws, device="cuda", generator=gen)).to(dt)
+        b = (torch.randn(ws[-1], device="cuda", generator=gen).to(dt)
+             if biased else None)
+        mine += count * graph_ms(lambda: fused_conv(x, w, s, pad, bias=b))
+        lib += count * graph_ms(_lib_conv(x, w, s, pad, b))
+    return mine, lib
+
+
+def zoo_serve_phase(card):
+    """Every vision family of the zoo (ZOO_SERVE) served through
+    ``Predictor`` on the card, channels-last, seeded weights, 1000
+    classes, one captured b8 bucket, float32 then bfloat16: the logits of
+    the first two images against the same net on the CPU (1e-3 / 5e-2 of
+    max|logit|), the b8 replay against the same forward run eagerly on
+    the card, B1's launches per forward against ZOO_SERVE's; timed by
+    closed loop (median, p80, host issue), a profiled forward (device ms,
+    idle share, kernels per forward, B1's ms) and B1's convs of one
+    forward by graph replay beside ``F.conv2d``'s. Returns {model: {dtype:
+    B1 launches per forward}}."""
+    import numpy as np
+    import torch
+    import mxtpu_torch as mt
+    from mxtpu_torch.ops.pallas.conv import fused_conv
+    from mxtpu_torch.serving import BucketSpec, Predictor
+    t_phase = time.time()
+    rng = np.random.default_rng(31)
+    launches = {}
+    table = []
+    for name, side, want in ZOO_SERVE:
+        t0 = time.time()
+        cpu_net, arrays = build_zoo(name, side)
+        net, _ = build_zoo(name, side, arrays)
+        x_np = rng.standard_normal((8, side, side, 3)).astype(np.float32)
+        launches[name] = {}
+        for dtype, tol in (("float32", 1e-3), ("bfloat16", 5e-2)):
+            dt = getattr(torch, dtype)
+            if dtype == "bfloat16":
+                net.cast("bfloat16")
+                cpu_net.cast("bfloat16")
+            pred = Predictor(net, BucketSpec([8]),
+                             example=torch.zeros(1, side, side, 3, dtype=dt),
+                             warmup=True, device="cuda",
+                             site="serving.predict.%s.%s" % (name, dtype))
+            x8 = torch.from_numpy(x_np).to("cuda", dt)
+            fused_conv.launches = 0
+            out = pred.predict(x8).to_torch()
+            torch.cuda.synchronize()
+            n_b1 = fused_conv.launches
+            launches[name][dtype] = n_b1
+            if n_b1 != want:
+                raise AssertionError("%s %s: fused_conv launched %d times in "
+                                     "one forward, expected %d"
+                                     % (name, dtype, n_b1, want))
+            with torch.no_grad():
+                ref = cpu_net(torch.from_numpy(x_np[:2]).to(dt)).float()
+            got = out[:2].float().cpu()
+            mag = ref.abs().max().item()
+            err = (got - ref).abs().max().item() / mag
+            if tuple(out.shape) != (8, 1000) or not bool(
+                    torch.isfinite(out.float()).all()) or err > tol:
+                raise AssertionError("%s %s: logits %s differ from the CPU "
+                                     "run by %.3g of max|logit| (limit %g)"
+                                     % (name, dtype, tuple(out.shape), err,
+                                        tol))
+            diff = replay_vs_eager(pred, x8, "%s %s" % (name, dtype))
+            if diff > tol * mag:
+                raise AssertionError("%s %s: replay differs from eager by "
+                                     "%.3g" % (name, dtype, diff))
+            med, p80, issue = closed_loop(pred, x8)
+            rows = device_rows(lambda: pred.predict(x8), 3)
+            dev = sum(r[1] for r in rows)
+            b1_ms = sum(r[1] for r in rows if "fused_conv_" in r[0])
+            kernels = round(sum(r[2] for r in rows))
+            mine, lib = b1_vs_library(b1_calls(lambda: eager(pred, x8)))
+            table.append((name, dtype, med, p80, 8e3 / med, issue, dev,
+                          1 - dev / med, kernels, n_b1, b1_ms, mine, lib,
+                          err, diff))
+            print("zoo serve %s %s b8 on %s: %.1f images/s at the median "
+                  "%.3f ms (p80 %.3f, host issue %.3f ms); device %.3f ms "
+                  "(idle share %.3f), %d kernels a forward; fused_conv x%d "
+                  "%.3f ms in the profile, by graph replay %.3f ms beside "
+                  "F.conv2d's %.3f ms for the same convs; logits vs CPU %.3g "
+                  "of max|logit|, replay vs eager %.3g" % (
+                      name, dtype, card, 8e3 / med, med, p80, issue, dev,
+                      1 - dev / med, kernels, n_b1, b1_ms, mine, lib, err,
+                      diff), flush=True)
+            print_breakdown("zoo serve %s %s b8 graph" % (name, dtype), rows,
+                            med, "fused_conv_", n_b1)
+            del pred
+        del net, cpu_net
+        print("zoo serve %s: %.1f s" % (name, time.time() - t0), flush=True)
+    print("zoo serve table on %s (model, dtype, median ms, p80 ms, "
+          "images/s, host issue ms, device ms, idle share, kernels, B1 "
+          "launches, B1 profiled ms, B1 graph ms, F.conv2d graph ms, logit "
+          "err, replay diff):" % card)
+    for row in table:
+        print("  %-18s %-9s %8.3f %8.3f %9.1f %7.3f %8.3f %6.3f %5d %3d "
+              "%7.3f %7.3f %7.3f %.3g %.3g" % row)
+    print("zoo serve phase %.1f s" % (time.time() - t_phase), flush=True)
+    return launches
+
+
+def _dropouts(net, rate):
+    """Set every Dropout of ``net`` to ``rate``."""
+    import mxtpu_torch as mt
+    for m in net.modules():
+        if isinstance(m, mt.gluon.nn.Dropout):
+            m._rate = rate
+
+
+def forward_flops(net, x):
+    """FLOPs of one forward of ``net`` on ``x`` (2 per multiply-add of
+    every conv and dense layer), counted by forward hooks."""
+    import torch
+    import mxtpu_torch as mt
+    nn = mt.gluon.nn
+    total = [0]
+
+    def hook(block, args, out):
+        w = block.weight.data().to_torch()
+        per_out = w.numel() // w.shape[-1 if isinstance(
+            block, nn.Conv2D) and block._channels_last else 0]
+        total[0] += 2 * out.numel() * per_out
+    handles = [m.register_forward_hook(hook) for m in net.modules()
+               if isinstance(m, (nn.Conv2D, nn.Dense))]
+    try:
+        with torch.no_grad():
+            net(x)
+    finally:
+        for h in handles:
+            h.detach()
+    return total[0]
+
+
+def dropout_gates():
+    """A hybridized Dropout in a captured pair on the card: the first
+    recorded call against the same Dropout run eagerly from the same
+    generator state (whether torch's captured Philox draws equal eager's:
+    reported, not gated), two replays give different masks, each kept
+    share within 4 sigma of 1 - p, the input's gradient equal to
+    mask * g / (1 - p) exactly, and a draw from a generator that the
+    graph did not register raises. Returns whether captured and eager
+    draws are equal."""
+    import torch
+    import mxtpu_torch as mt
+    from mxtpu_torch import random as mrandom
+    from mxtpu_torch.base import MXNetError
+    p, n = 0.5, DROPOUT_N
+    keep = 1 - p
+    gen = mrandom.generator("cuda:0")
+    eager_drop = mt.gluon.nn.Dropout(p)
+    drop = mt.gluon.nn.Dropout(p)
+    drop.hybridize()
+    x = torch.ones(n, device="cuda", requires_grad=True)
+    g = torch.randn(n, device="cuda")
+    state = gen.get_state()
+    with mt.autograd.record():
+        ref = eager_drop(x)
+    gen.set_state(state)
+    masks = []
+    for call in range(2):
+        x.grad = None
+        with mt.autograd.record():
+            out = drop(x)
+        out.backward(g)
+        torch.cuda.synchronize()
+        mask = out != 0
+        share = mask.float().mean().item()
+        sigma = math.sqrt(p * (1 - p) / n)
+        if abs(share - keep) > 4 * sigma:
+            raise AssertionError("captured Dropout call %d kept %.5f, "
+                                 "expected %.2f +- 4 x %.2g"
+                                 % (call + 1, share, keep, sigma))
+        want = torch.where(mask, g / keep, torch.zeros_like(g))
+        if not torch.equal(x.grad, want) or not torch.equal(
+                out[mask], torch.full_like(out[mask], 1 / keep)):
+            raise AssertionError("captured Dropout call %d: the gradient is "
+                                 "not mask * g / (1 - p)" % (call + 1))
+        masks.append(mask)
+    if torch.equal(masks[0], masks[1]):
+        raise AssertionError("two replays of the captured Dropout drew the "
+                             "same mask")
+    equal = bool(torch.equal(masks[0], ref != 0))
+    unregistered = mt.gluon.nn.HybridLambda(
+        lambda F, x: F.Dropout(x, p=p))
+    unregistered.hybridize()
+    try:
+        with mt.autograd.record():
+            unregistered(x)
+    except MXNetError as e:
+        if "register the generator" not in str(e):
+            raise
+    else:
+        raise AssertionError("a draw from an unregistered generator inside "
+                             "a capture did not raise")
+    print("dropout gates (p %.1f, %d elements, captured pair on the card): "
+          "kept shares %s, two replays differ, the gradient is mask * g / "
+          "(1 - p) exactly, an unregistered draw raises; the first captured "
+          "mask %s the eager mask drawn from the same generator state" % (
+              p, n, [round(m.float().mean().item(), 5) for m in masks],
+              "equals" if equal else "DIFFERS FROM"), flush=True)
+    return equal
+
+
+def zoo_train_phase(card):
+    """Inception v3 (channels-last, 299x299, 1000 classes, seeded weights)
+    trained through ``gluon.Trainer`` with ``hybridize()`` on net and loss
+    (a captured forward/backward pair whose Dropout draws inside the
+    graphs) and ``clip_global_norm`` of the gradients between backward and
+    ``step``: f32 b2, 3 SGD-momentum steps against the same steps on the
+    CPU and eagerly on the card with the Dropout's rate 0 (the CPU's
+    draws are another stream); the Dropout gates; 2 steps with the rate
+    0.5 against the card's eager step from the same generator state,
+    where captured draws equal eager ones; then bf16 b64 timed, eager
+    forward/backward beside captured, with 28 fused_conv launches and no
+    build after the warm-up. Returns {"float32": launches of a lockstep
+    step, "bfloat16": launches of a timed captured step}."""
+    import numpy as np
+    import torch
+    import mxtpu_torch as mt
+    from mxtpu_torch import random as mrandom
+    from mxtpu_torch.ops.pallas.conv import fused_conv
+    t_phase = time.time()
+    gpu = mt.gpu(0)
+    side = 299
+
+    def on_card(net, hybrid=False):
+        net.collect_params().reset_ctx(gpu)
+        if hybrid:
+            net.hybridize()
+        return net
+    cpu_net, arrays = build_zoo("inception_v3", side)
+    flops = 3 * forward_flops(cpu_net, torch.zeros(1, side, side, 3))
+    gnet = on_card(build_zoo("inception_v3", side, arrays)[0], True)
+    enet = on_card(build_zoo("inception_v3", side, arrays)[0])
+    for net in (gnet, enet, cpu_net):
+        _dropouts(net, 0.0)
+    rng = np.random.default_rng(41)
+    batches = [(rng.standard_normal((2, side, side, 3)).astype(np.float32),
+                rng.integers(0, 1000, 2).astype(np.float32))
+               for _ in range(5)]
+    tr = {}
+    t0 = time.time()
+    launches, losses, worst, _ = lockstep_train(
+        "inception_v3 captured train f32 (dropout 0)", gnet, cpu_net,
+        batches[:3], "sgd", SGD_PARAMS, kernel=fused_conv, eager_net=enet,
+        trainers=tr, clip=CLIP_NORM, l2_tol=INCEPTION_TRAIN_L2)
+    if launches[1:] != [INCEPTION_B1] * 2:
+        raise AssertionError("inception_v3 captured step: fused_conv "
+                             "launched %s times per step, expected %d"
+                             % (launches, INCEPTION_B1))
+    print("captured train inception_v3 f32 b2, 3 SGD steps with "
+          "clip_global_norm(%g), dropout 0, each against the same step on "
+          "the CPU and eagerly on the card (%.1f s): fused_conv launches %s "
+          "(the first step captures); mean losses %s; builds %s; worst "
+          "errors: %s" % (CLIP_NORM, time.time() - t0, launches, losses,
+                          _builds(), worst_line(worst)), flush=True)
+    del cpu_net
+    equal = dropout_gates()
+    for net in (gnet, enet):
+        _dropouts(net, 0.5)
+    gnet.hybridize()    # new graphs: the rate is baked into the capture
+    if equal:
+        t0 = time.time()
+        launches2, losses2, worst2, _ = lockstep_train(
+            "inception_v3 captured train f32 (dropout 0.5)", gnet, None,
+            batches[3:5], "sgd", SGD_PARAMS, kernel=fused_conv,
+            eager_net=enet, clip=CLIP_NORM,
+            generator=mrandom.generator("cuda:0"),
+            l2_tol=INCEPTION_TRAIN_L2)
+        print("captured train inception_v3 f32 b2, dropout 0.5 drawing "
+              "inside the graphs, 2 steps against the card's eager step "
+              "from the same generator state (%.1f s): fused_conv launches "
+              "%s; mean losses %s; worst errors: %s" % (
+                  time.time() - t0, launches2, losses2, worst_line(worst2)),
+              flush=True)
+    else:
+        print("captured train inception_v3: captured Philox draws differ "
+              "from eager ones, so the dropout-0.5 steps are held by the "
+              "Dropout gates alone", flush=True)
+    del gnet, enet, tr
+    timing = {}
+    batch = 64
+    params = dict(SGD_PARAMS, multi_precision=True)
+    x = mt.nd.array(rng.standard_normal((batch, side, side, 3)), ctx=gpu,
+                    dtype="bfloat16")
+    y = mt.nd.array(rng.integers(0, 1000, batch).astype(np.float32),
+                    ctx=gpu)
+    for mode in ("eager f/b", "captured"):
+        net = on_card(build_zoo("inception_v3", side, arrays)[0])
+        net.cast("bfloat16")
+        if mode == "captured":
+            net.hybridize()
+        timing[mode] = train_timing(
+            "inception_v3 bf16 b%d %s (SGD-momentum, multi_precision, "
+            "clip_global_norm, dropout 0.5)" % (batch, mode), net, x, y,
+            "sgd", params, None, card, flops, batch, "bfloat16",
+            kernel=fused_conv, clip=CLIP_NORM)
+        del net
+    print("inception_v3 bf16 b%d on %s (items/s, median ms, p80 ms, host "
+          "issue ms, device ms, idle share, peak GiB, peak GiB over the "
+          "timed steps, train_mfu, builds after the warm-up, B1 launches a "
+          "step):" % (batch, card))
+    for mode, row in timing.items():
+        print("  %-10s %9.1f %9.3f %9.3f %9.3f %9.3f %6.3f %6.2f %6.2f "
+              "%.4f %s %s" % (mode, row["rate"], row["step_ms"],
+                              row["p80_ms"], row["issue_ms"],
+                              row["device_ms"],
+                              1 - row["device_ms"] / row["step_ms"],
+                              row["peak_gib"], row["steady_peak_gib"],
+                              row["mfu"], row["builds_after_warmup"],
+                              row["launches"]))
+    cap = timing["captured"]
+    if cap["launches"] != INCEPTION_B1 or any(
+            cap["builds_after_warmup"].values()):
+        raise AssertionError("captured inception_v3: %s launches a step "
+                             "(expected %d), builds after the warm-up %s"
+                             % (cap["launches"], INCEPTION_B1,
+                                cap["builds_after_warmup"]))
+    print("zoo train phase %.1f s" % (time.time() - t_phase), flush=True)
+    return {"float32": launches[1], "bfloat16": cap["launches"]}
+
+
+def s2d_phase(card):
+    """ResNet-50 v1 served at b8 (one captured bucket) in float32 and
+    bfloat16 with ``contrib.s2d_stem.apply_to_resnet(net, mode)`` for
+    modes 1 and 2 beside the plain stem (mode 0): logits against the
+    plain stem's within the served tolerances, B1's launches per forward
+    (11, 11, 10), and each stem alone by graph replay at b8. Returns
+    {dtype: {mode: launches per forward}}."""
+    import numpy as np
+    import torch
+    import mxtpu_torch as mt
+    from mxtpu_torch.contrib import s2d_stem
+    from mxtpu_torch.ops.pallas.conv import fused_conv
+    from mxtpu_torch.serving import BucketSpec, Predictor
+    t_phase = time.time()
+    net, _ = build_net()
+    net.collect_params().reset_ctx(mt.gpu(0))
+    x_np = np.random.default_rng(51).standard_normal(
+        (8, 224, 224, 3)).astype(np.float32)
+    want = {0: 11, 1: 11, 2: 10}
+    out = {}
+    for dtype, tol in (("float32", 1e-3), ("bfloat16", 5e-2)):
+        dt = getattr(torch, dtype)
+        if dtype == "bfloat16":
+            net.cast("bfloat16")
+        x8 = torch.from_numpy(x_np).to("cuda", dt)
+        w = net.features[0].weight.data().to_torch().detach()
+        logits, out[dtype] = {}, {}
+        for mode in (0, 1, 2):
+            s2d_stem.apply_to_resnet(net, mode)
+            pred = Predictor(net, BucketSpec([8]),
+                             example=torch.zeros(1, 224, 224, 3, dtype=dt),
+                             warmup=True, device="cuda",
+                             site="serving.predict.s2d%d.%s" % (mode, dtype))
+            fused_conv.launches = 0
+            logits[mode] = pred.predict(x8).to_torch().float()
+            torch.cuda.synchronize()
+            out[dtype][mode] = fused_conv.launches
+            med, p80, _ = closed_loop(pred, x8)
+            stem_ms = graph_ms(lambda: s2d_stem._stem(x8, w, None, mode))
+            err = ((logits[mode] - logits[0]).abs().max()
+                   / logits[0].abs().max()).item()
+            print("s2d stem mode %d resnet50_v1 %s b8 on %s: fused_conv x%d "
+                  "a forward; served median %.3f ms (p80 %.3f); the stem "
+                  "alone %.4f ms by graph replay; logits vs the plain stem "
+                  "%.3g of max|logit|" % (mode, dtype, card,
+                                          out[dtype][mode], med, p80,
+                                          stem_ms, err), flush=True)
+            if out[dtype][mode] != want[mode] or err > tol or not bool(
+                    torch.isfinite(logits[mode]).all()):
+                raise AssertionError(
+                    "s2d stem mode %d %s: %d launches (expected %d), logits "
+                    "%.3g of max|logit| from the plain stem's (limit %g)"
+                    % (mode, dtype, out[dtype][mode], want[mode], err, tol))
+            del pred
+    print("s2d phase %.1f s" % (time.time() - t_phase), flush=True)
+    return out
+
+
 def kernel_entries(rows, launches, train_launches, name, source, replaces,
                    bwd_rows=()):
     """One `kernels` entry per type: the per-forward shapes' numbers, each
@@ -4115,6 +4693,26 @@ def main():
     if not all(captured_path.values()):
         raise AssertionError("captured training: a kernel of its path was "
                              "not launched: %s" % captured_path)
+    # slice 9: the zoo's shape classes, then each path with B1's count
+    # from 0 just before it and read just after
+    t0 = time.time()
+    zoo_conv_rows = zoo_conv_phase()
+    print("zoo conv phase %.1f s" % (time.time() - t0), flush=True)
+    zoo_path = {}
+    fused_conv.launches = 0
+    zoo_serve = zoo_serve_phase(card)
+    zoo_path["zoo_serve"] = fused_conv.launches
+    fused_conv.launches = 0
+    zoo_train = zoo_train_phase(card)
+    zoo_path["zoo_train"] = fused_conv.launches
+    fused_conv.launches = 0
+    s2d_launches = s2d_phase(card)
+    zoo_path["s2d"] = fused_conv.launches
+    print("slice 9 paths' fused_conv launches (over both types): %s"
+          % zoo_path, flush=True)
+    if not all(zoo_path.values()):
+        raise AssertionError("a slice 9 path launched no fused_conv: %s"
+                             % zoo_path)
     n = resnet50_param_count()
     _, rtc_kernels, rtc_rows = rtc_phase(n)
     rtc_launches = imperative_phase(rtc_kernels, n)
@@ -4151,6 +4749,16 @@ def main():
     entries[1].update(controller_launches=controller_conv,
                       zoo_launches=zoo_conv)
     entries[3].update(zoo_launches=zoo_flash)
+    for i, dtype in enumerate(("float32", "bfloat16")):
+        entries[i].update(
+            zoo_serve_launches={m: v[dtype] for m, v in zoo_serve.items()},
+            zoo_train_step_launches=zoo_train[dtype],
+            s2d_serve_launches=s2d_launches[dtype],
+            zoo_paths_launches_both_dtypes=zoo_path,
+            zoo_shape_classes={r["shape"]: {
+                k: r[k] for k in ("max_abs_err", "graph_ms",
+                                  "library_graph_ms", "bound_ms")}
+                for r in zoo_conv_rows if r["dtype"] == dtype})
     for i, e in enumerate(entries):
         kind = "conv" if i < 2 else "flash"
         e["decode_launches_both_dtypes"] = decode_launches[kind]

@@ -1,5 +1,5 @@
 """Gluon API of the port (counterpart of ``mxtpu/gluon``)."""
-from . import loss, model_zoo, nn
+from . import loss, model_zoo, nn, utils
 from .block import Block, HybridBlock
 from .parameter import (Constant, DeferredInitializationError, Parameter,
                         ParameterDict)
@@ -7,4 +7,4 @@ from .trainer import Trainer
 
 __all__ = ["Block", "HybridBlock", "Parameter", "Constant", "ParameterDict",
            "DeferredInitializationError", "Trainer", "loss", "nn",
-           "model_zoo"]
+           "model_zoo", "utils"]

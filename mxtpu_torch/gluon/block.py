@@ -29,6 +29,7 @@ there, so each float copy lives only through the layer that uses it.
 from __future__ import annotations
 
 import contextlib
+import re
 import threading
 import weakref
 
@@ -179,6 +180,14 @@ class Block(nn.Module):
     def _alias(self):
         return self.__class__.__name__.lower()
 
+    def __repr__(self):
+        children = [(k, b) for k, b in self._modules.items()
+                    if isinstance(b, Block)]
+        if not children:
+            return "%s()" % self.__class__.__name__
+        return "%s(\n%s\n)" % (self.__class__.__name__, "\n".join(
+            "  (%s): %s" % (k, _indent(repr(b), 2)) for k, b in children))
+
     def __setattr__(self, name, value):
         if isinstance(value, Parameter):
             value._attach(self, name)
@@ -206,13 +215,58 @@ class Block(nn.Module):
     def _child_blocks(self):
         return [m for m in self._modules.values() if isinstance(m, Block)]
 
-    def collect_params(self):
-        """All Parameters of this block and its children, by full name."""
+    def collect_params(self, select=None):
+        """All Parameters of this block and its children, by full name;
+        ``select`` (a regular expression) keeps the names it matches from
+        their start (ref: block.py:collect_params)."""
         ret = ParameterDict(self._params.prefix)
-        ret.update(self.params)
+        if not select:
+            ret.update(self.params)
+        else:
+            pattern = re.compile(select)
+            ret.update({n: p for n, p in self.params.items()
+                        if pattern.match(n)})
         for child in self._child_blocks():
-            ret.update(child.collect_params())
+            ret.update(child.collect_params(select=select))
         return ret
+
+    def register_forward_hook(self, hook):
+        """``hook(block, inputs, output)`` after every call; returns a
+        handle whose ``detach()`` removes it (ref: block.py)."""
+        return _HookHandle(super().register_forward_hook(hook))
+
+    def register_forward_pre_hook(self, hook):
+        """``hook(block, inputs)`` before every call; returns a handle
+        whose ``detach()`` removes it."""
+        return _HookHandle(super().register_forward_pre_hook(hook))
+
+    def summary(self, *inputs):
+        """Print each block's output shape and parameter count for one
+        call on ``inputs``, in the order the calls end, then the total
+        (ref: block.py:summary)."""
+        rows = []
+
+        def hook(block, inp, out):
+            first = out[0] if isinstance(out, (list, tuple)) else out
+            shape = getattr(first, "shape", None)
+            rows.append((block.__class__.__name__ + "-" + str(len(rows) + 1),
+                         None if shape is None else tuple(shape),
+                         _count(block.params.values())))
+
+        handles = []
+        self.apply(lambda b: handles.append(b.register_forward_hook(hook)))
+        try:
+            self(*inputs)
+        finally:
+            for h in handles:
+                h.detach()
+        line = "%-30s %-24s %-12s"
+        print(line % ("Layer (type)", "Output Shape", "Param #"))
+        print("=" * 68)
+        for name, shape, n in rows:
+            print(line % (name, str(shape), n))
+        print("=" * 68)
+        print("Total params: %d" % _count(self.collect_params().values()))
 
     def register_child(self, block, name=None):
         self.add_module(str(len(self._modules)) if name is None else name,
@@ -284,6 +338,25 @@ class Block(nn.Module):
 
     def forward(self, *args):  # pragma: no cover - abstract
         raise NotImplementedError
+
+
+class _HookHandle:
+    """A forward hook's handle with the reference's ``detach()``."""
+
+    def __init__(self, handle):
+        self._handle = handle
+
+    def detach(self):
+        self._handle.remove()
+
+
+def _count(params):
+    """Elements of the initialized parameters among ``params``."""
+    return sum(p._tensor().numel() for p in params if p.initialized)
+
+
+def _indent(s, n):
+    return ("\n" + " " * n).join(s.split("\n"))
 
 
 def _signature(args):
@@ -386,9 +459,12 @@ class CachedOp:
     optimizer step writes them in place and is seen, and a tensor replaced
     since (a ``set_data``) is copied into the captured storage, which the
     parameter then shares, before the replay. BatchNorm's running
-    statistics move once per call, in the forward graph. One call at a
-    time holds the static inputs, the replay and the copies of its
-    outputs."""
+    statistics move once per call, in the forward graph. A block with a
+    layer that draws (``_draws``: a Dropout) has its device's generator
+    (``random.generator``) registered with each graph, so every replay
+    draws a fresh mask and a pair's backward reuses its forward's. One
+    call at a time holds the static inputs, the replay and the copies of
+    its outputs."""
 
     def __init__(self, block):
         self._block = block
@@ -462,11 +538,20 @@ class CachedOp:
                   for p in self._block.collect_params().values()]
         return params, [t for _, t in params if not t.requires_grad]
 
+    def _generators(self, device):
+        """The generator of ``device`` where a layer of the block draws."""
+        if any(getattr(m, "_draws", False) for m in self._block.modules()):
+            from .. import random
+            return (random.generator(device),)
+        return ()
+
     def _capture(self, key, args):
         statics = [a.detach().clone() for a in args]
         params, keep = self._state()
         with torch.no_grad(), graphs.keeping(keep):
-            graph = graphs.CapturedGraph(self._forward, statics)
+            graph = graphs.CapturedGraph(
+                self._forward, statics,
+                generators=self._generators(statics[0].device))
         telemetry.record_retrace("cached_op", self._provenance(key, False))
         self._graphs[key] = (graph, params, list(self._out_fmt))
         return self._graphs[key]
@@ -487,8 +572,9 @@ class CachedOp:
                 return self._forward(*xs)
 
         diff = [(p, t) for p, t in params if t.requires_grad]
-        pair = _Pair(graphs.CapturedPair(forward, statics,
-                                         [t for _, t in diff], keep),
+        pair = _Pair(graphs.CapturedPair(
+            forward, statics, [t for _, t in diff], keep,
+            generators=self._generators(statics[0].device)),
                      params, [p for p, _ in diff], list(self._out_fmt),
                      self._lock)
         if any(not isinstance(o, torch.Tensor)

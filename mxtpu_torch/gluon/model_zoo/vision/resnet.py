@@ -1,9 +1,13 @@
-"""ResNet v1 (counterpart of ``mxtpu/gluon/model_zoo/vision/resnet.py``).
+"""ResNet v1 and v2 (counterpart of
+``mxtpu/gluon/model_zoo/vision/resnet.py``).
 
-He et al., "Deep Residual Learning", with the stride on the bottleneck's
-3x3 conv as in the reference. Block structure, naming and parameter shapes
-equal the JAX package's, so weights carry across by name
-(``mxtpu_torch.convert``). ResNet v2 is not ported yet.
+He et al., "Deep Residual Learning" (v1, with the stride on the
+bottleneck's 3x3 conv as in the reference) and "Identity Mappings in Deep
+Residual Networks" (v2, pre-activation). Block structure, naming and
+parameter shapes equal the JAX package's, so weights carry across by name
+(``mxtpu_torch.convert``) and ``.params`` files load as they are.
+``pretrained=True`` loads from the local store (``model_store``), searched
+in ``root``.
 """
 from __future__ import annotations
 
@@ -11,8 +15,10 @@ from ....base import MXNetError
 from ...block import HybridBlock
 from ... import nn
 
-__all__ = ["ResNetV1", "BasicBlockV1", "BottleneckV1", "resnet18_v1",
-           "resnet34_v1", "resnet50_v1", "resnet101_v1", "resnet152_v1",
+__all__ = ["ResNetV1", "ResNetV2", "BasicBlockV1", "BasicBlockV2",
+           "BottleneckV1", "BottleneckV2", "resnet18_v1", "resnet34_v1",
+           "resnet50_v1", "resnet101_v1", "resnet152_v1", "resnet18_v2",
+           "resnet34_v2", "resnet50_v2", "resnet101_v2", "resnet152_v2",
            "get_resnet"]
 
 
@@ -84,6 +90,65 @@ class BottleneckV1(HybridBlock):
         return F.Activation(x + residual, act_type="relu")
 
 
+class BasicBlockV2(HybridBlock):
+    """BN-relu-conv3x3-BN-relu-conv3x3 + shortcut (taken after the first
+    BN-relu where the block downsamples)."""
+
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 **kwargs):
+        super().__init__(**kwargs)
+        self.bn1 = nn.BatchNorm()
+        self.conv1 = _conv3x3(channels, stride, in_channels)
+        self.bn2 = nn.BatchNorm()
+        self.conv2 = _conv3x3(channels, 1, channels)
+        if downsample:
+            self.downsample = nn.Conv2D(channels, 1, stride, use_bias=False,
+                                        in_channels=in_channels)
+        else:
+            self.downsample = None
+
+    def hybrid_forward(self, F, x):
+        residual = x
+        x = F.Activation(self.bn1(x), act_type="relu")
+        if self.downsample is not None:
+            residual = self.downsample(x)
+        x = self.conv1(x)
+        x = F.Activation(self.bn2(x), act_type="relu")
+        return self.conv2(x) + residual
+
+
+class BottleneckV2(HybridBlock):
+    """Pre-activation 1x1-3x3-1x1, the stride on the 3x3."""
+
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 **kwargs):
+        super().__init__(**kwargs)
+        self.bn1 = nn.BatchNorm()
+        self.conv1 = nn.Conv2D(channels // 4, kernel_size=1, strides=1,
+                               use_bias=False)
+        self.bn2 = nn.BatchNorm()
+        self.conv2 = _conv3x3(channels // 4, stride, channels // 4)
+        self.bn3 = nn.BatchNorm()
+        self.conv3 = nn.Conv2D(channels, kernel_size=1, strides=1,
+                               use_bias=False)
+        if downsample:
+            self.downsample = nn.Conv2D(channels, 1, stride, use_bias=False,
+                                        in_channels=in_channels)
+        else:
+            self.downsample = None
+
+    def hybrid_forward(self, F, x):
+        residual = x
+        x = F.Activation(self.bn1(x), act_type="relu")
+        if self.downsample is not None:
+            residual = self.downsample(x)
+        x = self.conv1(x)
+        x = F.Activation(self.bn2(x), act_type="relu")
+        x = self.conv2(x)
+        x = F.Activation(self.bn3(x), act_type="relu")
+        return self.conv3(x) + residual
+
+
 class ResNetV1(HybridBlock):
     """Stem (7x7/2 conv + 3x3/2 max pool), 4 stages, global average pool,
     dense classifier."""
@@ -126,6 +191,46 @@ class ResNetV1(HybridBlock):
         return self.output(self.features(x))
 
 
+class ResNetV2(HybridBlock):
+    """A BatchNorm with neither scale nor shift on the input, the stem,
+    4 stages of pre-activation blocks, BN-relu, global average pool,
+    flatten, dense classifier."""
+
+    def __init__(self, block, layers, channels, classes=1000, thumbnail=False,
+                 **kwargs):
+        super().__init__(**kwargs)
+        if len(layers) != len(channels) - 1:
+            raise MXNetError("layers/channels mismatch")
+        with self.name_scope():
+            self.features = nn.HybridSequential(prefix="")
+            self.features.add(nn.BatchNorm(scale=False, center=False))
+            if thumbnail:
+                self.features.add(_conv3x3(channels[0], 1, 0))
+            else:
+                self.features.add(nn.Conv2D(channels[0], 7, 2, 3,
+                                            use_bias=False))
+                self.features.add(nn.BatchNorm())
+                self.features.add(nn.Activation("relu"))
+                self.features.add(nn.MaxPool2D(3, 2, 1))
+            in_channels = channels[0]
+            for i, num_layer in enumerate(layers):
+                stride = 1 if i == 0 else 2
+                self.features.add(self._make_layer(
+                    block, num_layer, channels[i + 1], stride, i + 1,
+                    in_channels=in_channels))
+                in_channels = channels[i + 1]
+            self.features.add(nn.BatchNorm())
+            self.features.add(nn.Activation("relu"))
+            self.features.add(nn.GlobalAvgPool2D())
+            self.features.add(nn.Flatten())
+            self.output = nn.Dense(classes, in_units=in_channels)
+
+    _make_layer = ResNetV1._make_layer
+
+    def hybrid_forward(self, F, x):
+        return self.output(self.features(x))
+
+
 resnet_spec = {
     18: ("basic_block", [2, 2, 2, 2], [64, 64, 128, 256, 512]),
     34: ("basic_block", [3, 4, 6, 3], [64, 64, 128, 256, 512]),
@@ -133,36 +238,39 @@ resnet_spec = {
     101: ("bottle_neck", [3, 4, 23, 3], [64, 256, 512, 1024, 2048]),
     152: ("bottle_neck", [3, 8, 36, 3], [64, 256, 512, 1024, 2048]),
 }
-_BLOCKS = {"basic_block": BasicBlockV1, "bottle_neck": BottleneckV1}
+_VERSIONS = {
+    1: (ResNetV1, {"basic_block": BasicBlockV1, "bottle_neck": BottleneckV1}),
+    2: (ResNetV2, {"basic_block": BasicBlockV2, "bottle_neck": BottleneckV2}),
+}
 
 
-def get_resnet(version, num_layers, pretrained=False, **kwargs):
+def get_resnet(version, num_layers, pretrained=False, ctx=None, root=None,
+               **kwargs):
+    """ResNet v``version`` of depth ``num_layers``; ``pretrained`` loads
+    ``resnet<depth>_v<version>`` from the store under ``root`` onto
+    ``ctx``."""
     if num_layers not in resnet_spec:
         raise MXNetError("invalid resnet depth %s" % num_layers)
-    if version != 1:
-        raise MXNetError("ResNet v%s is not ported yet (v1 only)" % version)
-    if pretrained:
-        raise MXNetError("pretrained weights are not ported: load them "
-                         "with mxtpu_torch.convert.load_mxtpu_params")
+    if version not in _VERSIONS:
+        raise MXNetError("invalid resnet version %s" % version)
     block_type, layers, channels = resnet_spec[num_layers]
-    return ResNetV1(_BLOCKS[block_type], layers, channels, **kwargs)
+    net_class, blocks = _VERSIONS[version]
+    net = net_class(blocks[block_type], layers, channels, **kwargs)
+    if pretrained:
+        from ..model_store import load_pretrained
+        load_pretrained(net, "resnet%d_v%d" % (num_layers, version), root,
+                        ctx)
+    return net
 
 
-def resnet18_v1(**kwargs):
-    return get_resnet(1, 18, **kwargs)
+def _named(version, depth):
+    def make(**kwargs):
+        return get_resnet(version, depth, **kwargs)
+    make.__name__ = make.__qualname__ = "resnet%d_v%d" % (depth, version)
+    return make
 
 
-def resnet34_v1(**kwargs):
-    return get_resnet(1, 34, **kwargs)
-
-
-def resnet50_v1(**kwargs):
-    return get_resnet(1, 50, **kwargs)
-
-
-def resnet101_v1(**kwargs):
-    return get_resnet(1, 101, **kwargs)
-
-
-def resnet152_v1(**kwargs):
-    return get_resnet(1, 152, **kwargs)
+resnet18_v1, resnet34_v1, resnet50_v1, resnet101_v1, resnet152_v1 = (
+    _named(1, d) for d in (18, 34, 50, 101, 152))
+resnet18_v2, resnet34_v2, resnet50_v2, resnet101_v2, resnet152_v2 = (
+    _named(2, d) for d in (18, 34, 50, 101, 152))

@@ -1,25 +1,81 @@
 """Basic layers (counterpart of ``mxtpu/gluon/nn/basic_layers.py``):
-HybridSequential, Dense, BatchNorm, LayerNorm, Embedding and Flatten."""
+Sequential, HybridSequential, Dense, Dropout, BatchNorm, InstanceNorm,
+LayerNorm, Embedding, Flatten, Lambda, HybridLambda, Concurrent,
+HybridConcurrent and Identity."""
 from __future__ import annotations
 
+import warnings
+
+import torch
+
 from ... import autograd
+from ...base import MXNetError
+from ...ndarray import NDArray
+from ...ops.registry import REGISTRY
 from ..block import Block, HybridBlock
 
-__all__ = ["HybridSequential", "Dense", "BatchNorm", "LayerNorm",
-           "Embedding", "Flatten"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
+           "InstanceNorm", "LayerNorm", "Embedding", "Flatten", "Lambda",
+           "HybridLambda", "HybridConcurrent", "Concurrent", "Identity"]
 
 
-class HybridSequential(HybridBlock):
-    """Children run in order (ref: basic_layers.py:HybridSequential)."""
+class _Stack:
+    """What Sequential and HybridSequential share: ``add``, indexing (a
+    slice is a new stack of the same children), ``len`` and iteration."""
 
     def add(self, *blocks):
         for block in blocks:
             self.register_child(block)
 
-    def hybrid_forward(self, F, x):
+    def _run(self, x, args):
         for block in self._modules.values():
-            x = block(x)
+            x = block(x, *args)
+            args = ()
+            if isinstance(x, (tuple, list)) and len(x) == 1:
+                x = x[0]
         return x
+
+    def __getitem__(self, key):
+        layers = list(self._modules.values())[key]
+        if isinstance(layers, list):
+            net = type(self)(prefix=self._prefix)
+            net.add(*layers)
+            return net
+        return layers
+
+    def __len__(self):
+        return len(self._modules)
+
+    def __iter__(self):
+        return iter(self._modules.values())
+
+
+class Sequential(_Stack, Block):
+    """Children run in order (ref: basic_layers.py:Sequential)."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+
+    def forward(self, x, *args):
+        return self._run(x, args)
+
+    def hybridize(self, active=True, **kwargs):
+        if self._modules and all(isinstance(c, HybridBlock)
+                                 for c in self._modules.values()):
+            warnings.warn("All children of this Sequential layer are "
+                          "HybridBlocks. Consider using HybridSequential for "
+                          "the best performance.", stacklevel=2)
+        super().hybridize(active, **kwargs)
+
+
+class HybridSequential(_Stack, HybridBlock):
+    """Children run in order (ref: basic_layers.py:HybridSequential)."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+
+    def hybrid_forward(self, F, x, *args):
+        return self._run(x, args)
 
 
 class Dense(HybridBlock):
@@ -62,12 +118,38 @@ class Dense(HybridBlock):
                                no_bias=bias is None, flatten=self._flatten)
         return out if self.act is None else self.act(out)
 
+    def __repr__(self):
+        shape = self.weight.shape
+        return "Dense({0} -> {1}, {2})".format(
+            shape[1] if shape[1] else None, shape[0],
+            self.act if self.act else "linear")
+
 
 def _make_activation(activation):
     if isinstance(activation, Block):
         return activation
     from .activations import Activation
     return Activation(activation)
+
+
+class Dropout(HybridBlock):
+    """Inverted dropout of rate ``rate`` in autograd training mode, one
+    draw shared along ``axes`` (ref: basic_layers.py:Dropout). Its draw
+    comes from the port's generator; a hybridized block that holds one
+    registers that generator with its captured graphs (``_draws``)."""
+
+    _draws = True
+
+    def __init__(self, rate, axes=(), **kwargs):
+        super().__init__(**kwargs)
+        self._rate = rate
+        self._axes = axes
+
+    def hybrid_forward(self, F, x):
+        return F.Dropout(x, p=self._rate, axes=self._axes)
+
+    def __repr__(self):
+        return "Dropout(p = {}, axes={})".format(self._rate, self._axes)
 
 
 class BatchNorm(HybridBlock):
@@ -132,6 +214,45 @@ class BatchNorm(HybridBlock):
                                          + var.detach() * (1 - m))
         return out
 
+    def __repr__(self):
+        return "BatchNorm(axis={}, eps={}, momentum={}, in_channels={})"\
+            .format(self._axis, self._kwargs["eps"], self._momentum,
+                    self.gamma.shape[0])
+
+
+class InstanceNorm(HybridBlock):
+    """Instance normalization over the spatial axes, channels on ``axis``
+    (ref: basic_layers.py:InstanceNorm); gamma is fixed unless
+    ``scale``."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._epsilon = epsilon
+        self._axis = axis
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", grad_req="write" if scale else "null",
+                shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True)
+            self.beta = self.params.get(
+                "beta", grad_req="write" if center else "null",
+                shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True)
+
+    def infer_shape(self, x, *args):
+        channels = x.shape[self._axis]
+        self.gamma._shape_resolved((channels,))
+        self.beta._shape_resolved((channels,))
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        if self._axis == 1:
+            return F.InstanceNorm(x, gamma, beta, eps=self._epsilon)
+        x = x.swapaxes(1, self._axis)
+        return F.InstanceNorm(x, gamma, beta,
+                              eps=self._epsilon).swapaxes(1, self._axis)
+
 
 class LayerNorm(HybridBlock):
     """Layer normalization over ``axis`` (ref: basic_layers.py:LayerNorm);
@@ -181,7 +302,101 @@ class Embedding(HybridBlock):
         return F.Embedding(x, weight, input_dim=self._input_dim,
                            output_dim=self._output_dim)
 
+    def __repr__(self):
+        return "Embedding({} -> {}, {})".format(
+            self._input_dim, self._output_dim, self.weight.dtype)
+
 
 class Flatten(HybridBlock):
     def hybrid_forward(self, F, x):
         return x.reshape(x.shape[0], -1)
+
+    def __repr__(self):
+        return "Flatten"
+
+
+def _named_op(function):
+    if function not in REGISTRY:
+        raise MXNetError("Function name %s is not found in mx.nd." % function)
+    return REGISTRY[function]
+
+
+class Lambda(Block):
+    """A function as a Block (ref: basic_layers.py:Lambda); a name is an
+    ``mx.nd`` op, run on NDArrays as ``mx.nd`` runs it and on tensors as
+    the op's tensor function."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            op = _named_op(function)
+
+            def run(*args):
+                if any(isinstance(a, NDArray) for a in args):
+                    return op.wrapper(*args)
+                return op.fn(*args)
+            self._func_impl, self._func_name = run, function
+        else:
+            self._func_impl = function
+            self._func_name = getattr(function, "__name__", "custom")
+
+    def forward(self, *args):
+        return self._func_impl(*args)
+
+    def __repr__(self):
+        return "Lambda({})".format(self._func_name)
+
+
+class HybridLambda(HybridBlock):
+    """``function(F, *args)`` as a HybridBlock; a name is the op of that
+    name (ref: basic_layers.py:HybridLambda)."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            fn = _named_op(function).fn
+            self._func = lambda F, *args: fn(*args)
+            self._func_name = function
+        else:
+            self._func = function
+            self._func_name = getattr(function, "__name__", "custom")
+
+    def hybrid_forward(self, F, *args):
+        return self._func(F, *args)
+
+    def __repr__(self):
+        return "HybridLambda({})".format(self._func_name)
+
+
+class Concurrent(Sequential):
+    """Every child on the same input, the outputs concatenated on ``axis``
+    (ref: contrib/nn/basic_layers.py:Concurrent)."""
+
+    def __init__(self, axis=-1, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self.axis = axis
+
+    def forward(self, x):
+        outs = [block(x) for block in self._modules.values()]
+        if any(isinstance(o, NDArray) for o in outs):
+            return REGISTRY["Concat"].wrapper(*outs, dim=self.axis)
+        return torch.cat(outs, dim=self.axis)
+
+
+class HybridConcurrent(HybridSequential):
+    """Hybridizable Concurrent (ref: contrib/nn/basic_layers.py)."""
+
+    def __init__(self, axis=-1, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self.axis = axis
+
+    def hybrid_forward(self, F, x):
+        return F.concat(*[block(x) for block in self._modules.values()],
+                        dim=self.axis)
+
+
+class Identity(HybridBlock):
+    """The identity (ref: contrib/nn/basic_layers.py:Identity)."""
+
+    def hybrid_forward(self, F, x):
+        return x

@@ -37,7 +37,8 @@ import torch
 from .base import MXNetError
 
 __all__ = ["CAPTURE_LOCK", "CapturedGraph", "CapturedPair", "launched",
-           "capturing", "captures", "keeping", "allow_generator"]
+           "capturing", "captures", "keeping", "keeping_generators",
+           "allow_generator"]
 
 # one lock for every capture and every eager forward of a shared block:
 # the Predictor's forward swaps its parameter snapshot into the block
@@ -106,6 +107,19 @@ def keeping(tensors):
                 t.copy_(v)
 
 
+@contextlib.contextmanager
+def keeping_generators(generators):
+    """Give each of ``generators`` its state back when the block ends: a
+    warm-up run's draws must not move the offset from which the first
+    replay draws (each replay then draws as one eager call would)."""
+    saved = [g.get_state() for g in generators]
+    try:
+        yield
+    finally:
+        for g, st in zip(generators, saved):
+            g.set_state(st)
+
+
 class CapturedGraph:
     """One CUDA graph of ``fn(*static_inputs)`` on the inputs' device.
 
@@ -113,7 +127,10 @@ class CapturedGraph:
     never replay at once (a Predictor's buckets), so their intermediate
     buffers share one private pool; capture the largest first. ``device``
     names the device when ``fn`` takes no input (a decode step reads only
-    state it was captured over)."""
+    state it was captured over). ``generators`` (the port's
+    ``torch.Generator``s that ``fn`` draws from) are registered with the
+    graph: each replay draws from the generator's offset at that time and
+    moves it, as an eager call would; the warm-up's draws are given back."""
 
     def __init__(self, fn, static_inputs, pool=None, device=None,
                  generators=()):
@@ -124,8 +141,13 @@ class CapturedGraph:
                              % device)
         self.static_inputs = list(static_inputs)
         self.device = device
-        with CAPTURE_LOCK, torch.cuda.device(device):
+        with CAPTURE_LOCK, torch.cuda.device(device), \
+                keeping_generators(generators):
             _STATE.depth = getattr(_STATE, "depth", 0) + 1
+            # the registered generators may be drawn from in the warm-up
+            # and the capture alike
+            prev_gens = getattr(_STATE, "generators", ())
+            _STATE.generators = set(prev_gens) | {id(g) for g in generators}
             try:
                 cur = torch.cuda.current_stream(device)
                 side = _SIDE_STREAMS.get(device)
@@ -137,10 +159,7 @@ class CapturedGraph:
                 cur.wait_stream(side)
                 graph = torch.cuda.CUDAGraph()
                 for gen in generators:
-                    graph.register_generator_state(gen.graphsafe_get_state())
-                prev_gens = getattr(_STATE, "generators", ())
-                _STATE.generators = set(prev_gens) | {id(g) for g in
-                                                      generators}
+                    graph.register_generator_state(gen)
                 # a garbage collection during the capture may free another
                 # graph, whose teardown invalidates this capture
                 collecting = gc.isenabled()
@@ -152,10 +171,10 @@ class CapturedGraph:
                                 capture_error_mode="thread_local"):
                         out = fn(*self.static_inputs)
                 finally:
-                    _STATE.generators = prev_gens
                     if collecting:
                         gc.enable()
             finally:
+                _STATE.generators = prev_gens
                 _STATE.depth -= 1
         self.launches = [tuple(e) for e in tally.values()]
         self.graph = graph
@@ -190,9 +209,13 @@ class CapturedPair:
     replay moves the state once. The forward's activations live in the
     pool, so one pair serves one outstanding call: the caller replays the
     backward before the next forward (``CachedOp`` keeps a pair busy until
-    then)."""
+    then). ``generators`` (what ``fn`` draws from, a Dropout's mask) are
+    registered with both graphs and, like ``keep``, given back their state
+    after the warm-up and that replay: the caller's replay draws what one
+    eager forward would, and the backward reads the mask that the forward
+    replay drew (the mask is an activation; nothing draws again)."""
 
-    def __init__(self, fn, static_inputs, params, keep=()):
+    def __init__(self, fn, static_inputs, params, keep=(), generators=()):
         device = static_inputs[0].device
         pool = torch.cuda.graph_pool_handle() if device.type == "cuda" \
             else None
@@ -203,8 +226,9 @@ class CapturedPair:
                 self._live = list(fn(*xs))
             return self._live
 
-        with keeping(keep):
-            self.forward = CapturedGraph(forward, static_inputs, pool=pool)
+        with keeping(keep), keeping_generators(generators):
+            self.forward = CapturedGraph(forward, static_inputs, pool=pool,
+                                         generators=generators)
             self.diff_outputs = [k for k, o in enumerate(self._live)
                                  if isinstance(o, torch.Tensor)
                                  and o.requires_grad]
@@ -219,5 +243,6 @@ class CapturedPair:
                     [self._live[k] for k in self.diff_outputs], diff_in,
                     cts, retain_graph=True, allow_unused=True))
 
-            self.backward = CapturedGraph(backward, cots, pool=pool)
+            self.backward = CapturedGraph(backward, cots, pool=pool,
+                                          generators=generators)
         self.cotangents = self.backward.static_inputs

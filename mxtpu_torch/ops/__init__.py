@@ -3,16 +3,22 @@
 module with the registry, from which ``mx.nd`` is built."""
 from . import elemwise, optimizer_ops, quantization, reduce  # noqa: F401
 from .elemwise import (abs_ as abs, broadcast_add,  # noqa: A004
-                       broadcast_mul, broadcast_sub, exp, log, relu, square,
-                       where)
+                       broadcast_mul, broadcast_sub, clip, exp, log, relu,
+                       sigmoid, square, tanh, where)
 from .init_ops import arange
-from .matrix import Embedding, reshape, swapaxes, transpose
-from .nn import (Activation, BatchNorm, Convolution, FullyConnected,
-                 LayerNorm, Pooling, log_softmax, softmax)
+from .matrix import (Concat, Embedding, pad, reshape, swapaxes,
+                     transpose)
+from .nn import (Activation, BatchNorm, Convolution, Deconvolution, Dropout,
+                 FullyConnected, InstanceNorm, LayerNorm, LeakyReLU, Pooling,
+                 log_softmax, softmax)
 from .reduce import mean, pick, sum_ as sum  # noqa: A004
 
-__all__ = ["Activation", "BatchNorm", "Convolution", "FullyConnected",
-           "LayerNorm", "Pooling", "Embedding", "reshape", "transpose",
-           "swapaxes", "arange", "softmax", "log_softmax", "abs",
-           "broadcast_add", "broadcast_mul", "broadcast_sub", "exp", "log",
-           "relu", "square", "where", "mean", "pick", "sum"]
+concat = Concat
+
+__all__ = ["Activation", "BatchNorm", "Convolution", "Deconvolution",
+           "Dropout", "FullyConnected", "InstanceNorm", "LayerNorm",
+           "LeakyReLU", "Pooling", "Embedding", "Concat", "concat", "pad",
+           "reshape", "transpose", "swapaxes", "arange", "softmax",
+           "log_softmax", "abs", "broadcast_add", "broadcast_mul",
+           "broadcast_sub", "clip", "exp", "log", "relu", "sigmoid",
+           "square", "tanh", "where", "mean", "pick", "sum"]

@@ -2,15 +2,15 @@
 
 Convs that ``pallas.conv.pallas_applicable`` admits go to the hand-written
 fused conv kernel; that is the port's default on the card (the JAX package
-stages the same route behind ``MXTPU_PALLAS_CONV``). Every other conv runs
-``torch.nn.functional.conv2d`` on NCHW views, the counterpart of the plain
-XLA conv: those convs ran outside any Pallas kernel in the JAX package too.
+stages the same route behind ``MXTPU_PALLAS_CONV``). Every other conv
+(any 1-, 2- or 3-D conv) runs ``torch.nn.functional.conv{1,2,3}d`` on
+channels-first views, the counterpart of the plain XLA conv: those convs
+ran outside any Pallas kernel in the JAX package too.
 The JAX package's im2col and f32-accumulate custom-vjp branches are off by
 default there and are not ported.
 """
 from __future__ import annotations
 
-import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError
@@ -18,8 +18,7 @@ from .precision_util import promote
 
 __all__ = ["conv_fast"]
 
-_TO_NCHW = {"NHWC": (0, 3, 1, 2), "NCHW": None}
-_W_TO_OIHW = {"HWIO": (3, 2, 0, 1), "OIHW": None}
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 
 
 def conv_fast(x, w, strides, padding, lhs_dilation, rhs_dilation, dims,
@@ -47,27 +46,29 @@ def conv_fast(x, w, strides, padding, lhs_dilation, rhs_dilation, dims,
 def _plain_conv(x, w, strides, padding, lhs_dilation, rhs_dilation, dims,
                 groups):
     lhs, rhs, out_l = dims
-    if x.ndim != 4 or lhs not in _TO_NCHW or rhs not in _W_TO_OIHW \
-            or out_l != lhs:
-        raise MXNetError("conv_fast: only 2-D NCHW/OIHW and NHWC/HWIO convs "
-                         "are ported, got %s" % (dims,))
-    if tuple(lhs_dilation) != (1, 1):
-        raise MXNetError("conv_fast: transposed convs (lhs dilation) are "
-                         "not ported")
+    nd = x.ndim - 2
+    if nd not in _CONV or out_l != lhs or len(lhs) != nd + 2:
+        raise MXNetError("conv_fast: only 1-3-D convs with matching input "
+                         "and output layouts are ported, got %s" % (dims,))
+    if tuple(lhs_dilation) != (1,) * nd:
+        raise MXNetError("conv_fast: lhs dilation is not ported (the "
+                         "Deconvolution op runs conv_transpose)")
+    last = lhs[-1] == "C"
     dt = promote(x.dtype, w.dtype)
-    xc = x.to(dt) if _TO_NCHW[lhs] is None else x.to(dt).permute(_TO_NCHW[lhs])
-    wc = w.to(dt) if _W_TO_OIHW[rhs] is None else \
-        w.to(dt).permute(_W_TO_OIHW[rhs])
-    (plo, phi), (qlo, qhi) = (tuple(p) for p in padding)
-    if plo == phi and qlo == qhi:
-        pad = (plo, qlo)
+    xc, wc = x.to(dt), w.to(dt)
+    if last:   # NHWC-style input, HWIO-style weight: channels-first views
+        xc = xc.permute(0, nd + 1, *range(1, nd + 1))
+        wc = wc.permute(nd + 1, nd, *range(nd))
+    pads = [tuple(p) for p in padding]
+    if all(lo == hi for lo, hi in pads):
+        pad = tuple(lo for lo, _ in pads)
     else:
-        xc = F.pad(xc, (qlo, qhi, plo, phi))
-        pad = (0, 0)
-    out = F.conv2d(xc, wc, stride=tuple(strides), padding=pad,
-                   dilation=tuple(rhs_dilation), groups=int(groups))
-    if _TO_NCHW[lhs] is not None:
-        out = out.permute(0, 2, 3, 1).contiguous()
+        xc = F.pad(xc, [v for lo, hi in reversed(pads) for v in (lo, hi)])
+        pad = (0,) * nd
+    out = _CONV[nd](xc, wc, stride=tuple(strides), padding=pad,
+                    dilation=tuple(rhs_dilation), groups=int(groups))
+    if last:
+        out = out.permute(0, *range(2, nd + 2), 1).contiguous()
     return out
 
 

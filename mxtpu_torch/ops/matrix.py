@@ -1,6 +1,6 @@
 """Shape, indexing and dot ops (counterpart of ``mxtpu/ops/matrix.py``):
 ``reshape`` with MXNet's special codes, ``transpose``, the ``Embedding``
-lookup, joins and slices, and ``dot``/``batch_dot`` (float32 in full
+lookup, joins, slices and ``pad``, and ``dot``/``batch_dot`` (float32 in full
 float32, bfloat16 accumulated in float32, as the JAX package's
 ``contract_acc``)."""
 from __future__ import annotations
@@ -13,7 +13,7 @@ from .registry import register
 
 __all__ = ["reshape", "transpose", "Embedding", "expand_dims", "squeeze",
            "Concat", "stack", "slice_", "slice_axis", "tile", "repeat",
-           "reverse", "swapaxes", "dot", "batch_dot"]
+           "reverse", "swapaxes", "pad", "dot", "batch_dot"]
 
 
 def _reshape_target(src, shape):
@@ -159,6 +159,38 @@ def repeat(x, repeats=1, axis=None):
     if axis is None:
         return x.reshape(-1).repeat_interleave(repeats)
     return x.repeat_interleave(repeats, dim=axis)
+
+
+_PAD_MODES = {"constant": "constant", "edge": "replicate",
+              "reflect": "reflect"}
+
+
+@register("pad", aliases=("Pad",), as_method=True)
+def pad(x, mode="constant", pad_width=(), constant_value=0.0):
+    """numpy-style padding of every axis: ``pad_width`` holds (before,
+    after) per axis (ref: pad.cc). ``edge`` and ``reflect`` pad the
+    trailing 1-3 axes only (leading pairs zero), as torch's and MXNet's
+    kernels do; ``constant`` any axis."""
+    if mode not in _PAD_MODES:
+        raise MXNetError("unknown pad mode %r" % (mode,))
+    pw = [(int(pad_width[2 * i]), int(pad_width[2 * i + 1]))
+          for i in range(len(pad_width) // 2)]
+    pw += [(0, 0)] * (x.ndim - len(pw))
+    widths = [v for lo, hi in reversed(pw) for v in (lo, hi)]
+    if mode == "constant":
+        return torch.nn.functional.pad(x, widths, value=constant_value)
+    padded = [i for i, p in enumerate(pw) if p != (0, 0)]
+    n = x.ndim - min(padded) if padded else 0
+    if n > 3 or x.ndim - n < 1:
+        raise MXNetError("pad mode %r pads the trailing 1-3 axes of an "
+                         "array with a leading one, got pad_width %s for "
+                         "%d axes" % (mode, tuple(pad_width), x.ndim))
+    if n == 0:
+        return x
+    lead = x.shape[:x.ndim - n]
+    y = x.reshape((-1,) + tuple(x.shape[x.ndim - n:]))
+    out = torch.nn.functional.pad(y, widths[:2 * n], mode=_PAD_MODES[mode])
+    return out.reshape(tuple(lead) + tuple(out.shape[1:]))
 
 
 @register("reverse", aliases=("flip",), as_method=True)

@@ -1,15 +1,24 @@
 """Neural-network ops of the serving path (counterpart of ``mxtpu/ops/nn.py``).
 
 Plain functions on tensors, with the JAX package's signatures and layout
-handling, each registered for ``mx.nd``: ``Convolution`` (through
-``conv_acc.conv_fast``), ``Pooling``, ``Activation``, ``FullyConnected``,
-``BatchNorm``, ``LayerNorm``, ``softmax`` and ``log_softmax``. Keywords that only tune the reference's
-cuDNN calls (``workspace``, ``cudnn_tune``, ``cudnn_off``) are accepted and
-ignored, as the JAX package does.
+handling, each registered for ``mx.nd``: ``Convolution`` (1-, 2- and 3-D,
+through ``conv_acc.conv_fast``), ``Deconvolution``, ``Pooling`` (1-3-D,
+max/avg/sum/lp), ``Activation``, ``LeakyReLU`` (and ``_rrelu_train``),
+``Dropout``, ``FullyConnected``, ``BatchNorm``, ``InstanceNorm``,
+``LayerNorm``, ``softmax`` and ``log_softmax``. Keywords that only tune
+the reference's cuDNN calls (``workspace``, ``cudnn_tune``, ``cudnn_off``)
+are accepted and ignored, as the JAX package does.
+
+Random ops (``Dropout`` in training, ``rrelu``) draw from the port's
+generator of the tensor's device (``random.generator``), so torch's
+streams differ from JAX's keys; the mask is a tensor saved by autograd, so
+a backward reuses the forward's draw.
 NHWC tensors go to PyTorch's NCHW operators as permuted views, which are
 channels-last in memory, so no copy is made to change layout.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -20,8 +29,9 @@ from .conv_acc import conv_fast
 from .precision_util import promote
 from .registry import register
 
-__all__ = ["FullyConnected", "Convolution", "Pooling", "Activation",
-           "BatchNorm", "LayerNorm", "softmax", "log_softmax"]
+__all__ = ["FullyConnected", "Convolution", "Deconvolution", "Pooling",
+           "Activation", "LeakyReLU", "Dropout", "BatchNorm", "InstanceNorm",
+           "LayerNorm", "softmax", "log_softmax"]
 
 
 def _pair(v, n=2):
@@ -49,20 +59,30 @@ def FullyConnected(data, weight, bias=None, num_hidden=None, no_bias=False,
     return y
 
 
+_CONV_DIMS = {
+    1: {False: ("NCH", "OIH", "NCH"), True: ("NHC", "HIO", "NHC")},
+    2: {False: ("NCHW", "OIHW", "NCHW"), True: ("NHWC", "HWIO", "NHWC")},
+    3: {False: ("NCDHW", "OIDHW", "NCDHW"),
+        True: ("NDHWC", "DHWIO", "NDHWC")},
+}
+
+
 def _conv_dims(ndim, layout):
-    if ndim != 2:
-        raise MXNetError("only 2-D convolution is ported (got ndim %d)" % ndim)
-    if layout in (None, "NCHW"):
-        return ("NCHW", "OIHW", "NCHW")
-    return ("NHWC", "HWIO", "NHWC")
+    """The (lhs, rhs, out) layout triple of the JAX package's
+    ``lax.conv_general_dilated`` call; channels-last unless ``layout`` is
+    None or channels-first."""
+    if ndim not in _CONV_DIMS:
+        raise MXNetError("unsupported conv ndim %d" % ndim)
+    return _CONV_DIMS[ndim][layout is not None and layout.endswith("C")]
 
 
 @register("Convolution", aliases=("convolution",))
 def Convolution(data, weight, bias=None, kernel=None, stride=None, dilate=None,
                 pad=None, num_filter=None, num_group=1, no_bias=False,
                 layout=None, workspace=None, cudnn_tune=None, cudnn_off=None):
-    """2-D convolution; the bias is handed to conv_fast so every dispatch
-    path (fused kernel or plain conv) owns it."""
+    """1-, 2- or 3-D convolution; the bias is handed to conv_fast so every
+    dispatch path (fused kernel or plain conv) owns it. Only 2-D NHWC convs
+    can take the fused kernel (its gate)."""
     ndim = data.ndim - 2
     stride = _pair(stride, ndim)
     dilate = _pair(dilate, ndim)
@@ -79,6 +99,40 @@ def Convolution(data, weight, bias=None, kernel=None, stride=None, dilate=None,
     )
 
 
+@register("Deconvolution", aliases=("deconvolution",))
+def Deconvolution(data, weight, bias=None, kernel=None, stride=None,
+                  dilate=None, pad=None, adj=None, target_shape=None,
+                  num_filter=None, num_group=1, no_bias=True, layout=None,
+                  workspace=None, cudnn_tune=None, cudnn_off=None):
+    """Transposed convolution with the reference's weight, ``(in, out/g,
+    *k)`` channels-first or ``(*k, out/g, in)`` channels-last; the output
+    is ``(in - 1) * stride - 2 * pad + dilate * (k - 1) + adj + 1`` long,
+    as the JAX package's lhs-dilated conv gives. It runs
+    ``conv_transpose{1,2,3}d`` (the JAX package's lhs-dilated conv never
+    takes the fused kernel either); ``target_shape`` is accepted and
+    ignored, as there."""
+    ndim = data.ndim - 2
+    stride = _pair(stride, ndim)
+    dilate = _pair(dilate, ndim)
+    pad = _pair(pad, ndim) if pad is not None else (0,) * ndim
+    adj = _pair(adj, ndim) if adj is not None else (0,) * ndim
+    channels_last = _conv_dims(ndim, layout)[0][-1] == "C"
+    dt = promote(data.dtype, weight.dtype)
+    x, w = data.to(dt), weight.to(dt)
+    if channels_last:
+        x = x.permute(0, ndim + 1, *range(1, ndim + 1))
+        w = w.permute(ndim + 1, ndim, *range(ndim))
+    fn = (F.conv_transpose1d, F.conv_transpose2d, F.conv_transpose3d)[ndim - 1]
+    out = fn(x, w, stride=stride, padding=pad, output_padding=adj,
+             groups=int(num_group), dilation=dilate)
+    if channels_last:
+        out = out.permute(0, *range(2, ndim + 2), 1).contiguous()
+    if bias is not None and not no_bias:
+        out = out + (bias if channels_last else
+                     bias.reshape((1, -1) + (1,) * ndim))
+    return out
+
+
 def _spatial_axes(ndim, layout):
     channels_last = layout is not None and layout.endswith("C")
     return (tuple(range(1, 1 + ndim)) if channels_last
@@ -89,10 +143,11 @@ def _spatial_axes(ndim, layout):
 def Pooling(data, kernel=None, pool_type="max", global_pool=False, stride=None,
             pad=None, pooling_convention="valid", count_include_pad=True,
             layout=None, cudnn_off=None, p_value=None):
-    """2-D max/avg/sum pooling, or global pooling over the spatial axes.
-    Padding reads -inf for max and 0 for avg/sum, and ``"full"`` (ceil)
-    convention adds the missing right padding, as the JAX package's
-    reduce_window does."""
+    """1-, 2- or 3-D max/avg/sum/lp pooling, or global pooling over the
+    spatial axes. Padding reads -inf for max and 0 for the others, and
+    ``"full"`` (ceil) convention adds the missing right padding, as the JAX
+    package's reduce_window does; lp is ``(sum |x|^p)^(1/p)``, p = 2 by
+    default."""
     ndim = data.ndim - 2
     sp, channels_last = _spatial_axes(ndim, layout)
     if global_pool:
@@ -102,36 +157,47 @@ def Pooling(data, kernel=None, pool_type="max", global_pool=False, stride=None,
             return torch.mean(data, dim=sp, keepdim=True)
         if pool_type == "sum":
             return torch.sum(data, dim=sp, keepdim=True)
-        raise MXNetError("unported pool_type %r" % pool_type)
-    if ndim != 2:
-        raise MXNetError("only 2-D pooling is ported (got ndim %d)" % ndim)
+        if pool_type == "lp":
+            p = p_value or 2
+            return torch.sum(data.abs() ** p, dim=sp,
+                             keepdim=True) ** (1.0 / p)
+        raise MXNetError("unknown pool_type %r" % pool_type)
+    if ndim not in (1, 2, 3):
+        raise MXNetError("unsupported pooling ndim %d" % ndim)
     kernel = _pair(kernel, ndim)
     stride = _pair(stride, ndim) if stride is not None else (1,) * ndim
     pad = _pair(pad, ndim) if pad is not None else (0,) * ndim
-    x = data.permute(0, 3, 1, 2) if channels_last else data
-    lohi = []
-    for i in range(ndim):
+    x = data.permute(0, ndim + 1, *range(1, ndim + 1)) if channels_last \
+        else data
+    widths = []   # F.pad's order: the last axis first
+    for i in reversed(range(ndim)):
         lo = hi = pad[i]
         if pooling_convention == "full":
             size = x.shape[2 + i]
             out_sz = -(-(size + 2 * pad[i] - kernel[i]) // stride[i]) + 1
             hi = max(hi, (out_sz - 1) * stride[i] + kernel[i] - size - pad[i])
-        lohi.append((lo, hi))
-    (plo, phi), (qlo, qhi) = lohi
+        widths += [lo, hi]
+    area = math.prod(kernel)
+    avg = (F.avg_pool1d, F.avg_pool2d, F.avg_pool3d)[ndim - 1]
     if pool_type == "max":
-        xp = F.pad(x, (qlo, qhi, plo, phi), value=float("-inf"))
-        out = F.max_pool2d(xp, kernel, stride)
+        out = (F.max_pool1d, F.max_pool2d, F.max_pool3d)[ndim - 1](
+            F.pad(x, widths, value=float("-inf")), kernel, stride)
     elif pool_type in ("avg", "sum"):
-        area = kernel[0] * kernel[1]
-        out = F.avg_pool2d(F.pad(x, (qlo, qhi, plo, phi)), kernel, stride)
+        out = avg(F.pad(x, widths), kernel, stride)
         if pool_type == "sum":
             out = out * area
         elif not count_include_pad:
-            ones = F.pad(torch.ones_like(x[:1, :1]), (qlo, qhi, plo, phi))
-            out = out / F.avg_pool2d(ones, kernel, stride)
+            ones = F.pad(torch.ones_like(x[:1, :1]), widths)
+            out = out / avg(ones, kernel, stride)
+    elif pool_type == "lp":
+        p = p_value or 2
+        out = (avg(F.pad(x.abs() ** p, widths), kernel, stride)
+               * area) ** (1.0 / p)
     else:
-        raise MXNetError("unported pool_type %r" % pool_type)
-    return out.permute(0, 2, 3, 1).contiguous() if channels_last else out
+        raise MXNetError("unknown pool_type %r" % pool_type)
+    if channels_last:
+        return out.permute(0, *range(2, ndim + 2), 1).contiguous()
+    return out
 
 
 @register("Activation", aliases=("activation",))
@@ -147,6 +213,69 @@ def Activation(x, act_type="relu"):
     if act_type == "softsign":
         return x / (1 + torch.abs(x))
     raise MXNetError("unknown act_type " + act_type)
+
+
+@register("LeakyReLU")
+def LeakyReLU(data, gamma=None, act_type="leaky", slope=0.25,
+              lower_bound=0.125, upper_bound=0.334):
+    """The leaky/PReLU/ELU/SELU/GELU/RReLU family (ref: leaky_relu.cc);
+    ``prelu`` reads the slope from ``gamma`` (a 1-D gamma broadcasts over
+    axis 1), ``gelu`` is the tanh form (``jax.nn.gelu``'s default) and
+    ``rrelu`` is ``_rrelu_train``."""
+    x = data
+    if act_type == "rrelu":
+        return _rrelu_train(x, lower_bound, upper_bound)
+    if act_type == "leaky":
+        return torch.where(x > 0, x, slope * x)
+    if act_type == "prelu":
+        g = gamma
+        if g.ndim == 1 and g.ndim < x.ndim:
+            g = g.reshape((1, -1) + (1,) * (x.ndim - 2))
+        return torch.where(x > 0, x, g * x)
+    if act_type == "elu":
+        return torch.where(x > 0, x, slope * torch.expm1(x))
+    if act_type == "selu":
+        alpha, scale = 1.6732632423543772, 1.0507009873554805
+        return scale * torch.where(x > 0, x, alpha * torch.expm1(x))
+    if act_type == "gelu":
+        return F.gelu(x, approximate="tanh")
+    raise MXNetError("unknown act_type " + act_type)
+
+
+@register("_rrelu_train")
+def _rrelu_train(data, lower_bound=0.125, upper_bound=0.334):
+    """Randomized leaky ReLU: in autograd training mode each negative
+    element takes a slope drawn from U(lower, upper) (the port's
+    generator), otherwise the mean slope."""
+    x = data
+    if autograd.is_training():
+        from ..random import generator
+        s = torch.rand(x.shape, generator=generator(x.device),
+                       device=x.device, dtype=torch.float32)
+        s = (s * (upper_bound - lower_bound) + lower_bound).to(x.dtype)
+        return torch.where(x > 0, x, s * x)
+    return torch.where(x > 0, x, (lower_bound + upper_bound) / 2.0 * x)
+
+
+@register("Dropout", aliases=("dropout",))
+def Dropout(data, p=0.5, mode="training", axes=(), cudnn_off=None):
+    """Inverted dropout (ref: dropout.cc): in autograd training mode, or
+    with ``mode="always"``, each element is kept with probability
+    ``1 - p`` and scaled by ``1 / (1 - p)``; ``axes`` share one draw along
+    them. The mask is drawn from the port's generator of the tensor's
+    device (inside a CUDA-graph capture only when the graph registered it)
+    and saved by autograd, so the gradient is ``mask * g / (1 - p)``."""
+    if p <= 0 or (mode != "always" and not autograd.is_training()):
+        return data
+    from ..random import generator
+    keep = 1.0 - p
+    shape = list(data.shape)
+    for a in axes or ():
+        shape[a] = 1
+    mask = torch.rand(shape, generator=generator(data.device),
+                      device=data.device) < keep
+    return torch.where(mask, data / keep, torch.zeros((), dtype=data.dtype,
+                                                      device=data.device))
 
 
 @register("BatchNorm", aliases=("batch_norm",))
@@ -181,6 +310,19 @@ def BatchNorm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
             * (inv * g.float()).reshape(shape) + beta.float().reshape(shape)
     out = out.to(data.dtype)
     return (out, mean, var) if output_mean_var else out
+
+
+@register("InstanceNorm")
+def InstanceNorm(data, gamma, beta, eps=1e-3):
+    """Instance normalization of channels-first data over its spatial axes
+    (ref: instance_norm.cc), in the data's type as the JAX package's
+    (biased variance)."""
+    red = tuple(range(2, data.ndim))
+    mean = data.mean(dim=red, keepdim=True)
+    var = data.var(dim=red, keepdim=True, unbiased=False)
+    shape = (1, -1) + (1,) * (data.ndim - 2)
+    return (data - mean) * torch.rsqrt(var + eps) * gamma.reshape(shape) \
+        + beta.reshape(shape)
 
 
 @register("LayerNorm", aliases=("layer_norm",))

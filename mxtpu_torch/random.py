@@ -2,7 +2,9 @@
 
 One explicit ``torch.Generator`` per device, made on first use from the
 current seed (0 until ``seed`` is called). ``seed(s)`` reseeds every
-device; ``seed(s, ctx)`` only that device's generator. The state is per
+device; ``seed(s, ctx)`` only that device's generator. A generator is
+reseeded in place, so a CUDA graph that registered it (a captured
+Dropout) draws from the new seed at its next replay. The state is per
 thread, as the JAX package's key is. JAX's keys and torch's generators give
 different numbers from one seed: one seed reproduces one stream, nothing
 more.
@@ -40,10 +42,14 @@ def seed(seed_state, ctx="all"):
     ``ctx="all"``, else only that of ``ctx``."""
     if ctx == "all":
         _STATE.seed = int(seed_state)
-        _STATE.gens = {}
+        for gen in _STATE.gens.values():
+            gen.manual_seed(_STATE.seed)
     else:
         dev = resolve_device(ctx)
-        _STATE.gens[dev] = _new(dev, seed_state)
+        if dev in _STATE.gens:
+            _STATE.gens[dev].manual_seed(int(seed_state))
+        else:
+            _STATE.gens[dev] = _new(dev, seed_state)
 
 
 def generator(device=None):

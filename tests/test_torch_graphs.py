@@ -44,7 +44,7 @@ class FakeGraph:
 
     made = []
 
-    def __init__(self, fn, static_inputs, pool=None):
+    def __init__(self, fn, static_inputs, pool=None, generators=()):
         self.static_inputs = list(static_inputs)
         self._fn = fn
         self._training = mt.autograd.is_training()

@@ -569,3 +569,82 @@ def test_a_draw_inside_a_capture_raises():
     finally:
         graphs._STATE.depth -= 1
         graphs._STATE.generators = ()
+
+
+class DrawingGraph(FakeGraph):
+    """``FakeGraph`` whose runs may draw from the generators it is given,
+    as a graph that registered them may on the card; records them."""
+
+    given = []
+
+    def __init__(self, fn, static_inputs, pool=None, device=None,
+                 generators=()):
+        self._gens = {id(g) for g in generators}
+        DrawingGraph.given.append(tuple(generators))
+        super().__init__(fn, static_inputs, pool, device, generators)
+
+    def _run(self):
+        prev = getattr(graphs._STATE, "generators", ())
+        graphs._STATE.generators = set(prev) | self._gens
+        try:
+            return super()._run()
+        finally:
+            graphs._STATE.generators = prev
+
+
+def _dropout_net():
+    nn = mt.gluon.nn
+    net = nn.HybridSequential()
+    with net.name_scope():
+        net.add(nn.Dense(32, in_units=8, activation="relu"), nn.Dropout(0.5),
+                nn.Dense(3, in_units=32))
+    net.initialize(ctx=mt.cpu())
+    return net
+
+
+def _dropout_step(net, x):
+    xa = mt.nd.array(x, ctx=mt.cpu())
+    xa.attach_grad()
+    with mt.autograd.record():
+        out = net(xa)
+    out.backward(mt.nd.array(np.ones(out.shape, np.float32), ctx=mt.cpu()))
+    return out.asnumpy(), xa.grad.asnumpy()
+
+
+def test_record_hands_the_generator_to_the_pair_of_a_dropout_block(
+        monkeypatch):
+    """``CachedOp.record`` registers the device's generator with both
+    graphs of the pair of a block that holds a Dropout (none for a block
+    without one); the pair's warm-up and its forward replay give the
+    generator's state back, so the first recorded call draws the mask
+    one eager call draws from the same seed, its backward reads that
+    mask, and the next call draws a new one."""
+    monkeypatch.setattr(graphs, "CapturedGraph", DrawingGraph)
+    DrawingGraph.given = []
+    x = np.random.RandomState(0).randn(16, 8).astype(np.float32)
+    eager = _dropout_net()
+    net = _dropout_net()
+    for (k, p), q in zip(eager.collect_params().items(),
+                         net.collect_params().values()):
+        q.set_data(p.data().asnumpy())
+    mt.random.seed(3)
+    ref = [_dropout_step(eager, x) for _ in range(2)]
+    net.hybridize()
+    mt.random.seed(3)
+    got = [_dropout_step(net, x) for _ in range(2)]
+    gen = mt.random.generator("cpu")
+    assert len(DrawingGraph.given) == 2        # one pair: its two graphs
+    assert all(g == (gen,) for g in DrawingGraph.given)
+    for (o, g), (ro, rg) in zip(got, ref):
+        np.testing.assert_array_equal(o, ro)
+        np.testing.assert_array_equal(g, rg)
+    assert not np.array_equal(got[0][0], got[1][0])   # a fresh mask
+    # a block that draws nothing registers no generator
+    DrawingGraph.given = []
+    plain, _ = _resnet()
+    plain.hybridize()
+    with mt.autograd.record():
+        out = plain(mt.nd.array(np.zeros((1, 32, 32, 3), np.float32),
+                                ctx=mt.cpu()))
+    out.backward(mt.nd.array(np.ones(out.shape, np.float32), ctx=mt.cpu()))
+    assert DrawingGraph.given and all(g == () for g in DrawingGraph.given)

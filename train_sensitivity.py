@@ -4,8 +4,11 @@ measurement behind ``chip_smoke.py``'s training gates (TRAIN_L2,
 BF16_VS_F32).
 
 ``python3 train_sensitivity.py`` builds ``chip_smoke.py``'s seeded
-ResNet-50 v1 (NHWC, 224², 1000 classes) and its b8 batch, and prints for
-the step-1 gradients (SoftmaxCrossEntropyLoss, training-mode BatchNorm):
+ResNet-50 v1 (NHWC, 224², 1000 classes) and its b8 batch
+(``python3 train_sensitivity.py inception``: the seeded Inception v3 of
+``chip_smoke.zoo_train_phase``, 299², its Dropout at rate 0, and its
+first b2 batch), and prints for the step-1 gradients
+(SoftmaxCrossEntropyLoss, training-mode BatchNorm):
 
 * float32 with all CPU threads against one thread (summation order only);
 * float32 against float64 (BatchNorm in float64 too), and the same with a
@@ -81,16 +84,29 @@ def _compare(label, got, ref):
           flush=True)
 
 
+def _inception(arrays=None):
+    net, arrays = cs.build_zoo("inception_v3", 299, arrays)
+    cs._dropouts(net, 0.0)
+    return net, arrays
+
+
 def main():
     import mxtpu_torch as mt
     ops = sys.modules["mxtpu_torch.ops"]
     t0 = time.time()
-    (x, y), = cs.resnet_batches(8, 1, 11)
+    if sys.argv[1:] == ["inception"]:
+        rng = np.random.default_rng(41)   # zoo_train_phase's first batch
+        x = rng.standard_normal((2, 299, 299, 3)).astype(np.float32)
+        y = rng.integers(0, 1000, 2).astype(np.float32)
+        build = _inception
+    else:
+        (x, y), = cs.resnet_batches(8, 1, 11)
+        build = cs.build_net
     threads = torch.get_num_threads()
     runs = {}
     for n in (threads, 1):
         torch.set_num_threads(n)
-        net, arrays = cs.build_net()
+        net, arrays = build()
         runs[n] = _step1_grads(net, x, y, torch.float32)
     torch.set_num_threads(threads)
     _compare("float32, %d threads against 1" % threads, runs[threads][0],
@@ -98,11 +114,11 @@ def main():
     plain = ops.BatchNorm
     try:
         ops.BatchNorm = _batchnorm(torch.float64, two_pass=False)
-        net64, _ = cs.build_net(arrays)
+        net64, _ = build(arrays)
         net64.cast("float64")
         g64, loss64 = _step1_grads(net64, x, y, torch.float64)
         ops.BatchNorm = _batchnorm(torch.float32, two_pass=True)
-        net2, _ = cs.build_net(arrays)
+        net2, _ = build(arrays)
         g2, _ = _step1_grads(net2, x, y, torch.float32)
     finally:
         ops.BatchNorm = plain
@@ -110,9 +126,9 @@ def main():
                                                       loss64))
     _compare("float32 against float64", runs[threads][0], g64)
     _compare("float32 two-pass BatchNorm against float64", g2, g64)
-    net16, _ = cs.build_net(arrays)
+    net16, _ = build(arrays)
     net16.cast("bfloat16")
-    net32, _ = cs.build_net(arrays)
+    net32, _ = build(arrays)
     for mode, scope in (("training", mt.autograd.train_mode),
                         ("inference", mt.autograd.predict_mode)):
         with torch.no_grad(), scope():
