@@ -164,7 +164,24 @@ NVIDIA H100.
    v1 served at b8 with ``contrib.s2d_stem.apply_to_resnet`` modes 1 and 2
    beside the plain stem (11, 11, 10 launches a forward), each stem alone
    by graph replay.
-12. Prints one JSON line of kernels (fused_conv and flash_attention, one
+12. The input path (slice 10, ``input_phase``): 1,280 raw 256x256x3
+   uint8 records written to an indexed RecordIO file and read back;
+   ``StreamRecordIter`` through ``DevicePrefetcher`` onto cuda:0 (inline
+   and on 2 threads, after a ``worker_death`` and a ``prefetch_death``
+   fault, at depth 1 under a busy consumer stream) bit-equal to its host
+   batches; ``DataLoader(num_workers=4, pin_memory=True,
+   prefetch_to_device=cuda:0)`` equal to ``num_workers=0``, no worker
+   holding a CUDA context; ``ToTensor`` -> ``Normalize`` on the card
+   against the CPU (1e-6); ResNet-50 v1 f32 b8 3 SGD steps from records in
+   lockstep with the CPU; then its captured bf16 b128 step fed (a) from a
+   batch resident on the card, (b) synchronously from the inline reader,
+   (c) through ``StreamRecordIter`` -> ``DevicePrefetcher`` and (d)
+   through the DataLoader: images/s (median of 10 after 3), ``data.wait``
+   and ``data.h2d`` ms, ``data.starved``, the idle share by
+   ``torch.profiler``, peak pinned and device bytes, builds after the
+   warm-up (0) and B1's launches a step (11); and ``loader_only``, the
+   reader's drain rate with no device work.
+13. Prints one JSON line of kernels (fused_conv and flash_attention, one
    entry per type each, with graph-replay and host-issue sums beside the
    eager ones, the launches of one training step, and forward + backward
    by graph replay beside its plain version, the library's and its bound
@@ -173,7 +190,8 @@ NVIDIA H100.
    kernel; the bf16 conv entry adds its launches on the controller and
    zoo paths, the bf16 flash entry on the zoo's; each conv entry its
    launches per served zoo model, per captured Inception v3 step and per
-   s2d-stem forward, and its zoo shape classes), the card line again,
+   s2d-stem forward, its zoo shape classes and its launches on the input
+   path), the card line again,
    and last ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the last
@@ -4209,13 +4227,14 @@ def b1_calls(fn):
 
 
 def b1_vs_library(calls):
-    """(B1 ms, F.conv2d ms) per forward by graph replay, summed over
-    ``calls`` (b1_calls) on random inputs of those shapes."""
+    """(B1 ms, F.conv2d ms, bound ms) per forward, the times by graph
+    replay, summed over ``calls`` (b1_calls) on random inputs of those
+    shapes; each conv's bound is ``conv_bound_ms`` of its shapes."""
     import torch
     from mxtpu_torch.ops.pallas.conv import fused_conv
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
-    mine = lib = 0.0
+    mine = lib = bound = 0.0
     for (xs, ws, s, pad, biased, dts), count in calls.items():
         dt = getattr(torch, dts.split(".")[-1])
         x = torch.randn(*xs, device="cuda", generator=gen).to(dt)
@@ -4224,7 +4243,11 @@ def b1_vs_library(calls):
              if biased else None)
         mine += count * graph_ms(lambda: fused_conv(x, w, s, pad, bias=b))
         lib += count * graph_ms(_lib_conv(x, w, s, pad, b))
-    return mine, lib
+        oh = (xs[1] + sum(pad[0]) - ws[0]) // s[0] + 1
+        ow = (xs[2] + sum(pad[1]) - ws[1]) // s[1] + 1
+        bound += count * conv_bound_ms(x, w, xs[0] * oh * ow * ws[3],
+                                       dts.split(".")[-1])[0]
+    return mine, lib, bound
 
 
 def zoo_serve_phase(card):
@@ -4292,7 +4315,8 @@ def zoo_serve_phase(card):
             dev = sum(r[1] for r in rows)
             b1_ms = sum(r[1] for r in rows if "fused_conv_" in r[0])
             kernels = round(sum(r[2] for r in rows))
-            mine, lib = b1_vs_library(b1_calls(lambda: eager(pred, x8)))
+            mine, lib, bound = b1_vs_library(b1_calls(lambda: eager(pred,
+                                                                  x8)))
             table.append((name, dtype, med, p80, 8e3 / med, issue, dev,
                           1 - dev / med, kernels, n_b1, b1_ms, mine, lib,
                           err, diff))
@@ -4300,11 +4324,12 @@ def zoo_serve_phase(card):
                   "%.3f ms (p80 %.3f, host issue %.3f ms); device %.3f ms "
                   "(idle share %.3f), %d kernels a forward; fused_conv x%d "
                   "%.3f ms in the profile, by graph replay %.3f ms beside "
-                  "F.conv2d's %.3f ms for the same convs; logits vs CPU %.3g "
-                  "of max|logit|, replay vs eager %.3g" % (
+                  "F.conv2d's %.3f ms for the same convs (their bound %.4f "
+                  "ms); logits vs CPU %.3g of max|logit|, replay vs eager "
+                  "%.3g" % (
                       name, dtype, card, 8e3 / med, med, p80, issue, dev,
-                      1 - dev / med, kernels, n_b1, b1_ms, mine, lib, err,
-                      diff), flush=True)
+                      1 - dev / med, kernels, n_b1, b1_ms, mine, lib, bound,
+                      err, diff), flush=True)
             print_breakdown("zoo serve %s %s b8 graph" % (name, dtype), rows,
                             med, "fused_conv_", n_b1)
             del pred
@@ -4600,6 +4625,477 @@ def s2d_phase(card):
     return out
 
 
+# --------------------------------------------------------------- slice 10
+# The input path (ROADMAP A5): a record file of raw 256x256x3 uint8 images
+# (no JPEG, no cv2), read by the port's streaming reader or DataLoader and
+# prefetched to the card, feeding ResNet-50 v1's captured bf16 b128 step.
+INPUT_RECORDS = 1280
+INPUT_SIDE = 256
+INPUT_CROP = 224
+INPUT_BATCH = 128
+INPUT_SEED = 31
+INPUT_MEAN = (123.68, 116.28, 103.53)    # CreateAugmenter's mean=True
+INPUT_STD = (58.395, 57.12, 57.375)      # and std=True
+
+
+def write_input_records(root, n=INPUT_RECORDS, seed=INPUT_SEED):
+    """``n`` records ``pack(IRHeader(0, label, i, 0), pixels)`` of seeded
+    uint8 256x256x3 pixels into ``root``/input.rec and .idx (as
+    tools/perf_input_pipeline.py packs raw buffers). Returns (rec, idx,
+    the payloads' bytes, the labels)."""
+    import numpy as np
+    from mxtpu_torch import recordio
+    rec, idx = os.path.join(root, "input.rec"), os.path.join(root,
+                                                            "input.idx")
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, 1000, n)
+    w = recordio.MXIndexedRecordIO(idx, rec, "w")
+    payloads = []
+    for i in range(n):
+        body = rng.integers(0, 256, (INPUT_SIDE, INPUT_SIDE, 3),
+                            dtype=np.uint8).tobytes()
+        packed = recordio.pack(recordio.IRHeader(0, float(labels[i]), i, 0),
+                               body)
+        w.write_idx(i, packed)
+        payloads.append(packed)
+    w.close()
+    return rec, idx, payloads, labels
+
+
+def input_decode(raw, side=None, crop=None):
+    """The decode of every input run: unpack, a 224x224 crop and a mirror
+    drawn from (INPUT_SEED, the record's id), so a record decodes the same
+    on any thread and in any process. Returns (uint8 HWC, float32 label)."""
+    import numpy as np
+    from mxtpu_torch import recordio
+    side, crop = side or INPUT_SIDE, crop or INPUT_CROP
+    header, body = recordio.unpack(raw)
+    img = np.frombuffer(body, np.uint8).reshape(side, side, 3)
+    rng = np.random.default_rng((INPUT_SEED, int(header.id)))
+    y0, x0 = rng.integers(0, side - crop + 1, 2)
+    img = img[y0:y0 + crop, x0:x0 + crop]
+    if rng.random() < 0.5:
+        img = img[:, ::-1]
+    return np.ascontiguousarray(img), np.float32(header.label)
+
+
+class InputRecordDataset:
+    """The records as a Gluon dataset for the DataLoader's spawned workers:
+    the file opens in the process that reads it. In a worker process a
+    read raises if that process has initialized CUDA (a worker must never
+    hold a CUDA context)."""
+
+    def __init__(self, rec, idx):
+        self.rec, self.idx = rec, idx
+        self.parent = os.getpid()
+        self.shape = (INPUT_RECORDS, INPUT_SIDE, INPUT_CROP)
+        self._r = None
+
+    def __getstate__(self):
+        return dict(self.__dict__, _r=None)
+
+    def __len__(self):
+        return self.shape[0]
+
+    def __getitem__(self, i):
+        if os.getpid() != self.parent:
+            torch = sys.modules.get("torch")
+            if torch is not None and torch.cuda.is_initialized():
+                raise RuntimeError("DataLoader worker %d holds a CUDA "
+                                   "context" % os.getpid())
+        if self._r is None:
+            from mxtpu_torch import recordio
+            self._r = recordio.MXIndexedRecordIO(self.idx, self.rec, "r")
+        return input_decode(self._r.pread_idx(i), *self.shape[1:])
+
+
+def _endless(make):
+    """Batches of ``make()`` (one epoch each), epoch after epoch."""
+    while True:
+        n = 0
+        for b in make():
+            n += 1
+            yield b
+        if not n:
+            raise AssertionError("an input epoch yielded no batch")
+
+
+def _normalized(x_u8, dtype):
+    """uint8 NHWC on the card -> normalized ``dtype`` NHWC (the input's
+    float work, on the card after the copy)."""
+    import torch
+    from mxtpu_torch.ndarray import NDArray
+    t = x_u8.to_torch() if hasattr(x_u8, "to_torch") else x_u8
+    mean = torch.tensor(INPUT_MEAN, device=t.device)
+    inv_std = 1.0 / torch.tensor(INPUT_STD, device=t.device)
+    return NDArray(((t.float() - mean) * inv_std).to(dtype))
+
+
+def _compute_apps():
+    """Pids that hold a context on the card, by nvidia-smi (empty where
+    the tool shows no processes)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    return {int(s) for s in out.stdout.split() if s.strip().isdigit()}
+
+
+def _host_equal(what, got, ref):
+    """Bit-equality of two batch streams of (data, label) pairs."""
+    import numpy as np
+    if len(got) != len(ref):
+        raise AssertionError("%s: %d batches, expected %d" % (
+            what, len(got), len(ref)))
+    for i, (g, r) in enumerate(zip(got, ref)):
+        for a, b in zip(g, r):
+            a = a.asnumpy() if hasattr(a, "asnumpy") else np.asarray(a)
+            b = b.asnumpy() if hasattr(b, "asnumpy") else np.asarray(b)
+            if a.dtype != b.dtype or a.shape != b.shape or \
+                    not np.array_equal(a, b):
+                raise AssertionError("%s: batch %d differs from the host's "
+                                     "(%s %s against %s %s)" % (
+                                         what, i, a.dtype, a.shape, b.dtype,
+                                         b.shape))
+
+
+def input_gates(card, rec, idx, payloads):
+    """The input path's gates: the file reads back; the streaming reader
+    prefetched to the card equals its host batches inline and on two
+    threads, after a worker death and after a prefetch death, and with a
+    consumer that delays its stream; the DataLoader's four spawned
+    workers equal its in-process batches and hold no CUDA context; ToTensor
+    -> Normalize on the card equals the CPU."""
+    import numpy as np
+    import torch
+    import mxtpu_torch as mt
+    from mxtpu_torch import recordio, resilience
+    from mxtpu_torch.io import DevicePrefetcher, StreamRecordIter
+    gpu = mt.gpu(0)
+    r = recordio.MXIndexedRecordIO(idx, rec, "r")
+    bad = [k for k in r.keys if r.read_idx(k) != payloads[k]]
+    r.close()
+    if bad or len(r.keys) != len(payloads):
+        raise AssertionError("records read back differ: %s" % bad[:5])
+    print("input: %d records (%d bytes) read back through MXIndexedRecordIO "
+          "equal to what was written" % (len(payloads), os.path.getsize(rec)),
+          flush=True)
+
+    def stream(threads, prefetch, seed=5):
+        return StreamRecordIter(rec, idx, batch_size=INPUT_BATCH,
+                                decode_fn=input_decode, seed=seed,
+                                num_threads=threads,
+                                prefetch_to_device=prefetch, sharding=gpu)
+
+    def epoch(it):
+        out = [(b.data[0], b.label[0]) for b in it]
+        it.close()
+        return out
+
+    host = epoch(stream(0, False))
+    for threads in (0, 2):
+        got = epoch(stream(threads, True))
+        if got[0][0].context != gpu:
+            raise AssertionError("prefetched batch on %s" % got[0][0].context)
+        _host_equal("StreamRecordIter threads %d -> DevicePrefetcher on "
+                    "cuda:0" % threads, got, host)
+    for fault in ("worker_death@3", "prefetch_death@2"):
+        resilience.set_faults(fault)
+        got = epoch(stream(2, True))
+        fired = list(resilience.FAULT_STATS["fired"])
+        resilience.reset_faults()
+        if not fired:
+            raise AssertionError("fault %s did not fire" % fault)
+        _host_equal("StreamRecordIter after %s" % fault, got, host)
+    # a consumer whose stream is busy when each batch arrives, with the
+    # smallest ring (depth 1, two pinned slots)
+    pf = DevicePrefetcher(iter([(d, lab) for d, lab in host]), depth=1,
+                          sharding=gpu)
+    sums = []
+    for d, _ in pf:
+        torch.cuda._sleep(2_000_000)
+        sums.append(d.to_torch().sum(dtype=torch.int64))
+    pf.close()
+    want = [int(d.sum(dtype=np.int64)) for d, _ in host]
+    if [int(s) for s in sums] != want:
+        raise AssertionError("depth-1 prefetch under a busy consumer: "
+                             "sums differ")
+    print("input gates: StreamRecordIter -> DevicePrefetcher (cuda:0) "
+          "batches bit-equal to the host batches, inline and on 2 threads, "
+          "after worker_death@3 and prefetch_death@2, and at depth 1 under "
+          "a busy consumer stream (%d batches of %d each)"
+          % (len(host), INPUT_BATCH), flush=True)
+    ds = InputRecordDataset(rec, idx)
+    ref = [(d, lab) for d, lab in
+           mt.gluon.data.DataLoader(ds, batch_size=INPUT_BATCH,
+                                    batchify_fn=_np_batchify)]
+    loader = mt.gluon.data.DataLoader(
+        ds, batch_size=INPUT_BATCH, num_workers=4, pin_memory=True,
+        prefetch_to_device=gpu)
+    t0 = time.time()
+    got = [(d, lab) for d, lab in loader]
+    workers = [w.pid for w in loader._pool[2]]
+    apps = _compute_apps()
+    loader.close()
+    _host_equal("DataLoader(num_workers=4, pin_memory=True, "
+                "prefetch_to_device=cuda:0)", got, ref)
+    if apps & set(workers):
+        raise AssertionError("DataLoader workers %s hold a context on the "
+                             "card (nvidia-smi: %s)" % (workers, apps))
+    print("input gates: DataLoader(num_workers=4, pin_memory=True, "
+          "prefetch_to_device=cuda:0) equals num_workers=0 batch for batch "
+          "(%.1f s with the spawn); no worker initialized CUDA (each read "
+          "checks torch.cuda.is_initialized() in the worker), worker pids "
+          "%s, nvidia-smi compute apps %s" % (time.time() - t0, workers,
+                                              sorted(apps)), flush=True)
+    T = mt.gluon.data.vision.transforms
+    chain = T.Compose([T.ToTensor(),
+                       T.Normalize([m / 255 for m in INPUT_MEAN],
+                                   [s / 255 for s in INPUT_STD])])
+    x = host[0][0]
+    on_card = chain(mt.nd.array(x, ctx=gpu)).asnumpy()
+    on_cpu = chain(mt.nd.array(x, ctx=mt.cpu())).asnumpy()
+    err = float(np.abs(on_card - on_cpu).max()) / max(
+        1.0, float(np.abs(on_cpu).max()))
+    if on_card.shape != (INPUT_BATCH, 3, INPUT_CROP, INPUT_CROP) or \
+            not np.isfinite(on_card).all() or err > 1e-6:
+        raise AssertionError("ToTensor -> Normalize on the card differs from "
+                             "the CPU by %.3g (limit 1e-6)" % err)
+    print("input gates: transforms ToTensor -> Normalize on a b%d batch, "
+          "card against CPU (f32): max error %.3g of max(1, max|ref|) "
+          "(limit 1e-6)" % (INPUT_BATCH, err), flush=True)
+    return host
+
+
+def _np_batchify(samples):
+    import numpy as np
+    return [np.stack([s[0] for s in samples]),
+            np.asarray([s[1] for s in samples], np.float32)]
+
+
+def input_lockstep(rec, idx):
+    """ResNet-50 v1 f32 b8, 3 SGD-momentum steps from records (prefetched
+    to the card and normalized there) against the same steps on the CPU
+    (``lockstep_train``; 11 fused_conv launches a step)."""
+    import torch
+    import mxtpu_torch as mt
+    from mxtpu_torch.io import StreamRecordIter
+    from mxtpu_torch.ops.pallas.conv import fused_conv
+    it = StreamRecordIter(rec, idx, batch_size=8, decode_fn=input_decode,
+                          seed=7, sharding=mt.gpu(0))
+    batches = []
+    for _ in range(3):
+        b = it.next()
+        batches.append((_normalized(b.data[0], torch.float32).asnumpy(),
+                        b.label[0].asnumpy()))
+    it.close()
+    net, arrays = build_net()
+    net.collect_params().reset_ctx(mt.gpu(0))
+    cpu_net, _ = build_net(arrays)
+    t0 = time.time()
+    launches, losses, worst, _ = lockstep_train(
+        "resnet50 from records f32", net, cpu_net, batches, "sgd",
+        SGD_PARAMS, kernel=fused_conv)
+    if launches != [11, 11, 11]:
+        raise AssertionError("resnet50 from records: fused_conv launched %s "
+                             "times per step, expected 11" % launches)
+    print("input lockstep: resnet50_v1 f32 b8, 3 SGD steps from records "
+          "(StreamRecordIter -> cuda:0, normalized on the card) against the "
+          "CPU (%.1f s): fused_conv launches %s; mean losses %s; worst "
+          "errors: %s" % (time.time() - t0, launches, losses,
+                          worst_line(worst)), flush=True)
+    return arrays
+
+
+def input_timed(card, rec, idx, arrays, host):
+    """ResNet-50 v1's captured bf16 b128 step fed four ways, each the
+    median of 10 steps after 3 (batch pulled, normalized to bf16 on the
+    card, stepped, synchronized): (a) resident, one batch already on the
+    card; (b) sync, the inline reader's host batch uploaded by the step;
+    (c) overlap, StreamRecordIter -> DevicePrefetcher (depth 2, 2
+    threads); (d) loader, DataLoader(num_workers=4, pin_memory=True,
+    prefetch_to_device=cuda:0). Also loader_only: the reader drained with
+    no device work."""
+    import numpy as np
+    import torch
+    import mxtpu_torch as mt
+    from mxtpu_torch import telemetry
+    from mxtpu_torch.io import ShardedRecordReader, StreamRecordIter
+    from mxtpu_torch.ops.pallas.conv import fused_conv
+    gpu = mt.gpu(0)
+    nd = mt.nd
+    # loader_only: two epochs drained on the host
+    rd = ShardedRecordReader(rec, idx, batch_size=INPUT_BATCH,
+                             decode_fn=input_decode, seed=3, num_threads=2)
+    t0 = time.perf_counter()
+    n = sum(b[0].shape[0] for _ in range(2) for b in rd)
+    loader_only = n / (time.perf_counter() - t0)
+    rd.close()
+    print("input loader_only on %s: %.1f images/s (ShardedRecordReader, 2 "
+          "threads, %d images, no device work)" % (card, loader_only, n),
+          flush=True)
+    net = build_net(arrays)[0]
+    net.collect_params().reset_ctx(gpu)
+    net.cast("bfloat16")
+    net.hybridize()
+    trainer = mt.gluon.Trainer(net.collect_params(), "sgd",
+                               dict(SGD_PARAMS, multi_precision=True))
+    loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    loss_fn.hybridize()
+
+    def train(x_u8, y):
+        x = _normalized(x_u8, torch.bfloat16)
+        with mt.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(INPUT_BATCH)
+
+    resident = (nd.array(host[0][0], ctx=gpu), nd.array(host[0][1], ctx=gpu))
+    sync_src = _endless(lambda: ShardedRecordReader(
+        rec, idx, batch_size=INPUT_BATCH, decode_fn=input_decode, seed=3,
+        num_threads=0))
+    waits = {}
+
+    def sync_pull():
+        t0 = time.perf_counter()
+        d, lab = next(sync_src)
+        t1 = time.perf_counter()
+        x = nd.array(d, ctx=gpu)
+        y = nd.array(lab, ctx=gpu)
+        torch.cuda.synchronize()
+        waits.setdefault("wait", []).append(t1 - t0)
+        waits.setdefault("h2d", []).append(time.perf_counter() - t1)
+        return x, y
+
+    stream = StreamRecordIter(rec, idx, batch_size=INPUT_BATCH,
+                              decode_fn=input_decode, seed=3, num_threads=2,
+                              depth=2, sharding=gpu)
+
+    def stream_epochs():
+        stream.reset()
+        return stream
+
+    overlap_src = _endless(stream_epochs)
+    loader = mt.gluon.data.DataLoader(
+        InputRecordDataset(rec, idx), batch_size=INPUT_BATCH, shuffle=True,
+        num_workers=4, pin_memory=True, prefetch_to_device=gpu)
+    loader_src = _endless(lambda: loader)
+    runs = [("(a) resident", lambda: resident),
+            ("(b) sync", sync_pull),
+            ("(c) overlap", lambda: _batch_pair(next(overlap_src))),
+            ("(d) loader", lambda: tuple(next(loader_src)))]
+    results = {}
+    for name, pull in runs:
+        def step():
+            train(*pull())
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        builds = _builds()
+        launches0 = fused_conv.launches
+        waits.clear()
+        for m in ("data.wait", "data.h2d", "data.starved"):
+            telemetry.reset_metric(m)
+        torch.cuda.reset_peak_memory_stats()
+        wall = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall.append(1e3 * (time.perf_counter() - t0))
+        per_step = (fused_conv.launches - launches0) / 10
+        built = {k: _builds()[k] - builds[k] for k in builds}
+        snap = telemetry.snapshot()
+        hists = snap["histograms"]
+        if name == "(b) sync":
+            wait_ms = 1e3 * float(np.mean(waits["wait"]))
+            h2d_ms = 1e3 * float(np.mean(waits["h2d"]))
+            starved = None
+        elif name == "(a) resident":
+            wait_ms = h2d_ms = starved = None
+        else:
+            wait_ms = 1e3 * hists["data.wait"]["mean"]
+            h2d_ms = 1e3 * hists["data.h2d"]["mean"] \
+                if "data.h2d" in hists else None
+            starved = telemetry.value("data.starved")
+        peak_dev = torch.cuda.max_memory_allocated()
+        wall.sort()
+        med = wall[5]
+        # the uploads run on the prefetcher's side stream beside the step;
+        # everything else (kernels, device copies, memsets) is the step's
+        rows = device_rows(step, 2)
+        copy_ms = sum(ms for k, ms, _ in rows if k.startswith("Memcpy HtoD"))
+        busy_ms = sum(ms for k, ms, _ in rows) - copy_ms
+        pinned = None
+        if name == "(c) overlap":
+            pinned = stream._prefetcher.pinned_bytes
+        elif name == "(d) loader":
+            pinned = loader._prefetcher.pinned_bytes
+        results[name] = dict(
+            rate=INPUT_BATCH * 1e3 / med, step_ms=med, p80_ms=wall[8],
+            wait_ms=wait_ms, h2d_ms=h2d_ms, starved=starved,
+            idle=1 - busy_ms / med, busy_ms=busy_ms, h2d_copy_ms=copy_ms,
+            pinned_bytes=pinned, peak_device_bytes=peak_dev,
+            builds_after_warmup=built, b1_per_step=per_step)
+        print("input %s on %s: %.1f images/s, median step %.3f ms (p80 "
+              "%.3f), data.wait %s ms a step, data.h2d %s ms, data.starved "
+              "%s, idle share %.3f (device busy %.3f ms besides the uploads' "
+              "%.3f ms a step, torch.profiler), peak pinned %s bytes, peak "
+              "device %d bytes, "
+              "builds after the warm-up %s, B1 launches a step %g" % (
+                  name, card, results[name]["rate"], med, wall[8],
+                  _fmt(wait_ms), _fmt(h2d_ms), starved, 1 - busy_ms / med,
+                  busy_ms, copy_ms, pinned, peak_dev, built, per_step),
+              flush=True)
+        if any(built.values()) or per_step != 11:
+            raise AssertionError("input %s: builds after the warm-up %s, B1 "
+                                 "launches a step %g (expected 0 and 11)"
+                                 % (name, built, per_step))
+    overlap_src.close()
+    loader_src.close()
+    stream.close()
+    loader.close()
+    results["loader_only"] = loader_only
+    return results
+
+
+def _batch_pair(b):
+    return b.data[0], b.label[0]
+
+
+def _fmt(v):
+    return "n/a" if v is None else "%.3f" % v
+
+
+def input_phase(card):
+    """The input path of slice 10 (ROADMAP A5) on the card: records
+    written, the gates (``input_gates``), the record-fed lockstep
+    (``input_lockstep``) and the timed runs (``input_timed``). Returns the
+    timed results."""
+    import shutil
+    import tempfile
+    import gc
+    import torch
+    t_phase = time.time()
+    root = tempfile.mkdtemp(prefix="input_", dir=os.path.join(ROOT, "build"))
+    try:
+        t0 = time.time()
+        rec, idx, payloads, _ = write_input_records(root)
+        print("input: wrote %d raw records of %dx%dx3 uint8 (%d bytes) in "
+              "%.1f s" % (len(payloads), INPUT_SIDE, INPUT_SIDE,
+                          os.path.getsize(rec), time.time() - t0),
+              flush=True)
+        host = input_gates(card, rec, idx, payloads)
+        del payloads
+        arrays = input_lockstep(rec, idx)
+        gc.collect()
+        torch.cuda.empty_cache()
+        results = input_timed(card, rec, idx, arrays, host)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print("input phase %.1f s" % (time.time() - t_phase), flush=True)
+    return results
+
+
 def kernel_entries(rows, launches, train_launches, name, source, replaces,
                    bwd_rows=()):
     """One `kernels` entry per type: the per-forward shapes' numbers, each
@@ -4693,6 +5189,14 @@ def main():
     if not all(captured_path.values()):
         raise AssertionError("captured training: a kernel of its path was "
                              "not launched: %s" % captured_path)
+    # slice 10: the input path, B1's count from 0 just before it
+    fused_conv.launches = 0
+    input_results = input_phase(card)
+    input_b1 = fused_conv.launches
+    print("input phase fused_conv launches (the f32 lockstep and the bf16 "
+          "timed runs): %d" % input_b1, flush=True)
+    if not input_b1:
+        raise AssertionError("the input path launched no fused_conv")
     # slice 9: the zoo's shape classes, then each path with B1's count
     # from 0 just before it and read just after
     t0 = time.time()
@@ -4759,6 +5263,11 @@ def main():
                 k: r[k] for k in ("max_abs_err", "graph_ms",
                                   "library_graph_ms", "bound_ms")}
                 for r in zoo_conv_rows if r["dtype"] == dtype})
+    for e in entries[:2]:
+        e["input_b1_launches"] = input_b1
+        e["input_b1_launches_per_step"] = {
+            k: v["b1_per_step"] for k, v in input_results.items()
+            if k != "loader_only"}
     for i, e in enumerate(entries):
         kind = "conv" if i < 2 else "flash"
         e["decode_launches_both_dtypes"] = decode_launches[kind]

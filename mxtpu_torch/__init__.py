@@ -8,7 +8,9 @@ runtime-compiled CUDA
 kernels (``rtc``) and the external-kernel hook (``contrib``), Gluon blocks
 and layers, the ResNet v1 and transformer model zoo, initializers, the
 bucketed Predictor, and training: Gluon losses and ``Trainer``, the
-optimizers with their fused updater, lr schedulers and metrics. Kernels that the JAX package wrote in Pallas are
+optimizers with their fused updater, lr schedulers and metrics, and the
+input path: ``recordio``, ``io`` (iterators, the streaming reader and
+the prefetch to the card), ``gluon.data`` and ``image``. Kernels that the JAX package wrote in Pallas are
 hand-written CUDA under ``csrc/``, built at first use
 (``mxtpu_torch.kernels``). Entry points run on the CUDA device unless the
 caller passes a CPU device or opens a CPU context.
@@ -39,10 +41,13 @@ from . import telemetry  # noqa: E402
 from . import resilience  # noqa: E402
 from . import serving  # noqa: E402
 from . import convert  # noqa: E402
+from . import recordio  # noqa: E402
+from . import io  # noqa: E402
+from . import image  # noqa: E402
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "default_device", "layout", "ops",
            "autograd", "ndarray", "nd", "random", "rtc", "contrib",
            "initializer", "init", "gluon", "serving", "convert", "base",
            "context", "optimizer", "lr_scheduler", "metric", "telemetry",
-           "resilience"]
+           "resilience", "recordio", "io", "image"]

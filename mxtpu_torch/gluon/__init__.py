@@ -4,7 +4,8 @@ from .block import Block, HybridBlock
 from .parameter import (Constant, DeferredInitializationError, Parameter,
                         ParameterDict)
 from .trainer import Trainer
+from . import data  # noqa: E402
 
 __all__ = ["Block", "HybridBlock", "Parameter", "Constant", "ParameterDict",
            "DeferredInitializationError", "Trainer", "loss", "nn",
-           "model_zoo", "utils"]
+           "model_zoo", "utils", "data"]

@@ -94,6 +94,14 @@ class Trainer:
     def optimizer(self):
         return self._optimizer
 
+    @property
+    def batch_sharding(self):
+        """The mesh Trainer's batch layout: the multi-device port (ROADMAP
+        A8) raises here, also when a Trainer is given as a prefetch target
+        (``io.DevicePrefetcher(sharding=trainer)``)."""
+        raise MXNetError("Trainer.batch_sharding needs the multi-device port "
+                         "(ROADMAP A8): prefetch to one device instead")
+
     def step(self, batch_size, ignore_stale_grad=False):
         """One optimization step: ``rescale_grad = scale / batch_size``,
         the gradients reduced (the identity on one device), every

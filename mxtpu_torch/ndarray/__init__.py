@@ -56,6 +56,9 @@ contrib.__getattr__ = _contrib_getattr
 _internal.__getattr__ = _internal_getattr
 
 from . import random  # noqa: E402,F401
+from . import image  # noqa: E402,F401
+from . import sparse  # noqa: E402,F401
+from .sparse import CSRNDArray  # noqa: E402,F401
 from .utils import load, save  # noqa: E402,F401
 
 

@@ -59,6 +59,8 @@ def _to_tensor(source, ctx=None, dtype=None):
             t = t.to(resolve_device(ctx))
     else:
         host = _np.asarray(source)
+        if any(st < 0 for st in host.strides):
+            host = host.copy()   # a flipped view cannot become a tensor
         if host.dtype == _np.float64 and dtype is None:
             host = host.astype(_np.float32)   # MXNet's float default
         t = torch.tensor(host, device=resolve_device(ctx))

@@ -1,7 +1,8 @@
 """Operators of the port; this module is the ``F`` namespace that
 ``HybridBlock.hybrid_forward`` receives. Importing it registers every op
 module with the registry, from which ``mx.nd`` is built."""
-from . import elemwise, optimizer_ops, quantization, reduce  # noqa: F401
+from . import (elemwise, image_ops, optimizer_ops,  # noqa: F401
+               quantization, reduce)
 from .elemwise import (abs_ as abs, broadcast_add,  # noqa: A004
                        broadcast_mul, broadcast_sub, clip, exp, log, relu,
                        sigmoid, square, tanh, where)

@@ -91,6 +91,19 @@ def test_port_imports_no_jax_and_no_mxtpu():
     assert seen > 20
 
 
+def test_import_scan_covers_the_input_path():
+    """The scans above walk every module of the input slice."""
+    scanned = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for rel in ("recordio.py", "io/io.py", "io/stream.py",
+                "gluon/data/dataloader.py", "gluon/data/_mp_worker.py",
+                "gluon/data/sampler.py", "gluon/data/dataset.py",
+                "gluon/data/vision/transforms.py",
+                "gluon/data/vision/datasets.py", "ops/image_ops.py",
+                "ndarray/image.py", "ndarray/sparse.py", "image/image.py",
+                "image/detection.py"):
+        assert os.path.join("mxtpu_torch", rel) in scanned, rel
+
+
 def test_port_reads_no_environment_variable_of_its_own():
     """The port takes its levers as arguments and setters; the only
     variables it reads are the CUDA toolkit's location (kernels.py)."""
