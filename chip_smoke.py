@@ -181,7 +181,27 @@ NVIDIA H100.
    ``torch.profiler``, peak pinned and device bytes, builds after the
    warm-up (0) and B1's launches a step (11); and ``loader_only``, the
    reader's drain rate with no device work.
-13. Prints one JSON line of kernels (fused_conv and flash_attention, one
+13. The symbolic API (slice 11, ``symbolic_phase``): ResNet-50 v1
+   (seeded, hybridized, one b8 forward) exported from Gluon to
+   ``-symbol.json`` + ``.params``; ``SymbolBlock.imports`` of the files
+   against the Gluon logits (1e-3 of max|logit|, f32) and ``infer_shape``
+   at b8 on meta tensors with no launch; ``Predictor.from_checkpoint``
+   (buckets b1, b8, bf16, captured) against the same on the CPU (5e-2)
+   with 11 B1 launches a forward, timed beside the Gluon Predictor of the
+   same weights; ``SoftmaxOutput(load(json))`` trained through ``Module``
+   (SGD-momentum, ``kvstore="local"``): 3 f32 b8 steps in lockstep with a
+   CPU Module (as ``lockstep_train``), the f32 b64 step timed (captured
+   executor pair + update graph, 0 builds after the warm-up, 11 B1
+   launches a step) beside the captured Gluon step of this run, ``fit``
+   over ``NDArrayIter`` with ``Speedometer``, ``save_checkpoint`` ->
+   ``Module.load`` bit-equal; a partitioned attention symbol
+   (batch_dot -> * 1/8 -> softmax -> batch_dot at q/k/v [96, 512, 64],
+   f32 and bf16) with one ``_sg_flash_attention`` node and one B2 launch
+   a forward, outputs and q/k/v gradients against the unpartitioned
+   symbol, each forward's graph by replay beside sdpa; and one
+   ``partition(·, "default")`` region of ResNet-50 against the
+   unpartitioned symbol.
+14. Prints one JSON line of kernels (fused_conv and flash_attention, one
    entry per type each, with graph-replay and host-issue sums beside the
    eager ones, the launches of one training step, and forward + backward
    by graph replay beside its plain version, the library's and its bound
@@ -191,7 +211,9 @@ NVIDIA H100.
    zoo paths, the bf16 flash entry on the zoo's; each conv entry its
    launches per served zoo model, per captured Inception v3 step and per
    s2d-stem forward, its zoo shape classes and its launches on the input
-   path), the card line again,
+   path; the conv and flash entries their launches on the symbolic path
+   and the flash entries the partitioned attention's times), the card
+   line again,
    and last ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the last
@@ -4087,6 +4109,7 @@ def captured_train_phase(card, eager_timing):
                                           tm["builds_after_warmup"]))
     print("captured training phase %.1f s" % (time.time() - t_phase),
           flush=True)
+    CAPTURED_TIMING.update(timing)   # the symbolic phase prints beside it
     return {"conv": {"float32": launches[1], "bfloat16":
                      timing["resnet50 bfloat16"]["launches"]},
             "flash": {"float32": lm_launches[1], "bfloat16":
@@ -5096,6 +5119,564 @@ def input_phase(card):
     return results
 
 
+# --------------------------------------------------------------- slice 11
+# The symbolic API (ROADMAP A7) on the card: ResNet-50 v1 exported from
+# Gluon, served from the files, trained through Module; a partitioned
+# attention symbol on B2 at BERT-base's attention shapes
+SYMBOLIC_SEED = 41
+SYMBOLIC_TRAIN_BATCH = 64
+ATTN_SHAPE = (96, 512, 64)    # b8 x 12 heads folded into the batch, T, D
+ATTN_F32_TOL = 2e-3           # the reference's own (tests/test_subgraph.py)
+SERVE_BF16_TOL = 5e-2         # of max|ref|, the serving phases' bf16 rule
+CAPTURED_TIMING = {}          # captured_train_phase's timed rows, by cell
+
+
+def _rel(got, ref):
+    """max|got - ref| / max|ref|."""
+    got, ref = got.float().cpu(), ref.float().cpu()
+    return ((got - ref).abs().max() / ref.abs().max()).item()
+
+
+def symbolic_export(card, root):
+    """ResNet-50 v1 with seeded weights, hybridized on the card, one b8
+    forward, ``export``; gates: ``SymbolBlock.imports`` of the files gives
+    the Gluon logits within 1e-3 of max|logit|, and ``infer_shape`` at b8
+    gives the Gluon parameters' shapes on meta tensors with no launch.
+    Returns (prefix, arrays, the b8 input, the Gluon logits)."""
+    import numpy as np
+    import torch
+    import mxtpu_torch as mt
+    from mxtpu_torch.ops.pallas.conv import fused_conv
+    net, arrays = build_net()
+    net.collect_params().reset_ctx(mt.gpu(0))
+    net.hybridize()
+    rng = np.random.default_rng(SYMBOLIC_SEED)
+    x8 = torch.from_numpy(rng.standard_normal((8, 224, 224, 3)).astype(
+        np.float32)).cuda()
+    with torch.no_grad():
+        ref = net(x8).clone()
+    prefix = os.path.join(root, "resnet50_v1")
+    t0 = time.time()
+    net.export(prefix)
+    export_s = time.time() - t0
+    sb = mt.gluon.SymbolBlock.imports(prefix + "-symbol.json", "data",
+                                      prefix + "-0000.params", ctx=mt.gpu(0))
+    start = fused_conv.launches
+    with torch.no_grad():
+        got = sb(x8)
+    sb_launches = fused_conv.launches - start
+    err = _rel(got, ref)
+    if tuple(got.shape) != (8, 1000) or err > 1e-3 or sb_launches != 11:
+        raise AssertionError("export: SymbolBlock logits %s differ from "
+                             "Gluon's by %.3g of max|logit| (limit 1e-3), "
+                             "fused_conv launches %d (expected 11)"
+                             % (tuple(got.shape), err, sb_launches))
+    sym = mt.sym.load(prefix + "-symbol.json")
+    start = fused_conv.launches
+    arg_shapes, out_shapes, aux_shapes = sym.infer_shape(data=(8, 224, 224,
+                                                               3))
+    inferred = dict(zip(sym.list_arguments(), arg_shapes))
+    inferred.update(zip(sym.list_auxiliary_states(), aux_shapes))
+    wrong = [k for k, p in net.collect_params().items()
+             if tuple(p.shape) != inferred.get(k)]
+    if wrong or out_shapes != [(8, 1000)] or fused_conv.launches != start:
+        raise AssertionError("infer_shape: %d parameter shapes differ from "
+                             "Gluon's (%s), outputs %s, %d launches" % (
+                                 len(wrong), wrong[:3], out_shapes,
+                                 fused_conv.launches - start))
+    nodes = json.load(open(prefix + "-symbol.json"))["nodes"]
+    print("symbolic export: resnet50_v1 traced and written in %.2f s (%d "
+          "nodes, %d parameters, %d bytes of params); SymbolBlock.imports "
+          "on the card vs the Gluon net at b8 f32: %.3g of max|logit| "
+          "(limit 1e-3), fused_conv launches %d; infer_shape at b8 on meta "
+          "tensors: %d argument and %d aux shapes equal to Gluon's, "
+          "output %s, 0 launches" % (
+              export_s, len(nodes), len(net.collect_params()),
+              os.path.getsize(prefix + "-0000.params"), err, sb_launches,
+              len(arg_shapes), len(aux_shapes), out_shapes[0]), flush=True)
+    del net, sb
+    return prefix, arrays, x8, ref
+
+
+def _predictor_row(label, pred, x, card, per_forward):
+    """Closed-loop median/p80/host issue of ``pred.predict(x)`` and a
+    profiled call's device ms and idle share."""
+    med, p80, issue = closed_loop(pred, x)
+    rows = device_rows(lambda: pred.predict(x), 3)
+    dev = sum(r[1] for r in rows)
+    conv = sum(r[1] for r in rows if "fused_conv" in r[0])
+    n_conv = sum(r[2] for r in rows if "fused_conv" in r[0])
+    print("  %-34s median %.3f ms, p80 %.3f, host issue %.3f, device %.3f "
+          "ms (idle share %.3f), fused_conv %.3f ms x%g (expected %d) on %s"
+          % (label, med, p80, issue, dev, 1 - dev / med, conv,
+             round(n_conv), per_forward, card), flush=True)
+    return dict(median_ms=med, p80_ms=p80, issue_ms=issue, device_ms=dev,
+                idle=1 - dev / med)
+
+
+def symbolic_serve(card, prefix, arrays, x8):
+    """``Predictor.from_checkpoint`` on the files, buckets b1 and b8 in
+    bf16, captured: logits within 5e-2 of max|logit| of the same on the
+    CPU, 11 fused_conv launches a forward; timed beside the Gluon
+    Predictor of the same weights, bf16, in the same run. Returns the
+    timed rows."""
+    import torch
+    from mxtpu_torch.ops.pallas.conv import fused_conv
+    from mxtpu_torch.serving import BucketSpec, Predictor
+    spec = BucketSpec([1, 8])
+    bf = torch.bfloat16
+    example = torch.zeros(1, 224, 224, 3, dtype=bf)
+    pred = Predictor.from_checkpoint(prefix, 0, spec, dtype="bfloat16",
+                                     example=example, warmup=True,
+                                     device="cuda",
+                                     site="serving.predict.symbolic")
+    check_graphs(pred, spec, "from_checkpoint bf16")
+    cpu_pred = Predictor.from_checkpoint(prefix, 0, spec, dtype="bfloat16",
+                                         device="cpu", site="cpu.symbolic")
+    x = x8.to(bf)
+    start = fused_conv.launches
+    got = [pred.predict(x).to_torch() for _ in range(3)]
+    torch.cuda.synchronize()
+    launches = fused_conv.launches - start
+    ref = cpu_pred.predict(x.cpu()).to_torch()
+    err = _rel(got[-1], ref)
+    if launches != 33 or err > SERVE_BF16_TOL or \
+            not bool(torch.isfinite(got[-1].float()).all()):
+        raise AssertionError("from_checkpoint bf16: %d fused_conv launches "
+                             "over 3 b8 forwards (expected 33), logits "
+                             "%.3g of max|logit| from the CPU's (limit %g)"
+                             % (launches, err, SERVE_BF16_TOL))
+    print("symbolic serve: Predictor.from_checkpoint bf16 (buckets b1, b8, "
+          "%d graphs) vs the same on the CPU at b8: %.3g of max|logit| "
+          "(limit %g); fused_conv launches %d over 3 forwards" % (
+              len(pred._buckets), err, SERVE_BF16_TOL, launches), flush=True)
+    net, _ = build_net(arrays)
+    net.cast("bfloat16")
+    gluon = Predictor(net, spec, example=example, warmup=True,
+                      device="cuda", site="serving.predict.symbolic_gluon")
+    print("symbolic serve timed, b8 bf16, 50 requests after 3 (closed loop):")
+    rows = {"from_checkpoint": _predictor_row(
+        "Predictor.from_checkpoint", pred, x, card, 11),
+        "gluon": _predictor_row("Gluon Predictor (same weights)", gluon, x,
+                                card, 11)}
+    check_graphs(pred, spec, "from_checkpoint bf16 after traffic")
+    pred.release()
+    gluon.release()
+    return rows
+
+
+def _module(sym, arg_params, aux_params, batch, ctx):
+    import mxtpu_torch as mt
+    mod = mt.mod.Module(sym, context=ctx)
+    mod.bind(data_shapes=[("data", (batch, 224, 224, 3))],
+             label_shapes=[("softmax_label", (batch,))])
+    mod.init_params(arg_params=arg_params, aux_params=aux_params)
+    mod.init_optimizer(kvstore="local", optimizer="sgd",
+                       optimizer_params=dict(SGD_PARAMS))
+    return mod
+
+
+def _batch(x, y, ctx):
+    import mxtpu_torch as mt
+    return mt.io.DataBatch([mt.nd.array(x, ctx=ctx)],
+                           [mt.nd.array(y, ctx=ctx)])
+
+
+def _sync_module(dst, src):
+    """``dst`` (the CPU Module) takes ``src``'s weights, statistics,
+    momenta and update counts."""
+    arg, aux = src.get_params()
+    dst.set_params(arg, aux)
+    dst._updater.states = {i: _host_copy(s)
+                           for i, s in src._updater.states.items()}
+    dst._updater.states_synced = dict.fromkeys(dst._updater.states, True)
+    dst._optimizer._index_update_count = dict(
+        src._optimizer._index_update_count)
+    dst._optimizer.num_update = src._optimizer.num_update
+
+
+def _l2(got, ref):
+    """Relative L2 error of ``got`` against ``ref``."""
+    got, ref = got.double().cpu(), ref.double().cpu()
+    return float((got - ref).norm() / max(float(ref.norm()), 1e-30))
+
+
+def symbolic_lockstep(train_sym, arg_params, aux_params, steps=3):
+    """3 f32 b8 ``forward_backward`` + ``update`` steps of the Module on
+    the card, each against the same step of a CPU Module from the card's
+    state, held as ``lockstep_train`` holds Gluon: outputs (softmax
+    probabilities) within 1e-4, BatchNorm statistics within 1e-4 of
+    max(1, max|ref|), gradients, weight changes and momenta within
+    TRAIN_L2 relative L2. Returns (launches per step, worst errors, the
+    card Module)."""
+    import torch
+    import mxtpu_torch as mt
+    from mxtpu_torch.ops.pallas.conv import fused_conv
+    card = _module(train_sym, arg_params, aux_params, 8, mt.gpu(0))
+    cpu = _module(train_sym, arg_params, aux_params, 8, mt.cpu())
+    worst, launches = {}, []
+
+    def note(key, v, tol):
+        worst[key] = max(worst.get(key, 0.0), v)
+        if not v <= tol:
+            raise AssertionError("Module lockstep: %s %.3g (limit %g)"
+                                 % (key, v, tol))
+    for i, (x, y) in enumerate(resnet_batches(8, steps, SYMBOLIC_SEED + 1)):
+        if i:
+            _sync_module(cpu, card)
+        before = {k: v.to_torch().clone() for k, v in
+                  card.get_params()[0].items()}
+        start = fused_conv.launches
+        card.forward_backward(_batch(x, y, mt.gpu(0)))
+        card.update()
+        torch.cuda.synchronize()
+        launches.append(fused_conv.launches - start)
+        cpu.forward_backward(_batch(x, y, mt.cpu()))
+        cpu.update()
+        out_c = card.get_outputs()[0].to_torch()
+        out_r = cpu.get_outputs()[0].to_torch()
+        note("outputs", (out_c.float().cpu() - out_r).abs().max().item(),
+             1e-4)
+        ge, gr = card._exec.grad_dict, cpu._exec.grad_dict
+        note("gradients", max(_l2(ge[k].to_torch(), gr[k].to_torch())
+                              for k in gr), TRAIN_L2)
+        arg_c, aux_c = card.get_params()
+        arg_r, aux_r = cpu.get_params()
+        note("weight changes", max(
+            _l2(arg_c[k].to_torch().cpu() - before[k].cpu(),
+                arg_r[k].to_torch() - before[k].cpu()) for k in arg_r),
+             TRAIN_L2)
+        note("BatchNorm statistics", max(
+            (aux_c[k].to_torch().cpu() - aux_r[k].to_torch()).abs().max()
+            .item() / max(1.0, aux_r[k].to_torch().abs().max().item())
+            for k in aux_r), 1e-4)
+        note("momenta", max(
+            _l2(card._updater.states[j].to_torch(),
+                cpu._updater.states[j].to_torch())
+            for j in cpu._updater.states), TRAIN_L2)
+    # the first step captures: the forward graph's warm-up run, the pair's
+    # own replay and the step's replay launch 11 each
+    if launches != [33] + [11] * (steps - 1):
+        raise AssertionError("Module lockstep: fused_conv launches %s, "
+                             "expected [33, 11, 11] (the first step "
+                             "captures)" % launches)
+    return launches, worst, card
+
+
+def _executor_builds():
+    from mxtpu_torch import telemetry
+    return {site: (telemetry.retrace_stats(site) or {}).get("compiles", 0)
+            for site in ("executor", "fused_optimizer")}
+
+
+def module_timing(card, train_sym, arg_params, aux_params, batch):
+    """The Module's f32 b``batch`` training step on the card (captured:
+    the executor's pair and the update graph): 10 steps after 3, as
+    ``train_timing`` times Gluon's, with the builds after the warm-up and
+    fused_conv's launches in one more step."""
+    import gc
+    import numpy as np
+    import torch
+    import mxtpu_torch as mt
+    from mxtpu_torch.ops.pallas.conv import fused_conv
+    gc.collect()
+    torch.cuda.empty_cache()
+    mod = _module(train_sym, arg_params, aux_params, batch, mt.gpu(0))
+    rng = np.random.default_rng(SYMBOLIC_SEED + 2)
+    batch_ = _batch(rng.standard_normal((batch, 224, 224, 3)).astype(
+        np.float32), rng.integers(0, 1000, batch).astype(np.float32),
+        mt.gpu(0))
+
+    def step():
+        mod.forward_backward(batch_)
+        mod.update()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    warm = {}
+
+    def on_warm():
+        warm.update(_executor_builds(),
+                    peak=torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+    med, p80, issue = timed_steps(step, on_warm=on_warm)
+    steady_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    peak_gb = max(warm.pop("peak") / 2 ** 30, steady_gb)
+    built = {k: v - warm[k] for k, v in _executor_builds().items()}
+    start = fused_conv.launches
+    step()
+    torch.cuda.synchronize()
+    launches = fused_conv.launches - start
+    rate = batch * 1e3 / med
+    print("train resnet50_v1 float32 b%d through Module (SGD-momentum, "
+          "captured) on %s: %.1f images/s at the median step %.3f ms (p80 "
+          "%.3f, median host issue %.3f ms; 10 steps after 3), peak memory "
+          "%.2f GiB (%.2f GiB over the timed steps); builds in the timed "
+          "steps %s; launches in one step %d" % (
+              batch, card, rate, med, p80, issue, peak_gb, steady_gb, built,
+              launches), flush=True)
+    dev_ms = print_step_breakdown(
+        "train Module resnet50_v1 float32 b%d" % batch, device_rows(step, 2),
+        med, RESNET50_TRAIN_FLOPS * rate, "float32", card)
+    if launches != 11 or any(built.values()):
+        raise AssertionError("Module step: %d fused_conv launches (expected "
+                             "11), builds after the warm-up %s"
+                             % (launches, built))
+    return mod, dict(step_ms=med, p80_ms=p80, issue_ms=issue,
+                     device_ms=dev_ms, rate=rate, peak_gib=peak_gb,
+                     steady_peak_gib=steady_gb,
+                     mfu=RESNET50_TRAIN_FLOPS * rate / PEAK_FLOPS["float32"],
+                     builds_after_warmup=built, launches=launches)
+
+
+def symbolic_train(card, prefix):
+    """``SoftmaxOutput(load(prefix-symbol.json))`` trained through
+    ``Module`` from the checkpoint: the lockstep, the timed b64 step beside
+    the captured Gluon step of this run, ``fit`` for one epoch of 4
+    batches with ``Speedometer``, and ``save_checkpoint`` ->
+    ``Module.load`` giving bit-equal predict outputs."""
+    import logging
+    import numpy as np
+    import torch
+    import mxtpu_torch as mt
+    sym = mt.sym.SoftmaxOutput(mt.sym.load(prefix + "-symbol.json"),
+                               name="softmax")
+    _, arg_params, aux_params = mt.model.load_checkpoint(prefix, 0)
+    t0 = time.time()
+    launches, worst, card_mod = symbolic_lockstep(sym, arg_params,
+                                                  aux_params)
+    print("train resnet50_v1 f32 b8 through Module, %d SGD steps on the "
+          "card, each against the same step of a CPU Module from the "
+          "card's state (%.1f s): fused_conv launches %s (the first step "
+          "captures); worst errors "
+          "(elementwise of the scale, or relative L2): %s" % (
+              len(launches), time.time() - t0, launches, worst_line(worst)),
+          flush=True)
+    # the checkpoint round trip: bit-equal predict outputs
+    ck = prefix + "_module"
+    card_mod.save_checkpoint(ck, 3)
+    loaded = mt.mod.Module.load(ck, 3, context=mt.gpu(0))
+    loaded.bind(data_shapes=[("data", (8, 224, 224, 3))],
+                label_shapes=[("softmax_label", (8,))], for_training=False)
+    loaded.init_params()
+    (x, y), = resnet_batches(8, 1, SYMBOLIC_SEED + 3)
+    outs = []
+    for mod in (card_mod, loaded):
+        mod.forward(_batch(x, y, mt.gpu(0)), is_train=False)
+        outs.append(mod.get_outputs()[0].to_torch().clone())
+    diff = (outs[0] - outs[1]).abs().max().item()
+    if diff != 0:
+        raise AssertionError("save_checkpoint -> Module.load: predict "
+                             "outputs differ by %.3g" % diff)
+    print("Module save_checkpoint -> Module.load: predict outputs at b8 "
+          "bit-equal (max diff %g)" % diff, flush=True)
+    del card_mod, loaded
+    mod, timing = module_timing(card, sym, arg_params, aux_params,
+                                SYMBOLIC_TRAIN_BATCH)
+    gluon = CAPTURED_TIMING.get("resnet50 float32")
+    print("Module step beside the captured Gluon step of this run on %s "
+          "(images/s, median ms, p80 ms, host issue ms, device ms, idle "
+          "share, peak GiB, peak GiB over the timed steps, train_mfu):"
+          % card)
+    for name, row in (("Module", timing), ("Gluon captured", gluon)):
+        if row is None:
+            print("  %-16s not run in this call" % name)
+            continue
+        print("  %-16s %10.1f %9.3f %9.3f %9.3f %9.3f %6.3f %6.2f %6.2f "
+              "%.4f" % (name, row["rate"], row["step_ms"], row["p80_ms"],
+                        row["issue_ms"], row["device_ms"],
+                        1 - row["device_ms"] / row["step_ms"],
+                        row["peak_gib"], row["steady_peak_gib"],
+                        row["mfu"]))
+    # fit: one epoch of 4 batches over NDArrayIter, Speedometer every 2
+    rng = np.random.default_rng(SYMBOLIC_SEED + 4)
+    n = 4 * SYMBOLIC_TRAIN_BATCH
+    it = mt.io.NDArrayIter(
+        rng.standard_normal((n, 224, 224, 3)).astype(np.float32),
+        rng.integers(0, 1000, n).astype(np.float32),
+        SYMBOLIC_TRAIN_BATCH, label_name="softmax_label")
+    log = logging.getLogger()
+    level = log.level
+    log.setLevel(logging.INFO)
+    seen = []
+    t0 = time.time()
+    try:
+        mod.fit(it, num_epoch=1, optimizer="sgd",
+                optimizer_params=dict(SGD_PARAMS),
+                batch_end_callback=[mt.callback.Speedometer(
+                    SYMBOLIC_TRAIN_BATCH, 2), lambda p: seen.append(
+                        p.nbatch)])
+    finally:
+        log.setLevel(level)
+    torch.cuda.synchronize()
+    if seen != [0, 1, 2, 3]:
+        raise AssertionError("Module.fit: batches %s, expected 4" % seen)
+    print("Module.fit: 1 epoch of %d batches of %d over NDArrayIter in %.2f "
+          "s (Speedometer every 2 batches; train accuracy %s)" % (
+              len(seen), SYMBOLIC_TRAIN_BATCH, time.time() - t0,
+              mod.score(it, "acc")), flush=True)
+    del mod
+    return {"lockstep_launches": launches, "module": timing,
+            "gluon": gluon}
+
+
+def _attention_symbol():
+    import mxtpu_torch as mt
+    s = mt.sym
+    q, k, v = s.var("q"), s.var("k"), s.var("v")
+    scores = s.batch_dot(q, k, transpose_b=True) * (1.0 / 8)
+    return s.batch_dot(s.softmax(scores, axis=-1), v)
+
+
+def _attn_close(got, ref, dtype, what):
+    """f32: |got - ref| <= 2e-3 + 2e-3 |ref|; bf16: within 5e-2 of
+    max|ref|."""
+    import torch
+    got, ref = got.float().cpu(), ref.float().cpu()
+    err = (got - ref).abs()
+    ok = bool((err <= ATTN_F32_TOL + ATTN_F32_TOL * ref.abs()).all()) \
+        if dtype == "float32" else \
+        bool(err.max() <= SERVE_BF16_TOL * ref.abs().max())
+    if not ok or not bool(torch.isfinite(got).all()):
+        raise AssertionError("%s: partitioned vs unpartitioned max abs err "
+                             "%.3g (max|ref| %.3g)" % (
+                                 what, err.max().item(),
+                                 ref.abs().max().item()))
+    return err.max().item()
+
+
+def symbolic_attention(card):
+    """``partition(·, "flash_attention")`` of batch_dot -> * 1/8 ->
+    softmax -> batch_dot at q/k/v [96, 512, 64], f32 and bf16: one
+    ``_sg_flash_attention`` node, one B2 launch a forward; outputs held to
+    the unpartitioned symbol on the card, and a training forward +
+    backward through the Executor with q/k/v gradients held to the
+    unpartitioned graph's; timed by graph replay beside the unpartitioned
+    symbol and ``F.scaled_dot_product_attention``. Returns rows."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    import mxtpu_torch as mt
+    from mxtpu_torch.ops.pallas.flash_attention import flash_attention
+    from mxtpu_torch.symbol.symbol import _topo
+    sym = _attention_symbol()
+    part = mt.sym.partition(sym, "flash_attention")
+    ops = [n.op for n in _topo(part._heads) if not n.is_var()]
+    if ops != ["_sg_flash_attention"]:
+        raise AssertionError("flash partition gave %s" % ops)
+    b, t, d = ATTN_SHAPE
+    rng = np.random.default_rng(SYMBOLIC_SEED + 5)
+    rows = []
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        feed = {n: torch.from_numpy(rng.standard_normal(ATTN_SHAPE).astype(
+            np.float32)).to("cuda", dt) for n in "qkv"}
+        g = torch.from_numpy(rng.standard_normal(ATTN_SHAPE).astype(
+            np.float32)).to("cuda", dt)
+        exes = {}
+        for name, s in (("partitioned", part), ("unpartitioned", sym)):
+            exes[name] = s.bind(mt.gpu(0), args={
+                n: mt.nd.NDArray(v.clone()) for n, v in feed.items()})
+        exes["partitioned"].forward()   # captures (its warm-up launches)
+        start = flash_attention.launches
+        for _ in range(3):
+            out_p = exes["partitioned"].forward()[0].to_torch()
+        torch.cuda.synchronize()
+        fwd_launches = flash_attention.launches - start
+        out_u = exes["unpartitioned"].forward()[0].to_torch()
+        err = _attn_close(out_p, out_u, dtype, "attention %s out" % dtype)
+        grads = {}
+        for name, exe in exes.items():
+            exe.forward(is_train=True)
+            exe.backward(mt.nd.NDArray(g))
+            grads[name] = {n: exe.grad_dict[n].to_torch().clone()
+                           for n in "qkv"}
+        gerr = max(_attn_close(grads["partitioned"][n],
+                               grads["unpartitioned"][n], dtype,
+                               "attention %s d%s" % (dtype, n))
+                   for n in "qkv")
+        if fwd_launches != 3:
+            raise AssertionError("partitioned attention: %d flash launches "
+                                 "over 3 forwards" % fwd_launches)
+        q4, k4, v4 = (feed[n][:, None] for n in "qkv")
+        # each executor's predict forward is one captured graph: its replay
+        times = {name: cuda_ms(next(e for e in exe._entries.values()
+                                    if e.pair is None).graph.replay)
+                 for name, exe in exes.items()}
+        times["sdpa"] = graph_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, scale=1.0 / 8))
+        el = torch.empty((), dtype=dt).element_size()
+        bound, bound_by = bound_ms(4 * b * t * d * el, 4.0 * b * t * t * d,
+                                   dtype)
+        print("symbolic attention %s [%d, %d, %d] on %s: 1 "
+              "_sg_flash_attention node, flash launches %d over 3 forwards; "
+              "out vs unpartitioned max abs err %.3g, d(q,k,v) %.3g; device "
+              "ms a forward: partitioned %.4f, unpartitioned %.4f, sdpa "
+              "(graph) %.4f; bound %.4f (%s)" % (
+                  dtype, b, t, d, card, fwd_launches, err, gerr,
+                  times["partitioned"], times["unpartitioned"],
+                  times["sdpa"], bound, bound_by), flush=True)
+        rows.append(dict(dtype=dtype, out_err=err, grad_err=gerr,
+                         launches=fwd_launches, bound_ms=bound, **times))
+        del exes
+    return rows
+
+
+def symbolic_default_region(prefix, x8):
+    """``partition(resnet50, "default")``: one ``_subgraph_exec`` region
+    run inline inside the executor's captured graph, held to the
+    unpartitioned symbol on the card at b8 f32."""
+    import torch
+    import mxtpu_torch as mt
+    from mxtpu_torch.symbol.symbol import _topo
+    sym, args, auxs = mt.model.load_checkpoint(prefix, 0)
+    part = mt.sym.partition(sym, "default")
+    ops = [n.op for n in _topo(part._heads) if not n.is_var()]
+    if ops != ["_subgraph_exec"]:
+        raise AssertionError("default partition gave %s" % ops[:5])
+    outs = []
+    for s in (sym, part):   # bound to the checkpoint's arrays, as the
+        # partitioned graph's parameters feed its region (no shape rule)
+        exe = s.bind(mt.gpu(0), args=dict(args, data=mt.nd.NDArray(x8)),
+                     aux_states=auxs, grad_req="null")
+        outs.append(exe.forward()[0].to_torch().clone())
+    err = _rel(outs[1], outs[0])
+    if err > 1e-5:
+        raise AssertionError("default partition: %.3g of max|logit| from "
+                             "the unpartitioned symbol" % err)
+    print("symbolic default partition of resnet50_v1: 1 _subgraph_exec "
+          "node, b8 f32 logits vs the unpartitioned symbol %.3g of "
+          "max|logit|" % err, flush=True)
+
+
+def symbolic_phase(card):
+    """The symbolic API (slice 11, ROADMAP A7) on the card: export, serve
+    from the files, train through Module, partitioned attention on B2
+    (module docstring, item 13). Returns the phase's results."""
+    import shutil
+    import tempfile
+    import gc
+    import torch
+    t_phase = time.time()
+    root = tempfile.mkdtemp(prefix="symbolic_",
+                            dir=os.path.join(ROOT, "build"))
+    try:
+        prefix, arrays, x8, _ = symbolic_export(card, root)
+        serve = symbolic_serve(card, prefix, arrays, x8)
+        gc.collect()
+        torch.cuda.empty_cache()
+        train = symbolic_train(card, prefix)
+        gc.collect()
+        torch.cuda.empty_cache()
+        attention = symbolic_attention(card)
+        symbolic_default_region(prefix, x8)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("symbolic phase %.1f s" % (time.time() - t_phase), flush=True)
+    return {"serve": serve, "train": train, "attention": attention}
+
+
 def kernel_entries(rows, launches, train_launches, name, source, replaces,
                    bwd_rows=()):
     """One `kernels` entry per type: the per-forward shapes' numbers, each
@@ -5197,6 +5778,17 @@ def main():
           "timed runs): %d" % input_b1, flush=True)
     if not input_b1:
         raise AssertionError("the input path launched no fused_conv")
+    # slice 11: the symbolic API, B1's and B2's counts from 0 just before
+    fused_conv.launches = flash_attention.launches = 0
+    symbolic = symbolic_phase(card)
+    symbolic_path = {"conv": fused_conv.launches,
+                     "flash": flash_attention.launches}
+    print("symbolic phase launches (over both types): %s" % symbolic_path,
+          flush=True)
+    if not all(symbolic_path.values()):
+        raise AssertionError("the symbolic path launched no %s: %s" % (
+            " or ".join(k for k, v in symbolic_path.items() if not v),
+            symbolic_path))
     # slice 9: the zoo's shape classes, then each path with B1's count
     # from 0 just before it and read just after
     t0 = time.time()
@@ -5263,6 +5855,21 @@ def main():
                 k: r[k] for k in ("max_abs_err", "graph_ms",
                                   "library_graph_ms", "bound_ms")}
                 for r in zoo_conv_rows if r["dtype"] == dtype})
+    for i, e in enumerate(entries[:4]):
+        kind = "conv" if i < 2 else "flash"
+        e["symbolic_%s_launches" % ("b1" if i < 2 else "b2")] = \
+            symbolic_path[kind]
+    for e in entries[:2]:
+        e["symbolic_b1_launches_per_forward_or_step"] = {
+            "from_checkpoint_bf16_forward": 11,
+            "module_f32_step": symbolic["train"]["module"]["launches"]}
+    for i, dtype in enumerate(("float32", "bfloat16")):
+        row = next(r for r in symbolic["attention"] if r["dtype"] == dtype)
+        entries[2 + i]["symbolic_b2_launches_per_forward"] = \
+            row["launches"] // 3
+        entries[2 + i]["symbolic_attention_96x512x64"] = {
+            k: row[k] for k in ("partitioned", "unpartitioned", "sdpa",
+                                "bound_ms", "out_err", "grad_err")}
     for e in entries[:2]:
         e["input_b1_launches"] = input_b1
         e["input_b1_launches_per_step"] = {

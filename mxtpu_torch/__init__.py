@@ -10,7 +10,10 @@ and layers, the ResNet v1 and transformer model zoo, initializers, the
 bucketed Predictor, and training: Gluon losses and ``Trainer``, the
 optimizers with their fused updater, lr schedulers and metrics, and the
 input path: ``recordio``, ``io`` (iterators, the streaming reader and
-the prefetch to the card), ``gluon.data`` and ``image``. Kernels that the JAX package wrote in Pallas are
+the prefetch to the card), ``gluon.data`` and ``image``; and the symbolic
+API: ``sym`` (Symbol, the executor, subgraph partitioning), ``mod``
+(Module and its variants), ``model`` (checkpoints, FeedForward),
+``callback``, ``monitor``, ``name`` and ``AttrScope``. Kernels that the JAX package wrote in Pallas are
 hand-written CUDA under ``csrc/``, built at first use
 (``mxtpu_torch.kernels``). Entry points run on the CUDA device unless the
 caller passes a CPU device or opens a CPU context.
@@ -44,10 +47,27 @@ from . import convert  # noqa: E402
 from . import recordio  # noqa: E402
 from . import io  # noqa: E402
 from . import image  # noqa: E402
+from . import symbol  # noqa: E402
+from . import symbol as sym  # noqa: E402
+from . import executor  # noqa: E402
+from . import executor_manager  # noqa: E402
+from . import model  # noqa: E402
+from . import callback  # noqa: E402
+from . import monitor  # noqa: E402
+from .monitor import Monitor  # noqa: E402
+from . import module  # noqa: E402
+from . import module as mod  # noqa: E402
+from .module import Module  # noqa: E402
+from . import name  # noqa: E402
+from . import attribute  # noqa: E402
+from .attribute import AttrScope  # noqa: E402
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "default_device", "layout", "ops",
            "autograd", "ndarray", "nd", "random", "rtc", "contrib",
            "initializer", "init", "gluon", "serving", "convert", "base",
            "context", "optimizer", "lr_scheduler", "metric", "telemetry",
-           "resilience", "recordio", "io", "image"]
+           "resilience", "recordio", "io", "image", "symbol", "sym",
+           "executor", "executor_manager", "model", "callback", "monitor",
+           "Monitor", "module", "mod", "Module", "name", "attribute",
+           "AttrScope"]

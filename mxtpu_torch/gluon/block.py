@@ -25,6 +25,12 @@ by attribute path (``features.0.weight``), in the reference's byte format
 ``reading_params(fn)`` makes every layer forward on this thread read each
 parameter tensor ``t`` as ``fn(t)``: the int8 Predictor dequantizes
 there, so each float copy lives only through the layer that uses it.
+
+``HybridBlock.export`` writes the reference's ``-symbol.json`` and
+``.params`` files: the forward traced into a Symbol (``symbol.trace_block``
+hands ``hybrid_forward`` a recording ``F`` while it runs on a thread;
+otherwise the check costs one thread-local read). ``SymbolBlock`` runs a
+Symbol as a block, and ``SymbolBlock.imports`` loads such files.
 """
 from __future__ import annotations
 
@@ -39,10 +45,11 @@ from torch import nn
 from .. import autograd, graphs, telemetry
 from ..base import MXNetError
 from ..ndarray import NDArray
+from ..symbol.symbol import _SYM_TAPE, recording_f
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
-__all__ = ["Block", "HybridBlock", "CachedOp", "reading_params",
-           "read_params"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock", "CachedOp",
+           "reading_params", "read_params"]
 
 _PARAM_READ = threading.local()
 
@@ -622,6 +629,7 @@ class HybridBlock(Block):
                 return self._forward_nd(args)
         if self._active and not graphs.capturing() and args and all(
                 isinstance(a, torch.Tensor) for a in args) \
+                and _SYM_TAPE.active is None \
                 and graphs.captures(args[0].device):
             if self._cached_op is None:
                 if not self._params_ready():
@@ -644,6 +652,11 @@ class HybridBlock(Block):
         except DeferredInitializationError:
             self.infer_shape(*args)
             params = read_params(self)
+        # the last eager call's input signature, which export traces with
+        self.__dict__["_in_specs"] = [(tuple(a.shape), a.dtype) for a in args
+                                      if isinstance(a, torch.Tensor)]
+        if _SYM_TAPE.active is not None:
+            return self.hybrid_forward(recording_f(), *args, **params)
         from .. import ops as F
         return self.hybrid_forward(F, *args, **params)
 
@@ -659,3 +672,107 @@ class HybridBlock(Block):
 
     def hybrid_forward(self, F, *args, **kwargs):  # pragma: no cover
         raise NotImplementedError
+
+    def export(self, path, epoch=0):
+        """Write ``path-symbol.json`` and ``path-%04d.params`` (parameters
+        as ``arg:name``, those without a gradient as ``aux:name``), the
+        reference's checkpoint layout (ref: block.py:export). The forward
+        is traced at the last eager call's input signature, so the block
+        must have run at least once. Returns the Symbol."""
+        from ..ndarray.utils import save as nd_save
+        from ..symbol import trace_block
+        sym, _ = trace_block(self)
+        sym.save("%s-symbol.json" % path)
+        arrays = {("aux:" if p.grad_req == "null" else "arg:") + name:
+                  p.data() for name, p in self.collect_params().items()}
+        nd_save("%s-%04d.params" % (path, epoch), arrays)
+        return sym
+
+
+_LOW_PRECISION = ("float16", "bfloat16")
+
+
+class SymbolBlock(HybridBlock):
+    """Run a Symbol as a block (ref: gluon/block.py:SymbolBlock:954).
+
+    Every free variable of ``outputs`` that is not one of ``inputs`` becomes
+    a Parameter of the variable's name (``grad_req='null'`` for the moving
+    statistics), held as an attribute of that name, so a Predictor's
+    parameter snapshot and ``reading_params`` cover them. The forward runs
+    the symbol on tensors through each op's tensor function, so a
+    hybridized SymbolBlock and a Predictor capture it like any block.
+    Training-mode BatchNorm normalizes by the batch statistics and does not
+    move the moving ones, as the reference's SymbolBlock."""
+
+    def __init__(self, outputs, inputs, params=None):
+        super().__init__(prefix=None, params=None)
+        # parameter names are the symbol's variable names
+        self._prefix = ""
+        self._params = ParameterDict("", params)
+        if isinstance(outputs, (list, tuple)):
+            from ..symbol import Group
+            outputs = outputs[0] if len(outputs) == 1 else Group(outputs)
+        self._output_sym = outputs
+        inputs = inputs if isinstance(inputs, (list, tuple)) else [inputs]
+        self._input_names = [s.name for s in inputs]
+        aux = set(outputs.list_auxiliary_states())
+        self._names = {}   # attribute -> variable name
+        for name in outputs.list_inputs():
+            if name in self._input_names:
+                continue
+            attr = name.replace(".", "_")
+            if attr in self._names or hasattr(self, attr):
+                raise MXNetError("SymbolBlock: variable %r clashes with an "
+                                 "attribute of the block" % name)
+            p = self._params.get(name, allow_deferred_init=True,
+                                 grad_req="null" if name in aux else "write")
+            setattr(self, attr, p)
+            self._names[attr] = name
+        from ..symbol.symbol import _topo, draws
+        nodes = [n for n in _topo(outputs._heads) if not n.is_var()]
+        self._draws = draws(outputs)
+        # statistics and affine inputs of BatchNorm stay float32 on a cast
+        self._float32 = {inp.name for n in nodes if n.op == "BatchNorm"
+                         for inp, _ in n.inputs[1:] if inp.is_var()}
+
+    @staticmethod
+    def imports(symbol_file, input_names, param_file=None, ctx=None):
+        """A SymbolBlock of ``symbol_file`` (either package's) with its
+        parameters from ``param_file`` on ``ctx`` (default: the CUDA
+        device, or raise) (ref: SymbolBlock.imports)."""
+        from .. import symbol as sym_mod
+        sym = sym_mod.load(symbol_file)
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        ret = SymbolBlock(sym, [sym_mod.var(n) for n in input_names])
+        ret.collect_params().reset_ctx(ctx)
+        if param_file is not None:
+            ret.collect_params().load(param_file, ctx=ctx)
+        return ret
+
+    def infer_shape(self, *args):
+        shapes = dict(zip(self._input_names, (tuple(a.shape) for a in args)))
+        sym = self._output_sym
+        arg_shapes, _, aux_shapes = sym.infer_shape(**shapes)
+        known = dict(zip(sym.list_arguments(), arg_shapes))
+        known.update(zip(sym.list_auxiliary_states(), aux_shapes))
+        for name, p in self.params.items():
+            if known.get(name) is None:
+                raise MXNetError("SymbolBlock: cannot infer the shape of %s"
+                                 % name)
+            p._shape_resolved(known[name])
+
+    def cast(self, dtype):
+        """Cast the parameters to ``dtype``, except BatchNorm's, which stay
+        float32 under a float16 or bfloat16 cast (as gluon.nn.BatchNorm)."""
+        self._cached_op = None
+        low = str(dtype).split(".")[-1] in _LOW_PRECISION
+        for name, p in self.params.items():
+            p.cast("float32" if low and name in self._float32 else dtype)
+        return self
+
+    def hybrid_forward(self, F, *args, **params):
+        feed = {self._names[k]: v for k, v in params.items()}
+        feed.update(zip(self._input_names, args))
+        out = self._output_sym._execute(feed)
+        return out[0] if len(out) == 1 else out

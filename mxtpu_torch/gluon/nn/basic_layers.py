@@ -309,7 +309,7 @@ class Embedding(HybridBlock):
 
 class Flatten(HybridBlock):
     def hybrid_forward(self, F, x):
-        return x.reshape(x.shape[0], -1)
+        return F.Flatten(x)
 
     def __repr__(self):
         return "Flatten"

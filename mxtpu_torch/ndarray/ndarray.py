@@ -34,6 +34,12 @@ def _unwrap(out):
     return out._data if isinstance(out, NDArray) else out
 
 
+# the symbol trace's tape (symbol.symbol._SYM_TAPE), set when that module
+# is imported: while a block is traced on this thread an op run here
+# records its node
+_TRACE = None
+
+
 def _apply(fn, args, kwargs=None, name="", num_outputs=None):
     """Invoke a tensor-level function on NDArray/scalar args (ref:
     Imperative::Invoke): NDArrays among the top-level ``args``/``kwargs``
@@ -45,6 +51,10 @@ def _apply(fn, args, kwargs=None, name="", num_outputs=None):
           for k, v in kwargs.items()}
     with torch.set_grad_enabled(autograd.is_recording()):
         out = fn(*a, **kw)
+    if _TRACE is not None and _TRACE.active is not None:
+        from ..symbol.symbol import record_apply
+        record_apply(name, a, kw, [_unwrap(o) for o in out]
+                     if isinstance(out, (tuple, list)) else [_unwrap(out)])
     if isinstance(out, (tuple, list)):
         return [NDArray(_unwrap(o)) for o in out]
     return NDArray(_unwrap(out))

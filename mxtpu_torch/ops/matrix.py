@@ -1,5 +1,6 @@
 """Shape, indexing and dot ops (counterpart of ``mxtpu/ops/matrix.py``):
-``reshape`` with MXNet's special codes, ``transpose``, the ``Embedding``
+``reshape`` with MXNet's special codes, ``Flatten``, ``transpose``, the
+``Embedding``
 lookup, joins, slices and ``pad``, and ``dot``/``batch_dot`` (float32 in full
 float32, bfloat16 accumulated in float32, as the JAX package's
 ``contract_acc``)."""
@@ -9,9 +10,9 @@ import torch
 
 from ..base import MXNetError
 from .precision_util import promote
-from .registry import register
+from .registry import register, register_param_shapes
 
-__all__ = ["reshape", "transpose", "Embedding", "expand_dims", "squeeze",
+__all__ = ["reshape", "Flatten", "transpose", "Embedding", "expand_dims", "squeeze",
            "Concat", "stack", "slice_", "slice_axis", "tile", "repeat",
            "reverse", "swapaxes", "pad", "dot", "batch_dot"]
 
@@ -81,6 +82,12 @@ def reshape(x, shape=None, reverse=False, **_ig):
     return torch.reshape(x, tuple(tgt))
 
 
+@register("Flatten", aliases=("flatten",), as_method=False)
+def Flatten(x):
+    """[N, ...] -> [N, prod(...)]."""
+    return x.reshape(x.shape[0], -1)
+
+
 @register("transpose", as_method=False)
 def transpose(x, axes=None):
     """Permute the axes (reverse them when ``axes`` is empty)."""
@@ -99,6 +106,13 @@ def Embedding(data, weight, input_dim=None, output_dim=None, dtype="float32",
     idx = data.to(torch.int32).clamp(0, weight.shape[0] - 1)
     return weight.index_select(0, idx.reshape(-1)).reshape(
         tuple(idx.shape) + tuple(weight.shape[1:]))
+
+
+@register_param_shapes("Embedding")
+def _embedding_param_shapes(shapes, attrs):
+    """weight = (input_dim, output_dim) whatever the data's shape (ref:
+    indexing_op.h EmbeddingOpShape)."""
+    return {1: (int(attrs["input_dim"]), int(attrs["output_dim"]))}
 
 
 @register("expand_dims", as_method=False)

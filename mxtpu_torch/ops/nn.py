@@ -5,7 +5,9 @@ handling, each registered for ``mx.nd``: ``Convolution`` (1-, 2- and 3-D,
 through ``conv_acc.conv_fast``), ``Deconvolution``, ``Pooling`` (1-3-D,
 max/avg/sum/lp), ``Activation``, ``LeakyReLU`` (and ``_rrelu_train``),
 ``Dropout``, ``FullyConnected``, ``BatchNorm``, ``InstanceNorm``,
-``LayerNorm``, ``softmax`` and ``log_softmax``. Keywords that only tune
+``LayerNorm``, ``softmax``, ``log_softmax`` and ``SoftmaxOutput`` (whose
+fused backward is an autograd Function). The parameter-shape rules at the
+end fill the weights' shapes that ``Symbol.infer_shape`` does not know. Keywords that only tune
 the reference's cuDNN calls (``workspace``, ``cudnn_tune``, ``cudnn_off``)
 are accepted and ignored, as the JAX package does.
 
@@ -27,11 +29,11 @@ from .. import autograd
 from ..base import MXNetError
 from .conv_acc import conv_fast
 from .precision_util import promote
-from .registry import register
+from .registry import register, register_param_shapes
 
 __all__ = ["FullyConnected", "Convolution", "Deconvolution", "Pooling",
            "Activation", "LeakyReLU", "Dropout", "BatchNorm", "InstanceNorm",
-           "LayerNorm", "softmax", "log_softmax"]
+           "LayerNorm", "softmax", "log_softmax", "SoftmaxOutput"]
 
 
 def _pair(v, n=2):
@@ -364,3 +366,135 @@ def log_softmax(x, axis=-1, temperature=None, **_ig):
     if temperature is not None and temperature != 1.0:
         x = x / temperature
     return torch.log_softmax(x, dim=axis)
+
+
+class _SoftmaxOutput(torch.autograd.Function):
+    """softmax forward; the reference's fused backward, which ignores the
+    output's cotangent: d(data) = (p - onehot(label)) * grad_scale, with
+    ``ignore_label`` masking and batch or valid normalization."""
+
+    @staticmethod
+    def forward(ctx, data, label, axis, cfg):
+        p = torch.softmax(data, dim=axis)
+        ctx.save_for_backward(p, label)
+        ctx.axis, ctx.cfg = axis, cfg
+        return p
+
+    @staticmethod
+    def backward(ctx, _g):
+        p, lab = ctx.saved_tensors
+        axis = ctx.axis
+        grad_scale, ignore_label, use_ignore, normalization, alpha = ctx.cfg
+        nclass = p.shape[axis]
+        shape = [1] * p.ndim
+        shape[axis] = nclass
+        classes = torch.arange(nclass, device=p.device).reshape(shape)
+        oh = (lab.to(torch.int32).unsqueeze(axis % p.ndim) == classes).to(
+            p.dtype)
+        if alpha:
+            oh = oh * (1.0 - alpha) + alpha / (nclass - 1) * (1.0 - oh)
+        grad = p - oh
+        if use_ignore:
+            valid = (lab != ignore_label).to(p.dtype)
+            grad = grad * valid.unsqueeze(axis % p.ndim)
+        scale = grad_scale
+        if normalization == "batch":
+            scale = scale / lab.shape[0]
+        elif normalization == "valid" and use_ignore:
+            nvalid = torch.clamp_min((lab != ignore_label).sum(), 1)
+            grad = grad / nvalid.to(p.dtype)
+        return grad * scale, None, None, None
+
+
+@register("SoftmaxOutput", aliases=("softmax_output",))
+def SoftmaxOutput(data, label, grad_scale=1.0, ignore_label=-1.0,
+                  multi_output=False, use_ignore=False, preserve_shape=False,
+                  normalization="null", out_grad=False, smooth_alpha=0.0):
+    """softmax(data) over the class axis (1 with ``multi_output``, else
+    the last) whose gradient is the implicit cross-entropy's, as the
+    reference's fused backward (ref: softmax_output.cc)."""
+    axis = 1 if multi_output else -1
+    if torch.is_grad_enabled() and data.requires_grad:
+        return _SoftmaxOutput.apply(
+            data, label, axis, (grad_scale, ignore_label, bool(use_ignore),
+                                normalization, smooth_alpha))
+    return torch.softmax(data, dim=axis)
+
+
+# ---------------------------------------------------- parameter shape rules
+# The backward fill of each reference op's FInferShape (the weight's shape
+# from the data's), read by Symbol.infer_shape through the registry.
+@register_param_shapes("FullyConnected")
+def _fc_param_shapes(shapes, attrs):
+    data = shapes[0]
+    if data is None:
+        return {}
+    num_hidden = int(attrs.get("num_hidden"))
+    if attrs.get("flatten", True):
+        in_units = math.prod(data[1:])
+    else:
+        in_units = data[-1]
+    out = {1: (num_hidden, in_units)}
+    if len(shapes) > 2 and not attrs.get("no_bias", False):
+        out[2] = (num_hidden,)
+    return out
+
+
+def _conv_weight(attrs, data, transposed):
+    ndim = len(data) - 2
+    kernel = _pair(attrs.get("kernel"), ndim)
+    num_filter = int(attrs.get("num_filter"))
+    num_group = int(attrs.get("num_group", 1))
+    layout = attrs.get("layout") or "NC" + "DHW"[3 - ndim:]
+    channels_last = layout[-1] == "C"
+    in_ch = data[layout.index("C")]
+    if transposed:
+        return (kernel + (num_filter // num_group, in_ch) if channels_last
+                else (in_ch, num_filter // num_group) + kernel)
+    return (kernel + (in_ch // num_group, num_filter) if channels_last
+            else (num_filter, in_ch // num_group) + kernel)
+
+
+@register_param_shapes("Convolution")
+def _conv_param_shapes(shapes, attrs):
+    if shapes[0] is None:
+        return {}
+    out = {1: _conv_weight(attrs, shapes[0], False)}
+    if len(shapes) > 2 and not attrs.get("no_bias", False):
+        out[2] = (int(attrs.get("num_filter")),)
+    return out
+
+
+@register_param_shapes("Deconvolution")
+def _deconv_param_shapes(shapes, attrs):
+    if shapes[0] is None:
+        return {}
+    out = {1: _conv_weight(attrs, shapes[0], True)}
+    if len(shapes) > 2 and not attrs.get("no_bias", True):
+        out[2] = (int(attrs.get("num_filter")),)
+    return out
+
+
+def _channel_param_shapes(shapes, attrs, default_axis):
+    data = shapes[0]
+    if data is None:
+        return {}
+    c = (data[int(attrs.get("axis", default_axis)) % len(data)],)
+    return {i: c for i in range(1, len(shapes))}
+
+
+register_param_shapes("BatchNorm")(
+    lambda shapes, attrs: _channel_param_shapes(shapes, attrs, 1))
+register_param_shapes("InstanceNorm")(
+    lambda shapes, attrs: _channel_param_shapes(shapes, attrs, 1))
+register_param_shapes("LayerNorm")(
+    lambda shapes, attrs: _channel_param_shapes(shapes, attrs, -1))
+
+
+@register_param_shapes("LeakyReLU")
+def _leaky_param_shapes(shapes, attrs):
+    # only PReLU learns a gamma, one per channel (ref: leaky_relu-inl.h)
+    if attrs.get("act_type") != "prelu" or shapes[0] is None \
+            or len(shapes) < 2:
+        return {}
+    return {1: (shapes[0][1],)}

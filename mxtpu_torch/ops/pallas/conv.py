@@ -22,8 +22,10 @@ mask, ``d_residual`` in the residual's type, ``d_bias = sum g``,
 type before the two gradient convolutions (``convolution_backward`` on
 channels-last views; f32 accumulation, TF32 off by the precision policy).
 The forward saves what ``_core_fwd_impl`` saves: x, w, scale, bias, out
-only under ``relu`` and craw only with ``scale``. Off the CPU and the
-card the call raises "no kernel for device", with or without a gradient.
+only under ``relu`` and craw only with ``scale``. A meta tensor (the
+symbol layer's shape inference) gives meta outputs of the right shape and
+dtype and counts no launch; off the CPU, the card and meta the call raises
+"no kernel for device", with or without a gradient.
 ``fused_conv.launches`` counts forward kernel launches; it never counts
 a call that ran the plain version, nor a backward.
 
@@ -370,6 +372,11 @@ def fused_conv_with_raw(x, w, strides=(1, 1), padding=((0, 0), (0, 0)),
     strides = tuple(int(s) for s in strides)
     padding = tuple((int(a), int(b)) for a, b in padding)
     oh, ow = _check(x, w, strides, padding, scale, bias, residual)
+    if x.device.type == "meta":   # shape inference: no kernel, no count
+        shape = (x.shape[0], oh, ow, w.shape[3])
+        return (torch.empty(shape, dtype=x.dtype, device="meta"),
+                None if scale is None else
+                torch.empty(shape, dtype=torch.float32, device="meta"))
     if x.device.type not in ("cuda", "cpu"):
         raise MXNetError("fused_conv: no kernel for device %s" % x.device)
     if torch.is_grad_enabled() and any(

@@ -25,8 +25,9 @@ on a CPU tensor) and saves q, k, v, out and lse, and whose backward is
 there too): P recomputed from lse in float32 blocks of ``block_k`` keys,
 so no [B, H, T, Tk] matrix is held at long T, and the lse cotangent folded
 into the row constant. The gradients flow back to strided q/k/v views as
-to any tensor. Off the CPU and the card the call raises "no kernel for
-device", with or without a gradient. ``flash_attention.launches`` counts
+to any tensor. A meta tensor (the symbol layer's shape inference) gives
+meta outputs (out and lse) and counts no launch; off the CPU, the card and
+meta the call raises "no kernel for device", with or without a gradient. ``flash_attention.launches`` counts
 forward kernel launches of both entry points; it never counts a call that
 ran the plain version, nor a backward.
 """
@@ -255,6 +256,9 @@ def flash_attention_with_lse(q, k, v, causal=False, scale=None, block_q=512,
     float32 per-row log-sum-exp ``[B, H, T]`` (the quantity that merges
     partial attention over disjoint key sets exactly)."""
     _check(q, k, v)
+    if q.device.type == "meta":   # shape inference: no kernel, no count
+        return (torch.empty(q.shape, dtype=q.dtype, device="meta"),
+                torch.empty(q.shape[:3], dtype=torch.float32, device="meta"))
     if q.device.type not in ("cuda", "cpu"):
         raise MXNetError("flash_attention: no kernel for device %s"
                          % q.device)

@@ -18,7 +18,9 @@ import inspect
 from typing import Callable, Dict, List, Optional
 
 __all__ = ["Op", "register", "get_op", "list_ops", "invoke", "REGISTRY",
-           "attach_methods", "describe"]
+           "attach_methods", "describe", "NUM_OUTPUT_RULES",
+           "register_num_outputs", "PARAM_SHAPE_RULES",
+           "register_param_shapes", "get_param_shape_rule"]
 
 
 class Op:
@@ -80,6 +82,43 @@ def register(name: Optional[str] = None, aliases=(), as_method: bool = False,
         return fn
 
     return deco
+
+
+# canonical op name -> fn(attrs) -> number of outputs, for ops whose count
+# depends on their attrs (the reference's FNumOutputs); the symbol
+# composer reads it so that sym[i] works before execution
+NUM_OUTPUT_RULES: Dict[str, Callable] = {}
+
+
+def register_num_outputs(name: str):
+    def deco(fn: Callable):
+        NUM_OUTPUT_RULES[name] = fn
+        return fn
+    return deco
+
+
+# canonical op name -> fn(input_shapes, attrs) -> {input_index: shape}: the
+# backward fill of the reference's FInferShape (fully_connected.cc derives
+# weight = (num_hidden, in_units) from the data shape). Given the known
+# input shapes (None for unknown), a rule gives the shapes of the op's
+# parameter inputs, so Symbol.infer_shape completes symbols whose
+# parameters were never declared (BucketingModule on an unseen bucket).
+PARAM_SHAPE_RULES: Dict[str, Callable] = {}
+
+
+def register_param_shapes(name: str):
+    """Attach a parameter-shape rule to a registered op."""
+
+    def deco(fn: Callable):
+        PARAM_SHAPE_RULES[name] = fn
+        return fn
+
+    return deco
+
+
+def get_param_shape_rule(name: str) -> Optional[Callable]:
+    op = REGISTRY.get(name)
+    return PARAM_SHAPE_RULES.get(op.name if op is not None else name)
 
 
 def get_op(name: str) -> Op:

@@ -677,11 +677,35 @@ class Predictor:
     # ----------------------------------------------------------- load paths
     @classmethod
     def from_checkpoint(cls, prefix, epoch, spec, input_names=("data",),
-                        example=None, warmup=False, name=None):
-        """Not ported yet: a symbol-json checkpoint needs the symbol API
-        (ROADMAP A7)."""
-        raise MXNetError("Predictor.from_checkpoint is not ported yet: it "
-                         "needs the symbol API (ROADMAP A7)")
+                        example=None, warmup=False, name=None, device=None,
+                        dtype=None, **kwargs):
+        """Serve a (``prefix-symbol.json``, ``prefix-%04d.params``)
+        checkpoint (``model.save_checkpoint`` / ``HybridBlock.export``
+        naming, either package's) as a SymbolBlock: the c_predict_api
+        shape. The block's parameters are staged on the host and cast to
+        ``dtype`` where given (BatchNorm's stay float32 under bfloat16, as
+        the Gluon layer's); the Predictor snapshots them on ``device``
+        (default: the CUDA device, or raise)."""
+        from .. import symbol as sym_mod
+        from ..context import cpu
+        from ..gluon.block import SymbolBlock
+        from ..model import load_checkpoint
+        sym, arg_params, aux_params = load_checkpoint(prefix, epoch)
+        if sym is None:
+            raise MXNetError("no symbol file at %s-symbol.json" % prefix)
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        blk = SymbolBlock(sym, [sym_mod.var(n) for n in input_names])
+        pd = blk.collect_params()
+        pd.reset_ctx(cpu())
+        for pname, arr in list(arg_params.items()) + list(aux_params.items()):
+            if pname in pd:
+                pd[pname].set_data(arr)
+        if dtype is not None:
+            blk.cast(dtype)
+        return cls(blk, spec, example=example, warmup=warmup,
+                   name=name or ("ckpt:" + str(prefix)), device=device,
+                   **kwargs)
 
     @classmethod
     def from_trainer_checkpoint(cls, block, directory, spec, step=None,

@@ -43,10 +43,11 @@ Telemetry: ``zoo.pageins{model}``, ``zoo.evictions{model:reason}``,
 
 The reference reads ``MXTPU_ZOO_*``; the port takes constructor arguments
 whose defaults are the reference's values (the constants below) and
-``int8=`` for its ``MXTPU_SERVE_INT8``. Not ported: versions that name a
-checkpoint (``model.load_checkpoint`` is ROADMAP A7; they raise), the
-page-in from the compile service's disk cache and the flight recorder's
-``canary_rollback`` dump (A9). With ``start=False`` and an injected
+``int8=`` for its ``MXTPU_SERVE_INT8``. A version may name a checkpoint
+``(prefix, epoch)`` (``model.save_checkpoint`` naming), whose parameters
+``model.load_checkpoint`` reads on the version's first page-in. Not
+ported: the page-in from the compile service's disk cache and the flight
+recorder's ``canary_rollback`` dump (A9). With ``start=False`` and an injected
 ``clock`` everything runs synchronously through :meth:`ZooScheduler.poll`;
 ``start=True`` gives each resident arm its batcher worker, page-ins their
 own threads and the zoo a monitor thread.
@@ -121,24 +122,29 @@ class _DecayedRate:
 # ------------------------------------------------------------------ registry
 class ZooVersion:
     """One immutable version of a zoo model: its parameters (a host
-    snapshot ``{name: tensor or array}``) and the BucketSpec it serves
-    under. ``ordinal`` is the registration sequence number, which
+    snapshot ``{name: tensor or array}``, or a checkpoint ref ``(prefix,
+    epoch)`` loaded on first use) and the BucketSpec it serves under.
+    ``ordinal`` is the registration sequence number, which
     ``zoo.active_version{model}`` gauges."""
 
-    __slots__ = ("model", "version", "spec", "params", "created", "ordinal")
+    __slots__ = ("model", "version", "spec", "params", "checkpoint",
+                 "created", "ordinal")
 
-    def __init__(self, model, version, spec, ordinal, params):
+    def __init__(self, model, version, spec, ordinal, params,
+                 checkpoint=None):
         self.model = model
         self.version = version
         self.spec = spec
         self.params = params
+        self.checkpoint = checkpoint
         self.created = time.time()
         self.ordinal = int(ordinal)
 
     def describe(self):
         return {"version": self.version, "ordinal": self.ordinal,
                 "created": self.created, "spec": repr(self.spec),
-                "params": sorted(self.params)}
+                "checkpoint": self.checkpoint,
+                "params": sorted(self.params) if self.params else None}
 
 
 class _ZooModel:
@@ -162,12 +168,15 @@ def _snapshot_block_params(block):
             for name, p in block.collect_params().items()}
 
 
-def _no_checkpoints(checkpoint):
-    if checkpoint is not None:
-        raise MXNetError(
-            "ModelZoo: checkpoint versions are not ported yet: they read "
-            "model.load_checkpoint, which needs the symbol API (ROADMAP "
-            "A7); pass params= (a host snapshot) instead")
+def _load_checkpoint_params(ver):
+    """A checkpoint-ref version's parameters as a host mapping
+    (``model.save_checkpoint`` naming: ``(prefix, epoch)``)."""
+    from ..model import load_checkpoint
+    prefix, epoch = ver.checkpoint
+    _sym, arg_params, aux_params = load_checkpoint(prefix, epoch)
+    return {name: arr._data.detach().to("cpu", copy=True)
+            for name, arr in list(arg_params.items())
+            + list(aux_params.items())}
 
 
 class ModelZoo:
@@ -186,34 +195,35 @@ class ModelZoo:
     def register(self, name, block, spec, example=None, version="v1",
                  checkpoint=None):
         """Register a model under ``name`` with its first version (the
-        block's current parameters). Model names join retrace-site and
-        metric families, so they are restricted to ``[A-Za-z0-9_-]``."""
+        block's current parameters unless ``checkpoint`` names a
+        ``(prefix, epoch)`` ref). Model names join retrace-site and metric
+        families, so they are restricted to ``[A-Za-z0-9_-]``."""
         if not name or not all(c.isalnum() or c in "_-" for c in name):
             raise MXNetError("ModelZoo.register: model name %r must be "
                              "non-empty [A-Za-z0-9_-]" % (name,))
-        _no_checkpoints(checkpoint)
         with self._lock:
             if name in self._models:
                 raise MXNetError("ModelZoo.register: model %r already "
                                  "registered — use add_version" % name)
             self._models[name] = _ZooModel(name, block, spec, example)
-        self.add_version(name, version)
+        self.add_version(name, version, checkpoint=checkpoint)
         return self._models[name]
 
     def add_version(self, name, version, params=None, checkpoint=None):
         """Add one immutable version: ``params`` (``{name: array or
-        tensor}`` on the host) or, without them, a snapshot of the block's
+        tensor}`` on the host), a ``checkpoint`` ref ``(prefix, epoch)``
+        (loaded on first apply) or, with neither, a snapshot of the block's
         current parameters. The first version becomes active."""
-        _no_checkpoints(checkpoint)
         m = self._get(name)
         with self._lock:
             if version in m.versions:
                 raise MXNetError(
                     "ModelZoo.add_version: %s@%s already exists — "
                     "versions are immutable" % (name, version))
-            if params is None:
+            if params is None and checkpoint is None:
                 params = _snapshot_block_params(m.block)
-            ver = ZooVersion(name, version, m.spec, m.next_ordinal, params)
+            ver = ZooVersion(name, version, m.spec, m.next_ordinal, params,
+                             checkpoint=checkpoint)
             m.next_ordinal += 1
             m.versions[version] = ver
             if m.active is None:
@@ -260,10 +270,13 @@ class ModelZoo:
     def apply_version(self, name, version):
         """Load a version's parameters into the model's shared block: the
         step right before a Predictor snapshots them (its build, or
-        ``refresh_params``)."""
+        ``refresh_params``). A checkpoint-ref version loads (and keeps) its
+        parameters here, on first use."""
         m = self._get(name)
         ver = self.version(name, version)
         with self._lock:
+            if ver.params is None:
+                ver.params = _load_checkpoint_params(ver)
             pd = m.block.collect_params()
             for pname, arr in ver.params.items():
                 if pname in pd:

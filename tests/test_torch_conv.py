@@ -237,6 +237,18 @@ def test_gate_rejects_out_of_domain_like_mxtpu(case):
     assert mine[0] is False and mine[1]
 
 
+class _Elsewhere(torch.Tensor):
+    """A CPU tensor that reports a device with no kernel."""
+
+    @property
+    def device(self):
+        return torch.device("xpu", 0)
+
+
+def _elsewhere(t):
+    return torch.Tensor._make_subclass(_Elsewhere, t, t.requires_grad)
+
+
 def test_wrapper_plain_on_cpu_counts_no_launch_and_refuses_misuse():
     x = torch.randn(1, 5, 5, 4)
     w = torch.randn(3, 3, 4, 8)
@@ -249,13 +261,20 @@ def test_wrapper_plain_on_cpu_counts_no_launch_and_refuses_misuse():
     with pytest.raises(MXNetError, match="residual must have shape"):
         tpc.fused_conv(x, w, residual=torch.zeros(1, 3, 3, 7))
     # off the CPU the wrapper launches a kernel or raises; it never falls
-    # back to the plain version (meta stands in for a device here)
-    xm, wm = x.to("meta"), w.to("meta").requires_grad_()
+    # back to the plain version (a tensor that reports another device
+    # stands in for one here); a meta tensor (shape inference) gives a
+    # meta result and counts no launch
+    xo = _elsewhere(x)
+    wo = _elsewhere(w.clone().requires_grad_())
     with pytest.raises(MXNetError, match="no kernel for device"):
-        tpc.fused_conv(xm, wm)
+        tpc.fused_conv(xo, wo)
     with torch.no_grad(), pytest.raises(MXNetError,
                                         match="no kernel for device"):
-        tpc.fused_conv(xm, wm)
+        tpc.fused_conv(xo, _elsewhere(w))
+    xm, wm = x.to("meta"), w.to("meta").requires_grad_()
+    out = tpc.fused_conv(xm, wm, (2, 2), ((1, 1), (1, 1)))
+    assert out.device.type == "meta" and out.shape == (1, 3, 3, 8)
+    assert tpc.fused_conv.launches == before
     # the plain version on CPU tensors stays differentiable
     w.requires_grad_()
     tpc.fused_conv(x, w).sum().backward()

@@ -137,3 +137,52 @@ def test_kernel_library_is_keyed_by_source_and_flags(tmp_path, monkeypatch):
     assert len({so1, so2, so3}) == 3
     assert all("sm_90a" in f for f in kernels.NVCC_FLAGS
                if f.startswith("arch="))
+
+
+def test_import_scan_covers_the_symbolic_api():
+    """The scans above walk every module of the symbolic slice."""
+    scanned = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for rel in ("name.py", "attribute.py", "symbol/__init__.py",
+                "symbol/symbol.py", "symbol/executor.py",
+                "symbol/subgraph.py", "executor.py", "executor_manager.py",
+                "ops/subgraph_ops.py", "model.py", "callback.py",
+                "monitor.py", "module/__init__.py", "module/base_module.py",
+                "module/module.py", "module/bucketing_module.py",
+                "module/sequential_module.py", "module/python_module.py"):
+        assert os.path.join("mxtpu_torch", rel) in scanned, rel
+
+
+def test_symbolic_entry_points_default_to_the_card(no_cuda, tmp_path):
+    """An Executor, a Module and Predictor.from_checkpoint run on cuda:0
+    unless given the CPU, and raise without a card."""
+    data = mt.sym.var("data")
+    sym = mt.sym.SoftmaxOutput(mt.sym.FullyConnected(data, num_hidden=3,
+                                                     name="fc"),
+                               name="softmax")
+    shapes = {"data": (2, 4), "softmax_label": (2,)}
+    with pytest.raises(mt.MXNetError, match="no CUDA device"):
+        sym.simple_bind(**shapes)
+    with pytest.raises(mt.MXNetError, match="no CUDA device"):
+        sym.simple_bind(mt.gpu(0), **shapes)
+    with pytest.raises(mt.MXNetError, match="no CUDA device"):
+        mt.mod.Module(sym)
+    exe = sym.simple_bind(mt.cpu(), **shapes)
+    assert exe.arg_dict["fc_weight"].context == torch.device("cpu")
+    mod = mt.mod.Module(sym, context=mt.cpu())
+    mod.bind(data_shapes=[("data", (2, 4))],
+             label_shapes=[("softmax_label", (2,))])
+    mod.init_params(initializer=mt.init.Xavier())
+    mod.save_checkpoint(str(tmp_path / "m"), 1)
+    inputs = ("data", "softmax_label")
+    with pytest.raises(mt.MXNetError, match="no CUDA device"):
+        Predictor.from_checkpoint(str(tmp_path / "m"), 1, BucketSpec([2]),
+                                  input_names=inputs)
+    pred = Predictor.from_checkpoint(str(tmp_path / "m"), 1, BucketSpec([2]),
+                                     input_names=inputs, device="cpu")
+    out = pred.predict(np.ones((2, 4), np.float32),
+                       np.zeros(2, np.float32))
+    assert out.context.type == "cpu" and out.shape == (2, 3)
+    with pytest.raises(mt.MXNetError, match="no CUDA device"):
+        mt.gluon.SymbolBlock.imports(str(tmp_path / "m-symbol.json"),
+                                     ["data", "softmax_label"],
+                                     str(tmp_path / "m-0001.params"))

@@ -131,6 +131,18 @@ def test_default_scale_is_inverse_sqrt_d():
         tfa.flash_attention_reference(q, k, v, scale=0.3)[0], rtol=0, atol=0)
 
 
+class _Elsewhere(torch.Tensor):
+    """A CPU tensor that reports a device with no kernel."""
+
+    @property
+    def device(self):
+        return torch.device("xpu", 0)
+
+
+def _elsewhere(t):
+    return torch.Tensor._make_subclass(_Elsewhere, t, t.requires_grad)
+
+
 def test_wrapper_refuses_misuse_and_never_falls_back():
     q = torch.randn(1, 2, 8, 16)
     with pytest.raises(MXNetError, match="must all be float32 or all bfloat16"):
@@ -144,13 +156,20 @@ def test_wrapper_refuses_misuse_and_never_falls_back():
         tfa.flash_attention(big, big, big),
         tfa.flash_attention_reference(big, big, big)[0], rtol=0, atol=0)
     # off the CPU the wrapper launches a kernel or raises; it never runs
-    # the plain version (meta stands in for a device here)
-    qm = q.to("meta")
+    # the plain version (a tensor that reports another device stands in
+    # for one here); a meta tensor (shape inference) gives a meta result
+    # and counts no launch
+    qo = _elsewhere(q)
     with pytest.raises(MXNetError, match="no kernel for device"):
-        tfa.flash_attention(qm.requires_grad_(), qm, qm)
+        tfa.flash_attention(_elsewhere(q.clone().requires_grad_()), qo, qo)
     with torch.no_grad(), pytest.raises(MXNetError,
                                         match="no kernel for device"):
-        tfa.flash_attention(qm, qm, qm)
+        tfa.flash_attention(qo, qo, qo)
+    before = tfa.flash_attention.launches
+    qm = q.to("meta")
+    out = tfa.flash_attention(qm.requires_grad_(), qm, qm)
+    assert out.device.type == "meta" and out.shape == q.shape
+    assert tfa.flash_attention.launches == before
     # the plain version on CPU tensors stays differentiable
     q.requires_grad_()
     tfa.flash_attention(q, q, q, causal=True).sum().backward()

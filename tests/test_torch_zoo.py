@@ -12,7 +12,8 @@ and every answer (within 1e-5 of max|output|, float32) to the reference's.
 Footprints differ by design (the port counts what its Predictors hold, the
 reference its executables' ledger), so decisions are compared, not bytes.
 Then the port's own differences: a page-in captures one graph per bucket
-and reads nothing from disk, and a checkpoint version raises naming A7.
+and reads nothing from disk, and a checkpoint version loads its
+parameters through ``model.load_checkpoint`` on first use.
 Every future, urlopen and join has a timeout."""
 import json
 import urllib.error
@@ -608,17 +609,35 @@ def test_registry_manifest_and_refusals(tmp_path):
         ModelZoo().register("bad name!", other, BucketSpec([1]))
 
 
-def test_checkpoint_versions_raise_naming_a7():
-    """Deliberate difference: a version that names a checkpoint needs
-    ``model.load_checkpoint`` (the symbol API, ROADMAP A7)."""
+def test_checkpoint_versions_raise_naming_a7(tmp_path):
+    """A version that names a checkpoint ``(prefix, epoch)`` registers
+    without reading it; ``apply_version`` loads its parameters through
+    ``model.load_checkpoint`` on first use (as the reference's lazy
+    page-in does) and keeps them. A checkpoint that is not there raises at
+    that first use, and nothing names A7 any more."""
     z = Zoos()
-    with pytest.raises(mt.MXNetError, match="A7"):
-        z.zoo.add_version("alpha", "v2", checkpoint=("prefix", 3))
-    _, other, _ = _mlps(6)
-    with pytest.raises(mt.MXNetError, match="A7"):
-        ModelZoo().register("m", other, BucketSpec([1]),
-                            checkpoint=("prefix", 3))
-    assert z.zoo.versions("alpha") == ["v1"]
+    _, other, arrays = _mlps(6)
+    block = z.zoo._get("alpha").block
+    # the other net's weights under alpha's parameter names
+    saved = dict(zip(block.collect_params(), arrays.values()))
+    prefix = str(tmp_path / "alpha")
+    with mt.cpu():
+        mt.model.save_checkpoint(
+            prefix, 3, None, {k: mt.nd.array(v) for k, v in saved.items()},
+            {})
+    ver = z.zoo.add_version("alpha", "v2", checkpoint=(prefix, 3))
+    assert ver.params is None and ver.describe()["checkpoint"] == (prefix, 3)
+    z.zoo.apply_version("alpha", "v2")
+    assert sorted(ver.params) == sorted(saved)
+    for k, p in block.collect_params().items():
+        np.testing.assert_array_equal(p._tensor().detach().numpy(), saved[k])
+    z.zoo.add_version("alpha", "v3", checkpoint=(str(tmp_path / "no"), 1))
+    with pytest.raises(OSError):
+        z.zoo.apply_version("alpha", "v3")
+    m = ModelZoo().register("m", other, BucketSpec([1]),
+                            checkpoint=(prefix, 3))
+    assert m.versions["v1"].params is None
+    assert z.zoo.versions("alpha") == ["v1", "v2", "v3"]
 
 
 def test_pagein_captures_one_graph_per_bucket_and_reads_no_disk():
