@@ -201,7 +201,29 @@ NVIDIA H100.
    symbol, each forward's graph by replay beside sdpa; and one
    ``partition(·, "default")`` region of ResNet-50 against the
    unpartitioned symbol.
-14. Prints one JSON line of kernels (fused_conv and flash_attention, one
+14. The RNN slice (slice 12, ``rnn_phase``), which launches none of B1-B3
+   (each count set to 0 before it and read after it: ``rnn_b*_launches``
+   in the kernels line, expected 0): bench.py's PTB language model
+   (Embedding 33278 x 650, a 2-layer 650-unit LSTM over NTC, Dense over
+   the vocabulary, 50.1 M seeded parameters) served through ``Predictor``
+   with int32 token buckets b1 and b8 x 35, one captured graph each, f32
+   and bf16 against the CPU (1e-3 and 5e-2 of max|logit|; median/p80
+   latency, host issue, device ms, idle share, kernels a forward); trained
+   captured (``hybridize``, ``SoftmaxCrossEntropyLoss`` over (-1, vocab),
+   SGD lr 1.0): f32 b8 x 35 two steps in lockstep with the CPU, bf16 b128 x
+   35 timed (tokens/s, peak memory, 0 builds after the warm-up,
+   train_mfu); ``examples/rnn/lstm_bucketing.py``'s mx.rnn stack (2 x 200,
+   embed 200, batch 32, vocab 10000, buckets 10-60) under
+   ``BucketingModule``: two steps in lockstep with the CPU, each bucket's
+   step timed (one captured pair a bucket, none on a second pass), one
+   bucket through ``FusedRNNCell`` against the stack; the ``RNN`` op at
+   the LM's shape (T 35, N 128, 650, 2 layers) by graph replay, forward
+   and forward + backward, beside ``torch.nn.LSTM`` (cuDNN) with the same
+   weights; and ``CTCLoss`` (T 100, N 32, 29 classes), a Conv2DLSTMCell
+   step and ``foreach`` in a captured block against the CPU, with
+   ``while_loop`` and ``cond`` refusing a capture, and a hybridized LSTM
+   called with its states (captured) against the same calls eager.
+15. Prints one JSON line of kernels (fused_conv and flash_attention, one
    entry per type each, with graph-replay and host-issue sums beside the
    eager ones, the launches of one training step, and forward + backward
    by graph replay beside its plain version, the library's and its bound
@@ -212,8 +234,8 @@ NVIDIA H100.
    launches per served zoo model, per captured Inception v3 step and per
    s2d-stem forward, its zoo shape classes and its launches on the input
    path; the conv and flash entries their launches on the symbolic path
-   and the flash entries the partitioned attention's times), the card
-   line again,
+   and the flash entries the partitioned attention's times; every entry
+   the RNN path's launches of B1-B3), the card line again,
    and last ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the last
@@ -5677,6 +5699,668 @@ def symbolic_phase(card):
     return {"serve": serve, "train": train, "attention": attention}
 
 
+# ---------------------------------------------------------------- slice 12
+# bench.py:246-305 bench_lstm_ptb (the reference's
+# example/gluon/word_language_model defaults): 2-layer 650-unit LSTM over
+# NTC, bptt 35, the PTB vocabulary, SGD lr 1.0
+PTB = dict(vocab=33278, hidden=650, layers=2, bptt=35)
+# training FLOPs per token, bench.py:290-293: 3 x 2 x (4 gates x (in +
+# hid) x hid per layer + hid x vocab)
+PTB_TRAIN_FLOPS = 3 * 2 * (4 * (650 + 650) * 650 * 2 + 650 * 33278)
+RNN_SEED = 51
+# examples/rnn/lstm_bucketing.py at the reference's example/rnn/bucketing
+# defaults: 2 layers, 200 hidden, 200 embed, batch 32, these buckets
+BUCKET_CFG = dict(layers=2, hidden=200, embed=200, batch=32, vocab=10000,
+                  buckets=(10, 20, 30, 40, 50, 60))
+BUCKET_OPT = {"learning_rate": 0.01, "momentum": 0.9}
+
+
+def build_ptb_lm(arrays=None):
+    """bench.py's RNNModel (Embedding, 2x650 LSTM over NTC, Dense over the
+    vocabulary) on the CPU with seeded weights (or ``arrays``): (net,
+    arrays)."""
+    import torch
+    import mxtpu_torch as mt
+    from mxtpu_torch import convert
+    from mxtpu_torch.gluon import nn, rnn
+
+    class RNNModel(mt.gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.embed = nn.Embedding(PTB["vocab"], PTB["hidden"])
+                self.lstm = rnn.LSTM(PTB["hidden"], num_layers=PTB["layers"],
+                                     layout="NTC")
+                self.decoder = nn.Dense(PTB["vocab"], flatten=False)
+
+        def hybrid_forward(self, F, tokens):
+            return self.decoder(self.lstm(self.embed(tokens)))
+    net = RNNModel()
+    net.initialize(ctx=mt.cpu())
+    with torch.no_grad():
+        net(torch.zeros(1, 2, dtype=torch.int32))
+    if arrays is None:
+        arrays = convert.seeded_params(
+            {k: p.shape for k, p in net.collect_params().items()},
+            seed=RNN_SEED)
+    convert.load_mxtpu_params(net, arrays)
+    return net, arrays
+
+
+def ptb_tokens(b, seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, PTB["vocab"], (b, PTB["bptt"]), dtype=np.int32),
+            rng.integers(0, PTB["vocab"], (b, PTB["bptt"])).astype(
+                np.float32))
+
+
+def rnn_serve(card, arrays):
+    """(a) The PTB LM served through Predictor, int32 token buckets b1 and
+    b8 x 35, one captured graph each, float32 then bfloat16, against the
+    same Predictor on the CPU; latency, host issue, device ms, idle share
+    and kernels per forward."""
+    import torch
+    from mxtpu_torch.serving import BucketSpec, Predictor
+    spec = BucketSpec([1, 8])
+    net, _ = build_ptb_lm(arrays)
+    cpu_net, _ = build_ptb_lm(arrays)
+    tokens = torch.from_numpy(ptb_tokens(8, RNN_SEED + 1)[0])
+    rows = {}
+    for dtype, tol in (("float32", 1e-3), ("bfloat16", SERVE_BF16_TOL)):
+        if dtype == "bfloat16":
+            net.cast("bfloat16")
+            cpu_net.cast("bfloat16")
+        t0 = time.time()
+        pred = Predictor(net, spec, example=torch.zeros(
+            1, PTB["bptt"], dtype=torch.int32), warmup=True, device="cuda",
+            site="serving.predict.ptb_lm." + dtype)
+        torch.cuda.synchronize()
+        warm_s = time.time() - t0
+        check_graphs(pred, spec, "ptb_lm " + dtype)
+        cpu_pred = Predictor(cpu_net, spec, device="cpu",
+                             site="cpu.ptb_lm." + dtype)
+        errs = []
+        for b in (1, 3, 8):
+            got = pred.predict(tokens[:b]).to_torch().float().cpu()
+            ref = cpu_pred.predict(tokens[:b]).to_torch().float()
+            err = _rel(got, ref)
+            if tuple(got.shape) != (b, PTB["bptt"], PTB["vocab"]) or \
+                    not bool(torch.isfinite(got).all()) or err > tol:
+                raise AssertionError(
+                    "ptb_lm %s b%d: logits %s, %.3g of max|logit| from the "
+                    "CPU's (limit %g)" % (dtype, b, tuple(got.shape), err,
+                                          tol))
+            errs.append(err)
+        diff = replay_vs_eager(pred, tokens.cuda(), "ptb_lm " + dtype)
+        print("serve ptb_lm (2x650 LSTM, vocab 33278) %s: warmup (%d graphs) "
+              "%.2f s; logits vs the CPU at b1, b3, b8: %s of max|logit| "
+              "(limit %g); b8 replay vs eager on the card max abs diff %.3g"
+              % (dtype, len(pred._buckets), warm_s,
+                 ", ".join("%.3g" % e for e in errs), tol, diff), flush=True)
+        for b in (1, 8):
+            x = tokens[:b].cuda()
+            med, p80, issue = closed_loop(pred, x)
+            kern = device_rows(lambda: pred.predict(x), 3)
+            dev = sum(r[1] for r in kern)
+            n_kern = round(sum(r[2] for r in kern))
+            rows["%s b%d" % (dtype, b)] = dict(
+                median_ms=med, p80_ms=p80, issue_ms=issue, device_ms=dev,
+                idle=1 - dev / med, kernels=n_kern,
+                tokens_per_s=b * PTB["bptt"] * 1e3 / med)
+            print("  ptb_lm %s b%d x 35: median %.3f ms, p80 %.3f, host issue "
+                  "%.3f, device %.3f ms (idle share %.3f), %d kernels a "
+                  "forward, %.0f tokens/s on %s" % (
+                      dtype, b, med, p80, issue, dev, 1 - dev / med, n_kern,
+                      rows["%s b%d" % (dtype, b)]["tokens_per_s"], card),
+                  flush=True)
+        print_breakdown("serve ptb_lm %s b8" % dtype, device_rows(
+            lambda: pred.predict(tokens.cuda()), 3),
+            rows["%s b8" % dtype]["median_ms"], "gemm")
+        # no build after the warm-up: one graph per bucket, as captured
+        check_graphs(pred, spec, "ptb_lm %s after traffic" % dtype)
+        pred.release()
+    return rows
+
+
+def rnn_train(card, arrays):
+    """(b) The PTB LM trained captured (hybridize, SoftmaxCrossEntropyLoss
+    over (-1, vocab), Trainer SGD lr 1.0): float32 b8 x 35 in lockstep
+    with the CPU, then bfloat16 b128 x 35 timed."""
+    import gc
+    import numpy as np
+    import torch
+    import mxtpu_torch as mt
+    sgd = {"learning_rate": 1.0}
+    net, _ = build_ptb_lm(arrays)
+    net.collect_params().reset_ctx(mt.gpu(0))
+    net.hybridize()
+    cpu_net, _ = build_ptb_lm(arrays)
+    batches = [ptb_tokens(8, RNN_SEED + 2 + i) for i in range(2)]
+    t0 = time.time()
+    _, losses, worst, _ = lockstep_train(
+        "ptb_lm train f32", net, cpu_net, batches, "sgd", sgd,
+        reshape=PTB["vocab"])
+    print("train ptb_lm f32 b8 x 35, hybridized (captured pair and update), "
+          "2 SGD lr 1.0 steps on the card, each against the same step on "
+          "the CPU from the card's state (%.1f s): mean losses %s; worst "
+          "errors (elementwise of the scale, or relative L2): %s"
+          % (time.time() - t0, losses, worst_line(worst)), flush=True)
+    del cpu_net
+    gc.collect()
+    net.cast("bfloat16")
+    tokens, labels = ptb_tokens(128, RNN_SEED + 5)
+    x = mt.nd.array(tokens, ctx=mt.gpu(0), dtype="int32")
+    y = mt.nd.array(labels, ctx=mt.gpu(0))
+    timing = train_timing(
+        "ptb_lm bf16 b128 x 35 (2x650 LSTM, SGD lr 1.0, captured)", net, x,
+        y, "sgd", sgd, PTB["vocab"], card, PTB_TRAIN_FLOPS, 128 * 35,
+        "bfloat16")
+    if any(timing["builds_after_warmup"].values()):
+        raise AssertionError("ptb_lm bf16: builds after the warm-up %s"
+                             % timing["builds_after_warmup"])
+    for p in net.collect_params().values():
+        if not bool(torch.isfinite(p.data().to_torch().float()).all()):
+            raise AssertionError("ptb_lm bf16: %s is not finite" % p.name)
+    # bfloat16 weights, but the float32 begin state (as the reference's
+    # nd.zeros) makes the recurrence, the second layer and the decoder
+    # float32 products: read the rate against both peaks
+    timing["mfu_f32_peak"] = PTB_TRAIN_FLOPS * timing["rate"] / \
+        PEAK_FLOPS["float32"]
+    print("train ptb_lm bf16 weights (float32 state, recurrence and "
+          "decoder): %.1f tokens/s, train_mfu %.4f against the bfloat16 "
+          "peak, %.4f against the float32 peak (%.4g FLOP a token, "
+          "bench.py:290-293) on %s" % (
+              timing["rate"], timing["mfu"], timing["mfu_f32_peak"],
+              PTB_TRAIN_FLOPS, card), flush=True)
+    del net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(timing, losses=losses, worst=worst)
+
+
+def bucket_sym_gen(fused=False):
+    """examples/rnn/lstm_bucketing.py's sym_gen at BUCKET_CFG: the mx.rnn
+    LSTMCell stack (or one FusedRNNCell over the same weights, its
+    forget bias in the packed blob) under SoftmaxOutput."""
+    import mxtpu_torch as mt
+    cfg = BUCKET_CFG
+    if fused:
+        stack = mt.rnn.FusedRNNCell(cfg["hidden"], num_layers=cfg["layers"],
+                                    mode="lstm", prefix="lstm_")
+    else:
+        stack = mt.rnn.SequentialRNNCell()
+        for i in range(cfg["layers"]):
+            stack.add(mt.rnn.LSTMCell(num_hidden=cfg["hidden"],
+                                      prefix="lstm_l%d_" % i))
+
+    def sym_gen(seq_len):
+        data = mt.sym.var("data")
+        label = mt.sym.var("softmax_label")
+        embed = mt.sym.Embedding(data, input_dim=cfg["vocab"],
+                                 output_dim=cfg["embed"], name="embed")
+        stack.reset()
+        outputs, _ = stack.unroll(seq_len, inputs=embed,
+                                  begin_state=stack.begin_state(
+                                      batch_size=cfg["batch"]),
+                                  merge_outputs=True)
+        pred = mt.sym.Reshape(outputs, shape=(-1, cfg["hidden"]))
+        pred = mt.sym.FullyConnected(pred, num_hidden=cfg["vocab"],
+                                     name="pred")
+        label = mt.sym.Reshape(label, shape=(-1,))
+        pred = mt.sym.SoftmaxOutput(pred, label, name="softmax")
+        return pred, ("data",), ("softmax_label",)
+    return stack, sym_gen
+
+
+def bucket_batches(ctx):
+    """Synthetic sentences over the vocabulary, two batches a bucket,
+    through ``rnn.BucketSentenceIter`` onto ``ctx``: [DataBatch]."""
+    import random
+    import numpy as np
+    import mxtpu_torch as mt
+    cfg = BUCKET_CFG
+    rng = np.random.default_rng(RNN_SEED + 7)
+    sentences = []
+    for top in cfg["buckets"]:
+        for _ in range(2 * cfg["batch"]):
+            n = int(rng.integers(top - 9, top + 1))
+            sentences.append(rng.integers(1, cfg["vocab"], n).tolist())
+    np.random.seed(RNN_SEED)
+    random.seed(RNN_SEED)
+    with ctx:
+        it = mt.rnn.BucketSentenceIter(sentences, cfg["batch"],
+                                       buckets=list(cfg["buckets"]),
+                                       invalid_label=0)
+        return list(it)
+
+
+def _bucket_module(sym_gen, ctx, arg_params=None):
+    import mxtpu_torch as mt
+    cfg = BUCKET_CFG
+    top = max(cfg["buckets"])
+    mod = mt.mod.BucketingModule(sym_gen, default_bucket_key=top,
+                                 context=ctx)
+    mod.bind(data_shapes=[("data", (cfg["batch"], top))],
+             label_shapes=[("softmax_label", (cfg["batch"], top))])
+    mod.init_params(initializer=mt.init.Xavier(factor_type="in",
+                                               magnitude=2.34),
+                    arg_params=arg_params)
+    mod.init_optimizer(kvstore="local", optimizer="sgd",
+                       optimizer_params=dict(BUCKET_OPT))
+    return mod
+
+
+def _host_batch(b):
+    import mxtpu_torch as mt
+    out = mt.io.DataBatch([mt.nd.array(b.data[0].to_torch().cpu())],
+                          [mt.nd.array(b.label[0].to_torch().cpu())],
+                          bucket_key=b.bucket_key,
+                          provide_data=b.provide_data,
+                          provide_label=b.provide_label)
+    return out
+
+
+def rnn_bucketing(card):
+    """(c) lstm_bucketing's mx.rnn stack under BucketingModule on the
+    card: two steps in lockstep with the CPU, then every bucket timed (one
+    captured pair a bucket, none after), then one bucket through
+    FusedRNNCell (the RNN op reached through the executor)."""
+    import numpy as np
+    import torch
+    import mxtpu_torch as mt
+    cfg = BUCKET_CFG
+    _, sym_gen = bucket_sym_gen()
+    card_mod = _bucket_module(sym_gen, mt.gpu(0))
+    _, cpu_gen = bucket_sym_gen()
+    cpu_mod = _bucket_module(cpu_gen, mt.cpu())
+    batches = bucket_batches(mt.gpu(0))
+    by_key = {}
+    for b in batches:
+        by_key.setdefault(b.bucket_key, []).append(b)
+    if sorted(by_key) != list(cfg["buckets"]):
+        raise AssertionError("bucketing: batches for buckets %s"
+                             % sorted(by_key))
+    worst = {}
+
+    def note(key, v, tol):
+        worst[key] = max(worst.get(key, 0.0), v)
+        if not v <= tol:
+            raise AssertionError("bucketing lockstep: %s %.3g (limit %g)"
+                                 % (key, v, tol))
+    top = max(cfg["buckets"])
+    for i, b in enumerate((by_key[top][0], by_key[cfg["buckets"][0]][0])):
+        if i:
+            _sync_module(cpu_mod._buckets[top], card_mod._buckets[top])
+        before = {k: v.to_torch().clone()
+                  for k, v in card_mod.get_params()[0].items()}
+        card_mod.forward_backward(b)
+        card_mod.update()
+        torch.cuda.synchronize()
+        cpu_mod.forward_backward(_host_batch(b))
+        cpu_mod.update()
+        out_c = card_mod.get_outputs()[0].to_torch().float().cpu()
+        out_r = cpu_mod.get_outputs()[0].to_torch()
+        note("outputs", (out_c - out_r).abs().max().item(), 1e-4)
+        ge = card_mod._curr_module._exec.grad_dict
+        gr = cpu_mod._curr_module._exec.grad_dict
+        note("gradients", max(_l2(ge[k].to_torch(), gr[k].to_torch())
+                              for k in gr if k in before), TRAIN_L2)
+        arg_c, arg_r = card_mod.get_params()[0], cpu_mod.get_params()[0]
+        note("weight changes", max(
+            _l2(arg_c[k].to_torch().cpu() - before[k].cpu(),
+                arg_r[k].to_torch() - before[k].cpu()) for k in arg_r),
+             TRAIN_L2)
+    print("bucketing (mx.rnn 2x200 LSTMCell stack, vocab 10000, b32) f32: "
+          "steps on buckets %d and %d on the card, each against the same "
+          "step on the CPU from the card's state: worst %s" % (
+              top, cfg["buckets"][0], worst_line(worst)), flush=True)
+    del cpu_mod
+
+    def step(b):
+        card_mod.forward_backward(b)
+        card_mod.update()
+    rows = {}
+    for key in cfg["buckets"]:
+        b = by_key[key][-1]
+        start = _executor_builds()["executor"]
+        step(b)   # a new bucket captures its pair here
+        torch.cuda.synchronize()
+        built = _executor_builds()["executor"] - start
+        med, p80, issue = timed_steps(lambda: step(b), warm=1, n=5)
+        rows[key] = dict(step_ms=med, p80_ms=p80, issue_ms=issue,
+                         builds=built,
+                         tokens_per_s=cfg["batch"] * key * 1e3 / med)
+    start = _executor_builds()["executor"]
+    for b in batches:
+        step(b)
+    torch.cuda.synchronize()
+    rebuilt = _executor_builds()["executor"] - start
+    out = card_mod.get_outputs()[0].to_torch()
+    if not bool(torch.isfinite(out).all()) or rebuilt or any(
+            r["builds"] > 1 for r in rows.values()):
+        raise AssertionError("bucketing: finite outputs %s, builds per "
+                             "bucket %s, builds over a second pass %d" % (
+                                 bool(torch.isfinite(out).all()),
+                                 {k: r["builds"] for k, r in rows.items()},
+                                 rebuilt))
+    print("bucketing on %s, per bucket (median step ms, p80, host issue, "
+          "tokens/s, pairs captured at its first step here (buckets 60 and "
+          "10 captured theirs in the lockstep); 5 steps after 1): %s;"
+          " builds over a second pass of all %d batches: %d" % (
+              card, ", ".join("%d: %.3f, %.3f, %.3f, %.0f, %d" % (
+                  k, r["step_ms"], r["p80_ms"], r["issue_ms"],
+                  r["tokens_per_s"], r["builds"]) for k, r in rows.items()),
+              len(batches), rebuilt), flush=True)
+    # one bucket through FusedRNNCell: the same weights packed, the forget
+    # bias (which LSTMCell adds at run time) folded into the blob
+    key = 30
+    fused_cell, fused_gen = bucket_sym_gen(fused=True)
+    args = {k: v.to_torch() for k, v in card_mod.get_params()[0].items()}
+    for i in range(cfg["layers"]):
+        bias = args["lstm_l%d_i2h_bias" % i].clone()
+        bias[cfg["hidden"]:2 * cfg["hidden"]] += 1.0
+        args["lstm_l%d_i2h_bias" % i] = bias
+    with mt.gpu(0):
+        packed = fused_cell.pack_weights(
+            {k: mt.nd.array(v) for k, v in args.items()})
+    fused_mod = _bucket_module(fused_gen, mt.gpu(0), arg_params=packed)
+    b = by_key[key][0]
+    fused_mod.forward(b, is_train=False)
+    card_mod.forward(b, is_train=False)
+    err = _rel(fused_mod.get_outputs()[0].to_torch(),
+               card_mod.get_outputs()[0].to_torch())
+    if err > 1e-4:
+        raise AssertionError("FusedRNNCell bucket %d: outputs %.3g of max "
+                             "from the LSTMCell stack's" % (key, err))
+    start = _executor_builds()["executor"]
+
+    def fused_step():
+        fused_mod.forward_backward(b)
+        fused_mod.update()
+    med, p80, issue = timed_steps(fused_step, warm=2, n=5)
+    fused_builds = _executor_builds()["executor"] - start
+    if not bool(torch.isfinite(fused_mod.get_outputs()[0].to_torch()).all()):
+        raise AssertionError("FusedRNNCell bucket: outputs not finite")
+    rows["fused %d" % key] = dict(step_ms=med, p80_ms=p80, issue_ms=issue,
+                                  builds=fused_builds)
+    print("bucketing FusedRNNCell (the RNN op through the executor), bucket "
+          "%d: predict outputs vs the LSTMCell stack %.3g of max; median step "
+          "%.3f ms (p80 %.3f, host issue %.3f) against the stack's %.3f ms; "
+          "builds %d (the first step's pair and update)" % (
+              key, err, med, p80, issue, rows[key]["step_ms"],
+              fused_builds), flush=True)
+    return rows
+
+
+def rnn_op_vs_cudnn(card):
+    """(d) The RNN op at the PTB LM's shape (T 35, N 128, 650 -> 650, 2
+    layers, LSTM) by graph replay, forward and forward + backward,
+    float32 and bfloat16, beside torch.nn.LSTM (cuDNN) loaded with the
+    same unpacked weights after checking that the two agree."""
+    import torch
+    from mxtpu_torch.ops import rnn_ops
+    t_, n, h, layers = PTB["bptt"], 128, PTB["hidden"], PTB["layers"]
+    size = rnn_ops.rnn_param_size("lstm", layers, h, h)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(RNN_SEED)
+    rows = []
+    for dtype, tol in (("float32", 1e-3), ("bfloat16", SERVE_BF16_TOL)):
+        dt = getattr(torch, dtype)
+
+        def rand(*shape, scale=1.0):
+            return (torch.randn(shape, generator=gen, device="cuda")
+                    * scale).to(dt)
+        x = rand(t_, n, h)
+        params = rand(size, scale=0.05)
+        h0, c0 = rand(layers, n, h), rand(layers, n, h)
+        kw = dict(state_size=h, num_layers=layers, mode="lstm",
+                  state_outputs=True)
+        lstm = torch.nn.LSTM(h, h, num_layers=layers).to("cuda", dt)
+        with torch.no_grad():
+            for k, (w_ih, w_hh, b_ih, b_hh) in enumerate(
+                    rnn_ops._unpack_params(params, "lstm", layers, h, h,
+                                           False)):
+                getattr(lstm, "weight_ih_l%d" % k).copy_(w_ih)
+                getattr(lstm, "weight_hh_l%d" % k).copy_(w_hh)
+                getattr(lstm, "bias_ih_l%d" % k).copy_(b_ih)
+                getattr(lstm, "bias_hh_l%d" % k).copy_(b_hh)
+            lstm.flatten_parameters()   # one weight buffer, as cuDNN wants
+            ours = rnn_ops.RNN(x, params, h0, c0, **kw)
+            ref_out, (ref_h, ref_c) = lstm(x, (h0, c0))
+        errs = [_rel(a, b) for a, b in zip(ours, (ref_out, ref_h, ref_c))]
+        if max(errs) > tol:
+            raise AssertionError("RNN op vs torch.nn.LSTM %s: %s of max "
+                                 "(limit %g)" % (dtype, errs, tol))
+        leaves = [t.detach().requires_grad_() for t in (x, params, h0, c0)]
+        cots = [rand(*o.shape) for o in ours]
+
+        def op_fwd():
+            with torch.no_grad():
+                rnn_ops.RNN(x, params, h0, c0, **kw)
+
+        def lib_fwd():
+            with torch.no_grad():
+                lstm(x, (h0, c0))
+
+        def op_train():
+            outs = rnn_ops.RNN(*leaves, **kw)
+            torch.autograd.grad(outs, leaves, cots)
+
+        lib_leaves = [leaves[0], leaves[2], leaves[3]] + list(
+            lstm.parameters())
+
+        def lib_train():
+            out, (hh, cc) = lstm(leaves[0], (leaves[2], leaves[3]))
+            torch.autograd.grad([out, hh, cc], lib_leaves, cots)
+        # all four captured: a capture that fails ends the phase
+        timed = {name: graph_ms(fn, launches=5) for name, fn in (
+            ("ms", op_fwd), ("library_ms", lib_fwd), ("train_ms", op_train),
+            ("library_train_ms", lib_train))}
+        flops = 2 * t_ * n * 4 * h * (h + h) * layers
+        n_bytes = (x.numel() + params.numel() + 2 * h0.numel()) * \
+            x.element_size() + sum(o.numel() for o in ours) * \
+            ours[0].element_size()
+        bound, by = bound_ms(n_bytes, flops, dtype)
+        train_bound, _ = bound_ms(2 * n_bytes, 3 * flops, dtype)
+        row = dict(dtype=dtype, max_err=max(errs), bound_ms=bound,
+                   bound_by=by, train_bound_ms=train_bound, **timed)
+        rows.append(row)
+        print("RNN op (ops/rnn_ops.py, LSTM T35 N128 650->650 x2) %s on %s: "
+              "vs torch.nn.LSTM %.3g of max; by graph replay forward %.3f ms "
+              "(cuDNN %.3f), forward + backward %.3f ms (cuDNN %.3f); bound "
+              "%.4f / %.4f ms (%s)" % (
+                  dtype, card, max(errs), timed["ms"], timed["library_ms"],
+                  timed["train_ms"], timed["library_train_ms"], bound,
+                  train_bound, by), flush=True)
+    return rows
+
+
+def rnn_gates(card):
+    """(e) Card against CPU: CTCLoss at T 100, N 32, 29 classes (values and
+    gradients), one Conv2DLSTMCell step, foreach inside a captured block;
+    while_loop and cond raising inside a capture."""
+    import numpy as np
+    import torch
+    import mxtpu_torch as mt
+    from mxtpu_torch.gluon.contrib import rnn as crnn
+    rng = np.random.default_rng(RNN_SEED + 9)
+    # CTC: blank first, labels 1..28 padded with 0 to width 20
+    data = rng.standard_normal((100, 32, 29)).astype(np.float32)
+    label = np.zeros((32, 20), np.float32)
+    for i in range(32):
+        n = int(rng.integers(1, 21))
+        label[i, :n] = rng.integers(1, 29, n)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        d = torch.tensor(data, device=dev, requires_grad=True)
+        loss = mt.ops.CTCLoss(d, torch.tensor(label, device=dev))
+        (g,) = torch.autograd.grad(loss.sum(), d)
+        res[dev] = (loss.detach().cpu(), g.cpu())
+    errs = [_rel(a, b) for a, b in zip(res["cuda"], res["cpu"])]
+    if max(errs) > 1e-4 or not bool(torch.isfinite(res["cuda"][0]).all()):
+        raise AssertionError("CTCLoss card vs CPU: values %.3g, gradients "
+                             "%.3g of max" % tuple(errs))
+    # one ConvLSTM step, 16 -> 32 channels over 32 x 32
+    cells = []
+    for ctx in (mt.gpu(0), mt.cpu()):
+        cell = crnn.Conv2DLSTMCell((16, 32, 32), 32, 3, 3, i2h_pad=1,
+                                   prefix="convlstm_")
+        cell.initialize(mt.init.Xavier(), ctx=ctx)
+        cells.append(cell)
+    x = rng.standard_normal((8, 16, 32, 32)).astype(np.float32)
+    outs = []
+    for cell, dev in zip(cells, ("cuda", "cpu")):
+        states = [torch.zeros(8, 32, 32, 32, device=dev)] * 2
+        with torch.no_grad():
+            out, new = cell(torch.tensor(x, device=dev), states)
+        outs.append([out.cpu()] + [s.cpu() for s in new])
+    conv_err = max(_rel(a, b) for a, b in zip(*outs))
+    if conv_err > 1e-4:
+        raise AssertionError("Conv2DLSTMCell card vs CPU: %.3g of max"
+                             % conv_err)
+
+    class Scan(mt.gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.proj = mt.gluon.nn.Dense(64, in_units=64,
+                                              flatten=False)
+
+        def hybrid_forward(self, F, xs):
+            def step(x_t, h):
+                h = F.tanh(self.proj(x_t) + h)
+                return h, h
+            return F.foreach(step, xs, F.zeros_like(xs[0]))
+
+    class Loop(mt.gluon.HybridBlock):
+        def __init__(self, kind, **kw):
+            super().__init__(**kw)
+            self._kind = kind
+
+        def hybrid_forward(self, F, v):
+            if self._kind == "while_loop":
+                return F.while_loop(lambda u: u.sum() < 1e3,
+                                    lambda u: u * 2, v)[1]
+            return F.cond(v.sum() > 0, lambda u: u * 2, lambda u: -u, [v])
+    scan = Scan()
+    scan.initialize(mt.init.Xavier(), ctx=mt.cpu())
+    seq = torch.tensor(rng.standard_normal((12, 16, 64)).astype(np.float32))
+    with torch.no_grad():
+        ref = scan(seq)
+    scan.collect_params().reset_ctx(mt.gpu(0))
+    scan.hybridize()
+    with torch.no_grad():
+        got = [scan(seq.cuda()) for _ in range(2)]
+    xa = mt.nd.array(seq.numpy(), ctx=mt.gpu(0))
+    xa.attach_grad()
+    with mt.autograd.record():
+        outs, last = scan(xa)
+        (outs.sum() + last.sum()).backward()
+    grad_c = xa.grad.to_torch().cpu()
+    captured = (len(scan._cached_op._graphs), len(scan._cached_op._pairs))
+    scan.hybridize(False)
+    xb = mt.nd.array(seq.numpy(), ctx=mt.gpu(0))
+    xb.attach_grad()
+    with mt.autograd.record():
+        outs_e, last_e = scan(xb)
+        (outs_e.sum() + last_e.sum()).backward()
+    fe_err = max(_rel(got[-1][0], ref[0]), _rel(got[-1][1], ref[1]),
+                 _rel(grad_c, xb.grad.to_torch().cpu()))
+    if fe_err > 1e-5 or captured != (1, 1):
+        raise AssertionError("foreach captured: %.3g from eager, (graphs, "
+                             "pairs) %s" % (fe_err, captured))
+    from mxtpu_torch.base import MXNetError
+    for kind in ("while_loop", "cond"):
+        loop = Loop(kind)
+        loop.hybridize()
+        try:
+            loop(torch.ones(4, device="cuda"))
+            raise AssertionError("%s inside a captured block did not raise"
+                                 % kind)
+        except MXNetError as e:
+            if "predicate on the host" not in str(e):
+                raise
+        loop.hybridize(False)
+        if not bool(torch.isfinite(loop(torch.ones(4, device="cuda"))).all()):
+            raise AssertionError("%s eager on the card" % kind)
+    state_err = rnn_layer_states_gate()
+    print("rnn gates, card vs CPU: CTCLoss T100 N32 C29 values %.3g, "
+          "gradients %.3g of max; Conv2DLSTMCell step %.3g; foreach in a "
+          "captured block (1 graph, 1 pair) vs eager %.3g; while_loop and "
+          "cond refuse a capture; a hybridized LSTM's (x, [h, c]) captured "
+          "(1 graph, 1 pair) vs eager %.3g" % (
+              errs[0], errs[1], conv_err, fe_err, state_err), flush=True)
+    return dict(ctc=errs, conv_lstm=conv_err, foreach=fe_err,
+                layer_states=state_err)
+
+
+def rnn_layer_states_gate():
+    """A hybridized ``rnn.LSTM`` at the LM's widths called with its states,
+    ``layer(x, [h, c])``, on the card: the nested inputs and the
+    ``(outputs, states)`` pair through one captured graph (predict) and
+    one captured pair (recorded), against the same calls eager; returns
+    the largest difference of max."""
+    import numpy as np
+    import torch
+    import mxtpu_torch as mt
+    h = PTB["hidden"]
+    layer = mt.gluon.rnn.LSTM(h, num_layers=PTB["layers"], layout="NTC",
+                              input_size=h)
+    layer.initialize(mt.init.Xavier(), ctx=mt.gpu(0))
+    rng = np.random.default_rng(RNN_SEED + 11)
+    x, h0, c0 = (rng.standard_normal(s).astype(np.float32) for s in (
+        (8, PTB["bptt"], h), (PTB["layers"], 8, h), (PTB["layers"], 8, h)))
+    results = []
+    for hybrid in (True, False):
+        layer.hybridize(hybrid)
+        xt, ht, ct = (torch.tensor(a, device="cuda") for a in (x, h0, c0))
+        with torch.no_grad():
+            out, (h1, c1) = layer(xt, [ht, ct])
+        arrays = [mt.nd.array(a, ctx=mt.gpu(0)) for a in (x, h0, c0)]
+        for a in arrays:
+            a.attach_grad()
+        with mt.autograd.record():
+            o2, (h2, c2) = layer(arrays[0], arrays[1:])
+            (o2 * o2).sum().backward()
+        results.append([out, h1, c1, h2.to_torch()] + [
+            a.grad.to_torch() for a in arrays])
+        if hybrid:
+            captured = (len(layer._cached_op._graphs),
+                        len(layer._cached_op._pairs))
+    err = max(_rel(a, b) for a, b in zip(*results))
+    if err > 1e-5 or captured != (1, 1):
+        raise AssertionError("hybridized LSTM with states: %.3g from eager, "
+                             "(graphs, pairs) %s" % (err, captured))
+    return err
+
+
+def rnn_phase(card):
+    """The RNN slice (ROADMAP A6) on the card (module docstring, item 14):
+    (a) the PTB LM served, (b) trained captured, (c) lstm_bucketing under
+    BucketingModule with one FusedRNNCell bucket, (d) the RNN op beside
+    torch.nn.LSTM, (e) CTCLoss, ConvLSTM and control flow gates. Returns
+    the phase's results."""
+    import gc
+    import torch
+    t_phase = time.time()
+    _, arrays = build_ptb_lm()
+    out = {"serve": rnn_serve(card, arrays)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["train"] = rnn_train(card, arrays)
+    del arrays
+    out["bucketing"] = rnn_bucketing(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["op"] = rnn_op_vs_cudnn(card)
+    out["gates"] = rnn_gates(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("rnn phase %.1f s" % (time.time() - t_phase), flush=True)
+    return out
+
+
 def kernel_entries(rows, launches, train_launches, name, source, replaces,
                    bwd_rows=()):
     """One `kernels` entry per type: the per-forward shapes' numbers, each
@@ -5789,6 +6473,25 @@ def main():
         raise AssertionError("the symbolic path launched no %s: %s" % (
             " or ".join(k for k, v in symbolic_path.items() if not v),
             symbolic_path))
+    # slice 12: the RNN path runs none of B1-B3; their counts from 0 just
+    # before it (B3's kernels are the rtc Kernels any code would launch:
+    # every launch of one passes rtc.launched)
+    from mxtpu_torch import rtc as rtc_mod
+    fused_conv.launches = flash_attention.launches = 0
+    rtc_launches_seen = []
+    rtc_launched = rtc_mod.launched
+    rtc_mod.launched = lambda k: (rtc_launches_seen.append(k),
+                                  rtc_launched(k))
+    try:
+        rnn = rnn_phase(card)
+    finally:
+        rtc_mod.launched = rtc_launched
+    rnn_path = {"b1": fused_conv.launches, "b2": flash_attention.launches,
+                "b3": len(rtc_launches_seen)}
+    print("rnn phase launches of B1-B3: %s" % rnn_path, flush=True)
+    if any(rnn_path.values()):
+        raise AssertionError("the RNN path launched a kernel of B1-B3: %s"
+                             % rnn_path)
     # slice 9: the zoo's shape classes, then each path with B1's count
     # from 0 just before it and read just after
     t0 = time.time()
@@ -5878,6 +6581,7 @@ def main():
     for i, e in enumerate(entries):
         kind = "conv" if i < 2 else "flash"
         e["decode_launches_both_dtypes"] = decode_launches[kind]
+        e.update(("rnn_%s_launches" % k, v) for k, v in rnn_path.items())
         e["captured_train_step_launches"] = captured[kind][
             "float32" if i % 2 == 0 else "bfloat16"]
         e["captured_train_launches_both_dtypes"] = captured_path[kind]
@@ -5894,7 +6598,10 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "decode_launches": decode_launches[r["name"]]})
+            "decode_launches": decode_launches[r["name"]],
+            "rnn_b3_launches": rnn_path["b3"]})
+    print("rnn op beside torch.nn.LSTM (graph replay ms): %s" % json.dumps(
+        rnn["op"]))
     print(json.dumps({"kernels": entries}))
     print("whole script %.1f s" % (time.time() - t_start))
     print("card:", card)

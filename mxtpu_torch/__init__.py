@@ -13,7 +13,9 @@ input path: ``recordio``, ``io`` (iterators, the streaming reader and
 the prefetch to the card), ``gluon.data`` and ``image``; and the symbolic
 API: ``sym`` (Symbol, the executor, subgraph partitioning), ``mod``
 (Module and its variants), ``model`` (checkpoints, FeedForward),
-``callback``, ``monitor``, ``name`` and ``AttrScope``. Kernels that the JAX package wrote in Pallas are
+``callback``, ``monitor``, ``name`` and ``AttrScope``; and the
+recurrent slice: ``gluon.rnn``, ``gluon.contrib`` and ``rnn`` (the
+symbolic cells, the bucketed sentence iterator). Kernels that the JAX package wrote in Pallas are
 hand-written CUDA under ``csrc/``, built at first use
 (``mxtpu_torch.kernels``). Entry points run on the CUDA device unless the
 caller passes a CPU device or opens a CPU context.
@@ -61,6 +63,7 @@ from .module import Module  # noqa: E402
 from . import name  # noqa: E402
 from . import attribute  # noqa: E402
 from .attribute import AttrScope  # noqa: E402
+from . import rnn  # noqa: E402
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "default_device", "layout", "ops",
@@ -70,4 +73,4 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "resilience", "recordio", "io", "image", "symbol", "sym",
            "executor", "executor_manager", "model", "callback", "monitor",
            "Monitor", "module", "mod", "Module", "name", "attribute",
-           "AttrScope"]
+           "AttrScope", "rnn"]

@@ -18,9 +18,14 @@ keeps MXNet's rules on top of it:
   heads, so a second ``backward`` raises, as in the JAX package.
 * Integer arrays cannot require grad in torch; they get no gradient, as
   the JAX package skips their float0 cotangents.
+* A control-flow op's body (``foreach``, ``while_loop``, ``cond``) runs
+  under ``taping_through()``: ``pause()`` as the JAX package's body sees
+  it, while torch goes on taping what the body computes when the call is
+  recorded (``taping()``), so the call is differentiated as one node.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import torch
@@ -29,6 +34,7 @@ from .base import MXNetError
 
 __all__ = [
     "record", "pause", "train_mode", "predict_mode", "is_recording",
+    "taping", "taping_through",
     "is_training", "set_recording", "set_training", "mark_variables",
     "backward", "grad", "Function",
 ]
@@ -38,6 +44,7 @@ class _AGState(threading.local):
     def __init__(self):
         self.recording = False
         self.training = False
+        self.through = False   # inside a recorded control-flow body
 
 
 _STATE = _AGState()
@@ -49,6 +56,27 @@ def is_recording() -> bool:
 
 def is_training() -> bool:
     return _STATE.training
+
+
+def taping() -> bool:
+    """Whether torch tapes an op run now: under ``record()``, and inside
+    the body of a control-flow op called under it."""
+    return _STATE.recording or _STATE.through
+
+
+@contextlib.contextmanager
+def taping_through():
+    """The scope of a control-flow op's body: recording and training off
+    (``pause()``), torch's taping as the call's (on, where the call is
+    recorded; as it was, for a call on tensors)."""
+    prev = _STATE.through
+    _STATE.through = through = taping()
+    try:
+        with pause(), torch.set_grad_enabled(through or
+                                             torch.is_grad_enabled()):
+            yield
+    finally:
+        _STATE.through = prev
 
 
 def set_recording(flag: bool) -> bool:

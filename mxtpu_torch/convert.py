@@ -5,7 +5,8 @@ package's ``collect_params()`` gives it (``p.data().asnumpy()``) and loads
 it into a port block built the same way; ``params_to_numpy(net)`` is the
 inverse. Names match after the top-level block prefix is stripped, so
 ``resnetv10_conv2d0_weight`` loads into ``resnetv11_conv2d0_weight`` of the
-second net a process builds. A missing, extra or misshapen array raises.
+second net a process builds (``_key``). A missing, extra or misshapen
+array raises.
 
 ``seeded_params`` makes reproducible random weights for such a net, with
 BatchNorm statistics far enough from the defaults that a parity test
@@ -23,6 +24,7 @@ from __future__ import annotations
 
 import io
 import pickle
+import re
 import zlib
 
 import numpy as np
@@ -44,12 +46,23 @@ def _strip_top(names):
     return {n.partition("_")[2]: n for n in names}
 
 
+def _key(name, prefix):
+    """``name`` without its top-level prefix: ``prefix`` itself, or where
+    ``prefix`` ends in a counter, the same stem with any counter
+    (``resnetv10_`` for ``resnetv11_``, ``conv_lstm1_`` for
+    ``conv_lstm0_``). A name that does not start so is left alone (a
+    ``BidirectionalCell``'s, whose two cells are top-level blocks)."""
+    m = re.fullmatch(r"(.*?)\d+_", prefix)
+    top = re.escape(m.group(1)) + r"\d+_" if m else re.escape(prefix)
+    return re.sub("^" + top, "", name)
+
+
 def load_mxtpu_params(net, arrays):
     """Load ``{mxtpu name: array}`` into ``net``'s parameters, each in the
     parameter's dtype and on its device."""
-    params = net.collect_params()
-    ours = {n[len(net.prefix):]: p for n, p in params.items()}
-    theirs = _strip_top(list(arrays))
+    ours = {_key(n, net.prefix): p
+            for n, p in net.collect_params().items()}
+    theirs = {_key(n, net.prefix): n for n in arrays}
     missing = sorted(set(ours) - set(theirs))
     extra = sorted(set(theirs) - set(ours))
     if missing or extra:
@@ -78,14 +91,19 @@ def params_to_numpy(net):
     return out
 
 
-def seeded_params(shapes, seed=0):
+def seeded_params(shapes, seed=0, prefix=None):
     """Random weights for ``{name: shape}``, each drawn from its own numpy
-    generator keyed by ``seed`` and the name without its top-level prefix
-    (so the order and the prefix do not matter): He-normal weights (4-D
-    read as HWIO, 2-D as (out, in)), BatchNorm gamma and running_var
-    ~U(0.5, 1.5), beta, running_mean and biases ~N(0, 0.1)."""
+    generator keyed by ``seed`` and ``_key(name, prefix)`` (so the order
+    and the counter of the prefix do not matter); ``prefix`` defaults to
+    each name's first '_'-terminated token. Pass the block's prefix where
+    its parameters lie under several top-level blocks, so that no two
+    names share a key. He-normal weights (4-D read as HWIO, 2-D as (out,
+    in)), BatchNorm gamma and running_var ~U(0.5, 1.5), beta,
+    running_mean and biases ~N(0, 0.1)."""
     out = {}
-    for key, name in _strip_top(list(shapes)).items():
+    for name in shapes:
+        key = _key(name, name.partition("_")[0] + "_" if prefix is None
+                   else prefix)
         shape = tuple(shapes[name])
         rng = np.random.default_rng([int(seed), zlib.crc32(key.encode())])
         if key.endswith("weight"):

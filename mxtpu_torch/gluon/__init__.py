@@ -1,11 +1,12 @@
 """Gluon API of the port (counterpart of ``mxtpu/gluon``)."""
-from . import loss, model_zoo, nn, utils
+from . import loss, model_zoo, nn, rnn, utils
 from .block import Block, HybridBlock, SymbolBlock
 from .parameter import (Constant, DeferredInitializationError, Parameter,
                         ParameterDict)
 from .trainer import Trainer
 from . import data  # noqa: E402
+from . import contrib  # noqa: E402
 
 __all__ = ["Block", "HybridBlock", "SymbolBlock", "Parameter", "Constant", "ParameterDict",
            "DeferredInitializationError", "Trainer", "loss", "nn",
-           "model_zoo", "utils", "data"]
+           "model_zoo", "utils", "data", "rnn", "contrib"]

@@ -35,6 +35,7 @@ Symbol as a block, and ``SymbolBlock.imports`` loads such files.
 from __future__ import annotations
 
 import contextlib
+import functools
 import re
 import threading
 import weakref
@@ -111,6 +112,21 @@ def _regroup(flat, fmt, pos=0, idx=0):
         v, pos, idx = _regroup(flat, fmt, pos, idx)
         items.append(v)
     return tuple(items), pos, idx
+
+
+def _map_leaves(obj, fn):
+    """``obj`` with every leaf of its nested lists and tuples passed
+    through ``fn`` (the containers' types kept)."""
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_map_leaves(o, fn) for o in obj)
+    return fn(obj)
+
+
+def _tensors_only(flat, fmt):
+    """Whether ``_flatten`` found tensors alone: no None, no opaque value
+    and no empty sequence (whose code 0 reads back as a tensor)."""
+    return bool(flat) and all(isinstance(a, torch.Tensor) for a in flat) \
+        and fmt.count(0) == len(flat) and min(fmt) >= 0
 
 
 class _BlockScope:
@@ -454,8 +470,12 @@ class _Recorded(torch.autograd.Function):
 class CachedOp:
     """Captured calls of a hybridized block (ref: block.py:CachedOp).
 
-    Calls made while autograd is not recording: one CUDA graph per input
-    signature (shapes, dtypes, device) and ``autograd.is_training()``.
+    The inputs may nest lists and tuples of tensors (a recurrent layer's
+    ``(inputs, [h, c])``): they are flattened with ``_flatten`` and the
+    structure joins the key, as the outputs' is regrouped with
+    ``_regroup``. Calls made while autograd is not recording: one CUDA
+    graph per input signature (structure, shapes, dtypes, device) and
+    ``autograd.is_training()``.
     Recorded calls (``autograd.record()``): a ``graphs.CapturedPair`` per
     signature, with the inputs' ``requires_grad``, and train mode, taped as
     one node (``_Recorded``); a call made while every pair of its
@@ -482,15 +502,18 @@ class CachedOp:
         self._lock = threading.RLock()
 
     def __call__(self, *args):
+        in_fmt = []
+        flat = _flatten(args, in_fmt)
         key = (autograd.is_training(),) + tuple(
-            (tuple(a.shape), a.dtype, a.device) for a in args)
+            (tuple(a.shape), a.dtype, a.device) for a in flat) + (
+                tuple(in_fmt),)
         with self._lock:
             entry = self._graphs.get(key)
             if entry is None:
-                entry = self._capture(key, args)
+                entry = self._capture(key, flat, in_fmt)
             graph, params, fmt = entry
             self._refresh(params)
-            for static, a in zip(graph.static_inputs, args):
+            for static, a in zip(graph.static_inputs, flat):
                 static.copy_(a)
             flat = [o.clone() if isinstance(o, torch.Tensor) else o
                     for o in graph.replay()]
@@ -502,19 +525,23 @@ class CachedOp:
         if self._takes_grad is None:
             self._takes_grad = any(p.grad_req != "null" for p in
                                    self._block.collect_params().values())
-        if not self._takes_grad and not any(a.requires_grad for a in args):
+        in_fmt = []
+        flat_in = _flatten(args, in_fmt)
+        if not self._takes_grad and not any(a.requires_grad
+                                            for a in flat_in):
             with torch.no_grad():   # nothing to differentiate: no tape
                 return self(*args)
-        key = (True, autograd.is_training()) + _signature(args)
+        key = (True, autograd.is_training()) + _signature(flat_in) + (
+            tuple(in_fmt),)
         with self._lock:
             pair = next((p for p in self._pairs.get(key, ()) if not p.busy),
                         None)
             if pair is None:
-                pair = self._capture_pair(key, args)
+                pair = self._capture_pair(key, flat_in, in_fmt)
             self._refresh(pair.params)
-            tensors = list(args) + [p._tensor() for p in pair.diff_params]
+            tensors = flat_in + [p._tensor() for p in pair.diff_params]
             with torch.enable_grad():
-                flat = _Recorded.apply(pair, len(args), *tensors)
+                flat = _Recorded.apply(pair, len(flat_in), *tensors)
         return _regroup(list(flat), pair.fmt)[0]
 
     @staticmethod
@@ -526,7 +553,8 @@ class CachedOp:
                     t.copy_(cur)
                 p._put(t)
 
-    def _forward(self, *args):
+    def _forward(self, in_fmt, *flat):
+        args = _regroup(list(flat), in_fmt)[0]
         fmt = []
         flat = _flatten(self._block._forward_eager(*args), fmt)
         self._out_fmt = fmt
@@ -536,7 +564,7 @@ class CachedOp:
         block = self._block
         return {"block": type(block).__name__, "train": key[int(recording)],
                 "recording": recording,
-                "shapes": [list(k[0]) for k in key[1 + int(recording):]]}
+                "shapes": [list(k[0]) for k in key[1 + int(recording):-1]]}
 
     def _state(self):
         """(every (parameter, tensor) of the block, the tensors a forward
@@ -552,18 +580,18 @@ class CachedOp:
             return (random.generator(device),)
         return ()
 
-    def _capture(self, key, args):
+    def _capture(self, key, args, in_fmt):
         statics = [a.detach().clone() for a in args]
         params, keep = self._state()
         with torch.no_grad(), graphs.keeping(keep):
             graph = graphs.CapturedGraph(
-                self._forward, statics,
+                functools.partial(self._forward, in_fmt), statics,
                 generators=self._generators(statics[0].device))
         telemetry.record_retrace("cached_op", self._provenance(key, False))
         self._graphs[key] = (graph, params, list(self._out_fmt))
         return self._graphs[key]
 
-    def _capture_pair(self, key, args):
+    def _capture_pair(self, key, args, in_fmt):
         statics = [a.detach().clone().requires_grad_(a.requires_grad)
                    for a in args]
         params, keep = self._state()
@@ -576,7 +604,7 @@ class CachedOp:
 
         def forward(*xs):
             with reading_params(captured):
-                return self._forward(*xs)
+                return self._forward(in_fmt, *xs)
 
         diff = [(p, t) for p, t in params if t.requires_grad]
         pair = _Pair(graphs.CapturedPair(
@@ -624,13 +652,14 @@ class HybridBlock(Block):
             "shapes from its inputs" % self.__class__.__name__)
 
     def forward(self, *args):
-        for a in args:
-            if isinstance(a, NDArray):
-                return self._forward_nd(args)
-        if self._active and not graphs.capturing() and args and all(
-                isinstance(a, torch.Tensor) for a in args) \
+        fmt = []
+        flat = _flatten(args, fmt)
+        if any(isinstance(a, NDArray) for a in flat):
+            return self._forward_nd(args)
+        if self._active and not graphs.capturing() \
+                and _tensors_only(flat, fmt[1:]) \
                 and _SYM_TAPE.active is None \
-                and graphs.captures(args[0].device):
+                and graphs.captures(flat[0].device):
             if self._cached_op is None:
                 if not self._params_ready():
                     return self._forward_eager(*args)
@@ -661,14 +690,15 @@ class HybridBlock(Block):
         return self.hybrid_forward(F, *args, **params)
 
     def _forward_nd(self, args):
-        """NDArrays in and out: the forward on their tensors, taped only
-        while recording (as ``ndarray._apply`` runs an op)."""
-        args = [a._data if isinstance(a, NDArray) else a for a in args]
-        with torch.set_grad_enabled(autograd.is_recording()):
+        """NDArrays in and out (also nested in lists and tuples): the
+        forward on their tensors, taped only while recording (as
+        ``ndarray._apply`` runs an op)."""
+        args = _map_leaves(args, lambda a: a._data if isinstance(a, NDArray)
+                           else a)
+        with torch.set_grad_enabled(autograd.taping()):
             out = self.forward(*args)
-        if isinstance(out, (tuple, list)):
-            return type(out)(NDArray(o) for o in out)
-        return NDArray(out)
+        return _map_leaves(out, lambda o: NDArray(o)
+                           if isinstance(o, torch.Tensor) else o)
 
     def hybrid_forward(self, F, *args, **kwargs):  # pragma: no cover
         raise NotImplementedError

@@ -14,10 +14,32 @@ processes hand decoded batches to the trainer through shared memory.
 """
 from __future__ import annotations
 
+import itertools
+import os
 import traceback
 from multiprocessing import shared_memory as _shm
 
 import numpy as np
+
+_SEGMENT_IDS = itertools.count()
+
+
+def segment_prefix(pid):
+    """The name stem of every segment worker ``pid`` creates
+    (``psm_mxt_<pid>_<n>``; ``/dev/shm/<name>`` on Linux), so a loader can
+    tell its own pool's segments from any other process's."""
+    return "psm_mxt_%d_" % pid
+
+
+def _new_segment(size):
+    """A fresh segment named for this process; a name left behind by an
+    earlier process with the same pid is skipped."""
+    while True:
+        name = "%s%d" % (segment_prefix(os.getpid()), next(_SEGMENT_IDS))
+        try:
+            return _shm.SharedMemory(name=name, create=True, size=size)
+        except FileExistsError:
+            continue
 
 
 def default_mp_batchify_fn(data):
@@ -44,7 +66,7 @@ def to_shm(obj, segments):
     if isinstance(obj, np.ndarray):
         if obj.nbytes == 0:
             return ("npy0", obj.shape, obj.dtype.str)
-        seg = _shm.SharedMemory(create=True, size=obj.nbytes)
+        seg = _new_segment(obj.nbytes)
         np.ndarray(obj.shape, obj.dtype, buffer=seg.buf)[...] = obj
         # ownership transfers to the consumer (parent unlinks after
         # mapping); unregister from THIS process's resource tracker or it

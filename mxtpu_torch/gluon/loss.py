@@ -6,8 +6,7 @@ tensors or NDArrays like any block.
 Each loss is per sample: the batch axis stays and every other axis is
 averaged (``mean(exclude=True)``), after the weighting of
 ``_apply_weighting`` (``sample_weight`` broadcast-multiplied, then the
-scalar ``weight``). ``CTCLoss`` needs ``ops/ctc.py``, which is not ported
-yet (ROADMAP A10): it raises.
+scalar ``weight``).
 """
 from __future__ import annotations
 
@@ -152,13 +151,34 @@ class KLDivLoss(Loss):
 
 
 class CTCLoss(Loss):
-    """Connectionist temporal classification: not ported yet. It needs
-    ``ops/ctc.py`` (ROADMAP A10), so constructing it raises."""
+    """Connectionist temporal classification over ``ops.ctc.CTCLoss`` with
+    the blank last (label padding -1): ``pred`` NTC or TNC activations,
+    ``label`` NT or TN; per-sample negative log likelihoods (ref:
+    loss.py:CTCLoss)."""
 
     def __init__(self, layout="NTC", label_layout="NT", weight=None,
                  **kwargs):
-        raise MXNetError("CTCLoss is not ported yet: it needs ops/ctc.py "
-                         "(ROADMAP A10)")
+        if layout not in ("NTC", "TNC"):
+            raise MXNetError("Only 'NTC' and 'TNC' layouts are supported, "
+                             "got %s" % layout)
+        if label_layout not in ("NT", "TN"):
+            raise MXNetError("Only 'NT' and 'TN' label layouts supported, "
+                             "got %s" % label_layout)
+        self._layout = layout
+        self._label_layout = label_layout
+        super().__init__(weight, label_layout.find("N"), **kwargs)
+
+    def hybrid_forward(self, F, pred, label, pred_lengths=None,
+                       label_lengths=None, sample_weight=None):
+        if self._layout == "NTC":
+            pred = F.swapaxes(pred, 0, 1)
+        if self._batch_axis == 1:
+            label = F.swapaxes(label, 0, 1)
+        loss = F.CTCLoss(pred, label, pred_lengths, label_lengths,
+                         use_data_lengths=pred_lengths is not None,
+                         use_label_lengths=label_lengths is not None,
+                         blank_label="last")
+        return _apply_weighting(F, loss, self._weight, sample_weight)
 
 
 class HuberLoss(Loss):

@@ -2,9 +2,9 @@
 ``torch.Tensor`` (counterpart of ``mxtpu/ndarray/ndarray.py``).
 
 * Every op goes through ``_apply``, which unwraps NDArrays, runs the
-  tensor function under ``torch.set_grad_enabled(autograd.is_recording())``
-  and wraps the result: outside ``record()`` nothing is taped, even for an
-  array with an attached gradient.
+  tensor function under ``torch.set_grad_enabled(autograd.taping())``
+  and wraps the result: outside ``record()`` (and a recorded control-flow
+  body) nothing is taped, even for an array with an attached gradient.
 * Mutation is value replacement (``_set_data``): ``x += y``, ``x[i] = v``
   and ``out=`` rebind the payload to a new tensor, never a torch in-place
   op on a tensor autograd may have saved. An array with an attached
@@ -44,12 +44,12 @@ def _apply(fn, args, kwargs=None, name="", num_outputs=None):
     """Invoke a tensor-level function on NDArray/scalar args (ref:
     Imperative::Invoke): NDArrays among the top-level ``args``/``kwargs``
     become their tensors; the output (a tensor, or a tuple/list of them)
-    comes back as NDArray(s). Taped only while ``autograd.is_recording()``."""
+    comes back as NDArray(s). Taped only while ``autograd.taping()``."""
     kwargs = kwargs or {}
     a = [x._data if isinstance(x, NDArray) else x for x in args]
     kw = {k: (v._data if isinstance(v, NDArray) else v)
           for k, v in kwargs.items()}
-    with torch.set_grad_enabled(autograd.is_recording()):
+    with torch.set_grad_enabled(autograd.taping()):
         out = fn(*a, **kw)
     if _TRACE is not None and _TRACE.active is not None:
         from ..symbol.symbol import record_apply

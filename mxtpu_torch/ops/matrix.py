@@ -1,7 +1,7 @@
 """Shape, indexing and dot ops (counterpart of ``mxtpu/ops/matrix.py``):
 ``reshape`` with MXNet's special codes, ``Flatten``, ``transpose``, the
 ``Embedding``
-lookup, joins, slices and ``pad``, and ``dot``/``batch_dot`` (float32 in full
+lookup, joins, splits (``SliceChannel``), slices and ``pad``, and ``dot``/``batch_dot`` (float32 in full
 float32, bfloat16 accumulated in float32, as the JAX package's
 ``contract_acc``)."""
 from __future__ import annotations
@@ -10,10 +10,11 @@ import torch
 
 from ..base import MXNetError
 from .precision_util import promote
-from .registry import register, register_param_shapes
+from .registry import register, register_num_outputs, register_param_shapes
 
 __all__ = ["reshape", "Flatten", "transpose", "Embedding", "expand_dims", "squeeze",
-           "Concat", "stack", "slice_", "slice_axis", "tile", "repeat",
+           "Concat", "stack", "SliceChannel", "slice_", "slice_axis", "tile",
+           "repeat",
            "reverse", "swapaxes", "pad", "dot", "batch_dot"]
 
 
@@ -136,6 +137,28 @@ def Concat(*args, dim=1, axis=None, num_args=None):
 @register("stack", as_method=False)
 def stack(*args, axis=0, num_args=None):
     return torch.stack(args, dim=axis)
+
+
+@register("SliceChannel", aliases=("split",), as_method=False)
+def SliceChannel(x, num_outputs=1, axis=1, squeeze_axis=False):
+    """``num_outputs`` equal parts of ``x`` along ``axis`` (a list, or the
+    one part), each without that axis when ``squeeze_axis`` (ref:
+    slice_channel.cc); an axis that does not divide raises, as
+    ``jnp.split`` does."""
+    axis = axis % x.ndim
+    if x.shape[axis] % num_outputs:
+        raise MXNetError("SliceChannel: axis %d of %s does not split into "
+                         "%d equal parts" % (axis, tuple(x.shape),
+                                             num_outputs))
+    outs = list(torch.split(x, x.shape[axis] // num_outputs, dim=axis))
+    if squeeze_axis:
+        outs = [o.squeeze(axis) for o in outs]
+    return outs if num_outputs > 1 else outs[0]
+
+
+@register_num_outputs("SliceChannel")
+def _slice_channel_num_outputs(attrs):
+    return int(attrs.get("num_outputs", 1))
 
 
 def _slice_axis(x, axis, begin, end, step=None):

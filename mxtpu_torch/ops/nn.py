@@ -6,8 +6,9 @@ through ``conv_acc.conv_fast``), ``Deconvolution``, ``Pooling`` (1-3-D,
 max/avg/sum/lp), ``Activation``, ``LeakyReLU`` (and ``_rrelu_train``),
 ``Dropout``, ``FullyConnected``, ``BatchNorm``, ``InstanceNorm``,
 ``LayerNorm``, ``softmax``, ``log_softmax`` and ``SoftmaxOutput`` (whose
-fused backward is an autograd Function). The parameter-shape rules at the
-end fill the weights' shapes that ``Symbol.infer_shape`` does not know. Keywords that only tune
+fused backward is an autograd Function), and the sequence ops
+``SequenceMask``, ``SequenceLast`` and ``SequenceReverse``. The
+parameter-shape rules at the end fill the weights' shapes that ``Symbol.infer_shape`` does not know. Keywords that only tune
 the reference's cuDNN calls (``workspace``, ``cudnn_tune``, ``cudnn_off``)
 are accepted and ignored, as the JAX package does.
 
@@ -33,7 +34,8 @@ from .registry import register, register_param_shapes
 
 __all__ = ["FullyConnected", "Convolution", "Deconvolution", "Pooling",
            "Activation", "LeakyReLU", "Dropout", "BatchNorm", "InstanceNorm",
-           "LayerNorm", "softmax", "log_softmax", "SoftmaxOutput"]
+           "LayerNorm", "softmax", "log_softmax", "SoftmaxOutput",
+           "SequenceMask", "SequenceLast", "SequenceReverse"]
 
 
 def _pair(v, n=2):
@@ -419,6 +421,57 @@ def SoftmaxOutput(data, label, grad_scale=1.0, ignore_label=-1.0,
             data, label, axis, (grad_scale, ignore_label, bool(use_ignore),
                                 normalization, smooth_alpha))
     return torch.softmax(data, dim=axis)
+
+
+# ------------------------------------------------------------ sequence ops
+def _steps_mask(data, sequence_length, axis):
+    """[T, N] (axis 0) or [N, T] booleans: step < the sample's length,
+    with a trailing 1 for every further axis of ``data``."""
+    steps = torch.arange(data.shape[axis], device=data.device)
+    lengths = sequence_length.to(torch.int32)
+    mask = steps[:, None] < lengths[None, :] if axis == 0 \
+        else steps[None, :] < lengths[:, None]
+    return mask.reshape(tuple(mask.shape) + (1,) * (data.ndim - 2))
+
+
+@register("SequenceMask")
+def SequenceMask(data, sequence_length=None, use_sequence_length=False,
+                 value=0.0, axis=0):
+    """Steps at or past each sample's length set to ``value``; time is
+    ``axis`` (0: TNC, 1: NTC) (ref: sequence_mask.cc)."""
+    if not use_sequence_length or sequence_length is None:
+        return data
+    return torch.where(_steps_mask(data, sequence_length, axis), data,
+                       torch.tensor(value, dtype=data.dtype,
+                                    device=data.device))
+
+
+@register("SequenceLast")
+def SequenceLast(data, sequence_length=None, use_sequence_length=False,
+                 axis=0):
+    """Each sample's last valid step along ``axis`` (ref:
+    sequence_last.cc)."""
+    if not use_sequence_length or sequence_length is None:
+        return data.select(axis, -1)
+    last = (sequence_length.to(torch.int64) - 1).clamp(min=0)
+    moved = data.movedim(axis, 0)   # (T, N, ...)
+    idx = last.reshape((1, -1) + (1,) * (moved.ndim - 2)).expand(
+        (1,) + tuple(moved.shape[1:]))
+    return moved.gather(0, idx)[0]
+
+
+@register("SequenceReverse")
+def SequenceReverse(data, sequence_length=None, use_sequence_length=False,
+                    axis=0):
+    """The first ``length`` steps of each sample reversed, the rest in
+    place; time is axis 0 (ref: sequence_reverse.cc)."""
+    if not use_sequence_length or sequence_length is None:
+        return torch.flip(data, dims=(0,))
+    steps = torch.arange(data.shape[0], device=data.device)[:, None]
+    lengths = sequence_length.to(torch.int64)[None, :]
+    rev = torch.where(steps < lengths, lengths - 1 - steps, steps)
+    rev = rev.reshape(tuple(rev.shape) + (1,) * (data.ndim - 2))
+    return data.gather(0, rev.expand(data.shape))
 
 
 # ---------------------------------------------------- parameter shape rules

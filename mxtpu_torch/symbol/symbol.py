@@ -143,6 +143,18 @@ def draws(symbol):
     return any(n.op in _DRAWS for n in _topo(symbol._heads))
 
 
+# ops that make an array from nothing: a node of one gets the device its
+# graph runs on (``begin_state``'s zeros in an unrolled RNN)
+_CREATION = ("zeros", "ones", "full", "empty", "arange", "linspace", "eye")
+
+
+def _on_device(node, kwargs, device):
+    if device is not None and not node.inputs and node.op in _CREATION \
+            and kwargs.get("ctx") is None:
+        kwargs["ctx"] = device
+    return kwargs
+
+
 def _output_name(node, idx, n):
     return "%s_output%d" % (node.name, idx) if n > 1 \
         else "%s_output" % node.name
@@ -258,6 +270,8 @@ class Symbol:
         monitor callback, ref: graph_executor.cc:104). The ops read
         ``autograd.is_training()``: the caller sets it."""
         values = {}  # id(node) -> list of output tensors
+        device = next((t.device for t in feed.values()
+                       if isinstance(t, torch.Tensor)), None)
         for node in _topo(self._heads):
             if node.is_var():
                 if node.name not in feed:
@@ -266,6 +280,7 @@ class Symbol:
                 continue
             pos, kwargs = node.call([values[id(inp)][idx]
                                      for inp, idx in node.inputs])
+            kwargs = _on_device(node, kwargs, device)
             fn = _reg.get_op(node.op).fn
             if collect_aux is not None and node.op == "BatchNorm" \
                     and is_train and not kwargs.get("use_global_stats"):
@@ -392,6 +407,7 @@ class Symbol:
         arrays = [torch.empty(shape, dtype=dt, device="meta")
                   for shape, dt in in_specs]
         pos, kwargs = node.call(arrays)
+        kwargs = _on_device(node, kwargs, torch.device("meta"))
         prev = autograd.set_training(False)
         try:
             with torch.no_grad():

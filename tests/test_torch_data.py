@@ -62,8 +62,11 @@ def _same(got, ref):
     np.testing.assert_array_equal(got, ref)
 
 
-def _shm_segments():
-    return set(glob.glob("/dev/shm/psm_*"))
+def _shm_segments(pids):
+    """The shared-memory segments left by the workers ``pids`` (each
+    worker names its segments for its pid)."""
+    return {path for pid in pids for path in glob.glob(
+        "/dev/shm/%s*" % _mp_worker.segment_prefix(pid))}
 
 
 @pytest.mark.parametrize("last", ["keep", "discard", "rollover"])
@@ -159,7 +162,6 @@ def test_loader_stacks_ndarray_samples_and_checks_its_arguments():
 def test_spawned_workers_match_the_reference_and_reuse_the_pool():
     ds = PlainArrayPairDataset(n=30)
     ref = [list(b) for b in jdata.DataLoader(ds, batch_size=8)]
-    before = _shm_segments()
     with mt.cpu():
         dl = tdata.DataLoader(ds, batch_size=8, num_workers=2)
         first = [list(b) for b in dl]
@@ -169,11 +171,14 @@ def test_spawned_workers_match_the_reference_and_reuse_the_pool():
         pre = tdata.DataLoader(ds, batch_size=8, num_workers=2,
                                prefetch_to_device=mt.cpu())
         third = [list(b) for b in pre]
+        pids = {w.pid for w in pool[2]} | {w.pid for w in pre._pool[2]}
         pre.close()
     dl.close()
     for got in (first, second, third):
         _same(got, ref)
-    assert _shm_segments() <= before
+    # no segment of these pools' workers is left behind (another
+    # process's loaders on this host name theirs for their own pids)
+    assert len(pids) == 4 and _shm_segments(pids) == set()
 
 
 def test_spawned_workers_are_other_processes_and_report_errors():

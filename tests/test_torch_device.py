@@ -186,3 +186,49 @@ def test_symbolic_entry_points_default_to_the_card(no_cuda, tmp_path):
         mt.gluon.SymbolBlock.imports(str(tmp_path / "m-symbol.json"),
                                      ["data", "softmax_label"],
                                      str(tmp_path / "m-0001.params"))
+
+
+def test_import_scan_covers_the_rnn_slice():
+    """The scans above walk every module of the RNN slice."""
+    scanned = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for rel in ("ops/rnn_ops.py", "ops/ctc.py", "ops/control_flow.py",
+                "gluon/rnn/__init__.py", "gluon/rnn/rnn_cell.py",
+                "gluon/rnn/rnn_layer.py", "gluon/contrib/__init__.py",
+                "gluon/contrib/nn/__init__.py",
+                "gluon/contrib/rnn/__init__.py",
+                "gluon/contrib/rnn/rnn_cell.py",
+                "gluon/contrib/rnn/conv_rnn_cell.py", "rnn/__init__.py",
+                "rnn/rnn_cell.py", "rnn/rnn.py", "rnn/io.py"):
+        assert os.path.join("mxtpu_torch", rel) in scanned, rel
+
+
+def test_rnn_entry_points_default_to_the_card(no_cuda):
+    """The RNN layers and cells, their begin states, the symbolic cells'
+    executor, the sentence iterator and a fused cell's unpacked weights
+    are on cuda:0 unless given the CPU, and raise without a card."""
+    with pytest.raises(mt.MXNetError, match="no CUDA device"):
+        mt.gluon.rnn.LSTM(4, input_size=3).initialize()
+    with pytest.raises(mt.MXNetError, match="no CUDA device"):
+        mt.gluon.rnn.LSTMCell(4, input_size=3).initialize()
+    layer = mt.gluon.rnn.GRU(4, input_size=3)
+    with pytest.raises(mt.MXNetError, match="no CUDA device"):
+        layer.begin_state(batch_size=2)
+    layer.initialize(ctx=mt.cpu())
+    out = layer(torch.zeros(5, 2, 3))   # states follow the input's device
+    assert out.device.type == "cpu" and out.shape == (5, 2, 4)
+    with mt.cpu():
+        assert layer.begin_state(batch_size=2)[0].context.type == "cpu"
+    cell = mt.rnn.LSTMCell(4, prefix="l_")
+    sym, _ = cell.unroll(3, mt.sym.var("data"),
+                         begin_state=cell.begin_state(batch_size=2))
+    with pytest.raises(mt.MXNetError, match="no CUDA device"):
+        mt.sym.Group(sym).simple_bind(data=(2, 3, 5))
+    exe = mt.sym.Group(sym).simple_bind(mt.cpu(), data=(2, 3, 5))
+    assert exe.forward()[0].context.type == "cpu"
+    with pytest.raises(mt.MXNetError, match="no CUDA device"):
+        list(mt.rnn.BucketSentenceIter([[1, 2, 3]] * 4, 2, buckets=[3]))
+    fused = mt.rnn.FusedRNNCell(4, prefix="f_")
+    blob = np.zeros(mt.ops.rnn_ops.rnn_param_size("lstm", 1, 3, 4),
+                    np.float32)
+    with pytest.raises(mt.MXNetError, match="no CUDA device"):
+        fused.unpack_weights({"f_parameters": blob})

@@ -141,6 +141,9 @@ def test_port_loads_reference_files_nchw(tmp_path):
 
 
 def test_predictor_from_checkpoint_and_zoo_version(nhwc):
+    # the builds counted at "serving.predict" are process-wide: earlier
+    # Predictors of this process must not count toward this one's three
+    mt.telemetry.reset()
     prefix = str(nhwc["root"] / "t")
     spec = BucketSpec([1, 2, 4])
     pred = Predictor.from_checkpoint(prefix, 0, spec, device="cpu",
