@@ -223,7 +223,34 @@ NVIDIA H100.
    step and ``foreach`` in a captured block against the CPU, with
    ``while_loop`` and ``cond`` refusing a capture, and a hybridized LSTM
    called with its states (captured) against the same calls eager.
-15. Prints one JSON line of kernels (fused_conv and flash_attention, one
+15. The multi-device slice (slice 13, ROADMAP A8's first part,
+   ``parallel_phase``), B1-B3's counts from 0 before it (B2 only; the
+   kernels line's ``parallel_b2_launches``): B2 at the ring's block shape
+   ``[b, 12, 128, 64]`` (b 2 and 16, non-causal and causal, f32 and bf16)
+   against its plain version, eager and by graph replay beside sdpa, with
+   its bound; (a) a world of one NCCL rank in this process: bench.py's
+   BERT-base TransformerLM (bidirectional, bf16, Adam lr 1e-4, b16 x 512)
+   trained 3 steps through the plain captured Trainer, ``ShardedTrainStep(
+   data_parallel_mesh())`` and ``Trainer(mesh=, zero1=True)``, every
+   step's loss and weights bit-equal to the plain one's, B2 12 launches a
+   forward, 0 builds after the warm-up, each way's step timed (tokens/s,
+   median/p80, host issue, idle share, peak GiB); (b) four ranks spawned
+   on the one card over gloo (``spawn``, a ``file://`` rendezvous under
+   build/, a timeout on every join) at BERT-base widths with 2 layers:
+   data-parallel Adam (ZeRO-1 on and off, 3 f32 steps on the world of
+   one's global batch of 8 x 512) against the world of one (the summed
+   first-step gradients, each step's weight change, ZeRO-1 on against off
+   within the summation-order bound), and sp 4 with the ring on B2 and on
+   the dense body, causal and bidirectional, f32 and bf16, logits against
+   the unsharded model (1e-3 / 5e-2 of max|logit|), the ring's attention
+   alone and one step's model gradients (relative L2, the ReLU mask flips
+   counted), each gate beside what a planted fault reads there, B2's
+   launches per rank per layer (4 non-causal, 1 + rank causal),
+   nvidia-smi's compute apps, each rank's step and transfer ms. A rank
+   that fails fails the phase. On a machine
+   of four cards, ``python3 chip_smoke.py parallel_four_cards`` runs part
+   (b) alone with one NCCL rank a card (its reference steps first).
+16. Prints one JSON line of kernels (fused_conv and flash_attention, one
    entry per type each, with graph-replay and host-issue sums beside the
    eager ones, the launches of one training step, and forward + backward
    by graph replay beside its plain version, the library's and its bound
@@ -241,6 +268,7 @@ NVIDIA H100.
 Any failed phase raises and the script exits non-zero without the last
 line. It imports nothing of JAX or of the JAX package.
 """
+import importlib
 import json
 import math
 import os
@@ -6361,6 +6389,910 @@ def rnn_phase(card):
     return out
 
 
+# --------------------------------------------------- slice 13: several ranks
+PARALLEL_BATCH, PARALLEL_SEQ = 16, 512   # bench.py's BERT-base step
+PARALLEL_STEPS = 3                       # the bit-equality gate's steps
+PARALLEL_RANKS = 4                       # part (b): gloo ranks on one card
+PARALLEL_B = dict(layers=2, dp_batch=8, seq=512, sp_batch=2, steps=3)
+PARALLEL_TIMEOUT_S = 300                 # the rendezvous, and each join
+ADAM_LR = 1e-4
+
+
+def _par_batches(b, t, steps, seed, vocab):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, vocab, (b, t), dtype=np.int32),
+             rng.integers(0, vocab, (b, t)).astype(np.float32))
+            for _ in range(steps)]
+
+
+def _par_forward(vocab):
+    """bench.py's ``forward``: the loss of the flattened logits."""
+    import mxtpu_torch as mt
+    loss_blk = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def forward(block, tokens, labels):
+        return loss_blk(block(tokens).reshape((-1, vocab)),
+                        labels.reshape((-1,)))
+    return forward
+
+
+def _par_net(layers, arrays, device, dtype, mesh=None, causal=False,
+             hybrid=True):
+    """bench.py's TransformerLM (BERT-base widths) with ``layers`` layers
+    and the seeded ``arrays``, on ``device`` in ``dtype``."""
+    import torch
+    from mxtpu_torch import convert
+    from mxtpu_torch.gluon.model_zoo.transformer import TransformerLM
+    cfg = dict(BERT_BASE, num_layers=layers, causal=causal)
+    net = TransformerLM(mesh=mesh, **cfg)
+    net.initialize(ctx=device)
+    with torch.no_grad():   # on the device: a split sequence's ring runs
+        net(torch.zeros(1, 8, dtype=torch.int32, device=device))
+    convert.load_mxtpu_params(net, arrays)
+    if dtype != "float32":
+        net.cast(dtype)
+    if hybrid:
+        net.hybridize()
+    return net
+
+
+def _par_arrays(layers):
+    """Seeded weights of the TransformerLM at BERT-base widths."""
+    import torch
+    import mxtpu_torch as mt
+    from mxtpu_torch import convert
+    from mxtpu_torch.gluon.model_zoo.transformer import TransformerLM
+    net = TransformerLM(**dict(BERT_BASE, num_layers=layers))
+    net.initialize(ctx=mt.cpu())
+    with torch.no_grad():
+        net(torch.zeros(1, 8, dtype=torch.int32))
+    return convert.seeded_params(
+        {k: p.shape for k, p in net.collect_params().items()}, seed=0)
+
+
+def _weights_host(net):
+    return [p.data()._data.detach().to("cpu", copy=True)
+            for p in net.collect_params().values()]
+
+
+def _rel_l2(got, want, dev=None):
+    """Relative L2 of the concatenated ``got`` against ``want``, in
+    float64 on ``dev`` (default: where they lie)."""
+    import torch
+    num = den = 0.0
+    for a, b in zip(got, want):
+        a, b = (x.to(dev or x.device, torch.float64) for x in (a, b))
+        num += float(torch.sum((a - b) ** 2))
+        den += float(torch.sum(b ** 2))
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def _par_run(kind, net, batches, mesh, vocab):
+    """Train ``net`` on ``batches`` the ``kind`` way: "plain" (captured
+    Trainer), "sharded" (ShardedTrainStep over ``mesh``) or "mesh"
+    (Trainer(mesh=, zero1=True)). Returns (the step function, per-step
+    (loss, host weights))."""
+    import torch
+    import mxtpu_torch as mt
+    from mxtpu_torch.parallel import ShardedTrainStep
+    forward = _par_forward(vocab)
+    dev = net.collect_params().values().__iter__().__next__().data()._data \
+        .device
+    data = [(mt.nd.array(x, ctx=dev, dtype="int32"), mt.nd.array(y, ctx=dev))
+            for x, y in batches]
+    cur = [0]
+    if kind == "sharded":
+        st = ShardedTrainStep(net, None, mesh, optimizer="adam",
+                              optimizer_params={"learning_rate": ADAM_LR},
+                              forward=forward)
+
+        def step():
+            x, y = data[cur[0] % len(data)]
+            cur[0] += 1
+            return st(x, y)
+    else:
+        tr = mt.gluon.Trainer(net.collect_params(), "adam",
+                              {"learning_rate": ADAM_LR},
+                              mesh=mesh if kind == "mesh" else None,
+                              zero1=True if kind == "mesh" else None)
+
+        def step():
+            x, y = data[cur[0] % len(data)]
+            cur[0] += 1
+            with mt.autograd.record():
+                loss = forward(net, x, y).mean()
+            loss.backward()
+            tr.step(1)
+            return loss
+    trace = []
+    for _ in range(len(batches)):
+        loss = step()
+        trace.append((float(loss.asnumpy()), _weights_host(net)))
+    torch.cuda.synchronize()
+    return step, trace
+
+
+def parallel_world_of_one(card):
+    """Part (a): a world of one NCCL rank in this process. bench.py's
+    BERT-base TransformerLM (bidirectional, bf16) trained 3 Adam steps
+    through the plain captured Trainer, ``ShardedTrainStep(
+    data_parallel_mesh())`` and ``Trainer(mesh=, zero1=True)``, each step
+    bit-equal to the plain one's (loss and every weight) under torch's
+    deterministic algorithms (the embeddings' ``index_add_`` backward sums
+    by atomics otherwise); then each way's b16 x 512 step timed as it
+    runs by default, on a net of its own: B2 12 launches a forward, 0
+    builds after the warm-up.
+    Also part (b)'s reference, the world of one's steps of the 2-layer
+    f32 model (``parallel_b_reference``). Destroys the group."""
+    import gc
+    import torch
+    import mxtpu_torch as mt
+    from mxtpu_torch import parallel as par
+    from mxtpu_torch.ops.pallas.flash_attention import flash_attention
+    t_part = time.time()
+    rdv = os.path.join(ROOT, "build", "par_a_rdv")
+    if os.path.exists(rdv):
+        os.remove(rdv)
+    mt.distributed.init("file://" + rdv, num_processes=1, process_id=0,
+                        backend="nccl", timeout=PARALLEL_TIMEOUT_S)
+    try:
+        mesh = par.data_parallel_mesh()
+        print("parallel (a): world of %d, backend %s, mesh %s"
+              % (mt.distributed.num_workers(), mt.distributed.backend(),
+                 dict(mesh.shape)), flush=True)
+        layers = BERT_BASE["num_layers"]
+        vocab, dim = BERT_BASE["vocab_size"], BERT_BASE["dim"]
+        b, t = PARALLEL_BATCH, PARALLEL_SEQ
+        arrays = _par_arrays(layers)
+        batches = _par_batches(b, t, PARALLEL_STEPS, 21, vocab)
+        dev = torch.device("cuda", 0)
+        flops = 3 * 2 * (layers * (12 * dim * dim + 2 * t * dim)
+                         + dim * vocab)
+        rows, ref = {}, None
+        net = _par_net(layers, arrays, dev, "bfloat16")
+        first = [p.data()._data.clone() for p in
+                 net.collect_params().values()]
+
+        def fresh():
+            """The net with its first weights in new tensors (a leaf's
+            gradient node from an earlier run stays on the stream it ran
+            on, which a new capture cannot wait for), its captures
+            dropped."""
+            gc.collect()
+            torch.cuda.empty_cache()
+            for p, w in zip(net.collect_params().values(), first):
+                p.set_data(w)
+            net.hybridize()
+            return net
+        for kind in ("plain", "sharded", "mesh"):
+            # the gate under torch's deterministic algorithms: the
+            # embeddings' backward (index_add_) sums by atomics otherwise,
+            # and no two runs of any way would agree bit for bit
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                step, trace = _par_run(kind, fresh(), batches, mesh, vocab)
+            finally:
+                torch.use_deterministic_algorithms(False)
+            if ref is None:
+                ref = trace
+            else:
+                for k, ((la, wa), (lb, wb)) in enumerate(zip(trace, ref)):
+                    bad = [i for i, (x, y) in enumerate(zip(wa, wb))
+                           if not torch.equal(x, y)]
+                    if la != lb or bad:
+                        raise AssertionError(
+                            "parallel (a) %s step %d: loss %r vs plain %r, "
+                            "%d weights differ" % (kind, k, la, lb,
+                                                   len(bad)))
+            del step, trace
+            # timed as it runs by default (captured afresh)
+            step, _ = _par_run(kind, fresh(), batches[:1], mesh, vocab)
+            start = flash_attention.launches   # a step after the captures
+            step()
+            torch.cuda.synchronize()
+            per_fwd = flash_attention.launches - start
+            if per_fwd != layers:
+                raise AssertionError("parallel (a) %s: B2 launched %s times "
+                                     "a forward, expected %d"
+                                     % (kind, per_fwd, layers))
+            torch.cuda.reset_peak_memory_stats()
+            warm = {}
+
+            def on_warm():
+                warm.update(_builds())
+            med, p80, issue = timed_steps(step, on_warm=on_warm)
+            built = {k: v - warm[k] for k, v in _builds().items()}
+            if any(built.values()):
+                raise AssertionError("parallel (a) %s: builds after the "
+                                     "warm-up %s" % (kind, built))
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            rate = b * t * 1e3 / med
+            print("parallel (a) %s: BERT-base bf16 b%d x %d Adam step on %s: "
+                  "%.1f tokens/s at the median %.3f ms (p80 %.3f, median "
+                  "host issue %.3f ms; 10 after 3), peak %.2f GiB, builds "
+                  "after the warm-up %s, B2 launches a forward %g; %d steps "
+                  "bit-equal to the plain captured Trainer's (torch's "
+                  "deterministic algorithms on for that gate)" % (
+                      kind, b, t, card, rate, med, p80, issue, peak, built,
+                      per_fwd, PARALLEL_STEPS), flush=True)
+            dev_ms = print_step_breakdown(
+                "parallel (a) " + kind, device_rows(step, 2), med,
+                flops * rate, "bfloat16", card)
+            rows[kind] = dict(step_ms=med, p80_ms=p80, issue_ms=issue,
+                              tokens_per_s=rate, device_ms=dev_ms,
+                              idle=1 - dev_ms / med, peak_gib=peak,
+                              b2_per_forward=per_fwd)
+            del step
+        del ref, net, first
+        gc.collect()
+        torch.cuda.empty_cache()
+        parallel_b_reference(mesh)
+    finally:
+        mt.distributed.shutdown()
+    print("parallel (a) %.1f s" % (time.time() - t_part), flush=True)
+    return rows
+
+
+def _dp_steps(net, mesh, batches, rows, zero, dev):
+    """``ShardedTrainStep`` Adam steps over ``mesh`` on ``rows`` of each
+    batch, under torch's deterministic algorithms (the embeddings'
+    backward sums by atomics otherwise, and two runs would not take the
+    same local gradients). Returns the losses, the step ms, this rank's
+    first-step gradients before the collectives ("local") and as the
+    update takes them ("summed": a ZeRO-1 parameter's as this rank's
+    rows), and the host weights after each step."""
+    import torch
+    import mxtpu_torch as mt
+    from mxtpu_torch import parallel as par
+    st = par.ShardedTrainStep(net, None, mesh, optimizer="adam",
+                              optimizer_params={"learning_rate": ADAM_LR},
+                              forward=_par_forward(BERT_BASE["vocab_size"]),
+                              shard_weight_update=zero)
+    upd, first = st._updater, {}
+    mesh_update, update_items = upd._mesh_update, upd._update_items
+
+    def host(grads):
+        return [g._data.detach().to("cpu", copy=True) for g in grads]
+
+    def on_mesh_update(indices, grads, weights):
+        first.setdefault("local", host(grads))
+        return mesh_update(indices, grads, weights)
+
+    def on_update_items(indices, grads, weights):
+        first.setdefault("summed", host(grads))
+        return update_items(indices, grads, weights)
+    upd._mesh_update, upd._update_items = on_mesh_update, on_update_items
+    losses, ms, weights = [], [], []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for x, y in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = st(mt.nd.array(x[rows], ctx=dev, dtype="int32"),
+                      mt.nd.array(y[rows], ctx=dev))
+            losses.append(float(loss.asnumpy()))
+            ms.append(1e3 * (time.perf_counter() - t0))
+            weights.append(_weights_host(net))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if len(first["summed"]) != len(weights[0]):
+        raise AssertionError("parallel (b): a parameter without a gradient")
+    return dict(losses=losses, ms=ms, weights=weights, **first)
+
+
+def parallel_b_reference(mesh):
+    """Part (b)'s reference, the world of one (``mesh`` of one rank): 3
+    ``ShardedTrainStep`` Adam steps of the 2-layer f32 model on part (b)'s
+    global batch. Saves under build/ its losses, its first step's
+    gradients (``g*``) and its weights after each step (``w<step>_*``)."""
+    import numpy as np
+    import torch
+    pb = PARALLEL_B
+    dev = torch.device("cuda", 0)
+    net = _par_net(pb["layers"], _par_arrays(pb["layers"]), dev, "float32",
+                   hybrid=False)
+    run = _dp_steps(net, mesh, _par_batches(
+        pb["dp_batch"], pb["seq"], pb["steps"], 22, BERT_BASE["vocab_size"]),
+        slice(None), False, dev)
+    saved = {"losses": np.array(run["losses"])}
+    saved.update(("g%d" % i, g.numpy()) for i, g in enumerate(run["summed"]))
+    for t, ws in enumerate(run["weights"]):
+        saved.update(("w%d_%d" % (t + 1, i), w.numpy())
+                     for i, w in enumerate(ws))
+    np.savez(os.path.join(ROOT, "build", "par_b_ref.npz"), **saved)
+
+
+def _par_transfer_timer():
+    """Wrap the collectives' entry points to add their wall ms
+    (synchronized) to the returned list's first item."""
+    import torch
+    from mxtpu_torch.parallel import collectives as col
+    spent = [0.0]
+
+    def timed(fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[0] += 1e3 * (time.perf_counter() - t0)
+            return out
+        return call
+    for name in ("all_reduce_", "all_gather_into_", "_reduce_scatter0",
+                 "broadcast_", "_permute"):
+        setattr(col, name, timed(getattr(col, name)))
+    return spent
+
+
+# Each sum over the 4 ranks is exact to gamma_3 * sum_r |g_r| in any order
+# (Higham, Accuracy and Stability of Numerical Algorithms, eq. 4.4), so two
+# orders (gloo's all-reduce of another buffer layout) differ by at most
+# twice that, element by element
+GAMMA_3 = 3 * 2.0 ** -24 / (1 - 3 * 2.0 ** -24)
+
+
+def _dp_check(rank, world, mesh, dev, layers, spent):
+    """Part (b)'s data-parallel numbers on this rank: ZeRO-1 off and on,
+    3 Adam steps on this rank's rows of the world of one's batches, held
+    to the world of one's saved run; and, for each gate, what it reads
+    under a planted fault, from this run's own tensors."""
+    import numpy as np
+    import torch
+    from mxtpu_torch.parallel import collectives as col
+    pb = PARALLEL_B
+    arrays = _par_arrays(layers)
+    batches = _par_batches(pb["dp_batch"], pb["seq"], pb["steps"], 22,
+                           BERT_BASE["vocab_size"])
+    k = pb["dp_batch"] // world
+    ref = np.load(os.path.join(ROOT, "build", "par_b_ref.npz"))
+    n = len(arrays)
+    ref_g = [torch.from_numpy(ref["g%d" % i]) for i in range(n)]
+    ref_w = [[torch.from_numpy(ref["w%d_%d" % (t, i)]) for i in range(n)]
+             for t in range(1, pb["steps"] + 1)]
+    data = mesh.axis("data")
+    out, runs = {}, {}
+    for zero in (False, True):
+        net = _par_net(layers, arrays, dev, "float32", hybrid=False)
+        w0 = _weights_host(net)
+        ref_steps = [w0] + ref_w
+        spent[0] = 0.0
+        run = _dp_steps(net, mesh, batches, slice(rank * k, (rank + 1) * k),
+                        zero, dev)
+        del net
+        runs[zero] = run
+        mine = [w0] + run["weights"]
+        rows = [None if s.shape == w.shape else slice(
+            data.index * s.shape[0], (data.index + 1) * s.shape[0])
+            for s, w in zip(run["summed"], w0)]
+
+        def cut(ts):
+            return [t if r is None else t[r] for t, r in zip(ts, rows)]
+        want = cut(ref_g)
+        step_rel = [_rel_l2([a - b for a, b in zip(mine[t + 1], mine[t])],
+                            [a - b for a, b in zip(ref_steps[t + 1],
+                                                   ref_steps[t])], dev)
+                    for t in range(pb["steps"])]
+        d = dict(
+            losses=run["losses"], step_ms=run["ms"],
+            transfer_ms=spent[0] / len(run["ms"]),
+            loss_err=float(np.max(np.abs(np.array(run["losses"])
+                                         - ref["losses"]))),
+            # the summed gradient (the update's rescale 1/world applied)
+            grad_rel=_rel_l2([s / world for s in run["summed"]], want,
+                             dev),
+            # planted: no all-reduce, the update takes this rank's own
+            planted_no_sum=_rel_l2(cut([g / world for g in run["local"]]),
+                                   want, dev),
+            step_rel=step_rel, sharded=sum(r is not None for r in rows))
+        if zero:
+            # planted: the all-gather returns the other ranks' rows stale
+            stale = []
+            for i, r in enumerate(rows):
+                delta = mine[1][i] - w0[i]
+                if r is not None:
+                    keep = torch.zeros_like(delta)
+                    keep[r] = delta[r]
+                    delta = keep
+                stale.append(delta)
+            d["planted_stale_gather"] = _rel_l2(
+                stale, [a - b for a, b in zip(ref_w[0], w0)], dev)
+        out["z%d" % zero] = d
+    # ZeRO-1 on against off: the same local gradients, summed by gloo in
+    # two buffer layouts; each element within twice gamma_3 sum_r |g_r|
+    off, on = runs[False], runs[True]
+    if not all(torch.equal(a, b) for a, b in zip(off["local"], on["local"])):
+        raise AssertionError("parallel (b) rank %d: ZeRO-1 on and off took "
+                             "different local gradients" % rank)
+    worst, excess = 0.0, 0
+    for s_on, s_off, g in zip(on["summed"], off["summed"], off["local"]):
+        a = g.to(dev).abs()
+        col.all_reduce_(a, data)
+        s_on, s_off = s_on.to(dev), s_off.to(dev)
+        if s_on.shape != s_off.shape:
+            r = slice(data.index * s_on.shape[0],
+                      (data.index + 1) * s_on.shape[0])
+            s_off, a = s_off[r], a[r]
+        diff = (s_on.double() - s_off.double()).abs()
+        bound = 2 * GAMMA_3 * a.double()
+        excess += int((diff > bound).sum())
+        pos = bound > 0
+        if bool(pos.any()):
+            worst = max(worst, float((diff[pos] / bound[pos]).max()))
+    # the weights after each step, on against off; where the first step's
+    # weights differ most, the world of one's gradient there (Adam's step
+    # lr m/(sqrt(v) + eps) turns a rounding difference of a sum near eps
+    # into one of order lr)
+    dw = [(a.to(dev) - b.to(dev)).abs() for a, b in zip(on["weights"][0],
+                                                        off["weights"][0])]
+    i_max = max(range(n), key=lambda i: float(dw[i].max()))
+    j_max = int(dw[i_max].argmax())
+    moved = torch.cat([(x > 1e-6).reshape(-1) for x in dw])
+    g_all = torch.cat([g.to(dev).abs().reshape(-1) for g in ref_g])
+    out["zero_on_off"] = dict(
+        grad_excess=excess, grad_worst_of_bound=worst,
+        step_rel=[_rel_l2([a - b for a, b in zip(on["weights"][t],
+                                                 on["weights"][t - 1]
+                                                 if t else w0)],
+                          [a - b for a, b in zip(off["weights"][t],
+                                                 off["weights"][t - 1]
+                                                 if t else w0)], dev)
+                  for t in range(pb["steps"])],
+        weight_err=float(dw[i_max].max()),
+        grad_at_worst=float(ref_g[i_max].reshape(-1)[j_max]),
+        share_beyond_1e6=float(moved.double().mean()),
+        median_grad_beyond_1e6=float(g_all[moved].median())
+        if bool(moved.any()) else 0.0,
+        median_grad=float(g_all.median()))
+    return out
+
+
+def _ring_attention_check(sp, dev, b, t):
+    """The ring's attention alone against the whole sequence's, at the
+    model's per-layer shape ``[b, 12, t, 64]`` f32 (seeded q, k, v and
+    cotangent, the same on every rank): the relative L2 of this rank's
+    out and q, k, v gradients for the flash ring, the dense ring, and the
+    flash ring with its lse gradient dropped (a planted fault). Also
+    where the kernel and its plain version part: B2's lse against
+    ``flash_attention_reference``'s, and ``flash_attention_backward`` fed
+    the kernel's out/lse against fed the plain version's."""
+    import numpy as np
+    import torch
+    fa = importlib.import_module("mxtpu_torch.ops.pallas.flash_attention")
+    ra = importlib.import_module("mxtpu_torch.parallel.ring_attention")
+    axis = sp.axis("sp")
+    tl = t // axis.size
+    cols = slice(axis.index * tl, (axis.index + 1) * tl)
+    rng = np.random.default_rng(31)
+    q, k, v, r = (torch.from_numpy(rng.standard_normal(
+        (b, 12, t, 64), dtype=np.float32)).to(dev) for _ in range(4))
+
+    def no_g_lse(*a, **kw):
+        o, lse = fa.flash_attention_with_lse(*a, **kw)
+        return o, lse.detach()
+    out = {}
+    for causal in (False, True):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        o, lse = fa.flash_attention_with_lse(*leaves, causal=causal)
+        (o * r).sum().backward()
+        whole = [o.detach()] + [x.grad for x in leaves]
+        o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal)
+        fed = [fa.flash_attention_backward(q, k, v, oo, ll, r, causal,
+                                           0.125)
+               for oo, ll in ((o.detach(), lse.detach()), (o_ref, lse_ref))]
+        row = dict(lse_err=float((lse.detach() - lse_ref).abs().max()),
+                   out_rel=_rel_l2([o.detach()], [o_ref]),
+                   bwd_fed_rel=_rel_l2(fed[0], fed[1]))
+        for name, body, plant in (
+                ("flash", ra.ring_flash_attention, False),
+                ("dense", ra.ring_attention, False),
+                ("planted: flash, lse gradient dropped",
+                 ra.ring_flash_attention, True)):
+            mine = [x[:, :, cols].clone().requires_grad_() for x in (q, k, v)]
+            if plant:
+                ra.flash_attention_with_lse = no_g_lse
+            try:
+                o_s = body(*mine, axis, causal=causal)
+            finally:
+                ra.flash_attention_with_lse = fa.flash_attention_with_lse
+            (o_s * r[:, :, cols]).sum().backward()
+            got = [o_s.detach()] + [x.grad for x in mine]
+            row[name] = max(_rel_l2([g], [w[:, :, cols]])
+                            for g, w in zip(got, whole))
+        out["causal=%d" % causal] = row
+    return out
+
+
+def _ring_model_check(sp, dev, layers, tok, lab, cols, world):
+    """One step's gradients of the 2-layer f32 causal model, its
+    sequence over ``sp``, against the whole model's (summed over the ring
+    and scaled as the step does): the flash ring, the dense ring and the
+    flash ring with its lse gradient dropped (planted), each as relative
+    L2 over every parameter, its worst parameter, and the ReLU mask flips
+    of each block's first MLP layer against the whole model's (a unit
+    whose input rounds to the other side of 0 takes or drops its whole
+    term of that layer's weight gradient)."""
+    import torch
+    import mxtpu_torch as mt
+    from mxtpu_torch import parallel as par
+    from mxtpu_torch.optimizer_fused import _bucket_all_reduce
+    fa = importlib.import_module("mxtpu_torch.ops.pallas.flash_attention")
+    ra = importlib.import_module("mxtpu_torch.parallel.ring_attention")
+    arrays = _par_arrays(layers)
+    forward = _par_forward(BERT_BASE["vocab_size"])
+
+    def no_g_lse(*a, **kw):
+        o, lse = fa.flash_attention_with_lse(*a, **kw)
+        return o, lse.detach()
+    grads, masks = {}, {}
+    for name, mesh_, flash, plant in (
+            ("whole", None, True, False), ("again", None, True, False),
+            ("flash", sp, True, False), ("dense", sp, False, False),
+            ("planted", sp, True, True)):
+        prev = par.set_ring_flash(flash)
+        if plant:
+            ra.flash_attention_with_lse = no_g_lse
+        net = _par_net(layers, arrays, dev, "float32", mesh=mesh_,
+                       causal=True, hybrid=False)
+        seen = []
+        hooks = [blk.fc1.register_forward_hook(
+            lambda blk_, inp, o: seen.append(
+                (getattr(o, "_data", o) > 0).cpu())) for blk in net.blocks]
+        try:
+            x = mt.nd.array(tok if mesh_ is None else tok[:, cols], ctx=dev,
+                            dtype="int32")
+            y = mt.nd.array(lab if mesh_ is None else lab[:, cols], ctx=dev)
+            with mt.autograd.record():
+                loss = forward(net, x, y).mean()
+            loss.backward()
+        finally:
+            for h in hooks:
+                h.detach()
+            ra.flash_attention_with_lse = fa.flash_attention_with_lse
+            par.set_ring_flash(prev)
+        g = [p.grad()._data.clone() for p in net.collect_params().values()]
+        if mesh_ is not None:
+            _bucket_all_reduce(g, sp.axis("sp"))
+            g = [x / world for x in g]
+        grads[name] = g
+        masks[name] = seen if mesh_ is not None else [m[:, cols]
+                                                     for m in seen]
+        names = list(net.collect_params())
+        del net, g
+    res = {}
+    for name in ("again", "flash", "dense", "planted"):
+        rel = [_rel_l2([a], [b]) for a, b in zip(grads[name],
+                                                 grads["whole"])]
+        res[name] = dict(
+            rel_l2=_rel_l2(grads[name], grads["whole"]), worst=max(rel),
+            worst_param=names[rel.index(max(rel))],
+            relu_flips=sum(int((a != b).sum()) for a, b in
+                           zip(masks[name], masks["whole"])))
+    res["units"] = sum(int(m.numel()) for m in masks["whole"])
+    return res
+
+
+def _parallel_rank(rank, world, rdv, out_dir, backend, card_per_rank):
+    """Part (b), one rank over ``backend`` on card 0 (or its own card,
+    ``card_per_rank``): data-parallel Adam with ZeRO-1 on and off against
+    the world of one (``_dp_check``); the sp ring's logits (flash and
+    dense bodies, causal and bidirectional, f32 and bf16) against the
+    unsharded model and B2's launches per layer; the ring's attention
+    gradients (``_ring_attention_check``) and one step's model gradients
+    (``_ring_model_check``). Writes its numbers to ``out_dir`` (the
+    phase's process gates them); a rank that raises exits non-zero."""
+    import json as _json
+    import numpy as np
+    import torch
+    sys.path.insert(0, ROOT)
+    import mxtpu_torch as mt
+    from mxtpu_torch import parallel as par
+    from mxtpu_torch.ops.pallas.flash_attention import flash_attention
+    card = rank if card_per_rank else 0
+    dev = torch.device("cuda", card)
+    torch.cuda.set_device(card)
+    mt.distributed.init("file://" + rdv, num_processes=world,
+                        process_id=rank, backend=backend,
+                        local_device_ids=[card], timeout=PARALLEL_TIMEOUT_S)
+    res = {"rank": rank, "pid": os.getpid()}
+    try:
+        torch.ones(1, device=dev)        # this rank's context on the card
+        mt.distributed.barrier()
+        if rank == 0:
+            res["compute_apps"] = sorted(_compute_apps())
+        spent = _par_transfer_timer()
+        pb = PARALLEL_B
+        layers, vocab = pb["layers"], BERT_BASE["vocab_size"]
+        arrays = _par_arrays(layers)
+        res["dp"] = _dp_check(rank, world, par.data_parallel_mesh(), dev,
+                              layers, spent)
+        # sequence parallel over the ranks, the ring on B2
+        sp = par.make_mesh({"sp": world})
+        idx = sp.axis("sp").index
+        (tok, lab), = _par_batches(pb["sp_batch"], pb["seq"], 1, 23, vocab)
+        tl = pb["seq"] // world
+        cols = slice(idx * tl, (idx + 1) * tl)
+        full = mt.nd.array(tok, ctx=dev, dtype="int32")
+        mine = mt.nd.array(tok[:, cols], ctx=dev, dtype="int32")
+        res["sp"] = {}
+        for dtype in ("float32", "bfloat16"):
+            for causal in (False, True):
+                whole = _par_net(layers, arrays, dev, dtype, causal=causal,
+                                 hybrid=False)
+                with torch.no_grad():
+                    ref_logits = whole(full).asnumpy()[:, cols].astype(
+                        np.float32)
+                del whole
+                net = _par_net(layers, arrays, dev, dtype, mesh=sp,
+                               causal=causal, hybrid=False)
+                for flash in (True, False):
+                    par.set_ring_flash(flash)
+                    start = flash_attention.launches
+                    with torch.no_grad():
+                        got = net(mine).asnumpy().astype(np.float32)
+                    n = flash_attention.launches - start
+                    scale = float(np.abs(ref_logits).max())
+                    err = float(np.abs(got - ref_logits).max()) / scale
+                    res["sp"]["%s causal=%d flash=%d" % (
+                        dtype, causal, flash)] = dict(
+                            err=err, b2_per_layer=n / layers)
+                par.set_ring_flash(False)
+                del net
+        res["attn"] = _ring_attention_check(sp, dev, pb["sp_batch"],
+                                            pb["seq"])
+        res["model"] = _ring_model_check(sp, dev, layers, tok, lab, cols,
+                                         world)
+        mt.distributed.barrier()
+    finally:
+        with open(os.path.join(out_dir, "rank%d.json" % rank), "w") as f:
+            _json.dump(res, f)
+        mt.distributed.shutdown()
+
+
+PAR_B_LOSS_TOL = 1e-4        # relative, f32 losses (summation order)
+# Relative L2 limits of part (b), each between what the sound runs read on
+# an H100 and what a planted fault reads (PERF.md §6):
+# the summed first-step gradients: 6.6e-4-7.7e-4; no all-reduce 0.83
+PAR_B_DP_GRAD_L2 = 5e-3
+# each step's weight change: 0.007-0.026 (Adam's step lr m/(sqrt(v) + eps)
+# near |g| ~ eps turns a rounding difference into one of order lr); a
+# stale ZeRO-1 all-gather 0.54, a skipped update 1
+PAR_B_STEP_L2 = 0.1
+# the ring's attention alone, out and q/k/v gradients: 4.7e-7-6.3e-7;
+# the lse gradient dropped 0.047-0.22
+PAR_B_ATTN_L2 = 1e-5
+# one step's model gradients: 2.2e-4 (flash ring), 4.5e-4 (dense), with a
+# ReLU mask flip on some ranks (one flip of the 1024 x 3072 units moves
+# that layer's weight gradient by ~1/sqrt(1024 * 3072)); the lse gradient
+# dropped 0.22
+PAR_B_MODEL_GRAD_L2 = 5e-3
+SERVED_TOL = {"float32": 1e-3, "bfloat16": 5e-2}   # of max|logit|
+
+
+def _gate(ok, what):
+    if not ok:
+        raise AssertionError("parallel (b) " + what)
+
+
+def _gate_part_b(r, res):
+    """Print rank ``r``'s numbers and gate them; every planted fault must
+    fail the gate it plants into."""
+    for zero in (0, 1):
+        d = res["dp"]["z%d" % zero]
+        print("parallel (b) rank %d data-parallel Adam ZeRO-1 %s: step ms "
+              "%s, transfer ms a step %.1f, loss err %.3g; first step's "
+              "summed gradients %.3g relative L2 (limit %g; planted no "
+              "all-reduce %.3g); each step's weight change %s (limit %g%s)"
+              " against the world of one; %d parameters row-sharded" % (
+                  r, bool(zero), ["%.1f" % m for m in d["step_ms"]],
+                  d["transfer_ms"], d["loss_err"], d["grad_rel"],
+                  PAR_B_DP_GRAD_L2, d["planted_no_sum"],
+                  ["%.3g" % x for x in d["step_rel"]], PAR_B_STEP_L2,
+                  "; planted stale all-gather %.3g"
+                  % d["planted_stale_gather"] if zero else "",
+                  d["sharded"]), flush=True)
+        _gate(d["loss_err"] <= PAR_B_LOSS_TOL * max(abs(x) for x in
+                                                    d["losses"]),
+              "rank %d ZeRO-1 %s: losses" % (r, zero))
+        _gate(d["grad_rel"] <= PAR_B_DP_GRAD_L2 < d["planted_no_sum"],
+              "rank %d ZeRO-1 %s: summed gradients" % (r, zero))
+        _gate(max(d["step_rel"]) <= PAR_B_STEP_L2,
+              "rank %d ZeRO-1 %s: weight changes" % (r, zero))
+        _gate(not zero or d["sharded"] and
+              d["planted_stale_gather"] > PAR_B_STEP_L2,
+              "rank %d: a stale all-gather would pass" % r)
+    z = res["dp"]["zero_on_off"]
+    print("parallel (b) rank %d ZeRO-1 on against off: summed gradients %d "
+          "elements beyond twice gamma_3 sum_r |g_r| (worst %.3g of it); "
+          "each step's weight change %s relative L2; first step's weights "
+          "%.3g apart at worst, where the world of one's gradient is %.3g "
+          "(Adam's eps 1e-8); a share %.3g of the weights beyond 1e-6, "
+          "their median |gradient| %.3g against %.3g over all" % (
+              r, z["grad_excess"], z["grad_worst_of_bound"],
+              ["%.3g" % x for x in z["step_rel"]], z["weight_err"],
+              z["grad_at_worst"], z["share_beyond_1e6"],
+              z["median_grad_beyond_1e6"], z["median_grad"]), flush=True)
+    _gate(z["grad_excess"] == 0, "rank %d: ZeRO-1 on against off beyond "
+          "the summation-order bound" % r)
+    _gate(max(z["step_rel"]) <= PAR_B_STEP_L2,
+          "rank %d: ZeRO-1 on against off, weight changes" % r)
+    for key, v in sorted(res["sp"].items()):
+        causal = "causal=1" in key
+        want = (1 + r if causal else PARALLEL_RANKS) if "flash=1" in key \
+            else 0
+        tol = SERVED_TOL[key.split()[0]]
+        print("parallel (b) rank %d sp %d %s: logits err %.3g of max|logit| "
+              "(tolerance %g), B2 launches a layer %g (expected %d)" % (
+                  r, PARALLEL_RANKS, key, v["err"], tol, v["b2_per_layer"],
+                  want))
+        _gate(v["err"] <= tol and v["b2_per_layer"] == want,
+              "rank %d sp %s" % (r, key))
+    for key, a in sorted(res["attn"].items()):
+        planted = a["planted: flash, lse gradient dropped"]
+        print("parallel (b) rank %d ring attention %s f32 [%d, 12, %d, 64] "
+              "against the whole sequence's B2 (out, dq, dk, dv; worst "
+              "relative L2): flash ring %.3g, dense ring %.3g (limit %g), "
+              "planted lse gradient dropped %.3g; B2's lse against its "
+              "plain version's %.3g, out %.3g relative L2, the backward "
+              "fed B2's out/lse against fed the plain version's %.3g" % (
+                  r, key, PARALLEL_B["sp_batch"], PARALLEL_B["seq"],
+                  a["flash"], a["dense"], PAR_B_ATTN_L2, planted,
+                  a["lse_err"], a["out_rel"], a["bwd_fed_rel"]), flush=True)
+        _gate(max(a["flash"], a["dense"]) <= PAR_B_ATTN_L2 < planted,
+              "rank %d ring attention %s" % (r, key))
+    m = res["model"]
+    for name in ("again", "flash", "dense", "planted"):
+        v = m[name]
+        print("parallel (b) rank %d one step's gradients, %s against the "
+              "whole model: relative L2 %.3g over all (limit %g), worst "
+              "parameter %.3g (%s); ReLU mask flips %d of %d units" % (
+                  r, {"again": "the whole model again",
+                      "flash": "flash ring", "dense": "dense ring",
+                      "planted": "planted: flash ring, lse gradient "
+                      "dropped,"}[name], v["rel_l2"], PAR_B_MODEL_GRAD_L2,
+                  v["worst"], v["worst_param"], v["relu_flips"],
+                  m["units"]), flush=True)
+    _gate(max(m["flash"]["rel_l2"], m["dense"]["rel_l2"])
+          <= PAR_B_MODEL_GRAD_L2 < m["planted"]["rel_l2"],
+          "rank %d one step's gradients" % r)
+
+
+def parallel_four_ranks(card, backend="gloo", card_per_rank=False):
+    """Part (b): ``PARALLEL_RANKS`` ranks spawned over ``backend`` on the
+    one card (or one card each, ``card_per_rank``), a ``spawn`` context,
+    a ``file://`` rendezvous under build/, a timeout on every join; at
+    BERT-base widths with ``PARALLEL_B["layers"]`` layers. A rank that
+    fails fails the phase. Returns each rank's numbers."""
+    import multiprocessing
+    t_part = time.time()
+    out_dir = os.path.join(ROOT, "build", "par_b")
+    os.makedirs(out_dir, exist_ok=True)
+    for f in os.listdir(out_dir):
+        os.remove(os.path.join(out_dir, f))
+    rdv = os.path.join(out_dir, "rdv")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_parallel_rank,
+                         args=(r, PARALLEL_RANKS, rdv, out_dir, backend,
+                               card_per_rank))
+             for r in range(PARALLEL_RANKS)]
+    for p in procs:
+        p.start()
+    deadline = time.time() + PARALLEL_TIMEOUT_S
+    for p in procs:
+        p.join(max(1.0, deadline - time.time()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    codes = [p.exitcode for p in procs]
+    results = []
+    for r in range(PARALLEL_RANKS):
+        path = os.path.join(out_dir, "rank%d.json" % r)
+        results.append(json.load(open(path)) if os.path.exists(path)
+                       else {})
+    if any(codes):
+        raise AssertionError("parallel (b): rank exit codes %s" % codes)
+    apps = results[0].get("compute_apps", [])
+    pids = sorted(r["pid"] for r in results)
+    print("parallel (b): %d %s ranks on %s (%s); nvidia-smi compute apps "
+          "%s (rank pids %s)" % (
+              PARALLEL_RANKS, backend, card,
+              "a card each" if card_per_rank else "all on card 0", apps,
+              pids), flush=True)
+    for r, res in enumerate(results):
+        _gate_part_b(r, res)
+    print("parallel (b) %.1f s" % (time.time() - t_part), flush=True)
+    return results
+
+
+RING_BLOCKS = (2, 16)   # batch of the ring's blocks [b, 12, 512 / 4, 64]
+
+
+def ring_block_timing(card):
+    """B2 at the ring's block shape ``[b, 12, 128, 64]`` (sequence 512 over
+    four ranks), non-causal as each past block runs and causal as the
+    diagonal one: held against its plain version, timed eagerly and by
+    graph replay beside sdpa at the same shape, with its bound."""
+    import torch
+    import torch.nn.functional as F
+    from mxtpu_torch.ops.pallas.flash_attention import (
+        flash_attention_reference, flash_attention_with_lse)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    rows = []
+    t = PARALLEL_SEQ // PARALLEL_RANKS
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        for b in RING_BLOCKS:
+            for causal in (False, True):
+                q, k, v = flash_inputs(b, 12, t, t, 64, dt, "contig", gen)
+                out, lse = flash_attention_with_lse(q, k, v, causal)
+                r_out, _ = flash_attention_reference(q.float(), k.float(),
+                                                     v.float(), causal)
+                err = check(out, r_out, dtype, "ring block b%d" % b)
+                kern = lambda: flash_attention_with_lse(q, k, v, causal)
+                sdpa = lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal)
+                n_bytes = 4 * q.numel() * q.element_size() + 4 * lse.numel()
+                flops = 4.0 * b * 12 * t * t * 64 * (0.5 if causal else 1.0)
+                bms, by = bound_ms(n_bytes, flops, dtype)
+                row = dict(shape="[%d, 12, %d, 64]%s" % (b, t, " causal"
+                                                        * causal),
+                           dtype=dtype, max_abs_err=err, ms=cuda_ms(kern),
+                           library_ms=cuda_ms(sdpa),
+                           plain_ms=cuda_ms(lambda: flash_attention_reference(
+                               q, k, v, causal)),
+                           graph_ms=graph_ms(kern),
+                           library_graph_ms=graph_ms(sdpa), bound_ms=bms,
+                           bound_by=by)
+                rows.append(row)
+                print("ring block %s %s on %s: err %.3g; eager kernel %.4f ms"
+                      "  sdpa %.4f  plain %.4f; graph replay kernel %.4f ms  "
+                      "sdpa %.4f (kernel/sdpa %.3f); bound %.4f ms (%s)" % (
+                          row["shape"], dtype, card, err, row["ms"],
+                          row["library_ms"], row["plain_ms"],
+                          row["graph_ms"], row["library_graph_ms"],
+                          row["graph_ms"] / row["library_graph_ms"], bms,
+                          by), flush=True)
+    return rows
+
+
+def parallel_four_cards(card):
+    """Part (b) on a machine of four cards, one NCCL rank a card
+    (``python3 chip_smoke.py parallel_four_cards``): the world of one's
+    reference steps in this process, then the four ranks, every gate of
+    part (b) as on one card."""
+    import mxtpu_torch as mt
+    from mxtpu_torch import kernels
+    from mxtpu_torch import parallel as par
+    t0 = time.time()
+    print("built %s in %.1f s" % (kernels.build_all(), time.time() - t0),
+          flush=True)
+    rdv = os.path.join(ROOT, "build", "par4_rdv")
+    if os.path.exists(rdv):
+        os.remove(rdv)
+    mt.distributed.init("file://" + rdv, num_processes=1, process_id=0,
+                        backend="nccl", timeout=PARALLEL_TIMEOUT_S)
+    try:
+        parallel_b_reference(par.data_parallel_mesh())
+    finally:
+        mt.distributed.shutdown()
+    return parallel_four_ranks(card, backend="nccl", card_per_rank=True)
+
+
+def parallel_phase(card):
+    """The multi-device slice (ROADMAP A8's first part, module docstring
+    item 15): B2 at the ring's block shape, (a) a world of one NCCL rank,
+    (b) four gloo ranks on the one card. Returns (part (a)'s rows, part
+    (b)'s per-rank results, the block rows)."""
+    t_phase = time.time()
+    blocks = ring_block_timing(card)
+    rows = parallel_world_of_one(card)
+    results = parallel_four_ranks(card)
+    print("parallel phase %.1f s" % (time.time() - t_phase), flush=True)
+    return rows, results, blocks
+
+
 def kernel_entries(rows, launches, train_launches, name, source, replaces,
                    bwd_rows=()):
     """One `kernels` entry per type: the per-forward shapes' numbers, each
@@ -6492,6 +7424,24 @@ def main():
     if any(rnn_path.values()):
         raise AssertionError("the RNN path launched a kernel of B1-B3: %s"
                              % rnn_path)
+    # slice 13: several ranks (A8's first part), B1-B3's counts from 0
+    # just before it; B2 runs in the world of one's steps and the ring
+    fused_conv.launches = flash_attention.launches = 0
+    rtc_launches_seen = []
+    rtc_mod.launched = lambda k: (rtc_launches_seen.append(k),
+                                  rtc_launched(k))
+    try:
+        par_rows, par_ranks, par_blocks = parallel_phase(card)
+    finally:
+        rtc_mod.launched = rtc_launched
+    parallel_path = {"b1": fused_conv.launches,
+                     "b2": flash_attention.launches,
+                     "b3": len(rtc_launches_seen)}
+    print("parallel phase launches of B1-B3 in this process: %s"
+          % parallel_path, flush=True)
+    if not parallel_path["b2"] or parallel_path["b1"] or parallel_path["b3"]:
+        raise AssertionError("the parallel path's launches: %s (B2 only)"
+                             % parallel_path)
     # slice 9: the zoo's shape classes, then each path with B1's count
     # from 0 just before it and read just after
     t0 = time.time()
@@ -6578,6 +7528,19 @@ def main():
         e["input_b1_launches_per_step"] = {
             k: v["b1_per_step"] for k, v in input_results.items()
             if k != "loader_only"}
+    for i, dtype in enumerate(("float32", "bfloat16")):
+        e = entries[2 + i]
+        e["parallel_b2_launches"] = {
+            "this_process_both_parts": parallel_path["b2"],
+            "world_of_one_bf16_per_forward": {
+                k: v["b2_per_forward"] for k, v in par_rows.items()},
+            "four_ranks_sp4_per_rank_per_layer": {
+                str(r["rank"]): {k: v["b2_per_layer"]
+                                 for k, v in r["sp"].items()
+                                 if k.startswith(dtype)}
+                for r in par_ranks}}
+        e["ring_block_rows"] = [r for r in par_blocks
+                                if r["dtype"] == dtype]
     for i, e in enumerate(entries):
         kind = "conv" if i < 2 else "flash"
         e["decode_launches_both_dtypes"] = decode_launches[kind]
@@ -6611,5 +7574,22 @@ def main():
     return 0
 
 
+def four_cards_main():
+    import torch
+    if torch.cuda.device_count() < PARALLEL_RANKS:
+        print("chip_smoke parallel_four_cards: %d cards, %d needed"
+              % (torch.cuda.device_count(), PARALLEL_RANKS), file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    card = card_line()
+    print("card:", card, flush=True)
+    t0 = time.time()
+    parallel_four_cards(card)
+    print("four cards %.1f s" % (time.time() - t0))
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:] == ["parallel_four_cards"]:
+        sys.exit(four_cards_main())
     sys.exit(main())

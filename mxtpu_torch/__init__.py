@@ -33,6 +33,7 @@ from . import ops  # noqa: E402
 from . import autograd  # noqa: E402
 from . import ndarray  # noqa: E402
 from . import ndarray as nd  # noqa: E402
+from .ndarray import NDArray  # noqa: E402
 from . import random  # noqa: E402
 from . import rtc  # noqa: E402
 from . import contrib  # noqa: E402
@@ -64,6 +65,13 @@ from . import name  # noqa: E402
 from . import attribute  # noqa: E402
 from .attribute import AttrScope  # noqa: E402
 from . import rnn  # noqa: E402
+from . import distributed  # noqa: E402
+from . import parallel  # noqa: E402
+from . import kvstore  # noqa: E402
+from . import kvstore as kv  # noqa: E402
+from . import kvstore_server  # noqa: E402
+from . import gradient_compression  # noqa: E402
+from . import optimizer_fused  # noqa: E402
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "default_device", "layout", "ops",
@@ -73,4 +81,6 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "resilience", "recordio", "io", "image", "symbol", "sym",
            "executor", "executor_manager", "model", "callback", "monitor",
            "Monitor", "module", "mod", "Module", "name", "attribute",
-           "AttrScope", "rnn"]
+           "AttrScope", "rnn", "NDArray", "distributed", "parallel",
+           "kvstore", "kv", "kvstore_server", "gradient_compression",
+           "optimizer_fused"]

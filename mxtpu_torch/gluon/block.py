@@ -295,12 +295,13 @@ class Block(nn.Module):
         self.add_module(str(len(self._modules)) if name is None else name,
                         block)
 
-    def initialize(self, init=None, ctx=None, force_reinit=False,
-                   generator=None):
+    def initialize(self, init=None, ctx=None, verbose=False,
+                   force_reinit=False, *, generator=None):
         """Initialize every parameter on ``ctx`` (default: the CUDA device,
         or raise), drawing from ``generator`` (default: a new one seeded
-        0)."""
-        self.collect_params().initialize(init, ctx, force_reinit, generator)
+        0). ``verbose`` is accepted and unused, as the reference's."""
+        self.collect_params().initialize(init, ctx, verbose, force_reinit,
+                                         generator=generator)
 
     def hybridize(self, active=True, **kwargs):
         for child in self._child_blocks():

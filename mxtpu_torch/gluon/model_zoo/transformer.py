@@ -8,11 +8,14 @@ Parameter names equal the JAX package's (``wte_``, ``wpe_``, ``h_``,
 ``attn_``, ``qkv_``, ``proj_``, ``mlp1_``, ``mlp2_``, ``head_``), so
 ``convert.load_mxtpu_params`` carries its weights.
 
-Attention runs through ``parallel.ring_attention.ring_attention_nd``,
-whose single-device branch is the flash kernel. Not in the port yet: the
-sharded ring (a mesh with a sequence axis larger than 1, ROADMAP A8), the
-Switch mixture-of-experts block (``num_experts > 0``, ROADMAP A10 with
-``gluon/contrib/nn``) and the tensor- and expert-parallel rules (A8).
+Attention runs through ``parallel.ring_attention.ring_attention_nd``:
+the flash kernel on one rank, the ring when ``mesh`` splits the sequence
+over ``seq_axis``. Then each rank takes its block of the tokens ``[B,
+T/n]`` and offsets its positions by its block's start (the reference's
+trace sees the global T). Not in the port yet: the Switch
+mixture-of-experts block (``num_experts > 0``, ROADMAP A10 with
+``gluon/contrib/nn``) and the tensor- and expert-parallel rules (the
+second part of A8).
 """
 from __future__ import annotations
 
@@ -100,6 +103,8 @@ class TransformerLM(HybridBlock):
                  capacity_factor=1.25, **kwargs):
         super().__init__(**kwargs)
         self._max_len = max_len
+        self._mesh = mesh
+        self._seq_axis = seq_axis
         with self.name_scope():
             self.embed = nn.Embedding(vocab_size, dim, prefix="wte_")
             self.pos_embed = nn.Embedding(max_len, dim, prefix="wpe_")
@@ -115,13 +120,25 @@ class TransformerLM(HybridBlock):
             self.head = nn.Dense(vocab_size, use_bias=False, flatten=False,
                                  prefix="head_")
 
+    def _seq_block(self):
+        """(this rank's block index, the number of blocks) of the
+        sequence."""
+        if self._mesh is None or \
+                dict(self._mesh.shape).get(self._seq_axis, 1) == 1:
+            return 0, 1
+        axis = self._mesh.axis(self._seq_axis)
+        return axis.index, axis.size
+
     def hybrid_forward(self, F, tokens):
         t = tokens.shape[-1]
-        if t > self._max_len:
+        index, n = self._seq_block()
+        if t * n > self._max_len:
             raise MXNetError(
                 "sequence length %d exceeds max_len %d (positions would be "
-                "clamped to the last positional embedding)" % (t, self._max_len))
-        pos = F.arange(0, t, dtype="int32", ctx=tokens.device)
+                "clamped to the last positional embedding)"
+                % (t * n, self._max_len))
+        pos = F.arange(index * t, (index + 1) * t, dtype="int32",
+                       ctx=tokens.device)
         x = self.embed(tokens) + self.pos_embed(pos)
         x = self.blocks(x)
         return self.head(self.ln_f(x))

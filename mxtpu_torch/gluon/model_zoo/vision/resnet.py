@@ -19,7 +19,7 @@ __all__ = ["ResNetV1", "ResNetV2", "BasicBlockV1", "BasicBlockV2",
            "BottleneckV1", "BottleneckV2", "resnet18_v1", "resnet34_v1",
            "resnet50_v1", "resnet101_v1", "resnet152_v1", "resnet18_v2",
            "resnet34_v2", "resnet50_v2", "resnet101_v2", "resnet152_v2",
-           "get_resnet"]
+           "get_resnet", "resnet_net_versions", "resnet_block_versions"]
 
 
 def _conv3x3(channels, stride, in_channels):
@@ -238,10 +238,11 @@ resnet_spec = {
     101: ("bottle_neck", [3, 4, 23, 3], [64, 256, 512, 1024, 2048]),
     152: ("bottle_neck", [3, 8, 36, 3], [64, 256, 512, 1024, 2048]),
 }
-_VERSIONS = {
-    1: (ResNetV1, {"basic_block": BasicBlockV1, "bottle_neck": BottleneckV1}),
-    2: (ResNetV2, {"basic_block": BasicBlockV2, "bottle_neck": BottleneckV2}),
-}
+resnet_net_versions = [ResNetV1, ResNetV2]
+resnet_block_versions = [
+    {"basic_block": BasicBlockV1, "bottle_neck": BottleneckV1},
+    {"basic_block": BasicBlockV2, "bottle_neck": BottleneckV2},
+]
 
 
 def get_resnet(version, num_layers, pretrained=False, ctx=None, root=None,
@@ -251,11 +252,12 @@ def get_resnet(version, num_layers, pretrained=False, ctx=None, root=None,
     ``ctx``."""
     if num_layers not in resnet_spec:
         raise MXNetError("invalid resnet depth %s" % num_layers)
-    if version not in _VERSIONS:
+    if version not in (1, 2):
         raise MXNetError("invalid resnet version %s" % version)
     block_type, layers, channels = resnet_spec[num_layers]
-    net_class, blocks = _VERSIONS[version]
-    net = net_class(blocks[block_type], layers, channels, **kwargs)
+    net_class = resnet_net_versions[version - 1]
+    block_class = resnet_block_versions[version - 1][block_type]
+    net = net_class(block_class, layers, channels, **kwargs)
     if pretrained:
         from ..model_store import load_pretrained
         load_pretrained(net, "resnet%d_v%d" % (num_layers, version), root,

@@ -393,15 +393,23 @@ class ParameterDict:
                 raise MXNetError("duplicate parameter %s" % k)
             self._params[k] = v
 
-    def initialize(self, init=None, ctx=None, force_reinit=False,
-                   generator=None):
+    def initialize(self, init=None, ctx=None, verbose=False,
+                   force_reinit=False, *, generator=None):
         """Initialize every parameter, all drawing from one ``generator``
-        (default: a new one seeded 0)."""
+        (default: a new one seeded 0); ``verbose`` is accepted and
+        unused, as the reference's."""
         generator = generator or _seeded_generator()
         for p in self._params.values():
             p.initialize(init=None, ctx=ctx,
                          default_init=init or init_mod.Uniform(),
                          force_reinit=force_reinit, generator=generator)
+
+    def setattr(self, name, value):
+        """Set attribute ``name`` of every Parameter to ``value``
+        (``collect_params('.*dense0.*').setattr('grad_req', 'null')``
+        freezes those layers)."""
+        for p in self._params.values():
+            setattr(p, name, value)
 
     def reset_ctx(self, ctx):
         for p in self._params.values():

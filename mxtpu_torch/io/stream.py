@@ -34,7 +34,8 @@ The JAX package reads ``MXTPU_PREFETCH_DEPTH``, ``MXTPU_STREAM_THREADS``
 and ``MXTPU_DL_WORKER_RESTARTS``; the port takes them as constructor
 arguments with the same defaults. ``sharding=`` names one device (a
 ``torch.device``, a ``Context`` or a string; the current context by
-default): a mesh placement is ROADMAP A8 and raises.
+default), or a mesh ``parallel.Sharding`` (a mesh Trainer's
+``batch_sharding``): then each leaf's rows of this rank go to its device.
 """
 from __future__ import annotations
 
@@ -325,22 +326,26 @@ class ShardedRecordReader:
 
 
 # -------------------------------------------------------- prefetch-to-device
-def _target_device(spec):
-    """``sharding=``/``prefetch_to_device=`` -> a torch.device: None or
-    True the current context (``cuda:0`` outside a scope, raising without
-    a card); a device, Context or string that device. A Trainer gives its
-    ``batch_sharding`` (which raises naming A8); anything else is taken
-    for a mesh placement and raises."""
+def _target(spec):
+    """``sharding=``/``prefetch_to_device=`` -> (torch.device, the mesh
+    ``Sharding`` whose rows each rank takes, or None): None or True the
+    current context (``cuda:0`` outside a scope, raising without a card);
+    a device, Context or string that device; a ``parallel.Sharding`` its
+    device and this rank's block of each leaf; a Trainer its
+    ``batch_sharding`` (None without a mesh). Anything else raises."""
+    from ..parallel.mesh import Sharding
     if spec is None or spec is True:
-        return resolve_device(None)
+        return resolve_device(None), None
     if isinstance(spec, (Context, torch.device, str)):
-        return resolve_device(spec)
+        return resolve_device(spec), None
+    if isinstance(spec, Sharding):
+        return resolve_device(spec.device), spec
     if hasattr(type(spec), "batch_sharding"):
-        return _target_device(spec.batch_sharding)
+        return _target(spec.batch_sharding)
     raise MXNetError(
-        "prefetch target %r is not a device: input placement across a mesh "
-        "of devices is the multi-device port (ROADMAP A8); pass one device "
-        "or Context" % (spec,))
+        "prefetch target %r is neither a device nor a parallel.Sharding of "
+        "this package's mesh (ROADMAP A8's port places each rank's rows); "
+        "pass one device, Context or Sharding" % (spec,))
 
 
 def _host_array(x):
@@ -369,7 +374,9 @@ class DevicePrefetcher:
     ``mxtpu/io/stream.py:DevicePrefetcher``).
 
     A producer thread pulls host batches and copies their leaves to the
-    device (``sharding``: one device, the current context by default).
+    device (``sharding``: one device, the current context by default; a
+    mesh ``Sharding`` or a mesh Trainer: this rank's rows of each leaf,
+    on its device).
     On a CUDA device each numpy leaf is written into a pinned buffer of a
     ring of ``depth + 1`` slots and copied on a side stream with
     ``non_blocking=True``; an event recorded after the batch's copies is
@@ -408,7 +415,8 @@ class DevicePrefetcher:
                  site="data", to_device=True, max_restarts=WORKER_RESTARTS):
         self._depth = _depth(depth)
         self._put = bool(to_device)
-        self._device = _target_device(sharding) if self._put else None
+        self._device, self._rows = _target(sharding) if self._put \
+            else (None, None)
         self._stream = None
         self._ring = []
         self._slot = 0
@@ -490,6 +498,16 @@ class DevicePrefetcher:
         from ..ndarray import NDArray
         dev = self._device
         tensors = []
+        if self._rows is not None:    # this rank's rows of every leaf
+            rows = self._rows
+
+            def mine(x):
+                if isinstance(x, NDArray):
+                    return NDArray(rows.shard(x._data))
+                if isinstance(x, (np.ndarray, torch.Tensor)):
+                    return rows.shard(x)
+                return x
+            batch = self._map(batch, mine)
 
         def moved(x):
             """An NDArray or tensor on ``dev`` (the same object when it is

@@ -9,8 +9,8 @@ The port binds ONE executor on one device (``context``; default the CUDA
 device, or raise). On one device a ``local`` or ``device`` store's push
 and pull of a gradient is the identity, so ``kvstore`` None, ``"local"``
 and ``"device"`` mean no store; a ``dist_*`` store, a store object, a
-context list of several devices and ``group2ctxs`` need the multi-device
-port (ROADMAP A8) and raise, as the Trainer's do. ``update`` hands the
+context list of several devices and ``group2ctxs`` wait for the second
+part of the multi-device port (ROADMAP A8) and raise. ``update`` hands the
 grouped parameters to one ``FusedUpdater.update_batch`` (on the card the
 captured update step), which writes the executor's arrays in place.
 """

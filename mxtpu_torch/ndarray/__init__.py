@@ -71,6 +71,12 @@ def __getattr__(name):
     raise AttributeError("module %r has no attribute %r" % (__name__, name))
 
 
+def imdecode(buf, **kwargs):
+    """``mx.image.imdecode`` (ref: ndarray/__init__.py:imdecode)."""
+    from ..image import imdecode as _imdecode
+    return _imdecode(buf, **kwargs)
+
+
 def concatenate(arrays, axis=0, always_copy=True):
     """Ref: mx.nd.concatenate (concat with an axis keyword)."""
     return _REGISTRY["Concat"].wrapper(*arrays, dim=axis)

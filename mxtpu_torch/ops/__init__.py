@@ -6,6 +6,8 @@ that is not named here resolves from the registry by any of its names
 from . import (control_flow, ctc, elemwise, image_ops,  # noqa: F401
                optimizer_ops, quantization, reduce, rnn_ops, subgraph_ops)
 from . import registry as _registry
+from .registry import (REGISTRY, attach_methods, get_op, invoke, list_ops,
+                       register)
 from .elemwise import (abs_ as abs, broadcast_add,  # noqa: A004
                        broadcast_mul, broadcast_sub, clip, exp, log, relu,
                        sigmoid, square, tanh, where)
@@ -31,7 +33,8 @@ __all__ = ["Activation", "BatchNorm", "Convolution", "Deconvolution",
            "reshape", "transpose", "swapaxes", "arange", "softmax",
            "log_softmax", "abs", "broadcast_add", "broadcast_mul",
            "broadcast_sub", "clip", "exp", "log", "relu", "sigmoid",
-           "square", "tanh", "where", "mean", "pick", "sum"]
+           "square", "tanh", "where", "mean", "pick", "sum", "REGISTRY",
+           "register", "get_op", "list_ops", "invoke", "attach_methods"]
 
 
 def __getattr__(name):

@@ -8,6 +8,12 @@ Dropout) draws from the new seed at its next replay. The state is per
 thread, as the JAX package's key is. JAX's keys and torch's generators give
 different numbers from one seed: one seed reproduces one stream, nothing
 more.
+
+In a process group (``distributed.init``) every generator is seeded with
+the seed plus the process's rank, so the ranks of one program draw
+different Dropout masks from one seed, as the reference's one global key
+gives each shard of a batch its own; rank 0 draws what a lone process
+draws.
 """
 from __future__ import annotations
 
@@ -31,10 +37,24 @@ class _RngState(threading.local):
 _STATE = _RngState()
 
 
+def _rank():
+    dist = torch.distributed
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() \
+        else 0
+
+
 def _new(device, seed_state):
     gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed_state))
+    gen.manual_seed(int(seed_state) + _rank())
     return gen
+
+
+def join_group():
+    """Fold this process's rank into the generators made before it
+    joined a group (``distributed.init`` calls it once)."""
+    if _rank():
+        for gen in _STATE.gens.values():
+            gen.manual_seed(_STATE.seed + _rank())
 
 
 def seed(seed_state, ctx="all"):
@@ -43,11 +63,11 @@ def seed(seed_state, ctx="all"):
     if ctx == "all":
         _STATE.seed = int(seed_state)
         for gen in _STATE.gens.values():
-            gen.manual_seed(_STATE.seed)
+            gen.manual_seed(_STATE.seed + _rank())
     else:
         dev = resolve_device(ctx)
         if dev in _STATE.gens:
-            _STATE.gens[dev].manual_seed(int(seed_state))
+            _STATE.gens[dev].manual_seed(int(seed_state) + _rank())
         else:
             _STATE.gens[dev] = _new(dev, seed_state)
 

@@ -77,6 +77,7 @@ def _tokens(seed, b=B):
 
 
 def test_served_logits_match_mxtpu():
+    ttel.reset()   # the site's count starts here, whatever ran before
     net, jnet, _ = _pair()
     pred = Predictor(net, BucketSpec(batch_sizes=(1, 4)), device="cpu",
                      example=np.zeros((1, T), np.int32), warmup=True)

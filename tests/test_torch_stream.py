@@ -360,7 +360,12 @@ def test_prefetcher_default_device_is_cuda_and_raises_without_a_card(
 
 
 def test_a_mesh_placement_raises_naming_a8():
-    class NamedSharding:       # what a mesh placement looks like
+    """A placement that is neither a device nor this package's
+    ``parallel.Sharding`` (a JAX NamedSharding) raises; a Trainer without
+    a mesh has no ``batch_sharding`` (None, as the reference's) and
+    prefetches to the current context. A mesh Trainer's rows are held in
+    tests/test_torch_mesh_trainer.py."""
+    class NamedSharding:       # what a JAX mesh placement looks like
         mesh, spec = object(), ("data",)
 
     with pytest.raises(MXNetError, match="A8"):
@@ -368,15 +373,15 @@ def test_a_mesh_placement_raises_naming_a8():
     net = mt.gluon.nn.Dense(2, in_units=2)
     net.initialize(ctx=mt.cpu())
     trainer = mt.gluon.Trainer(net.collect_params(), "sgd")
-    with pytest.raises(MXNetError, match="A8"):
-        trainer.batch_sharding
-    with pytest.raises(MXNetError, match="A8"):
-        ts.DevicePrefetcher(iter([np.zeros(2)]), sharding=trainer)
-    with pytest.raises(MXNetError, match="A8"):
-        mt.gluon.data.DataLoader(mt.gluon.data.ArrayDataset(np.zeros(4)),
-                                 batch_size=2,
-                                 prefetch_to_device=trainer).__iter__() \
-            .__next__()
+    assert trainer.batch_sharding is None
+    with mt.cpu():
+        pf = ts.DevicePrefetcher(iter([np.zeros(2)]), sharding=trainer)
+        assert list(pf)[0].context == mt.cpu()
+        pf.close()
+        loader = mt.gluon.data.DataLoader(
+            mt.gluon.data.ArrayDataset(np.zeros(4)), batch_size=2,
+            prefetch_to_device=trainer)
+        assert next(iter(loader)).context == mt.cpu()
 
 
 def test_levers_are_arguments_with_the_references_defaults(tmp_path,
