@@ -6396,6 +6396,17 @@ PARALLEL_RANKS = 4                       # part (b): gloo ranks on one card
 PARALLEL_B = dict(layers=2, dp_batch=8, seq=512, sp_batch=2, steps=3)
 PARALLEL_TIMEOUT_S = 300                 # the rendezvous, and each join
 ADAM_LR = 1e-4
+# part (b)'s gates of A8's second part, f32, 2 layers at BERT-base widths
+PARALLEL_EP = dict(batch=4)              # global b4 x 512, data 2 x expert 2
+PARALLEL_TP = dict(batch=4, steps=3, lr=0.1)   # data 2 x model 2, SGD
+PARALLEL_PIPE = dict(layers=8, batch=512, micro=8)   # pipe 4, d 768
+PARALLEL_MODULE = dict(batch=64, steps=4)      # data 4, Dense 768-3072-10
+# Switch-Base-8 (Fedus, Zoph and Shazeer, arXiv:2101.03961): 8 experts,
+# capacity factor 1.25, at its d_model 768 / d_ff 3072 / 12 heads / 12
+# layers, which are BERT-base's
+MOE = dict(num_experts=8, capacity_factor=1.25)
+MOE_EXPERTS = MOE["num_experts"]
+MOE_ALPHA = 0.01                         # the aux loss's weight
 
 
 def _par_batches(b, t, steps, seed, vocab):
@@ -6418,13 +6429,16 @@ def _par_forward(vocab):
 
 
 def _par_net(layers, arrays, device, dtype, mesh=None, causal=False,
-             hybrid=True):
+             hybrid=True, experts=0):
     """bench.py's TransformerLM (BERT-base widths) with ``layers`` layers
-    and the seeded ``arrays``, on ``device`` in ``dtype``."""
+    and the seeded ``arrays``, on ``device`` in ``dtype``; ``experts`` > 0
+    the Switch MoE variant (``MOE``'s capacity factor)."""
     import torch
     from mxtpu_torch import convert
     from mxtpu_torch.gluon.model_zoo.transformer import TransformerLM
     cfg = dict(BERT_BASE, num_layers=layers, causal=causal)
+    if experts:
+        cfg.update(MOE, num_experts=experts)
     net = TransformerLM(mesh=mesh, **cfg)
     net.initialize(ctx=device)
     with torch.no_grad():   # on the device: a split sequence's ring runs
@@ -6437,13 +6451,17 @@ def _par_net(layers, arrays, device, dtype, mesh=None, causal=False,
     return net
 
 
-def _par_arrays(layers):
-    """Seeded weights of the TransformerLM at BERT-base widths."""
+def _par_arrays(layers, experts=0):
+    """Seeded weights of the TransformerLM at BERT-base widths (the MoE
+    variant's with ``experts``)."""
     import torch
     import mxtpu_torch as mt
     from mxtpu_torch import convert
     from mxtpu_torch.gluon.model_zoo.transformer import TransformerLM
-    net = TransformerLM(**dict(BERT_BASE, num_layers=layers))
+    cfg = dict(BERT_BASE, num_layers=layers)
+    if experts:
+        cfg.update(MOE, num_experts=experts)
+    net = TransformerLM(**cfg)
     net.initialize(ctx=mt.cpu())
     with torch.no_grad():
         net(torch.zeros(1, 8, dtype=torch.int32))
@@ -6701,6 +6719,17 @@ def parallel_b_reference(mesh):
         saved.update(("w%d_%d" % (t + 1, i), w.numpy())
                      for i, w in enumerate(ws))
     np.savez(os.path.join(ROOT, "build", "par_b_ref.npz"), **saved)
+    # the expert-parallel gate's reference: one step of the 2-layer f32
+    # MoE model on the global batch, nothing sharded
+    del net, run
+    net = _par_net(pb["layers"], _par_arrays(pb["layers"], MOE_EXPERTS),
+                   dev, "float32", hybrid=False, experts=MOE_EXPERTS)
+    run = _mesh_steps(net, mesh, _par_batches(
+        PARALLEL_EP["batch"], pb["seq"], 1, 24, BERT_BASE["vocab_size"]),
+        slice(None), dev, _moe_forward(BERT_BASE["vocab_size"]))
+    saved = {"losses": np.array(run["losses"]), "aux": run["aux"]}
+    saved.update(("g%d" % i, g.numpy()) for i, g in enumerate(run["summed"]))
+    np.savez(os.path.join(ROOT, "build", "par_b_moe_ref.npz"), **saved)
 
 
 def _par_transfer_timer():
@@ -6972,6 +7001,324 @@ def _ring_model_check(sp, dev, layers, tok, lab, cols, world):
     return res
 
 
+def _moe_forward(vocab, alpha=None):
+    """The MoE model's objective: bench.py's loss plus ``alpha`` (default
+    ``MOE_ALPHA``) times the Switch aux loss."""
+    import mxtpu_torch as mt
+    loss_blk = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    alpha = MOE_ALPHA if alpha is None else alpha
+
+    def forward(block, tokens, labels):
+        ce = loss_blk(block(tokens).reshape((-1, vocab)),
+                      labels.reshape((-1,)))
+        return ce + alpha * block.aux_loss()
+    return forward
+
+
+def _mesh_steps(net, mesh, batches, rows, dev, forward, optimizer="adam",
+                params=None, param_specs=()):
+    """``ShardedTrainStep`` steps over ``mesh`` on ``rows`` of each batch,
+    under torch's deterministic algorithms: the losses, this rank's
+    first-step gradients as the update takes them, times the step's
+    ``rescale_grad`` ("summed": the gradient of the global mean loss, a
+    sharded parameter's as this rank's shard), the last aux loss (MoE
+    only) and the step."""
+    import torch
+    import mxtpu_torch as mt
+    from mxtpu_torch import parallel as par
+    st = par.ShardedTrainStep(net, None, mesh, optimizer=optimizer,
+                              optimizer_params=dict(
+                                  params or {"learning_rate": ADAM_LR}),
+                              param_specs=param_specs, forward=forward)
+    upd, first = st._updater, {}
+    update_items = upd._update_items
+
+    def on_update_items(indices, grads, weights):
+        first.setdefault("summed", [
+            g._data.detach().to("cpu", copy=True) * st._opt.rescale_grad
+            for g in grads])
+        return update_items(indices, grads, weights)
+    upd._update_items = on_update_items
+    losses = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for x, y in batches:
+            loss = st(mt.nd.array(x[rows], ctx=dev, dtype="int32"),
+                      mt.nd.array(y[rows], ctx=dev))
+            losses.append(float(loss.asnumpy()))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        upd._update_items = update_items
+    aux = net.aux_loss() if getattr(net, "_moe", False) else 0.0
+    aux = float(aux.asnumpy() if hasattr(aux, "asnumpy") else aux)
+    return dict(losses=losses, aux=aux, step=st, **first)
+
+
+def _shard_rows(whole, local, placement):
+    """This rank's block of ``whole`` where ``local`` (its shard) is
+    smaller: the rows or columns of its index along each split axis."""
+    if placement is None or tuple(whole.shape) == tuple(local.shape):
+        return whole
+    for dim, name in enumerate(placement.spec):
+        if name is not None:
+            ax = placement.mesh.axis(name)
+            k = whole.shape[dim] // ax.size
+            whole = whole.narrow(dim, ax.index * k, k)
+    return whole
+
+
+def _ep_check(rank, world, dev):
+    """Expert parallel over data 2 x expert 2, ``expert_parallel_rules``:
+    one Adam step of the 2-layer f32 MoE model on this rank's data rows,
+    its summed gradients (each expert shard against its slice), aux loss
+    and loss against the world of one's on the global batch; then the
+    same with ``psum`` planted in place of ``reduce_from``."""
+    import numpy as np
+    import torch
+    from mxtpu_torch import parallel as par
+    from mxtpu_torch.gluon.model_zoo.transformer import expert_parallel_rules
+    from mxtpu_torch.parallel import collectives as col
+    from mxtpu_torch.parallel import moe as tmoe
+    pb, ep_cfg = PARALLEL_B, PARALLEL_EP
+    vocab = BERT_BASE["vocab_size"]
+    ref = np.load(os.path.join(ROOT, "build", "par_b_moe_ref.npz"))
+    mesh = par.make_mesh({"data": 2, "expert": 2})
+    data = mesh.axis("data")
+    k = ep_cfg["batch"] // data.size
+    batches = _par_batches(ep_cfg["batch"], pb["seq"], 1, 24, vocab)
+    arrays = _par_arrays(pb["layers"], MOE_EXPERTS)
+    out = {}
+    for name in ("ep", "planted"):
+        if name == "planted":
+            tmoe.reduce_from = col.psum
+        net = _par_net(pb["layers"], arrays, dev, "float32", hybrid=False,
+                       experts=MOE_EXPERTS)
+        t0 = time.perf_counter()
+        try:
+            run = _mesh_steps(net, mesh, batches,
+                              slice(data.index * k, (data.index + 1) * k),
+                              dev, _moe_forward(vocab),
+                              param_specs=expert_parallel_rules("expert"))
+        finally:
+            tmoe.reduce_from = col.reduce_from
+        params = list(net.collect_params().values())
+        want = [_shard_rows(torch.from_numpy(ref["g%d" % i]), g,
+                            par.train.placement(p))
+                for i, (p, g) in enumerate(zip(params, run["summed"]))]
+        sharded = [p.name for p in params
+                   if par.train.placement(p) is not None]
+        out[name] = dict(
+            ms=1e3 * (time.perf_counter() - t0),
+            grad_rel=_rel_l2(run["summed"], want),
+            router_rel=_rel_l2([g for p, g in zip(params, run["summed"])
+                                if p.name.endswith("moe_router")],
+                               [w for p, w in zip(params, want)
+                                if p.name.endswith("moe_router")]),
+            loss=run["losses"][0], ref_loss=float(ref["losses"][0]),
+            aux=run["aux"], ref_aux=float(ref["aux"]),
+            sharded=len(sharded),
+            shard_rows=sorted({int(p.data().shape[0]) for p in params
+                               if par.train.placement(p) is not None}))
+        del net, run
+    return out
+
+
+def _tp_check(rank, world, dev):
+    """Tensor parallel over data 2 x model 2, ``tensor_parallel_rules``:
+    3 SGD steps of the 2-layer f32 model against the same steps with
+    every parameter replicated (losses; first-step summed gradients, each
+    shard against its slice), each sharded weight's bytes on this rank
+    against its whole; then a planted sum over the model axis."""
+    import torch
+    from mxtpu_torch import optimizer_fused
+    from mxtpu_torch import parallel as par
+    from mxtpu_torch.gluon.model_zoo.transformer import tensor_parallel_rules
+    pb = PARALLEL_B
+    vocab = BERT_BASE["vocab_size"]
+    mesh = par.make_mesh({"data": 2, "model": 2})
+    data = mesh.axis("data")
+    k = PARALLEL_TP["batch"] // data.size
+    rows = slice(data.index * k, (data.index + 1) * k)
+    batches = _par_batches(PARALLEL_TP["batch"], pb["seq"],
+                           PARALLEL_TP["steps"], 25, vocab)
+    arrays = _par_arrays(pb["layers"])
+    sgd = {"learning_rate": PARALLEL_TP["lr"]}
+    runs, out = {}, {}
+    plan = optimizer_fused.MeshPlan
+    whole_axes = plan.WHOLE_GRADIENT_AXES
+    for name, specs, steps in (
+            ("repl", (), batches), ("tp", tensor_parallel_rules("model"),
+                                    batches),
+            ("planted", tensor_parallel_rules("model"), batches[:1])):
+        if name == "planted":
+            plan.WHOLE_GRADIENT_AXES = ("expert", "pipe")
+        net = _par_net(pb["layers"], arrays, dev, "float32", hybrid=False)
+        t0 = time.perf_counter()
+        try:
+            run = _mesh_steps(net, mesh, steps, rows, dev,
+                              _par_forward(vocab), optimizer="sgd",
+                              params=sgd, param_specs=specs)
+        finally:
+            plan.WHOLE_GRADIENT_AXES = whole_axes
+        run["ms"] = 1e3 * (time.perf_counter() - t0)
+        params = list(net.collect_params().values())
+        run["placements"] = [par.train.placement(p) for p in params]
+        run["bytes"] = [(p.name, p.data()._data.numel()
+                         * p.data()._data.element_size(),
+                         int(torch.tensor(p.shape).prod())
+                         * p.data()._data.element_size())
+                        for p in params
+                        if par.train.placement(p) is not None]
+        run.pop("step")
+        runs[name] = run
+        del net
+    repl = runs["repl"]["summed"]
+    for name in ("tp", "planted"):
+        r = runs[name]
+        want = [_shard_rows(w, g, pl) for w, g, pl in
+                zip(repl, r["summed"], r["placements"])]
+        out[name] = dict(
+            ms=r["ms"], losses=r["losses"],
+            loss_err=max(abs(a - b) for a, b in
+                         zip(r["losses"], runs["repl"]["losses"])),
+            grad_rel=_rel_l2(r["summed"], want),
+            bytes=r["bytes"])
+    out["repl"] = dict(ms=runs["repl"]["ms"], losses=runs["repl"]["losses"])
+    return out
+
+
+def _pipe_check(rank, world, dev):
+    """``pipeline_apply`` over pipe 4: 8 layers ``tanh(h @ w + b)`` at d
+    768, 8 microbatches, against the sequential stack on this rank: the
+    output, and the gradients of sum(out^2), every row of the stack and
+    the input's, whole on every rank (each relative L2); then ``psum``
+    planted in place of ``reduce_from``, and the pipeline's ``copy_to``
+    planted away (each rank keeps its stage's part)."""
+    import numpy as np
+    import torch
+    from mxtpu_torch import parallel as par
+    from mxtpu_torch.parallel import collectives as col
+    from mxtpu_torch.parallel import pipeline as tpipe
+    cfg = PARALLEL_PIPE
+    n, d = cfg["layers"], BERT_BASE["dim"]
+    rng = np.random.default_rng(26)
+    stacked = {"w": torch.from_numpy((rng.standard_normal((n, d, d))
+                                      / np.sqrt(d)).astype(np.float32)),
+               "b": torch.from_numpy((rng.standard_normal((n, d)) * 0.1)
+                                     .astype(np.float32))}
+    x0 = torch.from_numpy(rng.standard_normal(
+        (cfg["batch"], d)).astype(np.float32)).to(dev)
+    mesh = par.make_mesh({"pipe": 4})
+
+    def layer(p, h):
+        return torch.tanh(h @ p["w"] + p["b"])
+
+    def leaves():
+        return {k: v.to(dev, copy=True).requires_grad_()
+                for k, v in stacked.items()}, x0.clone().requires_grad_()
+    seq, x = leaves()
+    h = x
+    for i in range(n):
+        h = layer({k: v[i] for k, v in seq.items()}, h)
+    (h ** 2).sum().backward()
+    seq_out = h.detach()
+    seq_g = [v.grad for v in seq.values()] + [x.grad]
+    out = {}
+    for name in ("pipe", "planted", "no_copy"):
+        if name == "planted":
+            tpipe.reduce_from = col.psum
+        if name == "no_copy":
+            tpipe.copy_to = lambda t, axis: t
+        mine, x = leaves()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            o = par.pipeline_apply(layer, mine, x, mesh, axis="pipe",
+                                   num_microbatches=cfg["micro"])
+            (o ** 2).sum().backward()
+        finally:
+            tpipe.reduce_from = col.reduce_from
+            tpipe.copy_to = col.copy_to
+        torch.cuda.synchronize()
+        out[name] = dict(
+            ms=1e3 * (time.perf_counter() - t0),
+            out_rel=_rel_l2([o.detach()], [seq_out]),
+            grad_rel=_rel_l2([v.grad for v in mine.values()] + [x.grad],
+                             seq_g),
+            x_rel=_rel_l2([x.grad], [seq_g[-1]]))
+    return out
+
+
+def _module_mesh_check(rank, world, dev):
+    """``Module(context=make_mesh({"data": 4}))``: 4 SGD steps of a Dense
+    MLP (768 -> 3072 -> 10, b64 global) against ``context=None`` on this
+    rank's card (each step's outputs, the weights after), then with the
+    gradients' sum over the data axis planted away."""
+    import numpy as np
+    import torch
+    import mxtpu_torch as mt
+    from mxtpu_torch import parallel as par
+    from mxtpu_torch.symbol import executor as texec
+    cfg = PARALLEL_MODULE
+    d, hdim, classes, b = BERT_BASE["dim"], 4 * BERT_BASE["dim"], 10, \
+        cfg["batch"]
+    rng = np.random.default_rng(27)
+    w = {"fc1_weight": rng.standard_normal((hdim, d)) / np.sqrt(d),
+         "fc1_bias": np.zeros(hdim), "fc2_bias": np.zeros(classes),
+         "fc2_weight": rng.standard_normal((classes, hdim)) / np.sqrt(hdim)}
+    xs = rng.standard_normal((cfg["steps"], b, d)).astype(np.float32)
+    ys = rng.integers(0, classes, (cfg["steps"], b)).astype(np.float32)
+    s = mt.sym
+    net = s.FullyConnected(s.var("data"), s.var("fc1_weight"),
+                           s.var("fc1_bias"), num_hidden=hdim, name="fc1")
+    net = s.Activation(net, act_type="relu")
+    net = s.FullyConnected(net, s.var("fc2_weight"), s.var("fc2_bias"),
+                           num_hidden=classes, name="fc2")
+    net = s.SoftmaxOutput(net, s.var("softmax_label"), name="softmax")
+    mesh = par.make_mesh({"data": 4})
+    real_sum = texec.Executor._sum_grads
+
+    def run(context):
+        mod = mt.mod.Module(net, context=context)
+        mod.bind(data_shapes=[("data", (b, d))],
+                 label_shapes=[("softmax_label", (b,))])
+        mod.init_params(arg_params={k: mt.nd.array(v.astype(np.float32),
+                                                   ctx=dev)
+                                    for k, v in w.items()})
+        mod.init_optimizer(optimizer="sgd",
+                           optimizer_params={"learning_rate": 0.1})
+        outs = []
+        t0 = time.perf_counter()
+        for x, y in zip(xs, ys):
+            mod.forward(mt.io.DataBatch(data=[mt.nd.array(x, ctx=dev)],
+                                        label=[mt.nd.array(y, ctx=dev)]),
+                        is_train=True)
+            mod.backward()
+            mod.update()
+            outs.append(mod.get_outputs()[0]._data.detach().clone())
+        torch.cuda.synchronize()
+        return (outs, [v._data.detach().clone()
+                       for v in mod.get_params()[0].values()],
+                1e3 * (time.perf_counter() - t0))
+    with (mt.gpu(dev.index or 0) if dev.type == "cuda" else mt.cpu()):
+        one = run(None)
+        res = {}
+        for name in ("mesh", "planted"):
+            if name == "planted":
+                texec.Executor._sum_grads = lambda self, names, grads: grads
+            try:
+                got = run(mesh)
+            finally:
+                texec.Executor._sum_grads = real_sum
+            res[name] = dict(
+                ms=got[2], one_ms=one[2],
+                out_err=max(float((a - b_).abs().max()) for a, b_ in
+                            zip(got[0], one[0])),
+                weight_rel=_rel_l2(got[1], one[1]),
+                out_rows=int(got[0][0].shape[0]))
+    return res
+
+
 def _parallel_rank(rank, world, rdv, out_dir, backend, card_per_rank):
     """Part (b), one rank over ``backend`` on card 0 (or its own card,
     ``card_per_rank``): data-parallel Adam with ZeRO-1 on and off against
@@ -7042,6 +7389,14 @@ def _parallel_rank(rank, world, rdv, out_dir, backend, card_per_rank):
                                             pb["seq"])
         res["model"] = _ring_model_check(sp, dev, layers, tok, lab, cols,
                                          world)
+        # A8's second part: expert and tensor parallel, the pipeline, the
+        # Module on a mesh
+        t0 = time.perf_counter()
+        res["ep"] = _ep_check(rank, world, dev)
+        res["tp"] = _tp_check(rank, world, dev)
+        res["pipe"] = _pipe_check(rank, world, dev)
+        res["module"] = _module_mesh_check(rank, world, dev)
+        res["a8_2_s"] = time.perf_counter() - t0
         mt.distributed.barrier()
     finally:
         with open(os.path.join(out_dir, "rank%d.json" % rank), "w") as f:
@@ -7067,6 +7422,12 @@ PAR_B_ATTN_L2 = 1e-5
 # dropped 0.22
 PAR_B_MODEL_GRAD_L2 = 5e-3
 SERVED_TOL = {"float32": 1e-3, "bfloat16": 5e-2}   # of max|logit|
+# the pipeline against the sequential stack on the same rank (f32, the
+# microbatches' matmuls round apart from the whole batch's): relative L2
+PAR_B_PIPE_L2 = 1e-5
+# the Module on the mesh against one device: each step's outputs (max
+# abs, probabilities) and the weights after (relative L2)
+PAR_B_MODULE_TOL = 1e-5
 
 
 def _gate(ok, what):
@@ -7155,6 +7516,82 @@ def _gate_part_b(r, res):
     _gate(max(m["flash"]["rel_l2"], m["dense"]["rel_l2"])
           <= PAR_B_MODEL_GRAD_L2 < m["planted"]["rel_l2"],
           "rank %d one step's gradients" % r)
+    _gate_a8_2(r, res)
+
+
+def _gate_a8_2(r, res):
+    """Print and gate rank ``r``'s numbers of A8's second part; every
+    planted fault must fail the gate it plants into."""
+    ep, planted = res["ep"]["ep"], res["ep"]["planted"]
+    print("parallel (b) rank %d expert parallel data 2 x expert 2 (2-layer "
+          "f32 MoE, %d experts, b%d x %d global, Adam): first step's "
+          "summed gradients %.3g relative L2 against the world of one "
+          "(router %.3g; limit %g; planted psum for reduce_from %.3g), "
+          "loss %.6f vs %.6f, aux %.6f vs %.6f, %d parameters sharded to "
+          "%s experts a rank, %.0f ms" % (
+              r, MOE_EXPERTS, PARALLEL_EP["batch"], PARALLEL_B["seq"],
+              ep["grad_rel"], ep["router_rel"], PAR_B_DP_GRAD_L2,
+              planted["grad_rel"], ep["loss"], ep["ref_loss"], ep["aux"],
+              ep["ref_aux"], ep["sharded"], ep["shard_rows"], ep["ms"]),
+          flush=True)
+    _gate(ep["grad_rel"] <= PAR_B_DP_GRAD_L2 < planted["grad_rel"]
+          and abs(ep["loss"] - ep["ref_loss"])
+          <= PAR_B_LOSS_TOL * abs(ep["ref_loss"])
+          and abs(ep["aux"] - ep["ref_aux"])
+          <= PAR_B_LOSS_TOL * abs(ep["ref_aux"])
+          and ep["shard_rows"] == [MOE_EXPERTS // 2]
+          and ep["sharded"] == 4 * PARALLEL_B["layers"],
+          "rank %d expert parallel" % r)
+    tp, planted = res["tp"]["tp"], res["tp"]["planted"]
+    halves = all(2 * mine == whole for _, mine, whole in tp["bytes"])
+    print("parallel (b) rank %d tensor parallel data 2 x model 2 (2-layer "
+          "f32, SGD lr %g, %d steps): losses %s against replicated %s "
+          "(worst %.3g), first step's summed gradients %.3g relative L2 "
+          "(limit %g; planted sum over model %.3g); %d weights sharded, "
+          "each at half its bytes on this rank %s (%.1f of %.1f MB); "
+          "%.0f ms (replicated %.0f)" % (
+              r, PARALLEL_TP["lr"], PARALLEL_TP["steps"],
+              ["%.6f" % x for x in tp["losses"]],
+              ["%.6f" % x for x in res["tp"]["repl"]["losses"]],
+              tp["loss_err"], tp["grad_rel"], PAR_B_DP_GRAD_L2,
+              planted["grad_rel"], len(tp["bytes"]), halves,
+              sum(m for _, m, _ in tp["bytes"]) / 1e6,
+              sum(w for _, _, w in tp["bytes"]) / 1e6, tp["ms"],
+              res["tp"]["repl"]["ms"]), flush=True)
+    _gate(tp["loss_err"] <= PAR_B_LOSS_TOL * max(tp["losses"])
+          and tp["grad_rel"] <= PAR_B_DP_GRAD_L2 < planted["grad_rel"]
+          and halves and len(tp["bytes"]) >= 4 * PARALLEL_B["layers"],
+          "rank %d tensor parallel" % r)
+    pp, planted = res["pipe"]["pipe"], res["pipe"]["planted"]
+    no_copy = res["pipe"]["no_copy"]
+    print("parallel (b) rank %d pipeline pipe 4 (%d layers tanh(h @ w + b) "
+          "at d %d, %d rows in %d microbatches): output %.3g, the whole "
+          "stack's and the input's gradients %.3g (the input's %.3g) "
+          "relative L2 against the sequential stack (limit %g; planted psum "
+          "for reduce_from %.3g, copy_to planted away %.3g), %.0f ms" % (
+              r, PARALLEL_PIPE["layers"], BERT_BASE["dim"],
+              PARALLEL_PIPE["batch"], PARALLEL_PIPE["micro"], pp["out_rel"],
+              pp["grad_rel"], pp["x_rel"], PAR_B_PIPE_L2,
+              planted["grad_rel"], no_copy["grad_rel"], pp["ms"]),
+          flush=True)
+    _gate(max(pp["out_rel"], pp["grad_rel"]) <= PAR_B_PIPE_L2
+          < min(planted["grad_rel"], no_copy["grad_rel"]),
+          "rank %d pipeline" % r)
+    mo, planted = res["module"]["mesh"], res["module"]["planted"]
+    print("parallel (b) rank %d Module on make_mesh({'data': 4}) (%d SGD "
+          "steps, b%d global): outputs %.3g max abs (%d rows gathered), "
+          "weights %.3g relative L2 against context=None (limit %g; "
+          "planted no sum over the data axis %.3g), %.0f ms (one device "
+          "%.0f)" % (r, PARALLEL_MODULE["steps"], PARALLEL_MODULE["batch"],
+                     mo["out_err"], mo["out_rows"], mo["weight_rel"],
+                     PAR_B_MODULE_TOL, planted["weight_rel"], mo["ms"],
+                     mo["one_ms"]), flush=True)
+    _gate(mo["out_err"] <= PAR_B_MODULE_TOL and mo["weight_rel"]
+          <= PAR_B_MODULE_TOL < planted["weight_rel"]
+          and mo["out_rows"] == PARALLEL_MODULE["batch"],
+          "rank %d Module on a mesh" % r)
+    print("parallel (b) rank %d A8's second part %.1f s" % (r, res["a8_2_s"]),
+          flush=True)
 
 
 def parallel_four_ranks(card, backend="gloo", card_per_rank=False):
@@ -7291,6 +7728,511 @@ def parallel_phase(card):
     results = parallel_four_ranks(card)
     print("parallel phase %.1f s" % (time.time() - t_phase), flush=True)
     return rows, results, blocks
+
+
+# ------------------------------------- slice 14: the Switch mixture of experts
+MOE_FFN = (8192, 768, 3072, MOE_EXPERTS)   # T (b16 x 512), D, H, E
+MOE_FFN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # of max|out|
+MOE_AUX_TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # relative
+# tokens whose own route on the CPU differs from the card's in a block:
+# their share, and the widest gap of the CPU's probabilities (its own
+# expert's less the card's) that a rounding difference may tip
+MOE_FLIP_SHARE = 0.05
+MOE_TIE_GAP = 0.05
+MOE_SERVE_BATCH = 8
+MOE_TRAIN_BATCH = 16
+
+
+def _queue_ranks(expert, e):
+    """Each token's position in its expert's queue from a stable sort (an
+    independent count of what ``moe.slots`` computes)."""
+    import torch
+    t = expert.shape[0]
+    order = torch.sort(expert, stable=True).indices
+    counts = torch.bincount(expert, minlength=e)
+    starts = torch.cumsum(counts, 0) - counts
+    ranks = torch.empty(t, dtype=torch.long, device=expert.device)
+    ranks[order] = torch.arange(t, device=expert.device) - \
+        starts[expert[order]]
+    return ranks
+
+
+def _aux_by_count(x, router_w):
+    """The Switch aux loss counted apart from ``moe``'s routing: E times
+    the sum over experts of the share of tokens whose float32 softmax
+    peaks there (a bincount) times the mean probability."""
+    import torch
+    probs = torch.softmax((x @ router_w).float(), -1)
+    t, e = probs.shape
+    share = torch.bincount(probs.argmax(-1), minlength=e).double() / t
+    return float(e * (share * probs.double().mean(0)).sum())
+
+
+def moe_ffn_check(card):
+    """``switch_ffn`` on the card against ``switch_ffn_reference`` (the
+    dense (T, E, C) einsums) at T 8192, D 768, H 3072, E 8, f32 and bf16
+    at the capacity factor 1.25, and f32 at 0.5 (where tokens drop): the
+    slots against a stable sort's queue positions (equal), the dropped
+    tokens (equal, and those whose position passes the capacity), the
+    outputs within ``MOE_FFN_TOL`` of max|out| and the aux loss against
+    a count of its own (``_aux_by_count``); slots halved (planted: two tokens to one slot, the reference's bfloat16
+    defect) must fail. Timed by CUDA events beside the dense
+    formulation, with the bound of the experts' work."""
+    import torch
+    from mxtpu_torch.parallel import moe as tmoe
+    t, d, h, e = MOE_FFN
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    rows = []
+    for dtype, cf in (("float32", MOE["capacity_factor"]), ("float32", 0.5),
+                      ("bfloat16", MOE["capacity_factor"])):
+        dt = getattr(torch, dtype)
+        cap = tmoe.capacity(t, e, cf)
+
+        def rnd(*shape, scale=1.0):
+            return (torch.randn(*shape, generator=gen, device="cuda")
+                    * scale).to(dt)
+        args = (rnd(t, d), rnd(d, e, scale=d ** -0.5),
+                rnd(e, d, h, scale=d ** -0.5), rnd(e, h, scale=0.1),
+                rnd(e, h, d, scale=h ** -0.5), rnd(e, d, scale=0.1))
+        out, aux = tmoe.switch_ffn(*args, cf)
+        ref, _ = tmoe.switch_ffn_reference(*args, cf)
+        expert = tmoe._route(args[0], args[1])[2]
+        queue = _queue_ranks(expert, e)
+        slots_equal = torch.equal(tmoe.slots(expert, e).long(), queue)
+        dropped = out.abs().sum(1) == 0
+        dropped_equal = torch.equal(dropped, ref.abs().sum(1) == 0) and \
+            torch.equal(dropped, queue >= cap)
+        scale = float(ref.float().abs().max())
+        err = float((out.float() - ref.float()).abs().max()) / scale
+        ind_aux = _aux_by_count(args[0], args[1])
+        aux_err = abs(float(aux) - ind_aux) / ind_aux
+        real = tmoe.slots
+        tmoe.slots = lambda ex, n: real(ex, n) // 2
+        try:
+            bad, _ = tmoe.switch_ffn(*args, cf)
+        finally:
+            tmoe.slots = real
+        planted = float((bad.float() - ref.float()).abs().max()) / scale
+        ok = slots_equal and dropped_equal and \
+            err <= MOE_FFN_TOL[dtype] < planted and \
+            aux_err <= MOE_AUX_TOL[dtype] and bool(torch.isfinite(out).all())
+        row = dict(dtype=dtype, capacity_factor=cf, err=err, planted=planted,
+                   aux_err=aux_err, dropped=int(dropped.sum()), cap=cap,
+                   max_queue=int(torch.bincount(expert, minlength=e).max()))
+        timing = ""
+        if cf == MOE["capacity_factor"]:
+            main = lambda: tmoe.switch_ffn(*args, cf)
+            dense = lambda: tmoe.switch_ffn_reference(*args, cf)
+            size = args[0].element_size()
+            n_bytes = size * (sum(a.numel() for a in args) + out.numel())
+            flops = 2.0 * t * d * e + 4.0 * e * cap * d * h
+            bms, by = bound_ms(n_bytes, flops, dtype)
+            row.update(ms=cuda_ms(main, launches=5),
+                       dense_ms=cuda_ms(dense, launches=5), bound_ms=bms,
+                       bound_by=by)
+            timing = "; main path %.3f ms, dense (T, E, C) einsums %.3f " \
+                "ms, bound %.4f ms (%s)" % (row["ms"], row["dense_ms"], bms,
+                                            by)
+        rows.append(row)
+        print("moe switch_ffn %s capacity factor %g T %d D %d H %d E %d "
+              "(cap %d, longest queue %d, %d dropped) on %s: slots equal a "
+              "stable sort's queue positions %s, dropped tokens equal %s, "
+              "out err %.3g of max|out| (limit %g; planted two tokens a slot "
+              "%.3g), aux err %.3g%s" % (
+                  dtype, cf, t, d, h, e, cap, row["max_queue"],
+                  row["dropped"], card, slots_equal, dropped_equal, err,
+                  MOE_FFN_TOL[dtype], planted, aux_err, timing), flush=True)
+        if not ok:
+            raise AssertionError("moe switch_ffn %s: the main path "
+                                 "disagrees with the dense formulation, "
+                                 "or a planted fault passes" % dtype)
+        del args, out, ref, bad
+    return rows
+
+
+def _routes(net, x, forced=None):
+    """The logits of ``net`` on ``x`` (no gradient), each token's expert
+    in every MoE block (tokens, blocks), the same with -1 where the token
+    is dropped, and each block's router probabilities (tokens, blocks,
+    experts), recorded by forward hooks that route the block's input as
+    ``switch_ffn`` does. ``forced``: experts (tokens, blocks) that the
+    blocks take instead of their own argmax (each gate the probability of
+    the forced expert); the recorded ones stay the block's own."""
+    import torch
+    from mxtpu_torch.parallel import moe as tmoe
+    route = tmoe._route
+    seen, raw, probs_seen = [], [], []
+
+    def hook(layer, inp, out):
+        t = inp[0].reshape(-1, inp[0].shape[-1])
+        probs, _, expert = route(t, layer.router.data()._data)
+        cap = tmoe.capacity(t.shape[0], MOE_EXPERTS, MOE["capacity_factor"])
+        kept = tmoe.slots(expert, MOE_EXPERTS) < cap
+        seen.append(torch.where(kept, expert, -1).cpu())
+        raw.append(expert.cpu())
+        probs_seen.append(probs.float().cpu())
+
+    def take(t, router_w):
+        probs = route(t, router_w)[0]
+        expert = forced[:, len(seen)].to(probs.device)
+        return probs, probs.gather(1, expert[:, None])[:, 0], expert
+    hooks = [blk.moe.register_forward_hook(hook) for blk in net.blocks]
+    if forced is not None:
+        tmoe._route = take
+    try:
+        with torch.no_grad():
+            logits = net(x).float().cpu()
+    finally:
+        tmoe._route = route
+        for h in hooks:
+            h.detach()
+    return logits, torch.stack(raw, 1), torch.stack(seen, 1), \
+        torch.stack(probs_seen, 1)
+
+
+def _second_best_every(k):
+    """A routing fault to plant: ``moe._route`` that sends every k-th
+    token to its second-best expert."""
+    import torch
+    from mxtpu_torch.parallel import moe as tmoe
+    real = tmoe._route
+
+    def planted(t, router_w):
+        probs, gate, expert = real(t, router_w)
+        top2 = probs.topk(2, dim=-1)
+        hit = torch.arange(t.shape[0], device=t.device) % k == 0
+        return (probs, torch.where(hit, top2.values[:, 1], gate),
+                torch.where(hit, top2.indices[:, 1], expert))
+    return planted
+
+
+def _route_flips(card_experts, cpu_experts, cpu_probs):
+    """(share of tokens whose own route on the CPU differs from the
+    card's in some block, the widest gap of such a difference, the count
+    of differences wider than ``MOE_TIE_GAP``). A gap is the CPU's
+    probability of its own expert less that of the card's: a near-tie
+    rounds either way, a wrong route leaves a wide gap."""
+    differ = cpu_experts != card_experts
+    gap = cpu_probs.max(-1).values - cpu_probs.gather(
+        -1, card_experts[..., None])[..., 0]
+    gaps = gap[differ]
+    return (float(differ.any(1).float().mean()),
+            float(gaps.max()) if gaps.numel() else 0.0,
+            int((gaps > MOE_TIE_GAP).sum()))
+
+
+def moe_lockstep(card):
+    """The 2-layer MoE TransformerLM at full width (8 experts), b2 x 512,
+    on the card against the same model on the CPU, the CPU's blocks taking
+    the card's routes: the logits within ``SERVED_TOL`` of max|logit|
+    (two tokens to one slot, planted, must fail that gate); the routes:
+    where the CPU's own route of a token differs from the card's, the
+    CPU's probabilities must be a near-tie, within ``MOE_TIE_GAP`` (in
+    bf16 the probabilities near 1/8 are 2^-10 apart, and a rounding
+    difference tips a near-tie either way), and such tokens at most
+    ``MOE_FLIP_SHARE``; in bf16 a planted routing fault (every 64th token
+    to its second-best expert on the card) must fail that gate; the aux
+    loss, in f32 and bf16. Then one training step of CE + 0.01 aux in f32
+    on both devices' own routes, its gradients (every parameter's, and
+    the routers' alone) within ``TRAIN_L2`` relative L2."""
+    import torch
+    import mxtpu_torch as mt
+    from mxtpu_torch.parallel import moe as tmoe
+    vocab = BERT_BASE["vocab_size"]
+    arrays = _par_arrays(2, MOE_EXPERTS)
+    (tok, lab), = _par_batches(2, 512, 1, 41, vocab)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        nets = {where: _par_net(2, arrays, torch.device(where), dtype,
+                                hybrid=False, experts=MOE_EXPERTS)
+                for where in ("cuda", "cpu")}
+        logits, experts, routes, _ = _routes(
+            nets["cuda"], torch.from_numpy(tok).to("cuda"))
+        aux = float(nets["cuda"].aux_loss())
+        ref, cpu_experts, cpu_routes, cpu_probs = _routes(
+            nets["cpu"], torch.from_numpy(tok), forced=experts)
+        ref_aux = float(nets["cpu"].aux_loss())
+        real = tmoe.slots
+        tmoe.slots = lambda ex, n: real(ex, n) // 2
+        try:
+            bad = _routes(nets["cuda"], torch.from_numpy(tok).to("cuda"))[0]
+        finally:
+            tmoe.slots = real
+        scale = float(ref.abs().max())
+        err = float((logits - ref).abs().max()) / scale
+        planted = float((bad - ref).abs().max()) / scale
+        flips, gap, wide = _route_flips(experts, cpu_experts, cpu_probs)
+        routes_ok = wide == 0 and flips <= MOE_FLIP_SHARE
+        aux_err = abs(aux - ref_aux) / abs(ref_aux)
+        row = dict(err=err, planted=planted, aux=aux, aux_err=aux_err,
+                   flip_share=flips, flip_gap=gap, wide=wide)
+        extra = ""
+        if dtype == "bfloat16":
+            route = tmoe._route
+            tmoe._route = _second_best_every(64)
+            try:
+                p_experts = _routes(nets["cuda"],
+                                    torch.from_numpy(tok).to("cuda"))[1]
+            finally:
+                tmoe._route = route
+            _, p_cpu, _, p_probs = _routes(nets["cpu"], torch.from_numpy(tok),
+                                           forced=p_experts)
+            p_flips, p_gap, p_wide = _route_flips(p_experts, p_cpu, p_probs)
+            row.update(planted_flip_share=p_flips, planted_gap=p_gap,
+                       planted_wide=p_wide)
+            routes_ok = routes_ok and (p_wide > 0
+                                       or p_flips > MOE_FLIP_SHARE)
+            extra = "; planted every 64th token to its second-best " \
+                "expert: a share %.4g, widest gap %.4g, %d wider than " \
+                "the limit" % (p_flips, p_gap, p_wide)
+        if dtype == "float32":
+            grads = {}
+            for where, net in nets.items():
+                dev = torch.device(where)
+                x = mt.nd.array(tok, ctx=dev, dtype="int32")
+                y = mt.nd.array(lab, ctx=dev)
+                with mt.autograd.record():
+                    loss = _moe_forward(vocab)(net, x, y).mean()
+                loss.backward()
+                grads[where] = [(n, p.grad()._data.detach().cpu())
+                                for n, p in net.collect_params().items()]
+            card_g = [g for _, g in grads["cuda"]]
+            cpu_g = [g for _, g in grads["cpu"]]
+            routers = [i for i, (n, _) in enumerate(grads["cuda"])
+                       if n.endswith("moe_router")]
+            row.update(grad_rel=_rel_l2(card_g, cpu_g),
+                       router_rel=_rel_l2([card_g[i] for i in routers],
+                                          [cpu_g[i] for i in routers]))
+            extra = "; one CE + %g aux step's gradients %.3g relative L2, " \
+                "the routers' %.3g (limit %g)" % (
+                    MOE_ALPHA, row["grad_rel"], row["router_rel"], TRAIN_L2)
+        out[dtype] = row
+        print("moe lockstep 2-layer MoE LM (8 experts, BERT-base widths) %s "
+              "b2 x 512 on %s against the CPU on the card's routes: logits "
+              "err %.3g of max|logit| (limit %g; planted two tokens a slot "
+              "%.3g), a share %.4g of the tokens the CPU routes otherwise in "
+              "a block (limit %g), their widest probability gap %.4g (limit "
+              "%g, %d wider), aux %.6f (rel err %.3g)%s" % (
+                  dtype, card, err, SERVED_TOL[dtype], planted, flips,
+                  MOE_FLIP_SHARE, gap, MOE_TIE_GAP, wide, row["aux"],
+                  aux_err, extra), flush=True)
+        ok = err <= SERVED_TOL[dtype] < planted and routes_ok and \
+            aux_err <= MOE_AUX_TOL[dtype]
+        if dtype == "float32":
+            ok = ok and max(row["grad_rel"], row["router_rel"]) <= TRAIN_L2
+        if not ok:
+            raise AssertionError("moe lockstep %s: the card disagrees with "
+                                 "the CPU, or a planted fault passes"
+                                 % dtype)
+        del nets
+    return out
+
+
+def moe_flops_per_step(b, t, layers):
+    """FLOPs of one training step of the MoE LM (3 x the forward's): per
+    token the attention's projections and its scores and values, the
+    router and the head, per layer the experts over the E x C slots they
+    compute (each slot of capacity runs, taken or not)."""
+    from mxtpu_torch.parallel.moe import capacity
+    d, v = BERT_BASE["dim"], BERT_BASE["vocab_size"]
+    tokens = b * t
+    cap = capacity(tokens, MOE_EXPERTS, MOE["capacity_factor"])
+    per_token = layers * (2 * 4 * d * d + 2 * 2 * t * d
+                          + 2 * d * MOE_EXPERTS) + 2 * d * v
+    experts = layers * 2 * 2 * MOE_EXPERTS * cap * d * (4 * d)
+    return 3.0 * (tokens * per_token + experts)
+
+
+def moe_b2_timing(card):
+    """B2 at the trained MoE LM's attention shape ``[16, 12, 512, 64]``
+    bf16 on the served q/k/v views, held against its plain version, by
+    graph replay beside sdpa at the same shape, with its bound."""
+    import torch
+    import torch.nn.functional as F
+    from mxtpu_torch.ops.pallas.flash_attention import (
+        flash_attention_reference, flash_attention_with_lse)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    b, h, t, d = MOE_TRAIN_BATCH, 12, 512, 64
+    q, k, v = flash_inputs(b, h, t, t, d, torch.bfloat16, "qkv", gen)
+    out, lse = flash_attention_with_lse(q, k, v, False)
+    r_out, _ = flash_attention_reference(q.float(), k.float(), v.float(),
+                                         False)
+    err = check(out, r_out, "bfloat16", "moe B2 [16, 12, 512, 64]")
+    kern = lambda: flash_attention_with_lse(q, k, v, False)
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v)
+    n_bytes = 4 * q.numel() * q.element_size() + 4 * lse.numel()
+    bms, by = bound_ms(n_bytes, 4.0 * b * h * t * t * d, "bfloat16")
+    row = dict(shape="[%d, %d, %d, %d]" % (b, h, t, d), max_abs_err=err,
+               graph_ms=graph_ms(kern), library_graph_ms=graph_ms(sdpa),
+               bound_ms=bms, bound_by=by)
+    print("moe B2 %s bf16 qkv views on %s: err %.3g; graph replay kernel "
+          "%.4f ms  sdpa %.4f (kernel/sdpa %.3f); bound %.4f ms (%s)" % (
+              row["shape"], card, err, row["graph_ms"],
+              row["library_graph_ms"],
+              row["graph_ms"] / row["library_graph_ms"], bms, by),
+          flush=True)
+    return row
+
+
+def moe_serve(card, arrays):
+    """The 12-layer bf16 MoE LM served by a Predictor with one captured
+    bucket of b8 x 512: one graph, finite logits of the right shape, the
+    replay against the eager forward on the card, B2's launches a forward
+    (12); closed-loop median and p80 ms, tokens/s, host issue, device ms
+    and idle share."""
+    import numpy as np
+    import torch
+    from mxtpu_torch.ops.pallas.flash_attention import flash_attention
+    from mxtpu_torch.serving import BucketSpec, Predictor
+    layers, b, t = BERT_BASE["num_layers"], MOE_SERVE_BATCH, 512
+    net = _par_net(layers, arrays, torch.device("cuda"), "bfloat16",
+                   hybrid=False, experts=MOE_EXPERTS)
+    spec = BucketSpec(batch_sizes=[b], seq_lens=[t])
+    t0 = time.time()
+    pred = Predictor(net, spec, example=torch.zeros(1, t, dtype=torch.int32),
+                     warmup=True, device="cuda",
+                     site="serving.predict.moe_lm.bfloat16")
+    torch.cuda.synchronize()
+    warm_s = time.time() - t0
+    graphs = check_graphs(pred, spec, "moe_lm bfloat16")
+    rng = np.random.default_rng(42)
+    x = torch.from_numpy(rng.integers(0, BERT_BASE["vocab_size"], (b, t),
+                                      dtype=np.int32)).to("cuda")
+    flash_attention.launches = 0
+    logits = pred.predict(x).to_torch()
+    torch.cuda.synchronize()
+    per_fwd = flash_attention.launches
+    if tuple(logits.shape) != (b, t, BERT_BASE["vocab_size"]) or \
+            not bool(torch.isfinite(logits.float()).all()) or \
+            per_fwd != layers:
+        raise AssertionError("moe serve: logits %s (finite %s), B2 "
+                             "launches a forward %d (expected %d)" % (
+                                 tuple(logits.shape),
+                                 bool(torch.isfinite(logits.float()).all()),
+                                 per_fwd, layers))
+    diff = replay_vs_eager(pred, x, "moe_lm bfloat16")
+    med, p80, issue = closed_loop(pred, x)
+    rows = device_rows(lambda: pred.predict(x), 3)
+    dev_ms = sum(r[1] for r in rows)
+    check_graphs(pred, spec, "moe_lm bfloat16 after traffic")
+    res = dict(median_ms=med, p80_ms=p80, issue_ms=issue,
+               tokens_per_s=b * t * 1e3 / med, device_ms=dev_ms,
+               idle=1 - dev_ms / med, graphs=graphs, b2_per_forward=per_fwd,
+               warmup_s=warm_s, replay_vs_eager=diff)
+    print("serve moe_lm (12 layers, 8 experts, BERT-base widths) bf16 b%d "
+          "x %d on %s: %d captured graph (warm-up %.1f s), %.1f tokens/s "
+          "at the median %.3f ms (p80 %.3f, median host issue %.3f ms; 50 "
+          "requests), device kernels %.3f ms (idle share %.3f), B2 "
+          "launches a forward %d, replay vs eager max abs diff %.3g" % (
+              b, t, card, graphs, warm_s, res["tokens_per_s"], med, p80,
+              issue, dev_ms, res["idle"], per_fwd, diff), flush=True)
+    print_breakdown("serve moe_lm bf16 b%d x %d graph" % (b, t), rows, med,
+                    "flash_attention_", layers)
+    del pred, net
+    return res
+
+
+def moe_train(card, arrays):
+    """The 12-layer bf16 MoE LM trained through ``ShardedTrainStep(
+    data_parallel_mesh(), forward=CE + 0.01 aux)`` in a world of one NCCL
+    rank, Adam lr 1e-4, b16 x 512 (hybridized: each step replays a
+    captured pair whose second output is the aux loss): median and p80
+    ms of 10 steps after 3, tokens/s, train_mfu (the experts counted over
+    the E x C slots they compute), idle share, peak GiB, builds after the
+    warm-up (0), B2 a forward (12) and the profiler's breakdown."""
+    import gc
+    import torch
+    import mxtpu_torch as mt
+    from mxtpu_torch import parallel as par
+    from mxtpu_torch.ops.pallas.flash_attention import flash_attention
+    layers, b, t = BERT_BASE["num_layers"], MOE_TRAIN_BATCH, 512
+    vocab = BERT_BASE["vocab_size"]
+    rdv = os.path.join(ROOT, "build", "moe_rdv")
+    if os.path.exists(rdv):
+        os.remove(rdv)
+    mt.distributed.init("file://" + rdv, num_processes=1, process_id=0,
+                        backend="nccl", timeout=PARALLEL_TIMEOUT_S)
+    try:
+        dev = torch.device("cuda", 0)
+        net = _par_net(layers, arrays, dev, "bfloat16", experts=MOE_EXPERTS)
+        st = par.ShardedTrainStep(net, None, par.data_parallel_mesh(),
+                                  optimizer="adam",
+                                  optimizer_params={"learning_rate": ADAM_LR},
+                                  forward=_moe_forward(vocab))
+        (tok, lab), = _par_batches(b, t, 1, 43, vocab)
+        x = mt.nd.array(tok, ctx=dev, dtype="int32")
+        y = mt.nd.array(lab, ctx=dev)
+        losses = [float(st(x, y).asnumpy()) for _ in range(2)]
+        start = flash_attention.launches
+        st(x, y)
+        torch.cuda.synchronize()
+        per_fwd = flash_attention.launches - start
+        aux = float(net.aux_loss().asnumpy())
+        torch.cuda.reset_peak_memory_stats()
+        warm = {}
+
+        def on_warm():
+            warm.update(_builds())
+        med, p80, issue = timed_steps(lambda: st(x, y), on_warm=on_warm)
+        built = {k: v - warm[k] for k, v in _builds().items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        rate = b * t * 1e3 / med
+        flops = moe_flops_per_step(b, t, layers)
+        ok = per_fwd == layers and not any(built.values()) and \
+            all(x_ == x_ for x_ in losses) and aux == aux
+        print("train moe_lm (12 layers, 8 experts, BERT-base widths) bf16 "
+              "b%d x %d ShardedTrainStep(data_parallel_mesh()) Adam on %s: "
+              "%.1f tokens/s at the median %.3f ms (p80 %.3f, median host "
+              "issue %.3f ms; 10 after 3), peak %.2f GiB, builds after the "
+              "warm-up %s, B2 launches a forward %d, losses %s, aux %.4f; "
+              "%.4g FLOP a step" % (
+                  b, t, card, rate, med, p80, issue, peak, built, per_fwd,
+                  ["%.4f" % v for v in losses], aux, flops), flush=True)
+        dev_ms = print_step_breakdown(
+            "train moe_lm bf16", device_rows(lambda: st(x, y), 2), med,
+            flops / med * 1e3, "bfloat16", card)
+        if not ok:
+            raise AssertionError("moe train: B2 %d a forward (expected %d), "
+                                 "builds %s, losses %s" % (
+                                     per_fwd, layers, built, losses))
+        res = dict(step_ms=med, p80_ms=p80, issue_ms=issue,
+                   tokens_per_s=rate, device_ms=dev_ms, idle=1 - dev_ms / med,
+                   peak_gib=peak, builds_after_warmup=built,
+                   b2_per_forward=per_fwd,
+                   train_mfu=flops / med * 1e3 / PEAK_FLOPS["bfloat16"])
+        del st, net
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        mt.distributed.shutdown()
+    return res
+
+
+def moe_phase(card):
+    """Slice 14's path (ROADMAP A8's second part): the Switch MoE layer
+    against its dense formulation, the 2-layer MoE LM against the CPU,
+    the 12-layer 8-expert bf16 MoE LM served and trained on B2. (Its
+    four-rank gates run in ``parallel_phase``'s part (b).)"""
+    import gc
+    import torch
+    t_phase = time.time()
+    out = {"ffn": moe_ffn_check(card)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["lockstep"] = moe_lockstep(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["b2"] = moe_b2_timing(card)
+    arrays = _par_arrays(BERT_BASE["num_layers"], MOE_EXPERTS)
+    out["serve"] = moe_serve(card, arrays)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["train"] = moe_train(card, arrays)
+    del arrays
+    print("moe phase %.1f s" % (time.time() - t_phase), flush=True)
+    return out
 
 
 def kernel_entries(rows, launches, train_launches, name, source, replaces,
@@ -7442,6 +8384,22 @@ def main():
     if not parallel_path["b2"] or parallel_path["b1"] or parallel_path["b3"]:
         raise AssertionError("the parallel path's launches: %s (B2 only)"
                              % parallel_path)
+    # slice 14: the Switch MoE (A8's second part), B1-B3's counts from 0
+    # just before it; B2 runs in the MoE LM's every forward
+    fused_conv.launches = flash_attention.launches = 0
+    rtc_launches_seen = []
+    rtc_mod.launched = lambda k: (rtc_launches_seen.append(k),
+                                  rtc_launched(k))
+    try:
+        moe = moe_phase(card)
+    finally:
+        rtc_mod.launched = rtc_launched
+    moe_path = {"b1": fused_conv.launches, "b2": flash_attention.launches,
+                "b3": len(rtc_launches_seen)}
+    print("moe phase launches of B1-B3: %s" % moe_path, flush=True)
+    if not moe_path["b2"] or moe_path["b1"] or moe_path["b3"]:
+        raise AssertionError("the moe path's launches: %s (B2 only)"
+                             % moe_path)
     # slice 9: the zoo's shape classes, then each path with B1's count
     # from 0 just before it and read just after
     t0 = time.time()
@@ -7541,10 +8499,19 @@ def main():
                 for r in par_ranks}}
         e["ring_block_rows"] = [r for r in par_blocks
                                 if r["dtype"] == dtype]
+        e["moe_b2_launches"] = {
+            "phase_both_types": moe_path["b2"],
+            "served_bf16_per_forward": moe["serve"]["b2_per_forward"],
+            "trained_bf16_per_forward": moe["train"]["b2_per_forward"]}
+        if dtype == "bfloat16":
+            e["moe_b2_16x12x512x64"] = moe["b2"]
+    for e in entries[:2]:
+        e["moe_b1_launches"] = moe_path["b1"]
     for i, e in enumerate(entries):
         kind = "conv" if i < 2 else "flash"
         e["decode_launches_both_dtypes"] = decode_launches[kind]
         e.update(("rnn_%s_launches" % k, v) for k, v in rnn_path.items())
+        e["moe_b3_launches"] = moe_path["b3"]
         e["captured_train_step_launches"] = captured[kind][
             "float32" if i % 2 == 0 else "bfloat16"]
         e["captured_train_launches_both_dtypes"] = captured_path[kind]
@@ -7562,7 +8529,8 @@ def main():
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "decode_launches": decode_launches[r["name"]],
-            "rnn_b3_launches": rnn_path["b3"]})
+            "rnn_b3_launches": rnn_path["b3"],
+            "moe_b3_launches": moe_path["b3"]})
     print("rnn op beside torch.nn.LSTM (graph replay ms): %s" % json.dumps(
         rnn["op"]))
     print(json.dumps({"kernels": entries}))

@@ -2,9 +2,10 @@
 ``mxtpu/executor_manager.py``; ref: python/mxnet/executor_manager.py,
 DataParallelExecutorManager behind mx.model FeedForward).
 
-The port runs one executor on one device (multi-device executors are
-ROADMAP A8). Only ``_split_input_slice``, the public batch-slicing helper
-some reference training scripts import directly, is provided.
+The port runs one executor a process: on one device, or on a
+``parallel.Mesh`` this rank's rows of the batch (``symbol/executor.py``).
+Only ``_split_input_slice``, the public batch-slicing helper some
+reference training scripts import directly, is provided.
 """
 from .base import MXNetError
 

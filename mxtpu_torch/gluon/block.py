@@ -71,11 +71,16 @@ def reading_params(fn):
 def read_params(block):
     """``{attribute: tensor}`` of ``block``'s own parameters as its layer
     forward reads them: each through this thread's ``reading_params``
-    function, where one is set."""
+    function, where one is set, then through the parameter's own
+    ``_read`` function, where it has one (``ShardedTrainStep`` gives a
+    parameter held as this rank's shard one that reads it whole)."""
     params = {k: p._tensor() for k, p in block._reg_params.items()}
     read = getattr(_PARAM_READ, "fn", None)
     if read is not None:
         params = {k: read(t) for k, t in params.items()}
+    for k, p in block._reg_params.items():
+        if p._read is not None:
+            params[k] = p._read(params[k])
     return params
 
 

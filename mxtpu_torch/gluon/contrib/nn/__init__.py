@@ -1,12 +1,14 @@
 """Contrib layers (counterpart of ``mxtpu/gluon/contrib/nn``):
 ``Concurrent``, ``HybridConcurrent`` and ``Identity`` are Gluon's own
 layers; ``SyncBatchNorm`` takes its batch statistics over the ranks of a
-mesh axis (or the world); ``SparseEmbedding`` (row-sparse gradients) and
-``SwitchMoE`` are not ported yet and raise naming their ROADMAP items."""
+mesh axis (or the world); ``SwitchMoE`` is the top-1 mixture of experts
+(``parallel.moe``); ``SparseEmbedding`` (row-sparse gradients) is not
+ported yet and raises naming its ROADMAP item."""
 import torch
 
 from .... import autograd
 from ....base import MXNetError
+from ...block import HybridBlock
 from ...nn import BatchNorm, Concurrent, HybridConcurrent, Identity
 
 __all__ = ["Concurrent", "HybridConcurrent", "Identity", "SparseEmbedding",
@@ -97,4 +99,61 @@ class SyncBatchNorm(BatchNorm):
         return "SyncBatchNorm(eps={}, momentum={}, in_channels={})".format(
             self._kwargs["eps"], self._momentum, self.gamma.shape[0])
 
-SwitchMoE = _not_ported("SwitchMoE", "A10", "the mixture-of-experts layers")
+
+class SwitchMoE(HybridBlock):
+    """Top-1 switch mixture-of-experts FFN layer (ref: contrib
+    ``SwitchMoE``): a router ``(dim, E)`` and E expert FFNs ``w1 (E, dim,
+    hidden)``, ``b1``, ``w2 (E, hidden, dim)``, ``b2``, through the
+    ``_contrib_switch_moe`` op. Input ``(..., dim)`` is flattened to
+    tokens and restored; returns ``(out, aux_loss)``, the Switch
+    load-balancing loss a real second output.
+
+    When ``ShardedTrainStep`` holds the expert weights as this rank's
+    shard of an expert axis (``expert_parallel_rules``), the layer runs
+    its experts only (``parallel.moe.switch_ffn`` over the expert axis),
+    and ``ShardedTrainStep`` leaves its parameters to it
+    (``_reads_shards``)."""
+
+    _reads_shards = True
+
+    def __init__(self, dim, hidden, num_experts, capacity_factor=1.25,
+                 **kwargs):
+        super().__init__(**kwargs)
+        self._dim, self._hidden = dim, hidden
+        self._num_experts = num_experts
+        self._capacity_factor = capacity_factor
+        with self.name_scope():
+            self.router = self.params.get("router", shape=(dim, num_experts))
+            self.w1 = self.params.get("w1", shape=(num_experts, dim, hidden))
+            self.b1 = self.params.get("b1", shape=(num_experts, hidden),
+                                      init="zeros")
+            self.w2 = self.params.get("w2", shape=(num_experts, hidden, dim))
+            self.b2 = self.params.get("b2", shape=(num_experts, dim),
+                                      init="zeros")
+
+    def hybrid_forward(self, F, x, router, w1, b1, w2, b2):
+        if x.shape[-1] != self._dim:
+            raise ValueError(
+                "SwitchMoE(dim=%d) got input with last axis %d"
+                % (self._dim, x.shape[-1]))
+        from ....parallel import train as _train
+        from ....parallel.moe import switch_ffn
+        router = _train.read_whole(self.router, router)
+        place = _train.placement(self.w1)
+        if place is not None and place.spec[0] is not None:
+            # the experts split over an axis: this rank's experts only
+            data = place.data_axis
+            out, aux = switch_ffn(
+                x.reshape(-1, self._dim), router, w1, b1, w2, b2,
+                capacity_factor=self._capacity_factor,
+                expert_axis=place.mesh.axis(place.spec[0]),
+                data_axis=None if data is None else place.mesh.axis(data))
+            return out.reshape(x.shape), aux
+        w1, b1, w2, b2 = (_train.read_whole(p, t) for p, t in zip(
+            (self.w1, self.b1, self.w2, self.b2), (w1, b1, w2, b2)))
+        return F._contrib_switch_moe(x, router, w1, b1, w2, b2,
+                                     capacity_factor=self._capacity_factor)
+
+    def __repr__(self):
+        return "SwitchMoE(dim=%d, hidden=%d, experts=%d)" % (
+            self._dim, self._hidden, self._num_experts)

@@ -12,19 +12,26 @@ Attention runs through ``parallel.ring_attention.ring_attention_nd``:
 the flash kernel on one rank, the ring when ``mesh`` splits the sequence
 over ``seq_axis``. Then each rank takes its block of the tokens ``[B,
 T/n]`` and offsets its positions by its block's start (the reference's
-trace sees the global T). Not in the port yet: the Switch
-mixture-of-experts block (``num_experts > 0``, ROADMAP A10 with
-``gluon/contrib/nn``) and the tensor- and expert-parallel rules (the
-second part of A8).
+trace sees the global T).
+
+``num_experts > 0`` puts a Switch mixture of experts (``SwitchMoE``,
+``moe_``) in every block in place of the MLP. The model's forward then
+sums the blocks' load-balancing losses as a second output of its own (so
+a hybridized model's captured pair returns it, and ``0.01 * aux`` reaches
+the router's gradient) and returns the logits; ``aux_loss()`` reads that
+sum. ``tensor_parallel_rules`` and ``expert_parallel_rules`` are the
+reference's ``param_specs`` rules, as tuples (``parallel.P``).
 """
 from __future__ import annotations
 
 from ...base import MXNetError
+from ...parallel.mesh import P
 from ...parallel.ring_attention import ring_attention_nd
 from ..block import HybridBlock
 from .. import nn
 
-__all__ = ["TransformerLM", "TransformerBlock", "MultiHeadSelfAttention"]
+__all__ = ["TransformerLM", "TransformerBlock", "MultiHeadSelfAttention",
+           "tensor_parallel_rules", "expert_parallel_rules"]
 
 
 class MultiHeadSelfAttention(HybridBlock):
@@ -69,24 +76,30 @@ class TransformerBlock(HybridBlock):
     def __init__(self, dim, num_heads, hidden_mult=4, mesh=None,
                  seq_axis="sp", batch_axis="data", causal=True,
                  num_experts=0, capacity_factor=1.25, **kwargs):
-        if num_experts > 0:
-            raise MXNetError(
-                "num_experts=%d: the Switch mixture-of-experts block "
-                "(gluon/contrib/nn SwitchMoE) is not ported yet (ROADMAP "
-                "A10); use num_experts=0" % num_experts)
         super().__init__(**kwargs)
+        self._moe = num_experts > 0
         with self.name_scope():
             self.ln1 = nn.LayerNorm()
             self.attn = MultiHeadSelfAttention(
                 dim, num_heads, mesh=mesh, seq_axis=seq_axis,
                 batch_axis=batch_axis, causal=causal, prefix="attn_")
             self.ln2 = nn.LayerNorm()
-            self.fc1 = nn.Dense(hidden_mult * dim, flatten=False,
-                                activation="relu", prefix="mlp1_")
-            self.fc2 = nn.Dense(dim, flatten=False, prefix="mlp2_")
+            if self._moe:
+                from ..contrib.nn import SwitchMoE
+                self.moe = SwitchMoE(dim, hidden_mult * dim, num_experts,
+                                     capacity_factor=capacity_factor,
+                                     prefix="moe_")
+            else:
+                self.fc1 = nn.Dense(hidden_mult * dim, flatten=False,
+                                    activation="relu", prefix="mlp1_")
+                self.fc2 = nn.Dense(dim, flatten=False, prefix="mlp2_")
 
     def hybrid_forward(self, F, x):
         x = x + self.attn(self.ln1(x))
+        if self._moe:
+            out, aux = self.moe(self.ln2(x))
+            self._last_aux = aux   # summed by TransformerLM's forward
+            return x + out
         return x + self.fc2(self.fc1(self.ln2(x)))
 
 
@@ -103,6 +116,8 @@ class TransformerLM(HybridBlock):
                  capacity_factor=1.25, **kwargs):
         super().__init__(**kwargs)
         self._max_len = max_len
+        self._moe = num_experts > 0
+        self._aux = None
         self._mesh = mesh
         self._seq_axis = seq_axis
         with self.name_scope():
@@ -141,4 +156,70 @@ class TransformerLM(HybridBlock):
                        ctx=tokens.device)
         x = self.embed(tokens) + self.pos_embed(pos)
         x = self.blocks(x)
-        return self.head(self.ln_f(x))
+        logits = self.head(self.ln_f(x))
+        if not self._moe:
+            return logits
+        aux = None
+        for blk in self.blocks:
+            aux = blk._last_aux if aux is None else aux + blk._last_aux
+        return logits, aux
+
+    def forward(self, *args):
+        """The logits; a MoE model keeps its forward's summed aux loss for
+        ``aux_loss()`` (an NDArray where the call took NDArrays)."""
+        from ... import graphs
+        from ...ndarray import NDArray
+        out = super().forward(*args)
+        if isinstance(out, tuple):   # the MoE trunk's (logits, aux)
+            out, aux = out
+            self._aux = (aux, graphs.capturing())
+        elif isinstance(out, NDArray) and self._aux is not None \
+                and not isinstance(self._aux[0], NDArray):
+            self._aux = (NDArray(self._aux[0]), self._aux[1])
+        return out
+
+    def aux_loss(self):
+        """The sum of the blocks' Switch load-balancing losses of the last
+        forward (0.0 for the dense model). Add it scaled by your alpha.
+        Raises before any forward, and where the last forward ran inside
+        another block's capture (its value is the capture's, not the
+        replay's: the reference's stale trace-time value)."""
+        if not self._moe:
+            return 0.0
+        if self._aux is None:
+            raise MXNetError(
+                "aux_loss() before any forward: no load-balancing loss has "
+                "been recorded yet")
+        aux, stale = self._aux
+        if stale:
+            raise MXNetError(
+                "aux_loss() on a hybridized MoE TransformerLM would return "
+                "a stale trace-time value; compute the loss inside the "
+                "traced forward (use the SwitchMoE layer's (out, aux) "
+                "return) or call aux_loss() before hybridize()")
+        return aux
+
+
+def tensor_parallel_rules(model_axis="model"):
+    """``param_specs`` rules sharding the projections over the model axis
+    (Dense weights are ``[units, in]``: dim 0 column-parallel, dim 1
+    row-parallel), the reference's patterns."""
+    return [
+        (r".*qkv_weight", P(model_axis, None)),
+        (r".*proj_weight", P(None, model_axis)),
+        (r".*mlp1_weight", P(model_axis, None)),
+        (r".*mlp2_weight", P(None, model_axis)),
+        (r".*head_weight", P(model_axis, None)),
+        (r".*wte_weight", P(None, model_axis)),
+    ]
+
+
+def expert_parallel_rules(expert_axis="expert"):
+    """``param_specs`` rules for the MoE variant: the expert-stacked FFN
+    weights shard on their leading E axis."""
+    return [
+        (r".*moe_w1", P(expert_axis)),
+        (r".*moe_b1", P(expert_axis)),
+        (r".*moe_w2", P(expert_axis)),
+        (r".*moe_b2", P(expert_axis)),
+    ]

@@ -83,6 +83,7 @@ class Parameter:
         self._allow_deferred_init = allow_deferred_init
         self._deferred_init = None   # (init, default_init, generator)
         self._owner = None           # (module, attribute) holding the tensor
+        self._read = None            # what a layer reads of the tensor
         self._nd = None              # the _ParamArray data() returns
         self._own = self._placeholder(torch.device("cpu"))
 

@@ -5,14 +5,23 @@ Reference: ``python/mxnet/module/module.py:40-642`` — binds a
 DataParallelExecutorGroup (per-device executors + batch slicing,
 executor_group.py:281) and reduces gradients through KVStore.
 
-The port binds ONE executor on one device (``context``; default the CUDA
-device, or raise). On one device a ``local`` or ``device`` store's push
-and pull of a gradient is the identity, so ``kvstore`` None, ``"local"``
-and ``"device"`` mean no store; a ``dist_*`` store, a store object, a
-context list of several devices and ``group2ctxs`` wait for the second
-part of the multi-device port (ROADMAP A8) and raise. ``update`` hands the
-grouped parameters to one ``FusedUpdater.update_batch`` (on the card the
-captured update step), which writes the executor's arrays in place.
+The port binds ONE executor. ``context`` is one device (default the
+CUDA device, or raise); a list of contexts runs on its first, as the
+reference's executor keeps the list and runs on one device; a
+``parallel.Mesh`` binds on this rank's device, every rank binding the
+global shapes and passing the same global batch, and the executor runs
+this rank's rows of it with the gradients summed over the mesh's data
+axis (``symbol/executor.py``). ``compression_params`` is accepted and
+unused, as the reference's is; ``group2ctxs`` raises in the reference's
+words. A ``local`` or ``device`` store's push and pull of a gradient is
+the identity on one device, so ``kvstore`` None, ``"local"`` and
+``"device"`` mean no store; ``"dist_sync"``, ``"dist_device_sync"`` or a
+``KVStore`` object is created (``kvstore.create``), holds every parameter,
+and, its type naming ``dist``, updates them on the store: ``update``
+pushes the grouped gradients and pulls the weights (the reference's
+``_update_params_on_kvstore``). Otherwise ``update`` hands the grouped
+parameters to one ``FusedUpdater.update_batch`` (on the card the captured
+update step), which writes the executor's arrays in place.
 """
 from __future__ import annotations
 
@@ -34,12 +43,17 @@ __all__ = ["Module"]
 _LOCAL_STORES = (None, "local", "device")
 
 
-def _check_kvstore(kvstore):
+def _create_kvstore(kvstore):
+    """None for no store (module docstring), else the store."""
+    from .. import kvstore as kv_mod
+    if isinstance(kvstore, kv_mod.KVStore):
+        return kvstore
     if kvstore in _LOCAL_STORES:
-        return
-    raise MXNetError("kvstore %r: only one device is ported (None, 'local' "
-                     "or 'device'); distributed and multi-device stores come "
-                     "with ROADMAP A8" % (kvstore,))
+        return None
+    if isinstance(kvstore, str):
+        return kv_mod.create(kvstore)
+    raise MXNetError("kvstore %r is neither a store's name nor a KVStore"
+                     % (kvstore,))
 
 
 class Module(BaseModule):
@@ -48,9 +62,11 @@ class Module(BaseModule):
                  fixed_param_names=None, state_names=None, group2ctxs=None,
                  compression_params=None):
         super().__init__(logger=logger)
-        if group2ctxs is not None or compression_params:
-            raise MXNetError("group2ctxs and compression_params need the "
-                             "multi-device port (ROADMAP A8)")
+        if group2ctxs is not None:
+            raise MXNetError(
+                "group2ctxs manual device placement is not supported: use a "
+                "parallel.Mesh context plus ShardedTrainStep param_specs for "
+                "model parallelism")
         executor_device(context)   # no card and no CPU context: raise now
         self._context = context
         self._symbol = symbol
@@ -66,6 +82,8 @@ class Module(BaseModule):
         self._exec = None
         self._optimizer = None
         self._updater = None
+        self._kvstore = None
+        self._update_on_kvstore = False
         self._data_shapes = None
         self._label_shapes = None
         self._grad_req = "write"
@@ -187,12 +205,13 @@ class Module(BaseModule):
                        optimizer_params=(("learning_rate", 0.01),),
                        force_init=False, loss_scaler=None):
         """(ref: module.py:init_optimizer). ``kvstore`` None, ``"local"``
-        or ``"device"``: no store (module docstring). ``loss_scaler`` needs
-        the numerics guard (ROADMAP A9)."""
+        or ``"device"``: no store; a ``dist_*`` name or a store object: the
+        store (module docstring). ``loss_scaler`` needs the numerics guard
+        (ROADMAP A9)."""
         assert self.binded and self.params_initialized
         if self.optimizer_initialized and not force_init:
             return
-        _check_kvstore(kvstore)
+        kv = _create_kvstore(kvstore)
         if loss_scaler is not None:
             raise MXNetError("loss_scaler needs the numerics guard, which is "
                              "not ported yet (ROADMAP A9)")
@@ -212,6 +231,13 @@ class Module(BaseModule):
             with open(self._preload_opt_states, "rb") as f:
                 self._updater.set_states(f.read())
             self._updater.optimizer = optimizer
+        self._kvstore = kv
+        self._update_on_kvstore = kv is not None and "dist" in kv.type
+        if kv is not None:
+            for i, name in enumerate(self._param_names):
+                kv.init(i, self._exec.arg_dict[name])
+            if self._update_on_kvstore:
+                kv.set_optimizer(self._optimizer)
         self.optimizer_initialized = True
 
     # ------------------------------------------------------------- running
@@ -232,7 +258,8 @@ class Module(BaseModule):
 
     def update(self):
         """One optimizer step on the gradients (ref: module.py:update): the
-        grouped keys in ONE ``update_batch`` call."""
+        grouped keys in ONE ``update_batch`` call, or pushed to the store
+        (module docstring)."""
         assert self.binded and self.params_initialized \
             and self.optimizer_initialized
         keys, grads, weights = [], [], []
@@ -243,8 +270,18 @@ class Module(BaseModule):
             keys.append(i)
             grads.append(g)
             weights.append(self._exec.arg_dict[name])
-        if keys:
-            with telemetry.span("module.update"):
+        if not keys:
+            return
+        kv = self._kvstore
+        with telemetry.span("module.update"):
+            if kv is None:
+                self._updater.update_batch(keys, grads, weights)
+            elif self._update_on_kvstore:
+                kv.push(keys, grads)
+                kv.pull(keys, weights)
+            else:
+                kv.push(keys, grads)
+                kv.pull(keys, grads)
                 self._updater.update_batch(keys, grads, weights)
 
     def get_outputs(self, merge_multi_context=True):

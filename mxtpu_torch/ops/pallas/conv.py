@@ -283,9 +283,12 @@ def _forward(x, w, strides, padding, scale, bias, residual, relu, oh, ow):
 def _conv_grads(x, w, dz, strides, padding, need_x=True, need_w=True):
     """(dx, dw) of the conv from its cotangent ``dz`` [N, OH, OW, C_out]:
     ``convolution_backward`` on NCHW views of the NHWC tensors (channels
-    last in memory, so no layout copy is made), which accumulates in
-    float32; asymmetric padding is applied to x first and sliced off dx.
-    dx comes back in x's type and dw in w's type."""
+    last in memory, so no layout copy is made on the card), which
+    accumulates in float32; asymmetric padding is applied to x first and
+    sliced off dx. dx comes back in x's type and dw in w's type. On the
+    CPU the operands are made contiguous NCHW first: torch's CPU
+    backward on the channels-last views crashes the process now and then
+    (a segfault or an abort within a few dozen ResNet steps)."""
     n, h, wd, _ = x.shape
     (plo, phi), (qlo, qhi) = padding
     xn = x.permute(0, 3, 1, 2)
@@ -294,9 +297,11 @@ def _conv_grads(x, w, dz, strides, padding, need_x=True, need_w=True):
     else:
         xn = F.pad(xn, (qlo, qhi, plo, phi))
         pad = [0, 0]
+    dzn, wn = dz.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+    if x.device.type == "cpu":
+        dzn, xn, wn = dzn.contiguous(), xn.contiguous(), wn.contiguous()
     dx, dw, _ = torch.ops.aten.convolution_backward(
-        dz.permute(0, 3, 1, 2), xn, w.permute(3, 2, 0, 1), None,
-        list(strides), pad, [1, 1], False, [0, 0], 1,
+        dzn, xn, wn, None, list(strides), pad, [1, 1], False, [0, 0], 1,
         [bool(need_x), bool(need_w), False])
     if dx is not None:
         if pad == [0, 0] and (plo or phi or qlo or qhi):

@@ -690,7 +690,8 @@ class FusedUpdater(Updater):
                 _bucket_all_reduce(gs, axis)
             data = plan.data()
             rows = [k for k, w in enumerate(weights)
-                    if plan.zero_eligible(tuple(w.shape))]
+                    if indices[k] not in plan.sharded
+                    and plan.zero_eligible(tuple(w.shape))]
             rest = [k for k in range(len(indices)) if k not in set(rows)]
             _bucket_all_reduce([gs[k] for k in rest], data)
             shards = _bucket_reduce_scatter([gs[k] for k in rows], data)
@@ -861,9 +862,16 @@ class MeshPlan:
     optimizer state and the update of each parameter whose dim 0 divides
     the ``data_axis`` over that axis (ZeRO-1, arXiv:2004.13336):
     reduce-scatter the gradient, update this rank's rows, all-gather the
-    weight. Other parameters keep whole states and a whole update."""
+    weight. Other parameters keep whole states and a whole update.
+    ``sharded`` holds the indices of parameters held as this rank's shard
+    (``ShardedTrainStep`` param_specs): their gradients are summed over
+    the data axis whole, never ZeRO-1's rows."""
 
-    __slots__ = ("mesh", "data_axis", "zero1", "axis_size")
+    __slots__ = ("mesh", "data_axis", "zero1", "axis_size", "sharded")
+
+    # the axes whose ranks all compute the same loss (tensor, expert and
+    # pipeline parallelism): a gradient there is whole on every rank
+    WHOLE_GRADIENT_AXES = ("model", "expert", "pipe")
 
     def __init__(self, mesh, data_axis="data", zero1=True):
         if data_axis not in mesh.shape:
@@ -873,15 +881,19 @@ class MeshPlan:
         self.data_axis = data_axis
         self.zero1 = bool(zero1)
         self.axis_size = int(mesh.shape[data_axis])
+        self.sharded = set()
 
     def data(self):
         return self.mesh.axis(self.data_axis)
 
     def other_axes(self):
-        """The axes besides the data axis that have more than one rank
-        (the sequence axis of a ring): their gradients are summed too."""
+        """The axes besides the data axis that have more than one rank and
+        whose ranks each compute a part of the loss (the sequence axis of
+        a ring): their gradients are summed too. Not a ``model``,
+        ``expert`` or ``pipe`` axis (``WHOLE_GRADIENT_AXES``)."""
         return [self.mesh.axis(n) for n, size in self.mesh.shape.items()
-                if n != self.data_axis and size > 1]
+                if n != self.data_axis and size > 1
+                and n not in self.WHOLE_GRADIENT_AXES]
 
     def zero_eligible(self, w_shape):
         return (self.zero1 and self.axis_size > 1 and len(w_shape) >= 1

@@ -7,8 +7,15 @@ Each takes this rank's value and a ``MeshAxis`` (``mesh.axis(name)``) and
 is differentiable, a ``torch.autograd.Function`` whose backward is the
 transposed collective: ``psum``'s is ``psum`` (every rank's loss reads
 the sum), ``all_gather``'s a reduce-scatter, ``reduce_scatter``'s an
-all-gather and ``ppermute``'s the inverse permutation. Every rank of the
-axis must make the same calls in the same order, backward included.
+all-gather and ``ppermute``'s the inverse permutation. They are right
+where each rank of the axis computes its own part of the loss (the data
+and ``sp`` axes). On an axis whose ranks all compute the same loss (a
+``model``, ``expert`` or ``pipe`` axis) they would count each gradient once
+per rank; there Megatron's conjugate pair applies: ``copy_to`` (identity
+forward, all-reduce backward) and ``reduce_from`` (all-reduce forward,
+identity backward), with ``gather_from`` (all-gather forward, this rank's
+slice backward, no sum). Every rank of the axis must make the same calls
+in the same order, backward included.
 
 On a gloo group a CUDA tensor travels through a pinned host buffer (gloo
 moves host memory; several ranks sharing one card use it), and
@@ -21,7 +28,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["psum", "pmean", "all_gather", "reduce_scatter", "ppermute",
-           "axis_index", "all_reduce_", "all_gather_into_", "broadcast_"]
+           "copy_to", "reduce_from", "gather_from", "axis_index",
+           "all_reduce_", "all_gather_into_", "broadcast_"]
 
 
 def axis_index(axis):
@@ -154,6 +162,40 @@ class _ReduceScatter(torch.autograd.Function):
         return _gather(g, ctx.axis, ctx.dim), None, None
 
 
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.clone(), ctx.axis), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        return all_reduce_(x.clone(), axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim, ctx.k = axis, dim, x.shape[dim]
+        return _gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        a = ctx.axis
+        return g.narrow(ctx.dim, a.index * ctx.k, ctx.k).contiguous(), \
+            None, None
+
+
 def _permute(x, axis, perm):
     """Send ``x`` along ``perm`` ((source index, destination index)
     pairs of the axis); a rank that receives nothing gets zeros."""
@@ -215,3 +257,24 @@ def ppermute(x, axis, perm):
     """``x`` sent along ``perm``, ``(source, destination)`` index pairs of
     ``axis`` (``jax.lax.ppermute``)."""
     return _PPermute.apply(x, axis, tuple(tuple(p) for p in perm))
+
+
+def copy_to(x, axis):
+    """``x`` itself; its gradient summed over ``axis`` (Megatron's ``f``):
+    where the ranks of ``axis`` each use ``x`` for their part of one
+    replicated loss."""
+    return _CopyTo.apply(x, axis)
+
+
+def reduce_from(x, axis):
+    """The sum of every rank's ``x`` over ``axis``, its gradient passed
+    through whole (Megatron's ``g``): each rank's loss reads the one sum,
+    so no rank's gradient is counted twice."""
+    return _ReduceFrom.apply(x, axis)
+
+
+def gather_from(x, axis, dim=0):
+    """Every rank's ``x`` concatenated along ``dim``; the gradient is this
+    rank's slice of the whole one, not summed over ``axis``: for a weight
+    sharded over an axis whose ranks compute the same loss."""
+    return _GatherFrom.apply(x, axis, dim)

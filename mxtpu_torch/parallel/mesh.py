@@ -25,7 +25,7 @@ import torch.distributed as dist
 from .. import distributed
 from ..base import MXNetError
 
-__all__ = ["Mesh", "MeshAxis", "Sharding", "make_mesh", "world_axis",
+__all__ = ["Mesh", "MeshAxis", "P", "Sharding", "make_mesh", "world_axis",
            "data_parallel_mesh", "is_multiprocess_mesh", "host_value",
            "place_global"]
 
@@ -80,6 +80,18 @@ class Mesh:
 
     def __repr__(self):
         return "Mesh(%s)" % dict(self.shape)
+
+
+class P(tuple):
+    """A partition spec, ``jax.sharding.PartitionSpec``'s counterpart: per
+    dimension the mesh axis it is split over, or None (whole);
+    ``P("model", None)``. Any tuple of the same entries is taken alike."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, axes)
+
+    def __repr__(self):
+        return "P%s" % (tuple.__repr__(self),)
 
 
 class Sharding:

@@ -20,15 +20,37 @@ input convention) and runs
    averaged over the mesh, and the loss averaged for the caller.
 
 The loss is the mean over the global batch, so the summed gradients are
-scaled by 1 / (number of ranks). A world of one runs no collective and
-takes the plain captured Trainer's step bit for bit. The rule comes from
-``optimizer_fused.functional_rule``, refusing what the reference refuses
-(no rule, a rule with host state, multi-precision). Tensor-parallel
-``param_specs`` wait for the second part of ROADMAP A8. Dropout masks
-differ across ranks: in a process group the port's generators are
-seeded with the seed plus the rank (``random``).
+scaled by 1 / (the ranks they are summed over). A world of one runs no
+collective and takes the plain captured Trainer's step bit for bit. The
+rule comes from ``optimizer_fused.functional_rule``, refusing what the
+reference refuses (no rule, a rule with host state, multi-precision).
+Dropout masks differ across ranks: in a process group the port's
+generators are seeded with the seed plus the rank (``random``).
+
+``param_specs`` (the reference's ``:187-223``): the first rule whose
+pattern matches a parameter's name gives its spec (a tuple or
+``parallel.P``); a shape that does not divide the axes falls back to
+replicated, an axis not in the mesh raises. A matched parameter is held
+as this rank's shard (``Sharding``), so are its optimizer states; ZeRO-1
+applies to replicated parameters only. The ranks of a ``model``,
+``expert`` or ``pipe`` axis all compute the same loss, so their gradients
+are whole and summed over the data (and ``sp``) axes only:
+
+* tensor parallel: a layer reads a sharded weight whole through
+  ``gather_from`` (``read_whole``, the parameter's ``_read``), whose
+  backward takes this rank's slice. This holds for any spec; the reference's ``qkv_weight`` rule
+  does not split the fused projection by heads, so every rank computes
+  the whole layer (a head-local layout would save that compute);
+* expert parallel: ``SwitchMoE`` reads its expert shards as they are and
+  runs this rank's experts (``parallel.moe``): the step gives no
+  ``_read`` to a block that reads its shards itself (``_reads_shards``);
+* pipeline parallel: ``pipeline_apply`` makes its gradients whole on
+  every rank of the pipe axis itself (``parallel.pipeline``).
 """
 from __future__ import annotations
+
+import functools
+import re
 
 import torch
 
@@ -36,8 +58,65 @@ from .. import optimizer as opt_mod
 from .. import optimizer_fused as _fused
 from ..base import MXNetError
 from . import collectives
+from .mesh import P, Sharding
 
-__all__ = ["ShardedTrainStep", "pure_forward"]
+__all__ = ["ShardedTrainStep", "pure_forward", "placement", "read_whole"]
+
+
+class _Placement(Sharding):
+    """A parameter held as this rank's shard: its ``Sharding`` and the
+    data axis of the step that placed it."""
+
+    def __init__(self, mesh, spec, data_axis):
+        super().__init__(mesh, spec)
+        self.data_axis = data_axis
+
+
+def placement(param):
+    """The ``_Placement`` of a sharded parameter, else None."""
+    return getattr(param, "_placement", None)
+
+
+def read_whole(param, t):
+    """``t``, the tensor of ``param``, whole: where the parameter is
+    sharded, gathered over each split dimension's axis with
+    ``gather_from``."""
+    pl = placement(param)
+    if pl is None:
+        return t
+    from .. import graphs
+    if graphs.capturing():
+        raise MXNetError(
+            "%s is sharded over the mesh: its all-gather runs outside any "
+            "captured graph, so do not hybridize a block with sharded "
+            "param_specs" % param.name)
+    for dim, name in enumerate(pl.spec):
+        if name is not None:
+            t = collectives.gather_from(t, pl.mesh.axis(name), dim)
+    return t
+
+
+def _spec_for(name, shape, rules, mesh):
+    """The spec of the first rule whose pattern matches ``name`` (None:
+    replicated). An axis not in the mesh raises; a shape that does not
+    divide its axes falls back to replicated."""
+    for pat, spec in rules:
+        if not pat.match(name):
+            continue
+        spec = spec if isinstance(spec, P) else P(*spec)
+        for dim, axis in zip(shape, spec):
+            if axis is None:
+                continue
+            if axis not in mesh.shape:
+                raise MXNetError(
+                    "param_specs rule %r -> %s names axis %r not in mesh "
+                    "axes %s" % (pat.pattern, spec, axis, tuple(mesh.shape)))
+            if dim % mesh.shape[axis]:
+                return None
+        if any(a is not None and mesh.shape[a] > 1 for a in spec):
+            return spec
+        return None
+    return None
 
 
 def _param_names(block):
@@ -107,11 +186,6 @@ class ShardedTrainStep:
                  optimizer_params=None, data_axis="data", param_specs=(),
                  batch_specs=None, forward=None, donate=True,
                  shard_weight_update=False):
-        if param_specs:
-            raise MXNetError(
-                "param_specs (tensor-parallel placement) waits for the "
-                "second part of the multi-device port (ROADMAP A8); every "
-                "parameter is replicated here")
         if batch_specs is not None:
             raise MXNetError(
                 "batch_specs: each rank passes its own shard of the batch "
@@ -165,11 +239,26 @@ class ShardedTrainStep:
         self._updater.set_mesh(mesh, data_axis, shard_weight_update)
         self._axes = [mesh.axis(n) for n, size in mesh.shape.items()
                       if size > 1]
-        self._ranks = mesh.size
+        plan = self._updater._plan
+        self._ranks = 1     # the ranks whose gradients are summed
+        for axis in [plan.data()] + plan.other_axes():
+            self._ranks *= axis.size
         with torch.no_grad():   # one replicated copy: every rank takes index 0's
             for axis in self._axes:
                 for p in params:
                     collectives.broadcast_(p.data()._data, axis)
+        rules = [(re.compile(pat), spec) for pat, spec in param_specs]
+        for i, p in enumerate(params):
+            spec = _spec_for(p.name, tuple(p.data().shape), rules, mesh)
+            if spec is None:
+                continue
+            pl = _Placement(mesh, spec, data_axis
+                            if mesh.shape[data_axis] > 1 else None)
+            p._put(pl.shard(p.data()._data.detach()).contiguous())
+            p._placement = pl
+            plan.sharded.add(i)
+            if not getattr(p._owner[0], "_reads_shards", False):
+                p._read = functools.partial(read_whole, p)
         self._num_update = 0
 
     def _inputs(self, batch):
@@ -213,7 +302,7 @@ class ShardedTrainStep:
                     t = params[i].data()._data
                     collectives.all_reduce_(t, axis)
                     t.div_(axis.size)
-        return NDArray(loss / self._ranks)
+        return NDArray(loss / self._mesh.size)
 
     @property
     def learning_rate(self):

@@ -21,6 +21,17 @@ the capture (an NDArray write such as ``arr[:] = v``) is copied into the
 captured storage, which the array then holds again. A capture that fails
 raises; nothing falls back to eager.
 
+Bound to a ``parallel.Mesh`` (the reference's ``_place_on_mesh``), the
+executor runs on this rank's device. Every rank binds the global shapes
+and passes the same global batch; a feed input whose dim 0 divides the
+mesh's ``data`` axis is cut to this rank's rows, which the graph runs on
+(the parameters stay replicated), the outputs of those rows are
+all-gathered back to the global batch, and ``backward`` sums the
+parameters' gradients over the data axis (the rows' input gradients are
+gathered). A feed whose batch does not divide the axis runs whole on every
+rank, with the reference's one warning per (input, shape); where no feed
+is cut, nothing is summed.
+
 On the CPU the same forward runs eagerly, with torch autograd as the vjp.
 ``backward`` differentiates the last forward (its activations), as the
 reference's recomputes it: two training forwards before one backward give
@@ -30,6 +41,7 @@ runs uncaptured, node by node, and the callback sees each node's output
 """
 from __future__ import annotations
 
+import logging
 import threading
 
 import torch
@@ -45,17 +57,19 @@ __all__ = ["Executor"]
 
 def executor_device(ctx):
     """The one device an executor (or a Module) runs on: ``None`` is the
-    current context (the CUDA device, or raise); a list or tuple of one
-    context is that context; several, or a mesh, need the multi-device
-    port (ROADMAP A8); a CUDA device with no card raises."""
+    current context (the CUDA device, or raise); a list or tuple of
+    contexts its first (module docstring); a ``parallel.Mesh`` this rank's
+    device, the current context; a CUDA device with no card raises."""
+    from ..parallel.mesh import Mesh
+    if isinstance(ctx, Mesh):
+        ctx = None
     if isinstance(ctx, (list, tuple)):
-        if len(ctx) != 1:
-            raise MXNetError("a context list of %d devices needs the "
-                             "multi-device port (ROADMAP A8)" % len(ctx))
+        if not ctx:
+            raise MXNetError("an empty context list")
         ctx = ctx[0]
     if ctx is not None and not isinstance(ctx, (Context, str, torch.device)):
-        raise MXNetError("context %r: a mesh needs the multi-device port "
-                         "(ROADMAP A8)" % (ctx,))
+        raise MXNetError("context %r is neither a device, a list of "
+                         "devices nor a parallel.Mesh" % (ctx,))
     device = resolve_device(ctx)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise MXNetError("executor bound to %s, but no CUDA device is "
@@ -136,6 +150,14 @@ class Executor:
         self._draws = draws(symbol)
         # names bound as feed inputs (data, label); set by simple_bind
         self._input_names = set()
+        from ..parallel.mesh import Mesh
+        self._data_axis = None   # the mesh's data axis, when it splits
+        if isinstance(ctx, Mesh) and ctx.shape.get("data", 1) > 1:
+            self._data_axis = ctx.axis("data")
+        self._rows = {}          # feed name -> this rank's rows (kept)
+        self._cut = {}           # feed name -> its rows, this forward
+        self._gathered = []      # outputs all-gathered, this forward
+        self._replicate_warned = set()
 
     def _own(self, arr):
         """``arr`` as an NDArray on this executor's device (the same array
@@ -187,8 +209,60 @@ class Executor:
         return self._arg_names + self._aux_names
 
     def _array(self, name):
+        arr = self._cut.get(name)
+        if arr is not None:
+            return arr
         arr = self.arg_dict.get(name)
         return arr if arr is not None else self.aux_dict[name]
+
+    def _cut_feed(self):
+        """On a mesh: this rank's rows of each feed input whose dim 0
+        divides the data axis, in storage kept across forwards (a
+        captured graph reads it); the rest run whole, warned once per
+        (input, shape), as the reference warns."""
+        data = self._data_axis
+        self._cut = {}
+        for name in sorted(self._input_names):
+            arr = self.arg_dict.get(name)
+            if arr is None or not arr.shape:
+                continue
+            b = arr.shape[0]
+            if b % data.size:
+                key = (name, tuple(arr.shape))
+                if key not in self._replicate_warned:
+                    self._replicate_warned.add(key)
+                    logging.getLogger(__name__).warning(
+                        "Executor on mesh: input %r batch dim %d does not "
+                        "divide the 'data' axis (%d devices) — replicating "
+                        "it, LOSING data parallelism for this input. Pad "
+                        "the batch or resize the mesh.", name, b, data.size)
+                continue
+            k = b // data.size
+            rows = arr._data.narrow(0, data.index * k, k)
+            held = self._rows.get(name)
+            with torch.no_grad():
+                if held is not None and held.shape == rows.shape \
+                        and held._data.dtype == rows.dtype:
+                    held._data.copy_(rows)
+                else:
+                    held = self._rows[name] = NDArray(rows.clone())
+            self._cut[name] = held
+
+    def _gather_outputs(self, outs):
+        """The global batch's outputs: each output whose dim 0 is the cut
+        rows' all-gathered over the data axis."""
+        from ..parallel.collectives import _gather
+        self._gathered = []
+        if not self._cut:
+            return outs
+        k = next(iter(self._cut.values())).shape[0]
+        got = []
+        for o in outs:
+            cut = o.ndim > 0 and o.shape[0] == k
+            self._gathered.append(cut)
+            got.append(_gather(o.contiguous(), self._data_axis, 0)
+                       if cut else o)
+        return got
 
     def forward(self, is_train=False, **kwargs):
         """Run forward; inputs may be given as kwargs, written into the
@@ -198,11 +272,15 @@ class Executor:
                 if k not in self.arg_dict:
                     raise MXNetError("unknown input %s" % k)
                 self._write_input(self.arg_dict[k], v)
+            if self._data_axis is not None:
+                self._cut_feed()
             if self._monitor is not None or \
                     not graphs.captures(self._device):
                 outs = self._run_eager(bool(is_train))
             else:
                 outs = self._run_captured(bool(is_train))
+            if self._data_axis is not None:
+                outs = self._gather_outputs(outs)
             self.outputs = [NDArray(o) for o in outs]
         return self.outputs
 
@@ -334,6 +412,11 @@ class Executor:
         if out_grads is not None and not isinstance(out_grads, (list,
                                                                 tuple)):
             out_grads = [out_grads]
+        if out_grads is not None and any(self._gathered):
+            data = self._data_axis
+            out_grads = [g if g is None or not cut else _rows_of(
+                _tensor(g), data) for g, cut in zip(out_grads,
+                                                     self._gathered)]
         with self._lock:
             is_train, entry, eager = self._last
             if eager is not None:
@@ -347,7 +430,28 @@ class Executor:
                     self._last = (is_train, entry, None)
                 names = entry.diff
                 grads = self._replay_backward(entry.pair, out_grads)
+            if self._cut:
+                grads = self._sum_grads(names, list(grads))
             self._write_grads(names, grads)
+
+    def _sum_grads(self, names, grads):
+        """On a mesh with a cut feed: the parameters' gradients summed
+        over the data axis (one flat all-reduce a dtype), the cut inputs'
+        gathered to the global batch."""
+        from ..optimizer_fused import _bucket_all_reduce
+        from ..parallel.collectives import _gather
+        data = self._data_axis
+        params = [k for k, (n, g) in enumerate(zip(names, grads))
+                  if g is not None and n not in self._input_names]
+        summed = [grads[k].contiguous() for k in params]
+        with torch.no_grad():
+            _bucket_all_reduce(summed, data)
+            for k, g in zip(params, summed):
+                grads[k] = g
+            for k, n in enumerate(names):
+                if n in self._cut and grads[k] is not None:
+                    grads[k] = _gather(grads[k].contiguous(), data, 0)
+        return grads
 
     def _eager_grads(self, outs, leaves, out_grads):
         heads, cots = [], []
@@ -435,6 +539,11 @@ class Executor:
     @property
     def output_dict(self):
         return dict(zip(self._symbol.list_outputs(), self.outputs))
+
+
+def _rows_of(t, data):
+    k = t.shape[0] // data.size
+    return t.narrow(0, data.index * k, k)
 
 
 def _tensor(v):

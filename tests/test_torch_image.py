@@ -131,8 +131,9 @@ def test_registry_holds_the_13_ops():
     # 162 after the input slice; the symbolic slice added Flatten,
     # SoftmaxOutput, _subgraph_exec and _sg_flash_attention, the RNN
     # slice SliceChannel, the three Sequence* ops, RNN, CTCLoss, foreach,
-    # while_loop and cond, the multi-device slice _contrib_ring_attention
-    assert len(names & ref) == 176
+    # while_loop and cond, the multi-device slice _contrib_ring_attention, its
+    # second part _contrib_switch_moe
+    assert len(names & ref) == 177
 
 
 def _transforms_pair(build, x, seed=9, exact=False):

@@ -11,8 +11,9 @@ bound batch so one predict graph serves the epoch (through the stand-in
 for ``graphs.CapturedGraph`` of tests/test_torch_train_graph.py).
 ``BucketingModule`` on an unseen bucket (composed symbols; the sentence
 iterator is ROADMAP A6), ``SequentialModule``, ``PythonLossModule``,
-``FeedForward`` and the callbacks. The refusals: a distributed or object
-kvstore, several devices and ``group2ctxs`` name A8; the loss scaler and
+``FeedForward`` and the callbacks. The refusals: a ``dist_*`` store
+outside a process group and ``group2ctxs`` raise as the reference's do,
+several contexts run on the first; the loss scaler and
 ``TrainingHealthMonitor`` name A9.
 """
 import logging
@@ -395,17 +396,38 @@ def test_refusals_name_their_roadmap_items(monkeypatch):
     mod.bind(data_shapes=[("data", (16, 4))],
              label_shapes=[("softmax_label", (16,))])
     mod.init_params(initializer=mt.init.Xavier())
-    for store in ("dist_sync", "dist_device_sync", object()):
-        with pytest.raises(mt.MXNetError, match="A8"):
+    # a dist store outside a process group raises in both packages; one
+    # joined is held to mxtpu in tests/test_torch_module_mesh.py
+    jmod = mx.mod.Module(_mlp(mx))
+    jmod.bind(data_shapes=[("data", (16, 4))],
+              label_shapes=[("softmax_label", (16,))])
+    jmod.init_params(initializer=mx.init.Xavier())
+    for store in ("dist_sync", "dist_device_sync"):
+        with pytest.raises(mt.MXNetError, match="process group"):
             mod.init_optimizer(kvstore=store, force_init=True)
+        with pytest.raises(mx.MXNetError):
+            jmod.init_optimizer(kvstore=store, force_init=True)
+    with pytest.raises(mt.MXNetError, match="neither a store's name"):
+        mod.init_optimizer(kvstore=object(), force_init=True)
     with pytest.raises(mt.MXNetError, match="A9"):
         mod.init_optimizer(loss_scaler=object(), force_init=True)
     for kv in ("local", "device", None):
         mod.init_optimizer(kvstore=kv, force_init=True)
-    with pytest.raises(mt.MXNetError, match="A8"):
-        mt.mod.Module(sym, context=[mt.cpu(), mt.cpu(1)])
-    with pytest.raises(mt.MXNetError, match="A8"):
+        assert mod._kvstore is None and not mod._update_on_kvstore
+    # several contexts run on the first, as the reference's executor does
+    several = mt.mod.Module(sym, context=[mt.cpu(), mt.cpu(1)])
+    several.bind(data_shapes=[("data", (16, 4))],
+                 label_shapes=[("softmax_label", (16,))])
+    assert several._exec._device == torch.device("cpu")
+    # group2ctxs raises in the reference's words, naming the port's mesh
+    with pytest.raises(mt.MXNetError) as te:
         mt.mod.Module(sym, context=mt.cpu(), group2ctxs={"a": mt.cpu()})
+    with pytest.raises(mx.MXNetError) as je:
+        mx.mod.Module(_mlp(mx), group2ctxs={"a": mx.cpu()})
+    assert str(te.value).split(":")[0] == str(je.value).split(":")[0] == \
+        "group2ctxs manual device placement is not supported"
+    assert "parallel.Mesh context plus ShardedTrainStep param_specs" in \
+        str(te.value)
     with pytest.raises(mt.MXNetError, match="A9"):
         mt.monitor.TrainingHealthMonitor()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -841,8 +841,7 @@ _QUEUED = {
          "libinfo", "log", "operator", "perf_model", "profiler", "registry",
          "test_utils", "torch_interop", "tpu", "util", "visualization",
          "viz"},
-    "parallel": {"moe", "pipeline", "pipeline_apply", "shard_experts",
-                 "switch_ffn"},
+    "parallel": set(),
     "ops": {"contrib_ops", "custom", "legacy_vision", "linalg_ops",
             "random_ops"},
     "kvstore": set(),
@@ -904,3 +903,108 @@ def test_c16_names_work_like_the_references():
     assert isinstance(out, mt.NDArray)
     assert "relu" in mt.ops.list_ops() and mt.ops.get_op("relu").name
     assert set(mt.ops.list_ops()) >= {"_contrib_ring_attention"}
+
+
+# C17-C19: the Module's contexts, compression_params and dist stores
+def _c17_net(pkg):
+    s = pkg.sym
+    h = s.FullyConnected(s.var("data"), num_hidden=8, name="fc1")
+    h = s.Activation(h, act_type="relu")
+    h = s.FullyConnected(h, num_hidden=3, name="fc2")
+    return s.SoftmaxOutput(h, name="softmax")
+
+
+def _c17_run(pkg, steps=2, **kw):
+    """A Module's ``steps`` SGD steps on seeded weights and batches:
+    (outputs of each step, parameters after, the Module)."""
+    from mxtpu.symbol import symbol as jsym
+    from mxtpu_torch.symbol import symbol as tsym
+    jsym._Counter._counts.clear()
+    tsym._Counter._counts.clear()
+    init_kw = {k: kw.pop(k) for k in ("kvstore",) if k in kw}
+    mod = pkg.mod.Module(_c17_net(pkg), **kw)
+    mod.bind(data_shapes=[("data", (4, 5))],
+             label_shapes=[("softmax_label", (4,))])
+    r = np.random.RandomState(3)
+    args = {"fc1_weight": r.randn(8, 5), "fc1_bias": r.randn(8) * 0.1,
+            "fc2_weight": r.randn(3, 8), "fc2_bias": r.randn(3) * 0.1}
+    ctx = {} if pkg is mx else {"ctx": mt.cpu()}
+    mod.init_params(arg_params={k: pkg.nd.array(v.astype(np.float32),
+                                                 **ctx)
+                                for k, v in args.items()})
+    mod.init_optimizer(optimizer="sgd",
+                       optimizer_params={"learning_rate": 0.1}, **init_kw)
+    outs = []
+    for _ in range(steps):
+        x = r.randn(4, 5).astype(np.float32)
+        y = r.randint(0, 3, 4).astype(np.float32)
+        mod.forward(pkg.io.DataBatch(data=[pkg.nd.array(x, **ctx)],
+                                     label=[pkg.nd.array(y, **ctx)]),
+                    is_train=True)
+        mod.backward()
+        mod.update()
+        outs.append(mod.get_outputs()[0].asnumpy().copy())
+    return outs, {k: v.asnumpy() for k, v in mod.get_params()[0].items()}, \
+        mod
+
+
+def _c17_close(got, want):
+    for a, b in zip(got[0], want[0]):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
+    for k, v in want[1].items():
+        np.testing.assert_allclose(got[1][k], v, rtol=1e-4, atol=1e-5)
+
+
+def test_c17_context_list_runs_on_its_first_like_mxtpu():
+    """mxtpu's executor keeps a context list and runs on one device: the
+    port binds ``Module``, ``BucketingModule`` and ``simple_bind`` on the
+    list's first context."""
+    ref = _c17_run(mx, context=[mx.cpu(0), mx.cpu(1)])
+    assert ref[0][0].shape == (4, 3)
+    # one device: every array of the reference's executor lies on it
+    devices = {d for a in ref[2]._exec.arg_arrays
+               for d in a._data.devices()}
+    assert len(devices) == 1
+    got = _c17_run(mt, context=[mt.cpu(), mt.cpu(1)])
+    assert got[2]._exec._device == torch.device("cpu")
+    _c17_close(got, ref)
+    exe = _c17_net(mt).simple_bind([mt.cpu(), mt.cpu(1)], data=(4, 5),
+                                   softmax_label=(4,))
+    assert exe.arg_dict["fc1_weight"].context == torch.device("cpu")
+
+    def sym_gen(key):
+        return _c17_net(mt), ("data",), ("softmax_label",)
+    bm = mt.mod.BucketingModule(sym_gen, default_bucket_key=5,
+                                context=[mt.cpu(), mt.cpu(1)])
+    bm.bind(data_shapes=[("data", (4, 5))],
+            label_shapes=[("softmax_label", (4,))])
+    assert bm._curr_module._exec._device == torch.device("cpu")
+
+
+def test_c18_compression_params_accepted_and_unused_like_mxtpu():
+    comp = {"type": "2bit", "threshold": 0.5}
+    ref = _c17_run(mx, compression_params=comp)
+    _c17_close(ref, _c17_run(mx))
+    got = _c17_run(mt, context=mt.cpu(), compression_params=comp)
+    _c17_close(got, ref)
+    _c17_close(got, _c17_run(mt, context=mt.cpu()))
+
+
+def test_c19_dist_store_object_updates_on_the_store_like_mxtpu():
+    """A store object whose type holds "dist": every parameter ``init``-ed
+    on it, the update run on the store (push the gradients, pull the
+    weights), as mxtpu's Module does; a store of one process sums
+    nothing. The named ``dist_*`` stores, which need the process group,
+    are held to mxtpu in tests/test_torch_module_mesh.py."""
+    ref = _c17_run(mx, kvstore=mx.kvstore.KVStore("dist_sync"))
+    assert ref[2]._update_on_kvstore
+    store = mt.kvstore.KVStore("dist_sync")
+    got = _c17_run(mt, context=mt.cpu(), kvstore=store)
+    mod = got[2]
+    assert mod._kvstore is store and mod._update_on_kvstore
+    assert sorted(store._store) == sorted(ref[2]._kvstore._store)
+    _c17_close(got, ref)
+    # a local store object: pushed and pulled, the update on the Module
+    local = _c17_run(mt, context=mt.cpu(), kvstore=mt.kvstore.KVStore())
+    assert not local[2]._update_on_kvstore
+    _c17_close(local, _c17_run(mx, kvstore=mx.kvstore.KVStore()))

@@ -271,8 +271,9 @@ def test_flatten_and_softmax_output_registered():
             "_sg_flash_attention"} <= names
     # 166 after the symbolic slice; the RNN slice added SliceChannel, the
     # three Sequence* ops, RNN, CTCLoss, foreach, while_loop and cond, the
-    # multi-device slice _contrib_ring_attention
-    assert len(names) == 176
+    # multi-device slice _contrib_ring_attention, its second part
+    # _contrib_switch_moe
+    assert len(names) == 177
     x = np.random.RandomState(3).standard_normal((2, 3, 4)).astype(
         np.float32)
     j, t = _both(lambda pkg: pkg.sym.Flatten(pkg.sym.var("x")))

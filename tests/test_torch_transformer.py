@@ -237,8 +237,12 @@ class _Mesh:
 
 
 def test_transformer_refuses_what_is_not_ported():
-    with pytest.raises(mt.MXNetError, match="SwitchMoE"):
-        ttr.TransformerLM(num_experts=4, **SMALL)
+    # the MoE blocks are the reference's (held to mxtpu in
+    # tests/test_torch_moe.py)
+    moe = ttr.TransformerLM(num_experts=4, **SMALL)
+    ref = jtr.TransformerLM(num_experts=4, **SMALL)
+    assert [type(b.moe).__name__ for b in moe.blocks] == \
+        [type(b.moe).__name__ for b in ref.blocks] == ["SwitchMoE"] * 2
     q = torch.randn(1, 2, 8, 16)
     # a split sequence runs the ring over the mesh's ranks (held to mxtpu
     # in tests/test_torch_parallel.py); its collectives never go inside a
