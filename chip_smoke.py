@@ -43,10 +43,11 @@ NVIDIA H100.
    out of the way: one eager call's issue takes about as long as the
    kernel) and the host's issue time per call.
 6. Serves the BERT-base-shaped TransformerLM (vocab 30522, dim 768, 12
-   heads, 12 layers, max_len 512, bidirectional, seeded weights) through
+   heads, 6 of its 12 layers, max_len 512, bidirectional, seeded weights)
+   through
    the port's Predictor with batch and sequence buckets (1-8 x 128, 256,
    512) on the card, in float32 and then bfloat16, 12 captured graphs
-   each, with the same checks (the flash kernel 12 times a forward),
+   each, with the same checks (the flash kernel once a layer a forward),
    times each bucket at seq 512 and b8 at 128 and 256 by replay and
    eagerly, and breaks one b8 x 512 forward down by kernel both ways.
    Then the rest of the serving plane: int8 weights (ResNet-50 and the
@@ -138,7 +139,7 @@ NVIDIA H100.
    images/s, host issue, device ms and idle share, peak memory, a
    profiled step by kernel category, train_mfu). The BERT-base-shaped
    TransformerLM trained with Adam: 2 layers at b2 x 512 f32 against the
-   CPU (2 flash launches a step), then 12 layers at b8 x 512 bf16 timed.
+   CPU (2 flash launches a step), then 6 layers at b8 x 512 bf16 timed.
 11. The vision zoo and the rest of Gluon (slice 9). The fused conv held
    against its plain version, f32 and bf16, at one conv of each shape
    class the zoo adds (C_out 16/24/48/80/96/144, the 11x11/4 and 3x3/2
@@ -232,12 +233,12 @@ NVIDIA H100.
    BERT-base TransformerLM (bidirectional, bf16, Adam lr 1e-4, b16 x 512)
    trained 3 steps through the plain captured Trainer, ``ShardedTrainStep(
    data_parallel_mesh())`` and ``Trainer(mesh=, zero1=True)``, every
-   step's loss and weights bit-equal to the plain one's, B2 12 launches a
-   forward, 0 builds after the warm-up, each way's step timed (tokens/s,
+   step's loss and weights bit-equal to the plain one's, B2 once a layer
+   a forward, 0 builds after the warm-up, each way's step timed (tokens/s,
    median/p80, host issue, idle share, peak GiB); (b) four ranks spawned
    on the one card over gloo (``spawn``, a ``file://`` rendezvous under
-   build/, a timeout on every join) at BERT-base widths with 2 layers:
-   data-parallel Adam (ZeRO-1 on and off, 3 f32 steps on the world of
+   build/, a timeout on every join) at BERT-base widths with 1 layer:
+   data-parallel Adam (ZeRO-1 on and off, 2 f32 steps on the world of
    one's global batch of 8 x 512) against the world of one (the summed
    first-step gradients, each step's weight change, ZeRO-1 on against off
    within the summation-order bound), and sp 4 with the ring on B2 and on
@@ -250,7 +251,25 @@ NVIDIA H100.
    that fails fails the phase. On a machine
    of four cards, ``python3 chip_smoke.py parallel_four_cards`` runs part
    (b) alone with one NCCL rank a card (its reference steps first).
-16. Prints one JSON line of kernels (fused_conv and flash_attention, one
+16. The training survivability slice (slice 15, ROADMAP A9's first
+   part, ``resilience_phase``, after the MoE phase; B1-B3's counts from 0
+   before it, ``resilience_b*_launches`` in the kernels line): ResNet-50
+   v1 f32 b8, a 2^10 loss scale against no guard, 3 SGD steps bit-equal
+   under cuDNN's deterministic algorithms (planted: the unscale left
+   out), the first guarded step against the CPU's; bf16 b128 captured, a
+   ``nan_grad`` step leaving weights, masters and momenta bit-equal, the
+   verdict False, the scale halved, no build (planted: the same step
+   unguarded); the 2-layer TransformerLM's Adam ``t`` skipping it; the
+   integrity stack (loss scaler, the fingerprint every 8 steps, the
+   watchdog thread, ``TrainingHealthMonitor``, the JSONL sink and flight
+   recorder, ``perf.mfu``) timed against none in alternating rounds
+   (``integrity_overhead_frac``, ``noise_frac``); wedge, divergence and
+   OOM faults with their artifacts; ``ResilientLoop`` with asynchronous
+   saves, a SIGTERM, a bit-equal resume (planted: the momentum not
+   restored) and a corrupt save's fallback; the checkpoint served by
+   ``Predictor.from_trainer_checkpoint`` against the net and the CPU.
+   ``python3 chip_smoke.py resilience_phase`` runs it alone.
+17. Prints one JSON line of kernels (fused_conv and flash_attention, one
    entry per type each, with graph-replay and host-issue sums beside the
    eager ones, the launches of one training step, and forward + backward
    by graph replay beside its plain version, the library's and its bound
@@ -289,6 +308,9 @@ RESNET50_GATED = [
     ("1x1 256->64 @56", 8, 56, 256, 64, 1, 1, 0, 2),
 ]
 REQUESTS = (1, 3, 8, 5, 11)
+# requests a closed loop times (50 until the A9 slice made room for its
+# phase: PERF.md §4)
+CLOSED_LOOP_N = 30
 # (name, B, H, T, Tk, D, causal, launches per b8 x 512 forward, layout):
 # the shapes BERT-base serves first, then the ragged tails and the largest
 # head dim. Layout "qkv" is the served one: q, k and v strided views of one
@@ -324,8 +346,10 @@ FLASH_SHAPES = [
 # masks after scaling, so a zero or negative scale still gives masked keys
 # no weight
 FLASH_SCALES = (0.05, 0.0, -0.125)
-BERT_BASE = dict(vocab_size=30522, dim=768, num_heads=12, num_layers=12,
-                 max_len=512, causal=False)     # bench.py's configuration
+# bench.py's configuration at full width; 6 of its 12 layers since the A9
+# slice made room for its phase (PERF.md §4)
+BERT_BASE = dict(vocab_size=30522, dim=768, num_heads=12, num_layers=6,
+                 max_len=512, causal=False)
 SEQ_BUCKETS = (128, 256, 512)
 LM_REQUESTS = ((1, 50), (3, 200), (5, 128), (8, 512), (11, 100))
 
@@ -780,14 +804,14 @@ def serve(pred, reqs, kernel):
     return outs, time.time() - t0, kernel.launches
 
 
-def closed_loop(pred, x, n=50):
+def closed_loop(pred, x, n=CLOSED_LOOP_N):
     """One client, each request synchronised: (median ms, p80 ms, median
-    host-issue ms) over ``n`` requests of ``x`` after 3 warm ones; 50
-    samples give a p80 with 10 samples beyond it."""
+    host-issue ms) over ``n`` requests of ``x`` after 3 warm ones; 30
+    samples give a p80 with 6 samples beyond it."""
     return closed_loop_fn(lambda: pred.predict(x), n)
 
 
-def closed_loop_fn(fn, n=50):
+def closed_loop_fn(fn, n=CLOSED_LOOP_N):
     """closed_loop for any call ``fn`` (the eager forward beside the
     captured one)."""
     import torch
@@ -912,9 +936,10 @@ def served_buckets(label, pred, cases, card, kernel_key, per_forward,
                          + (idle[1],)))
         last = (x, graph, plain)
     print("serve %s on %s, per bucket: %s at the median latency (median "
-          "ms, p80 ms, median host-issue ms; 50 requests; idle share of a "
+          "ms, p80 ms, median host-issue ms; %d requests; idle share of a "
           "profiled call against that median), captured graph then eager: "
-          "%s" % (label, card, rate, ", ".join(parts)), flush=True)
+          "%s" % (label, card, rate, CLOSED_LOOP_N, ", ".join(parts)),
+          flush=True)
     x, graph, plain = last
     name = cases[-1][0]
     print_breakdown("serve %s %s graph" % (label, name),
@@ -1614,7 +1639,7 @@ RESNET_EXAMPLE_SHAPE = (1, 224, 224, 3)
 CONTROL_HORIZON_S = 2.0
 # the zoo's HTTP rates: runs per model, and the least seconds of each run
 HTTP_RUNS = 2
-HTTP_WINDOW_S = 10.0
+HTTP_WINDOW_S = 5.0
 
 
 def _log_decisions(ctrl):
@@ -1947,7 +1972,11 @@ def zoo_phase(card):
 
     def levels():
         # allocated and reserved bytes with the cache emptied: reserved then
-        # counts the segments still in use, the graphs' private pools too
+        # counts the segments still in use, the graphs' private pools too;
+        # earlier phases' dropped nets (reference cycles) are collected
+        # first, or one freed between two readings moves the level
+        import gc
+        gc.collect()
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         return torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
@@ -2179,8 +2208,8 @@ def zoo_phase(card):
             # of seconds. The TransformerLM answers with a bucket's whole
             # logits as JSON (128 x 30522 floats for a 60-token request)
             for model, threads, least, data in (
-                    ("resnet50_v1", 4, 64, images),
-                    ("transformer_lm", 2, 4, [t[:, :60] for t in tokens])):
+                    ("resnet50_v1", 4, 32, images),
+                    ("transformer_lm", 2, 2, [t[:, :60] for t in tokens])):
                 bodies = [{"model": model, "data": x.tolist()}
                           for x in data]
                 sched.ensure_resident(model)
@@ -2220,15 +2249,15 @@ def zoo_phase(card):
             raise AssertionError("%s: %s captures over %d page-ins" % (
                 model, st, sum(1 for m, _ in pageins if m == model)))
     print("zoo gates on %s: fused_conv launches %d = 11 x (%d forwards + "
-          "2 x 4 x %d builds), flash launches %d = 12 x (%d forwards + 2 x "
+          "2 x 4 x %d builds), flash launches %d = %d x (%d forwards + 2 x "
           "6 x %d builds), on every arm; captures = buckets x page-ins at "
           "each model's site; no nvcc during the phase; HTTP requests/s "
           "in %d runs of at least %.0f s (ResNet-50 4 threads, single-image "
-          "POSTs, at least 64 a run; the TransformerLM 2 threads, 60 "
+          "POSTs, at least 32 a run; the TransformerLM 2 threads, 60 "
           "tokens): %s; phase %.1f s" % (
               card, conv_l, forwards["resnet50_v1"], builds["resnet50_v1"],
-              flash_l, forwards["transformer_lm"], builds["transformer_lm"],
-              HTTP_RUNS, HTTP_WINDOW_S, "; ".join(
+              flash_l, BERT_BASE["num_layers"], forwards["transformer_lm"],
+              builds["transformer_lm"], HTTP_RUNS, HTTP_WINDOW_S, "; ".join(
                   "%s %s (POSTs %s; spread (max - min) / mean %.3f)" % (
                       m, ", ".join("%.3f" % (n / w) for n, w in runs),
                       [n for n, _ in runs], _spread([n / w for n, w in runs]))
@@ -3943,8 +3972,8 @@ def lm_train_phase(card):
     dim = BERT_BASE["dim"]
     flops = 3 * 2 * (layers * (12 * dim * dim + 2 * t * dim) + dim * vocab)
     timing = train_timing(
-        "transformer_lm bf16 b%d x %d (12 layers, Adam, multi_precision)"
-        % (b, t), big, x, y, "adam", dict(ADAM_PARAMS, multi_precision=True),
+        "transformer_lm bf16 b%d x %d (%d layers, Adam, multi_precision)"
+        % (b, t, layers), big, x, y, "adam", dict(ADAM_PARAMS, multi_precision=True),
         vocab, card, flops, b * t, "bfloat16")
     return {"float32": launches[0], "bfloat16": step_launches}, timing
 
@@ -3968,7 +3997,7 @@ def captured_train_phase(card, eager_timing):
     backward, gradients against the eager ones (TRAIN_L2); the trained
     net saved with ``save_parameters`` and loaded into a fresh one serves
     the same logits. Timed: ResNet-50 f32 b64 and bf16 b128 and the
-    12-layer TransformerLM bf16 b8 x 512 (``train_timing``, beside the
+    6-layer TransformerLM bf16 b8 x 512 (``train_timing``, beside the
     eager numbers of this run), with 11 fused_conv / 12 flash launches
     and no build in a step after the warm-up. Returns the launches per
     captured step by kernel and type."""
@@ -4123,8 +4152,8 @@ def captured_train_phase(card, eager_timing):
     dim = BERT_BASE["dim"]
     flops = 3 * 2 * (layers * (12 * dim * dim + 2 * t * dim) + dim * vocab)
     timing["transformer_lm bfloat16"] = train_timing(
-        "transformer_lm bf16 b%d x %d captured (12 layers, Adam, "
-        "multi_precision)" % (b, t), big,
+        "transformer_lm bf16 b%d x %d captured (%d layers, Adam, "
+        "multi_precision)" % (b, t, layers), big,
         nd.array(tokens, ctx=gpu, dtype="int32"), nd.array(labels, ctx=gpu),
         "adam", dict(ADAM_PARAMS, multi_precision=True), vocab, card, flops,
         b * t, "bfloat16", kernel=flash_attention)
@@ -5304,7 +5333,8 @@ def symbolic_serve(card, prefix, arrays, x8):
     net.cast("bfloat16")
     gluon = Predictor(net, spec, example=example, warmup=True,
                       device="cuda", site="serving.predict.symbolic_gluon")
-    print("symbolic serve timed, b8 bf16, 50 requests after 3 (closed loop):")
+    print("symbolic serve timed, b8 bf16, %d requests after 3 (closed "
+          "loop):" % CLOSED_LOOP_N)
     rows = {"from_checkpoint": _predictor_row(
         "Predictor.from_checkpoint", pred, x, card, 11),
         "gluon": _predictor_row("Gluon Predictor (same weights)", gluon, x,
@@ -6393,7 +6423,7 @@ def rnn_phase(card):
 PARALLEL_BATCH, PARALLEL_SEQ = 16, 512   # bench.py's BERT-base step
 PARALLEL_STEPS = 3                       # the bit-equality gate's steps
 PARALLEL_RANKS = 4                       # part (b): gloo ranks on one card
-PARALLEL_B = dict(layers=2, dp_batch=8, seq=512, sp_batch=2, steps=3)
+PARALLEL_B = dict(layers=1, dp_batch=8, seq=512, sp_batch=2, steps=2)
 PARALLEL_TIMEOUT_S = 300                 # the rendezvous, and each join
 ADAM_LR = 1e-4
 # part (b)'s gates of A8's second part, f32, 2 layers at BERT-base widths
@@ -8077,7 +8107,7 @@ def moe_b2_timing(card):
 
 
 def moe_serve(card, arrays):
-    """The 12-layer bf16 MoE LM served by a Predictor with one captured
+    """The 6-layer bf16 MoE LM served by a Predictor with one captured
     bucket of b8 x 512: one graph, finite logits of the right shape, the
     replay against the eager forward on the card, B2's launches a forward
     (12); closed-loop median and p80 ms, tokens/s, host issue, device ms
@@ -8121,13 +8151,14 @@ def moe_serve(card, arrays):
                tokens_per_s=b * t * 1e3 / med, device_ms=dev_ms,
                idle=1 - dev_ms / med, graphs=graphs, b2_per_forward=per_fwd,
                warmup_s=warm_s, replay_vs_eager=diff)
-    print("serve moe_lm (12 layers, 8 experts, BERT-base widths) bf16 b%d "
+    print("serve moe_lm (%d layers, 8 experts, BERT-base widths) bf16 b%d "
           "x %d on %s: %d captured graph (warm-up %.1f s), %.1f tokens/s "
-          "at the median %.3f ms (p80 %.3f, median host issue %.3f ms; 50 "
+          "at the median %.3f ms (p80 %.3f, median host issue %.3f ms; %d "
           "requests), device kernels %.3f ms (idle share %.3f), B2 "
           "launches a forward %d, replay vs eager max abs diff %.3g" % (
-              b, t, card, graphs, warm_s, res["tokens_per_s"], med, p80,
-              issue, dev_ms, res["idle"], per_fwd, diff), flush=True)
+              layers, b, t, card, graphs, warm_s, res["tokens_per_s"], med,
+              p80, issue, CLOSED_LOOP_N, dev_ms, res["idle"], per_fwd, diff),
+          flush=True)
     print_breakdown("serve moe_lm bf16 b%d x %d graph" % (b, t), rows, med,
                     "flash_attention_", layers)
     del pred, net
@@ -8135,7 +8166,7 @@ def moe_serve(card, arrays):
 
 
 def moe_train(card, arrays):
-    """The 12-layer bf16 MoE LM trained through ``ShardedTrainStep(
+    """The 6-layer bf16 MoE LM trained through ``ShardedTrainStep(
     data_parallel_mesh(), forward=CE + 0.01 aux)`` in a world of one NCCL
     rank, Adam lr 1e-4, b16 x 512 (hybridized: each step replays a
     captured pair whose second output is the aux loss): median and p80
@@ -8182,14 +8213,15 @@ def moe_train(card, arrays):
         flops = moe_flops_per_step(b, t, layers)
         ok = per_fwd == layers and not any(built.values()) and \
             all(x_ == x_ for x_ in losses) and aux == aux
-        print("train moe_lm (12 layers, 8 experts, BERT-base widths) bf16 "
+        print("train moe_lm (%d layers, 8 experts, BERT-base widths) bf16 "
               "b%d x %d ShardedTrainStep(data_parallel_mesh()) Adam on %s: "
               "%.1f tokens/s at the median %.3f ms (p80 %.3f, median host "
               "issue %.3f ms; 10 after 3), peak %.2f GiB, builds after the "
               "warm-up %s, B2 launches a forward %d, losses %s, aux %.4f; "
               "%.4g FLOP a step" % (
-                  b, t, card, rate, med, p80, issue, peak, built, per_fwd,
-                  ["%.4f" % v for v in losses], aux, flops), flush=True)
+                  layers, b, t, card, rate, med, p80, issue, peak, built,
+                  per_fwd, ["%.4f" % v for v in losses], aux, flops),
+              flush=True)
         dev_ms = print_step_breakdown(
             "train moe_lm bf16", device_rows(lambda: st(x, y), 2), med,
             flops / med * 1e3, "bfloat16", card)
@@ -8213,7 +8245,7 @@ def moe_train(card, arrays):
 def moe_phase(card):
     """Slice 14's path (ROADMAP A8's second part): the Switch MoE layer
     against its dense formulation, the 2-layer MoE LM against the CPU,
-    the 12-layer 8-expert bf16 MoE LM served and trained on B2. (Its
+    the 6-layer 8-expert bf16 MoE LM served and trained on B2. (Its
     four-rank gates run in ``parallel_phase``'s part (b).)"""
     import gc
     import torch
@@ -8232,6 +8264,790 @@ def moe_phase(card):
     out["train"] = moe_train(card, arrays)
     del arrays
     print("moe phase %.1f s" % (time.time() - t_phase), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------- slice 15
+# the training survivability stack (A9's first part) on ResNet-50 v1
+RESIL = dict(parity_batch=8, parity_steps=3, batch=128, skip_at=3,
+             rounds=3, round_steps=30, every=8, ckpt_every=4, ckpt_keep=2,
+             sigterm_at=9, resume_steps=3, serve_batch=8, scale=2.0 ** 10)
+RESIL_PARITY_TOL = 1e-6     # relative L2, guard on (2^k scale) against off
+RESIL_LM = dict(layers=2, batch=2, seq=512)
+# the ResNet-50 bf16 b8 graph replay of the serving slice (PERF.md §5)
+REF_SERVE_BF16_B8_MS = 2.734
+
+
+def _tensors_of(net, trainer, trainable=False):
+    """Every parameter's tensor (only those the update writes with
+    ``trainable``: not BatchNorm's running statistics, which a training
+    forward moves) and every optimizer state leaf (device tensors, not
+    copies) of a Trainer's net."""
+    upd = trainer._updaters[0]
+    params = [p.data()._data for p in net.collect_params().values()
+              if not trainable or p.grad_req != "null"]
+    states = [x._data for i in sorted(upd.states)
+              for x in _leaves(upd.states[i])]
+    return params, states
+
+
+def _clone_all(ts):
+    return [t.detach().clone() for t in ts]
+
+
+def _all_equal(a, b):
+    import torch
+    return all(torch.equal(x, y) for x, y in zip(a, b)) and len(a) == len(b)
+
+
+def _nan_count(ts):
+    import torch
+    return int(sum(int(torch.isnan(t.float()).sum()) for t in ts))
+
+
+def _flights(root):
+    """{reason: count} of the flight artifacts under ``root``."""
+    out = {}
+    if os.path.isdir(root):
+        for n in os.listdir(root):
+            if n.startswith("flight_") and n.endswith(".json"):
+                reason = n[len("flight_"):].rsplit("_", 2)[0]
+                out[reason] = out.get(reason, 0) + 1
+    return out
+
+
+def _free():
+    """Give the card back what dropped nets held (their blocks hold
+    reference cycles)."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+class _deterministic:
+    """cuDNN's deterministic algorithms (and no autotuning) for a block:
+    two runs of one program then give the same bits (the wgrad's
+    atomics otherwise order their sums by the run)."""
+
+    def __enter__(self):
+        import torch
+        cudnn = torch.backends.cudnn
+        self._prev = (cudnn.deterministic, cudnn.benchmark)
+        cudnn.deterministic, cudnn.benchmark = True, False
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        cudnn = torch.backends.cudnn
+        cudnn.deterministic, cudnn.benchmark = self._prev
+        return False
+
+
+def _resil_step(net, trainer, loss_fn, x, y, scaler=None):
+    """One step of the user's loop with an optional loss scaler; returns
+    the verdict (None unguarded)."""
+    import mxtpu_torch as mt
+    with mt.autograd.record():
+        loss = loss_fn(net(x), y.reshape((-1,)))
+        if scaler is not None:
+            loss = scaler.scale(loss)
+    loss.backward()
+    return trainer.step(y.size)
+
+
+def resilience_guard_gates(card, arrays):
+    """Guard parity (f32 b8, 3 steps): a 2^10 loss scale against no guard
+    (predicted bit-equal); plant: the unscale left out. The skipped step
+    (bf16 b128 captured, multi_precision SGD): ``nan_grad@k`` leaves the
+    weights and the momentum bit-equal, the verdict False, the scale
+    halved, ``StepHealth`` holding it, no build; plant: the same step
+    unguarded writes NaN. Returns the launches a bf16 step."""
+    import numpy as np
+    import torch
+    import mxtpu_torch as mt
+    from mxtpu_torch import resilience
+    from mxtpu_torch.ops.pallas.conv import fused_conv
+    nd, gpu = mt.nd, mt.gpu(0)
+    rs = RESIL
+    t0 = time.time()
+    batches = resnet_batches(rs["parity_batch"], rs["parity_steps"], 61)
+    nets, trainers, scalers = {}, {}, {}
+    for mode in ("off", "guard", "unscale_left_out"):
+        net = build_net(arrays)[0]
+        net.collect_params().reset_ctx(gpu)
+        net.hybridize()
+        sc = resilience.DynamicLossScaler(init_scale=rs["scale"],
+                                          growth_interval=10 ** 6) \
+            if mode != "off" else None
+        # the plant: the loss is scaled but the Trainer never unscales
+        tr = mt.gluon.Trainer(net.collect_params(), "sgd", dict(SGD_PARAMS),
+                              loss_scaler=sc if mode == "guard" else None)
+        nets[mode], trainers[mode], scalers[mode] = net, tr, sc
+    loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    loss_fn.hybridize()
+    worst, planted, per_step = 0.0, 0.0, []
+    w0 = _clone_all(sum(_tensors_of(nets["guard"], trainers["guard"]), []))
+    first = None
+    for x, y in batches:
+        xs, ys = nd.array(x, ctx=gpu), nd.array(y, ctx=gpu)
+        for mode in nets:
+            with _deterministic():
+                _resil_step(nets[mode], trainers[mode], loss_fn, xs, ys,
+                            scalers[mode])
+        ref = _tensors_of(nets["off"], trainers["off"])
+        ref = ref[0] + ref[1]
+        got = _tensors_of(nets["guard"], trainers["guard"])
+        got = got[0] + got[1]
+        bad = _tensors_of(nets["unscale_left_out"],
+                          trainers["unscale_left_out"])
+        bad = bad[0] + bad[1]
+        per_step.append(_rel_l2(got, ref))
+        worst = max(worst, per_step[-1])
+        planted = max(planted, _rel_l2(bad, ref))
+        if first is None:
+            first = _clone_all(got)
+    torch.cuda.synchronize()
+    # the guarded first step in lockstep with the CPU's: each tensor's
+    # change (the momenta are new, so whole) within TRAIN_L2
+    cpu_net = build_net(arrays)[0]
+    cpu_sc = resilience.DynamicLossScaler(init_scale=rs["scale"],
+                                          growth_interval=10 ** 6)
+    cpu_tr = mt.gluon.Trainer(cpu_net.collect_params(), "sgd",
+                              dict(SGD_PARAMS), loss_scaler=cpu_sc)
+    with mt.cpu():
+        x, y = batches[0]
+        _resil_step(cpu_net, cpu_tr, mt.gluon.loss.SoftmaxCrossEntropyLoss(),
+                    nd.array(x, ctx=mt.cpu()), nd.array(y, ctx=mt.cpu()),
+                    cpu_sc)
+    cpu = sum(_tensors_of(cpu_net, cpu_tr), [])
+    n_w = len(w0)
+    cpu_rel = max(_rel_l2([c - w.cpu() for c, w in zip(cpu[:n_w], w0)],
+                          [g.cpu() - w.cpu() for g, w in zip(first[:n_w],
+                                                             w0)]),
+                  _rel_l2(cpu[n_w:], [g.cpu() for g in first[n_w:]]))
+    del cpu_net, cpu_tr
+    print("resilience guard parity resnet50_v1 f32 b%d, %d SGD steps under "
+          "cuDNN's deterministic algorithms, loss scale 2^10 against no "
+          "guard: relative L2 of weights and momenta by step %s (gate %g); "
+          "planted (the unscale left out) %.3g; the guarded first step "
+          "against the CPU's: relative L2 of the change %.3g (gate %g) "
+          "(%.1f s)" % (
+              rs["parity_batch"], rs["parity_steps"],
+              ["%.3g" % v for v in per_step], RESIL_PARITY_TOL, planted,
+              cpu_rel, TRAIN_L2, time.time() - t0), flush=True)
+    if not worst <= RESIL_PARITY_TOL or not planted > RESIL_PARITY_TOL \
+            or not cpu_rel <= TRAIN_L2:
+        raise AssertionError("guard parity %.3g (gate %g), planted %.3g, "
+                             "against the CPU %.3g" % (
+                                 worst, RESIL_PARITY_TOL, planted, cpu_rel))
+    # the skip plant: the unguarded net's next step with a NaN gradient
+    x, y = batches[0]
+    resilience.set_faults("nan_grad@%d"
+                          % trainers["off"]._updaters[0]._step_count)
+    _resil_step(nets["off"], trainers["off"], loss_fn, nd.array(x, ctx=gpu),
+                nd.array(y, ctx=gpu))
+    p, s = _tensors_of(nets["off"], trainers["off"])
+    planted_nan = _nan_count(p + s)
+    resilience.reset_faults()
+    del nets, trainers, scalers
+    # the skipped step, bf16 b128 captured
+    t0 = time.time()
+    net = build_net(arrays)[0]
+    net.collect_params().reset_ctx(gpu)
+    net.cast("bfloat16")
+    net.hybridize()
+    sc = resilience.DynamicLossScaler(init_scale=rs["scale"],
+                                      growth_interval=10 ** 6)
+    tr = mt.gluon.Trainer(net.collect_params(), "sgd",
+                          dict(SGD_PARAMS, multi_precision=True),
+                          loss_scaler=sc)
+    rng = np.random.default_rng(62)
+    x = nd.array(rng.standard_normal((rs["batch"], 224, 224, 3)), ctx=gpu,
+                 dtype="bfloat16")
+    y = nd.array(rng.integers(0, 1000, rs["batch"]).astype(np.float32),
+                 ctx=gpu)
+    k = rs["skip_at"]
+    upd = tr._updaters[0]
+    launches = []
+    for step in range(k):
+        start = fused_conv.launches
+        _resil_step(net, tr, loss_fn, x, y, sc)
+        launches.append(fused_conv.launches - start)
+    torch.cuda.synchronize()
+    built = _builds()
+    p, s = _tensors_of(net, tr, trainable=True)
+    before = _clone_all(p + s)
+    scale_before = sc.scale_value()
+    resilience.set_faults("nan_grad@%d" % upd._step_count)
+    start = fused_conv.launches
+    ok = _resil_step(net, tr, loss_fn, x, y, sc)
+    launches.append(fused_conv.launches - start)
+    resilience.reset_faults()
+    torch.cuda.synchronize()
+    p, s = _tensors_of(net, tr, trainable=True)
+    equal = _all_equal(p + s, before)
+    ok_host = bool(ok.asnumpy())
+    scale_after = sc.scale_value()
+    health = upd.health.drain()
+    skipped = [st for st, good, _ in health if not good]
+    after = _builds()
+    print("resilience skipped step resnet50_v1 bf16 b%d captured "
+          "(multi_precision SGD, loss scaler): nan_grad at update %d: "
+          "weights, masters and momenta bit-equal to before: %s; verdict "
+          "%s; scale %g -> %g; StepHealth skipped %s of %d; builds %s -> "
+          "%s; fused_conv launches a step %s; planted (the select "
+          "bypassed: the unguarded f32 net's step) NaN elements %d "
+          "(%.1f s)" % (rs["batch"], k, equal, ok_host, scale_before,
+                        scale_after, skipped, len(health), built, after,
+                        launches, planted_nan, time.time() - t0),
+          flush=True)
+    if not (equal and not ok_host and scale_after == scale_before / 2
+            and skipped == [k] and after == built and planted_nan > 0
+            and launches[1:] == [11] * (len(launches) - 1)):
+        raise AssertionError("the skipped step: equal %s, verdict %s, scale "
+                             "%g -> %g, skipped %s, builds %s -> %s, "
+                             "launches %s, planted %d" % (
+                                 equal, ok_host, scale_before, scale_after,
+                                 skipped, built, after, launches,
+                                 planted_nan))
+    return net, tr, sc, (x, y), loss_fn
+
+
+def resilience_lm_gate():
+    """The skipped step on the 2-layer TransformerLM f32 b2 x 512 (Adam,
+    B2): the run with a poisoned step between two good ones equals the
+    run without it (weights, states and the device count t)."""
+    import torch
+    import mxtpu_torch as mt
+    from mxtpu_torch import resilience
+    from mxtpu_torch.ops.pallas.flash_attention import flash_attention
+    nd, gpu = mt.nd, mt.gpu(0)
+    t0 = time.time()
+    lm = RESIL_LM
+    vocab = BERT_BASE["vocab_size"]
+    b0, b1 = lm_batches(lm["batch"], lm["seq"], 2, 63)
+    runs = {}
+    launches = []    # each run's steps after its first (the capture)
+    arrays = None
+    for mode in ("poisoned", "clean"):
+        net, arrays = build_train_lm(lm["layers"], arrays)
+        net.collect_params().reset_ctx(gpu)
+        net.hybridize()
+        sc = resilience.DynamicLossScaler(init_scale=RESIL["scale"],
+                                          growth_interval=10 ** 6)
+        tr = mt.gluon.Trainer(net.collect_params(), "adam",
+                              dict(ADAM_PARAMS), loss_scaler=sc)
+        loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+        loss_fn.hybridize()
+        seq = [b0, b0, b1] if mode == "poisoned" else [b0, b1]
+        upd = tr._updaters[0]
+        ts = []
+        for i, (tok, lab) in enumerate(seq):
+            if mode == "poisoned" and i == 1:
+                resilience.set_faults("nan_grad@%d" % upd._step_count)
+            start = flash_attention.launches
+            with mt.autograd.record():
+                logits = net(nd.array(tok, ctx=gpu, dtype="int32"))
+                loss = sc.scale(loss_fn(logits.reshape((-1, vocab)),
+                                        nd.array(lab, ctx=gpu).reshape(
+                                            (-1,))))
+            loss.backward()
+            tr.step(lab.size)
+            if i:
+                launches.append(flash_attention.launches - start)
+            resilience.reset_faults()
+            ts.append(int(upd._t_good))
+        p, s = _tensors_of(net, tr)
+        runs[mode] = (_clone_all(p + s), ts)
+        del net, tr
+    equal = _all_equal(runs["poisoned"][0], runs["clean"][0])
+    err = _rel_l2(runs["poisoned"][0], runs["clean"][0])
+    print("resilience skipped step transformer_lm (2 layers, BERT-base "
+          "widths) f32 b%d x %d, Adam, loss scaler: t after each step, "
+          "poisoned run %s, clean run %s; weights and Adam states after "
+          "the runs bit-equal: %s (relative L2 %.3g); flash launches a "
+          "step %s (%.1f s)" % (lm["batch"], lm["seq"], runs["poisoned"][1],
+                                runs["clean"][1], equal, err, launches,
+                                time.time() - t0), flush=True)
+    if not (equal and runs["poisoned"][1] == [1, 1, 2]
+            and runs["clean"][1] == [1, 2]
+            and launches and all(n == 2 for n in launches)):
+        raise AssertionError("the LM's skipped step: equal %s (%.3g), t %s "
+                             "/ %s, launches %s" % (
+                                 equal, err, runs["poisoned"][1],
+                                 runs["clean"][1], launches))
+    return sum(launches)
+
+
+def resilience_timed(card, net, tr, sc, batch, loss_fn, flight_dir):
+    """The integrity stack's cost (bench.py's ``bench_integrity_overhead``
+    method): off and on rounds alternate, ``rounds`` x ``round_steps``
+    steps, median steps/s per mode. Off: a Trainer with nothing of the
+    stack. On: the loss scaler and the guard, the divergence fingerprint
+    every 8 steps (the monitor compares it), the watchdog's monitor
+    thread, ``TrainingHealthMonitor.after_step``, the JSONL sink with a
+    flush thread, the flight directory and ``perf.mfu``. Also a round on
+    without the sink, for the host issue beside it."""
+    import statistics
+    import threading
+    import numpy as np
+    import torch
+    import mxtpu_torch as mt
+    from mxtpu_torch import monitor, resilience, telemetry, xprof
+    gpu = mt.gpu(0)
+    rs = RESIL
+    x, y = batch
+    t_phase = time.time()
+    off_tr = mt.gluon.Trainer(net.collect_params(), "sgd",
+                              dict(SGD_PARAMS, multi_precision=True))
+    wd = resilience.TrainStepWatchdog(timeout_x=50.0, min_timeout_s=5.0)
+    wd.start_monitor(0.05)
+    tr.attach_step_watchdog(wd)
+    tr._mfu = xprof.MFUMeter(every=rs["every"], dtype="bfloat16")
+    mon = monitor.TrainingHealthMonitor(
+        interval=rs["every"], divergence_every=rs["every"],
+        poison_streak=0).install(tr)
+    sink = os.path.join(flight_dir, "telemetry.jsonl")
+    flushes = [0]
+    flush_threads = set()
+
+    def counted():
+        flushes[0] += 1
+        flush_threads.add(threading.current_thread().name)
+    telemetry.on_flush(counted)
+    wedges0 = telemetry.value("train.wedges")
+
+    def on_step():
+        _resil_step(net, tr, loss_fn, x, y, sc)
+        mon.after_step()
+
+    def off_step():
+        _resil_step(net, off_tr, loss_fn, x, y)
+
+    def set_mode(mode):
+        on = mode != "off"
+        resilience.set_divergence_every(rs["every"] if on else 0)
+        telemetry.set_jsonl_path(sink if mode == "on" else None)
+        telemetry.set_flush_interval(0.5 if mode == "on" else 0)
+
+    for mode, fn in (("on", on_step), ("off", off_step)):
+        set_mode(mode)
+        for _ in range(rs["every"]):
+            fn()
+        torch.cuda.synchronize()
+    built = _builds()
+    rates = {"off": [], "on": []}
+    checks0 = mon._sentinel.checks
+    for _ in range(rs["rounds"]):
+        for mode in ("off", "on"):
+            set_mode(mode)
+            fn = off_step if mode == "off" else on_step
+            t0 = time.perf_counter()
+            for _ in range(rs["round_steps"]):
+                fn()
+            torch.cuda.synchronize()
+            rates[mode].append(rs["round_steps"]
+                               / (time.perf_counter() - t0))
+    # the host's own issue time: each step from a drained queue
+    issue = {"off": [], "on": [], "on_no_sink": []}
+    for mode in issue:
+        set_mode(mode)
+        fn = off_step if mode == "off" else on_step
+        for _ in range(rs["every"]):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            issue[mode].append(1e3 * (time.perf_counter() - t1))
+    torch.cuda.synchronize()
+    set_mode("off")
+    telemetry.flush()
+    wd.stop_monitor()
+    tr.attach_step_watchdog(None)
+    after = _builds()
+    checks = mon._sentinel.checks - checks0
+    wedges = telemetry.value("train.wedges") - wedges0
+    med = {m: float(np.median(v)) for m, v in rates.items()}
+    overhead = med["off"] / med["on"] - 1.0
+    all_r = [v for vs in rates.values() for v in vs]
+    noise = (max(all_r) - min(all_r)) / med["off"]
+    lines = 0
+    if os.path.exists(sink):
+        with open(sink) as f:
+            lines = sum(1 for _ in f)
+    mfu_gauge = telemetry.gauge_value("perf.mfu")
+    train_mfu = RESNET50_TRAIN_FLOPS * rs["batch"] * med["on"] \
+        / PEAK_FLOPS["bfloat16"]
+    iss = {m: statistics.median(v) for m, v in issue.items()}
+    print("resilience integrity stack resnet50_v1 bf16 b%d captured on %s: "
+          "steps/s off %s, on %s (rounds of %d, alternating; median off "
+          "%.3f, on %.3f = %.1f images/s); integrity_overhead_frac %.4f, "
+          "noise_frac %.4f (the reference's budget 0.02, read, not gated); "
+          "builds in the timed rounds %s -> %s; divergence checks %d; "
+          "wedges %d; perf.mfu %s beside train_mfu %.4f; JSONL sink %d "
+          "lines, %d flushes on %s; median host issue ms of a step from a "
+          "drained queue off %.3f, on %.3f, on without the sink %.3f "
+          "(%.1f s)" % (
+              rs["batch"], card, [round(v, 3) for v in rates["off"]],
+              [round(v, 3) for v in rates["on"]], rs["round_steps"],
+              med["off"], med["on"], med["on"] * rs["batch"], overhead,
+              noise, built, after, checks, wedges,
+              "%.4f" % mfu_gauge if mfu_gauge is not None else None,
+              train_mfu, lines, flushes[0], sorted(flush_threads),
+              iss["off"], iss["on"], iss["on_no_sink"],
+              time.time() - t_phase), flush=True)
+    if after != built or checks < 1 or wedges or mfu_gauge is None \
+            or not lines:
+        raise AssertionError("the integrity stack: builds %s -> %s, checks "
+                             "%d, wedges %d, perf.mfu %s, sink lines %d" % (
+                                 built, after, checks, wedges, mfu_gauge,
+                                 lines))
+    return dict(overhead=overhead, noise=noise, mfu=mfu_gauge,
+                train_mfu=train_mfu, rates=med, issue=iss)
+
+
+def resilience_faults(card, arrays, flight_dir):
+    """``train_wedge@j`` under a watchdog on a short timeout trips (its
+    artifact, then ``TrainWedgeError``); ``divergence@i`` raises
+    ``DivergenceError`` with its artifact; ``oom@m`` at ``Trainer.step``
+    writes ``oom_flight``'s artifact. On ResNet-50 f32 b8."""
+    import mxtpu_torch as mt
+    from mxtpu_torch import monitor, resilience
+    nd, gpu = mt.nd, mt.gpu(0)
+    t0 = time.time()
+    net = build_net(arrays)[0]
+    net.collect_params().reset_ctx(gpu)
+    net.hybridize()
+    sc = resilience.DynamicLossScaler(init_scale=RESIL["scale"])
+    tr = mt.gluon.Trainer(net.collect_params(), "sgd", dict(SGD_PARAMS),
+                          loss_scaler=sc)
+    loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    loss_fn.hybridize()
+    (x, y), = resnet_batches(RESIL["parity_batch"], 1, 64)
+    x, y = nd.array(x, ctx=gpu), nd.array(y, ctx=gpu)
+    before = _flights(flight_dir)
+    wd = resilience.TrainStepWatchdog(timeout_x=3.0, min_timeout_s=0.05)
+    wd.start_monitor(0.01)
+    tr.attach_step_watchdog(wd)
+    held = 6
+    resilience.set_faults("train_wedge@%d" % held)
+    wedged = None
+    try:
+        for _ in range(held + 2):
+            _resil_step(net, tr, loss_fn, x, y, sc)
+            if tr._step_seq == held:
+                time.sleep(0.5)   # the held step never answers
+    except resilience.TrainWedgeError as e:
+        wedged = str(e)
+    finally:
+        wd.stop_monitor()
+        tr.attach_step_watchdog(None)
+        resilience.reset_faults()
+    resilience.set_divergence_every(RESIL["every"])
+    mon = monitor.TrainingHealthMonitor(interval=1, divergence_every=1,
+                                        poison_streak=0).install(tr)
+    _resil_step(net, tr, loss_fn, x, y, sc)
+    clean = mon.check_divergence()
+    resilience.set_faults("divergence@0")
+    diverged = None
+    try:
+        _resil_step(net, tr, loss_fn, x, y, sc)
+        mon.check_divergence()
+    except resilience.DivergenceError as e:
+        diverged = str(e)
+    resilience.reset_faults()
+    resilience.set_divergence_every(0)
+    resilience.set_faults("oom@0")
+    oom = None
+    try:
+        _resil_step(net, tr, loss_fn, x, y, sc)
+    except resilience.ResourceExhausted as e:
+        oom = str(e)
+    resilience.reset_faults()
+    after = _flights(flight_dir)
+    new = {k: after.get(k, 0) - before.get(k, 0) for k in after}
+    print("resilience faults resnet50_v1 f32 b%d: train_wedge at step %d "
+          "under a watchdog (x3, at least 50 ms): %s; divergence after a "
+          "clean check (%s): %s; oom at Trainer.step: %s; new flight "
+          "artifacts %s (%.1f s)" % (
+              RESIL["parity_batch"], held, (wedged or "NOT RAISED")[:60],
+              clean, (diverged or "NOT RAISED")[:60],
+              (oom or "NOT RAISED")[:60], new, time.time() - t0),
+          flush=True)
+    if not (wedged and diverged and oom and new.get("train_wedge")
+            and new.get("divergence") and new.get("oom")):
+        raise AssertionError("faults: wedge %s, divergence %s, oom %s, "
+                             "artifacts %s" % (wedged, diverged, oom, new))
+    return new
+
+
+def resilience_checkpoint(card, arrays, batch, flight_dir):
+    """ResilientLoop over bf16 b128 captured steps with async saves every
+    ``ckpt_every`` steps (keep 2) and a SIGTERM at ``sigterm_at`` (the
+    final save and ``flight_record("sigterm")``); the run continues
+    ``resume_steps`` steps; a new net and Trainer ``resume()`` and take
+    the same steps: bit-equal (under cuDNN's deterministic algorithms);
+    plant: the momentum not restored. Then a ``ckpt_corrupt`` save: the
+    fallback takes the step before it and tombstones it. Returns the
+    directory and the continued net."""
+    import shutil
+    import signal
+    import numpy as np
+    import torch
+    import mxtpu_torch as mt
+    from mxtpu_torch import resilience
+    from mxtpu_torch.contrib import async_checkpoint as ackpt
+    gpu = mt.gpu(0)
+    rs = RESIL
+    t_phase = time.time()
+    root = os.path.join(ROOT, "build", "resilience_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    x, y = batch
+    det = _deterministic()
+    det.__enter__()
+    resilience.set_ckpt_keep(rs["ckpt_keep"])
+
+    def make():
+        net = build_net(arrays)[0]
+        net.collect_params().reset_ctx(gpu)
+        net.cast("bfloat16")
+        net.hybridize()
+        sc = resilience.DynamicLossScaler(init_scale=rs["scale"],
+                                          growth_interval=5)
+        tr = mt.gluon.Trainer(net.collect_params(), "sgd",
+                              dict(SGD_PARAMS, multi_precision=True),
+                              loss_scaler=sc)
+        loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+        loss_fn.hybridize()
+        return net, tr, sc, loss_fn
+
+    try:
+        net, tr, sc, loss_fn = make()
+        loop = resilience.ResilientLoop(tr, resilience.CheckpointPolicy(
+            root, every_steps=rs["ckpt_every"], async_save=True))
+        step_ms, saves = [], []
+        real_save = loop.save
+
+        def save(step, final=False):
+            ok = real_save(step, final)
+            saves.append((step, final, loop._last_ckptr))
+            return ok
+        loop.save = save
+
+        def step_fn(i):
+            if i == rs["sigterm_at"]:
+                os.kill(os.getpid(), signal.SIGTERM)
+            t0 = time.perf_counter()
+            _resil_step(net, tr, loss_fn, x, y, sc)
+            torch.cuda.synchronize()
+            step_ms.append((i, 1e3 * (time.perf_counter() - t0)))
+        last = loop.run(step_fn, 100)
+        loop.wait_for_pending()
+        time.sleep(0.2)   # the SIGTERM's flight thread
+        saved = loop.latest_step()
+        # the run that continues
+        for _ in range(rs["resume_steps"]):
+            _resil_step(net, tr, loss_fn, x, y, sc)
+        p, s = _tensors_of(net, tr)
+        cont = _clone_all(p + s)
+        cont_scale = sc.scale_value()
+        del net, tr, sc, loss_fn, loop, p, s
+        _free()
+        # the plant: a resume whose momentum is not restored
+        net3, tr3, sc3, loss_fn3 = make()
+        ackpt.load_trainer(tr3, root, saved)
+        for st in tr3._updaters[0].states.values():
+            for leaf in _leaves(st)[1:]:
+                leaf._set_data(torch.zeros_like(leaf._data))
+        for _ in range(rs["resume_steps"]):
+            _resil_step(net3, tr3, loss_fn3, x, y, sc3)
+        p3, s3 = _tensors_of(net3, tr3)
+        planted = _rel_l2(p3 + s3, cont)
+        del net3, tr3, sc3, loss_fn3, p3, s3
+        _free()
+        # a new net and Trainer resume and take the same steps
+        net2, tr2, sc2, loss_fn2 = make()
+        loop2 = resilience.ResilientLoop(tr2, resilience.CheckpointPolicy(
+            root, every_steps=1000))
+        start = loop2.resume()
+        for _ in range(rs["resume_steps"]):
+            _resil_step(net2, tr2, loss_fn2, x, y, sc2)
+        p2, s2 = _tensors_of(net2, tr2)
+        resumed = p2 + s2
+        equal = _all_equal(resumed, cont)
+        err = _rel_l2(resumed, cont)
+        del p2, s2, resumed, cont
+        # a corrupt save: the fallback takes the step before it
+        resilience.set_faults("ckpt_corrupt@0")
+        ackpt.save_trainer(tr2, root, step=saved + rs["resume_steps"] + 1)
+        resilience.reset_faults()
+        net4, tr4, _, _ = make()
+        got = ackpt.load_trainer_fallback(tr4, root)
+        tomb = sorted(n for n in os.listdir(root) if n.endswith(
+            ".corrupt.json"))
+        del net4, tr4
+        steps_on_disk = sorted(n for n in os.listdir(root)
+                               if n.startswith("step_"))
+    finally:
+        det.__exit__()
+        resilience.set_ckpt_keep(0)
+        resilience.reset_faults()
+    # step time while a write runs: the first step after an async save
+    # waits for the snapshot's copy; the two after it run beside the write
+    save_steps = {st for st, final, _ in saves if not final}
+    copy = [ms for i, ms in step_ms if i - 1 in save_steps]
+    during = [ms for i, ms in step_ms
+              if i - 2 in save_steps or i - 3 in save_steps]
+    quiet = [ms for i, ms in step_ms if i > 2 and not any(
+        i - d in save_steps for d in (1, 2, 3))]
+    snap = [w.snapshot_s * 1e3 for _, _, w in saves if w is not None]
+    write = [w.write_s * 1e3 for _, _, w in saves
+             if w is not None and w.write_s is not None]
+    print("resilience checkpoint resnet50_v1 bf16 b%d captured, "
+          "ResilientLoop every %d steps, async, keep %d: saves at %s; "
+          "SIGTERM at step %d stopped after step %d (latest %s); the save's "
+          "host ms (snapshot) %s, the write's ms on its thread %s; step ms: "
+          "the first after an async save (its copy) %s, the two after it "
+          "(beside the write) %s, the others %s (median %.3f); on disk %s"
+          % (rs["batch"], rs["ckpt_every"], rs["ckpt_keep"],
+             [(st, final) for st, final, _ in saves], rs["sigterm_at"],
+             last, saved, [round(v, 3) for v in snap],
+             [round(v, 1) for v in write], [round(v, 3) for v in copy],
+             [round(v, 3) for v in during], [round(v, 3) for v in quiet],
+             float(np.median(quiet)), steps_on_disk), flush=True)
+    print("resilience resume: a new net and Trainer resume() from step %s "
+          "(start %d) and take %d steps: bit-equal to the run that "
+          "continued: %s (relative L2 %.3g; scale %g / %g); planted (the "
+          "momentum not restored) %.3g; a ckpt_corrupt save: the fallback "
+          "restored step %s, tombstones %s (%.1f s)" % (
+              saved, start, rs["resume_steps"], equal, err, cont_scale,
+              sc2.scale_value(), planted, got, tomb,
+              time.time() - t_phase), flush=True)
+    final_saved = any(final for _, final, _ in saves)
+    flights = _flights(flight_dir)
+    # within noise: the quiet steps' own spread, 5% at least
+    noise = max(max(quiet) - min(quiet), 0.05 * float(np.median(quiet)))
+    beside = float(np.median(during)) - float(np.median(quiet)) \
+        if during else 0.0
+    if not (equal and planted > 0 and final_saved and got == saved
+            and beside <= noise
+            and len(tomb) == 1 and start == saved + 1
+            and last == rs["sigterm_at"] and flights.get("sigterm")):
+        raise AssertionError(
+            "checkpoint and resume: equal %s (%.3g), planted %.3g, final "
+            "save %s, fallback %s (want %s), tombstones %s, start %s, last "
+            "%s, flights %s, beside the write +%.3f ms (noise %.3f)" % (
+                equal, err, planted, final_saved, got, saved, tomb, start,
+                last, flights, beside, noise))
+    return root, net2, dict(snapshot_ms=snap, write_ms=write, copy_ms=copy,
+                           during_ms=during,
+                           quiet_ms=float(np.median(quiet)))
+
+
+def resilience_serve(card, root, trained, arrays):
+    """``Predictor.from_trainer_checkpoint`` on the newest intact step,
+    bf16 b8: logits against the trained net's own captured forward and
+    within the serving gate of the CPU's; median latency beside the
+    ResNet-50 bf16 b8 row. Returns the B1 launches a forward."""
+    import numpy as np
+    import torch
+    import mxtpu_torch as mt
+    from mxtpu_torch.contrib import async_checkpoint as ackpt
+    from mxtpu_torch.ops.pallas.conv import fused_conv
+    from mxtpu_torch.serving import BucketSpec, Predictor
+    gpu = mt.gpu(0)
+    t0 = time.time()
+    step = ackpt.latest_step(root)
+    block = build_net(arrays)[0]
+    block.collect_params().reset_ctx(gpu)
+    block.cast("bfloat16")
+    pred = Predictor.from_trainer_checkpoint(
+        block, root, BucketSpec([RESIL["serve_batch"]]), device=gpu)
+    x = np.random.default_rng(65).standard_normal(
+        (RESIL["serve_batch"], 224, 224, 3)).astype(np.float32)
+    xb = mt.nd.array(x, ctx=gpu, dtype="bfloat16")
+    pred.predict(xb)   # the bucket's build (warm-up and capture)
+    start = fused_conv.launches
+    got = pred.predict(xb).astype("float32").asnumpy()
+    per_forward = fused_conv.launches - start
+    # the trained net loaded with the same step, its own captured forward
+    ackpt.load_trainer_params_into_block(trained, root, step)
+    own = trained(xb).astype("float32").asnumpy()
+    cpu = build_net(arrays)[0]
+    for c, b in zip(cpu.collect_params().values(),
+                    block.collect_params().values()):
+        c.set_data(b.data().to_torch().detach().float().cpu())
+    with torch.no_grad():
+        ref = cpu(torch.from_numpy(x)).numpy()
+    mag = float(np.abs(ref).max())
+    err_cpu = float(np.abs(got - ref).max()) / mag
+    err_own = float(np.abs(got - own).max())
+    med, p80, issue = closed_loop(pred, xb)
+    print("resilience serve from the checkpoint (step %s): "
+          "Predictor.from_trainer_checkpoint resnet50_v1 bf16 b%d on %s: "
+          "logits against the trained net's own captured forward max abs "
+          "%.3g; against the CPU %.3g of max|logit| (gate %g); median "
+          "%.3f ms (p80 %.3f, host issue %.3f) beside the served row's "
+          "%.3f ms (PERF.md §5); "
+          "fused_conv launches a forward %d (%.1f s)" % (
+              step, RESIL["serve_batch"], card, err_own, err_cpu,
+              SERVED_TOL["bfloat16"], med, p80, issue,
+              REF_SERVE_BF16_B8_MS, per_forward, time.time() - t0),
+          flush=True)
+    if not (np.isfinite(got).all() and err_cpu <= SERVED_TOL["bfloat16"]
+            and err_own == 0.0 and per_forward == 11):
+        raise AssertionError("serve from the checkpoint: own %.3g, cpu %.3g, "
+                             "launches %d" % (err_own, err_cpu, per_forward))
+    return dict(ms=med, p80=p80, issue=issue, launches=per_forward)
+
+
+def resilience_phase(card):
+    """Slice 15 (A9's first part): ResNet-50 v1 trained under the whole
+    integrity stack (module docstring's list), each gate with a planted
+    fault that must fail it. Returns the launches of B1 and B2 by part."""
+    import shutil
+    import mxtpu_torch as mt
+    from mxtpu_torch import resilience, telemetry
+    from mxtpu_torch.ops.pallas.conv import fused_conv
+    t_phase = time.time()
+    flight_dir = os.path.join(ROOT, "build", "resilience_flight")
+    shutil.rmtree(flight_dir, ignore_errors=True)
+    telemetry.set_flight_dir(flight_dir)
+    telemetry.set_flight_max(64)
+    out = {}
+    try:
+        _free()   # what earlier phases dropped
+        arrays = build_net()[1]
+        b1_start = fused_conv.launches
+        net, tr, sc, batch, loss_fn = resilience_guard_gates(card, arrays)
+        out["b2_lm"] = resilience_lm_gate()
+        _free()
+        out["timed"] = resilience_timed(card, net, tr, sc, batch, loss_fn,
+                                        flight_dir)
+        del net, tr, sc, loss_fn
+        _free()
+        out["faults"] = resilience_faults(card, arrays, flight_dir)
+        _free()
+        root, trained, out["ckpt"] = resilience_checkpoint(
+            card, arrays, batch, flight_dir)
+        out["serve"] = resilience_serve(card, root, trained, arrays)
+        del trained
+        _free()
+        out["b1"] = fused_conv.launches - b1_start
+        out["flights"] = _flights(flight_dir)
+        print("resilience flight artifacts by reason %s; fused_conv "
+              "launches over the phase %d" % (out["flights"], out["b1"]),
+              flush=True)
+    finally:
+        telemetry.set_flight_dir(None)
+        telemetry.set_flight_max(16)
+        resilience.reset_faults()
+        resilience.set_divergence_every(0)
+        shutil.rmtree(flight_dir, ignore_errors=True)
+        shutil.rmtree(os.path.join(ROOT, "build", "resilience_ckpt"),
+                      ignore_errors=True)
+        mt.nd.waitall()
+    print("resilience phase %.1f s" % (time.time() - t_phase), flush=True)
     return out
 
 
@@ -8277,6 +9093,14 @@ def kernel_entries(rows, launches, train_launches, name, source, replaces,
     return entries
 
 
+def timed_phase(name, fn, *args):
+    """``fn(*args)``, then its wall seconds on a line of their own."""
+    t0 = time.time()
+    out = fn(*args)
+    print("phase %s %.1f s" % (name, time.time() - t0), flush=True)
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -8298,26 +9122,26 @@ def main():
           % (names, time.time() - t0), flush=True)
     for name in names:
         print_ptxas(name, kernels.build_log(name))
-    conv_rows = conv_kernel_phase()
-    conv_launches = resnet_serve_phase(card)
-    flash_rows = flash_phase()
-    flash_launches = lm_serve_phase(card)
-    int8_phase()
-    hybridize_phase()
-    batcher_phase(card)
-    http_phase(card)
-    controller_conv = controller_phase(card)
-    zoo_conv, zoo_flash = zoo_phase(card)
-    gluon_nd_phase()
-    conv_bwd = conv_backward_phase()
-    flash_bwd = flash_backward_phase()
-    conv_train, conv_timing = resnet_train_phase(card)
-    flash_train, lm_timing = lm_train_phase(card)
+    conv_rows = timed_phase("conv kernel", conv_kernel_phase)
+    conv_launches = timed_phase("resnet serve", resnet_serve_phase, card)
+    flash_rows = timed_phase("flash", flash_phase)
+    flash_launches = timed_phase("lm serve", lm_serve_phase, card)
+    timed_phase("int8", int8_phase)
+    timed_phase("hybridize", hybridize_phase)
+    timed_phase("batcher", batcher_phase, card)
+    timed_phase("http", http_phase, card)
+    controller_conv = timed_phase("controller", controller_phase, card)
+    zoo_conv, zoo_flash = timed_phase("zoo", zoo_phase, card)
+    timed_phase("gluon nd", gluon_nd_phase)
+    conv_bwd = timed_phase("conv backward", conv_backward_phase)
+    flash_bwd = timed_phase("flash backward", flash_backward_phase)
+    conv_train, conv_timing = timed_phase("resnet train", resnet_train_phase, card)
+    flash_train, lm_timing = timed_phase("lm train", lm_train_phase, card)
     # the captured training step's path: B1's and B2's launches from 0
     from mxtpu_torch.ops.pallas.conv import fused_conv
     from mxtpu_torch.ops.pallas.flash_attention import flash_attention
     fused_conv.launches = flash_attention.launches = 0
-    captured = captured_train_phase(card, {
+    captured = timed_phase("captured train", captured_train_phase, card, {
         "resnet50 float32": conv_timing["float32"],
         "resnet50 bfloat16": conv_timing["bfloat16"],
         "transformer_lm bfloat16": lm_timing})
@@ -8330,7 +9154,7 @@ def main():
                              "not launched: %s" % captured_path)
     # slice 10: the input path, B1's count from 0 just before it
     fused_conv.launches = 0
-    input_results = input_phase(card)
+    input_results = timed_phase("input", input_phase, card)
     input_b1 = fused_conv.launches
     print("input phase fused_conv launches (the f32 lockstep and the bf16 "
           "timed runs): %d" % input_b1, flush=True)
@@ -8338,7 +9162,7 @@ def main():
         raise AssertionError("the input path launched no fused_conv")
     # slice 11: the symbolic API, B1's and B2's counts from 0 just before
     fused_conv.launches = flash_attention.launches = 0
-    symbolic = symbolic_phase(card)
+    symbolic = timed_phase("symbolic", symbolic_phase, card)
     symbolic_path = {"conv": fused_conv.launches,
                      "flash": flash_attention.launches}
     print("symbolic phase launches (over both types): %s" % symbolic_path,
@@ -8357,7 +9181,7 @@ def main():
     rtc_mod.launched = lambda k: (rtc_launches_seen.append(k),
                                   rtc_launched(k))
     try:
-        rnn = rnn_phase(card)
+        rnn = timed_phase("rnn", rnn_phase, card)
     finally:
         rtc_mod.launched = rtc_launched
     rnn_path = {"b1": fused_conv.launches, "b2": flash_attention.launches,
@@ -8373,7 +9197,8 @@ def main():
     rtc_mod.launched = lambda k: (rtc_launches_seen.append(k),
                                   rtc_launched(k))
     try:
-        par_rows, par_ranks, par_blocks = parallel_phase(card)
+        par_rows, par_ranks, par_blocks = timed_phase(
+            "parallel", parallel_phase, card)
     finally:
         rtc_mod.launched = rtc_launched
     parallel_path = {"b1": fused_conv.launches,
@@ -8391,7 +9216,7 @@ def main():
     rtc_mod.launched = lambda k: (rtc_launches_seen.append(k),
                                   rtc_launched(k))
     try:
-        moe = moe_phase(card)
+        moe = timed_phase("moe", moe_phase, card)
     finally:
         rtc_mod.launched = rtc_launched
     moe_path = {"b1": fused_conv.launches, "b2": flash_attention.launches,
@@ -8400,6 +9225,22 @@ def main():
     if not moe_path["b2"] or moe_path["b1"] or moe_path["b3"]:
         raise AssertionError("the moe path's launches: %s (B2 only)"
                              % moe_path)
+    # slice 15: the training survivability stack (A9's first part),
+    # B1-B3's counts from 0 just before it
+    fused_conv.launches = flash_attention.launches = 0
+    rtc_launches_seen = []
+    rtc_mod.launched = lambda k: (rtc_launches_seen.append(k),
+                                  rtc_launched(k))
+    try:
+        resil = timed_phase("resilience", resilience_phase, card)
+    finally:
+        rtc_mod.launched = rtc_launched
+    resil_path = {"b1": fused_conv.launches, "b2": flash_attention.launches,
+                  "b3": len(rtc_launches_seen)}
+    print("resilience phase launches of B1-B3: %s" % resil_path, flush=True)
+    if not resil_path["b1"] or not resil_path["b2"] or resil_path["b3"]:
+        raise AssertionError("the resilience path's launches: %s (B1 and "
+                             "B2, no B3)" % resil_path)
     # slice 9: the zoo's shape classes, then each path with B1's count
     # from 0 just before it and read just after
     t0 = time.time()
@@ -8407,13 +9248,13 @@ def main():
     print("zoo conv phase %.1f s" % (time.time() - t0), flush=True)
     zoo_path = {}
     fused_conv.launches = 0
-    zoo_serve = zoo_serve_phase(card)
+    zoo_serve = timed_phase("zoo serve", zoo_serve_phase, card)
     zoo_path["zoo_serve"] = fused_conv.launches
     fused_conv.launches = 0
-    zoo_train = zoo_train_phase(card)
+    zoo_train = timed_phase("zoo train", zoo_train_phase, card)
     zoo_path["zoo_train"] = fused_conv.launches
     fused_conv.launches = 0
-    s2d_launches = s2d_phase(card)
+    s2d_launches = timed_phase("s2d", s2d_phase, card)
     zoo_path["s2d"] = fused_conv.launches
     print("slice 9 paths' fused_conv launches (over both types): %s"
           % zoo_path, flush=True)
@@ -8421,15 +9262,16 @@ def main():
         raise AssertionError("a slice 9 path launched no fused_conv: %s"
                              % zoo_path)
     n = resnet50_param_count()
-    _, rtc_kernels, rtc_rows = rtc_phase(n)
-    rtc_launches = imperative_phase(rtc_kernels, n)
+    _, rtc_kernels, rtc_rows = timed_phase("rtc", rtc_phase, n)
+    rtc_launches = timed_phase("imperative", imperative_phase,
+                               rtc_kernels, n)
     # the decode path runs none of B1-B3 (its model is plain torch, as the
     # reference's is jnp): every kernel's launches from 0 over the phase,
     # run last so that the B3 kernels exist
     fused_conv.launches = flash_attention.launches = 0
     for k in rtc_kernels.values():
         k.launches = 0
-    decode_phase(card)
+    timed_phase("decode", decode_phase, card)
     decode_launches = {"conv": fused_conv.launches,
                        "flash": flash_attention.launches}
     decode_launches.update((name, k.launches)
@@ -8508,6 +9350,15 @@ def main():
     for e in entries[:2]:
         e["moe_b1_launches"] = moe_path["b1"]
     for i, e in enumerate(entries):
+        kind = "b1" if i < 2 else "b2"
+        e["resilience_%s_launches" % kind] = resil_path[kind]
+        e["resilience_b3_launches"] = resil_path["b3"]
+    for e in entries[:2]:
+        e["resilience_b1_launches_per_step_or_forward"] = {
+            "bf16_b128_guarded_step": 11,
+            "served_from_checkpoint_bf16_b8_forward":
+                resil["serve"]["launches"]}
+    for i, e in enumerate(entries):
         kind = "conv" if i < 2 else "flash"
         e["decode_launches_both_dtypes"] = decode_launches[kind]
         e.update(("rnn_%s_launches" % k, v) for k, v in rnn_path.items())
@@ -8530,7 +9381,8 @@ def main():
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "decode_launches": decode_launches[r["name"]],
             "rnn_b3_launches": rnn_path["b3"],
-            "moe_b3_launches": moe_path["b3"]})
+            "moe_b3_launches": moe_path["b3"],
+            "resilience_b3_launches": resil_path["b3"]})
     print("rnn op beside torch.nn.LSTM (graph replay ms): %s" % json.dumps(
         rnn["op"]))
     print(json.dumps({"kernels": entries}))
@@ -8557,7 +9409,31 @@ def four_cards_main():
     return 0
 
 
+def phase_main(name):
+    """``python3 chip_smoke.py resilience_phase``: build the kernels and
+    run that one phase alone (a failing gate raises, the exit is
+    non-zero)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    import mxtpu_torch  # noqa: F401  (applies the precision policy)
+    from mxtpu_torch import kernels
+    card = card_line()
+    print("card:", card, flush=True)
+    t0 = time.time()
+    kernels.build_all()
+    print("built the kernels in %.1f s" % (time.time() - t0), flush=True)
+    timed_phase(name, globals()[name], card)
+    print("card:", card)
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["parallel_four_cards"]:
         sys.exit(four_cards_main())
+    if sys.argv[1:] == ["resilience_phase"]:
+        sys.exit(phase_main("resilience_phase"))
     sys.exit(main())

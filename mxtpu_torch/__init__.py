@@ -15,7 +15,12 @@ API: ``sym`` (Symbol, the executor, subgraph partitioning), ``mod``
 (Module and its variants), ``model`` (checkpoints, FeedForward),
 ``callback``, ``monitor``, ``name`` and ``AttrScope``; and the
 recurrent slice: ``gluon.rnn``, ``gluon.contrib`` and ``rnn`` (the
-symbolic cells, the bucketed sentence iterator). Kernels that the JAX package wrote in Pallas are
+symbolic cells, the bucketed sentence iterator); and the training
+runtime: ``resilience`` (the numerics guard's loss scaler, watchdogs,
+sentinels, ``ResilientLoop``, ``TrainSupervisor``),
+``contrib.async_checkpoint``, ``telemetry`` with its flight recorder and
+JSONL sink, ``xprof``, ``perf_model``, ``profiler``, ``log`` and
+``engine``. Kernels that the JAX package wrote in Pallas are
 hand-written CUDA under ``csrc/``, built at first use
 (``mxtpu_torch.kernels``). Entry points run on the CUDA device unless the
 caller passes a CPU device or opens a CPU context.
@@ -72,6 +77,11 @@ from . import kvstore as kv  # noqa: E402
 from . import kvstore_server  # noqa: E402
 from . import gradient_compression  # noqa: E402
 from . import optimizer_fused  # noqa: E402
+from . import log  # noqa: E402
+from . import engine  # noqa: E402
+from . import perf_model  # noqa: E402
+from . import profiler  # noqa: E402
+from . import xprof  # noqa: E402
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "default_device", "layout", "ops",
@@ -83,4 +93,5 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "Monitor", "module", "mod", "Module", "name", "attribute",
            "AttrScope", "rnn", "NDArray", "distributed", "parallel",
            "kvstore", "kv", "kvstore_server", "gradient_compression",
-           "optimizer_fused"]
+           "optimizer_fused", "log", "engine", "perf_model", "profiler",
+           "xprof"]

@@ -1,7 +1,8 @@
 """Contributed extensions of the port (counterpart of ``mxtpu/contrib``):
-the external-kernel hook and the space-to-depth ResNet stem."""
-from . import external_kernel, s2d_stem  # noqa: F401
+the external-kernel hook, the space-to-depth ResNet stem and the
+checkpoints of ``async_checkpoint``."""
+from . import async_checkpoint, external_kernel, s2d_stem  # noqa: F401
 from .external_kernel import register_external_kernel, register_host_kernel
 
-__all__ = ["external_kernel", "s2d_stem", "register_external_kernel",
-           "register_host_kernel"]
+__all__ = ["async_checkpoint", "external_kernel", "s2d_stem",
+           "register_external_kernel", "register_host_kernel"]

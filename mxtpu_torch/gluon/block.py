@@ -589,7 +589,8 @@ class CachedOp:
     def _capture(self, key, args, in_fmt):
         statics = [a.detach().clone() for a in args]
         params, keep = self._state()
-        with torch.no_grad(), graphs.keeping(keep):
+        with torch.no_grad(), graphs.keeping(keep), graphs.ledger_site(
+                "cached_op", self._provenance(key, False)):
             graph = graphs.CapturedGraph(
                 functools.partial(self._forward, in_fmt), statics,
                 generators=self._generators(statics[0].device))
@@ -613,11 +614,12 @@ class CachedOp:
                 return self._forward(in_fmt, *xs)
 
         diff = [(p, t) for p, t in params if t.requires_grad]
-        pair = _Pair(graphs.CapturedPair(
-            forward, statics, [t for _, t in diff], keep,
-            generators=self._generators(statics[0].device)),
-                     params, [p for p, _ in diff], list(self._out_fmt),
-                     self._lock)
+        with graphs.ledger_site("cached_op", self._provenance(key, True)):
+            captured_pair = graphs.CapturedPair(
+                forward, statics, [t for _, t in diff], keep,
+                generators=self._generators(statics[0].device))
+        pair = _Pair(captured_pair, params, [p for p, _ in diff],
+                     list(self._out_fmt), self._lock)
         if any(not isinstance(o, torch.Tensor)
                for o in pair.graphs.forward.outputs):
             raise MXNetError("a recorded call of a hybridized %s returns a "

@@ -30,8 +30,25 @@ Several processes (``mxtpu_torch.distributed.init``), two ways:
   default the store runs the update (``update_on_kvstore``), as the
   reference's.
 
-``update_on_kvstore=True`` with a mesh raises, as the reference's does;
-``loss_scaler`` needs the numerics guard (ROADMAP A9) and raises.
+``update_on_kvstore=True`` with a mesh raises, as the reference's does.
+
+The integrity stack (``resilience``, ``xprof``, ``telemetry``):
+
+* ``loss_scaler`` (a ``resilience.DynamicLossScaler``) attaches the
+  numerics guard to the updater: ``step`` unscales, checks and skips in
+  the captured update and returns the verdict as a device NDArray (None
+  for an unguarded step); the scaler's state rides
+  ``save_states``/``load_states``.
+* each ``step`` is a trace root (``trainer.step``, with
+  ``trainer.step.allreduce`` and ``trainer.step.update`` below it) that
+  links the input path's pended ``data.wait``/``data.h2d`` events;
+* ``attach_step_watchdog`` brackets each step with a
+  ``resilience.TrainStepWatchdog`` (one with a monitor thread is made at
+  construction when ``resilience.train_step_timeout_x()`` is above 0);
+* an OOM in a step (``torch.cuda.OutOfMemoryError``, fault kind ``oom``)
+  writes ``xprof.oom_flight``'s artifact before it propagates;
+* an ``xprof.MFUMeter`` ticks each step into the ``perf.mfu`` gauge, the
+  peak that of the parameters' type (``_mfu``, None with ``xprof`` off).
 
 ``save_states``/``load_states`` write and read the updater's states and
 this package's optimizer (``Updater.get_states(dump_optimizer=True)``);
@@ -39,10 +56,13 @@ this package's optimizer (``Updater.get_states(dump_optimizer=True)``);
 """
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
 from .. import optimizer as opt_mod
+from .. import resilience, telemetry, xprof
 from ..base import MXNetError
 from .parameter import Parameter, ParameterDict
 
@@ -64,9 +84,6 @@ class Trainer:
         if not isinstance(params, (list, tuple)):
             raise MXNetError("First argument must be a list or dict of "
                              "Parameters, got %s." % type(params))
-        if loss_scaler is not None:
-            raise MXNetError("loss_scaler needs the numerics guard, which "
-                             "is not ported yet (ROADMAP A9)")
         self._params = []
         for param in params:
             if not isinstance(param, Parameter):
@@ -76,7 +93,15 @@ class Trainer:
             self._params.append(param)
         optimizer_params = dict(optimizer_params or {})
         self._scale = float(optimizer_params.get("rescale_grad", 1.0))
+        if loss_scaler is not None and \
+                not isinstance(loss_scaler, resilience.DynamicLossScaler):
+            raise MXNetError("loss_scaler takes a resilience."
+                             "DynamicLossScaler, got %s"
+                             % type(loss_scaler).__name__)
+        self._loss_scaler = loss_scaler
         self._init_optimizer(optimizer, optimizer_params)
+        if loss_scaler is not None:
+            self._updaters[0].scaler = loss_scaler
         if mesh is not None and not (hasattr(mesh, "shape")
                                      and hasattr(mesh, "axis")):
             raise MXNetError("mesh= takes a parallel.Mesh (make_mesh, "
@@ -101,6 +126,17 @@ class Trainer:
         self._update_on_kvstore = update_on_kvstore
         self._kvstore = None
         self._kv_initialized = False
+        n_dev = mesh.size if mesh is not None else 1
+        self._mfu = xprof.MFUMeter(n_devices=n_dev, dtype=None) \
+            if xprof.enabled() else None
+        xprof.ensure_memwatch()
+        self._step_seq = 0
+        self.last_step_trace = None
+        self.last_step_stages = {}
+        self._step_watchdog = None
+        if resilience.train_step_timeout_x() > 0:
+            self._step_watchdog = \
+                resilience.TrainStepWatchdog().start_monitor()
 
     def _init_kvstore(self):
         """Bind the store (a ``dist_*`` kind, or a store object) and, on a
@@ -141,6 +177,9 @@ class Trainer:
                     kv.init(i, param.data())
             if update_on_kvstore:
                 kv.set_optimizer(self._optimizer)
+                if self._loss_scaler is not None and \
+                        getattr(kv, "_updater", None) is not None:
+                    kv._updater.scaler = self._loss_scaler
             self._kvstore = kv
             self._update_on_kvstore = bool(update_on_kvstore)
         self._kv_initialized = True
@@ -207,15 +246,81 @@ class Trainer:
                                else t))
         return out[0] if len(out) == 1 else tuple(out)
 
+    def attach_step_watchdog(self, watchdog):
+        """Attach a ``resilience.TrainStepWatchdog`` (None detaches); a
+        replaced one's monitor thread is stopped."""
+        old = self._step_watchdog
+        if old is not None and old is not watchdog:
+            old.stop_monitor()
+        self._step_watchdog = watchdog
+        return watchdog
+
     def step(self, batch_size, ignore_stale_grad=False):
         """One optimization step: the gradients reduced and every
         parameter updated, ``rescale_grad = scale / batch_size`` (over
-        the ranks too on a mesh, module docstring)."""
+        the ranks too on a mesh, module docstring). Under the numerics
+        guard returns the step's verdict, a device NDArray (no sync);
+        otherwise None."""
         if not self._kv_initialized:
             self._init_kvstore()
         self._optimizer.rescale_grad = self._rescale(batch_size)
-        self._allreduce_grads()
-        self._update(ignore_stale_grad)
+        with telemetry.span("trainer.step", d2h=True, new_trace=True):
+            telemetry.link_pending()
+            self._step_seq += 1
+            wd = self._step_watchdog
+            entry = None
+            if wd is not None:
+                ctx = telemetry.current_trace()
+                entry = wd.arm(self._step_seq,
+                               None if ctx is None else ctx.trace_id)
+            try:
+                resilience.maybe_oom()
+                t0 = time.perf_counter()
+                with telemetry.span("trainer.step.allreduce"):
+                    self._allreduce_grads()
+                t1 = time.perf_counter()
+                with telemetry.span("trainer.step.update"):
+                    self._update(ignore_stale_grad)
+                t2 = time.perf_counter()
+                ctx = telemetry.current_trace()
+                stages = {"trainer.step.allreduce": t1 - t0,
+                          "trainer.step.update": t2 - t1}
+                for name, dur in stages.items():
+                    telemetry.add_stage(ctx, name, dur)
+                self.last_step_trace = None if ctx is None else ctx.trace_id
+                self.last_step_stages = stages
+            except Exception as e:
+                if entry is not None:
+                    try:
+                        wd.disarm(entry)
+                    except resilience.TrainWedgeError:
+                        pass   # the step's own error stays loud
+                if xprof.is_oom(e):
+                    ctx = telemetry.current_trace()
+                    xprof.oom_flight("trainer.step", e,
+                                     trace_ids=[ctx.trace_id] if ctx else [])
+                raise
+            if entry is not None:
+                wd.disarm(entry)   # raises if this step tripped
+            if self._mfu is not None:
+                if self._mfu._dtype is None:
+                    self._mfu._dtype = next(
+                        (str(p.data()._data.dtype).replace("torch.", "")
+                         for p in self._params if p.initialized),
+                        "float32")
+                self._mfu.step()
+            return self._step_verdict()
+
+    def _active_updater(self):
+        if self._update_on_kvstore and self._kvstore is not None:
+            return getattr(self._kvstore, "_updater", None)
+        return self._updaters[0]
+
+    def _step_verdict(self):
+        from ..ndarray import NDArray
+        upd = self._active_updater()
+        ok = getattr(upd, "last_step_ok", None)
+        return None if ok is None else NDArray(ok)
 
     def _rescale(self, batch_size):
         ranks = self._mesh.size if self._mesh is not None else 1
@@ -253,7 +358,9 @@ class Trainer:
             raise MXNetError("update() when parameters are updated on "
                              "kvstore is not supported")
         self._optimizer.rescale_grad = self._rescale(batch_size)
-        self._update(ignore_stale_grad)
+        with telemetry.span("trainer.step.update"):
+            self._update(ignore_stale_grad)
+        return self._step_verdict()
 
     def _update(self, ignore_stale_grad=False):
         if self._update_on_kvstore:

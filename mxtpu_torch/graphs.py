@@ -25,12 +25,20 @@ own tally and not to ``obj.launches`` (the capture ran no kernel); every
 replay then adds the tally. Other threads count as before meanwhile, and
 every change to a count is made under one lock, so the counts read as if
 every forward had run eagerly, whatever the threads.
+
+FLOP ledger. A graph built inside ``ledger_site(site, provenance)``
+(``cached_op``, ``executor``, ``fused_optimizer``; a pair's backward at
+``<site>.backward``) counts its warm-up run's FLOPs with
+``xprof.measuring`` and records them, with the build's wall time, in an
+``xprof`` ledger entry; the warm-up and every replay add one to its
+``calls``.
 """
 from __future__ import annotations
 
 import contextlib
 import gc
 import threading
+import time
 
 import torch
 
@@ -38,7 +46,7 @@ from .base import MXNetError
 
 __all__ = ["CAPTURE_LOCK", "CapturedGraph", "CapturedPair", "launched",
            "capturing", "captures", "keeping", "keeping_generators",
-           "allow_generator"]
+           "allow_generator", "ledger_site"]
 
 # one lock for every capture and every eager forward of a shared block:
 # the Predictor's forward swaps its parameter snapshot into the block
@@ -71,6 +79,17 @@ def _tally():
         yield tally
     finally:
         _STATE.tally = prev
+
+
+@contextlib.contextmanager
+def ledger_site(site, provenance=None):
+    """The ledger site of the graphs built on this thread in the block."""
+    prev = getattr(_STATE, "site", None)
+    _STATE.site = (site, provenance)
+    try:
+        yield
+    finally:
+        _STATE.site = prev
 
 
 def capturing():
@@ -130,7 +149,10 @@ class CapturedGraph:
     state it was captured over). ``generators`` (the port's
     ``torch.Generator``s that ``fn`` draws from) are registered with the
     graph: each replay draws from the generator's offset at that time and
-    moves it, as an eager call would; the warm-up's draws are given back."""
+    moves it, as an eager call would; the warm-up's draws are given back.
+    ``ledger_site`` names its ledger entry (module docstring)."""
+
+    ledger_entry = None   # the xprof ledger's entry (module docstring)
 
     def __init__(self, fn, static_inputs, pool=None, device=None,
                  generators=()):
@@ -141,6 +163,10 @@ class CapturedGraph:
                              % device)
         self.static_inputs = list(static_inputs)
         self.device = device
+        from . import xprof
+        site, provenance = getattr(_STATE, "site", None) or (None, None)
+        measure = site is not None and xprof.enabled()
+        t_build = time.perf_counter()
         with CAPTURE_LOCK, torch.cuda.device(device), \
                 keeping_generators(generators):
             _STATE.depth = getattr(_STATE, "depth", 0) + 1
@@ -154,7 +180,9 @@ class CapturedGraph:
                 if side is None:
                     side = _SIDE_STREAMS[device] = torch.cuda.Stream(device)
                 side.wait_stream(cur)
-                with torch.cuda.stream(side):
+                with torch.cuda.stream(side), \
+                        (xprof.measuring() if measure
+                         else contextlib.nullcontext({})) as counted:
                     fn(*self.static_inputs)
                 cur.wait_stream(side)
                 graph = torch.cuda.CUDAGraph()
@@ -179,11 +207,18 @@ class CapturedGraph:
         self.launches = [tuple(e) for e in tally.values()]
         self.graph = graph
         self.outputs = list(out)
+        self.ledger_entry = xprof.attach(
+            site, provenance, counted.get("flops"),
+            time.perf_counter() - t_build) if measure else None
+        xprof.called(self.ledger_entry)   # the warm-up ran the work once
 
     def replay(self):
         """Run the graph on the current stream; returns the static outputs
         (overwritten by the next replay)."""
         self.graph.replay()
+        entry = self.ledger_entry
+        if entry is not None:
+            entry["calls"] += 1
         if self.launches:
             with _COUNT_LOCK:
                 for obj, n in self.launches:
@@ -243,6 +278,9 @@ class CapturedPair:
                     [self._live[k] for k in self.diff_outputs], diff_in,
                     cts, retain_graph=True, allow_unused=True))
 
-            self.backward = CapturedGraph(backward, cots, pool=pool,
-                                          generators=generators)
+            named = getattr(_STATE, "site", None)
+            with ledger_site(named[0] + ".backward", named[1]) if named \
+                    else contextlib.nullcontext():
+                self.backward = CapturedGraph(backward, cots, pool=pool,
+                                              generators=generators)
         self.cotangents = self.backward.static_inputs

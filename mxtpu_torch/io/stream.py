@@ -28,7 +28,10 @@ Telemetry (``mxtpu_torch.telemetry``): the ``data.prefetch_depth`` gauge,
 the ``data.h2d`` span (the producer's staging and enqueue of one batch's
 copy), the ``data.wait`` span (the consumer blocked on an empty buffer),
 the ``data.starved`` counter (such waits) and the ``data.prefetch_restarts``
-and ``stream.worker_restarts`` counters.
+and ``stream.worker_restarts`` counters. Each transfer and each wait is a
+trace root; the consumer's ``__next__`` pends both
+(``telemetry.pend_link``), and the next ``trainer.step`` on its thread
+links them into its trace.
 
 The JAX package reads ``MXTPU_PREFETCH_DEPTH``, ``MXTPU_STREAM_THREADS``
 and ``MXTPU_DL_WORKER_RESTARTS``; the port takes them as constructor
@@ -474,11 +477,15 @@ class DevicePrefetcher:
                     batch = next(self._source)
                 except StopIteration:
                     break
+                ctx = None
                 if self._put:
-                    with telemetry.span("%s.h2d" % self._site):
+                    with telemetry.span("%s.h2d" % self._site,
+                                        new_trace=True) as sp:
                         item = self._transfer(batch)
+                    ctx = sp.ctx
                 else:
                     item = (batch, None, ())
+                item = item + (ctx,)
                 with self._cv:
                     if self._stopped:
                         return
@@ -601,7 +608,8 @@ class DevicePrefetcher:
         with self._cv:
             if not self._buf and not self._finished and not self._stopped:
                 telemetry.inc("%s.starved" % self._site)
-            with telemetry.span("%s.wait" % self._site):
+            with telemetry.span("%s.wait" % self._site,
+                                new_trace=True) as wait_sp:
                 while not self._buf and not self._finished and \
                         not self._stopped:
                     if not self._thread.is_alive():
@@ -625,8 +633,12 @@ class DevicePrefetcher:
                     err, self._error = self._error, None
                     raise err
                 raise StopIteration
-            item, ev, tensors = self._buf.popleft()
+            item, ev, tensors, h2d_ctx = self._buf.popleft()
             self._cv.notify_all()
+        # the hand-over: the next trainer.step on this thread links the
+        # batch's transfer and wait into its trace (link_pending)
+        telemetry.pend_link("%s.h2d" % self._site, h2d_ctx)
+        telemetry.pend_link("%s.wait" % self._site, wait_sp.ctx)
         if ev is not None:
             cur = torch.cuda.current_stream(self._device)
             cur.wait_event(ev)

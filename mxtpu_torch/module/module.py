@@ -206,15 +206,15 @@ class Module(BaseModule):
                        force_init=False, loss_scaler=None):
         """(ref: module.py:init_optimizer). ``kvstore`` None, ``"local"``
         or ``"device"``: no store; a ``dist_*`` name or a store object: the
-        store (module docstring). ``loss_scaler`` needs the numerics guard
-        (ROADMAP A9)."""
+        store (module docstring). ``loss_scaler`` (a
+        ``resilience.DynamicLossScaler``) attaches the numerics guard to
+        the updater (and the store's, where it updates): ``backward``
+        scales the head gradients by the live scale."""
         assert self.binded and self.params_initialized
         if self.optimizer_initialized and not force_init:
             return
         kv = _create_kvstore(kvstore)
-        if loss_scaler is not None:
-            raise MXNetError("loss_scaler needs the numerics guard, which is "
-                             "not ported yet (ROADMAP A9)")
+        _check_scaler(loss_scaler)
         if isinstance(optimizer, str):
             idx2name = dict(enumerate(self._param_names))
             opt_kw = dict(optimizer_params or {})
@@ -227,6 +227,9 @@ class Module(BaseModule):
                 **opt_kw)
         self._optimizer = optimizer
         self._updater = opt_mod.get_updater(optimizer)
+        self._loss_scaler = loss_scaler
+        if loss_scaler is not None:
+            self._updater.scaler = loss_scaler
         if self._preload_opt_states is not None:
             with open(self._preload_opt_states, "rb") as f:
                 self._updater.set_states(f.read())
@@ -238,6 +241,9 @@ class Module(BaseModule):
                 kv.init(i, self._exec.arg_dict[name])
             if self._update_on_kvstore:
                 kv.set_optimizer(self._optimizer)
+                if loss_scaler is not None and \
+                        getattr(kv, "_updater", None) is not None:
+                    kv._updater.scaler = loss_scaler
         self.optimizer_initialized = True
 
     # ------------------------------------------------------------- running
@@ -252,7 +258,31 @@ class Module(BaseModule):
             self._exec.forward(is_train=is_train, **feed)
 
     def backward(self, out_grads=None):
+        """(ref: module.py:backward). With a loss scaler the head
+        gradients (the default ones, or ``out_grads``) are multiplied by
+        the live scale, a device scalar (no sync, no new build)."""
         assert self.binded and self.params_initialized
+        scaler = getattr(self, "_loss_scaler", None)
+        if scaler is not None:
+            outs = self._exec.outputs
+            for o in outs:
+                dt = o._data.dtype
+                if dt.is_floating_point and \
+                        scaler.max_scale > torch.finfo(dt).max:
+                    raise MXNetError(
+                        "loss scaler max_scale=%g exceeds %s's max (%g): "
+                        "construct DynamicLossScaler(max_scale=...) within "
+                        "the head dtype's range for Module training"
+                        % (scaler.max_scale, dt, torch.finfo(dt).max))
+            s = scaler._ensure(outs[0]._data.device)
+            if out_grads is None:
+                out_grads = [NDArray(s.to(o._data.dtype).expand(
+                    o._data.shape).clone()) for o in outs]
+            else:
+                if not isinstance(out_grads, (list, tuple)):
+                    out_grads = [out_grads]
+                out_grads = [NDArray(g._data * s.to(g._data.dtype))
+                             for g in out_grads]
         with telemetry.span("module.backward"):
             self._exec.backward(out_grads=out_grads)
 
@@ -326,3 +356,11 @@ class Module(BaseModule):
         if load_optimizer_states:
             mod._preload_opt_states = "%s-%04d.states" % (prefix, epoch)
         return mod
+
+
+def _check_scaler(loss_scaler):
+    from ..resilience import DynamicLossScaler
+    if loss_scaler is not None and \
+            not isinstance(loss_scaler, DynamicLossScaler):
+        raise MXNetError("loss_scaler takes a resilience.DynamicLossScaler, "
+                         "got %s" % type(loss_scaler).__name__)

@@ -44,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from ...base import MXNetError
+from ... import xprof
 from ...graphs import launched
 from ..precision_util import promote
 
@@ -267,6 +268,9 @@ def _launch(x, w, strides, padding, scale, bias, residual, relu, oh, ow):
     if rc != 0:
         raise MXNetError("fused_conv kernel launch failed: CUDA error %d" % rc)
     launched(fused_conv)
+    # the FLOP ledger's count of the launch (FlopCounterMode sees no
+    # kernel): a multiply-add a product, as PERF.md's bound column counts
+    xprof.add_flops(2.0 * n * oh * ow * cout * kh * kw * cin)
     return out, craw
 
 

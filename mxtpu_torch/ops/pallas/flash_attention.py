@@ -30,6 +30,11 @@ meta outputs (out and lse) and counts no launch; off the CPU, the card and
 meta the call raises "no kernel for device", with or without a gradient. ``flash_attention.launches`` counts
 forward kernel launches of both entry points; it never counts a call that
 ran the plain version, nor a backward.
+
+``DISPATCH_STATS`` is the reference's view over the telemetry counters
+``pallas_flash.{pallas,xla,fallback}``: ``pallas`` counts a kernel launch
+on the card and ``xla`` a call of the plain version on the CPU; the port
+has no fallback, so ``fallback_reasons`` stays empty.
 """
 from __future__ import annotations
 
@@ -40,10 +45,12 @@ import functools
 import torch
 
 from ...base import MXNetError
+from ... import telemetry, xprof
 from ...graphs import launched
 
 __all__ = ["flash_attention", "flash_attention_with_lse",
-           "flash_attention_reference", "flash_attention_backward"]
+           "flash_attention_reference", "flash_attention_backward",
+           "DISPATCH_STATS", "reset_dispatch_stats"]
 
 _NEG_INF = -1e30   # mask value: the online rescale never sees -inf - -inf
 _SLICE = 128   # columns of out per block past D 128 (the sliced kernels)
@@ -190,6 +197,11 @@ def _launch(q, k, v, causal, scale):
         raise MXNetError("flash_attention kernel launch failed: CUDA error %d"
                          % rc)
     launched(flash_attention)
+    telemetry.inc("pallas_flash.pallas")
+    # the FLOP ledger's count of the launch: QK^T and PV, a multiply-add a
+    # product, half the scores under a causal mask
+    xprof.add_flops(4.0 * b * h * t * k.shape[2] * d
+                    * (0.5 if causal else 1.0))
     return out, lse
 
 
@@ -236,6 +248,7 @@ class _Flash(torch.autograd.Function):
         if q.device.type == "cuda":
             out, lse = _launch(q, k, v, causal, scale)
         else:
+            telemetry.inc("pallas_flash.xla")
             out, lse = flash_attention_reference(q, k, v, causal, scale)
         ctx.causal, ctx.scale = causal, scale
         ctx.set_materialize_grads(False)
@@ -267,6 +280,7 @@ def flash_attention_with_lse(q, k, v, causal=False, scale=None, block_q=512,
         return _Flash.apply(q, k, v, bool(causal), _scale(q, scale))
     if q.device.type == "cuda":
         return _launch(q, k, v, causal, scale)
+    telemetry.inc("pallas_flash.xla")
     return flash_attention_reference(q, k, v, causal, _scale(q, scale))
 
 
@@ -279,3 +293,47 @@ def flash_attention(q, k, v, causal=False, scale=None, block_q=512,
 
 
 flash_attention.launches = 0
+
+
+class _DispatchStatsView:
+    """Read-only dict-shaped view over the ``pallas_flash.*`` counters
+    (the reference's ``DISPATCH_STATS``)."""
+
+    _KEYS = ("pallas", "xla", "fallback_reasons")
+
+    def __getitem__(self, key):
+        if key == "fallback_reasons":
+            return telemetry.tagged("pallas_flash.fallback")
+        if key not in self._KEYS:
+            raise KeyError(key)
+        return int(telemetry.value("pallas_flash." + key))
+
+    def get(self, key, default=None):
+        try:
+            return self[key]
+        except KeyError:
+            return default
+
+    def __iter__(self):
+        return iter(self._KEYS)
+
+    def __len__(self):
+        return len(self._KEYS)
+
+    def keys(self):
+        return list(self._KEYS)
+
+    def items(self):
+        return [(k, self[k]) for k in self._KEYS]
+
+    def __repr__(self):
+        return repr(dict(self.items()))
+
+
+DISPATCH_STATS = _DispatchStatsView()
+
+
+def reset_dispatch_stats():
+    for name in ("pallas_flash.pallas", "pallas_flash.xla",
+                 "pallas_flash.fallback"):
+        telemetry.reset_metric(name)

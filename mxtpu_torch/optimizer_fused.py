@@ -56,18 +56,43 @@ with another item's, and every item while ``set_enabled(False)``. On a
 captured graph the hyperparameters of a bfloat16 or float16 group
 without multi-precision round to its dtype.
 
-Not ported: the numerics guard with its loss scaler (ROADMAP A9).
+The numerics guard (``resilience``: a ``DynamicLossScaler`` attached, or
+``resilience.set_guard(True)``) runs the guarded twin of the step
+(``_guarded_update``): one all-parameter finite flag and the global
+gradient norm, the update of every group applied under ``torch.where``
+(a non-finite step leaves the weights, every state and the device
+bias-correction count ``t`` bit-equal), the loss scale divided out of
+``rescale_grad`` and the scaler's backoff and growth, all in one captured
+graph on a CUDA device (one eager run on the CPU) over every group at
+once. The hyperparameters are (lr, wd) per group; a rule's bias
+corrections (``thyper``) follow in the graph from ``t``. The scale, the
+streak and ``t`` are device scalars the graph reads and writes in place,
+so a change of scale never builds again; the guard bit, the scaler's
+``config()`` and the divergence bit are part of the graph's key. The
+verdict (``last_step_ok``) and the norm are device scalars kept in
+``health`` (``resilience.StepHealth``); nothing syncs. With
+``resilience.divergence_every() > 0`` the graph also writes the
+fingerprint (``last_fingerprint``: the float32 sum and the fold of the
+int32 bits of the weights and states after the select); an unguarded
+step computes it after its update. Nadam (whose hyperparameters move with
+host state) and the per-index items take the guarded eager path: their
+gradients' squares join the flag, which then syncs once to gate them.
+On a mesh the sum of squares of this rank's ZeRO-1 rows is all-reduced
+over the data axis before the graph, so every rank skips together. Fault
+kind ``nan_grad@k`` makes the first gradient of the k-th
+``update_batch`` NaN.
 """
 from __future__ import annotations
 
 import collections
+import functools
 import math
 import threading
 import weakref
 
 import torch
 
-from . import graphs, telemetry
+from . import graphs, resilience, telemetry
 from .ndarray import NDArray
 from .optimizer import (DCASGD, FTML, NAG, SGD, AdaDelta, AdaGrad, Adam,
                         Adamax, Ftrl, GroupAdaGrad, Nadam, RMSProp, Signum,
@@ -449,8 +474,13 @@ def _count(opt, i):
     return opt._index_update_count[i]
 
 
+def _sqrt(x):
+    """sqrt of a host float, or of a device scalar in the guarded graph."""
+    return torch.sqrt(x) if isinstance(x, torch.Tensor) else math.sqrt(x)
+
+
 def _adam_t(cfg, lr, wd, t):
-    return (lr * math.sqrt(1.0 - cfg["beta2"] ** t)
+    return (lr * _sqrt(1.0 - cfg["beta2"] ** t)
             / (1.0 - cfg["beta1"] ** t), wd)
 
 
@@ -637,6 +667,7 @@ class _Group:
     def __init__(self, graph, tensors):
         self.graph = graph
         self.tensors = tensors
+        self.outputs = None   # the guarded step's verdict buffers
 
 
 def _holders(members):
@@ -661,7 +692,23 @@ class FusedUpdater(Updater):
         self._staging = _Staging()
         self._plan = None
         self._views = {}
+        # the numerics guard (module docstring): an attached scaler, the
+        # latest verdict, norm and fingerprint (device scalars), the
+        # health ring, the device good-step count t
+        self.scaler = None
+        self.health = resilience.StepHealth()
+        self.last_step_ok = None
+        self.last_grad_norm = None
+        self.last_fingerprint = None
+        self._t_good = None
+        self._t_restored = None
+        self._noscaler = {}
+        self._step_count = 0      # update_batch calls (the nan_grad index)
+        self._step_traces = collections.OrderedDict()
         _UPDATERS.add(self)
+
+    def _guard_active(self):
+        return self.scaler is not None or resilience.guard_enabled()
 
     def set_mesh(self, mesh, data_axis="data", zero1=True):
         """Adopt a ``MeshPlan``: ``update_batch`` then takes this rank's
@@ -672,6 +719,17 @@ class FusedUpdater(Updater):
         self._views = {}
 
     def update_batch(self, indices, grads, weights):
+        if not indices:
+            return
+        step_idx = self._step_count
+        self._step_count += 1
+        ctx = telemetry.current_trace()
+        if ctx is not None:   # the poison quarantine names the step's trace
+            self._step_traces[step_idx] = ctx.trace_id
+            while len(self._step_traces) > 4096:
+                self._step_traces.popitem(last=False)
+        if grads and resilience.inject("nan_grad", step_idx):
+            grads[0]._set_data(grads[0]._data * float("nan"))
         if self._plan is not None:
             self._mesh_update(indices, grads, weights)
         else:
@@ -699,7 +757,23 @@ class FusedUpdater(Updater):
         for k, sh in zip(rows, shards):
             items_g[k] = NDArray(sh)
             items_w[k] = self._view(indices[k], weights[k], data)
-        self._update_items(indices, items_g, items_w)
+        ext_sq = None
+        if self._guard_active():
+            # the flag and norm over the whole model: this rank's rows'
+            # squares summed over the data axis, the whole gradients' (the
+            # same on every rank) once
+            from .parallel.collectives import all_reduce_
+            with torch.no_grad():
+                rows_sq = _sum_sq([shards[k] for k in range(len(rows))],
+                                  gs[0].device)
+                if data.size > 1 and rows:
+                    all_reduce_(rows_sq, data)
+                ext_sq = rows_sq + _sum_sq([gs[k] for k in rest],
+                                           gs[0].device)
+        if ext_sq is None:
+            self._update_items(indices, items_g, items_w)
+        else:
+            self._update_items(indices, items_g, items_w, ext_sq)
         if rows:
             with torch.no_grad():
                 _bucket_all_gather([weights[k]._data for k in rows],
@@ -729,7 +803,7 @@ class FusedUpdater(Updater):
         """As ``Updater.get_states``; under ZeRO-1 the rows' states are
         all-gathered whole first (a collective: every rank calls it)."""
         if self._plan is None or not self._views:
-            return super().get_states(dump_optimizer)
+            return self._with_guard_state(super().get_states(dump_optimizer))
         from .parallel.collectives import all_gather
         data = self._plan.data()
         saved = self.states
@@ -741,7 +815,7 @@ class FusedUpdater(Updater):
             whole[i] = st
         self.states = whole
         try:
-            return super().get_states(dump_optimizer)
+            return self._with_guard_state(super().get_states(dump_optimizer))
         finally:
             self.states = saved
 
@@ -757,9 +831,26 @@ class FusedUpdater(Updater):
         self._views[index] = (t.data_ptr(), view)
         return view
 
-    def _update_items(self, indices, grads, weights):
+    def _update_items(self, indices, grads, weights, ext_sq=None):
         opt = self.optimizer
         rule = _RULES.get(type(opt)) if fused_enabled() else None
+        if self._guard_active():
+            if rule is not None and rule.thyper is None:
+                rule = None   # Nadam: the guarded eager path
+            self._guarded_items(rule, indices, grads, weights, ext_sq)
+            return
+        self.last_step_ok = None
+        self.last_fingerprint = None
+        self._plain_items(rule, indices, grads, weights)
+        if resilience.divergence_every() > 0:
+            with torch.no_grad():
+                self.last_fingerprint = _fingerprint(
+                    [w._data for w in weights] + [
+                        x._data for i in indices
+                        for x in _leaves(self.states.get(i))])
+
+    def _plain_items(self, rule, indices, grads, weights):
+        opt = self.optimizer
         if rule is None:
             super().update_batch(indices, grads, weights)
             _stat("eager_updates", len(indices))
@@ -854,6 +945,297 @@ class FusedUpdater(Updater):
             "optimizer": gkey[0].__name__, "params": len(members),
             "multi_precision": mp, "dtype": str(gkey[-1][0][2])})
         return _Group(graph, [a._data for a in _holders(members)])
+
+    # ------------------------------------------------------ the numerics guard
+    def _guard_state(self, device):
+        """(scale, streak, t) device scalars of fixed storage: the
+        scaler's, or a float32 1 and an int32 0 of this updater's own; t
+        starts at the update clock (a warm start continues the bias
+        correction) or at a restored count."""
+        if self._t_good is None or self._t_good.device != device:
+            start = self._t_restored if self._t_restored is not None \
+                else int(getattr(self.optimizer, "num_update", 0))
+            self._t_good = torch.full((), int(start), dtype=torch.int32,
+                                      device=device)
+            self._t_restored = None
+        if self.scaler is not None:
+            scale = self.scaler._ensure(device)
+            return scale, self.scaler._streak, self._t_good
+        pair = self._noscaler.get(device)
+        if pair is None:
+            pair = self._noscaler[device] = (
+                torch.ones((), dtype=torch.float32, device=device),
+                torch.zeros((), dtype=torch.int32, device=device))
+        return pair + (self._t_good,)
+
+    def _guarded_items(self, rule, indices, grads, weights, ext_sq):
+        """One guarded step over ``indices`` (module docstring)."""
+        opt = self.optimizer
+        step_idx = self._step_count - 1
+        items = [(i, g, w, self._state(i, w))
+                 for i, g, w in zip(indices, grads, weights)]
+        if rule is None:
+            fused, eager = [], items
+        else:
+            fused, eager = _split_aliased(items)
+        device = items[0][2]._data.device
+        gstate = self._guard_state(device)
+        scaler = self.scaler
+        with torch.no_grad():
+            sq_e = _sum_sq([it[1]._data for it in eager], device)
+            own = ext_sq is None
+            if not own:
+                sq_e = sq_e + ext_sq
+            scale_used = gstate[0].clone() if eager and scaler else None
+            if fused:
+                ok, gnorm, fp = self._guarded_fused(rule, fused, gstate,
+                                                    sq_e, own)
+                self.last_fingerprint = fp
+            else:
+                self.last_fingerprint = None
+                ok = bool(torch.isfinite(sq_e))   # gates the eager items
+                gnorm = torch.sqrt(sq_e) * (float(opt.rescale_grad)
+                                            / gstate[0])
+                if scaler is not None:
+                    scaler.host_update(ok)
+                if ok:
+                    gstate[2].add_(1)
+            self.last_step_ok = ok if isinstance(ok, torch.Tensor) \
+                else torch.tensor(ok, device=device)
+            self.last_grad_norm = gnorm
+            self.health.append(step_idx, self.last_step_ok, gnorm)
+            if not eager or not (bool(ok) if fused else ok):
+                return   # skipped: the eager items' counts stay too
+            saved = opt.rescale_grad
+            try:
+                if scaler is not None:
+                    opt.rescale_grad = saved / float(scale_used)
+                for i, g, w, _ in eager:
+                    self(i, g, w)
+                    _stat("eager_updates")
+            finally:
+                opt.rescale_grad = saved
+
+    def _guarded_fused(self, rule, items, gstate, ext_sq, own):
+        """The guarded update of ``items``: (ok, grad norm, fingerprint or
+        None), device scalars of this step."""
+        opt = self.optimizer
+        groups = collections.OrderedDict()
+        for it in items:
+            i, g, w, state = it
+            opt._update_count(i)
+            hyper = (float(opt._get_lr(i)), float(opt._get_wd(i)))
+            key = (w._data.dtype, w._data.device, opt._mp(w),
+                   _kind(state), hyper)
+            groups.setdefault(key, []).append(it)
+        _stat("fused_steps")
+        cfg = rule.static(opt)
+        scfg = None if self.scaler is None else self.scaler.config()
+        emit_fp = resilience.divergence_every() > 0
+        plan = [(members, mp, rule.wd_at is not None and hyper[1] == 0.0)
+                for (_, _, mp, _, hyper), members in groups.items()]
+        values = [float(opt.rescale_grad)]
+        for (_, _, _, _, hyper) in groups:
+            values += hyper
+        device = next(iter(groups))[1]
+        fn = functools.partial(_guarded_update, cfg, rule, plan, gstate,
+                               scfg, emit_fp, own)
+        grads = [it[1]._data for m, _, _ in plan for it in m]   # plan order
+        if not graphs.captures(device):
+            out = fn(*grads, torch.tensor(values, dtype=torch.float32),
+                     ext_sq)
+        else:
+            out = self._guarded_replay(fn, plan, grads, values, ext_sq,
+                                       (type(opt), tuple(sorted(
+                                           cfg.items())), scfg, emit_fp,
+                                        own, gstate[0].data_ptr()), device)
+        _bump_all(items)
+        ok, gnorm = out[0].clone(), out[1].clone()
+        fp = (out[2].clone(), out[3].clone()) if emit_fp else None
+        return ok, gnorm, fp
+
+    def _guarded_replay(self, fn, plan, grads, values, ext_sq, head,
+                        device):
+        """The guarded step's one captured graph: built at the first step
+        of its key (the warm-up run is that step's update), replayed
+        after with the gradients, hyperparameters and ``ext_sq`` copied
+        into its static inputs."""
+        members = [it for m, _, _ in plan for it in m]
+        gkey = ("guard",) + head + tuple(
+            (mp, wd_zero, tuple((it[0], tuple(it[2].shape),
+                                 it[2]._data.dtype, _structure(it[3]))
+                                for it in m))
+            for m, mp, wd_zero in plan)
+        host = self._staging.write(values, device)
+        h = host[:len(values)]
+        group = self._graphs.get(gkey)
+        if group is None:
+            static = [g.detach().clone() for g in grads] + [
+                h.to(device, copy=True), ext_sq.detach().clone()]
+            # the verdict, norm and fingerprint land in buffers of their
+            # own: the warm-up (this step's update) writes them, the
+            # capture records the writes that each replay makes
+            n_out = 4 if head[3] else 2
+            outs = [torch.zeros((), dtype=dt, device=device) for dt in
+                    (torch.bool, torch.float32, torch.float32,
+                     torch.int64)[:n_out]]
+
+            def run(*xs):
+                for buf, val in zip(outs, fn(*xs)):
+                    buf.copy_(val)
+                return []
+            with graphs.ledger_site("fused_optimizer", {
+                    "optimizer": head[0].__name__, "guard": True,
+                    "params": len(members)}):
+                graph = graphs.CapturedGraph(run, static)
+            _stat("traces")
+            _stat("compiles")
+            telemetry.record_retrace("fused_optimizer", {
+                "optimizer": head[0].__name__, "params": len(members),
+                "guard": True, "scaler": head[2], "divergence": head[3]})
+            group = self._graphs[gkey] = _Group(
+                graph, [a._data for a in _holders(members)])
+            group.outputs = outs
+        else:
+            static = group.graph.static_inputs
+            static[-2].copy_(h, non_blocking=True)
+            static[-1].copy_(ext_sq)
+            torch._foreach_copy_(static[:-2], grads)
+            for arr, t in zip(_holders(members), group.tensors):
+                if arr._data.data_ptr() != t.data_ptr():
+                    t.copy_(arr._data)   # replaced since the capture
+                    arr._set_data(t)
+            group.graph.replay()
+        self._staging.issued(device)
+        return group.outputs
+
+    # --------------------------------------------------------- serialization
+    _RESILIENCE_TAG = "__mxtpu_resilience_v1__"
+
+    def _with_guard_state(self, base):
+        """``base`` wrapped with the scaler's state and ``t`` (the
+        reference's tagged blob), or as it is without a guard."""
+        if self.scaler is None and self._t_good is None:
+            return base
+        import pickle
+
+        import numpy as np
+        t = self._t_good if self._t_good is not None else None
+        payload = {"base": base,
+                   "t_good": None if t is None
+                   else np.asarray(t.detach().cpu()),
+                   "scaler": None if self.scaler is None
+                   else self.scaler.state_dict()}
+        return pickle.dumps((self._RESILIENCE_TAG, payload))
+
+    def set_states(self, states):
+        """As ``Updater.set_states``; a guarded blob's ``t`` and scaler
+        state are taken too (in place, so a captured update reads them).
+        A blob with a scaler's state and no scaler attached logs and
+        continues unscaled, as the reference's."""
+        import pickle
+        obj = pickle.loads(states)
+        if not (isinstance(obj, tuple) and len(obj) == 2
+                and obj[0] == self._RESILIENCE_TAG):
+            super().set_states(states)
+            return
+        payload = obj[1]
+        if payload["t_good"] is not None:
+            t = int(payload["t_good"])
+            if self._t_good is not None:
+                self._t_good.fill_(t)
+            else:
+                self._t_restored = t
+        sc = payload["scaler"]
+        if sc is not None:
+            if self.scaler is None:
+                import logging
+                logging.getLogger("mxtpu_torch.resilience").warning(
+                    "checkpoint carries DynamicLossScaler state (scale=%s) "
+                    "but no loss scaler is attached; continuing UNSCALED: "
+                    "pass loss_scaler= when building the Trainer",
+                    float(sc["scale"]))
+            else:
+                self.scaler.load_state_dict(sc)
+        super().set_states(payload["base"])
+
+
+def _sum_sq(tensors, device):
+    """Sum of squares (float32) of ``tensors``, a device scalar."""
+    sq = torch.zeros((), dtype=torch.float32, device=device)
+    for t in tensors:
+        sq = sq + torch.sum(torch.square(t.float()))
+    return sq
+
+
+def _fingerprint(tensors):
+    """The divergence fingerprint: (float32 sum, sum of the int32 bit
+    patterns of the float32 values, in int64) over ``tensors``, all of
+    them in one flat float32 buffer (a few kernels, not a few a
+    tensor)."""
+    flat = torch.cat([t.reshape(-1) for t in tensors]).float()
+    return torch.sum(flat), torch.sum(flat.view(torch.int32),
+                                      dtype=torch.int64)
+
+
+def _state_tensors(states):
+    return [x._data for s in states for x in _leaves(s)]
+
+
+def _guarded_update(cfg, rule, plan, gstate, scfg, emit_fp, own, *xs):
+    """The guarded twin of the step over every group of ``plan`` (the
+    reference's ``_build_guarded``): ``xs`` is the gradients (in plan
+    order), the hyperparameters ``[rescale_grad, lr_0, wd_0, lr_1, ...]``
+    and the float32 sum of squares of what is outside the graph. Returns
+    [ok, grad_norm] (+ [fsum, fold] with ``emit_fp``)."""
+    scale, streak, t_good = gstate
+    n = sum(len(m) for m, _, _ in plan)
+    gs_all, h, ext = list(xs[:n]), xs[n], xs[n + 1]
+    sq = ext
+    if own and gs_all:   # one multi-tensor kernel for every norm
+        norms = torch._foreach_norm(gs_all, 2, dtype=torch.float32)
+        sq = sq + torch.sum(torch.stack(norms) ** 2)
+    ok = torch.isfinite(sq)
+    inv = h[0] / scale                 # the loss scale folded into rescale
+    grad_norm = torch.sqrt(sq) * inv
+    t_eff = (t_good + 1).float()
+    at = 0
+    written = []
+    for k, (members, mp, wd_zero) in enumerate(plan):
+        gs = gs_all[at:at + len(members)]
+        at += len(members)
+        if mp:
+            ws = [it[3][0]._data for it in members]
+            states = [it[3][1] for it in members]
+            gs = [g.float() for g in gs]
+        else:
+            ws = [it[2]._data for it in members]
+            states = [it[3] for it in members]
+        mine = ws + _state_tensors(states)
+        old = torch._foreach_mul(mine, 1.0)    # the snapshot, bit for bit
+        hk = (inv,) + tuple(rule.thyper(cfg, h[1 + 2 * k], h[2 + 2 * k],
+                                        t_eff))
+        rule.step(cfg, ws, gs, states, hk, wd_zero)
+        for t, o in zip(mine, old):
+            torch.where(ok, t, o, out=t)
+        if mp:
+            torch._foreach_copy_([it[2]._data for it in members], ws)
+        written += [it[2]._data for it in members] + _state_tensors(
+            [it[3] for it in members])
+    t_good.copy_(torch.where(ok, t_good + 1, t_good))
+    if scfg is not None:
+        gf, bf, gi, max_s, min_s = scfg
+        streak2 = torch.where(ok, streak + 1, torch.zeros_like(streak))
+        grow = streak2 >= gi
+        new_scale = torch.where(ok, torch.where(grow, scale * gf, scale),
+                                scale * bf)
+        scale.copy_(torch.clamp(new_scale, min_s, max_s))
+        streak.copy_(torch.where(ok & grow, torch.zeros_like(streak2),
+                                 streak2))
+    out = [ok, grad_norm]
+    if emit_fp:
+        out += list(_fingerprint(written))
+    return out
 
 
 class MeshPlan:

@@ -36,8 +36,9 @@ outputs once per batch and splits them per request. The defaults of
 ``batch_aging_ms`` (1000) are those of the reference's ``MXTPU_SERVE_*``
 levers; the port reads no environment variable. ``admission_gate`` is the
 hook a resource ledger sheds through beyond queue depth (the decode
-engine's ``KVCacheAccountant.gate``: ``serving.shed{kv_residency}``). Not
-ported yet: the flight recorder's dump on a worker crash (ROADMAP A9).
+engine's ``KVCacheAccountant.gate``: ``serving.shed{kv_residency}``). A
+worker crash dumps ``flight_record("worker_crash")`` with the failed
+requests' traces.
 
 Telemetry: ``serving.requests`` / ``serving.batches`` /
 ``serving.shed{reason}`` / ``serving.deadline_expired`` counters, the
@@ -650,6 +651,11 @@ class MicroBatcher:
             dead += self._abort_extra_locked(err)
             telemetry.gauge("serving.queue_depth", 0)
             self._cond.notify_all()
+        telemetry.flight_record(
+            "worker_crash",
+            trace_ids=[r.trace.trace_id for r in dead
+                       if r.trace is not None],
+            extra={"error": "%s: %s" % (type(exc).__name__, exc)})
         for r in dead:
             self._fail(r, err)
 

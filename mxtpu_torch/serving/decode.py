@@ -66,9 +66,10 @@ is reset in place (``zero_``/``fill_``) before the next dispatch, so every
 captured graph keeps writing the memory it was captured over; an injected
 ``decode_wedge`` fault drives the path under a fake clock. A loop thread
 that makes no progress within one more timeout after a trip is taken as
-blocked in the device call, and the crash barrier fails the queue. Not
-ported yet (ROADMAP A9): the ``flight_record("decode_wedge")`` and
-``worker_crash`` dumps and ``xprof.oom_flight``.
+blocked in the device call, and the crash barrier fails the queue. A
+wedge dumps ``flight_record("decode_wedge")``, a crash
+``flight_record("worker_crash")``, and an OOM in the loop (or in
+``poll``) ``xprof.oom_flight`` with the KV-cache accountant's view.
 
 The reference's levers (``MXTPU_DECODE_SLOTS``, ``MXTPU_DECODE_QUEUE``,
 ``MXTPU_DECODE_MAX_NEW``, ``MXTPU_SERVE_KV_OVERCOMMIT``,
@@ -1392,13 +1393,27 @@ class DecodeEngine:
         """One engine cycle now (wedge scan, slot admission, one decode
         step): the fake-clock hook and the no-thread drive. Returns the
         decode steps run (0 or 1)."""
-        maybe_oom()  # fault kind 'oom': the decode loop's OOM site
-        self._scan_wedges(self._clock())
-        self._admit_pending()
-        steps = self._step_once()
+        try:
+            maybe_oom()  # fault kind 'oom': the decode loop's OOM site
+            self._scan_wedges(self._clock())
+            self._admit_pending()
+            steps = self._step_once()
+        except Exception as e:
+            self._flight_if_oom(e)   # the raise stays loud either way
+            raise
         with self._cond:
             self._cycles += 1
         return steps
+
+    def _flight_if_oom(self, exc):
+        """``xprof.oom_flight`` for a device allocator failure, with the
+        KV-cache accountant's residency view."""
+        from .. import xprof
+        if xprof.is_oom(exc):
+            xprof.oom_flight(
+                "serving.decode", exc,
+                extra={"kv": self._acct.snapshot()
+                       if self._acct is not None else None})
 
     def _free_slot_locked(self):
         for i, s in enumerate(self._slots):
@@ -1891,6 +1906,13 @@ class DecodeEngine:
             " — failing %d stuck sequence(s), resetting the cohort carry",
             kind, idx, self._timeout_s * 1e3,
             len(stuck) + len(queued_stuck))
+        telemetry.flight_record(
+            "decode_wedge",
+            trace_ids=[s.trace.trace_id for s in stuck + queued_stuck
+                       if s.trace is not None],
+            extra={"kind": kind, "step": idx, "engine": self._name,
+                   "stuck": len(stuck) + len(queued_stuck),
+                   "timeout_ms": self._timeout_s * 1e3})
         err = DeadlineExceeded(
             "decode %s dispatch wedged: no device answer within %.0f ms"
             % (kind, self._timeout_s * 1e3))
@@ -1965,6 +1987,7 @@ class DecodeEngine:
                     if not stepped and self._live > 0:
                         self._cond.wait(0.005)
         except Exception as e:  # noqa: BLE001 — the crash barrier
+            self._flight_if_oom(e)
             self._worker_crashed(e)
 
     def _monitor_loop(self, interval):
@@ -1987,6 +2010,12 @@ class DecodeEngine:
         with self._cond:
             self._crashed = True
             dead, slotted = self._collect_teardown_locked()
+        telemetry.flight_record(
+            "worker_crash",
+            trace_ids=[s.trace.trace_id for s in dead
+                       if s.trace is not None],
+            extra={"engine": self._name,
+                   "error": "%s: %s" % (type(exc).__name__, exc)})
         self._fail_collected(dead, slotted, err)
 
     def drain(self, timeout=None):

@@ -49,9 +49,12 @@ runs its steps under ``bound()``: the block's parameters read as the
 snapshot for the body, so decode answers change with ``refresh_params()``
 and never with a bare ``set_data``.
 
-Not ported yet: ``from_checkpoint`` (needs the symbol API) and
-``from_trainer_checkpoint`` (needs ``contrib.async_checkpoint``), and the
-compile service and its disk cache.
+``from_checkpoint`` serves a symbol checkpoint and
+``from_trainer_checkpoint`` the parameters of a
+``contrib.async_checkpoint.save_trainer`` step. A device OOM in a dispatch
+(``torch.cuda.OutOfMemoryError``, fault kind ``oom``) writes
+``xprof.oom_flight``'s artifact before it fails the dispatch. Not ported
+yet: the compile service and its disk cache (A9's second part).
 """
 from __future__ import annotations
 
@@ -621,8 +624,16 @@ class Predictor:
                 else:
                     static.fill_(self._spec.pad_value)
                     static[tuple(slice(0, k) for k in d.shape)].copy_(d)
-            resilience.maybe_oom()
-            outs = entry.replay()
+            try:
+                resilience.maybe_oom()
+                outs = entry.replay()
+            except Exception as e:
+                if xprof.is_oom(e):   # the artifact first, then loud
+                    ctx = telemetry.current_trace()
+                    xprof.oom_flight(self._site, e,
+                                     trace_ids=[ctx.trace_id] if ctx
+                                     else [])
+                raise
             if self._device.type == "cuda":
                 outs = [o[:n].clone() for o in outs]
             elif n != bucket:
@@ -709,9 +720,25 @@ class Predictor:
 
     @classmethod
     def from_trainer_checkpoint(cls, block, directory, spec, step=None,
-                                example=None, warmup=False, name=None):
-        """Not ported yet: a Trainer checkpoint needs
-        ``contrib.async_checkpoint`` (ROADMAP A9)."""
-        raise MXNetError("Predictor.from_trainer_checkpoint is not ported "
-                         "yet: it needs contrib.async_checkpoint (ROADMAP "
-                         "A9)")
+                                example=None, warmup=False, name=None,
+                                device=None, **kwargs):
+        """Serve a training run's checkpoint: only the parameters of a
+        ``contrib.async_checkpoint.save_trainer`` step (the newest when
+        ``step`` is None) are restored into ``block`` (the optimizer
+        state and the generators stay on disk), then the Predictor is
+        built as ``__init__`` builds it. The block must enumerate the
+        trainer's parameters in its order (positional keys); a block
+        whose shapes are deferred is settled by one forward on
+        ``example`` first."""
+        from ..contrib import async_checkpoint as ackpt
+        if example is not None and any(
+                not p.initialized for p in block.collect_params().values()):
+            xs = example if isinstance(example, (tuple, list)) \
+                else (example,)
+            with torch.no_grad():
+                block(*[x._data if hasattr(x, "_data") else torch.as_tensor(
+                    np.asarray(x)) for x in xs])
+        ackpt.load_trainer_params_into_block(block, directory, step=step)
+        return cls(block, spec, example=example, warmup=warmup,
+                   name=name or ("trainer:" + str(directory)), device=device,
+                   **kwargs)

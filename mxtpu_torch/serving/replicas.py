@@ -40,8 +40,10 @@ KV residency: ``attach_accountant`` takes a
 tagged ``r<i>``; ``states()`` then reports each replica's resident KV
 bytes (and a paged pool's pages), ``kv_admissible()`` is True while a
 healthy replica's pool admits, the dispatcher sheds ``kv_residency`` when
-none does, and the ServingController reads the accountant's pressure. Not
-ported yet: the flight recorder's dumps (ROADMAP A9).
+none does, and the ServingController reads the accountant's pressure.
+A wedge dumps ``flight_record("replica_wedge")`` and the failure that
+opens a breaker ``flight_record("breaker_open")``, each with the batch's
+traces; a wedge's dump is written after the serving lock is released.
 """
 from __future__ import annotations
 
@@ -478,6 +480,7 @@ class ReplicaDispatcher(MicroBatcher):
         self._set = replica_set
         self._timeout_s = float(dispatch_timeout_ms) / 1e3
         self._watch = []          # armed dispatch/probe watchdog entries
+        self._flight_pending = []  # wedge dumps, written out of the lock
         self._threads = []
         self._monitor = None
         self._stop = threading.Event()
@@ -572,9 +575,20 @@ class ReplicaDispatcher(MicroBatcher):
                 entry = self._probe_entry(rep, now + self._timeout_s)
                 self._watch.append(entry)
                 due.append((rep, entry))
+        self._flush_flight()
         for rep, entry in due:
             self._probe(rep, entry)
         self._post_maintain()
+
+    def _flush_flight(self):
+        """Write the wedge dumps the scan deferred (never under the
+        serving lock)."""
+        if not self._flight_pending:
+            return
+        with self._cond:
+            pending, self._flight_pending = self._flight_pending, []
+        for reason, tids, extra in pending:
+            telemetry.flight_record(reason, trace_ids=tids, extra=extra)
 
     def _post_maintain(self):
         """The elastic tail of every maintenance pass: drop the drained
@@ -610,6 +624,12 @@ class ReplicaDispatcher(MicroBatcher):
                 self._set.probe_result(rep, False, now)
                 continue
             self._set.mark_wedged(rep, now)
+            self._flight_pending.append(
+                ("replica_wedge",
+                 [r.trace.trace_id for r in entry["live"]
+                  if r.trace is not None],
+                 {"replica": rep.index, "dispatch": entry["idx"],
+                  "timeout_ms": self._timeout_s * 1e3}))
             _log.warning(
                 "serving: dispatch %d wedged on replica %d (no answer in "
                 "%.0f ms) — replica quarantined, batch re-dispatching",
@@ -698,8 +718,15 @@ class ReplicaDispatcher(MicroBatcher):
                 if not entry["released"]:
                     entry["released"] = True
                     self._set.release(rep)
-                self._set.record_failure(rep, self._clock())
+                opened = self._set.record_failure(rep, self._clock())
                 self._cond.notify_all()
+            if opened:   # the failure that opened the breaker
+                telemetry.flight_record(
+                    "breaker_open",
+                    trace_ids=[r.trace.trace_id for r in live
+                               if r.trace is not None],
+                    extra={"replica": rep.index, "dispatch": idx,
+                           "error": "%s: %s" % (type(e).__name__, e)})
             if not abandoned:
                 self._fail_batch(live, e, idx)
             return
@@ -795,6 +822,7 @@ class ReplicaDispatcher(MicroBatcher):
                     else:
                         self._cond.wait(0.25)
                 self._inflight += len(batch)
+            self._flush_flight()
             try:
                 self._dispatch(batch)
             finally:
@@ -816,6 +844,7 @@ class ReplicaDispatcher(MicroBatcher):
                     entry = self._probe_entry(rep, now + self._timeout_s)
                     self._watch.append(entry)
                     due.append((rep, entry))
+            self._flush_flight()
             for rep, entry in due:
                 threading.Thread(
                     target=self._probe, args=(rep, entry), daemon=True,

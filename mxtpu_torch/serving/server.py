@@ -41,8 +41,8 @@ Endpoints::
                     (each block where it applies)
     GET  /metrics   telemetry.snapshot() as JSON, or Prometheus text
 
-Not ported yet: the flight recorder's dump and the telemetry sink's flush
-on SIGTERM (ROADMAP A9).
+On SIGTERM the drain thread first dumps ``flight_record("sigterm")`` (with
+the queue depth) and flushes the telemetry sink.
 """
 from __future__ import annotations
 
@@ -143,10 +143,18 @@ class ModelServer:
         # the handler only flips the flag; the drain runs on a thread
         self.draining = True
         telemetry.inc("serving.drains")
-        t = threading.Thread(target=self.begin_drain, daemon=True,
+        t = threading.Thread(target=self._drain_with_flight, daemon=True,
                              name="mxtpu-serving-drain")
         self._drain_thread = t
         t.start()
+
+    def _drain_with_flight(self):
+        """The SIGTERM drain: the flight artifact and the sink's last
+        window before the drain tears the state down."""
+        telemetry.flight_record("sigterm", extra={
+            "queue_depth": self._batcher.queue_depth})
+        telemetry.flush()
+        self.begin_drain()
 
     def begin_drain(self, timeout=None):
         """Reject new work, finish queued and in-flight batches; the

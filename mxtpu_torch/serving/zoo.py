@@ -46,8 +46,8 @@ whose defaults are the reference's values (the constants below) and
 ``int8=`` for its ``MXTPU_SERVE_INT8``. A version may name a checkpoint
 ``(prefix, epoch)`` (``model.save_checkpoint`` naming), whose parameters
 ``model.load_checkpoint`` reads on the version's first page-in. Not
-ported: the page-in from the compile service's disk cache and the flight
-recorder's ``canary_rollback`` dump (A9). With ``start=False`` and an injected
+ported: the page-in from the compile service's disk cache (A9's second
+part). A rollback dumps ``flight_record("canary_rollback")``. With ``start=False`` and an injected
 ``clock`` everything runs synchronously through :meth:`ZooScheduler.poll`;
 ``start=True`` gives each resident arm its batcher worker, page-ins their
 own threads and the zoo a monitor thread.
@@ -956,6 +956,8 @@ class ZooScheduler:
     @staticmethod
     def _record_rollback(model, version, reason):
         telemetry.inc("zoo.rollbacks", tag=reason)
+        telemetry.flight_record("canary_rollback", extra={
+            "model": model, "version": version, "reason": reason})
         _log.warning("zoo: canary %s@%s rolled back (%s)",
                      model, version, reason)
 

@@ -338,11 +338,13 @@ class Executor:
         keep = [tensors[n] for n in self._aux_names]
         gens = self._generators()
         if with_pair:
-            pair = graphs.CapturedPair(fn, statics, [], keep,
-                                       generators=gens)
+            with graphs.ledger_site("executor"):
+                pair = graphs.CapturedPair(fn, statics, [], keep,
+                                           generators=gens)
             entry = _Entry(pair.forward, pair, tensors, diff)
         else:
-            with torch.no_grad(), graphs.keeping(keep):
+            with torch.no_grad(), graphs.keeping(keep), \
+                    graphs.ledger_site("executor"):
                 graph = graphs.CapturedGraph(fn, statics, generators=gens)
             entry = _Entry(graph, None, tensors, diff)
         telemetry.record_retrace("executor", {

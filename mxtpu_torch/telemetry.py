@@ -21,6 +21,28 @@ The part of the JAX package's telemetry that the serving plane calls:
   handed across threads only by ``trace_handoff``; ``add_stage`` credits
   a stage's seconds to a trace and ``trace_breakdown`` folds them into
   the per-request latency breakdown the HTTP front returns.
+* **Event ring** -- every span also lands in a bounded ring of
+  ``(name, cat, ts_us, dur_us, tid)`` tuples on the
+  ``time.perf_counter_ns`` clock (``events()``), which ``profiler.dump``
+  merges into its chrome trace; ``trace_flows`` turns the trace ring's
+  parent/child edges and links into chrome flow events.
+* **Hand-overs** -- ``pend_link(name, ctx)`` queues an edge whose
+  destination does not exist yet (the input path's ``data.wait`` and
+  ``data.h2d``), and the next ``trainer.step`` trace on the same thread
+  drains it with ``link_pending``.
+* **Flight recorder** -- ``flight_record(reason, trace_ids, extra)``
+  writes ``flight_snapshot``'s JSON (the trace ring, every thread's
+  stack, the registry) to ``flight_<reason>_<pid>_<n>.json`` in the
+  directory ``set_flight_dir`` names (none: no file), at most
+  ``flight_max()`` (16) a process, by a temporary file and a rename.
+* **JSONL sink** -- with ``set_jsonl_path(path)`` every span's
+  observation is queued in memory and ``flush()`` appends it, with one
+  cumulative line per counter and gauge and one per ledger entry, to the
+  file; off the step path by construction: an explicit call, the exit
+  hook, or a flush thread every ``set_flush_interval(s)`` seconds (0, the
+  default: no thread). ``on_flush(fn)`` runs ``fn`` after each flush and
+  ``register_prometheus_extra(fn)`` appends ``fn()``'s text to each
+  ``prometheus()`` render.
 * **Metric families of the serving plane** -- ``serving.*`` (the
   batcher, replicas and front), ``serving.controller.decisions{action}``,
   ``serving.controller.replica_target`` and
@@ -29,18 +51,22 @@ The part of the JAX package's telemetry that the serving plane calls:
   ``memory.*`` (``xprof``'s footprints and pre-flight); each module's
   docstring lists its own.
 
-The JAX package reads ``MXTPU_TELEMETRY``, ``MXTPU_TRACE`` and
-``MXTPU_RETRACE_BUDGET``; the port reads no environment variable and takes
-the same levers from ``set_enabled``, ``set_tracing`` and
-``set_retrace_budget``, whose defaults are the reference's. Not ported yet:
-the flight recorder, the JSONL sink with its flush thread, the chrome-trace
-event ring and ``trace_flows``.
+The JAX package reads ``MXTPU_TELEMETRY`` (``0``, or a JSONL path),
+``MXTPU_TRACE``, ``MXTPU_RETRACE_BUDGET``, ``MXTPU_TELEMETRY_FLUSH_S``,
+``MXTPU_TRACE_RING``, ``MXTPU_FLIGHT_DIR`` and ``MXTPU_FLIGHT_MAX``; the
+port reads no environment variable and takes the same levers from
+``set_enabled``, ``set_jsonl_path``, ``set_tracing``,
+``set_retrace_budget``, ``set_flush_interval``, ``set_trace_ring``,
+``set_flight_dir`` and ``set_flight_max``, whose defaults are the
+reference's.
 """
 from __future__ import annotations
 
+import atexit
 import collections
 import contextvars
 import itertools
+import json
 import logging
 import os
 import threading
@@ -53,7 +79,11 @@ __all__ = ["enabled", "set_enabled", "tracing_enabled", "set_tracing",
            "retrace_stats", "snapshot", "report", "reset", "prometheus",
            "TraceContext", "new_trace", "current_trace", "trace_handoff",
            "add_stage", "trace_mark", "link", "trace_breakdown",
-           "trace_events"]
+           "trace_events", "events", "pend_link", "link_pending",
+           "trace_flows", "flight_dir", "set_flight_dir", "flight_max",
+           "set_flight_max", "flight_snapshot", "flight_record",
+           "register_prometheus_extra", "jsonl_path", "set_jsonl_path",
+           "set_flush_interval", "set_trace_ring", "flush", "on_flush"]
 
 _log = logging.getLogger("mxtpu_torch.telemetry")
 
@@ -66,8 +96,18 @@ _RETRACE = {}             # site -> {"compiles", "trips", "last"}
 _D2H_WARNED = set()
 _D2H_WARMUP = 2           # first occurrences of a span may legitimately sync
 _TRACE_RING = 4096
+_EVENTS = collections.deque(maxlen=65536)  # (name, cat, ts_us, dur_us, tid)
 
-_LEVERS = {"enabled": True, "tracing": True, "retrace_budget": 64}
+_LEVERS = {"enabled": True, "tracing": True, "retrace_budget": 64,
+           "jsonl": None, "flush_s": 0.0, "trace_ring": _TRACE_RING,
+           "flight_dir": None, "flight_max": 16}
+
+# the JSONL sink: the step path appends to the queue; a flush drains it
+_SINK = {"queue": collections.deque(maxlen=1 << 20), "thread": None,
+         "stop": None, "lock": threading.Lock()}
+_FLUSH_HOOKS = []
+_PROM_EXTRAS = []
+_FLIGHT = {"count": 0, "lock": threading.Lock()}
 
 
 class _D2HLocal(threading.local):
@@ -86,6 +126,17 @@ _TRACE_IDS = itertools.count(1)
 _TRACE_PREFIX = "%04x" % (os.getpid() & 0xFFFF)
 # (kind, trace_id, span_id, parent, name, ts_us, dur_us, tid)
 _TRACE_EVENTS = collections.deque(maxlen=_TRACE_RING)
+
+
+class _PendingLocal(threading.local):
+    """This thread's pended hand-over edges (``pend_link``): the loader
+    pends and the step drains on the consuming thread."""
+
+    def __init__(self):
+        self.q = collections.deque(maxlen=64)
+
+
+_PENDING_LINKS = _PendingLocal()
 
 
 # ------------------------------------------------------------------ levers
@@ -120,6 +171,53 @@ def retrace_budget():
 def set_retrace_budget(n):
     """The ``MXTPU_RETRACE_BUDGET`` lever (default 64)."""
     _LEVERS["retrace_budget"] = int(n)
+
+
+def jsonl_path():
+    """The JSONL sink's file, or None (the default: no sink)."""
+    return _LEVERS["jsonl"]
+
+
+def set_jsonl_path(path):
+    """The ``MXTPU_TELEMETRY=<path>`` lever: stream every span's
+    observation (and, at each flush, the counters, gauges and ledger) to
+    ``path``; None turns the sink off."""
+    _LEVERS["jsonl"] = None if path is None else str(path)
+
+
+def set_flush_interval(seconds):
+    """The ``MXTPU_TELEMETRY_FLUSH_S`` lever: a flush thread every
+    ``seconds`` once a line is queued (0, the default: none; a running
+    thread stops)."""
+    _LEVERS["flush_s"] = float(seconds)
+    if _LEVERS["flush_s"] <= 0:
+        _stop_flush_thread()
+
+
+def set_trace_ring(n):
+    """The ``MXTPU_TRACE_RING`` lever: the trace ring's bound (default
+    4096), taking effect at the next ``reset()``."""
+    _LEVERS["trace_ring"] = int(n)
+
+
+def flight_dir():
+    """The flight recorder's directory, or None (no file is written)."""
+    return _LEVERS["flight_dir"]
+
+
+def set_flight_dir(path):
+    """The ``MXTPU_FLIGHT_DIR`` lever."""
+    _LEVERS["flight_dir"] = None if not path else str(path)
+
+
+def flight_max():
+    """Flight artifacts a process writes at most (default 16)."""
+    return _LEVERS["flight_max"]
+
+
+def set_flight_max(n):
+    """The ``MXTPU_FLIGHT_MAX`` lever."""
+    _LEVERS["flight_max"] = int(n)
 
 
 # ---------------------------------------------------------------- registry
@@ -278,16 +376,35 @@ def report():
     return "\n".join(lines) if lines else "(telemetry registry empty)"
 
 
+def events():
+    """The span event ring: ``(name, cat, ts_us, dur_us, tid)`` tuples on
+    the ``time.perf_counter_ns`` clock, the shape and clock of the
+    profiler's own events."""
+    with _LOCK:
+        return list(_EVENTS)
+
+
 def reset():
-    """Test hook: clear the registry, the trace ring and watchdog state
-    (the levers keep their values)."""
+    """Test hook: clear the registry, the event and trace rings (the
+    latter re-made at ``set_trace_ring``'s bound), the calling thread's
+    pended links, the flight count, the flush hooks, the Prometheus
+    extras, watchdog state and ``xprof``'s ledger (the levers keep their
+    values; the sink's file is left alone)."""
+    global _TRACE_EVENTS
     with _LOCK:
         _COUNTERS.clear()
         _GAUGES.clear()
         _HISTS.clear()
+        _EVENTS.clear()
         _RETRACE.clear()
         _D2H_WARNED.clear()
-        _TRACE_EVENTS.clear()
+        _TRACE_EVENTS = collections.deque(maxlen=_LEVERS["trace_ring"])
+        _PENDING_LINKS.q.clear()
+        _FLIGHT["count"] = 0
+    del _FLUSH_HOOKS[:]
+    del _PROM_EXTRAS[:]
+    from . import xprof
+    xprof.reset()
 
 
 # ------------------------------------------------------------------- spans
@@ -342,8 +459,20 @@ class span:
                 ("span", self.ctx.trace_id, self.ctx.span_id, self._parent,
                  self.name, t0 // 1000, dur_ns // 1000,
                  threading.get_ident() & 0xFFFF))
+        tid = threading.get_ident() & 0xFFFF
         with _LOCK:
             occurrences = _observe_locked(self.name, dur_ns * 1e-9)
+            _EVENTS.append((self.name, self.cat, t0 // 1000, dur_ns // 1000,
+                            tid))
+        sink = _LEVERS["jsonl"]
+        if sink is not None:
+            rec = {"t": time.time(), "kind": "obs", "metric": self.name,
+                   "value": dur_ns * 1e-9}
+            if self.ctx is not None:
+                rec["trace"] = self.ctx.trace_id
+                rec["span"] = self.ctx.span_id
+                rec["parent"] = self._parent
+            _queue_line(rec, sink)
         if self._d0 is not None:
             delta = _D2H_LOCAL.count - self._d0
             if delta:
@@ -450,6 +579,33 @@ def link(src, name="link"):
          threading.get_ident() & 0xFFFF))
 
 
+def pend_link(name, ctx):
+    """Queue a causal edge from ``ctx`` whose destination does not exist
+    yet: the next ``link_pending`` on this thread (the ``trainer.step``
+    that consumes the batch) links it. None-safe."""
+    if ctx is not None:
+        _PENDING_LINKS.q.append((name, ctx.trace_id, ctx.span_id))
+
+
+def link_pending():
+    """Drain this thread's pended edges into link events to the current
+    context; returns how many were linked (0 outside a trace, the queue
+    cleared either way)."""
+    dst = _TRACE_CV.get()
+    q = _PENDING_LINKS.q
+    n = 0
+    while q:
+        name, src_trace, src_span = q.popleft()
+        if dst is None:
+            continue
+        _TRACE_EVENTS.append(
+            ("link", dst.trace_id, dst.span_id, (src_trace, src_span),
+             name, time.perf_counter_ns() // 1000, 0,
+             threading.get_ident() & 0xFFFF))
+        n += 1
+    return n
+
+
 def trace_breakdown(ctx):
     """``{stage: seconds}`` of ``ctx``'s trace (empty when untraced)."""
     if ctx is None:
@@ -475,6 +631,104 @@ def trace_events(trace_id=None):
     return out
 
 
+def trace_flows(lo=None, hi=None):
+    """Chrome-trace flow events (``ph`` ``s``/``f`` pairs) for the trace
+    ring's parent-to-child span edges (cat ``trace``, id the child's span
+    id) and its links (cat ``trace.link``, an id of their own), within
+    ``[lo, hi]`` us; a link from a trace's root anchors at that trace's
+    earliest event."""
+    evs = list(_TRACE_EVENTS)
+    index = {}
+    first_of_trace = {}
+    for kind, tr, sp, parent, name, ts, dur, tid in evs:
+        if kind != "link":
+            index[(tr, sp)] = (ts, dur, tid)
+            best = first_of_trace.get(tr)
+            if best is None or ts < best[0]:
+                first_of_trace[tr] = (ts, dur, tid)
+    flows = []
+
+    def _in_window(ts):
+        return (lo is None or ts >= lo) and (hi is None or ts <= hi)
+
+    for i, (kind, tr, sp, parent, name, ts, dur, tid) in enumerate(evs):
+        if kind == "link":
+            src = index.get(parent)
+            if src is None and parent[1] == 0:
+                src = first_of_trace.get(parent[0])
+            if src is None or not _in_window(ts):
+                continue
+            s_ts, s_dur, s_tid = src
+            link_id = (1 << 32) + i
+            flows.append({"ph": "s", "cat": "trace.link", "name": name,
+                          "id": link_id, "ts": s_ts + s_dur, "pid": 0,
+                          "tid": s_tid})
+            flows.append({"ph": "f", "bp": "e", "cat": "trace.link",
+                          "name": name, "id": link_id, "ts": ts, "pid": 0,
+                          "tid": tid})
+        elif kind == "span" and parent:
+            src = index.get((tr, parent))
+            if src is None or not _in_window(ts):
+                continue
+            s_ts, _s_dur, s_tid = src
+            flows.append({"ph": "s", "cat": "trace", "name": name,
+                          "id": sp, "ts": s_ts, "pid": 0, "tid": s_tid})
+            flows.append({"ph": "f", "bp": "e", "cat": "trace",
+                          "name": name, "id": sp, "ts": ts, "pid": 0,
+                          "tid": tid})
+    return flows
+
+
+# --------------------------------------------------------- flight recorder
+def flight_snapshot(reason, trace_ids=(), extra=None):
+    """The post-mortem dict: reason, time, pid, the owning trace ids, the
+    trace ring, every thread's stack and the registry snapshot."""
+    import sys
+    import traceback
+    names = {t.ident: t.name for t in threading.enumerate()}
+    stacks = [{"thread_id": tid, "thread_name": names.get(tid, "?"),
+               "stack": traceback.format_stack(frame)}
+              for tid, frame in sys._current_frames().items()]
+    snap = {"reason": reason, "t": time.time(), "pid": os.getpid(),
+            "trace_ids": list(trace_ids), "events": trace_events(),
+            "threads": stacks, "registry": snapshot()}
+    if extra:
+        snap["extra"] = dict(extra)
+    return snap
+
+
+def flight_record(reason, trace_ids=(), extra=None):
+    """Write ``flight_snapshot``'s JSON to the flight directory (None and
+    no file when none is set, or past ``flight_max`` artifacts); counts
+    ``flight.dumps{reason}`` and returns the path."""
+    d = flight_dir()
+    if d is None:
+        return None
+    with _FLIGHT["lock"]:
+        if _FLIGHT["count"] >= flight_max():
+            return None
+        _FLIGHT["count"] += 1
+        seq = _FLIGHT["count"]
+    try:
+        os.makedirs(d, exist_ok=True)
+        safe = "".join(c if c.isalnum() or c in "-_" else "_"
+                       for c in str(reason))
+        path = os.path.join(d, "flight_%s_%d_%d.json"
+                            % (safe, os.getpid(), seq))
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(flight_snapshot(reason, trace_ids, extra), f,
+                      default=str)
+        os.replace(tmp, path)
+    except OSError as e:
+        _log.warning("flight recorder dump failed: %s", e)
+        return None
+    inc("flight.dumps", tag=str(reason))
+    _log.warning("flight recorder: dumped %s (reason=%s, traces=%s)",
+                 path, reason, list(trace_ids) or "-")
+    return path
+
+
 # -------------------------------------------------------------- prometheus
 def _prom_name(name):
     return "mxtpu_" + "".join(ch if ch.isalnum() or ch in "_:" else "_"
@@ -491,7 +745,17 @@ def prometheus():
     (tag families as a ``tag`` label), gauges, and histograms as
     summaries (quantiles 0.5 and 0.99, ``_sum``, ``_count``). The metric
     names are the JAX package's (``mxtpu_`` prefix), so one scraper
-    configuration reads both."""
+    configuration reads both. The registered extras run first and their
+    text follows the registry's."""
+    extras = []
+    for fn in list(_PROM_EXTRAS):
+        try:
+            out = fn()
+        except Exception as e:  # noqa: BLE001 - a broken provider must
+            _log.warning("prometheus extra %r failed: %s", fn, e)
+            continue           # not take down the scrape
+        if out:
+            extras.append(out.rstrip("\n"))
     snap = snapshot()
     lines = []
     for kind, key in (("counter", "counters"), ("gauge", "gauges")):
@@ -518,7 +782,16 @@ def prometheus():
             lines.append('%s{quantile="0.99"} %g' % (pn, h["p99"]))
         lines.append("%s_sum %g" % (pn, h["sum"]))
         lines.append("%s_count %d" % (pn, h["count"]))
+    lines.extend(extras)
     return "\n".join(lines) + "\n"
+
+
+def register_prometheus_extra(fn):
+    """Append ``fn()``'s text to every ``prometheus()`` render
+    (idempotent; ``reset`` clears). Returns ``fn``."""
+    if fn not in _PROM_EXTRAS:
+        _PROM_EXTRAS.append(fn)
+    return fn
 
 
 # -------------------------------------------------------- transfer watchdog
@@ -551,6 +824,10 @@ def record_retrace(site, provenance=None):
         compiles, trips = st["compiles"], st["trips"]
     if over:
         inc("retrace.watchdog_trips")
+        if trips == 1:
+            flight_record("retrace_watchdog",
+                          extra={"site": site, "compiles": compiles,
+                                 "provenance": str(provenance)})
         if trips == 1 or trips % 100 == 0:
             _log.warning("retrace watchdog: '%s' built %d times, over the "
                          "budget of %d. Last provenance: %s", site,
@@ -565,3 +842,90 @@ def retrace_stats(site=None):
             st = _RETRACE.get(site)
             return dict(st) if st else None
         return {s: dict(st) for s, st in _RETRACE.items()}
+
+
+# --------------------------------------------------------------- JSONL sink
+def _queue_line(rec, path):
+    _SINK["queue"].append((path, rec))
+    interval = _LEVERS["flush_s"]
+    if interval > 0 and _SINK["thread"] is None:
+        with _SINK["lock"]:
+            if _SINK["thread"] is None:
+                stop = threading.Event()
+                t = threading.Thread(target=_flush_loop,
+                                     args=(interval, stop), daemon=True,
+                                     name="mxtpu-torch-telemetry")
+                _SINK["thread"], _SINK["stop"] = t, stop
+                t.start()
+
+
+def _flush_loop(interval, stop):
+    while not stop.wait(interval):
+        try:
+            flush()
+        except Exception:  # noqa: BLE001 - a sink error must never kill
+            pass           # the flusher (the next interval retries)
+
+
+def _stop_flush_thread():
+    with _SINK["lock"]:
+        t, stop = _SINK["thread"], _SINK["stop"]
+        _SINK["thread"] = _SINK["stop"] = None
+    if stop is not None:
+        stop.set()
+    if t is not None and t is not threading.current_thread():
+        t.join(timeout=2.0)
+
+
+def flush():
+    """Drain the queued observations to the JSONL sink and append one
+    cumulative line per counter, gauge and ledger entry; then run the
+    ``on_flush`` hooks. Off the step path: an explicit call, the exit
+    hook or the flush thread."""
+    path = jsonl_path()
+    lines_by_path = {}
+    q = _SINK["queue"]
+    while q:
+        try:
+            p, rec = q.popleft()
+        except IndexError:
+            break
+        lines_by_path.setdefault(p, []).append(rec)
+    if path is not None:
+        now = time.time()
+        with _LOCK:
+            for kind, table in (("counter", _COUNTERS), ("gauge", _GAUGES)):
+                for (name, tag), v in table.items():
+                    rec = {"t": now, "kind": kind, "metric": name,
+                           "value": v}
+                    if tag is not None:
+                        rec["tag"] = tag
+                    lines_by_path.setdefault(path, []).append(rec)
+        from . import xprof
+        for e in xprof.ledger_snapshot():
+            lines_by_path.setdefault(path, []).append(
+                dict(e, t=now, kind="ledger"))
+    with _SINK["lock"]:
+        for p, recs in lines_by_path.items():
+            try:
+                with open(p, "a") as f:
+                    for rec in recs:
+                        f.write(json.dumps(rec, default=str) + "\n")
+            except OSError as e:
+                _log.warning("telemetry sink write to %s failed: %s", p, e)
+    for fn in list(_FLUSH_HOOKS):
+        try:
+            fn()
+        except Exception as e:  # noqa: BLE001 - a broken hook must not
+            _log.warning("flush hook %r failed: %s", fn, e)  # kill a flush
+
+
+def on_flush(fn):
+    """Run ``fn()`` after every ``flush`` (idempotent; ``reset`` clears).
+    Returns ``fn``."""
+    if fn not in _FLUSH_HOOKS:
+        _FLUSH_HOOKS.append(fn)
+    return fn
+
+
+atexit.register(flush)   # the last window reaches the sink on exit

@@ -830,3 +830,38 @@ def test_bench_decode_gates_small(jmodel, model):
                                          max_new=8, device="cpu")
     assert q.per_slot_kv_bytes() <= 0.55 * f.per_slot_kv_bytes()
     assert ttel.value("serving.decode.d2h") == 0
+
+
+def test_wedge_crash_and_oom_flight_artifacts(model, monkeypatch, tmp_path):
+    """A decode wedge dumps ``decode_wedge`` with the stuck sequences'
+    traces, the crash barrier ``worker_crash``, and an OOM in ``poll``
+    ``xprof.oom_flight``'s ``oom`` with the accountant's view."""
+    import json
+    ttel.set_flight_dir(str(tmp_path))
+    try:
+        tres.set_faults("decode_wedge@1")
+        clock = FakeClock()
+        eng = _engine(model, slots=2, clock=clock, timeout_ms=100.0)
+        stuck = [eng.submit(np.arange(3).astype(np.int32), max_new=6)
+                 for _ in range(2)]
+        eng.poll()
+        eng.poll()
+        clock.advance(0.2)
+        eng.poll()
+        assert all(f.done() for f in stuck)
+        (art,) = tmp_path.glob("flight_decode_wedge_*")
+        extra = json.loads(art.read_text())["extra"]
+        assert extra["kind"] == "step" and extra["stuck"] == 2
+        tres.set_faults("oom@0")
+        with pytest.raises(tres.ResourceExhausted):
+            eng.poll()
+        (oom,) = tmp_path.glob("flight_oom_*")
+        assert json.loads(oom.read_text())["extra"]["where"] == \
+            "serving.decode"
+        eng._worker_crashed(RuntimeError("boom"))
+        (crash,) = tmp_path.glob("flight_worker_crash_*")
+        assert json.loads(crash.read_text())["extra"]["error"] == \
+            "RuntimeError: boom"
+    finally:
+        ttel.set_flight_dir(None)
+        tres.reset_faults()

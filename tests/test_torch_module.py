@@ -13,8 +13,9 @@ for ``graphs.CapturedGraph`` of tests/test_torch_train_graph.py).
 iterator is ROADMAP A6), ``SequentialModule``, ``PythonLossModule``,
 ``FeedForward`` and the callbacks. The refusals: a ``dist_*`` store
 outside a process group and ``group2ctxs`` raise as the reference's do,
-several contexts run on the first; the loss scaler and
-``TrainingHealthMonitor`` name A9.
+several contexts run on the first; a loss scaler that is not a
+``DynamicLossScaler`` and ``TrainingHealthMonitor``'s unknown
+``on_poison`` raise.
 """
 import logging
 
@@ -409,7 +410,7 @@ def test_refusals_name_their_roadmap_items(monkeypatch):
             jmod.init_optimizer(kvstore=store, force_init=True)
     with pytest.raises(mt.MXNetError, match="neither a store's name"):
         mod.init_optimizer(kvstore=object(), force_init=True)
-    with pytest.raises(mt.MXNetError, match="A9"):
+    with pytest.raises(mt.MXNetError, match="DynamicLossScaler"):
         mod.init_optimizer(loss_scaler=object(), force_init=True)
     for kv in ("local", "device", None):
         mod.init_optimizer(kvstore=kv, force_init=True)
@@ -428,8 +429,10 @@ def test_refusals_name_their_roadmap_items(monkeypatch):
         "group2ctxs manual device placement is not supported"
     assert "parallel.Mesh context plus ShardedTrainStep param_specs" in \
         str(te.value)
-    with pytest.raises(mt.MXNetError, match="A9"):
-        mt.monitor.TrainingHealthMonitor()
+    with pytest.raises(ValueError, match="on_poison"):
+        mt.monitor.TrainingHealthMonitor(on_poison="ignore")
+    with pytest.raises(ValueError, match="on_poison"):
+        mx.monitor.TrainingHealthMonitor(on_poison="ignore")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(mt.MXNetError, match="no CUDA device"):
         mt.mod.Module(sym)

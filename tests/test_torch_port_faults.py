@@ -837,10 +837,9 @@ def test_c15_setattr_lr_mult_reaches_the_update():
 
 # names of the reference still queued, by namespace (ROADMAP §A)
 _QUEUED = {
-    "": {"compile_service", "engine", "feature_list", "fleet", "fleet_obs",
-         "libinfo", "log", "operator", "perf_model", "profiler", "registry",
-         "test_utils", "torch_interop", "tpu", "util", "visualization",
-         "viz"},
+    "": {"compile_service", "feature_list", "fleet", "fleet_obs",
+         "libinfo", "operator", "registry", "test_utils", "torch_interop",
+         "tpu", "util", "visualization", "viz"},
     "parallel": set(),
     "ops": {"contrib_ops", "custom", "legacy_vision", "linalg_ops",
             "random_ops"},

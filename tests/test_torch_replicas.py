@@ -571,3 +571,39 @@ def test_attach_accountant_admission_and_shed_like_mxtpu():
     for s in (jrs, rs):
         s.force_quarantine(1, 0.0, backoff_s=3600)
     assert rs.kv_admissible() == jrs.kv_admissible() is False
+
+
+def _reasons(d):
+    return sorted(p.name.split("_")[1] + ("_" + p.name.split("_")[2]
+                                          if p.name.startswith(
+                                              ("flight_replica",
+                                               "flight_breaker"))
+                                          else "")
+                  for p in d.glob("flight_*.json")) if d.exists() else []
+
+
+@pytest.mark.parametrize("spec,steps,want", [
+    ("replica_wedge@0", [("submit", 2), ("advance", 0.006), ("poll", None),
+                         ("advance", 2.5), ("poll", None)],
+     "replica_wedge"),
+    ("replica_fail@0,1,2", [("submit", 1), ("advance", 0.006),
+                            ("poll", None)] * 3, "breaker_open"),
+], ids=["wedge", "breaker"])
+def test_flight_dumps_at_their_faults_like_mxtpu(monkeypatch, tmp_path,
+                                                 spec, steps, want):
+    """A wedge dumps ``flight_record("replica_wedge")`` (after the serving
+    lock is released) and the failure that opens a breaker
+    ``flight_record("breaker_open")``, each with its batch's traces."""
+    monkeypatch.setenv("MXTPU_FLIGHT_DIR", str(tmp_path / "jax"))
+    ttel.set_flight_dir(str(tmp_path / "port"))
+    try:
+        _faults(monkeypatch, spec)
+        jrs, rs, _ = _sets(breaker_threshold=3)
+        _same(*_dispatchers(jrs, rs), steps)
+    finally:
+        ttel.set_flight_dir(None)
+    got, ref = _reasons(tmp_path / "port"), _reasons(tmp_path / "jax")
+    assert got == ref and want in got
+    art = next((tmp_path / "port").glob("flight_%s_*" % want))
+    rec = json.loads(art.read_text())
+    assert rec["extra"]["replica"] in (0, 1) and rec["trace_ids"]

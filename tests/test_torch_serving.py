@@ -259,13 +259,15 @@ def test_pad_values_and_empty_requests():
 def test_load_paths_not_ported_yet_raise(tmp_path):
     """``from_checkpoint`` is ported (tests/test_torch_export.py serves
     through it): a checkpoint that is not there raises reading it;
-    ``from_trainer_checkpoint`` still needs A9."""
+    ``from_trainer_checkpoint`` on a directory with no finalized step
+    raises (tests/test_torch_async_checkpoint.py serves through it)."""
     _, net = _mlps()
     with pytest.raises(OSError):
         Predictor.from_checkpoint(str(tmp_path / "model"), 0,
                                   BucketSpec([1]), device="cpu")
-    with pytest.raises(mt.MXNetError, match="A9"):
-        Predictor.from_trainer_checkpoint(net, "ckpt", BucketSpec([1]))
+    with pytest.raises(mt.MXNetError, match="no finalized checkpoint"):
+        Predictor.from_trainer_checkpoint(net, str(tmp_path / "ckpt"),
+                                          BucketSpec([1]), device="cpu")
 
 
 def test_oom_fault_fails_the_dispatch(monkeypatch):
@@ -907,3 +909,53 @@ def test_server_healthz_kv_block():
         assert health["replicas"][0]["kv_resident_bytes"] == 96
     finally:
         srv.close()
+
+
+def _flights(d):
+    return sorted(p.name.rsplit("_", 2)[0][len("flight_"):]
+                  for p in d.glob("flight_*.json")) if d.exists() else []
+
+
+def test_flight_dumps_worker_crash_oom_and_sigterm(monkeypatch, tmp_path):
+    """The batcher's crash barrier dumps ``worker_crash`` with the failed
+    requests' traces; an OOM in a Predictor dispatch ``oom`` (as the
+    reference's, with the fault's own ``fault`` dump); a SIGTERM'd
+    server ``sigterm`` before its drain, and flushes the sink."""
+    ttel.set_flight_dir(str(tmp_path / "port"))
+    monkeypatch.setenv("MXTPU_FLIGHT_DIR", str(tmp_path / "jax"))
+    try:
+        jnet, net = _mlps()
+        bat = MicroBatcher(_port_pred(net, BucketSpec.pow2(4)),
+                           max_batch_size=4, max_wait_ms=5,
+                           clock=FakeClock(), start=False)
+        bat.submit(_x(1))
+        bat._worker_crashed(RuntimeError("boom"))
+        (crash,) = (tmp_path / "port").glob("flight_worker_crash_*")
+        rec = json.loads(crash.read_text())
+        assert rec["extra"]["error"] == "RuntimeError: boom"
+        assert len(rec["trace_ids"]) == 1
+        monkeypatch.setenv("MXTPU_FAULT_INJECT", "oom@2")
+        tres.set_faults("oom@2")
+        for p, err in ((_jax_pred(jnet, JBucketSpec([2])),
+                        jres.ResourceExhausted),
+                       (_port_pred(net, BucketSpec([2])),
+                        tres.ResourceExhausted)):
+            p.predict(_x(1))
+            with pytest.raises(err):
+                p.predict(_x(1))
+        assert _flights(tmp_path / "port") == \
+            ["fault", "oom", "worker_crash"]
+        assert _flights(tmp_path / "jax") == ["fault", "oom"]
+        srv = _server(net).install_signal_handlers()
+        try:
+            os.kill(os.getpid(), signal.SIGTERM)
+            deadline = time.monotonic() + T
+            while srv._drain_thread is None and time.monotonic() < deadline:
+                time.sleep(0.01)
+            srv._drain_thread.join(T)
+        finally:
+            srv.close()
+        assert "sigterm" in _flights(tmp_path / "port")
+    finally:
+        ttel.set_flight_dir(None)
+        tres.reset_faults()

@@ -7,6 +7,7 @@ the port's with its setters (``set_tracing``, ``set_retrace_budget``,
 ``resilience.set_faults``). Histograms fed by explicit ``observe`` calls
 compare exactly; span durations are wall times, so only their counts and
 keys compare."""
+import json
 import threading
 
 import pytest
@@ -238,3 +239,152 @@ def test_fault_spec_errors_and_oom_match_mxtpu(monkeypatch):
         res.maybe_oom()          # consumed: fires once
     tres.reset_faults()
     assert not tres.inject("oom", 1) and tres.FAULT_STATS["fired"] == []
+
+
+# ------------------------------------------- the rest of telemetry (A9)
+def _flows(tel):
+    """A loader's hand-over linked into the next step's trace, a nested
+    span, a link from a root: the events and flows both packages record."""
+    with tel.span("data.h2d", new_trace=True):
+        tel.pend_link("data.h2d", tel.current_trace())
+    with tel.span("trainer.step", new_trace=True):
+        linked = tel.link_pending()
+        with tel.span("trainer.step.update"):
+            pass
+    assert tel.link_pending() == 0   # drained
+    root = tel.new_trace()
+    with tel.trace_handoff(root):
+        with tel.span("serving.predict"):
+            tel.link(root, "cohort")
+    evs = tel.trace_events()
+    kinds = [(e["kind"], e["name"]) for e in evs]
+    flows = sorted((f["ph"], f["cat"], f["name"]) for f in tel.trace_flows())
+    spans = sorted(e[0] for e in tel.events())
+    return linked, kinds, flows, spans
+
+
+def test_pend_link_trace_flows_and_events_like_mxtpu():
+    assert _flows(ttel) == _flows(jtel)
+    linked, kinds, flows, spans = _flows(ttel)
+    assert linked == 1 and ("link", "data.h2d") in kinds
+    assert ("s", "trace.link", "data.h2d") in flows
+    assert spans == sorted(["data.h2d", "trainer.step",
+                            "trainer.step.update", "serving.predict"] * 2)
+    ttel.reset()
+    assert ttel.events() == [] and ttel.trace_flows() == []
+
+
+def test_flight_record_like_mxtpu(tmp_path, monkeypatch):
+    monkeypatch.setenv("MXTPU_FLIGHT_DIR", str(tmp_path / "jax"))
+    monkeypatch.setenv("MXTPU_FLIGHT_MAX", "2")
+    ttel.set_flight_dir(str(tmp_path / "port"))
+    ttel.set_flight_max(2)
+    try:
+        assert ttel.flight_dir() == str(tmp_path / "port")
+        out = {}
+        for name, tel in (("jax", jtel), ("port", ttel)):
+            tel.inc("serving.requests", 3)
+            paths = [tel.flight_record("breaker_open", trace_ids=["t1"],
+                                       extra={"replica": 1})
+                     for _ in range(3)]
+            assert paths[2] is None   # the cap
+            rec = json.loads(open(paths[0]).read())
+            out[name] = (sorted(rec), rec["reason"], rec["trace_ids"],
+                         rec["extra"], rec["registry"]["counters"],
+                         bool(rec["threads"]), [p is None for p in paths])
+        assert out["port"] == out["jax"]
+        assert ttel.tagged("flight.dumps") == {"breaker_open": 2}
+    finally:
+        ttel.set_flight_dir(None)
+        ttel.set_flight_max(16)
+    assert ttel.flight_record("x") is None   # no directory: no file
+    snap = ttel.flight_snapshot("x", extra={"k": 1})
+    assert snap["reason"] == "x" and snap["extra"] == {"k": 1}
+
+
+def test_jsonl_sink_flushes_off_the_step_path_like_mxtpu(tmp_path,
+                                                         monkeypatch):
+    jpath, tpath = tmp_path / "j.jsonl", tmp_path / "t.jsonl"
+    monkeypatch.setenv("MXTPU_TELEMETRY", str(jpath))
+    ttel.set_jsonl_path(str(tpath))
+    hooks = []
+    ttel.on_flush(lambda: hooks.append(threading.current_thread().name))
+    try:
+        for tel in (jtel, ttel):
+            with tel.span("trainer.step", new_trace=True):
+                pass
+            tel.inc("steps", 2)
+            tel.gauge("perf.mfu", 0.25)
+        assert not tpath.exists()   # the step path only queues
+        jtel.flush()
+        ttel.flush()
+        recs = {}
+        for name, path in (("jax", jpath), ("port", tpath)):
+            lines = [json.loads(x) for x in open(path)]
+            recs[name] = sorted((r["kind"], r["metric"], r.get("value")
+                                 if r["kind"] != "obs" else None,
+                                 "trace" in r) for r in lines
+                                if r["kind"] != "ledger")
+        assert recs["port"] == recs["jax"]
+        assert hooks == ["MainThread"]
+        # the flush thread: queued lines reach the file off this thread
+        ttel.set_flush_interval(0.01)
+        with ttel.span("later"):
+            pass
+        import time
+        deadline = time.time() + 5
+        while "mxtpu-torch-telemetry" not in hooks and \
+                time.time() < deadline:
+            time.sleep(0.01)
+        assert "mxtpu-torch-telemetry" in hooks
+        assert any('"later"' in x for x in open(tpath))
+    finally:
+        ttel.set_flush_interval(0)
+        ttel.set_jsonl_path(None)
+
+
+def test_prometheus_extras_like_mxtpu():
+    def extra():
+        return "# TYPE fleet_up gauge\nfleet_up 1\n"
+
+    def broken():
+        raise RuntimeError("down")
+    for tel in (jtel, ttel):
+        tel.inc("a")
+        assert tel.register_prometheus_extra(extra) is extra
+        tel.register_prometheus_extra(extra)
+        tel.register_prometheus_extra(broken)
+    assert ttel.prometheus() == jtel.prometheus()
+    assert ttel.prometheus().count("fleet_up 1") == 1
+    ttel.reset()
+    assert "fleet_up" not in ttel.prometheus()
+
+
+def test_flash_dispatch_stats_count_the_plain_version():
+    import torch
+    from mxtpu_torch.ops.pallas import flash_attention as tfa
+    tfa.reset_dispatch_stats()
+    q = torch.randn(1, 2, 8, 4)
+    tfa.flash_attention(q, q, q)
+    assert dict(tfa.DISPATCH_STATS.items()) == {
+        "pallas": 0, "xla": 1, "fallback_reasons": {}}
+    assert tfa.DISPATCH_STATS.keys() == ["pallas", "xla", "fallback_reasons"]
+
+
+def test_prefetched_batch_links_into_the_next_trainer_step():
+    import numpy as np
+    x = np.ones((2, 3), np.float32)
+    pf = mt.io.DevicePrefetcher(iter([(x, x)]), sharding=mt.cpu())
+    bx, _ = next(iter(pf))
+    pf.close()
+    net = mt.gluon.nn.Dense(2, in_units=3)
+    net.initialize(ctx=mt.cpu())
+    tr = mt.gluon.Trainer(net.collect_params(), "sgd",
+                          {"learning_rate": 0.1})
+    with mt.autograd.record():
+        loss = net(bx).sum()
+    loss.backward()
+    tr.step(2)
+    links = sorted(e["name"] for e in ttel.trace_events(tr.last_step_trace)
+                   if e["kind"] == "link")
+    assert links == ["data.h2d", "data.wait"]

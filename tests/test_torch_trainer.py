@@ -190,9 +190,10 @@ def _step(net, trainer, x, y, batch=None):
     ({"kvstore": "dist_sync"}, "distributed.init"),
     ({"kvstore": "dist_async"}, "dist_async"),
     ({"mesh": object()}, "parallel.Mesh"),
-    ({"loss_scaler": object()}, "ROADMAP A9")])
+    ({"loss_scaler": object()}, "DynamicLossScaler")])
 def test_trainer_refusals_name_their_roadmap_item(kwargs, item):
-    """What still raises: the numerics guard (A9); a distributed store
+    """What raises: a loss scaler that is not a DynamicLossScaler; a
+    distributed store
     outside a process group (at the first step, where the store binds);
     a mesh that is not one; dist_async, as the reference's."""
     with pytest.raises(mt.MXNetError, match=item):

@@ -740,3 +740,26 @@ def test_server_routes_by_model_with_404s_and_the_zoo_block():
     finally:
         srv.close(timeout=T)
         sched.close(timeout=T)
+
+
+def test_rollback_dumps_its_flight_artifact_like_mxtpu(monkeypatch,
+                                                       tmp_path):
+    monkeypatch.setenv("MXTPU_FLIGHT_DIR", str(tmp_path / "jax"))
+    ttel.set_flight_dir(str(tmp_path / "port"))
+    try:
+        z = Zoos()
+        z.both(lambda s, zz: s.ensure_resident("alpha"))
+        _v2(z)
+        z.both(lambda s, zz: zz.deploy("alpha", "v2", canary_frac=0.5))
+        monkeypatch.setenv("MXTPU_FAULT_INJECT", "canary_rollback@0")
+        jres.reset_faults()
+        tres.set_faults("canary_rollback@0")
+        z.both(lambda s, zz: s.tick(s._clock()))
+    finally:
+        ttel.set_flight_dir(None)
+    recs = {}
+    for side in ("jax", "port"):
+        (art,) = (tmp_path / side).glob("flight_canary_rollback_*")
+        recs[side] = json.loads(art.read_text())["extra"]
+    assert recs["port"] == recs["jax"] == {
+        "model": "alpha", "version": "v2", "reason": "injected"}
