@@ -43,7 +43,7 @@ NVIDIA H100.
    out of the way: one eager call's issue takes about as long as the
    kernel) and the host's issue time per call.
 6. Serves the BERT-base-shaped TransformerLM (vocab 30522, dim 768, 12
-   heads, 6 of its 12 layers, max_len 512, bidirectional, seeded weights)
+   heads, 4 of its 12 layers, max_len 512, bidirectional, seeded weights)
    through
    the port's Predictor with batch and sequence buckets (1-8 x 128, 256,
    512) on the card, in float32 and then bfloat16, 12 captured graphs
@@ -139,7 +139,7 @@ NVIDIA H100.
    images/s, host issue, device ms and idle share, peak memory, a
    profiled step by kernel category, train_mfu). The BERT-base-shaped
    TransformerLM trained with Adam: 2 layers at b2 x 512 f32 against the
-   CPU (2 flash launches a step), then 6 layers at b8 x 512 bf16 timed.
+   CPU (2 flash launches a step), then 4 layers at b8 x 512 bf16 timed.
 11. The vision zoo and the rest of Gluon (slice 9). The fused conv held
    against its plain version, f32 and bf16, at one conv of each shape
    class the zoo adds (C_out 16/24/48/80/96/144, the 11x11/4 and 3x3/2
@@ -269,7 +269,28 @@ NVIDIA H100.
    restored) and a corrupt save's fallback; the checkpoint served by
    ``Predictor.from_trainer_checkpoint`` against the net and the CPU.
    ``python3 chip_smoke.py resilience_phase`` runs it alone.
-17. Prints one JSON line of kernels (fused_conv and flash_attention, one
+17. The compile service and the autotuner (slice 16, ROADMAP A9's second
+   part, first half, ``compile_phase``), run after every other path with
+   B1-B3's counts from 0: every feasible plan of B1 (ResNet-50 v1's five
+   gated convs at b8 and b128) and of B2 (BERT-base attention at b8 and
+   b16 x 512) forced and held against its plain version (with a planted
+   grid fault that must fail); a measured search per class into a fresh
+   cache dir under ``build/`` (default and best times beside the library
+   call's); then, cold in this process, a ResNet-50 v1 bf16 ``ReplicaSet``
+   (b1/b2/b4/b8), the 12-layer BERT-base TransformerLM bf16 through a
+   ``ModelZoo`` page-in (b8 x 128/512), two captured bf16 b128
+   SGD-momentum ``Trainer`` steps and one rtc ``axpy`` launch, all under
+   the tuned plans; then ``python3 chip_smoke.py compile_warm_child`` twice
+   at once in fresh processes with empty build directories: from the
+   cache as written (0 nvcc builds, 0 searches, disk plan hits on every
+   tuned class on the path, a disk hit for every blob, no FlopCounterMode
+   pass, the same ledger FLOPs, bit-equal logits and stepped weights, one
+   capture per bucket), and from a copy with the rtc library removed (1
+   nvcc build), one bucket's blob truncated and another's key forged
+   (counted drops, rebuilt cold, bit-equal logits); last, served medians
+   with tuned plans against autotune off (read). ``python3 chip_smoke.py
+   compile_phase`` runs it alone.
+18. Prints one JSON line of kernels (fused_conv and flash_attention, one
    entry per type each, with graph-replay and host-issue sums beside the
    eager ones, the launches of one training step, and forward + backward
    by graph replay beside its plain version, the library's and its bound
@@ -291,6 +312,7 @@ import importlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -346,9 +368,10 @@ FLASH_SHAPES = [
 # masks after scaling, so a zero or negative scale still gives masked keys
 # no weight
 FLASH_SCALES = (0.05, 0.0, -0.125)
-# bench.py's configuration at full width; 6 of its 12 layers since the A9
-# slice made room for its phase (PERF.md §4)
-BERT_BASE = dict(vocab_size=30522, dim=768, num_heads=12, num_layers=6,
+# bench.py's configuration at full width; 4 of its 12 layers since the
+# compile slice made room for its phase (6 since the A9 slice; PERF.md §4;
+# the compile phase runs all 12: COMPILE_LM)
+BERT_BASE = dict(vocab_size=30522, dim=768, num_heads=12, num_layers=4,
                  max_len=512, causal=False)
 SEQ_BUCKETS = (128, 256, 512)
 LM_REQUESTS = ((1, 50), (3, 200), (5, 128), (8, 512), (11, 100))
@@ -3926,9 +3949,9 @@ def lm_train_phase(card):
     """The TransformerLM trained through gluon.Trainer (Adam lr 1e-4,
     SoftmaxCrossEntropyLoss over the vocab, as bench.py's BERT-base step):
     2 layers at BERT-base widths, b2 x 512 f32, 2 steps on the card
-    against the CPU (one flash launch per layer a step); then the full 12
-    layers at b8 x 512 bf16 timed. Returns flash launches per step by
-    type."""
+    against the CPU (one flash launch per layer a step); then
+    ``BERT_BASE``'s layers at b8 x 512 bf16 timed. Returns flash launches
+    per step by type."""
     import numpy as np
     import torch
     import mxtpu_torch as mt
@@ -3997,7 +4020,7 @@ def captured_train_phase(card, eager_timing):
     backward, gradients against the eager ones (TRAIN_L2); the trained
     net saved with ``save_parameters`` and loaded into a fresh one serves
     the same logits. Timed: ResNet-50 f32 b64 and bf16 b128 and the
-    6-layer TransformerLM bf16 b8 x 512 (``train_timing``, beside the
+    4-layer TransformerLM bf16 b8 x 512 (``train_timing``, beside the
     eager numbers of this run), with 11 fused_conv / 12 flash launches
     and no build in a step after the warm-up. Returns the launches per
     captured step by kernel and type."""
@@ -8107,7 +8130,7 @@ def moe_b2_timing(card):
 
 
 def moe_serve(card, arrays):
-    """The 6-layer bf16 MoE LM served by a Predictor with one captured
+    """The 4-layer bf16 MoE LM served by a Predictor with one captured
     bucket of b8 x 512: one graph, finite logits of the right shape, the
     replay against the eager forward on the card, B2's launches a forward
     (12); closed-loop median and p80 ms, tokens/s, host issue, device ms
@@ -8166,7 +8189,7 @@ def moe_serve(card, arrays):
 
 
 def moe_train(card, arrays):
-    """The 6-layer bf16 MoE LM trained through ``ShardedTrainStep(
+    """The 4-layer bf16 MoE LM trained through ``ShardedTrainStep(
     data_parallel_mesh(), forward=CE + 0.01 aux)`` in a world of one NCCL
     rank, Adam lr 1e-4, b16 x 512 (hybridized: each step replays a
     captured pair whose second output is the aux loss): median and p80
@@ -8245,7 +8268,7 @@ def moe_train(card, arrays):
 def moe_phase(card):
     """Slice 14's path (ROADMAP A8's second part): the Switch MoE layer
     against its dense formulation, the 2-layer MoE LM against the CPU,
-    the 6-layer 8-expert bf16 MoE LM served and trained on B2. (Its
+    the 4-layer 8-expert bf16 MoE LM served and trained on B2. (Its
     four-rank gates run in ``parallel_phase``'s part (b).)"""
     import gc
     import torch
@@ -9051,6 +9074,625 @@ def resilience_phase(card):
     return out
 
 
+# ----------------------------------------------------------------- slice 16
+COMPILE_SEED = 61
+COMPILE_LM = dict(BERT_BASE, num_layers=12)   # bench.py's BERT-base, whole
+COMPILE_TRAIN_BATCH = 128
+COMPILE_BUDGET_S = 20.0      # autotune's wall budget per class
+COMPILE_ROUNDS = 5           # timed runs per candidate plan
+COMPILE_AXPY_N = 1 << 22
+COMPILE_CHILD_TIMEOUT_S = 400
+
+
+def _digest(t):
+    """sha256 of a tensor's bytes on the host (bfloat16 as float32: the
+    same bits, widened)."""
+    import hashlib
+    import torch
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def _compile_counts():
+    """The counters the compile phase's gates read."""
+    from mxtpu_torch import kernels, telemetry
+    return {"hits": telemetry.tagged("compile.disk.hits"),
+            "writes": telemetry.tagged("compile.disk.writes"),
+            "drops": telemetry.tagged("compile.disk.drops"),
+            "flop_passes": telemetry.value("xprof.flop_passes"),
+            "nvcc": kernels.nvcc_runs(),
+            "searches": telemetry.value("autotune.searches"),
+            "plan_hits": telemetry.tagged("autotune.plan_hits"),
+            "retrace": {s: st["compiles"] for s, st in
+                        telemetry.retrace_stats().items()}}
+
+
+def _delta(after, before):
+    out = {}
+    for k, v in after.items():
+        b = before.get(k)
+        if isinstance(v, dict):
+            out[k] = {t: n - (b or {}).get(t, 0) for t, n in v.items()
+                      if n - (b or {}).get(t, 0)}
+        else:
+            out[k] = v - (b or 0)
+    return out
+
+
+def build_compile_lm():
+    """The 12-layer BERT-base TransformerLM on the CPU, seeded weights."""
+    import torch
+    import mxtpu_torch as mt
+    from mxtpu_torch import convert
+    from mxtpu_torch.gluon.model_zoo.transformer import TransformerLM
+    net = TransformerLM(**COMPILE_LM)
+    net.initialize(ctx=mt.cpu())
+    with torch.no_grad():
+        net(torch.zeros(1, 8, dtype=torch.int32))
+    convert.load_mxtpu_params(net, convert.seeded_params(
+        {k: p.shape for k, p in net.collect_params().items()}, seed=0))
+    return net
+
+
+def compile_workload():
+    """The slice's path, built through the compile service with seeded
+    weights and inputs: a ResNet-50 v1 bf16 ``ReplicaSet`` of one replica
+    (b1/b2/b4/b8), the 12-layer BERT-base TransformerLM bf16 through a
+    ``ModelZoo`` page-in (b8 x 128 and 512), two captured bf16 b128
+    SGD-momentum ``Trainer`` steps and one rtc ``axpy`` launch. Returns the
+    numbers the compile phase compares between processes: each output's
+    sha256, the ledger's (site, FLOPs), the counters' changes, the launches
+    a forward, the wall seconds per part and per site."""
+    import numpy as np
+    import torch
+    import mxtpu_torch as mt
+    from mxtpu_torch import compile_service, rtc, telemetry, xprof
+    from mxtpu_torch.ops.pallas import autotune
+    from mxtpu_torch.ops.pallas.conv import fused_conv
+    from mxtpu_torch.ops.pallas.flash_attention import flash_attention
+    from mxtpu_torch.serving import (BucketSpec, ModelZoo, ReplicaSet,
+                                     ZooScheduler)
+    xprof.reset()
+    compile_service.drop(site="rtc")   # resolve the library afresh
+    before, keys0 = _compile_counts(), set(compile_service._STORE)
+    res = {"digests": {}, "launches": {}, "wall": {},
+           "policy": list(compile_service.forward_policy())}
+    rng = np.random.default_rng(COMPILE_SEED)
+    t_all = time.perf_counter()
+    with _deterministic():
+        net, _ = build_net()
+        net.cast("bfloat16")
+        spec = BucketSpec.pow2(8)
+        rs = ReplicaSet(net, spec, devices=["cuda:0"], warmup=False,
+                        name="compile", example=torch.zeros(
+                            RESNET_EXAMPLE_SHAPE, dtype=torch.bfloat16))
+        t0 = time.perf_counter()
+        rs.warmup()
+        res["wall"]["resnet50 replica set warmup"] = time.perf_counter() - t0
+        pred = rs.replicas[0].predictor
+        for b in spec.batch_sizes:
+            x = torch.from_numpy(rng.standard_normal(
+                (b, 224, 224, 3)).astype(np.float32)).to("cuda",
+                                                         torch.bfloat16)
+            fused_conv.launches = 0
+            y = pred.predict(x)._data
+            torch.cuda.synchronize()
+            res["launches"]["resnet50 b%d forward b1" % b] = \
+                fused_conv.launches
+            res["digests"]["resnet50 b%d logits" % b] = _digest(y)
+        lm = build_compile_lm()
+        lm.cast("bfloat16")
+        zoo = ModelZoo()
+        zoo.register("transformer_lm", lm, BucketSpec([8], seq_lens=(128,
+                                                                     512)),
+                     example=torch.zeros(1, 128, dtype=torch.int32))
+        sched = ZooScheduler(zoo, devices=["cuda:0"], start=False)
+        t0 = time.perf_counter()
+        resident = sched.ensure_resident("transformer_lm")
+        res["wall"]["transformer_lm zoo page-in"] = time.perf_counter() - t0
+        res["warm_summary"] = dict(resident.warm_summary)
+        lpred = resident.stable.predictor
+        for t in (128, 512):
+            tok = torch.from_numpy(rng.integers(
+                0, COMPILE_LM["vocab_size"], (8, t), dtype=np.int32)).cuda()
+            flash_attention.launches = 0
+            y = lpred.predict(tok)._data
+            torch.cuda.synchronize()
+            res["launches"]["transformer_lm b8x%d forward b2" % t] = \
+                flash_attention.launches
+            res["digests"]["transformer_lm b8x%d logits" % t] = _digest(y)
+        tnet = net   # the served net: the Predictor keeps its own snapshot
+        tnet.collect_params().reset_ctx(mt.gpu(0))
+        tnet.hybridize()
+        trainer = mt.gluon.Trainer(tnet.collect_params(), "sgd",
+                                   dict(SGD_PARAMS, multi_precision=True))
+        loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+        loss_fn.hybridize()
+        t0 = time.perf_counter()
+        launches = []
+        for x, y in resnet_batches(COMPILE_TRAIN_BATCH, 2, COMPILE_SEED):
+            fused_conv.launches = 0
+            xa = mt.nd.array(x, ctx=mt.gpu(0), dtype="bfloat16")
+            ya = mt.nd.array(y, ctx=mt.gpu(0))
+            with mt.autograd.record():
+                loss = loss_fn(tnet(xa), ya)
+            loss.backward()
+            trainer.step(COMPILE_TRAIN_BATCH)
+            torch.cuda.synchronize()
+            launches.append(fused_conv.launches)
+        res["wall"]["resnet50 b128 two captured steps"] = \
+            time.perf_counter() - t0
+        res["launches"]["resnet50 b128 steps b1"] = launches
+        res["digests"]["resnet50 b128 weights after 2 steps"] = _digest(
+            torch.cat([p.data()._data.float().reshape(-1)
+                       for p in tnet.collect_params().values()]))
+        t0 = time.perf_counter()
+        mod = rtc.CudaModule(RTC_SOURCE).build()
+        res["wall"]["rtc module"] = time.perf_counter() - t0
+        res["rtc_how"] = mod.build_how
+        k = mod.get_kernel("axpy")
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(COMPILE_SEED)
+        xs = rtc_inputs("axpy", COMPILE_AXPY_N, gen)
+        k.launches = 0
+        out = rtc_launch(k, xs + [COMPILE_AXPY_N], COMPILE_AXPY_N,
+                         "float32").to_torch()
+        torch.cuda.synchronize()
+        rtc_check(out, RTC_PLAIN["axpy"](*xs), "rtol", "compile axpy",
+                  mag=2.5 * xs[0].abs() + xs[1].abs())
+        res["launches"]["rtc axpy"] = k.launches
+        res["digests"]["rtc axpy"] = _digest(out)
+    res["wall"]["all"] = time.perf_counter() - t_all
+    res["counts"] = _delta(_compile_counts(), before)
+    res["ledger"] = sorted([e["site"], e["flops"]] for e in xprof.ledger())
+    per_site = {}
+    for key, e in list(compile_service._STORE.items()):
+        if key in keys0 or not isinstance(e.record, dict):
+            continue
+        row = per_site.setdefault(key.site, {"entries": 0, "build_s": 0.0,
+                                             "disk": 0})
+        row["entries"] += 1
+        row["build_s"] += e.record["build_s"]
+        row["disk"] += e.origin == "disk"
+    res["sites"] = per_site
+    res["plan_hits_by_class"] = {"%s %s" % k: n for k, n in
+                                 autotune.hits().items()}
+    res["installed"] = {"%s %s" % k: v for k, v in
+                        autotune.installed().items()}
+    res["objects"] = (rs, lpred, sched, tnet, lm, trainer, mod)
+    return res
+
+
+def compile_plan_checks():
+    """Every feasible plan of each class B1 and B2 declare, forced and
+    held against the plain version (the kernel phases' tolerances);
+    whether its output is bit-equal to the default plan's is printed (not
+    gated). Then the planted fault: one plan's tiles launched on the
+    default plan's grid must fail the same check. Returns the rows."""
+    import importlib as _il
+    import torch
+    from mxtpu_torch.ops.pallas import autotune
+    pc = _il.import_module("mxtpu_torch.ops.pallas.conv")
+    fa = _il.import_module("mxtpu_torch.ops.pallas.flash_attention")
+    rows = []
+    conv_tk = autotune.kernels()["pallas_conv"]
+    planted_case = None
+    for sc in conv_tk.classes():
+        fn, (x, w, sv, bv) = conv_tk.runner(sc)
+        strides = (sc["sh"], sc["sw"])
+        padding = ((sc["p0"], sc["p1"]), (sc["q0"], sc["q1"]))
+        ref = pc.fused_conv_reference(x, w, strides, padding, sv, bv,
+                                      relu=True)[0]
+        default = conv_tk.default(sc)
+        with autotune.forced("pallas_conv", default):
+            out_d = fn(x, w, sv, bv)
+        for plan in conv_tk.space(sc):
+            if not conv_tk.feasible(plan, sc)[0]:
+                continue
+            with autotune.forced("pallas_conv", plan):
+                out = fn(x, w, sv, bv)
+            torch.cuda.synchronize()
+            what = "plan %s %s" % (autotune.plan_id_of(plan),
+                                   autotune.class_token(sc))
+            err = check(out, ref, "bfloat16", what)
+            rows.append({"kernel": "pallas_conv", "class": sc, "plan": plan,
+                         "err": err, "default": plan == default,
+                         "bit_equal_default": bool(torch.equal(out, out_d))})
+            if planted_case is None and (plan["block_m"] < default["block_m"]
+                                         or plan["block_n"]
+                                         < default["block_n"]):
+                planted_case = (sc, plan)
+        del out_d, ref
+    flash_tk = autotune.kernels()["pallas_flash"]
+    for sc in flash_tk.classes():
+        _, (q, k, v) = flash_tk.runner(sc)
+        r_out, r_lse = fa.flash_attention_reference(q.float(), k.float(),
+                                                    v.float(), False)
+        default = flash_tk.default(sc)
+        with autotune.forced("pallas_flash", default):
+            out_d, _ = fa.flash_attention_with_lse(q, k, v)
+        for plan in flash_tk.space(sc):
+            if not flash_tk.feasible(plan, sc)[0]:
+                continue
+            with autotune.forced("pallas_flash", plan):
+                out, lse = fa.flash_attention_with_lse(q, k, v)
+            torch.cuda.synchronize()
+            what = "plan %s %s" % (autotune.plan_id_of(plan),
+                                   autotune.class_token(sc))
+            err = check(out, r_out, "bfloat16", what)
+            lerr = check(lse, r_lse, "float32", what + " lse")
+            rows.append({"kernel": "pallas_flash", "class": sc, "plan": plan,
+                         "err": err, "lse_err": lerr,
+                         "default": plan == default,
+                         "bit_equal_default": bool(torch.equal(out, out_d))})
+    for r in rows:
+        print("compile plan check %s %s %-24s err %.3g%s%s, bit-equal to "
+              "the default plan: %s" % (
+                  r["kernel"], autotune.class_token(r["class"]),
+                  autotune.plan_id_of(r["plan"]), r["err"],
+                  " lse %.3g" % r["lse_err"] if "lse_err" in r else "",
+                  " (the default)" if r["default"] else "",
+                  r["bit_equal_default"]), flush=True)
+    # the planted fault: the plan's tiles on the default plan's grid
+    sc, plan = planted_case
+    orig = pc._launch_args
+
+    def planted(x, w, strides, padding, sms=None, plan=None):
+        la = orig(x, w, strides, padding, sms, plan)
+        return la._replace(grid=orig(x, w, strides, padding, sms).grid)
+
+    _, (x, w, _, bv) = conv_tk.runner(sc)
+    strides = (sc["sh"], sc["sw"])
+    padding = ((sc["p0"], sc["p1"]), (sc["q0"], sc["q1"]))
+    ref = pc.fused_conv_reference(x, w, strides, padding, None, bv)[0]
+    # the blocks the short grid leaves out read NaN, not an earlier result
+    nan = torch.full(ref.shape, float("nan"), dtype=x.dtype, device="cuda")
+    del nan
+    pc._launch_args = planted
+    try:
+        with autotune.forced("pallas_conv", plan):
+            bad = pc.fused_conv(x, w, strides, padding, bias=bv)
+        torch.cuda.synchronize()
+        check(bad, ref, "bfloat16", "planted")
+    except AssertionError as e:
+        print("compile plan check: planted fault (plan %s's tiles on the "
+              "default grid, %s) fails the check: %s" % (
+                  autotune.plan_id_of(plan), autotune.class_token(sc), e),
+              flush=True)
+    else:
+        raise AssertionError("compile plan check: the planted grid fault "
+                             "passed the check")
+    finally:
+        pc._launch_args = orig
+    return rows
+
+
+def compile_search(card):
+    """A measured search per class of B1 and B2 into the cache dir (only
+    plans that beat the default persist); each class's default and best
+    times printed beside the library call's and its bound. Returns the
+    rows."""
+    import importlib as _il
+    import torch
+    import torch.nn.functional as F
+    from mxtpu_torch.ops.pallas import autotune
+    pc = _il.import_module("mxtpu_torch.ops.pallas.conv")
+    autotune.set_budget_s(COMPILE_BUDGET_S)
+    autotune.set_rounds(COMPILE_ROUNDS)
+    rows = []
+    for kid in ("pallas_conv", "pallas_flash"):
+        tk = autotune.kernels()[kid]
+        for sc in tk.classes():
+            r = autotune.search(kid, sc)
+            _, args = tk.runner(sc)
+            if kid == "pallas_conv":
+                x, w = args[0], args[1]
+                oh = pc.out_hw(sc["h"], sc["p0"], sc["p1"], sc["kh"],
+                               sc["sh"])
+                ow = pc.out_hw(sc["w"], sc["q0"], sc["q1"], sc["kw"],
+                               sc["sw"])
+                lib = cuda_ms(_lib_conv(
+                    x, w, (sc["sh"], sc["sw"]),
+                    ((sc["p0"], sc["p1"]), (sc["q0"], sc["q1"]))))
+                bms, by = conv_bound_ms(x, w, sc["n"] * oh * ow * sc["cout"],
+                                        "bfloat16")
+            else:
+                q, k, v = args
+                lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+                n_bytes = 4 * q.numel() * q.element_size() + 4 * q.numel() \
+                    // q.shape[-1]
+                bms, by = bound_ms(n_bytes, 4.0 * q.shape[0] * q.shape[1]
+                                   * q.shape[2] * k.shape[2] * q.shape[3],
+                                   "bfloat16")
+            row = {"kernel": kid, "class": autotune.class_token(sc),
+                   "default_plan": r["default_plan_id"],
+                   "default_ms": 1e3 * r["default_s"],
+                   "best_plan": r["best_plan_id"],
+                   "best_ms": 1e3 * r["best_s"],
+                   "timed": r["timed"], "persisted": bool(r["persisted"]),
+                   "library_ms": lib, "bound_ms": bms, "bound_by": by,
+                   "plans_ms": {t["plan_id"]: 1e3 * t["s"]
+                                for t in r["timings"]}}
+            rows.append(row)
+            print("compile search %s %s: default %s %.4f ms, best %s %.4f "
+                  "ms (%d timed, %s), library %.4f ms, bound %.4f ms (%s); "
+                  "card %s" % (kid, row["class"], row["default_plan"],
+                               row["default_ms"], row["best_plan"],
+                               row["best_ms"], row["timed"],
+                               "persisted" if row["persisted"]
+                               else "default kept", lib, bms, by, card),
+                  flush=True)
+            if r["persisted"] and not r["best_s"] < r["default_s"]:
+                raise AssertionError("compile search: a plan that does not "
+                                     "beat the default was persisted")
+    torch.cuda.synchronize()
+    return rows
+
+
+def _spawn_child(cache, tag):
+    build = os.path.join(os.path.dirname(cache), "empty_build_" + tag)
+    shutil.rmtree(build, ignore_errors=True)
+    os.makedirs(build)
+    return subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+         "compile_warm_child", cache, build], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=ROOT)
+
+
+def _child_result(proc, what):
+    try:
+        out, err = proc.communicate(timeout=COMPILE_CHILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError("compile: the %s child timed out" % what)
+    if proc.returncode != 0:
+        raise AssertionError("compile: the %s child failed (%d):\n%s"
+                             % (what, proc.returncode, err[-4000:]))
+    line = [ln for ln in out.splitlines() if ln.startswith("{")][-1]
+    return json.loads(line)
+
+
+def _compile_gate(ok, what):
+    if not ok:
+        raise AssertionError("compile gate: " + what)
+    print("compile gate ok: " + what, flush=True)
+
+
+def compile_warm_child(cache, build_dir):
+    """``python3 chip_smoke.py compile_warm_child <cache dir> <empty dir>``:
+    a fresh process whose kernel build directory is the empty one, so
+    every library comes from the cache dir or from nvcc; builds the
+    compile workload from the cache dir with tuned plans served, and
+    prints its numbers as one JSON line."""
+    from pathlib import Path
+    sys.path.insert(0, ROOT)
+    from mxtpu_torch import kernels
+    kernels.BUILD_DIR = Path(build_dir)
+    import mxtpu_torch  # noqa: F401  (applies the precision policy)
+    from mxtpu_torch import compile_service
+    from mxtpu_torch.ops.pallas import autotune
+    compile_service.set_cache_dir(cache)
+    autotune.set_enabled(True)
+    res = compile_workload()
+    res.pop("objects")
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+def compile_phase(card):
+    """Slice 16 (module docstring, item 17). Returns the rows and numbers
+    the ``kernels`` line carries."""
+    import gc
+    import torch
+    from mxtpu_torch import compile_service, kernels
+    from mxtpu_torch.ops.pallas import autotune
+    cache = os.path.join(ROOT, "build", "compile_cache_%d" % os.getpid())
+    shutil.rmtree(cache, ignore_errors=True)
+    out, procs = {}, {}
+    t0 = time.perf_counter()
+    out["checks"] = compile_plan_checks()
+    print("compile plan checks %.1f s" % (time.perf_counter() - t0),
+          flush=True)
+    compile_service.set_cache_dir(cache)
+    try:
+        t0 = time.perf_counter()
+        out["search"] = compile_search(card)
+        print("compile searches %.1f s" % (time.perf_counter() - t0),
+              flush=True)
+        autotune.set_enabled(True)
+        kernels.build_all()   # the csrc libraries into the cache dir
+        cold = compile_workload()
+        objs = cold.pop("objects")
+        print("compile cold warm-up: %s" % json.dumps(
+            {k: cold[k] for k in ("wall", "sites", "counts", "launches",
+                                  "warm_summary", "rtc_how")}), flush=True)
+        _compile_cold_gates(cold)
+        # the degraded copy: the rtc library gone, one bucket's blob
+        # truncated, another's key forged
+        bad = cache + "_degraded"
+        shutil.rmtree(bad, ignore_errors=True)
+        shutil.copytree(cache, bad)
+        damaged = _compile_damage(bad, cold)
+        rs, lpred, sched, net, lm = objs[:5]
+        net.hybridize(False)   # the b128 step's graphs go (its pools)
+        del objs
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        procs["warm"] = _spawn_child(cache, "warm")
+        procs["degraded"] = _spawn_child(bad, "degraded")
+        kids = {k: _child_result(p, k) for k, p in procs.items()}
+        print("compile children (at once) %.1f s" % (time.perf_counter()
+                                                     - t0), flush=True)
+        out["warm"] = kids["warm"]
+        out["degraded"] = kids["degraded"]
+        _compile_warm_gates(cold, kids["warm"])
+        _compile_degraded_gates(cold, kids["degraded"], damaged)
+        out["cold"] = cold
+        out["served"] = compile_served(card, rs.replicas[0].predictor, lpred,
+                                       net, lm)
+        del rs, lpred, sched
+    finally:
+        for p in procs.values():   # never leave a child running
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        autotune.set_enabled(False)
+        autotune.set_budget_s(30)
+        autotune.set_rounds(3)
+        compile_service.set_cache_dir(None)
+        for d in (cache, cache + "_degraded"):
+            shutil.rmtree(d, ignore_errors=True)
+        for tag in ("warm", "degraded"):
+            shutil.rmtree(os.path.join(os.path.dirname(cache),
+                                       "empty_build_" + tag),
+                          ignore_errors=True)
+    return out
+
+
+def _compile_cold_gates(cold):
+    la = cold["launches"]
+    check = _compile_gate
+    check(all(v == 11 for k, v in la.items()
+              if k.startswith("resnet50 b") and "forward" in k),
+          "cold: 11 B1 launches a ResNet-50 forward (%s)" % la)
+    check(la["resnet50 b128 steps b1"][1] == 11,
+          "cold: 11 B1 launches in the second captured b128 step (%s)"
+          % la["resnet50 b128 steps b1"])
+    check(all(v == 12 for k, v in la.items()
+              if k.startswith("transformer_lm")),
+          "cold: 12 B2 launches a BERT-base forward (%s)" % la)
+    writes = sum(cold["counts"]["writes"].values())
+    built = sum(r["entries"] for r in cold["sites"].values())
+    check(writes == built > 0, "cold: one blob per built entry (%d of %d: "
+          "%s)" % (writes, built, cold["counts"]["writes"]))
+    check(cold["counts"]["flop_passes"] > 0 and not cold["counts"]["hits"],
+          "cold: %d FlopCounterMode passes, no disk hit"
+          % cold["counts"]["flop_passes"])
+
+
+def _compile_damage(root, cold):
+    """In the copy at ``root``: remove the rtc library from kernels/,
+    truncate the ResNet-50 b8 bucket's blob and forge the key of the
+    TransformerLM b8 x 128 bucket's. Returns what was damaged."""
+    man = json.load(open(os.path.join(root, "manifest.json")))
+    rtc_digest = [r["fn_id"][4:] for r in man["entries"].values()
+                  if r["site"] == "rtc"][0]
+    os.unlink(os.path.join(root, "kernels", rtc_digest + ".so"))
+    trunc = forged = None
+    for dig, r in man["entries"].items():
+        path = os.path.join(root, dig + ".mxc")
+        if trunc is None and r["site"].startswith("serving.predict.r") \
+                and "(8, 224, 224, 3)" in r["key"]:
+            data = open(path, "rb").read()
+            open(path, "wb").write(data[:len(data) // 3])
+            trunc = dig
+        elif forged is None and r["site"].startswith("serving.predict.zoo") \
+                and "(8, 128)" in r["key"]:
+            rec = json.load(open(path))
+            rec["key"] = rec["key"].replace("(8, 128)", "(8, 129)")
+            json.dump(rec, open(path, "w"))
+            forged = dig
+    if trunc is None or forged is None:
+        raise AssertionError("compile: no blob to damage (%s, %s)"
+                             % (trunc, forged))
+    return {"rtc_removed": rtc_digest, "truncated": trunc, "forged": forged}
+
+
+def _compile_warm_gates(cold, warm):
+    c = warm["counts"]
+    cold_entries = sum(cold["counts"]["writes"].values())
+    check = _compile_gate
+    check(c["nvcc"] == 0, "warm: 0 nvcc builds (%d)" % c["nvcc"])
+    check(c["searches"] == 0, "warm: 0 autotune searches (%d)"
+          % c["searches"])
+    tuned = [k for k, n in cold["plan_hits_by_class"].items() if n]
+    check(all(warm["plan_hits_by_class"].get(k, 0) >= 1 for k in tuned)
+          and not c["plan_hits"].get("search")
+          and c["plan_hits"].get("disk", 0) >= len(tuned),
+          "warm: plan_hits{disk} >= 1 for each of the %d tuned classes on "
+          "the path (%s)" % (len(tuned), c["plan_hits"]))
+    check(warm["installed"] == cold["installed"],
+          "warm: the same %d plans installed" % len(cold["installed"]))
+    check(sum(c["hits"].values()) == cold_entries and not c["drops"],
+          "warm: compile.disk.hits %d = the cold run's %d entries, drops %s"
+          % (sum(c["hits"].values()), cold_entries, c["drops"]))
+    check(c["flop_passes"] == 0, "warm: no FlopCounterMode pass (%d)"
+          % c["flop_passes"])
+    check(warm["ledger"] == cold["ledger"],
+          "warm: ledger FLOPs equal the cold run's (%d entries)"
+          % len(cold["ledger"]))
+    check(warm["digests"] == cold["digests"],
+          "warm: logits, stepped weights and axpy bit-equal to the cold "
+          "run's (%d digests)" % len(cold["digests"]))
+    check(c["retrace"] == cold["counts"]["retrace"]
+          and warm["launches"] == cold["launches"],
+          "warm: the captures one per bucket as cold (%s)" % c["retrace"])
+    check(warm["policy"] == cold["policy"], "warm: the same policy key")
+    for site, row in sorted(cold["sites"].items()):
+        w = warm["sites"].get(site, {})
+        print("compile warm-up site %-40s cold %.3f s (%d entries), warm "
+              "%.3f s (%d from disk)" % (site, row["build_s"], row["entries"],
+                                         w.get("build_s", 0.0),
+                                         w.get("disk", 0)), flush=True)
+    print("compile warm-up wall: cold %s, warm %s" % (
+        json.dumps(cold["wall"]), json.dumps(warm["wall"])), flush=True)
+
+
+def _compile_degraded_gates(cold, bad, damaged):
+    c = bad["counts"]
+    cold_entries = sum(cold["counts"]["writes"].values())
+    check = _compile_gate
+    check(c["nvcc"] == 1, "planted (the rtc library removed from the "
+          "cache): the child reports %d nvcc build(s), expected 1"
+          % c["nvcc"])
+    check(c["drops"] == {"corrupt": 1, "key_mismatch": 1},
+          "degraded: drops %s (a truncated blob, a forged key)" % c["drops"])
+    check(sum(c["hits"].values()) == cold_entries - 2
+          and c["flop_passes"] == 2,
+          "degraded: %d disk hits, the two damaged buckets rebuilt cold "
+          "(%d FlopCounterMode passes)" % (sum(c["hits"].values()),
+                                           c["flop_passes"]))
+    check(bad["digests"] == cold["digests"],
+          "degraded: logits, weights and axpy still bit-equal (%s)"
+          % sorted(damaged))
+
+
+def compile_served(card, rpred, lpred, net, lm):
+    """ResNet-50 bf16 b8 and the TransformerLM bf16 b8 x 512 served with
+    tuned plans (the cold warm-up's Predictors) and with autotune off (new
+    Predictors over the same blocks): the median and p80 of a closed loop
+    each (read, not gated)."""
+    import gc
+    import numpy as np
+    import torch
+    from mxtpu_torch.ops.pallas import autotune
+    from mxtpu_torch.serving import BucketSpec, Predictor
+    rows = {}
+    x = torch.zeros(8, 224, 224, 3, dtype=torch.bfloat16, device="cuda")
+    tok = torch.from_numpy(np.random.default_rng(COMPILE_SEED).integers(
+        0, COMPILE_LM["vocab_size"], (8, 512), dtype=np.int32)).cuda()
+    rows["resnet50 bf16 b8 tuned"] = closed_loop(rpred, x)[:2]
+    rows["transformer_lm bf16 b8x512 tuned"] = closed_loop(lpred, tok)[:2]
+    autotune.set_enabled(False)
+    rp = Predictor(net, BucketSpec([8]), example=x[:1], warmup=True,
+                   device="cuda:0", site="serving.predict.compile")
+    lp = Predictor(lm, BucketSpec([8], seq_lens=(512,)), example=tok[:1],
+                   warmup=True, device="cuda:0",
+                   site="serving.predict.compile_lm")
+    rows["resnet50 bf16 b8 default"] = closed_loop(rp, x)[:2]
+    rows["transformer_lm bf16 b8x512 default"] = closed_loop(lp, tok)[:2]
+    del rp, lp
+    gc.collect()
+    for k, (med, p80) in rows.items():
+        print("compile served %-40s median %.3f ms, p80 %.3f ms; card %s"
+              % (k, med, p80, card), flush=True)
+    return rows
+
+
 def kernel_entries(rows, launches, train_launches, name, source, replaces,
                    bwd_rows=()):
     """One `kernels` entry per type: the per-forward shapes' numbers, each
@@ -9282,6 +9924,24 @@ def main():
     if any(decode_launches.values()):
         raise AssertionError("decode: a kernel of B1-B3 was launched on the "
                              "decode path: %s" % decode_launches)
+    # slice 16: the compile service and the autotuner, B1-B3's counts from
+    # 0 just before it (its children's launches are their own processes')
+    fused_conv.launches = flash_attention.launches = 0
+    rtc_launches_seen = []
+    rtc_mod.launched = lambda k: (rtc_launches_seen.append(k),
+                                  rtc_launched(k))
+    try:
+        compiled = timed_phase("compile", compile_phase, card)
+    finally:
+        rtc_mod.launched = rtc_launched
+    compile_path = {"b1": fused_conv.launches, "b2": flash_attention.launches,
+                    "b3": len(rtc_launches_seen)}
+    print("compile phase launches of B1-B3 in this process: %s"
+          % compile_path, flush=True)
+    if not all(compile_path.values()):
+        raise AssertionError("the compile path launched no %s: %s" % (
+            " or ".join(k for k, v in compile_path.items() if not v),
+            compile_path))
     entries = kernel_entries(
         conv_rows, conv_launches, conv_train,
         "fused_conv (%s, the 11 gated convs of one b8 ResNet-50 forward)",
@@ -9366,6 +10026,17 @@ def main():
         e["captured_train_step_launches"] = captured[kind][
             "float32" if i % 2 == 0 else "bfloat16"]
         e["captured_train_launches_both_dtypes"] = captured_path[kind]
+    for i, e in enumerate(entries):
+        e["compile_b1_launches"] = compile_path["b1"]
+        e["compile_b2_launches"] = compile_path["b2"]
+        e["compile_b3_launches"] = compile_path["b3"]
+        kid = "pallas_conv" if i < 2 else "pallas_flash"
+        if i % 2:   # the bf16 entries: the tuned path's classes
+            e["compile_plan_rows"] = [
+                r for r in compiled["search"] if r["kernel"] == kid]
+            e["compile_launches_per_forward_or_step"] = {
+                k: v for k, v in compiled["cold"]["launches"].items()
+                if (" b1" in k) == (i < 2) and not k.startswith("rtc")}
     for r in rtc_rows:
         if rtc_launches[r["name"]] < 1:
             raise AssertionError("rtc %s was not launched on the imperative "
@@ -9382,7 +10053,8 @@ def main():
             "decode_launches": decode_launches[r["name"]],
             "rnn_b3_launches": rnn_path["b3"],
             "moe_b3_launches": moe_path["b3"],
-            "resilience_b3_launches": resil_path["b3"]})
+            "resilience_b3_launches": resil_path["b3"],
+            "compile_b3_launches": compile_path["b3"]})
     print("rnn op beside torch.nn.LSTM (graph replay ms): %s" % json.dumps(
         rnn["op"]))
     print(json.dumps({"kernels": entries}))
@@ -9410,9 +10082,9 @@ def four_cards_main():
 
 
 def phase_main(name):
-    """``python3 chip_smoke.py resilience_phase``: build the kernels and
-    run that one phase alone (a failing gate raises, the exit is
-    non-zero)."""
+    """``python3 chip_smoke.py resilience_phase`` (or ``compile_phase``):
+    build the kernels and run that one phase alone (a failing gate raises,
+    the exit is non-zero)."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -9434,6 +10106,8 @@ def phase_main(name):
 if __name__ == "__main__":
     if sys.argv[1:] == ["parallel_four_cards"]:
         sys.exit(four_cards_main())
-    if sys.argv[1:] == ["resilience_phase"]:
-        sys.exit(phase_main("resilience_phase"))
+    if sys.argv[1:] in (["resilience_phase"], ["compile_phase"]):
+        sys.exit(phase_main(sys.argv[1]))
+    if sys.argv[1:2] == ["compile_warm_child"] and len(sys.argv) == 4:
+        sys.exit(compile_warm_child(*sys.argv[2:]))
     sys.exit(main())

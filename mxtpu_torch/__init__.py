@@ -20,7 +20,9 @@ runtime: ``resilience`` (the numerics guard's loss scaler, watchdogs,
 sentinels, ``ResilientLoop``, ``TrainSupervisor``),
 ``contrib.async_checkpoint``, ``telemetry`` with its flight recorder and
 JSONL sink, ``xprof``, ``perf_model``, ``profiler``, ``log`` and
-``engine``. Kernels that the JAX package wrote in Pallas are
+``engine``; and ``compile_service``, the one cache under every capture
+site with its disk cache, and the launch-plan autotuner
+(``ops.pallas.autotune``). Kernels that the JAX package wrote in Pallas are
 hand-written CUDA under ``csrc/``, built at first use
 (``mxtpu_torch.kernels``). Entry points run on the CUDA device unless the
 caller passes a CPU device or opens a CPU context.
@@ -77,6 +79,7 @@ from . import kvstore as kv  # noqa: E402
 from . import kvstore_server  # noqa: E402
 from . import gradient_compression  # noqa: E402
 from . import optimizer_fused  # noqa: E402
+from . import compile_service  # noqa: E402
 from . import log  # noqa: E402
 from . import engine  # noqa: E402
 from . import perf_model  # noqa: E402

@@ -43,7 +43,7 @@ import weakref
 import torch
 from torch import nn
 
-from .. import autograd, graphs, telemetry
+from .. import autograd, compile_service, graphs
 from ..base import MXNetError
 from ..ndarray import NDArray
 from ..symbol.symbol import _SYM_TAPE, recording_f
@@ -402,8 +402,8 @@ class _Pair:
 
     def __init__(self, graphs_pair, params, diff_params, fmt, lock):
         self.graphs = graphs_pair
-        self.params = params
-        self.diff_params = diff_params
+        self.params = params                        # [(weakref, tensor)]
+        self.diff_params = [weakref.ref(p) for p in diff_params]
         self.fmt = fmt
         self.lock = lock
         self.busy = False
@@ -497,15 +497,44 @@ class CachedOp:
     (``random.generator``) registered with each graph, so every replay
     draws a fresh mask and a pair's backward reuses its forward's. One
     call at a time holds the static inputs, the replay and the copies of
-    its outputs."""
+    its outputs.
+
+    Graphs and pairs resolve through the compile service at site
+    ``cached_op``: the key is the block's repr and class source
+    (``_fn_token``), the signature (``("graph", key)`` or ``("pair", key,
+    i)``, the i-th pair of a signature), ``compile_service.
+    forward_policy()``, the device and this CachedOp's nonce; ``_graphs``
+    and ``_pairs`` are views over the service's store."""
 
     def __init__(self, block):
         self._block = block
-        self._graphs = {}
-        self._pairs = {}
+        self._nonce = nonce = compile_service.release_on_collect(self)
+        self._graphs = compile_service.SiteTable(
+            lambda k: k.nonce == nonce and k.signature[0] == "graph",
+            name=lambda k: k.signature[1])
+        self._pairs = compile_service.SiteTable(
+            lambda k: k.nonce == nonce and k.signature[0] == "pair",
+            name=lambda k: k.signature[1], multi=True)
+        self._fn_tok = None
         self._out_fmt = []
         self._takes_grad = None
         self._lock = threading.RLock()
+
+    def _fn_token(self):
+        tok = self._fn_tok
+        if tok is None:
+            block = self._block
+            tok = self._fn_tok = "cached_op:%s:%s:%s" % (
+                type(block).__name__,
+                compile_service.source_token(type(block)),
+                compile_service.source_token(repr(block))[:12])
+        return tok
+
+    def _key(self, signature, device):
+        return compile_service.canonical_key(
+            site="cached_op", fn_id=self._fn_token(), signature=signature,
+            policy=compile_service.forward_policy(),
+            device=compile_service.device_token(device), nonce=self._nonce)
 
     def __call__(self, *args):
         in_fmt = []
@@ -514,10 +543,10 @@ class CachedOp:
             (tuple(a.shape), a.dtype, a.device) for a in flat) + (
                 tuple(in_fmt),)
         with self._lock:
-            entry = self._graphs.get(key)
-            if entry is None:
-                entry = self._capture(key, flat, in_fmt)
-            graph, params, fmt = entry
+            graph, params, fmt = compile_service.get_or_build(
+                self._key(("graph", key), flat[0].device),
+                lambda: self._capture(key, flat, in_fmt),
+                provenance=lambda: self._provenance(key, False)).fn
             self._refresh(params)
             for static, a in zip(graph.static_inputs, flat):
                 static.copy_(a)
@@ -540,19 +569,25 @@ class CachedOp:
         key = (True, autograd.is_training()) + _signature(flat_in) + (
             tuple(in_fmt),)
         with self._lock:
-            pair = next((p for p in self._pairs.get(key, ()) if not p.busy),
-                        None)
-            if pair is None:
-                pair = self._capture_pair(key, flat_in, in_fmt)
+            i = 0
+            while True:   # the first pair of the signature not in use
+                pair = compile_service.get_or_build(
+                    self._key(("pair", key, i), flat_in[0].device),
+                    lambda: self._capture_pair(key, flat_in, in_fmt),
+                    provenance=lambda: self._provenance(key, True)).fn
+                if not pair.busy:
+                    break
+                i += 1
             self._refresh(pair.params)
-            tensors = flat_in + [p._tensor() for p in pair.diff_params]
+            tensors = flat_in + [p()._tensor() for p in pair.diff_params]
             with torch.enable_grad():
                 flat = _Recorded.apply(pair, len(flat_in), *tensors)
         return _regroup(list(flat), pair.fmt)[0]
 
     @staticmethod
     def _refresh(params):
-        for p, t in params:
+        for ref, t in params:
+            p = ref()
             cur = p._tensor()
             if cur.data_ptr() != t.data_ptr():
                 with torch.no_grad():
@@ -574,8 +609,10 @@ class CachedOp:
 
     def _state(self):
         """(every (parameter, tensor) of the block, the tensors a forward
-        moves in place: those that take no gradient)."""
-        params = [(p, p._tensor())
+        moves in place: those that take no gradient). The parameters are
+        held by weak references: the compile service's store keeps the
+        graphs and must not keep the block alive through them."""
+        params = [(weakref.ref(p), p._tensor())
                   for p in self._block.collect_params().values()]
         return params, [t for _, t in params if not t.requires_grad]
 
@@ -594,9 +631,7 @@ class CachedOp:
             graph = graphs.CapturedGraph(
                 functools.partial(self._forward, in_fmt), statics,
                 generators=self._generators(statics[0].device))
-        telemetry.record_retrace("cached_op", self._provenance(key, False))
-        self._graphs[key] = (graph, params, list(self._out_fmt))
-        return self._graphs[key]
+        return graph, params, list(self._out_fmt)
 
     def _capture_pair(self, key, args, in_fmt):
         statics = [a.detach().clone().requires_grad_(a.requires_grad)
@@ -613,7 +648,7 @@ class CachedOp:
             with reading_params(captured):
                 return self._forward(in_fmt, *xs)
 
-        diff = [(p, t) for p, t in params if t.requires_grad]
+        diff = [(r(), t) for r, t in params if t.requires_grad]
         with graphs.ledger_site("cached_op", self._provenance(key, True)):
             captured_pair = graphs.CapturedPair(
                 forward, statics, [t for _, t in diff], keep,
@@ -625,8 +660,6 @@ class CachedOp:
             raise MXNetError("a recorded call of a hybridized %s returns a "
                              "value that is not a tensor"
                              % type(self._block).__name__)
-        telemetry.record_retrace("cached_op", self._provenance(key, True))
-        self._pairs.setdefault(key, []).append(pair)
         return pair
 
 

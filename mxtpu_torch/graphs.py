@@ -27,11 +27,17 @@ every change to a count is made under one lock, so the counts read as if
 every forward had run eagerly, whatever the threads.
 
 FLOP ledger. A graph built inside ``ledger_site(site, provenance)``
-(``cached_op``, ``executor``, ``fused_optimizer``; a pair's backward at
-``<site>.backward``) counts its warm-up run's FLOPs with
-``xprof.measuring`` and records them, with the build's wall time, in an
-``xprof`` ledger entry; the warm-up and every replay add one to its
-``calls``.
+(every site of the compile service that captures: ``cached_op``,
+``executor``, ``fused_optimizer``, ``serving.predict``,
+``serving.decode``; a pair's backward at ``<site>.backward``) counts its
+warm-up run's FLOPs with ``xprof.measuring`` and records them, with the
+build's wall time, in an ``xprof`` ledger entry; the warm-up and every
+replay add one to its ``calls``. Inside a compile-service build whose
+blob (or group) already holds the graph's FLOPs, the graph takes them from
+there and runs no ``FlopCounterMode`` pass; either way it reports its
+FLOPs and the kernel libraries its capture launched to the build
+(``compile_service.note_flops``/``note_library``). ``EagerGraph`` is the
+same bookkeeping on the CPU, where nothing captures.
 """
 from __future__ import annotations
 
@@ -46,7 +52,7 @@ from .base import MXNetError
 
 __all__ = ["CAPTURE_LOCK", "CapturedGraph", "CapturedPair", "launched",
            "capturing", "captures", "keeping", "keeping_generators",
-           "allow_generator", "ledger_site"]
+           "allow_generator", "ledger_site", "EagerGraph"]
 
 # one lock for every capture and every eager forward of a shared block:
 # the Predictor's forward swaps its parameter snapshot into the block
@@ -163,9 +169,10 @@ class CapturedGraph:
                              % device)
         self.static_inputs = list(static_inputs)
         self.device = device
-        from . import xprof
+        from . import compile_service, xprof
         site, provenance = getattr(_STATE, "site", None) or (None, None)
-        measure = site is not None and xprof.enabled()
+        seed = compile_service.next_seed() if site is not None else None
+        measure = site is not None and xprof.enabled() and seed is None
         t_build = time.perf_counter()
         with CAPTURE_LOCK, torch.cuda.device(device), \
                 keeping_generators(generators):
@@ -207,10 +214,8 @@ class CapturedGraph:
         self.launches = [tuple(e) for e in tally.values()]
         self.graph = graph
         self.outputs = list(out)
-        self.ledger_entry = xprof.attach(
-            site, provenance, counted.get("flops"),
-            time.perf_counter() - t_build) if measure else None
-        xprof.called(self.ledger_entry)   # the warm-up ran the work once
+        _report(self, site, provenance, seed, counted.get("flops"),
+                time.perf_counter() - t_build)
 
     def replay(self):
         """Run the graph on the current stream; returns the static outputs
@@ -224,6 +229,61 @@ class CapturedGraph:
                 for obj, n in self.launches:
                     obj.launches += n
         return self.outputs
+
+
+def _report(graph, site, provenance, seed, measured, build_s):
+    """The ledger entry of a graph built at ``site`` (its FLOPs from the
+    compile service's ``seed`` or ``measured``), and the build's notes."""
+    from . import compile_service, kernels, xprof
+    graph.ledger_entry = None
+    if site is None:
+        return
+    flops = seed if seed is not None else measured
+    if xprof.enabled():
+        graph.ledger_entry = xprof.attach(site, provenance, flops, build_s)
+        xprof.called(graph.ledger_entry)   # the warm-up ran the work once
+    compile_service.note_flops(site, flops)
+    for obj, _ in getattr(graph, "launches", ()):
+        name = getattr(obj, "library", None)
+        if name:
+            compile_service.note_library(name, kernels.file_of(name))
+
+
+class EagerGraph:
+    """A ``CapturedGraph``'s bookkeeping on a device that captures nothing
+    (the CPU): ``replay()`` runs ``fn`` on the static inputs eagerly. Built
+    inside ``ledger_site``, it takes its FLOPs from the compile service's
+    seed; without one, and only when the compile service writes a blob,
+    it runs ``fn`` once under ``xprof.measuring`` (the warm-up a capture
+    makes) to count them."""
+
+    ledger_entry = None
+    launches = ()
+
+    def __init__(self, fn, static_inputs):
+        from . import compile_service, xprof
+        self.static_inputs = list(static_inputs)
+        self._fn = fn
+        site, provenance = getattr(_STATE, "site", None) or (None, None)
+        if site is None:
+            return
+        seed = compile_service.next_seed()
+        flops = None
+        t0 = time.perf_counter()
+        if seed is None and compile_service.cache_dir() and xprof.enabled():
+            with xprof.measuring() as counted:
+                fn(*self.static_inputs)
+            flops = counted["flops"]
+        if seed is None and flops is None:
+            return
+        _report(self, site, provenance, seed, flops,
+                time.perf_counter() - t0)
+
+    def replay(self):
+        out = self._fn(*self.static_inputs)
+        if self.ledger_entry is not None:
+            self.ledger_entry["calls"] += 1
+        return out
 
 
 class CapturedPair:

@@ -33,6 +33,18 @@ The kernel's launch (bfloat16 on the tensor cores, float32 on the CUDA
 cores; 16-byte or element-wise staging; tiles, padded K and grid) is
 decided by the pure ``_launch_args`` alone; the C entry point only
 refuses what would go out of bounds.
+
+Autotune (``autotune``, kernel id ``pallas_conv``): the plans are the
+output tiles the entry point has instances for (``block_m`` x ``block_n``:
+64 or 128 each in bfloat16; 128 x 64 and 64 x 128 in float32), the
+default is what ``_launch_args`` picks without one, and a plan that would
+take more shared memory than a block may have is infeasible
+(``tc_smem_bytes``/``f32_smem_bytes`` against ``SMEM_MAX``, as the entry
+point checks). With a plan served (``autotune.lookup`` on the launch's
+shape class: N, H, W, C_in, kh, kw, C_out, strides, padding and dtype),
+``_launch_args`` takes its tiles and recomputes the threads and the grid
+from them. The shape classes swept are ResNet-50 v1's five gated convs at
+batch 8 and 128 in bfloat16.
 """
 from __future__ import annotations
 
@@ -47,6 +59,7 @@ from ...base import MXNetError
 from ... import xprof
 from ...graphs import launched
 from ..precision_util import promote
+from . import autotune
 
 __all__ = ["fused_conv", "fused_conv_with_raw", "fused_conv_reference",
            "fused_conv_backward", "pallas_applicable", "out_hw"]
@@ -172,7 +185,7 @@ LaunchArgs = collections.namedtuple(
     "LaunchArgs", "dtype route vec_a vec_b block_m block_n threads k_pad grid")
 
 
-def _launch_args(x, w, strides, padding, sms=None):
+def _launch_args(x, w, strides, padding, sms=None, plan=None):
     """What ``_launch`` hands the kernel for these operands; the C entry
     point only refuses what would take it out of bounds. It reads only
     shapes, dtypes and ``data_ptr``, so CPU tensors do, given ``sms``:
@@ -188,7 +201,9 @@ def _launch_args(x, w, strides, padding, sms=None):
       ``block_m`` pixels a block: in bfloat16 128 where 128-pixel blocks
       fill the ``sms`` SMs (default: those of x's card) at least twice
       over, else 64; in float32 128 with ``block_n`` 64, else 64 (128
-      threads either way); ``threads`` a block;
+      threads either way); ``threads`` a block; a ``plan``
+      (``{"block_m", "block_n"}``, from autotune) gives the two tiles
+      instead, and the threads and the grid follow from them;
     * ``k_pad``: K = kh*kw*C_in rounded up to 16 (the kernel zero-fills
       past K); ``grid``: (blocks over the pixels, blocks over C_out).
     """
@@ -202,20 +217,144 @@ def _launch_args(x, w, strides, padding, sms=None):
     route = TENSOR_CORES if dtype == 1 else CUDA_CORES
     vec_a = (cin * es) % 16 == 0 and x.data_ptr() % 16 == 0
     vec_b = (cout * es) % 16 == 0 and w.data_ptr() % 16 == 0
-    if sms is None:
+    if sms is None and plan is None:
         from .flash_attention import _sm_count
         sms = _sm_count(x.device.index or 0)
     k_pad = -(-(kh * kw * cin) // 16) * 16
-    block_n = 64 if cout <= 64 else 128
-    grid_n = -(-cout // block_n)
-    if route == TENSOR_CORES:
-        block_m = 128 if -(-m // 128) * grid_n >= 2 * sms else 64
-        threads = block_m // 64 * 128
-    else:
-        block_m = 128 if block_n == 64 else 64
-        threads = block_m * block_n // 64
+    block_m, block_n = _tiles(m, cout, route, sms, plan)
+    threads = block_m // 64 * 128 if route == TENSOR_CORES \
+        else block_m * block_n // 64
     return LaunchArgs(dtype, route, vec_a, vec_b, block_m, block_n, threads,
-                      k_pad, (-(-m // block_m), grid_n))
+                      k_pad, (-(-m // block_m), -(-cout // block_n)))
+
+
+def _tiles(m, cout, route, sms, plan=None):
+    """(block_m, block_n): the plan's, else ``_launch_args``'s rule."""
+    if plan is not None:
+        return int(plan["block_m"]), int(plan["block_n"])
+    block_n = 64 if cout <= 64 else 128
+    if route == TENSOR_CORES:
+        grid_n = -(-cout // block_n)
+        return (128 if -(-m // 128) * grid_n >= 2 * sms else 64), block_n
+    return (128 if block_n == 64 else 64), block_n
+
+
+# ----------------------------------------------------- autotune descriptor
+_SMEM_MAX = 232448 - 3072   # csrc/fused_conv.cu's SMEM_MAX
+_TC_BK, _TC_STAGES, _F32_BK, _F32_STAGES = 64, 4, 32, 3
+_PLANS = {"bfloat16": [(64, 64), (64, 128), (128, 64), (128, 128)],
+          "float32": [(128, 64), (64, 128)]}
+_DTYPE_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+
+
+def _smem_bytes(block_m, block_n, k, dtype):
+    """The entry point's shared memory for these tiles (its
+    ``tc_smem_bytes`` / ``f32_smem_bytes``)."""
+    k_pad = -(-k // 16) * 16
+    if dtype == "bfloat16":
+        chunks = -(-k_pad // _TC_BK)
+        ring = min(chunks, _TC_STAGES) * (block_m + block_n) * _TC_BK * 2
+        return 1024 + max(ring, block_m * (block_n + 8) * 4)
+    chunks = -(-k_pad // _F32_BK)
+    return 4 * min(chunks, _F32_STAGES) * (
+        block_m * (_F32_BK + 4) + _F32_BK * (block_n + 4))
+
+
+def shape_class(x, w, strides, padding):
+    """The autotune shape class of a launch."""
+    n, h, wd, cin = x.shape
+    kh, kw, _, cout = w.shape
+    return {"n": int(n), "h": int(h), "w": int(wd), "cin": int(cin),
+            "kh": int(kh), "kw": int(kw), "cout": int(cout),
+            "sh": int(strides[0]), "sw": int(strides[1]),
+            "p0": int(padding[0][0]), "p1": int(padding[0][1]),
+            "q0": int(padding[1][0]), "q1": int(padding[1][1]),
+            "dtype": _DTYPE_NAME[x.dtype]}
+
+
+def _class_m(sc):
+    return sc["n"] * out_hw(sc["h"], sc["p0"], sc["p1"], sc["kh"],
+                            sc["sh"]) * out_hw(sc["w"], sc["q0"], sc["q1"],
+                                               sc["kw"], sc["sw"])
+
+
+def _default_sms():
+    if torch.cuda.is_available():
+        from .flash_attention import _sm_count
+        return _sm_count(0)
+    return 132   # the H100 SXM's, where no card answers
+
+
+def _tune_space(sc):
+    return [{"block_m": bm, "block_n": bn} for bm, bn in _PLANS[sc["dtype"]]]
+
+
+def _tune_default(sc, sms=None):
+    route = TENSOR_CORES if sc["dtype"] == "bfloat16" else CUDA_CORES
+    bm, bn = _tiles(_class_m(sc), sc["cout"], route,
+                    _default_sms() if sms is None else sms)
+    return {"block_m": bm, "block_n": bn}
+
+
+def _tune_feasible(plan, sc):
+    tiles = (int(plan.get("block_m", 0)), int(plan.get("block_n", 0)))
+    if tiles not in _PLANS[sc["dtype"]]:
+        return False, "no %s instance of %dx%d tiles" % ((sc["dtype"],)
+                                                          + tiles)
+    smem = _smem_bytes(tiles[0], tiles[1], sc["kh"] * sc["kw"] * sc["cin"],
+                       sc["dtype"])
+    if smem > _SMEM_MAX:
+        return False, "shared memory %d > %d" % (smem, _SMEM_MAX)
+    return True, None
+
+
+def _tune_runner(sc):
+    """Seeded buffers on the card (the CPU without one) and a call through
+    ``fused_conv`` with a scale, a bias and ReLU, as a folded BatchNorm
+    serves."""
+    gen = torch.Generator().manual_seed(0)
+    dev = "cuda" if torch.cuda.is_available() else "cpu"
+    dt = torch.bfloat16 if sc["dtype"] == "bfloat16" else torch.float32
+    x = torch.randn(sc["n"], sc["h"], sc["w"], sc["cin"], generator=gen)
+    w = 0.1 * torch.randn(sc["kh"], sc["kw"], sc["cin"], sc["cout"],
+                          generator=gen)
+    scale = 1.0 + 0.1 * torch.randn(sc["cout"], generator=gen)
+    bias = 0.1 * torch.randn(sc["cout"], generator=gen)
+    args = (x.to(dev, dt), w.to(dev, dt), scale.to(dev), bias.to(dev))
+    strides = (sc["sh"], sc["sw"])
+    padding = ((sc["p0"], sc["p1"]), (sc["q0"], sc["q1"]))
+
+    def fn(xx, ww, s, b):
+        return fused_conv(xx, ww, strides, padding, scale=s, bias=b,
+                          relu=True)
+    return fn, args
+
+
+# ResNet-50 v1's gated convs: (H=W, C_in, C_out, k, stride, pad)
+RESNET50_GATED = ((224, 3, 64, 7, 2, 3), (56, 64, 64, 1, 1, 0),
+                  (56, 64, 64, 3, 1, 1), (56, 64, 256, 1, 1, 0),
+                  (56, 256, 64, 1, 1, 0))
+
+
+def _tune_classes():
+    """ResNet-50 v1's five gated convs at batch 8 (serving) and 128
+    (training), in bfloat16."""
+    return [{"n": n, "h": hw, "w": hw, "cin": cin, "kh": k, "kw": k,
+             "cout": cout, "sh": s, "sw": s, "p0": p, "p1": p, "q0": p,
+             "q1": p, "dtype": "bfloat16"}
+            for n in (8, 128) for hw, cin, cout, k, s, p in RESNET50_GATED]
+
+
+def _plan_of(x, w, strides, padding):
+    """The autotune plan of this launch (None: the default)."""
+    if not autotune.consulted():
+        return None
+    sc = shape_class(x, w, strides, padding)
+    plan = autotune.lookup("pallas_conv", sc)
+    if plan is not None and not _tune_feasible(plan, sc)[0]:
+        autotune.plan_infeasible("pallas_conv")
+        return None
+    return plan
 
 
 @functools.lru_cache(maxsize=None)
@@ -238,7 +377,8 @@ def _launch(x, w, strides, padding, scale, bias, residual, relu, oh, ow):
                                                        torch.float32):
         raise MXNetError("fused_conv: residual must be %s or float32, got %s"
                          % (x.dtype, residual.dtype))
-    la = _launch_args(x, w, strides, padding)
+    la = _launch_args(x, w, strides, padding,
+                      plan=_plan_of(x, w, strides, padding))
     n, h, wd, cin = x.shape
     kh, kw, _, cout = w.shape
     out = torch.empty((n, oh, ow, cout), dtype=x.dtype, device=x.device)
@@ -409,3 +549,8 @@ def fused_conv(x, w, strides=(1, 1), padding=((0, 0), (0, 0)), scale=None,
 
 
 fused_conv.launches = 0
+fused_conv.library = "fused_conv"   # what a capture of a launch needs
+
+autotune.register_kernel(autotune.TunableKernel(
+    kernel_id="pallas_conv", space=_tune_space, default=_tune_default,
+    feasible=_tune_feasible, runner=_tune_runner, classes=_tune_classes))

@@ -31,6 +31,17 @@ meta the call raises "no kernel for device", with or without a gradient. ``flash
 forward kernel launches of both entry points; it never counts a call that
 ran the plain version, nor a backward.
 
+Autotune (``autotune``, kernel id ``pallas_flash``): in bfloat16 up to
+D 128 the plans are ``wgs`` (warpgroups a block) 1 or 2 times ``d_tile``,
+the smallest tile that holds D or 128 (the instances of
+``csrc/flash_attention.cu``); float32 and the sliced kernels have one
+plan, the default. The default is what ``_launch_args`` picks without a
+plan; with one served (``autotune.lookup`` on the shape class B, H, T,
+Tk, D and dtype), ``_launch_args`` takes its ``wgs`` and ``d_tile`` and
+recomputes the rows a block, the row blocks and the grid from them. The
+classes swept are BERT-base's attention at [8, 12, 512, 64] and [16, 12,
+512, 64] in bfloat16.
+
 ``DISPATCH_STATS`` is the reference's view over the telemetry counters
 ``pallas_flash.{pallas,xla,fallback}``: ``pallas`` counts a kernel launch
 on the card and ``xla`` a call of the plain version on the CPU; the port
@@ -47,6 +58,7 @@ import torch
 from ...base import MXNetError
 from ... import telemetry, xprof
 from ...graphs import launched
+from . import autotune
 
 __all__ = ["flash_attention", "flash_attention_with_lse",
            "flash_attention_reference", "flash_attention_backward",
@@ -120,7 +132,7 @@ def _aligned16(t):
             and (n[2] == 1 or st[2] * es % 16 == 0))
 
 
-def _launch_args(q, k, v, causal, scale, sms=None):
+def _launch_args(q, k, v, causal, scale, sms=None, plan=None):
     """What ``_launch`` hands the kernel for these views; the C entry point
     only refuses what would take it out of bounds. It reads only shapes,
     strides, dtypes and ``data_ptr``, so CPU tensors do, given ``sms``:
@@ -141,27 +153,112 @@ def _launch_args(q, k, v, causal, scale, sms=None):
     * ``block_q`` rows per block, ``n_q`` row blocks per (batch, head),
       ``grid`` blocks in all (128 threads a warpgroup).
 
-    ``causal`` and ``scale`` do not change the launch; they go to the
-    kernel as arguments.
+    A ``plan`` (``{"wgs", "d_tile"}``, from autotune) gives the
+    warpgroups and the tile instead; the rows a block, the row blocks and
+    the grid follow from them. ``causal`` and ``scale`` do not change the
+    launch; they go to the kernel as arguments.
     """
     b, h, t, d = q.shape
     dtype = _DTYPE_CODE[q.dtype]
-    d_tile = 32 if d <= 32 else 64 if d <= 64 else _SLICE
     slices = -(-d // _SLICE)
     vec = (d * q.element_size()) % 16 == 0 and _aligned16(q) \
         and _aligned16(k) and _aligned16(v)
-    if dtype == 0:
-        warpgroups, block_q = 1, 128
-    elif slices > 1:
-        warpgroups, block_q = 1, 64
+    if plan is not None:
+        d_tile, warpgroups = int(plan["d_tile"]), int(plan["wgs"])
     else:
-        if sms is None:
+        if sms is None and dtype == 1 and slices == 1:
             sms = _sm_count(q.device.index or 0)
-        warpgroups = 2 if b * h * -(-t // 128) >= 2 * sms else 1
-        block_q = 64 * warpgroups
+        d_tile, warpgroups = _pick(b, h, t, d, dtype, sms)
+    block_q = 128 if dtype == 0 else 64 * warpgroups
     n_q = -(-t // block_q)
     return LaunchArgs(dtype, d_tile, vec, warpgroups, block_q, n_q, slices,
                       b * h * n_q * slices)
+
+
+def _pick(b, h, t, d, dtype, sms):
+    """(d_tile, warpgroups) without a plan: ``_launch_args``'s rule."""
+    d_tile = 32 if d <= 32 else 64 if d <= 64 else _SLICE
+    if dtype == 0 or d > _SLICE:
+        return d_tile, 1
+    return d_tile, 2 if b * h * -(-t // 128) >= 2 * sms else 1
+
+
+# ----------------------------------------------------- autotune descriptor
+_DTYPE_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+
+
+def shape_class(q, k):
+    """The autotune shape class of a launch."""
+    b, h, t, d = q.shape
+    return {"b": int(b), "h": int(h), "t": int(t), "tk": int(k.shape[2]),
+            "d": int(d), "dtype": _DTYPE_NAME[q.dtype]}
+
+
+def _default_sms():
+    return _sm_count(0) if torch.cuda.is_available() else 132
+
+
+def _tune_default(sc, sms=None):
+    d_tile, wgs = _pick(sc["b"], sc["h"], sc["t"], sc["d"],
+                        _DTYPE_CODE[getattr(torch, sc["dtype"])],
+                        _default_sms() if sms is None else sms)
+    return {"d_tile": d_tile, "wgs": wgs}
+
+
+def _tune_space(sc):
+    if sc["dtype"] != "bfloat16" or sc["d"] > _SLICE:
+        return [_tune_default(sc)]
+    small = 32 if sc["d"] <= 32 else 64 if sc["d"] <= 64 else _SLICE
+    return [{"d_tile": dt, "wgs": wgs} for wgs in (1, 2)
+            for dt in sorted({small, _SLICE})]
+
+
+def _tune_feasible(plan, sc):
+    dt, wgs = int(plan.get("d_tile", 0)), int(plan.get("wgs", 0))
+    if sc["dtype"] != "bfloat16" or sc["d"] > _SLICE:
+        default = _tune_default(sc, sms=1 << 30)
+        if (dt, wgs) != (default["d_tile"], default["wgs"]):
+            return False, "one plan for float32 and the sliced kernels"
+        return True, None
+    if dt not in (32, 64, _SLICE) or dt < sc["d"]:
+        return False, "d_tile=%d does not hold D=%d" % (dt, sc["d"])
+    if wgs not in (1, 2):
+        return False, "no instance with %d warpgroups" % wgs
+    return True, None   # every bf16 instance fits a block's shared memory
+
+
+def _tune_runner(sc):
+    """Seeded q, k, v on the card (the CPU without one) and a call through
+    ``flash_attention``, not causal (the plan also serves the causal
+    variant of the class)."""
+    gen = torch.Generator().manual_seed(0)
+    dev = "cuda" if torch.cuda.is_available() else "cpu"
+    dt = getattr(torch, sc["dtype"])
+    q = torch.randn(sc["b"], sc["h"], sc["t"], sc["d"], generator=gen)
+    k = torch.randn(sc["b"], sc["h"], sc["tk"], sc["d"], generator=gen)
+    v = torch.randn(sc["b"], sc["h"], sc["tk"], sc["d"], generator=gen)
+
+    def fn(q_, k_, v_):
+        return flash_attention(q_, k_, v_, causal=False)
+    return fn, (q.to(dev, dt), k.to(dev, dt), v.to(dev, dt))
+
+
+def _tune_classes():
+    """BERT-base's attention at b8 and b16 x 12 heads x 512, D 64, bf16."""
+    return [{"b": b, "h": 12, "t": 512, "tk": 512, "d": 64,
+             "dtype": "bfloat16"} for b in (8, 16)]
+
+
+def _plan_of(q, k):
+    """The autotune plan of this launch (None: the default)."""
+    if not autotune.consulted():
+        return None
+    sc = shape_class(q, k)
+    plan = autotune.lookup("pallas_flash", sc)
+    if plan is not None and not _tune_feasible(plan, sc)[0]:
+        autotune.plan_infeasible("pallas_flash")
+        return None
+    return plan
 
 
 @functools.lru_cache(maxsize=None)
@@ -178,7 +275,7 @@ def _entry():
 
 def _launch(q, k, v, causal, scale):
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
-    la = _launch_args(q, k, v, causal, scale)
+    la = _launch_args(q, k, v, causal, scale, plan=_plan_of(q, k))
     b, h, t, d = q.shape
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
@@ -293,6 +390,11 @@ def flash_attention(q, k, v, causal=False, scale=None, block_q=512,
 
 
 flash_attention.launches = 0
+flash_attention.library = "flash_attention"   # what a capture needs
+
+autotune.register_kernel(autotune.TunableKernel(
+    kernel_id="pallas_flash", space=_tune_space, default=_tune_default,
+    feasible=_tune_feasible, runner=_tune_runner, classes=_tune_classes))
 
 
 class _DispatchStatsView:

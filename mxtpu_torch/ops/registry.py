@@ -20,7 +20,8 @@ from typing import Callable, Dict, List, Optional
 __all__ = ["Op", "register", "get_op", "list_ops", "invoke", "REGISTRY",
            "attach_methods", "describe", "NUM_OUTPUT_RULES",
            "register_num_outputs", "PARAM_SHAPE_RULES",
-           "register_param_shapes", "get_param_shape_rule"]
+           "register_param_shapes", "get_param_shape_rule", "policy_key",
+           "UPDATE_ONLY"]
 
 
 class Op:
@@ -82,6 +83,60 @@ def register(name: Optional[str] = None, aliases=(), as_method: bool = False,
         return fn
 
     return deco
+
+
+def _autotune_plans_entry():
+    """The tuned-plan component of ``policy_key``: a digest of the
+    installed plan set (``pallas.autotune.policy_token``), "0" with
+    autotune off or no plan installed."""
+    try:
+        from .pallas import autotune
+        return autotune.policy_token()
+    except Exception:  # noqa: BLE001 - policy_key must never raise
+        return "0"
+
+
+# the positions in policy_key of the levers only an optimizer's update graph
+# bakes in: the guard, the divergence bit, the fused step
+UPDATE_ONLY = (9, 10, 11)
+
+
+def policy_key():
+    """The levers whose state a captured graph bakes in, as a tuple in the
+    reference's order (``mxtpu/ops/registry.py:policy_key``): every cache
+    of captures keys on it, so a flip captures anew instead of replaying a
+    graph recorded under the old policy.
+
+    The reference's environment policies that the port has no lever for
+    enter as the constant of the port's one behaviour: float32 conv
+    accumulation as the operands' own (``MXTPU_CONV_ACC`` "0"), one-pass
+    BatchNorm statistics ("1"), no head-dim padding (the kernel takes any
+    D: ``MXTPU_FLASH_PAD_D`` "0"), no im2col conv ("0"), the hoisted RNN
+    input projection ("1"), the conv kernel behind its gate
+    (``MXTPU_PALLAS_CONV`` "1", never interpreted: "0"), the stem as the
+    caller asks (``MXTPU_S2D_STEM`` "0") and no flash interpreter ("0").
+    The port's setters fill the rest: ``parallel.set_ring_flash``,
+    ``resilience.set_guard``, the on bit of
+    ``resilience.set_divergence_every``, ``optimizer_fused.set_enabled``
+    and ``autotune.enabled()`` with ``autotune.policy_token()``."""
+    from .. import optimizer_fused, resilience
+    from ..parallel.ring_attention import _RING_FLASH
+    from .pallas import autotune
+    return ("0",                                        # MXTPU_CONV_ACC
+            "1",                                        # MXTPU_BN_ONEPASS
+            "1" if _RING_FLASH[0] else "0",
+            "0",                                        # MXTPU_FLASH_PAD_D
+            "0",                                        # MXTPU_CONV_IM2COL
+            "1",                                        # MXTPU_RNN_HOIST
+            "1",                                        # MXTPU_PALLAS_CONV
+            "0",                          # MXTPU_PALLAS_CONV_INTERPRET
+            "0",                                        # MXTPU_S2D_STEM
+            "1" if resilience.guard_enabled() else "0",
+            "0" if resilience.divergence_every() <= 0 else "1",
+            "1" if optimizer_fused.fused_enabled() else "0",
+            "1" if autotune.enabled() else "0",
+            "0",                                  # MXTPU_FLASH_INTERPRET
+            _autotune_plans_entry())
 
 
 # canonical op name -> fn(attrs) -> number of outputs, for ops whose count

@@ -2,7 +2,9 @@
 ``mxtpu/ops/subgraph_ops.py``; symbol/subgraph.py makes the nodes).
 
 * ``_subgraph_exec`` runs a serialized sub-symbol INLINE, in predict and
-  training mode alike; only the parsed sub-symbol is cached. (The
+  training mode alike; only the parsed sub-symbol is cached, in the
+  compile service at site ``subgraph_exec`` (keyed by the JSON's digest,
+  under its LRU bound; nothing goes to disk). (The
   reference gives each region its own jit in predict mode; inside the
   port's executor a region is part of the outer captured CUDA graph, as a
   capture cannot nest, and the numbers are the same.)
@@ -12,20 +14,26 @@
 """
 from __future__ import annotations
 
+import hashlib
+
+from .. import compile_service
 from .registry import register
 
 __all__ = ["subgraph_exec", "sg_flash_attention"]
 
-# subgraph_json -> parsed Symbol
-_SUBGRAPH_CACHE = {}
+# JSON digest -> parsed Symbol: the compile service's subgraph_exec entries
+_SUBGRAPH_CACHE = compile_service.SiteTable(
+    lambda k: k.site == "subgraph_exec", name=lambda k: k.fn_id)
 
 
 def _load_sym(subgraph_json):
-    hit = _SUBGRAPH_CACHE.get(subgraph_json)
-    if hit is None:
-        from ..symbol.symbol import load_json
-        hit = _SUBGRAPH_CACHE[subgraph_json] = load_json(subgraph_json)
-    return hit
+    from ..symbol.symbol import load_json
+    key = compile_service.canonical_key(
+        site="subgraph_exec", fn_id="subgraph:" + hashlib.sha256(
+            subgraph_json.encode()).hexdigest()[:32], signature=())
+    return compile_service.get_or_build(
+        key, lambda: load_json(subgraph_json), persist=False,
+        provenance={"bytes": len(subgraph_json)}).fn
 
 
 @register("_subgraph_exec")

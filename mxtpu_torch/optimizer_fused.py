@@ -92,7 +92,7 @@ import weakref
 
 import torch
 
-from . import graphs, resilience, telemetry
+from . import compile_service, graphs, resilience, telemetry
 from .ndarray import NDArray
 from .optimizer import (DCASGD, FTML, NAG, SGD, AdaDelta, AdaGrad, Adam,
                         Adamax, Ftrl, GroupAdaGrad, Nadam, RMSProp, Signum,
@@ -111,6 +111,7 @@ _ENABLED = [True]
 FUSED_STATS = {"fused_steps": 0, "traces": 0, "compiles": 0,
                "eager_updates": 0}
 _UPDATERS = weakref.WeakSet()
+_FN_IDS = {}   # optimizer class -> its compile-service identity
 _STATS_LOCK = threading.Lock()
 
 
@@ -688,7 +689,12 @@ class FusedUpdater(Updater):
 
     def __init__(self, optimizer):
         super().__init__(optimizer)
-        self._graphs = {}
+        # the captured updates: this updater's entries of the compile
+        # service (site fused_optimizer), by group key
+        self._nonce = nonce = compile_service.release_on_collect(self)
+        self._graphs = compile_service.SiteTable(
+            lambda k: (k.nonce or "").split("/")[0] == nonce,
+            name=lambda k: k.signature)
         self._staging = _Staging()
         self._plan = None
         self._views = {}
@@ -906,11 +912,16 @@ class FusedUpdater(Updater):
                                     _structure(it[3])) for it in members))
             h = host[at:at + 1 + len(hyper)]
             at += 1 + len(hyper)
-            group = self._graphs.get(gkey)
+            key = self._service_key(gkey, device)
+            hit = compile_service.get(key)
+            group = None if hit is None else hit.fn
             if group is None:
-                self._graphs[gkey] = self._capture(
-                    gkey, members, mp, cfg, rule.step,
-                    h.to(device, copy=True), wd_zero)
+                compile_service.get_or_build(
+                    key, functools.partial(
+                        self._capture, gkey, members, mp, cfg, rule.step,
+                        h.to(device, copy=True), wd_zero),
+                    provenance=functools.partial(self._prov, gkey, mp,
+                                                 len(members)))
             else:
                 static = group.graph.static_inputs
                 static[-1].copy_(h, non_blocking=True)
@@ -938,13 +949,34 @@ class FusedUpdater(Updater):
                 torch._foreach_copy_(weights, ws)
             return []
 
-        graph = graphs.CapturedGraph(update, static)
+        with graphs.ledger_site("fused_optimizer",
+                                self._prov(gkey, mp, len(members))):
+            graph = graphs.CapturedGraph(update, static)
         _stat("traces")
         _stat("compiles")
-        telemetry.record_retrace("fused_optimizer", {
-            "optimizer": gkey[0].__name__, "params": len(members),
-            "multi_precision": mp, "dtype": str(gkey[-1][0][2])})
         return _Group(graph, [a._data for a in _holders(members)])
+
+    def _service_key(self, gkey, device, nonce=None):
+        """The compile service's key of a captured update: the optimizer's
+        class and source, the group key, ``compile_service.
+        update_policy()``, the device and this updater's nonce (with the
+        guard's scale buffer, which only this process knows)."""
+        opt = type(self.optimizer)
+        fn_id = _FN_IDS.get(opt)
+        if fn_id is None:
+            fn_id = _FN_IDS[opt] = "fused_optimizer:%s:%s" % (
+                opt.__name__, compile_service.source_token(opt))
+        return compile_service.canonical_key(
+            site="fused_optimizer", fn_id=fn_id, signature=gkey,
+            policy=compile_service.update_policy(),
+            device=compile_service.device_token(device),
+            nonce=self._nonce if nonce is None
+            else "%s/%s" % (self._nonce, nonce))
+
+    @staticmethod
+    def _prov(gkey, mp, n):
+        return {"optimizer": gkey[0].__name__, "params": n,
+                "multi_precision": mp, "dtype": str(gkey[-1][0][2])}
 
     # ------------------------------------------------------ the numerics guard
     def _guard_state(self, device):
@@ -1061,14 +1093,16 @@ class FusedUpdater(Updater):
         after with the gradients, hyperparameters and ``ext_sq`` copied
         into its static inputs."""
         members = [it for m, _, _ in plan for it in m]
-        gkey = ("guard",) + head + tuple(
+        gkey = ("guard",) + head[:-1] + tuple(
             (mp, wd_zero, tuple((it[0], tuple(it[2].shape),
                                  it[2]._data.dtype, _structure(it[3]))
                                 for it in m))
             for m, mp, wd_zero in plan)
         host = self._staging.write(values, device)
         h = host[:len(values)]
-        group = self._graphs.get(gkey)
+        key = self._service_key(gkey, device, nonce="%x" % head[-1])
+        hit = compile_service.get(key)
+        group = None if hit is None else hit.fn
         if group is None:
             static = [g.detach().clone() for g in grads] + [
                 h.to(device, copy=True), ext_sq.detach().clone()]
@@ -1084,18 +1118,20 @@ class FusedUpdater(Updater):
                 for buf, val in zip(outs, fn(*xs)):
                     buf.copy_(val)
                 return []
-            with graphs.ledger_site("fused_optimizer", {
-                    "optimizer": head[0].__name__, "guard": True,
-                    "params": len(members)}):
-                graph = graphs.CapturedGraph(run, static)
-            _stat("traces")
-            _stat("compiles")
-            telemetry.record_retrace("fused_optimizer", {
+
+            def build():
+                with graphs.ledger_site("fused_optimizer", {
+                        "optimizer": head[0].__name__, "guard": True,
+                        "params": len(members)}):
+                    graph = graphs.CapturedGraph(run, static)
+                _stat("traces")
+                _stat("compiles")
+                group = _Group(graph, [a._data for a in _holders(members)])
+                group.outputs = outs
+                return group
+            group = compile_service.get_or_build(key, build, provenance={
                 "optimizer": head[0].__name__, "params": len(members),
-                "guard": True, "scaler": head[2], "divergence": head[3]})
-            group = self._graphs[gkey] = _Group(
-                graph, [a._data for a in _holders(members)])
-            group.outputs = outs
+                "guard": True, "scaler": head[2], "divergence": head[3]}).fn
         else:
             static = group.graph.static_inputs
             static[-2].copy_(h, non_blocking=True)

@@ -17,9 +17,13 @@ C++ source and ``PallasModule`` only raises with that guidance.
   generated ``extern "C"`` launcher per exported kernel (which calls
   ``cudaLaunchKernel`` with a ``void**`` argument array and returns the
   error code) is compiled by nvcc with the package's flags (``sm_90a``)
-  into ``build/mxtpu_torch/rtc/<sha256>.so``, loaded with ctypes and kept
-  in-process. A CUDA kernel compiles once per source, not once per launch
-  signature. The build happens at the first launch or at ``build()``.
+  into ``build/mxtpu_torch/rtc/<sha256>.so`` (and, with the compile
+  service's cache dir set, copied into ``<cache dir>/kernels/``, where a
+  fresh process finds it without nvcc: ``build_how`` "cache"), loaded with
+  ctypes and kept in the compile service at site ``rtc``, under its LRU
+  bound (an evicted library stays loaded while a ``Kernel`` holds it). A
+  CUDA kernel compiles once per source, not once per launch signature.
+  The build happens at the first launch or at ``build()``.
 * ``launch`` runs on ``torch.cuda.current_stream()`` of the arguments'
   device and returns NDArrays (one, or a list). Inputs that are not
   contiguous are copied to contiguous tensors first (a raw pointer sees
@@ -220,7 +224,7 @@ class CudaModule:
         self._decls = decls
         self._lib = None
         self.digest = None
-        self.build_how = None       # "nvcc", "disk" or "memory"
+        self.build_how = None       # "nvcc", "cache", "disk" or "memory"
         self.build_seconds = None
 
     @property
@@ -351,6 +355,14 @@ class Kernel:
         # check
         self._last_dims = self._last_spec = (None, None)
         self._lock = threading.Lock()
+
+    @property
+    def library(self):
+        """The library a capture that launches this kernel needs, as the
+        compile service's blobs name it (``rtc/<digest>``)."""
+        digest = self._module.digest or kernels.runtime_target(
+            self._module.generated_source, self._module.options)[3]
+        return "rtc/" + digest
 
     def __repr__(self):
         return "Kernel %s(%s) -> %d output(s)" % (

@@ -84,11 +84,12 @@ import hashlib
 import logging
 import threading
 import time
+import weakref
 
 import numpy as np
 import torch
 
-from .. import telemetry, xprof
+from .. import compile_service, graphs, telemetry, xprof
 from ..base import MXNetError
 from ..context import resolve_device
 from ..graphs import CapturedGraph
@@ -427,6 +428,7 @@ class _Exec:
         if device.type == "cuda":
             self._graph = CapturedGraph(fn, self.static_inputs, pool=pool,
                                         device=device)
+            self._fn = None   # the compile service's store keeps no engine
 
     def __call__(self, *inputs):
         for static, x in zip(self.static_inputs, inputs):
@@ -576,7 +578,13 @@ class DecodeEngine:
                 self._draft_model, prefill_spec, example=example,
                 warmup=False, name=name + ".draft", device=self._device,
                 site=self._draft_site, int8=False)
-        self._execs = {}           # (kind, bucket) -> _Exec
+        # (kind, bucket) -> _Exec: this engine's entries of the compile
+        # service
+        self._nonce = nonce = compile_service.release_on_collect(self)
+        me = weakref.ref(self)
+        self._execs = compile_service.SiteTable(
+            lambda k: k.nonce == nonce, name=lambda k: k.signature[:2],
+            key_of=lambda kb: me()._exec_key(*kb))
         self._pool = None          # the executables' graph memory pool
         self._kv_layout = None     # [(trailing_shape, dtype)] per leaf
         self._vocab = None
@@ -1016,19 +1024,34 @@ class DecodeEngine:
         """The one front door for the engine's executables: builds (on the
         card, captures) ``fn`` over ``statics`` and counts one build at
         the engine's retrace site (the draft's at ``serving.draft``)."""
-        key = (kind, bucket)
-        hit = self._execs.get(key)
-        if hit is not None:
-            return hit
-        if self._device.type == "cuda" and self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        ex = _Exec(fn, statics, self._device, self._pool)
-        telemetry.record_retrace(site or self._site, {
-            "engine": self._name, "kind": kind, "bucket": bucket,
-            "int8": self._int8, "capacity": self._capacity,
-            "max_len": self._max_len, "device": str(self._device)})
-        self._execs[key] = ex
-        return ex
+        def build():
+            if self._device.type == "cuda" and self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            with graphs.ledger_site(site or self._site, {
+                    "engine": self._name, "kind": kind, "bucket": bucket}):
+                return _Exec(fn, statics, self._device, self._pool)
+
+        return compile_service.get_or_build(
+            self._exec_key(kind, bucket, site), build, provenance={
+                "engine": self._name, "kind": kind, "bucket": bucket,
+                "int8": self._int8, "capacity": self._capacity,
+                "max_len": self._max_len, "device": str(self._device)}).fn
+
+    def _exec_key(self, kind, bucket, site=None):
+        """The compile service's key of one executable: the prefill
+        Predictor's identity, the kind and bucket with the engine's shape
+        (int8, capacity, max_len, page tokens, speculation depth),
+        ``compile_service.forward_policy()``, the device and this
+        engine's nonce."""
+        if site is None:
+            site = self._draft_site if kind == "draft" else self._site
+        return compile_service.canonical_key(
+            site=site, fn_id="decode:" + self._pred._fn_token(),
+            signature=(kind, bucket, self._int8, self._capacity,
+                       self._max_len, self._pt, self._spec_k),
+            policy=compile_service.forward_policy(),
+            device=compile_service.device_token(self._device),
+            nonce=self._nonce)
 
     def _get_step_exec(self, b):
         """The decode step of cohort bucket ``b``: greedy next token of

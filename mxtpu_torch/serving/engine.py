@@ -53,18 +53,35 @@ and never with a bare ``set_data``.
 ``from_trainer_checkpoint`` the parameters of a
 ``contrib.async_checkpoint.save_trainer`` step. A device OOM in a dispatch
 (``torch.cuda.OutOfMemoryError``, fault kind ``oom``) writes
-``xprof.oom_flight``'s artifact before it fails the dispatch. Not ported
-yet: the compile service and its disk cache (A9's second part).
+``xprof.oom_flight``'s artifact before it fails the dispatch.
+
+Every bucket resolves through the compile service (``compile_service``,
+site = the Predictor's retrace site): its key is the block's class and
+source with the snapshot's names, shapes and dtypes (``_fn_token``), the
+bucket's shapes and dtypes with ``int8``, ``compile_service.
+forward_policy()``, the device and this Predictor's nonce; ``_buckets``
+is a view over the service's store, so the LRU bound evicts a bucket
+from it too (a later request captures it again). ``warmup_entries()``
+declares one ``compile_service.WarmupEntry`` per bucket, largest first,
+with a group token that a ReplicaSet's identical members share;
+``warmup()`` is ``compile_service.warmup(self.warmup_entries())`` after
+the pre-flight, then ``finish_warmup()``. With the service's cache dir
+set, a bucket whose blob holds takes its FLOPs from it (no
+``FlopCounterMode`` pass) and the pre-flight takes the footprint that the
+largest bucket's blob recorded; the capture still runs, once per bucket
+and device, in a warm process as in a cold one (a CUDA graph cannot be
+serialized). ``param_args()`` gives the snapshot a bucket reads.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
+import weakref
 
 import numpy as np
 import torch
 
-from .. import resilience, telemetry, xprof
+from .. import compile_service, graphs, resilience, telemetry, xprof
 from ..base import MXNetError, canonical_dtype
 from ..context import resolve_device
 from ..graphs import CAPTURE_LOCK, CapturedGraph
@@ -255,18 +272,6 @@ def _request_tensor(a):
     return t if t.dtype == dt else t.to(dt)
 
 
-class _EagerBucket:
-    """A bucket on the CPU: the forward run eagerly over static inputs, in
-    the same bookkeeping as a captured graph."""
-
-    def __init__(self, fn, static_inputs):
-        self.static_inputs = static_inputs
-        self._fn = fn
-
-    def replay(self):
-        return self._fn(*self.static_inputs)
-
-
 class Predictor:
     """Bucketed inference over a HybridBlock, pinned to one device.
 
@@ -314,7 +319,13 @@ class Predictor:
         self._qdtypes = None     # per-param original dtype (None: exact)
         self._deq = {}           # id(int8 storage) -> (range, dtype)
         self._templates = None   # [(trailing_shape, dtype)] per input
-        self._buckets = {}       # ((shape, dtype), ...) -> bucket
+        self._nonce = compile_service.release_on_collect(self)
+        # ((shape, dtype), ...) -> bucket: the service's entries of this
+        # Predictor
+        self._buckets = compile_service.SiteTable(
+            lambda k, n=self._nonce: k.nonce == n,
+            name=lambda k: k.signature[0])
+        self._fn_tok = None
         self._out_fmt = None
         self._pool = None
         self._lock = threading.Lock()
@@ -515,46 +526,120 @@ class Predictor:
         return tuple(((b,) + self._bucket_trailing(t, s), dt)
                      for t, dt in self._templates)
 
+    def param_args(self):
+        """The snapshot every bucket reads, ``(stored, ranges)``: each
+        parameter's storage on the device (int8 under ``int8``) and its
+        int8 range (None where exact). A refresh writes them in place."""
+        return self._stored, self._ranges
+
+    def _fn_token(self):
+        """The stable identity of what this Predictor runs: the block's
+        class and source with the snapshot's names, shapes and dtypes."""
+        tok = self._fn_tok
+        if tok is None:
+            struct = tuple((k, tuple(t.shape), str(t.dtype), str(q))
+                           for k, t, q in zip(self._keys, self._stored,
+                                              self._qdtypes))
+            tok = self._fn_tok = "predictor:%s:%s:%s" % (
+                type(self._block).__name__,
+                compile_service.source_token(type(self._block)),
+                compile_service.source_token(struct)[:12])
+        return tok
+
+    def _service_key(self, shape_key, pol):
+        return compile_service.canonical_key(
+            site=self._site, fn_id=self._fn_token(),
+            signature=(shape_key, self._int8), policy=pol,
+            device=compile_service.device_token(self._device),
+            nonce=self._nonce)
+
+    def _group_token(self, shape_key, pol):
+        """Everything in the key but site, device and nonce: what a
+        ReplicaSet's identical members share."""
+        return ("predict", self._fn_token(), shape_key, self._int8, pol)
+
+    def _prov(self, shape_key):
+        return {"predictor": self._name, "block": type(self._block).__name__,
+                "device": str(self._device), "int8": self._int8,
+                "shapes": [list(s) for s, _ in shape_key]}
+
+    def _build_for(self, shape_key):
+        """The build of one bucket: its static inputs, captured on CUDA
+        (``graphs.EagerGraph`` on the CPU), at the Predictor's ledger
+        site."""
+        def build():
+            statics = [torch.full(shape, self._spec.pad_value, dtype=dt,
+                                  device=self._device)
+                       for shape, dt in shape_key]
+            with graphs.ledger_site(self._site, self._prov(shape_key)):
+                if self._device.type == "cuda":
+                    if self._pool is None:
+                        self._pool = torch.cuda.graph_pool_handle()
+                    return CapturedGraph(self._forward, statics,
+                                         pool=self._pool)
+                me = weakref.ref(self)   # the store must not keep self
+
+                def run(*datas):
+                    # the functional call swaps this Predictor's snapshot
+                    # into the shared block: one forward at a time
+                    with CAPTURE_LOCK:
+                        return me()._forward(*datas)
+                return graphs.EagerGraph(run, statics)
+        return build
+
     def _bucket(self, key):
         """The bucket of ``key``, built (captured on CUDA) at first use."""
-        entry = self._buckets.get(key)
-        if entry is not None:
-            return entry
-        statics = [torch.full(shape, self._spec.pad_value, dtype=dt,
-                              device=self._device) for shape, dt in key]
-        if self._device.type == "cuda":
-            if self._pool is None:
-                self._pool = torch.cuda.graph_pool_handle()
-            entry = CapturedGraph(self._forward, statics, pool=self._pool)
-        else:
-            def run(*datas):
-                # the functional call swaps this Predictor's snapshot into
-                # the shared block: one forward of a block at a time
-                with CAPTURE_LOCK:
-                    return self._forward(*datas)
-            entry = _EagerBucket(run, statics)
-        telemetry.record_retrace(self._site, {
-            "predictor": self._name, "block": type(self._block).__name__,
-            "device": str(self._device), "int8": self._int8,
-            "shapes": [list(s) for s, _ in key]})
-        self._buckets[key] = entry
-        return entry
+        pol = compile_service.forward_policy()
+        return compile_service.get_or_build(
+            self._service_key(key, pol), self._build_for(key),
+            provenance=lambda: self._prov(key),
+            group=self._group_token(key, pol)).fn
 
-    def warmup(self):
-        """Build every bucket, largest first (on CUDA each capture runs its
-        bucket once eagerly first, then records it), after the memory
-        pre-flight; returns self. Buckets already built are kept."""
+    def warmup_entries(self):
+        """One ``compile_service.WarmupEntry`` per bucket, largest first
+        (the buckets share one memory pool, which the largest sizes)."""
         if self._templates is None:
             raise MXNetError("Predictor.warmup needs input templates: pass "
                              "example= at construction")
-        xprof.preflight(
+        pol = compile_service.forward_policy()
+        entries = []
+        for b, s in sorted(self._spec.buckets(),
+                           key=lambda bs: (-bs[0], -(bs[1] or 0))):
+            key = self._bucket_key(b, s)
+            entries.append(compile_service.WarmupEntry(
+                key=self._service_key(key, pol), build=self._build_for(key),
+                example_args=None, provenance=self._prov(key),
+                group=self._group_token(key, pol)))
+        return entries
+
+    def _largest_key(self):
+        b, s = max(self._spec.buckets(), key=lambda bs: (bs[0], bs[1] or 0))
+        return self._service_key(self._bucket_key(b, s),
+                                 compile_service.forward_policy())
+
+    def preflight(self):
+        """The memory pre-flight before the buckets build: the site's last
+        recorded footprint, else the one the largest bucket's blob holds,
+        else the snapshot and static inputs, plus the co-residents'
+        bytes, against the device's limit."""
+        if self._templates is None:
+            raise MXNetError("Predictor.warmup needs input templates: pass "
+                             "example= at construction")
+        disk = compile_service.peek(self._largest_key()) or {}
+        return xprof.preflight(
             self._site, self._device,
             extra_bytes=int(self._co_resident()) if self._co_resident else 0,
-            need=xprof.site_footprint(self._site) or self._static_bytes())
+            need=xprof.site_footprint(self._site)
+            or disk.get("footprint") or self._static_bytes())
+
+    def warmup(self):
+        """Build every bucket through the compile service, largest first
+        (on CUDA each capture runs its bucket once eagerly first, then
+        records it), after the memory pre-flight; returns self. Buckets
+        already built are kept."""
+        self.preflight()
         with self._lock:
-            for b, s in sorted(self._spec.buckets(),
-                               key=lambda bs: (-bs[0], -(bs[1] or 0))):
-                self._bucket(self._bucket_key(b, s))
+            compile_service.warmup(self.warmup_entries())
         return self.finish_warmup()
 
     def finish_warmup(self):
@@ -567,7 +652,10 @@ class Predictor:
         if self._device.type == "cuda":
             # the outputs live in the pool
             out_bytes = pool_bytes(self._pool, self._device)
-        xprof.record_footprint(self._site, self._static_bytes() + out_bytes)
+        footprint = self._static_bytes() + out_bytes
+        xprof.record_footprint(self._site, footprint)
+        if compile_service.cache_dir():
+            compile_service.annotate(self._largest_key(), footprint=footprint)
         return self
 
     def run_bucket(self, b, s=None):
@@ -598,10 +686,11 @@ class Predictor:
         snapshot, giving the device memory back (a zoo eviction). A later
         request settles and builds again."""
         with self._lock:
-            self._buckets = {}
+            compile_service.drop(nonce=self._nonce)
             self._pool = None
             self._stored = self._ranges = self._templates = None
             self._deq = {}
+            self._fn_tok = None
 
     def compile_stats(self):
         """The retrace watchdog's view of this Predictor's site:

@@ -192,9 +192,19 @@ class ReplicaSet:
         return bool(reps) and all(r.predictor.warmed for r in reps)
 
     def warmup(self):
-        """Build every bucket on every replica; returns self."""
+        """Build every bucket on every replica in one
+        ``compile_service.warmup`` call over every member's entries (each
+        member pre-flighted first; identical members share a group token,
+        so one warm-up per bucket counts its FLOPs), then run each
+        member's ``finish_warmup``; returns self."""
+        from .. import compile_service
+        entries = []
         for r in self.replicas:
-            r.predictor.warmup()
+            r.predictor.preflight()
+            entries.extend(r.predictor.warmup_entries())
+        compile_service.warmup(entries)
+        for r in self.replicas:
+            r.predictor.finish_warmup()
         return self
 
     def __len__(self):

@@ -45,10 +45,14 @@ The reference reads ``MXTPU_ZOO_*``; the port takes constructor arguments
 whose defaults are the reference's values (the constants below) and
 ``int8=`` for its ``MXTPU_SERVE_INT8``. A version may name a checkpoint
 ``(prefix, epoch)`` (``model.save_checkpoint`` naming), whose parameters
-``model.load_checkpoint`` reads on the version's first page-in. Not
-ported: the page-in from the compile service's disk cache (A9's second
-part). A rollback dumps ``flight_record("canary_rollback")``. With ``start=False`` and an injected
-``clock`` everything runs synchronously through :meth:`ZooScheduler.poll`;
+``model.load_checkpoint`` reads on the version's first page-in. An arm's
+build resolves its buckets through ``compile_service.warmup``: with the
+service's cache dir set, a page-in whose blobs hold loads its kernel
+libraries without nvcc and seeds its FLOPs from them (``warm_summary``'s
+``disk``), and still captures each bucket once (a CUDA graph cannot be
+serialized). A rollback dumps ``flight_record("canary_rollback")``.
+With ``start=False`` and an injected ``clock`` everything runs
+synchronously through :meth:`ZooScheduler.poll`;
 ``start=True`` gives each resident arm its batcher worker, page-ins their
 own threads and the zoo a monitor thread.
 """
@@ -63,7 +67,7 @@ import threading
 import time
 import zlib
 
-from .. import telemetry, xprof
+from .. import compile_service, telemetry, xprof
 from ..base import MXNetError
 from ..resilience import inject
 from .batcher import PRIORITIES, DeadlineExceeded, MicroBatcher, QueueFull
@@ -686,8 +690,10 @@ class ZooScheduler:
     def _build_arm(self, model, version, dslot, site):
         """Build and warm one arm: apply the version's parameters to the
         shared block, snapshot them into a new Predictor on the slot's
-        device, and capture one graph per bucket at ``site``. Returns the
-        arm and ``{"built": captures, "disk": 0}``."""
+        device, and resolve every bucket through ``compile_service.warmup``
+        (one capture per bucket at ``site``). Returns the arm and the
+        warm-up's ``{"built", "disk"}``: ``disk`` counts the buckets whose
+        blob held, ``built`` the others."""
         m = self._zoo._get(model)
         with self._lock:
             self._zoo.apply_version(model, version)
@@ -696,10 +702,10 @@ class ZooScheduler:
                 name="zoo:%s@%s" % (model, version),
                 device=self._devices[dslot], site=site, int8=self._int8,
                 co_resident=lambda: self.co_resident_bytes(model, dslot))
-        before = (telemetry.retrace_stats(site) or {}).get("compiles", 0)
-        pred.warmup()
+        pred.preflight()
+        summary = compile_service.warmup(pred.warmup_entries())
+        pred.finish_warmup()
         pred.param_version = version
-        built = telemetry.retrace_stats(site)["compiles"] - before
         kw = dict(self._batcher_kw)
         kw.setdefault("max_batch_size", m.spec.max_batch)
         batcher = MicroBatcher(pred, clock=self._clock,
@@ -710,8 +716,8 @@ class ZooScheduler:
             # canary gate reads; a plain batcher has nothing to scale
             ctrl = ServingController(batcher, min_replicas=1,
                                      max_replicas=1)
-        return _Arm(version, pred, batcher, ctrl), {"built": built,
-                                                    "disk": 0}
+        return _Arm(version, pred, batcher, ctrl), {
+            "built": summary["built"], "disk": summary["disk"]}
 
     @staticmethod
     def _release(arm):

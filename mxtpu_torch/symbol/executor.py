@@ -38,6 +38,13 @@ reference's recomputes it: two training forwards before one backward give
 the second's gradients. With a monitor callback installed every forward
 runs uncaptured, node by node, and the callback sees each node's output
 (ref: graph_executor.cc:104).
+
+The captures resolve through the compile service at site ``executor``
+(a pair's backward graph keeps its ledger entry at
+``executor.backward``): the key is the symbol's JSON digest, the
+signature with the pair bit, ``compile_service.forward_policy()``, the
+device and this executor's nonce; ``_entries`` is a view over the
+service's store.
 """
 from __future__ import annotations
 
@@ -46,7 +53,7 @@ import threading
 
 import torch
 
-from .. import autograd, graphs, telemetry
+from .. import autograd, compile_service, graphs
 from ..base import MXNetError, torch_dtype
 from ..context import Context, resolve_device
 from ..ndarray import NDArray
@@ -144,7 +151,10 @@ class Executor:
                             if grad_req.get(n, "null") != "null"]
         self.outputs = []
         self._monitor = None
-        self._entries = {}
+        self._nonce = nonce = compile_service.release_on_collect(self)
+        self._entries = compile_service.SiteTable(
+            lambda k: k.nonce == nonce)
+        self._fn_tok = None
         self._last = None   # (is_train, entry or None, eager state)
         self._lock = threading.RLock()
         self._draws = draws(symbol)
@@ -347,11 +357,6 @@ class Executor:
                     graphs.ledger_site("executor"):
                 graph = graphs.CapturedGraph(fn, statics, generators=gens)
             entry = _Entry(graph, None, tensors, diff)
-        telemetry.record_retrace("executor", {
-            "is_train": is_train, "pair": with_pair,
-            "inputs": [(n, tuple(self._array(n).shape))
-                       for n in sorted(self._input_names)]})
-        self._entries[key] = entry
         return entry
 
     def _refresh(self, entry):
@@ -366,12 +371,25 @@ class Executor:
 
     def _entry(self, is_train, with_pair):
         key = self._signature(is_train) + (with_pair,)
-        entry = self._entries.get(key)
-        if entry is None:
-            entry = self._capture(key, is_train, with_pair)
-        else:
-            self._refresh(entry)
-        return entry
+        if self._fn_tok is None:
+            import hashlib
+            self._fn_tok = "executor:" + hashlib.sha256(
+                self._symbol.tojson().encode()).hexdigest()[:24]
+        skey = compile_service.canonical_key(
+            site="executor", fn_id=self._fn_tok, signature=key,
+            policy=compile_service.forward_policy(),
+            device=compile_service.device_token(self._device),
+            nonce=self._nonce)
+        hit = compile_service.get(skey)
+        if hit is not None:
+            self._refresh(hit.fn)
+            return hit.fn
+        return compile_service.get_or_build(
+            skey, lambda: self._capture(key, is_train, with_pair),
+            provenance=lambda: {
+                "is_train": is_train, "pair": with_pair,
+                "inputs": [(n, tuple(self._array(n).shape))
+                           for n in sorted(self._input_names)]}).fn
 
     def _run_captured(self, is_train):
         with_pair = is_train and bool(self._diff_names)

@@ -4,10 +4,13 @@ memory views, the serving footprint ledger and the OOM flight path
 
 * **Ledger** -- the reference wraps each jitted executable and asks XLA's
   cost analysis for its FLOPs. The port has no executables to wrap: each
-  ``graphs.CapturedGraph`` built with a ``site`` (``cached_op``,
-  ``executor``, ``fused_optimizer``) counts the FLOPs of its warm-up run
-  once, under ``torch.utils.flop_counter.FlopCounterMode``, and records
-  them with the capture's wall time (``compile_s``) in a ledger entry
+  ``graphs.CapturedGraph`` built with a ``site`` (every capture site of
+  ``compile_service``: ``cached_op``, ``executor``, ``fused_optimizer``,
+  ``serving.predict``, ``serving.decode``) counts the FLOPs of its warm-up
+  run once, under ``torch.utils.flop_counter.FlopCounterMode`` (each pass
+  counts ``xprof.flop_passes``), or takes them from the compile service's
+  disk blob of the same key without a pass, and records them with the
+  capture's wall time (``compile_s``) in a ledger entry
   (``attach``/``watch``); each run of the graph adds one to the entry's
   ``calls``. The counter does not see a hand-written kernel, so each
   kernel wrapper reports its own FLOPs from its shapes (``add_flops``:
@@ -44,8 +47,11 @@ reads no environment variable: ``set_enabled`` and
   caller's estimate) plus the bytes its co-residents hold, against the
   device's limit; past it ``memory.overcommit{site}`` counts and a warning
   is logged, before the Predictor captures.
-* ``drop(site)`` forgets a site's record (a zoo eviction, as the
-  reference's ``compile_service.drop`` releases its executables).
+* ``drop(site)`` forgets a site's record (a zoo eviction, beside
+  ``compile_service.drop``, which releases the site's graphs). The
+  Predictor also writes its footprint into its largest bucket's blob, so
+  a fresh process pointed at the same cache dir pre-flights with it before
+  its first capture.
 """
 from __future__ import annotations
 
@@ -196,8 +202,9 @@ def add_flops(n):
 def measuring():
     """Count the FLOPs of the block's torch ops (``FlopCounterMode``) and
     of the kernels launched in it (``add_flops``); yields a dict whose
-    ``flops`` is set on exit."""
+    ``flops`` is set on exit. Each pass counts ``xprof.flop_passes``."""
     from torch.utils.flop_counter import FlopCounterMode
+    telemetry.inc("xprof.flop_passes")
     out = {"flops": None}
     with _LOCK:
         _MEASURE["depth"] += 1

@@ -328,3 +328,26 @@ def test_device_defaults_and_refusals(monkeypatch):
     assert exe.arg_dict["fc1_weight"].context == torch.device("cpu")
     with pytest.raises(mt.MXNetError, match="forward before backward"):
         exe.backward()
+
+
+def test_captured_entries_resolve_through_the_compile_service(captured):
+    """The captured executor's graphs are compile-service entries at site
+    ``executor``, keyed by the symbol's JSON digest and this executor's
+    nonce; the LRU bound evicts them from ``_entries`` too, and the next
+    forward captures again (an evicted graph is never replayed)."""
+    from mxtpu_torch import compile_service
+    fake, flag = captured
+    _, cap, _, _ = _pair()
+    cap.forward(is_train=False)
+    keys = [k for k in compile_service._STORE if k.nonce == cap._nonce]
+    assert [k.site for k in keys] == ["executor"]
+    assert keys[0].fn_id.startswith("executor:") and \
+        keys[0].signature[-1] is False
+    assert len(cap._entries) == 1 and len(fake.made) == 1
+    cap.forward(is_train=False)
+    assert len(fake.made) == 1
+    compile_service.drop(nonce=cap._nonce)
+    assert len(cap._entries) == 0
+    cap.forward(is_train=False)
+    assert len(fake.made) == 2 and len(cap._entries) == 1
+    assert ttel.retrace_stats("executor")["compiles"] == 2

@@ -837,7 +837,7 @@ def test_c15_setattr_lr_mult_reaches_the_update():
 
 # names of the reference still queued, by namespace (ROADMAP §A)
 _QUEUED = {
-    "": {"compile_service", "feature_list", "fleet", "fleet_obs",
+    "": {"feature_list", "fleet", "fleet_obs",
          "libinfo", "operator", "registry", "test_utils", "torch_interop",
          "tpu", "util", "visualization", "viz"},
     "parallel": set(),

@@ -607,3 +607,30 @@ def test_flight_dumps_at_their_faults_like_mxtpu(monkeypatch, tmp_path,
     art = next((tmp_path / "port").glob("flight_%s_*" % want))
     rec = json.loads(art.read_text())
     assert rec["extra"]["replica"] in (0, 1) and rec["trace_ids"]
+
+
+def test_replicaset_warmup_makes_one_compile_service_warmup(monkeypatch):
+    """ReplicaSet.warmup gathers every member's entries into one
+    ``compile_service.warmup`` call (the reference's
+    ``replicas.py:warmup``); the members' identical buckets share a group
+    token, so one warm-up per bucket counts the FLOPs."""
+    from mxtpu_torch import compile_service
+    calls = []
+    real = compile_service.warmup
+
+    def spy(entries, threads=None):
+        entries = list(entries)
+        calls.append(entries)
+        return real(entries, threads)
+
+    monkeypatch.setattr(compile_service, "warmup", spy)
+    _, rs, _ = _sets(n=3, max_batch=4)
+    assert len(calls) == 1 and len(calls[0]) == 3 * 3
+    assert [e.key.site for e in calls[0]] == [
+        "serving.predict.r%d" % i for i in range(3) for _ in range(3)]
+    groups = {e.group for e in calls[0]}
+    assert len(groups) == 3          # one per bucket, shared by members
+    for r in rs.replicas:
+        assert len(r.predictor._buckets) == 3
+        assert all(k.site == r.predictor.site for k in
+                   r.predictor._buckets.keys_of())

@@ -24,7 +24,7 @@ import torch
 import mxtpu as mx
 import mxtpu_torch as mt
 from mxtpu.rtc import PallasModule as JaxPallasModule
-from mxtpu_torch import kernels, rtc
+from mxtpu_torch import compile_service, kernels, rtc, telemetry
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -266,6 +266,7 @@ def fake_nvcc(tmp_path, monkeypatch):
     monkeypatch.setattr(kernels, "_nvcc", lambda: str(script))
     monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(kernels, "_LOADED", {})
+    compile_service.drop(site="rtc")   # runtime libraries live there
     return lambda: len(calls.read_text()) if calls.exists() else 0
 
 
@@ -280,6 +281,7 @@ def test_build_cache_by_source_and_flags(fake_nvcc, tmp_path, monkeypatch):
     again = rtc.CudaModule(CS.RTC_SOURCE).build()
     assert (again.build_how, fake_nvcc()) == ("memory", 1)
     monkeypatch.setattr(kernels, "_LOADED", {})   # a new process
+    compile_service.drop(site="rtc")
     disk = rtc.CudaModule(CS.RTC_SOURCE).build()
     assert (disk.build_how, fake_nvcc()) == ("disk", 1)
     flags = rtc.CudaModule(CS.RTC_SOURCE, options=("-lineinfo",)).build()
@@ -343,3 +345,16 @@ def test_plain_versions_match_the_pallas_kernels(name, n_in, dtype, rule,
     assert [p.pointer for p in k.params] == [True] * (n_in + 1) + [False]
     assert {p.dtype for p in k.params if p.pointer} == {getattr(torch,
                                                                 dtype)}
+
+
+def test_runtime_library_resolves_through_the_compile_service(fake_nvcc):
+    """The library of a runtime source is a compile-service entry at site
+    ``rtc`` (its digest as ``fn_id``), so it rides the LRU bound; a module
+    built again in this process finds it there."""
+    mod = rtc.CudaModule(CS.RTC_SOURCE).build()
+    keys = [k for k in compile_service._STORE if k.site == "rtc"]
+    assert [k.fn_id for k in keys] == ["rtc:" + mod.digest]
+    assert compile_service.get(keys[0]).fn is mod._lib
+    assert telemetry.retrace_stats("rtc")["compiles"] >= 1
+    assert rtc.CudaModule(CS.RTC_SOURCE).build().build_how == "memory"
+    assert fake_nvcc() == 1

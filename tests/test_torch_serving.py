@@ -959,3 +959,47 @@ def test_flight_dumps_worker_crash_oom_and_sigterm(monkeypatch, tmp_path):
     finally:
         ttel.set_flight_dir(None)
         tres.reset_faults()
+
+
+def test_buckets_resolve_through_the_compile_service(monkeypatch, tmp_path):
+    """Each bucket is a compile-service entry at the Predictor's site
+    (its nonce; the class, source and snapshot structure as ``fn_id``);
+    ``warmup`` is one ``compile_service.warmup`` over the buckets, largest
+    first; an evicted bucket leaves ``_buckets`` and is built again at its
+    next request; with a cache dir the largest bucket's blob holds the
+    footprint, which a fresh Predictor's pre-flight uses."""
+    from mxtpu_torch import compile_service
+    calls = []
+    real = compile_service.warmup
+    monkeypatch.setattr(compile_service, "warmup",
+                        lambda entries, threads=None: calls.append(
+                            [e.key.signature[0][0][0][0] for e in entries])
+                        or real(entries, threads))
+    _, net = _mlps()
+    pred = _port_pred(net, BucketSpec([1, 2, 4]), site="serving.predict.s")
+    assert calls == [[4, 2, 1]]
+    keys = pred._buckets.keys_of()
+    assert {k.site for k in keys} == {"serving.predict.s"} and len(keys) == 3
+    assert keys[0].fn_id.startswith("predictor:HybridSequential:")
+    want = pred.predict(_x(2)).asnumpy()
+    assert ttel.retrace_stats("serving.predict.s")["compiles"] == 3
+    victim = [k for k in keys if k.signature[0][0][0][0] == 2]
+    compile_service.drop(site="serving.predict.s", nonce=pred._nonce)
+    assert len(pred._buckets) == 0 and not pred.warmed
+    np.testing.assert_array_equal(pred.predict(_x(2)).asnumpy(), want)
+    assert ttel.retrace_stats("serving.predict.s")["compiles"] == 4
+    assert victim and len(pred._buckets) == 1
+    compile_service.set_cache_dir(tmp_path)
+    try:
+        p2 = _port_pred(net, BucketSpec([1, 2, 4]), site="serving.predict.t")
+        fp = compile_service.peek(p2._largest_key())["footprint"]
+        assert fp == xprof.site_footprint("serving.predict.t") > 0
+        xprof.drop("serving.predict.t")
+        seen = []
+        monkeypatch.setattr(xprof, "preflight", lambda site, device=None,
+                            limit=None, extra_bytes=0, need=None:
+                            seen.append(need) or (need, 0))
+        _port_pred(net, BucketSpec([1, 2, 4]), site="serving.predict.t")
+        assert seen == [fp]
+    finally:
+        compile_service.set_cache_dir(None)

@@ -326,3 +326,33 @@ def test_asnumpy_is_a_copy_that_a_step_does_not_change():
     # the old values
     np.testing.assert_allclose(after, before - p.grad().asnumpy() / 2,
                                rtol=1e-6, atol=1e-7)
+
+
+def test_fused_updates_resolve_through_the_compile_service(monkeypatch):
+    """A captured fused update is a compile-service entry at site
+    ``fused_optimizer`` (the optimizer's class and source as its identity,
+    the group key as its signature, the updater's nonce); the updater's
+    table is a view, so an eviction captures the update again at the next
+    step, and ``optimizer_fused.cache_size``/``reset`` read the service."""
+    from mxtpu_torch import compile_service, graphs, optimizer_fused
+    from test_torch_train_graph import FakeGraph
+    monkeypatch.setattr(graphs, "CapturedGraph", FakeGraph)
+    monkeypatch.setattr(graphs, "captures", lambda device: True)
+    net = _mlp()
+    trainer = mt.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 0.1, "momentum": 0.9})
+    x = np.ones((2, 4), np.float32)
+    y = np.zeros((2, 3), np.float32)
+    _step(net, trainer, x, y)
+    upd = trainer._updaters[0]
+    keys = [k for k in compile_service._STORE if k.nonce == upd._nonce]
+    assert [k.site for k in keys] == ["fused_optimizer"]
+    assert keys[0].fn_id.startswith("fused_optimizer:SGD:")
+    assert len(upd._graphs) == 1 and optimizer_fused.cache_size() >= 1
+    made = len(FakeGraph.made)
+    _step(net, trainer, x, y)
+    assert len(FakeGraph.made) == made
+    compile_service.drop(nonce=upd._nonce)
+    assert len(upd._graphs) == 0
+    _step(net, trainer, x, y)
+    assert len(FakeGraph.made) == made + 1 and len(upd._graphs) == 1

@@ -763,3 +763,42 @@ def test_rollback_dumps_its_flight_artifact_like_mxtpu(monkeypatch,
         recs[side] = json.loads(art.read_text())["extra"]
     assert recs["port"] == recs["jax"] == {
         "model": "alpha", "version": "v2", "reason": "injected"}
+
+
+def test_pagein_with_a_cache_dir_reports_disk_hits(tmp_path):
+    """With the compile service's cache dir set, a page-in's buckets write
+    their blobs; after an eviction the next page-in (a new Predictor, so
+    nothing in memory) finds them: ``warm_summary`` says ``disk`` 2, the
+    FLOPs come from the blobs (no ``FlopCounterMode`` pass), and each
+    bucket is still built once at the arm's site (the port's deliberate
+    difference: a CUDA graph cannot be serialized, a capture still runs)."""
+    from mxtpu_torch import compile_service
+    compile_service.set_cache_dir(tmp_path)
+    try:
+        z = Zoos()
+        site = ZOO_SITE + ".alpha"
+        res = z.sched.ensure_resident("alpha")
+        assert res.warm_summary == {"built": 2, "disk": 0}
+        assert ttel.value("compile.disk.writes", tag=site) == 2
+        passes = ttel.value("xprof.flop_passes")
+        first = sorted(e["flops"] for e in xprof.ledger(site))
+        y = z.sched.submit("alpha", _x(3))
+        z.clk.advance(0.006)
+        z.sched.poll()
+        z.sched.evict("alpha")
+        res = z.sched.ensure_resident("alpha")
+        assert res.warm_summary == {"built": 0, "disk": 2}
+        assert ttel.value("compile.disk.hits", tag=site) == 2
+        assert ttel.value("xprof.flop_passes") == passes
+        assert sorted(e["flops"] for e in xprof.ledger(site)) == \
+            sorted(first * 2)
+        assert ttel.retrace_stats(site)["compiles"] == 4
+        view = z.sched.view()["models"]["alpha"]
+        assert view["warm_compiles"] == 0 and view["warm_disk_hits"] == 2
+        y2 = z.sched.submit("alpha", _x(3))
+        z.clk.advance(0.006)
+        z.sched.poll()
+        np.testing.assert_array_equal(np.asarray(y2.result(timeout=5)),
+                                      np.asarray(y.result(timeout=5)))
+    finally:
+        compile_service.set_cache_dir(None)
