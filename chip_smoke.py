@@ -43,7 +43,7 @@ NVIDIA H100.
    out of the way: one eager call's issue takes about as long as the
    kernel) and the host's issue time per call.
 6. Serves the BERT-base-shaped TransformerLM (vocab 30522, dim 768, 12
-   heads, 4 of its 12 layers, max_len 512, bidirectional, seeded weights)
+   heads, 2 of its 12 layers, max_len 512, bidirectional, seeded weights)
    through
    the port's Predictor with batch and sequence buckets (1-8 x 128, 256,
    512) on the card, in float32 and then bfloat16, 12 captured graphs
@@ -139,7 +139,7 @@ NVIDIA H100.
    images/s, host issue, device ms and idle share, peak memory, a
    profiled step by kernel category, train_mfu). The BERT-base-shaped
    TransformerLM trained with Adam: 2 layers at b2 x 512 f32 against the
-   CPU (2 flash launches a step), then 4 layers at b8 x 512 bf16 timed.
+   CPU (2 flash launches a step), then 2 layers at b8 x 512 bf16 timed.
 11. The vision zoo and the rest of Gluon (slice 9). The fused conv held
    against its plain version, f32 and bf16, at one conv of each shape
    class the zoo adds (C_out 16/24/48/80/96/144, the 11x11/4 and 3x3/2
@@ -277,8 +277,8 @@ NVIDIA H100.
    grid fault that must fail); a measured search per class into a fresh
    cache dir under ``build/`` (default and best times beside the library
    call's); then, cold in this process, a ResNet-50 v1 bf16 ``ReplicaSet``
-   (b1/b2/b4/b8), the 12-layer BERT-base TransformerLM bf16 through a
-   ``ModelZoo`` page-in (b8 x 128/512), two captured bf16 b128
+   (b1/b2/b4/b8), the BERT-base TransformerLM bf16 (2 of its 12 layers)
+   through a ``ModelZoo`` page-in (b8 x 128/512), two captured bf16 b128
    SGD-momentum ``Trainer`` steps and one rtc ``axpy`` launch, all under
    the tuned plans; then ``python3 chip_smoke.py compile_warm_child`` twice
    at once in fresh processes with empty build directories: from the
@@ -290,7 +290,34 @@ NVIDIA H100.
    (counted drops, rebuilt cold, bit-equal logits); last, served medians
    with tuned plans against autotune off (read). ``python3 chip_smoke.py
    compile_phase`` runs it alone.
-18. Prints one JSON line of kernels (fused_conv and flash_attention, one
+18. The elastic fleet (slice 17, ROADMAP A9's last part,
+   ``fleet_phase``): ResNet-50 v1 bf16 at full depth and widths (seeded
+   weights, float32 masters, SGD-momentum with ``multi_precision``),
+   global batch 64 in micro-batches of 32, 10 steps. (a) In this
+   process, a world of one on the same seed and batches under cuDNN's
+   deterministic algorithms. Then a ``fleet.FleetSupervisor`` drives
+   ``python -m mxtpu_torch.fleet_worker`` children, two gloo hosts on
+   ``cuda:0`` sharing a fresh compile-cache dir: (b) generation 0 saves
+   every 2 steps and loses rank 1 at step 4 (``host_loss@4``, exit 41);
+   rank 0 exits 42 within the 120 s collective bound with a
+   ``fleet_collective_wedge`` artifact naming rank 1; (c) generation 1,
+   one host with an empty build dir, restores step 3 onto a one-rank
+   mesh, checkpoints step 5 and dies (``host_loss@6``); (d) generation 2
+   grows back to two hosts with empty build dirs: 0 nvcc, 0 autotune
+   searches, a disk hit at every capture site and 0 drops, the captures
+   still run; ``straggler_slow`` holds rank 1 2 s at steps 7-9 and rank
+   0's ``StragglerSentinel`` names rank 1 with dominant stage
+   ``data.wait``; every step's loss, whichever generation ran it, within
+   2e-2 relative of (a) (the largest printed); (e) ``FleetObservatory``
+   over generation 2's board: ``fleet.mfu``, ``fleet.step_s`` p50/p99,
+   each host's heartbeat age and Prometheus text labelled ``host="0"``
+   and ``host="1"``. Prints per generation and host the bring-up,
+   restore, restore-eval and first-step seconds, steps/s, peak bytes
+   and builds by site; the kill-to-exit seconds, the rejoin's compile
+   counters, the stage breakdown, and the children's B1 launches
+   (``fleet_b1_launches`` in the kernels line). ``python3 chip_smoke.py
+   fleet_phase`` runs it alone.
+19. Prints one JSON line of kernels (fused_conv and flash_attention, one
    entry per type each, with graph-replay and host-issue sums beside the
    eager ones, the launches of one training step, and forward + backward
    by graph replay beside its plain version, the library's and its bound
@@ -330,9 +357,9 @@ RESNET50_GATED = [
     ("1x1 256->64 @56", 8, 56, 256, 64, 1, 1, 0, 2),
 ]
 REQUESTS = (1, 3, 8, 5, 11)
-# requests a closed loop times (50 until the A9 slice made room for its
-# phase: PERF.md §4)
-CLOSED_LOOP_N = 30
+# requests a closed loop times (50 until the A9 slice and 30 until the
+# fleet slice made room for their phases: PERF.md §4)
+CLOSED_LOOP_N = 20
 # (name, B, H, T, Tk, D, causal, launches per b8 x 512 forward, layout):
 # the shapes BERT-base serves first, then the ragged tails and the largest
 # head dim. Layout "qkv" is the served one: q, k and v strided views of one
@@ -368,10 +395,10 @@ FLASH_SHAPES = [
 # masks after scaling, so a zero or negative scale still gives masked keys
 # no weight
 FLASH_SCALES = (0.05, 0.0, -0.125)
-# bench.py's configuration at full width; 4 of its 12 layers since the
-# compile slice made room for its phase (6 since the A9 slice; PERF.md §4;
-# the compile phase runs all 12: COMPILE_LM)
-BERT_BASE = dict(vocab_size=30522, dim=768, num_heads=12, num_layers=4,
+# bench.py's configuration at full width; 2 of its 12 layers since the
+# fleet slice made room for its phase (4 since the compile slice, 6 since
+# the A9 slice; PERF.md §4; the compile phase's too: COMPILE_LM)
+BERT_BASE = dict(vocab_size=30522, dim=768, num_heads=12, num_layers=2,
                  max_len=512, causal=False)
 SEQ_BUCKETS = (128, 256, 512)
 LM_REQUESTS = ((1, 50), (3, 200), (5, 128), (8, 512), (11, 100))
@@ -914,8 +941,9 @@ def device_rows(fn, reps):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity only: the host's op events are never read, and
+    # recording them doubled an eager call's trace time (PERF.md §4)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         while True:
             fn()
@@ -3713,7 +3741,12 @@ def resnet_batches(batch, steps, seed):
             for _ in range(steps)]
 
 
-def timed_steps(step, warm=3, n=10, on_warm=None):
+# steps a timed training run takes after its warm-up (10 until the fleet
+# slice made room for its phase: PERF.md §4)
+TIMED_STEPS = 6
+
+
+def timed_steps(step, warm=3, n=TIMED_STEPS, on_warm=None):
     """(median ms, p80 ms, median host-issue ms) of ``n`` synchronised
     training steps after ``warm`` (``on_warm()`` is called between); host
     issue is the time until the step's last call returns."""
@@ -3834,11 +3867,12 @@ def train_timing(label, net, x, y, optimizer, params, reshape, card,
         launches = kernel.launches - start
     built = {k: after[k] - warm[k] for k in after}
     print("train %s on %s: %.1f %s/s at the median step %.3f ms (p80 %.3f, "
-          "median host issue %.3f ms; 10 steps after 3), peak memory %.2f "
+          "median host issue %.3f ms; %d steps after 3), peak memory %.2f "
           "GiB (%.2f GiB over the timed steps); builds in the timed steps "
           "%s; launches in one step %s" % (
               label, card, rate, "images" if reshape is None else "tokens",
-              med, p80, issue, peak_gb, steady_gb, built, launches),
+              med, p80, issue, TIMED_STEPS, peak_gb, steady_gb, built,
+              launches),
           flush=True)
     dev_ms = print_step_breakdown("train " + label, device_rows(step, 2),
                                   med, flops_per_item * rate, dtype, card)
@@ -5474,7 +5508,7 @@ def _executor_builds():
 
 def module_timing(card, train_sym, arg_params, aux_params, batch):
     """The Module's f32 b``batch`` training step on the card (captured:
-    the executor's pair and the update graph): 10 steps after 3, as
+    the executor's pair and the update graph): ``TIMED_STEPS`` after 3, as
     ``train_timing`` times Gluon's, with the builds after the warm-up and
     fused_conv's launches in one more step."""
     import gc
@@ -5512,11 +5546,11 @@ def module_timing(card, train_sym, arg_params, aux_params, batch):
     rate = batch * 1e3 / med
     print("train resnet50_v1 float32 b%d through Module (SGD-momentum, "
           "captured) on %s: %.1f images/s at the median step %.3f ms (p80 "
-          "%.3f, median host issue %.3f ms; 10 steps after 3), peak memory "
+          "%.3f, median host issue %.3f ms; %d steps after 3), peak memory "
           "%.2f GiB (%.2f GiB over the timed steps); builds in the timed "
           "steps %s; launches in one step %d" % (
-              batch, card, rate, med, p80, issue, peak_gb, steady_gb, built,
-              launches), flush=True)
+              batch, card, rate, med, p80, issue, TIMED_STEPS, peak_gb,
+              steady_gb, built, launches), flush=True)
     dev_ms = print_step_breakdown(
         "train Module resnet50_v1 float32 b%d" % batch, device_rows(step, 2),
         med, RESNET50_TRAIN_FLOPS * rate, "float32", card)
@@ -6681,11 +6715,12 @@ def parallel_world_of_one(card):
             rate = b * t * 1e3 / med
             print("parallel (a) %s: BERT-base bf16 b%d x %d Adam step on %s: "
                   "%.1f tokens/s at the median %.3f ms (p80 %.3f, median "
-                  "host issue %.3f ms; 10 after 3), peak %.2f GiB, builds "
+                  "host issue %.3f ms; %d after 3), peak %.2f GiB, builds "
                   "after the warm-up %s, B2 launches a forward %g; %d steps "
                   "bit-equal to the plain captured Trainer's (torch's "
                   "deterministic algorithms on for that gate)" % (
-                      kind, b, t, card, rate, med, p80, issue, peak, built,
+                      kind, b, t, card, rate, med, p80, issue, TIMED_STEPS,
+                      peak, built,
                       per_fwd, PARALLEL_STEPS), flush=True)
             dev_ms = print_step_breakdown(
                 "parallel (a) " + kind, device_rows(step, 2), med,
@@ -8193,9 +8228,10 @@ def moe_train(card, arrays):
     data_parallel_mesh(), forward=CE + 0.01 aux)`` in a world of one NCCL
     rank, Adam lr 1e-4, b16 x 512 (hybridized: each step replays a
     captured pair whose second output is the aux loss): median and p80
-    ms of 10 steps after 3, tokens/s, train_mfu (the experts counted over
-    the E x C slots they compute), idle share, peak GiB, builds after the
-    warm-up (0), B2 a forward (12) and the profiler's breakdown."""
+    ms of ``TIMED_STEPS`` after 3, tokens/s, train_mfu (the experts
+    counted over the E x C slots they compute), idle share, peak GiB,
+    builds after the warm-up (0), B2 a forward (one a layer) and the
+    profiler's breakdown."""
     import gc
     import torch
     import mxtpu_torch as mt
@@ -8239,10 +8275,11 @@ def moe_train(card, arrays):
         print("train moe_lm (%d layers, 8 experts, BERT-base widths) bf16 "
               "b%d x %d ShardedTrainStep(data_parallel_mesh()) Adam on %s: "
               "%.1f tokens/s at the median %.3f ms (p80 %.3f, median host "
-              "issue %.3f ms; 10 after 3), peak %.2f GiB, builds after the "
+              "issue %.3f ms; %d after 3), peak %.2f GiB, builds after the "
               "warm-up %s, B2 launches a forward %d, losses %s, aux %.4f; "
               "%.4g FLOP a step" % (
-                  layers, b, t, card, rate, med, p80, issue, peak, built,
+                  layers, b, t, card, rate, med, p80, issue, TIMED_STEPS,
+                  peak, built,
                   per_fwd, ["%.4f" % v for v in losses], aux, flops),
               flush=True)
         dev_ms = print_step_breakdown(
@@ -8293,7 +8330,7 @@ def moe_phase(card):
 # ---------------------------------------------------------------- slice 15
 # the training survivability stack (A9's first part) on ResNet-50 v1
 RESIL = dict(parity_batch=8, parity_steps=3, batch=128, skip_at=3,
-             rounds=3, round_steps=30, every=8, ckpt_every=4, ckpt_keep=2,
+             rounds=3, round_steps=15, every=8, ckpt_every=4, ckpt_keep=2,
              sigterm_at=9, resume_steps=3, serve_batch=8, scale=2.0 ** 10)
 RESIL_PARITY_TOL = 1e-6     # relative L2, guard on (2^k scale) against off
 RESIL_LM = dict(layers=2, batch=2, seq=512)
@@ -9076,7 +9113,7 @@ def resilience_phase(card):
 
 # ----------------------------------------------------------------- slice 16
 COMPILE_SEED = 61
-COMPILE_LM = dict(BERT_BASE, num_layers=12)   # bench.py's BERT-base, whole
+COMPILE_LM = dict(BERT_BASE)   # bench.py's BERT-base at BERT_BASE's depth
 COMPILE_TRAIN_BATCH = 128
 COMPILE_BUDGET_S = 20.0      # autotune's wall budget per class
 COMPILE_ROUNDS = 5           # timed runs per candidate plan
@@ -9122,7 +9159,8 @@ def _delta(after, before):
 
 
 def build_compile_lm():
-    """The 12-layer BERT-base TransformerLM on the CPU, seeded weights."""
+    """The BERT-base TransformerLM (``COMPILE_LM``) on the CPU, seeded
+    weights."""
     import torch
     import mxtpu_torch as mt
     from mxtpu_torch import convert
@@ -9139,8 +9177,8 @@ def build_compile_lm():
 def compile_workload():
     """The slice's path, built through the compile service with seeded
     weights and inputs: a ResNet-50 v1 bf16 ``ReplicaSet`` of one replica
-    (b1/b2/b4/b8), the 12-layer BERT-base TransformerLM bf16 through a
-    ``ModelZoo`` page-in (b8 x 128 and 512), two captured bf16 b128
+    (b1/b2/b4/b8), the BERT-base TransformerLM bf16 (``COMPILE_LM``)
+    through a ``ModelZoo`` page-in (b8 x 128 and 512), two captured bf16 b128
     SGD-momentum ``Trainer`` steps and one rtc ``axpy`` launch. Returns the
     numbers the compile phase compares between processes: each output's
     sha256, the ledger's (site, FLOPs), the counters' changes, the launches
@@ -9562,9 +9600,11 @@ def _compile_cold_gates(cold):
     check(la["resnet50 b128 steps b1"][1] == 11,
           "cold: 11 B1 launches in the second captured b128 step (%s)"
           % la["resnet50 b128 steps b1"])
-    check(all(v == 12 for k, v in la.items()
+    layers = COMPILE_LM["num_layers"]
+    check(all(v == layers for k, v in la.items()
               if k.startswith("transformer_lm")),
-          "cold: 12 B2 launches a BERT-base forward (%s)" % la)
+          "cold: %d B2 launches a BERT-base forward, one a layer (%s)"
+          % (layers, la))
     writes = sum(cold["counts"]["writes"].values())
     built = sum(r["entries"] for r in cold["sites"].values())
     check(writes == built > 0, "cold: one blob per built entry (%d of %d: "
@@ -9691,6 +9731,310 @@ def compile_served(card, rpred, lpred, net, lm):
         print("compile served %-40s median %.3f ms, p80 %.3f ms; card %s"
               % (k, med, p80, card), flush=True)
     return rows
+
+
+# ------------------------------------------------ slice 17: the fleet
+FLEET = dict(model="resnet50_v1", dtype="bfloat16", batch=64, micro=32,
+             steps=10, seed=71, lr=0.05, kill_at=4, survivor_kill_at=6,
+             save_every=2, ckpt_keep=2, straggler_steps=(7, 8, 9),
+             straggler_s=1.0, straggler_x=1.5, bound_s=120.0,
+             heartbeat_s=1.0, obs_s=0.5, eval_rows=8, device="cuda:0",
+             child_timeout_s=600.0)
+# relative, each step's loss against the world of one (bf16 weights with
+# float32 masters; PERF.md §6 says why)
+FLEET_LOSS_TOL = 2e-2
+FLEET_EVENTS = ["launch", "crash", "host_loss", "launch", "crash",
+                "rejoin_attempt", "launch", "clean_exit"]
+
+
+def _fleet_argv(cfg):
+    """The worker's flags of a fleet configuration (the bootstrap's come
+    from the supervisor)."""
+    argv = ["--model", cfg["model"], "--dtype", cfg["dtype"],
+            "--batch", str(cfg["batch"]), "--micro-batch", str(cfg["micro"]),
+            "--steps", str(cfg["steps"]), "--seed", str(cfg["seed"]),
+            "--lr", str(cfg["lr"]), "--device", cfg["device"],
+            "--backend", "gloo", "--save-every", str(cfg["save_every"]),
+            "--ckpt-keep", str(cfg["ckpt_keep"]),
+            "--collective-timeout", str(cfg["bound_s"]),
+            "--heartbeat-s", str(cfg["heartbeat_s"]),
+            "--straggler-x", str(cfg["straggler_x"]),
+            "--straggler-s", str(cfg["straggler_s"]),
+            "--obs-s", str(cfg["obs_s"]),
+            "--eval-rows", str(cfg["eval_rows"])]
+    if cfg["device"].startswith("cuda"):
+        argv.append("--deterministic")
+    return argv
+
+
+def fleet_world_of_one(cfg):
+    """Part (a): the trajectory to hold to, in this process, with no mesh:
+    the global batch of each step as micro-batches of ``cfg["micro"]``
+    rows whose gradients add up (BatchNorm's statistics per micro-batch,
+    as each host's), one Trainer step over the global batch, under cuDNN's
+    deterministic algorithms. Returns the losses and the B1 launches."""
+    import numpy as np
+    import mxtpu_torch as mt
+    from mxtpu_torch import fleet_worker
+    from mxtpu_torch.ops.pallas.conv import fused_conv
+    args = fleet_worker._args(["--ckpt-dir", "-"] + _fleet_argv(cfg))
+    dev = mt.cpu() if cfg["device"] == "cpu" else mt.gpu(0)
+    launches0 = fused_conv.launches
+    losses = []
+    with _deterministic(), dev:
+        build = fleet_worker._mlp if cfg["model"] == "mlp" \
+            else fleet_worker._resnet
+        net, loss_fn, x, y, opt = build(args)
+        if cfg["model"] != "mlp":
+            net.hybridize()
+            loss_fn.hybridize()
+        trainable = [p for p in net.collect_params().values()
+                     if p.grad_req != "null"]
+        for p in trainable:
+            p.grad_req = "add"
+        tr = mt.gluon.Trainer(net.collect_params(), "sgd", opt,
+                              kvstore=None)
+        n, b, m = x.shape[0], cfg["batch"], cfg["micro"]
+        for step in range(cfg["steps"]):
+            idx = np.array([(step * b + i) % n for i in range(b)])
+            xb, yb = x[idx], y[idx]
+            for p in trainable:
+                p.zero_grad()
+            total = 0.0
+            for k in range(0, b, m):
+                with mt.autograd.record():
+                    loss = loss_fn(net(xb[k:k + m]), yb[k:k + m])
+                loss.backward()
+                total += float(loss._data.detach().float().sum())
+            tr.step(b)
+            losses.append(total / b)
+    return losses, fused_conv.launches - launches0
+
+
+def _fleet_child(tail):
+    """What a child's output says: its ``STEP`` lines (loss, seconds, peak
+    bytes, B1 launches so far), ``BRINGUP``/``RESTORE``/``EVAL``,
+    ``BUILDS`` and ``RESULT``."""
+    out = {"steps": {}, "result": None, "bringup_s": None,
+           "restore_s": None, "start": None, "eval_s": None,
+           "builds": None}
+    for ln in tail.splitlines():
+        parts = ln.split()
+        if ln.startswith("STEP "):
+            out["steps"][int(parts[1])] = {
+                "loss": float(parts[2]), "s": float(parts[3]),
+                "peak": int(parts[4]), "b1": int(parts[5])}
+        elif ln.startswith("BRINGUP "):
+            out["bringup_s"] = float(parts[1])
+        elif ln.startswith("RESTORE "):
+            out["restore_s"], out["start"] = float(parts[1]), int(parts[3])
+        elif ln.startswith("EVAL "):
+            out["eval_s"] = float(parts[1])
+        elif ln.startswith("BUILDS "):
+            out["builds"] = json.loads(ln[len("BUILDS "):])
+        elif ln.startswith("RESULT "):
+            out["result"] = json.loads(ln[len("RESULT "):])
+    b1 = [v["b1"] for v in out["steps"].values()]
+    if out["result"] is not None:
+        b1.append(out["result"]["b1_launches"])
+    out["b1"] = max(b1) if b1 else 0
+    return out
+
+
+def _fleet_gate(ok, what):
+    if not ok:
+        raise AssertionError("fleet gate: " + what)
+    print("fleet gate ok: " + what, flush=True)
+
+
+def _fleet_gates(cfg, ref, history, rounds, kids, obs, wedge_dead):
+    """Every gate of the fleet phase over what the run left: ``ref`` the
+    world of one's losses, ``kids[g][rank]`` each child's parsed output,
+    ``obs`` the observatory's merged view and text, ``wedge_dead`` the
+    dead ranks of generation 0's wedge artifacts. Returns the largest
+    relative loss difference seen."""
+    check = _fleet_gate
+    check([h["event"] for h in history] == FLEET_EVENTS,
+          "membership events %s" % [h["event"] for h in history])
+    g0, g1, g2 = rounds
+    rc0 = {r: e["rc"] for r, e in g0["exits"].items()}
+    check(rc0 == {0: 42, 1: 41}, "generation 0: the killed host exits 41, "
+          "the survivor 42 (%s)" % rc0)
+    gap = g0["exits"][0]["exit_s"] - g0["exits"][1]["exit_s"]
+    check(0 <= gap < cfg["bound_s"], "the survivor's exit %.2f s after the "
+          "kill, within the %.0f s bound" % (gap, cfg["bound_s"]))
+    check(wedge_dead == [[1]], "the fleet_collective_wedge artifact's "
+          "diagnosis names rank 1 (%s)" % wedge_dead)
+    k1 = kids[1][0]
+    check(g1["world"] == 1 and k1["start"] == cfg["kill_at"]
+          and max(k1["steps"]) >= cfg["kill_at"]
+          + cfg["save_every"] - 1,
+          "generation 1: one host restores step %s onto a one-rank mesh and "
+          "makes checkpoint progress (steps %s)"
+          % (k1["start"] - 1 if k1["start"] else None, sorted(k1["steps"])))
+    rc2 = {r: e["rc"] for r, e in g2["exits"].items()}
+    check(g2["world"] == 2 and rc2 == {0: 0, 1: 0},
+          "generation 2: the fleet grows back to 2 hosts and ends at step "
+          "%d (%s)" % (cfg["steps"], rc2))
+    for rank, kid in sorted(kids[2].items()):
+        r = kid["result"]
+        sites = sorted(r["captures"])
+        cold = [s for s in sites if not r["disk_hits"].get(s)]
+        check(r["nvcc"] == 0 and r["searches"] == 0 and not r["disk_drops"]
+              and sites and not cold,
+              "rejoin rank %d warm: %d nvcc, %d searches, drops %s, a disk "
+              "hit at every capture site %s (cold: %s)"
+              % (rank, r["nvcc"], r["searches"], r["disk_drops"], sites,
+                 cold))
+    r0 = kids[2][0]["result"]
+    check(r0.get("straggler") == 1 and r0.get("straggler_stage")
+          == "data.wait", "rank 0's StragglerSentinel names rank 1 with "
+          "dominant stage data.wait (%s, %s)"
+          % (r0.get("straggler"), r0.get("straggler_stage")))
+    worst, seen = 0.0, set()
+    for gen in kids.values():
+        for kid in gen.values():
+            for step, row in kid["steps"].items():
+                want = ref[step]
+                rel = abs(row["loss"] - want) / abs(want)
+                worst = max(worst, rel)
+                seen.add(step)
+    check(seen == set(range(cfg["steps"])) and worst <= FLEET_LOSS_TOL,
+          "every step's loss within %.0e relative of the world of one "
+          "(largest %.3e over steps %s)" % (FLEET_LOSS_TOL, worst,
+                                            sorted(seen)))
+    m, prom = obs
+    ages = {r: h["heartbeat_age_s"] for r, h in m["hosts"].items()}
+    check(m["fleet"]["mfu"] is not None
+          and m["fleet"]["step_s"]["p50"] is not None
+          and m["fleet"]["step_s"]["p99"] is not None
+          and sorted(ages) == [0, 1] and None not in ages.values()
+          and 'host="0"' in prom and 'host="1"' in prom,
+          "the observatory: fleet.mfu %s, fleet.step_s %s, heartbeat ages "
+          "%s, Prometheus text with host=\"0\" and host=\"1\""
+          % (m["fleet"]["mfu"], m["fleet"]["step_s"], ages))
+    return worst
+
+
+def fleet_phase(card, cfg=None):
+    """Slice 17 (module docstring, item 18); ``cfg`` (default ``FLEET``)
+    sizes it. Returns the numbers the ``kernels`` line carries."""
+    import glob
+    import random
+    import torch
+    from mxtpu_torch import fleet, fleet_obs
+    cfg = dict(FLEET if cfg is None else cfg)
+    root = os.path.join(ROOT, "build", "fleet_%d" % os.getpid())
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        t0 = time.time()
+        ref, ref_b1 = fleet_world_of_one(cfg)
+        print("fleet (a) world of one: %d steps in %.1f s, B1 launches %d, "
+              "losses %s  [%s]" % (cfg["steps"], time.time() - t0, ref_b1,
+                                   ["%.6f" % v for v in ref], card),
+              flush=True)
+        if cfg["device"].startswith("cuda"):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()   # the children need the card
+
+        def command_for(rank, world, generation, boot):
+            argv = [sys.executable, "-m", "mxtpu_torch.fleet_worker",
+                    *fleet.bootstrap_argv(boot), *_fleet_argv(cfg)]
+            if generation:   # a fresh process with an empty build dir
+                argv += ["--build-dir", os.path.join(
+                    root, "build_g%d_r%d" % (generation, rank))]
+            return argv
+
+        def faults_for(rank, world, generation):
+            return {(0, 1): "host_loss@%d" % cfg["kill_at"],
+                    (1, 0): "host_loss@%d" % cfg["survivor_kill_at"],
+                    (2, 1): "straggler_slow@%s" % ",".join(
+                        str(s) for s in cfg["straggler_steps"])}.get(
+                (generation, rank))
+
+        sup = fleet.FleetSupervisor(
+            command_for=command_for, num_hosts=2, min_hosts=1,
+            ckpt_dir=os.path.join(root, "ckpt"),
+            fleet_dir=os.path.join(root, "board"),
+            compile_cache_dir=os.path.join(root, "cache"),
+            timeout_s=cfg["child_timeout_s"], faults_for=faults_for,
+            env_for=lambda r, w, g: {"PYTHONPATH": ROOT},
+            backoff_s=0.5, rng=random.Random(0))
+        t0 = time.time()
+        try:
+            sup.run()
+        finally:
+            for rnd in sup.rounds:
+                for rank, (rc, tail) in sorted(rnd["results"].items()):
+                    print("fleet gen %d rank %d rc %s, the end of its "
+                          "output:\n%s" % (rnd["generation"], rank, rc,
+                                           tail[-1500:]), flush=True)
+        print("fleet (b)-(d) supervisor %.1f s: %s" % (
+            time.time() - t0, json.dumps(sup.history)), flush=True)
+        kids = {rnd["generation"]: {r: _fleet_child(tail) for r, (_, tail)
+                                    in rnd["results"].items()}
+                for rnd in sup.rounds}
+        board2 = os.path.join(root, "board", "gen_2")
+        wedge_dead = [json.load(open(a))["extra"]["diagnosis"]["dead"]
+                      for a in sorted(glob.glob(os.path.join(
+                          root, "board", "gen_0",
+                          "flight_fleet_collective_wedge_*")))]
+        observatory = fleet_obs.FleetObservatory(board2, 2)
+        merged = observatory.merged()
+        prom = observatory.prometheus()
+        for rnd in sup.rounds:
+            g = rnd["generation"]
+            for rank, kid in sorted(kids[g].items()):
+                steps = kid["steps"]
+                timed = [v["s"] for k, v in sorted(steps.items())][1:]
+                print("fleet gen %d (world %d, wall %.1f s) rank %d: "
+                      "bring-up %s s, restore %s s (start %s), restore "
+                      "eval %s s, first step "
+                      "%s s (captures included), %s steps/s, peak %s bytes, "
+                      "exit %s at %.2f s; builds by site %s  [%s]" % (
+                          g, rnd["world"], rnd["wall_s"], rank,
+                          kid["bringup_s"], kid["restore_s"], kid["start"],
+                          kid["eval_s"],
+                          steps[min(steps)]["s"] if steps else None,
+                          (len(timed) / sum(timed)) if timed else None,
+                          max((v["peak"] for v in steps.values()),
+                              default=None),
+                          rnd["exits"][rank]["rc"],
+                          rnd["exits"][rank]["exit_s"],
+                          json.dumps(kid["builds"]), card), flush=True)
+        g0 = sup.rounds[0]["exits"]
+        print("fleet kill to the survivor's exit: %.2f s  [%s]"
+              % (g0[0]["exit_s"] - g0[1]["exit_s"], card), flush=True)
+        for g in (1, 2):
+            for rank, kid in sorted(kids[g].items()):
+                if kid["result"] is not None:
+                    r = kid["result"]
+                    print("fleet gen %d rank %d compile counters: %s" % (
+                        g, rank, json.dumps({k: r[k] for k in (
+                            "nvcc", "searches", "plan_hits", "disk_hits",
+                            "disk_writes", "disk_drops", "captures")})),
+                        flush=True)
+        for row in fleet_obs.step_traces(board2):
+            print("fleet stage breakdown step %d: last rank %s (skew %s s), "
+                  "dominant %s, stages %s" % (
+                      row["step"], row["last_rank"], row["skew_s"],
+                      row["dominant_stage"],
+                      json.dumps({k: round(v, 4) for k, v in
+                                  row["stages"].items()})), flush=True)
+        print("fleet (e) observatory: fleet %s; heartbeat ages %s  [%s]" % (
+            json.dumps(merged["fleet"]),
+            {r: h["heartbeat_age_s"] for r, h in merged["hosts"].items()},
+            card), flush=True)
+        worst = _fleet_gates(cfg, ref, sup.history, sup.rounds, kids,
+                             (merged, prom), wedge_dead)
+        b1 = sum(kid["b1"] for gen in kids.values() for kid in gen.values())
+        print("fleet: largest relative loss difference %.3e (bound %.0e); "
+              "the children's B1 launches %d, the world of one's %d  [%s]"
+              % (worst, FLEET_LOSS_TOL, b1, ref_b1, card), flush=True)
+        return {"b1": b1, "ref_b1": ref_b1, "worst": worst}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def kernel_entries(rows, launches, train_launches, name, source, replaces,
@@ -9942,6 +10286,26 @@ def main():
         raise AssertionError("the compile path launched no %s: %s" % (
             " or ".join(k for k, v in compile_path.items() if not v),
             compile_path))
+    # slice 17: the elastic fleet (A9's last part), B1-B3's counts from 0
+    # just before it: the world of one runs in this process, each host is
+    # a child process that counts its own B1 launches
+    fused_conv.launches = flash_attention.launches = 0
+    rtc_launches_seen = []
+    rtc_mod.launched = lambda k: (rtc_launches_seen.append(k),
+                                  rtc_launched(k))
+    try:
+        fleet_out = timed_phase("fleet", fleet_phase, card)
+    finally:
+        rtc_mod.launched = rtc_launched
+    fleet_path = {"b1_children": fleet_out["b1"],
+                  "b1_here": fused_conv.launches,
+                  "b2": flash_attention.launches,
+                  "b3": len(rtc_launches_seen)}
+    print("fleet phase launches of B1-B3: %s" % fleet_path, flush=True)
+    if not fleet_path["b1_children"] or not fleet_path["b1_here"] \
+            or fleet_path["b2"] or fleet_path["b3"]:
+        raise AssertionError("the fleet path's launches: %s (B1 only, in "
+                             "the hosts and the world of one)" % fleet_path)
     entries = kernel_entries(
         conv_rows, conv_launches, conv_train,
         "fused_conv (%s, the 11 gated convs of one b8 ResNet-50 forward)",
@@ -10037,6 +10401,11 @@ def main():
             e["compile_launches_per_forward_or_step"] = {
                 k: v for k, v in compiled["cold"]["launches"].items()
                 if (" b1" in k) == (i < 2) and not k.startswith("rtc")}
+    for e in entries:
+        e["fleet_b1_launches"] = fleet_path["b1_children"]
+        e["fleet_world_of_one_b1_launches"] = fleet_path["b1_here"]
+        e["fleet_b2_launches"] = fleet_path["b2"]
+        e["fleet_b3_launches"] = fleet_path["b3"]
     for r in rtc_rows:
         if rtc_launches[r["name"]] < 1:
             raise AssertionError("rtc %s was not launched on the imperative "
@@ -10054,7 +10423,9 @@ def main():
             "rnn_b3_launches": rnn_path["b3"],
             "moe_b3_launches": moe_path["b3"],
             "resilience_b3_launches": resil_path["b3"],
-            "compile_b3_launches": compile_path["b3"]})
+            "compile_b3_launches": compile_path["b3"],
+            "fleet_b1_launches": fleet_path["b1_children"],
+            "fleet_b3_launches": fleet_path["b3"]})
     print("rnn op beside torch.nn.LSTM (graph replay ms): %s" % json.dumps(
         rnn["op"]))
     print(json.dumps({"kernels": entries}))
@@ -10082,7 +10453,8 @@ def four_cards_main():
 
 
 def phase_main(name):
-    """``python3 chip_smoke.py resilience_phase`` (or ``compile_phase``):
+    """``python3 chip_smoke.py resilience_phase`` (or ``compile_phase``,
+    ``fleet_phase``):
     build the kernels and run that one phase alone (a failing gate raises,
     the exit is non-zero)."""
     import torch
@@ -10106,7 +10478,8 @@ def phase_main(name):
 if __name__ == "__main__":
     if sys.argv[1:] == ["parallel_four_cards"]:
         sys.exit(four_cards_main())
-    if sys.argv[1:] in (["resilience_phase"], ["compile_phase"]):
+    if sys.argv[1:] in (["resilience_phase"], ["compile_phase"],
+                        ["fleet_phase"]):
         sys.exit(phase_main(sys.argv[1]))
     if sys.argv[1:2] == ["compile_warm_child"] and len(sys.argv) == 4:
         sys.exit(compile_warm_child(*sys.argv[2:]))

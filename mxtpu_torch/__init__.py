@@ -22,7 +22,11 @@ sentinels, ``ResilientLoop``, ``TrainSupervisor``),
 JSONL sink, ``xprof``, ``perf_model``, ``profiler``, ``log`` and
 ``engine``; and ``compile_service``, the one cache under every capture
 site with its disk cache, and the launch-plan autotuner
-(``ops.pallas.autotune``). Kernels that the JAX package wrote in Pallas are
+(``ops.pallas.autotune``); and the elastic fleet: ``fleet`` (bring-up
+under a deadline, the heartbeat board, the collective watchdog, the
+supervisor that restores onto a reshaped mesh and grows back) and
+``fleet_obs`` (every host's telemetry on one board), with one host's
+trainer in ``mxtpu_torch.fleet_worker``. Kernels that the JAX package wrote in Pallas are
 hand-written CUDA under ``csrc/``, built at first use
 (``mxtpu_torch.kernels``). Entry points run on the CUDA device unless the
 caller passes a CPU device or opens a CPU context.
@@ -85,6 +89,8 @@ from . import engine  # noqa: E402
 from . import perf_model  # noqa: E402
 from . import profiler  # noqa: E402
 from . import xprof  # noqa: E402
+from . import fleet  # noqa: E402
+from . import fleet_obs  # noqa: E402
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "default_device", "layout", "ops",
@@ -97,4 +103,4 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "AttrScope", "rnn", "NDArray", "distributed", "parallel",
            "kvstore", "kv", "kvstore_server", "gradient_compression",
            "optimizer_fused", "log", "engine", "perf_model", "profiler",
-           "xprof"]
+           "xprof", "fleet", "fleet_obs"]

@@ -516,7 +516,10 @@ def load_trainer(trainer, directory, step=0):
     """Restore a gluon Trainer in place from ``save_trainer``'s step:
     parameters (copied into their storage), optimizer states and
     optimizer, the scaler and ``t``, the generators. Verified first: a
-    corrupt step restores nothing."""
+    corrupt step restores nothing. The states are whole (a ZeRO-1 save
+    gathers them), so a mesh of any size restores them: each rank's
+    ``MeshPlan`` cuts its rows at their first use
+    (``FusedUpdater._state``), whatever mesh saved them."""
     upd = _trainer_updater(trainer)
     params = [p for p in trainer._params if p.initialized]
     sd = _step_dir(directory, step)

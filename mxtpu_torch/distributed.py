@@ -22,6 +22,8 @@ the collective's device: the rank's card under NCCL, the host under gloo.
 from __future__ import annotations
 
 import datetime
+import logging
+import threading
 
 import numpy as np
 import torch
@@ -29,8 +31,8 @@ import torch.distributed as dist
 
 from .base import MXNetError
 
-__all__ = ["init", "is_initialized", "shutdown", "rank", "num_workers",
-           "barrier", "global_compute_supported", "allgather_host",
+__all__ = ["init", "is_initialized", "shutdown", "adopt_card", "rank",
+           "num_workers", "barrier", "global_compute_supported", "allgather_host",
            "allreduce_host", "backend", "collective_device"]
 
 _OWNED = [False]
@@ -90,10 +92,33 @@ def is_initialized():
     return dist.is_available() and dist.is_initialized()
 
 
-def shutdown():
-    """Leave the process group this module joined."""
+def adopt_card(local_device_ids=None):
+    """Make this thread's current card the group's (an NCCL rank's
+    ``local_device_ids[0]``, else its rank modulo the visible cards): the
+    current device is per thread, and a join may run on another one."""
+    if is_initialized() and backend() == "nccl":
+        ids = local_device_ids
+        torch.cuda.set_device(int(ids[0]) if ids else
+                              dist.get_rank() % torch.cuda.device_count())
+
+
+def shutdown(timeout_s=None):
+    """Leave the process group this module joined. With ``timeout_s`` the
+    teardown runs on a daemon thread and is given up past it: a group
+    whose peer died may block there, and a leaving host must not."""
     if _OWNED[0] and dist.is_initialized():
-        dist.destroy_process_group()
+        if timeout_s is None:
+            dist.destroy_process_group()
+        else:
+            t = threading.Thread(target=dist.destroy_process_group,
+                                 daemon=True,
+                                 name="mxtpu-torch-group-teardown")
+            t.start()
+            t.join(float(timeout_s))
+            if t.is_alive():
+                logging.getLogger("mxtpu_torch.distributed").warning(
+                    "process group teardown still blocked after %.1fs "
+                    "(a peer died?); leaving it behind", float(timeout_s))
     _OWNED[0] = False
 
 

@@ -286,6 +286,7 @@ class DataLoader:
         sent = 0
         restarts = 0
         results = {}
+        probe = False   # look at the workers now, before the next result
         from ...resilience import inject
         try:
             for i in range(len(batches)):
@@ -299,10 +300,20 @@ class DataLoader:
                         (w for w in _workers if w.is_alive()), None)
                     if victim is not None:
                         os.kill(victim.pid, _signal.SIGKILL)
+                        # a victim that held no task loses no batch, and
+                        # the others keep the results coming: without a
+                        # look now its death would go unseen
+                        victim.join(timeout=5.0)
+                        probe = True
                 while base + i not in results:
-                    try:
-                        j, desc, err = result_q.get(timeout=1.0)
-                    except _queue.Empty:
+                    got = None
+                    if not probe:
+                        try:
+                            got = result_q.get(timeout=1.0)
+                        except _queue.Empty:
+                            pass
+                    probe = False
+                    if got is None:
                         dead = [w for w in _workers
                                 if not w.is_alive()
                                 and w.exitcode not in (0, None)]
@@ -345,6 +356,7 @@ class DataLoader:
                             if j2 not in results:
                                 task_q.put((j2, batches[j2 - base]))
                         continue
+                    j, desc, err = got
                     if j < base + i or j in results:
                         # stale epoch, already-yielded, or a post-restart
                         # duplicate: discard — including stale ERRORS,

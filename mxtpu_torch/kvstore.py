@@ -229,7 +229,8 @@ def _normalize_grouped(key, value):
 def create(name="local", mesh=None):
     """A store (ref: src/kvstore/kvstore.cc:40-72): the local kinds, or
     ``dist_sync``/``dist_device_sync`` over the process group, which must
-    be joined first (``mxtpu_torch.distributed.init``)."""
+    be joined first (``mxtpu_torch.fleet.init`` or
+    ``mxtpu_torch.distributed.init``)."""
     if not isinstance(name, str):
         raise TypeError("name must be a string")
     if name in _LOCAL:
@@ -243,12 +244,16 @@ def create(name="local", mesh=None):
         if not distributed.is_initialized():
             raise MXNetError(
                 "kvstore %r needs the process group: call "
-                "mxtpu_torch.distributed.init() first (refusing to fall "
-                "back to the single-process store)" % name)
+                "mxtpu_torch.fleet.init() (coordinated bring-up: a retried "
+                "join and a barrier under one deadline, heartbeat "
+                "membership) or the bare mxtpu_torch.distributed.init() "
+                "first (refusing to fall back to the single-process store)"
+                % name)
         return KVStore(name)
     if name in ("dist_async", "dist"):
         raise MXNetError(
             "dist_async is deliberately unsupported (synchronous lockstep "
             "collectives; no stragglers to hide). Use dist_sync after "
+            "mxtpu_torch.fleet.init() (the elastic bring-up) or "
             "mxtpu_torch.distributed.init(), or a mesh Trainer.")
     raise MXNetError("unknown KVStore type %s" % name)

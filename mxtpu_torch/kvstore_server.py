@@ -24,8 +24,10 @@ class KVStoreServer:
         raise MXNetError(
             "Parameter-server roles do not exist in this runtime: "
             "distributed training is symmetric collectives over "
-            "torch.distributed. Start every process as a worker with "
-            "mxtpu_torch.distributed.init() and kvstore.create('dist_sync').")
+            "torch.distributed. Join the fleet with mxtpu_torch.fleet.init() "
+            "(elastic bring-up and membership) or start every process as "
+            "a worker with mxtpu_torch.distributed.init() and "
+            "kvstore.create('dist_sync').")
 
 
 def _init_kvstore_server_module(role=None):

@@ -46,7 +46,17 @@ of ``mxtpu/resilience.py``).
   ``decode_wedge``, ``oom`` (``maybe_oom``: ``Trainer.step``, the
   Predictor's dispatch or the decode loop raises ``ResourceExhausted``),
   ``zoo_cold`` and ``canary_rollback``; the input path's
-  ``worker_death`` and ``prefetch_death``.
+  ``worker_death`` and ``prefetch_death``; the fleet's (``fleet``,
+  ``fleet_worker``): ``host_loss`` (fleet step index:
+  ``fleet.maybe_host_loss`` exits ``EXIT_HOST_LOSS`` before that step's
+  collectives, a sudden host death with no cleanup), ``coordinator_loss``
+  (membership-check index: ``FleetMembership.check`` diagnoses host 0
+  dead and raises loud with the board), ``rejoin_stall`` (host rank: that
+  host stalls in ``fleet.init``, status ``stalled``, so its peers'
+  bring-up deadline names it, then exits ``EXIT_REJOIN_STALL``) and
+  ``straggler_slow`` (fleet step index: the fleet worker stalls before
+  that step, billed to ``data.wait``, a slow host for the straggler
+  sentinel to name).
 
 The reference reads ``MXTPU_NUMERICS_GUARD``, ``MXTPU_LOSS_SCALE``,
 ``MXTPU_CKPT_RETRIES``, ``MXTPU_CKPT_KEEP``, ``MXTPU_DIVERGENCE_EVERY``,
@@ -913,6 +923,9 @@ class TrainSupervisor:
     checkpoint step is the same at two crashes in a row.
     ``spawn``/``clock``/``sleeper``/``rng`` may be injected."""
 
+    MAX_RESTARTS = 8   # the crash-loop budget (``FleetSupervisor``'s too)
+    BACKOFF_S = 2.0    # the first respawn's wait
+
     def __init__(self, argv, ckpt_dir=None, max_restarts=None,
                  backoff_s=None, max_backoff_s=60.0, spawn=None,
                  clock=None, sleeper=None, rng=None, logger=None):
@@ -920,8 +933,10 @@ class TrainSupervisor:
         if not self.argv:
             raise MXNetError("TrainSupervisor needs a non-empty command")
         self.ckpt_dir = ckpt_dir
-        self.max_restarts = 8 if max_restarts is None else int(max_restarts)
-        self.backoff_s = 2.0 if backoff_s is None else float(backoff_s)
+        self.max_restarts = self.MAX_RESTARTS if max_restarts is None \
+            else int(max_restarts)
+        self.backoff_s = self.BACKOFF_S if backoff_s is None \
+            else float(backoff_s)
         self.max_backoff_s = float(max_backoff_s)
         self._spawn = self._default_spawn if spawn is None else spawn
         self._clock = time.monotonic if clock is None else clock

@@ -202,6 +202,19 @@ def test_import_scan_covers_the_rnn_slice():
         assert os.path.join("mxtpu_torch", rel) in scanned, rel
 
 
+def test_import_scan_covers_the_fleet():
+    """The import and environment scans above walk the fleet's modules:
+    none imports JAX or mxtpu, none reads a variable of its own (every
+    MXTPU_FLEET_*, MXTPU_FLEET_OBS_S, MXTPU_STRAGGLER_X,
+    MXTPU_PROFILE_ON_TRIP, MXTPU_FLEET_DIR and MXTPU_SUPERVISOR_* lever
+    is an argument)."""
+    scanned = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for rel in ("fleet.py", "fleet_obs.py", "fleet_worker.py"):
+        assert os.path.join("mxtpu_torch", rel) in scanned, rel
+        src = open(os.path.join(ROOT, "mxtpu_torch", rel)).read()
+        assert "environ.get(" not in src and "getenv(" not in src, rel
+
+
 def test_rnn_entry_points_default_to_the_card(no_cuda):
     """The RNN layers and cells, their begin states, the symbolic cells'
     executor, the sentence iterator and a fused cell's unpacked weights

@@ -837,9 +837,8 @@ def test_c15_setattr_lr_mult_reaches_the_update():
 
 # names of the reference still queued, by namespace (ROADMAP §A)
 _QUEUED = {
-    "": {"feature_list", "fleet", "fleet_obs",
-         "libinfo", "operator", "registry", "test_utils", "torch_interop",
-         "tpu", "util", "visualization", "viz"},
+    "": {"feature_list", "libinfo", "operator", "registry", "test_utils",
+         "torch_interop", "tpu", "util", "visualization", "viz"},
     "parallel": set(),
     "ops": {"contrib_ops", "custom", "legacy_vision", "linalg_ops",
             "random_ops"},
