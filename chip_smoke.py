@@ -1689,8 +1689,9 @@ RESNET_EXAMPLE_SHAPE = (1, 224, 224, 3)
 # seconds later (the reference's 60 s would hold them for minutes)
 CONTROL_HORIZON_S = 2.0
 # the zoo's HTTP rates: runs per model, and the least seconds of each run
+# (5 until the registry ops' phase made room: PERF.md §4)
 HTTP_RUNS = 2
-HTTP_WINDOW_S = 5.0
+HTTP_WINDOW_S = 3.0
 
 
 def _log_decisions(ctrl):
@@ -10079,6 +10080,676 @@ def kernel_entries(rows, launches, train_launches, name, source, replaces,
     return entries
 
 
+# ---------------------------------------------------------------- slice 18
+# A10.1 and A10.2 (the dense, random-draw and linear-algebra registry ops):
+# each op on the card held to the same call on CPU tensors, at the shapes
+# its users run; a ResNet-50 v1 regression Module; a drawing mx.sym graph
+OPS_SEED = 71
+OPS_DRAWS = 1 << 22           # draws an op's moments are held over
+OPS_VAE = (64, 512)           # the reparameterisation's [batch, latent]
+OPS_VAE_REPLAYS = 32          # x 64 x 512 = 2^20 draws
+OPS_REG_BATCH = 64            # the captured regression Module's batch
+OPS_SPD = (64, 128)           # Gaussian-process users: 64 SPD 128 x 128
+OPS_EW_TOL = 1e-6             # relative: elementwise, LRN, UpSampling,
+#                               plus 1e-6 of max|ref| where a value is ~0
+OPS_RED_TOL = 1e-5            # the same for a softmax's row sums (30522
+#                               float32 terms summed in another order)
+OPS_LINALG_TOL = 1e-4         # f32 residuals, of max|float64 result|
+OPS_SE = 5.0                  # standard errors an op's draw moments may miss
+OPS_VAE_SE = 4.0              # ... and the VAE's
+
+
+def _ops_cases(rng):
+    """(label, op, arrays, kwargs, kind): every A10.1/A10.2 op that is not
+    a draw, at its users' shapes; kind is "exact" (bit for bit, ties
+    included), "ew" (OPS_EW_TOL relative), "red" (OPS_RED_TOL: a
+    softmax's sums) or "linalg" (residuals against float64 on the CPU)."""
+    import numpy as np
+    f = np.float32
+    vocab, dim = BERT_BASE["vocab_size"], BERT_BASE["dim"]
+    logits = rng.standard_normal((64, vocab)).astype(f)
+    logits[:, ::7] = np.round(logits[:, ::7])      # ties, planted
+    logits[:, 1::7] = np.round(logits[:, 1::7])
+    ids = rng.integers(0, vocab, (8, 512)).astype(f)
+    ids[0, :4] = (-1, vocab, vocab + 9, -vocab)       # out of range
+    labels = rng.integers(0, 1000, 128).astype(f)
+    labels[:6] = (-1, 1000, 1003, -7, 999, 0)
+    flat = rng.choice(128 * 1000, 4096, replace=False)
+    nd_idx = np.stack([flat // 1000, flat % 1000]).astype(f)
+    nd_idx[0, :3] = (128, 200, -200)               # dropped / clamped
+    nd_idx[1, 3:5] = (1000, -1)                    # dropped / wrapped
+    act = rng.standard_normal((128, 96, 55, 55)).astype(f)
+    fmap = rng.standard_normal((8, 256, 64, 64)).astype(f)
+    s2d = rng.standard_normal((8, 256, 56, 56)).astype(f)
+    b, n = OPS_SPD
+    m = rng.standard_normal((b, n, n))
+    spd = (m @ m.transpose(0, 2, 1) / n + np.eye(n)).astype(f)
+    bad = spd.copy()
+    bad[5] = np.eye(n, dtype=f) - np.ones((n, n), f)    # not SPD
+    chol = np.linalg.cholesky(spd.astype(np.float64)).astype(f)
+    rhs = rng.standard_normal((b, n, 32)).astype(f)
+    small = (np.eye(16) + 0.1 * rng.standard_normal((b, 16, 16))).astype(f)
+    table = rng.standard_normal((vocab, dim)).astype(f)
+    return [
+        ("topk [64, 30522] k=50", "topk", [logits], dict(k=50), "exact"),
+        ("topk [64, 30522] both", "topk", [logits],
+         dict(k=50, ret_typ="both"), "exact"),
+        ("topk [64, 30522] ascend mask", "topk", [logits],
+         dict(k=50, is_ascend=True, ret_typ="mask"), "exact"),
+        ("sort [64, 30522] descend", "sort", [logits],
+         dict(is_ascend=False), "exact"),
+        ("argsort [64, 30522]", "argsort", [logits], {}, "exact"),
+        ("argsort [64, 30522] descend", "argsort", [logits],
+         dict(is_ascend=False), "exact"),
+        ("take [8, 512] of [30522, 768]", "take", [table, ids], {},
+         "exact"),
+        ("take wrap", "take", [table, ids], dict(mode="wrap"), "exact"),
+        ("take fill", "take", [table, ids], dict(mode="raise"), "exact"),
+        ("batch_take [64, 30522]", "batch_take",
+         [logits, labels[:64] * 30], {}, "exact"),
+        ("one_hot 128 labels depth 1000", "one_hot", [labels],
+         dict(depth=1000), "exact"),
+        ("gather_nd (2, 4096) of [128, 1000]", "gather_nd",
+         [rng.standard_normal((128, 1000)).astype(f), nd_idx], {}, "exact"),
+        ("scatter_nd (2, 4096) into [128, 1000]", "scatter_nd",
+         [rng.standard_normal(4096).astype(f), nd_idx],
+         dict(shape=(128, 1000)), "exact"),
+        ("_scatter_set_nd into [128, 1000]", "_scatter_set_nd",
+         [rng.standard_normal((128, 1000)).astype(f), nd_idx,
+          rng.standard_normal(4096).astype(f)],
+         dict(shape=(128, 1000)), "exact"),
+        ("index_copy rows of [30522, 768]", "_contrib_index_copy",
+         [table, np.array([3, 30521, 40000, -2, 17], f),
+          rng.standard_normal((5, dim)).astype(f)], {}, "exact"),
+        ("depth_to_space [8, 256, 56, 56] b2", "depth_to_space", [s2d],
+         dict(block_size=2), "exact"),
+        ("space_to_depth [8, 256, 56, 56] b2", "space_to_depth", [s2d],
+         dict(block_size=2), "exact"),
+        ("slice_like", "slice_like", [fmap, s2d[:, :128]], {}, "exact"),
+        ("diag [64, 30522] k=3", "diag", [logits], dict(k=3), "exact"),
+        ("shape_array", "shape_array", [fmap], {}, "exact"),
+        ("size_array", "size_array", [fmap], {}, "exact"),
+        ("reshape_like", "reshape_like", [fmap, fmap.reshape(8, 256, -1)],
+         {}, "exact"),
+        ("khatri_rao [512, 64] x2", "khatri_rao",
+         [logits[:, :512].T.copy(), logits[:, 512:1024].T.copy()], {},
+         "exact"),
+        ("_ravel_multi_index", "_ravel_multi_index",
+         [np.abs(nd_idx) % np.array([[128], [1000]], f)],
+         dict(shape=(128, 1000)), "exact"),
+        ("_unravel_index", "_unravel_index", [flat.astype(f)],
+         dict(shape=(128, 1000)), "exact"),
+        ("arange_like [8, 256, 64, 64]", "arange_like", [fmap],
+         dict(start=0.5, step=0.25), "exact"),
+        ("LRN nsize 5 [128, 96, 55, 55]", "LRN", [act], dict(nsize=5),
+         "ew"),
+        ("UpSampling x2 nearest [8, 256, 64, 64]", "UpSampling", [fmap],
+         dict(scale=2, sample_type="nearest"), "exact"),
+        ("UpSampling x2 bilinear [8, 256, 64, 64]", "UpSampling", [fmap],
+         dict(scale=2, sample_type="bilinear"), "ew"),
+        ("softmin [64, 30522]", "softmin", [logits], {}, "red"),
+        ("SoftmaxActivation channel [8, 256, 64, 64]", "SoftmaxActivation",
+         [fmap], dict(mode="channel"), "red"),
+        ("LogisticRegressionOutput forward", "LogisticRegressionOutput",
+         [logits[:, :1000].copy(), np.zeros((64, 1000), f)], {}, "ew"),
+        ("potrf 64 x 128^2 (one not SPD)", "linalg_potrf", [bad], {},
+         "linalg"),
+        ("potri", "linalg_potri", [chol], {}, "linalg"),
+        ("trsm", "linalg_trsm", [chol, rhs], dict(alpha=0.5), "linalg"),
+        ("trsm rightside transpose", "linalg_trsm",
+         [chol, rhs.transpose(0, 2, 1).copy()],
+         dict(rightside=True, transpose=True), "linalg"),
+        ("trmm", "linalg_trmm", [chol, rhs], {}, "linalg"),
+        ("syrk", "linalg_syrk", [rhs], dict(alpha=0.5), "linalg"),
+        ("sumlogdiag", "linalg_sumlogdiag", [spd], {}, "linalg"),
+        ("gemm", "linalg_gemm", [spd, rhs, rhs], dict(beta=-1.0), "linalg"),
+        ("gemm2", "linalg_gemm2", [spd, spd], dict(transpose_b=True),
+         "linalg"),
+        ("syevd 64 x 128^2", "linalg_syevd", [spd], {}, "linalg"),
+        ("gelqf 64 x 64 x 128", "linalg_gelqf", [spd[:, :64].copy()], {},
+         "linalg"),
+        ("inverse", "linalg_inverse", [spd], {}, "linalg"),
+        ("det 64 x 16^2", "linalg_det", [small], {}, "linalg"),
+        ("slogdet", "linalg_slogdet", [spd], {}, "linalg"),
+        ("makediag", "linalg_makediag", [rhs[:, :, 0].copy()], {},
+         "linalg"),
+        ("extractdiag", "linalg_extractdiag", [spd], dict(offset=1),
+         "linalg"),
+    ]
+
+
+def _ops_outs(res):
+    return list(res) if isinstance(res, (list, tuple)) else [res]
+
+
+def _ops_compare(label, op, kind, got, cpu, arrays, kw):
+    """The card's outputs against the CPU's (exact, or within OPS_EW_TOL
+    relative), or for linear algebra against float64 on the CPU by
+    residual. Returns the worst error (0 for exact)."""
+    import torch
+    from mxtpu_torch.ops import registry
+    got = [g.cpu() for g in got]
+    if kind == "exact":
+        for g, c in zip(got, cpu):
+            if g.dtype != c.dtype or g.shape != c.shape or not torch.equal(
+                    torch.nan_to_num(g.double(), nan=0.5),
+                    torch.nan_to_num(c.double(), nan=0.5)) or not torch.equal(
+                    torch.isnan(g.double()), torch.isnan(c.double())):
+                raise AssertionError("ops %s: the card differs from the CPU "
+                                     "(exact)" % label)
+        return 0.0
+    if kind in ("ew", "red"):
+        tol = OPS_EW_TOL if kind == "ew" else OPS_RED_TOL
+        err = 0.0
+        for g, c in zip(got, cpu):
+            g, c = g.double(), c.double()
+            scale = c.abs().max().clamp_min(1e-30)
+            d = (g - c).abs() / (c.abs() + scale)
+            err = max(err, float(d.max()))
+            if not bool(((g - c).abs() <= tol * (c.abs() + scale)).all()):
+                raise AssertionError(
+                    "ops %s: |card - CPU| over %g of |CPU| + %g of "
+                    "max|CPU| (worst %.3g)" % (label, tol, tol, err))
+        return err
+    fn = registry.get_op(op).fn
+    ref = _ops_outs(fn(*[torch.from_numpy(a).double() for a in arrays],
+                       **kw))
+    if op == "linalg_gelqf":    # signs of Q's rows: by |.| and L Q = A
+        a = torch.from_numpy(arrays[0]).double()
+        parts = [(got[0].double() @ got[1].double() - a).abs().max()
+                 / a.abs().max(),
+                 (got[1].double().abs() - ref[1].abs()).abs().max(),
+                 (got[0].double().abs() - ref[0].abs()).abs().max()
+                 / ref[0].abs().max()]
+    elif op == "linalg_syevd":  # signs of the eigenvectors
+        a = torch.from_numpy(arrays[0]).double()
+        u, lam = got[0].double(), got[1].double()
+        parts = [(u.transpose(-1, -2) @ (lam[..., None] * u) - a).abs().max()
+                 / a.abs().max(),
+                 (lam - ref[1]).abs().max() / ref[1].abs().max(),
+                 float((torch.diff(lam, dim=-1) < 0).any())]
+    else:
+        parts = []
+        for g, r in zip(got, ref):
+            nan_g, nan_r = torch.isnan(g), torch.isnan(r)
+            if not torch.equal(nan_g, nan_r):
+                raise AssertionError("ops %s: NaN where the float64 result "
+                                     "has none, or the reverse" % label)
+            g, r = g.double()[~nan_r], r[~nan_r]
+            parts.append(float((g - r).abs().max() / r.abs().max().clamp_min(
+                1e-30)) if r.numel() else 0.0)
+    err = max(float(p) for p in parts)
+    if not err <= OPS_LINALG_TOL:
+        raise AssertionError("ops %s: %.3g against float64 (limit %g)"
+                             % (label, err, OPS_LINALG_TOL))
+    return err
+
+
+def _ops_executor(op, arrays, kw):
+    """``op`` as an ``mx.sym`` graph bound through the Executor on the
+    card: the forward is a captured CUDA graph. Returns the outputs of two
+    forwards (the capture's and a replay's) and the Executor."""
+    import mxtpu_torch as mt
+    names = ["a%d" % i for i in range(len(arrays))]
+    sym = getattr(mt.sym, op)(*[mt.sym.var(n) for n in names], **kw)
+    args = {n: mt.nd.array(a, ctx=mt.gpu(0)) for n, a in zip(names, arrays)}
+    exe = sym.bind(mt.gpu(0), args=args, grad_req="null")
+    first = [o.to_torch().clone() for o in exe.forward(is_train=False)]
+    second = [o.to_torch().clone() for o in exe.forward(is_train=False)]
+    return first, second, exe
+
+
+def ops_gates(card):
+    """(a): every A10.1/A10.2 op that is not a draw on the card, held to
+    the same call on CPU tensors and timed eagerly (``cuda_ms``) and by
+    graph replay (``graph_ms``), then once more inside a captured
+    Executor graph (equal to the eager call; ``syevd``, which runs the
+    Jacobi method there since ``eigh`` checks on the host, held to
+    float64 by its residuals). Returns the rows."""
+    import gc
+    import numpy as np
+    import torch
+    import mxtpu_torch as mt
+    from mxtpu_torch.ops import registry
+    rng = np.random.default_rng(OPS_SEED)
+    card_dev = mt.context.resolve_device(mt.gpu(0))
+    rows = []
+    for label, op, arrays, kw, kind in _ops_cases(rng):
+        fn = registry.get_op(op).fn
+        dev = [torch.from_numpy(a).to(card_dev) for a in arrays]
+        host = [torch.from_numpy(a) for a in arrays]
+        with mt.gpu(0):     # a creation op (arange_like) lands in the scope
+            got = _ops_outs(fn(*dev, **kw))
+        with mt.cpu():
+            cpu = _ops_outs(fn(*host, **kw))
+        torch.cuda.synchronize()
+        err = _ops_compare(label, op, kind, got, cpu, arrays, kw)
+        slow = op == "linalg_syevd"     # ~120 ms a call: fewer calls
+        ms = cuda_ms(lambda: fn(*dev, **kw), launches=2 if slow else 5,
+                     repeats=3, warmup=1 if slow else 3)
+        first, second, exe = _ops_executor(op, arrays, kw)
+        if slow:    # captured, the Jacobi method (eigh checks on the host)
+            errs = [_ops_compare(label + " (captured Executor)", op, kind,
+                                 outs, None, arrays, kw)
+                    for outs in (first, second)]
+            captured = "Jacobi, %.2g against float64" % max(errs)
+            # the Executor's replay: one more capture would cost seconds
+            gms = cuda_ms(lambda: exe.forward(is_train=False), launches=1,
+                          repeats=3, warmup=1)
+        else:
+            gms = graph_ms(lambda: fn(*dev, **kw), launches=5, repeats=3)
+            for outs in (first, second):
+                if len(outs) != len(got):
+                    raise AssertionError("ops %s: the Executor gave %d "
+                                         "outputs" % (label, len(outs)))
+                for o, g in zip(outs, got):
+                    same = torch.equal(torch.nan_to_num(o, nan=0.5),
+                                       torch.nan_to_num(g, nan=0.5)) \
+                        if kind == "exact" else torch.allclose(
+                            o, g, rtol=OPS_RED_TOL, equal_nan=True,
+                            atol=OPS_RED_TOL * float(
+                                g.nan_to_num().abs().max()))
+                    if not same:
+                        raise AssertionError(
+                            "ops %s: the captured Executor graph differs "
+                            "from the eager call" % label)
+            captured = "same"
+        del exe
+        row = dict(label=label, op=op, kind=kind, err=err, cuda_ms=ms,
+                   graph_ms=gms, captured=captured)
+        rows.append(row)
+        print("ops %-44s %-6s card vs CPU %-10s cuda_ms %.4f graph_ms %.4f "
+              "captured Executor %s on %s" % (
+                  label, kind, "exact" if kind == "exact" else "%.2g" % err,
+                  ms, gms, captured, card), flush=True)
+        del dev, got
+        gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _ops_moments(label, x, mean, var, k=OPS_SE):
+    """Sample mean and variance of ``x`` (on the card) against the
+    analytic ones, within ``k`` standard errors (the variance's from the
+    sample's fourth moment). Returns (mean, var)."""
+    x = x.double().flatten()
+    n = x.numel()
+    m = float(x.mean())
+    v = float(((x - m) ** 2).mean())
+    m4 = float(((x - m) ** 4).mean())
+    se_m, se_v = (var / n) ** 0.5, (max(m4 - v * v, 1e-30) / n) ** 0.5
+    if not (abs(m - mean) <= k * se_m and abs(v - var) <= k * se_v):
+        raise AssertionError("ops %s: mean %.6g (want %.6g, se %.3g), "
+                             "variance %.6g (want %.6g, se %.3g)"
+                             % (label, m, mean, se_m, v, var, se_v))
+    return m, v
+
+
+def ops_draws(card):
+    """(c) first half: each drawing op on the card at OPS_DRAWS draws
+    against its analytic moments and support; ``multinomial`` over BERT's
+    vocabulary with ``get_prob``; ``_sample_unique_zipfian`` refuses a
+    capture. Returns the rows."""
+    import numpy as np
+    import torch
+    import mxtpu_torch as mt
+    from mxtpu_torch.base import MXNetError
+    from mxtpu_torch.ops import random_ops as R
+    n = OPS_DRAWS
+    g = mt.context.resolve_device(mt.gpu(0))
+    mt.random.seed(OPS_SEED)
+    like = torch.zeros(n, device=g)
+    cases = [
+        ("uniform", lambda: R.uniform(-1.0, 3.0, shape=(n,), ctx=g),
+         1.0, 16 / 12, lambda x: bool(((x >= -1) & (x < 3)).all())),
+        ("normal", lambda: R.normal(2.0, 0.5, shape=(n,), ctx=g), 2.0, 0.25,
+         None),
+        ("_random_gamma", lambda: R.gamma_sample(2.5, 1.5, shape=(n,),
+                                                 ctx=g),
+         3.75, 2.5 * 1.5 ** 2, lambda x: bool((x > 0).all())),
+        ("exponential", lambda: R.exponential(0.5, shape=(n,), ctx=g), 2.0,
+         4.0, lambda x: bool((x >= 0).all())),
+        ("poisson", lambda: R.poisson(3.5, shape=(n,), ctx=g), 3.5, 3.5,
+         lambda x: bool(((x >= 0) & (x == x.round())).all())),
+        ("negative_binomial", lambda: R.negative_binomial(
+            3, 0.4, shape=(n,), ctx=g), 4.5, 3 * 0.6 / 0.16,
+         lambda x: bool(((x >= 0) & (x == x.round())).all())),
+        ("generalized_negative_binomial",
+         lambda: R.generalized_negative_binomial(2.0, 0.5, shape=(n,),
+                                                 ctx=g), 2.0, 4.0,
+         lambda x: bool(((x >= 0) & (x == x.round())).all())),
+        ("randint", lambda: R.randint(-3, 7, shape=(n,), ctx=g), 1.5,
+         99 / 12, lambda x: bool(((x >= -3) & (x < 7)).all())),
+        ("uniform_like", lambda: R.uniform_like(like, 2.0, 4.0), 3.0, 4 / 12,
+         lambda x: bool(((x >= 2) & (x < 4)).all())),
+        ("normal_like", lambda: R.normal_like(like, -1.0, 2.0), -1.0, 4.0,
+         None),
+    ]
+    rows = []
+    for name, draw, mean, var, support in cases:
+        x = draw()
+        if x.device != g or x.numel() != n:
+            raise AssertionError("ops %s: %s on %s" % (name, tuple(x.shape),
+                                                        x.device))
+        if support is not None and not support(x):
+            raise AssertionError("ops %s: a draw out of its support" % name)
+        m, v = _ops_moments(name, x, mean, var)
+        ms = cuda_ms(draw, launches=5, repeats=3)
+        rows.append(dict(op=name, mean=m, var=v, cuda_ms=ms))
+        print("ops draw %-30s %d on the card: mean %.6f (analytic %.6f), "
+              "variance %.6f (analytic %.6f), within %g se; cuda_ms %.4f on "
+              "%s" % (name, n, m, mean, v, var, OPS_SE, ms, card), flush=True)
+    # multinomial over BERT's vocabulary, with the drawn ids' log p
+    rng = np.random.default_rng(OPS_SEED + 1)
+    p = torch.from_numpy(rng.random((64, BERT_BASE["vocab_size"])).astype(
+        np.float32) ** 4).to(g)
+    per_row = n // 64
+    ids, lp = R.multinomial(p, shape=(per_row,), get_prob=True)
+    want = torch.log_softmax(torch.log(p.clamp_min(1e-30)), -1).gather(
+        -1, ids.long())
+    lp_err = float(((lp - want).abs() / want.abs().clamp_min(1e-30)).max())
+    q = (p / p.sum(-1, keepdim=True)).double()
+    k = torch.arange(p.shape[1], device=g, dtype=torch.float64)
+    mean, var = (q * k).sum(-1), (q * k * k).sum(-1) - (q * k).sum(-1) ** 2
+    got = ids.double().mean(-1)
+    z = ((got - mean) / (var / per_row).sqrt()).abs().max().item()
+    if tuple(ids.shape) != (64, per_row) or z > OPS_SE or lp_err > 1e-6:
+        raise AssertionError("ops multinomial: shape %s, worst row mean %.2f "
+                             "se (limit %g), log p %.3g relative"
+                             % (tuple(ids.shape), z, OPS_SE, lp_err))
+    ms = cuda_ms(lambda: R.multinomial(p, shape=(per_row,), get_prob=True),
+                 launches=3, repeats=3)
+    rows.append(dict(op="multinomial", worst_row_mean_se=z, lp_err=lp_err,
+                     cuda_ms=ms))
+    print("ops draw multinomial [64, %d] x %d with get_prob: worst row's "
+          "mean id %.2f se from p's, log p %.3g relative; cuda_ms %.4f on "
+          "%s" % (p.shape[1], per_row, z, lp_err, ms, card), flush=True)
+    rows_ = torch.arange(4096 * 8, device=g, dtype=torch.float32).reshape(
+        4096, 8)
+    sh = R.shuffle(rows_)
+    if not torch.equal(sh.sort(0).values, rows_) or torch.equal(sh, rows_):
+        raise AssertionError("ops shuffle: not a permutation of the rows")
+    ids, tries = R._sample_unique_zipfian(30522, shape=(64, 1024), ctx=g)
+    ok = all(len(set(r)) == 1024 for r in ids.cpu().tolist())
+    if not ok or not bool((tries >= 1024).all()):
+        raise AssertionError("ops _sample_unique_zipfian: ids repeat")
+    sym = mt.sym._sample_unique_zipfian(range_max=30522, shape=(4, 64))[0] \
+        + mt.sym.var("x")
+    exe = sym.bind(mt.gpu(0), args={"x": mt.nd.zeros((4, 64),
+                                                     ctx=mt.gpu(0))},
+                   grad_req="null")
+    try:
+        exe.forward(is_train=False)
+    except MXNetError as e:
+        if "_sample_unique_zipfian" not in str(e):
+            raise
+    else:
+        raise AssertionError("ops _sample_unique_zipfian ran inside a "
+                             "capture")
+    del exe
+    print("ops draw shuffle of 4096 rows: a permutation; "
+          "_sample_unique_zipfian [64, 1024] of 30522: distinct ids a row, "
+          "and inside a captured Executor graph it raises", flush=True)
+    return rows
+
+
+def ops_vae(card):
+    """(c) second half: ``z = mu + exp(0.5 logvar) * normal_like(mu)`` at
+    OPS_VAE through the Executor (a captured CUDA graph that registers the
+    generator): two replays draw differently, and the standardised draws
+    of OPS_VAE_REPLAYS replays have mean 0 and variance 1 within
+    OPS_VAE_SE standard errors."""
+    import numpy as np
+    import torch
+    import mxtpu_torch as mt
+    from mxtpu_torch import telemetry
+    s = mt.sym
+    mu, logvar = s.var("mu"), s.var("logvar")
+    z = mu + s.exp(0.5 * logvar) * s.normal_like(mu)
+    rng = np.random.default_rng(OPS_SEED + 2)
+    m = rng.standard_normal(OPS_VAE).astype(np.float32)
+    lv = (0.5 * rng.standard_normal(OPS_VAE)).astype(np.float32)
+    exe = z.bind(mt.gpu(0), args={"mu": mt.nd.array(m, ctx=mt.gpu(0)),
+                                  "logvar": mt.nd.array(lv, ctx=mt.gpu(0))},
+                 grad_req="null")
+    before = (telemetry.retrace_stats("executor") or {}).get("compiles", 0)
+    outs = [exe.forward(is_train=False)[0].to_torch().clone()
+            for _ in range(OPS_VAE_REPLAYS)]
+    builds = (telemetry.retrace_stats("executor") or {}).get(
+        "compiles", 0) - before
+    if builds != 1 or torch.equal(outs[0], outs[1]):
+        raise AssertionError("ops vae: %d builds (expected 1), replays 0 "
+                             "and 1 equal: %s" % (
+                                 builds, torch.equal(outs[0], outs[1])))
+    dev = mt.context.resolve_device(mt.gpu(0))
+    mu_t, sd = torch.from_numpy(m).to(dev), torch.from_numpy(
+        np.exp(0.5 * lv)).to(dev)
+    std = torch.stack([(o - mu_t) / sd for o in outs])
+    mean, var = _ops_moments("vae", std, 0.0, 1.0, OPS_VAE_SE)
+    ms = cuda_ms(lambda: exe.forward(is_train=False), launches=5,
+                 repeats=3)
+    print("ops vae z = mu + exp(0.5 logvar) * normal_like(mu) at %s through "
+          "a captured Executor graph: 1 build, replays draw afresh; %d "
+          "standardised draws mean %.6f variance %.6f (within %g se); "
+          "%.4f ms a forward on %s" % (
+              OPS_VAE, std.numel(), mean, var, OPS_VAE_SE, ms, card),
+          flush=True)
+    del exe
+    return dict(mean=mean, var=var, ms=ms, draws=std.numel())
+
+
+def _reg_module(sym, arg_params, aux_params, batch, ctx, label, width,
+                data_shape=(224, 224, 3), optimizer_params=None):
+    import mxtpu_torch as mt
+    mod = mt.mod.Module(sym, label_names=(label,), context=ctx)
+    mod.bind(data_shapes=[("data", (batch,) + tuple(data_shape))],
+             label_shapes=[(label, (batch, width))])
+    mod.init_params(arg_params=arg_params, aux_params=aux_params)
+    mod.init_optimizer(kvstore="local", optimizer="sgd",
+                       optimizer_params=dict(optimizer_params or SGD_PARAMS))
+    return mod
+
+
+def _reg_lockstep(what, make, batches, steps=3, launches_want=None):
+    """``steps`` of a card Module and a CPU Module from the card's state,
+    each step held as ``symbolic_lockstep`` holds the softmax Module:
+    outputs within 1e-4 (of max(1, max|ref|)), gradients and weight
+    changes within TRAIN_L2 relative L2. Returns (worst, launches)."""
+    import torch
+    import mxtpu_torch as mt
+    from mxtpu_torch.ops.pallas.conv import fused_conv
+    card, cpu = make(mt.gpu(0)), make(mt.cpu())
+    worst, launches = {}, []
+
+    def note(key, v, tol):
+        worst[key] = max(worst.get(key, 0.0), v)
+        if not v <= tol:
+            raise AssertionError("%s lockstep: %s %.3g (limit %g)"
+                                 % (what, key, v, tol))
+    for i, (x, y) in enumerate(batches):
+        if i:
+            _sync_module(cpu, card)
+        before = {k: v.to_torch().clone() for k, v in
+                  card.get_params()[0].items()}
+        start = fused_conv.launches
+        card.forward_backward(_batch(x, y, mt.gpu(0)))
+        card.update()
+        torch.cuda.synchronize()
+        launches.append(fused_conv.launches - start)
+        cpu.forward_backward(_batch(x, y, mt.cpu()))
+        cpu.update()
+        out_c = card.get_outputs()[0].to_torch().float().cpu()
+        out_r = cpu.get_outputs()[0].to_torch()
+        note("outputs", (out_c - out_r).abs().max().item()
+             / max(1.0, out_r.abs().max().item()), 1e-4)
+        ge, gr = card._exec.grad_dict, cpu._exec.grad_dict
+        note("gradients", max(_l2(ge[k].to_torch(), gr[k].to_torch())
+                              for k in gr), TRAIN_L2)
+        arg_c, arg_r = card.get_params()[0], cpu.get_params()[0]
+        note("weight changes", max(
+            _l2(arg_c[k].to_torch().cpu() - before[k].cpu(),
+                arg_r[k].to_torch() - before[k].cpu()) for k in arg_r),
+             TRAIN_L2)
+    if launches_want is not None and launches != launches_want:
+        raise AssertionError("%s lockstep: fused_conv launches %s, expected "
+                             "%s" % (what, launches, launches_want))
+    return worst, launches
+
+
+def ops_regression(card, prefix):
+    """(b): ResNet-50 v1 (the exported symbol, seeded weights, 224^2 NHWC)
+    under ``LinearRegressionOutput`` on a 1000-wide head with seeded float
+    targets, through ``mx.mod.Module`` (SGD-momentum): 3 f32 b8 steps in
+    lockstep with a CPU Module, then captured at b64 f32 with 0 builds
+    after the warm-up, 11 B1 launches a step, and B1's ``DISPATCH_STATS``
+    counting the capture's 11 gated convs (and the other convs'
+    refusals, with the gate's reasons) once and no replay; then ``LogisticRegressionOutput``
+    and ``MAERegressionOutput`` through a small MLP Module, 3 steps each
+    against the CPU."""
+    import gc
+    import numpy as np
+    import torch
+    import mxtpu_torch as mt
+    from mxtpu_torch.ops.pallas import conv as tpc
+    from mxtpu_torch.ops.pallas.conv import fused_conv
+    sym = mt.sym.LinearRegressionOutput(mt.sym.load(prefix + "-symbol.json"),
+                                        name="lro")
+    _, arg_params, aux_params = mt.model.load_checkpoint(prefix, 0)
+    rng = np.random.default_rng(OPS_SEED + 3)
+
+    def batches(b, steps):
+        return [(rng.standard_normal((b, 224, 224, 3)).astype(np.float32),
+                 rng.standard_normal((b, 1000)).astype(np.float32))
+                for _ in range(steps)]
+    t0 = time.time()
+    worst, launches = _reg_lockstep(
+        "regression Module", lambda ctx: _reg_module(
+            sym, arg_params, aux_params, 8, ctx, "lro_label", 1000),
+        batches(8, 3), launches_want=[33, 11, 11])
+    print("ops regression: resnet50_v1 + LinearRegressionOutput f32 b8 "
+          "through Module, 3 SGD-momentum steps each against the same step "
+          "of a CPU Module (%.1f s): fused_conv launches %s; worst errors: "
+          "%s" % (time.time() - t0, launches, worst_line(worst)),
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mod = _reg_module(sym, arg_params, aux_params, OPS_REG_BATCH, mt.gpu(0),
+                      "lro_label", 1000)
+    (x, y), = batches(OPS_REG_BATCH, 1)
+    batch_ = _batch(x, y, mt.gpu(0))
+
+    def step():
+        mod.forward_backward(batch_)
+        mod.update()
+    tpc.reset_dispatch_stats()
+    step()
+    torch.cuda.synchronize()
+    captured = dict(tpc.DISPATCH_STATS.items())
+    warm = {}
+
+    def on_warm():
+        warm.update(_executor_builds())
+        warm["dispatch"] = dict(tpc.DISPATCH_STATS.items())
+    med, p80, issue = timed_steps(step, warm=2, on_warm=on_warm)
+    built = {k: v - warm[k] for k, v in _executor_builds().items()}
+    start = fused_conv.launches
+    step()
+    torch.cuda.synchronize()
+    per_step = fused_conv.launches - start
+    after = dict(tpc.DISPATCH_STATS.items())
+    reasons = captured["fallback_reasons"]
+    convs = sum(1 for nd in json.load(open(prefix + "-symbol.json"))[
+        "nodes"] if nd["op"] == "Convolution")
+    if captured["pallas"] != 11 or captured["xla"] != convs - 11 \
+            or sum(reasons.values()) != convs - 11 or after != captured \
+            or warm["dispatch"] != captured:
+        raise AssertionError("ops regression: DISPATCH_STATS after the "
+                             "capture %s (expected pallas 11, xla %d), "
+                             "after the replays %s (expected unchanged)"
+                             % (captured, convs - 11, after))
+    if per_step != 11 or any(built.values()):
+        raise AssertionError("ops regression: %d fused_conv launches a "
+                             "step (expected 11), builds after the warm-up "
+                             "%s" % (per_step, built))
+    rate = OPS_REG_BATCH * 1e3 / med
+    dev_ms = print_step_breakdown(
+        "ops regression Module resnet50_v1 float32 b%d" % OPS_REG_BATCH,
+        device_rows(step, 2), med, RESNET50_TRAIN_FLOPS * rate, "float32",
+        card)
+    print("ops regression: resnet50_v1 + LinearRegressionOutput f32 b%d "
+          "through Module (captured) on %s: %.1f images/s at the median step "
+          "%.3f ms (p80 %.3f, median host issue %.3f ms, device %.3f ms, "
+          "idle share %.3f; %d steps after 3); builds in the timed steps %s; "
+          "fused_conv launches a step %d; DISPATCH_STATS of the capture %s "
+          "(unchanged by %d replays)" % (
+              OPS_REG_BATCH, card, rate, med, p80, issue, dev_ms,
+              1 - dev_ms / med, TIMED_STEPS, built, per_step,
+              {"pallas": captured["pallas"], "xla": captured["xla"],
+               "reasons": len(reasons)}, TIMED_STEPS + 3), flush=True)
+    del mod, batch_
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the other two heads through a small MLP Module
+    heads = {}
+    for head, lo in (("LogisticRegressionOutput", 0.0),
+                     ("MAERegressionOutput", -1.0)):
+        s = mt.sym
+        h = s.FullyConnected(s.var("data"), num_hidden=256, name="fc1")
+        h = s.Activation(h, act_type="relu")
+        h = s.FullyConnected(h, num_hidden=64, name="fc2")
+        hsym = getattr(s, head)(h, name="head")
+        r = np.random.default_rng(OPS_SEED + 4)
+        args = {"fc1_weight": r.standard_normal((256, 512)) * 0.05,
+                "fc1_bias": np.zeros(256), "fc2_weight":
+                r.standard_normal((64, 256)) * 0.05, "fc2_bias": np.zeros(64)}
+        args = {k: mt.nd.array(v.astype(np.float32), ctx=mt.cpu())
+                for k, v in args.items()}
+        data = [(r.standard_normal((128, 512)).astype(np.float32),
+                 r.uniform(lo, 1.0, (128, 64)).astype(np.float32))
+                for _ in range(3)]
+        w, _ = _reg_lockstep(head, lambda ctx: _reg_module(
+            hsym, args, {}, 128, ctx, "head_label", 64, data_shape=(512,)),
+            data)
+        heads[head] = w
+        print("ops regression: a 512-256-64 MLP + %s b128 through Module, 3 "
+              "SGD-momentum steps against the CPU: worst errors %s" % (
+                  head, worst_line(w)), flush=True)
+    return dict(lockstep=worst, lockstep_launches=launches, step_ms=med,
+                p80_ms=p80, issue_ms=issue, device_ms=dev_ms,
+                idle=1 - dev_ms / med, rate=rate, launches=per_step,
+                dispatch={"pallas": captured["pallas"],
+                          "xla": captured["xla"]},
+                builds_after_warmup=built, heads=heads)
+
+
+def ops_phase(card):
+    """Slice 18 (A10.1 and A10.2) on the card: (a) ``ops_gates``, (b)
+    ``ops_regression`` on ResNet-50 v1 exported as ``symbolic_phase``
+    exports it, (c) ``ops_draws`` and ``ops_vae``. Returns the results."""
+    import gc
+    import shutil
+    import tempfile
+    import torch
+    t_phase = time.time()
+    gates = ops_gates(card)
+    draws = ops_draws(card)
+    vae = ops_vae(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="ops_", dir=os.path.join(ROOT, "build"))
+    try:
+        prefix, _, _, _ = symbolic_export(card, root)
+        gc.collect()
+        torch.cuda.empty_cache()
+        reg = ops_regression(card, prefix)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("ops phase %.1f s" % (time.time() - t_phase), flush=True)
+    return {"gates": gates, "draws": draws, "vae": vae, "regression": reg}
+
+
 def timed_phase(name, fn, *args):
     """``fn(*args)``, then its wall seconds on a line of their own."""
     t0 = time.time()
@@ -10306,6 +10977,22 @@ def main():
             or fleet_path["b2"] or fleet_path["b3"]:
         raise AssertionError("the fleet path's launches: %s (B1 only, in "
                              "the hosts and the world of one)" % fleet_path)
+    # slice 18: A10.1 and A10.2's ops, B1-B3's counts from 0 just before
+    # it; B1 runs in the regression Module's every forward
+    fused_conv.launches = flash_attention.launches = 0
+    rtc_launches_seen = []
+    rtc_mod.launched = lambda k: (rtc_launches_seen.append(k),
+                                  rtc_launched(k))
+    try:
+        ops_out = timed_phase("ops", ops_phase, card)
+    finally:
+        rtc_mod.launched = rtc_launched
+    ops_path = {"b1": fused_conv.launches, "b2": flash_attention.launches,
+                "b3": len(rtc_launches_seen)}
+    print("ops phase launches of B1-B3: %s" % ops_path, flush=True)
+    if not ops_path["b1"] or ops_path["b2"] or ops_path["b3"]:
+        raise AssertionError("the ops path's launches: %s (B1 only)"
+                             % ops_path)
     entries = kernel_entries(
         conv_rows, conv_launches, conv_train,
         "fused_conv (%s, the 11 gated convs of one b8 ResNet-50 forward)",
@@ -10406,6 +11093,16 @@ def main():
         e["fleet_world_of_one_b1_launches"] = fleet_path["b1_here"]
         e["fleet_b2_launches"] = fleet_path["b2"]
         e["fleet_b3_launches"] = fleet_path["b3"]
+    reg = ops_out["regression"]
+    for i, e in enumerate(entries):
+        e["ops_b1_launches"] = ops_path["b1"]
+        e["ops_b2_launches"] = ops_path["b2"]
+        e["ops_b3_launches"] = ops_path["b3"]
+        if i < 2:
+            e["ops_b1_launches_per_step"] = {
+                "regression_module_f32_b8_lockstep": reg["lockstep_launches"],
+                "regression_module_f32_b64_captured": reg["launches"]}
+            e["ops_dispatch_stats_per_capture"] = reg["dispatch"]
     for r in rtc_rows:
         if rtc_launches[r["name"]] < 1:
             raise AssertionError("rtc %s was not launched on the imperative "
@@ -10425,7 +11122,8 @@ def main():
             "resilience_b3_launches": resil_path["b3"],
             "compile_b3_launches": compile_path["b3"],
             "fleet_b1_launches": fleet_path["b1_children"],
-            "fleet_b3_launches": fleet_path["b3"]})
+            "fleet_b3_launches": fleet_path["b3"],
+            "ops_b3_launches": ops_path["b3"]})
     print("rnn op beside torch.nn.LSTM (graph replay ms): %s" % json.dumps(
         rnn["op"]))
     print(json.dumps({"kernels": entries}))
@@ -10454,7 +11152,7 @@ def four_cards_main():
 
 def phase_main(name):
     """``python3 chip_smoke.py resilience_phase`` (or ``compile_phase``,
-    ``fleet_phase``):
+    ``fleet_phase``, ``ops_phase``):
     build the kernels and run that one phase alone (a failing gate raises,
     the exit is non-zero)."""
     import torch
@@ -10479,7 +11177,7 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["parallel_four_cards"]:
         sys.exit(four_cards_main())
     if sys.argv[1:] in (["resilience_phase"], ["compile_phase"],
-                        ["fleet_phase"]):
+                        ["fleet_phase"], ["ops_phase"]):
         sys.exit(phase_main(sys.argv[1]))
     if sys.argv[1:2] == ["compile_warm_child"] and len(sys.argv) == 4:
         sys.exit(compile_warm_child(*sys.argv[2:]))

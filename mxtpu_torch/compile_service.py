@@ -754,15 +754,15 @@ def _build_entry(key, build, provenance, companion, group, persist,
     return Entry(fn, meta, "disk" if disk is not None else "built", record)
 
 
-def get_or_build(key, build, provenance=None, companion=False, group=None,
-                 persist=True, _preread=None):
+def get_or_build(key, build, provenance=None, example_args=None, aot=None,
+                 companion=False, group=None, persist=True, _preread=None):
     """The front door: the in-memory store, else (``persist`` and a cache
     dir) the blob, then ``build()`` -- which returns what the site keeps,
     or ``(fn, meta)``. ``provenance`` (or a thunk of it) goes to the
     retrace count (a ``companion`` counts none) and the blob; ``group``
     shares the first member's FLOP count. The reference's
-    ``example_args``/``aot`` have no counterpart: a capture needs no AOT
-    step."""
+    ``example_args``/``aot`` are accepted and ignored: a capture needs no
+    ahead-of-time lowering, and ``build()`` itself captures."""
     with _LOCK:
         e = _lookup_locked(key)
     if e is not None:

@@ -239,10 +239,12 @@ def _save(directory, step, arrays_fn, meta, async_save, force,
     ``step`` (module docstring). Returns the writer."""
     _pending()
     sd = _step_dir(directory, step)
-    _guard_overwrite(sd, force)
     rank = _rank()
     if rank and barrier is None:   # one writer: the ranks' copies agree
+        # (the writer alone guards: it may have finalized the step before
+        # this rank got here)
         return _Writer()
+    _guard_overwrite(sd, force)
     os.makedirs(os.path.dirname(sd), exist_ok=True)
     staging = sd + ".partial"
     if rank == 0:

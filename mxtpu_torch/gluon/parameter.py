@@ -289,6 +289,22 @@ class Parameter:
         else:
             self._put(t.detach().to(torch_dtype(dtype)))
 
+    def list_ctx(self):
+        """``[the context of the device the parameter lives on]``; before
+        it is initialized, ``[current_context()]`` (the reference's answer
+        at any time: its one copy lives on the mesh)."""
+        from ..context import Context, current_context
+        if not self.initialized:
+            return [current_context()]
+        dev = self._get().device
+        return [Context("gpu", dev.index or 0) if dev.type == "cuda"
+                else Context("cpu", 0)]
+
+    def var(self):
+        """A symbol variable of this parameter's name, shape and dtype."""
+        from ..symbol import var
+        return var(self.name, shape=self.shape, dtype=self.dtype)
+
     def reset_ctx(self, ctx):
         """Move the parameter to ``ctx`` (a placeholder records it)."""
         device = resolve_device(ctx)

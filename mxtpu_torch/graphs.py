@@ -52,7 +52,8 @@ from .base import MXNetError
 
 __all__ = ["CAPTURE_LOCK", "CapturedGraph", "CapturedPair", "launched",
            "capturing", "captures", "keeping", "keeping_generators",
-           "allow_generator", "ledger_site", "EagerGraph"]
+           "allow_generator", "ledger_site", "EagerGraph",
+           "counts_dispatch"]
 
 # one lock for every capture and every eager forward of a shared block:
 # the Predictor's forward swaps its parameter snapshot into the block
@@ -102,6 +103,14 @@ def capturing():
     """True on a thread that is capturing a graph: a hybridized child
     called inside its parent's capture runs eagerly into that graph."""
     return getattr(_STATE, "depth", 0) > 0
+
+
+def counts_dispatch():
+    """Whether a kernel's dispatch statistics (``DISPATCH_STATS``) count
+    this call: an eager call does, and a graph's capture pass does once;
+    a capture's warm-up and its replays count nothing. (``launched``
+    counts every launch, replays included.)"""
+    return not capturing() or getattr(_STATE, "tally", None) is not None
 
 
 def captures(device):

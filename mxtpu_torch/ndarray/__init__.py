@@ -12,10 +12,10 @@ from ..ops.registry import REGISTRY as _REGISTRY, attach_methods
 
 attach_methods(NDArray)
 
-_mod = _sys.modules[__name__]
+_this = _sys.modules[__name__]
 for _name, _op in _REGISTRY.items():
-    if not hasattr(_mod, _name):
-        setattr(_mod, _name, _op.wrapper)
+    if not hasattr(_this, _name):
+        setattr(_this, _name, _op.wrapper)
 
 # mx.nd.contrib.*: every `_contrib_X` op as contrib.X (plus its aliases)
 contrib = _types.ModuleType(__name__ + ".contrib")
@@ -56,6 +56,7 @@ contrib.__getattr__ = _contrib_getattr
 _internal.__getattr__ = _internal_getattr
 
 from . import random  # noqa: E402,F401
+from . import linalg  # noqa: E402,F401
 from . import image  # noqa: E402,F401
 from . import sparse  # noqa: E402,F401
 from .sparse import CSRNDArray  # noqa: E402,F401
@@ -66,7 +67,7 @@ def __getattr__(name):
     """Ops registered after import resolve lazily from the registry."""
     op = _REGISTRY.get(name)
     if op is not None:
-        setattr(_mod, name, op.wrapper)
+        setattr(_this, name, op.wrapper)
         return op.wrapper
     raise AttributeError("module %r has no attribute %r" % (__name__, name))
 

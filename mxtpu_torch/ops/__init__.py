@@ -3,8 +3,9 @@
 module with the registry, from which ``mx.nd`` is built. A registered op
 that is not named here resolves from the registry by any of its names
 (``F.SliceChannel``, ``F.split``), as its tensor function."""
-from . import (control_flow, ctc, elemwise, image_ops,  # noqa: F401
-               optimizer_ops, quantization, reduce, rnn_ops, subgraph_ops)
+from . import (contrib_ops, control_flow, ctc, elemwise,  # noqa: F401
+               image_ops, linalg_ops, optimizer_ops, quantization,
+               random_ops, reduce, rnn_ops, subgraph_ops)
 from . import registry as _registry
 from .registry import (REGISTRY, attach_methods, get_op, invoke, list_ops,
                        register)

@@ -5,7 +5,8 @@ fused conv kernel; that is the port's default on the card (the JAX package
 stages the same route behind ``MXTPU_PALLAS_CONV``). Every other conv
 (any 1-, 2- or 3-D conv) runs ``torch.nn.functional.conv{1,2,3}d`` on
 channels-first views, the counterpart of the plain XLA conv: those convs
-ran outside any Pallas kernel in the JAX package too.
+ran outside any Pallas kernel in the JAX package too. A conv the gate
+refuses counts in B1's ``DISPATCH_STATS`` with the gate's reason.
 The JAX package's im2col and f32-accumulate custom-vjp branches are off by
 default there and are not ported.
 """
@@ -26,9 +27,9 @@ def conv_fast(x, w, strides, padding, lhs_dilation, rhs_dilation, dims,
     """The gated fused kernel, else the plain conv; ``bias`` (a [C_out]
     vector) is applied on every path. ``dims`` is the (lhs, rhs, out)
     layout triple, ``padding`` per-dim (lo, hi) pairs."""
-    from .pallas.conv import fused_conv, pallas_applicable
-    ok, _reason = pallas_applicable(x, w, strides, padding, lhs_dilation,
-                                    rhs_dilation, dims, groups)
+    from .pallas.conv import count_fallback, fused_conv, pallas_applicable
+    ok, reason = pallas_applicable(x, w, strides, padding, lhs_dilation,
+                                   rhs_dilation, dims, groups)
     if ok:
         # a bias that would promote the output (f32 bias on bf16 operands)
         # stays an external add: the fused epilogue keeps the conv dtype
@@ -39,6 +40,8 @@ def conv_fast(x, w, strides, padding, lhs_dilation, rhs_dilation, dims,
                          padding=tuple(map(tuple, padding)),
                          bias=bias if fuse_bias else None)
         return out if fuse_bias else _with_bias(out, bias, dims)
+    if x.device.type != "meta":
+        count_fallback(reason)
     return _with_bias(_plain_conv(x, w, strides, padding, lhs_dilation,
                                   rhs_dilation, dims, groups), bias, dims)
 

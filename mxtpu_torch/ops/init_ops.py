@@ -5,6 +5,7 @@ the JAX package's dtypes (x64 off: "float64" gives float32); their
 ``mx.nd`` wrappers return NDArrays."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..base import canonical_dtype
@@ -12,7 +13,7 @@ from ..context import resolve_device
 from .registry import register
 
 __all__ = ["zeros", "ones", "full", "empty", "arange", "linspace", "eye",
-           "zeros_like", "ones_like", "full_like"]
+           "zeros_like", "ones_like", "full_like", "arange_like"]
 
 
 def _shape(shape):
@@ -86,3 +87,20 @@ def ones_like(x):
 @register("full_like")
 def full_like(x, fill_value=0.0):
     return torch.full_like(x, fill_value)
+
+
+@register("arange_like")
+def arange_like(x, start=0.0, step=1.0, repeat=1, axis=None, ctx=None):
+    """float32 ``start, start + step, ...``: ``x``'s size of them in
+    ``x``'s shape, or ``x.shape[axis]`` of them in 1-D. ``repeat`` is
+    ignored, as the JAX package ignores it. Like the other creation ops
+    the result lands on ``ctx`` (default: the current context), whatever
+    ``x``'s device. The values are numpy's float32 ``arange``: the first
+    two in float32, then ``start + i * delta`` in float32."""
+    dev = resolve_device(ctx)
+    n = x.numel() if axis is None else x.shape[axis]
+    v0 = np.float32(start)
+    delta = np.float32(np.float32(start + step) - v0)
+    arr = torch.arange(n, dtype=torch.float32, device=dev) * float(delta) \
+        + float(v0)
+    return arr.reshape(tuple(x.shape)) if axis is None else arr

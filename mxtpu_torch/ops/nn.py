@@ -5,9 +5,11 @@ handling, each registered for ``mx.nd``: ``Convolution`` (1-, 2- and 3-D,
 through ``conv_acc.conv_fast``), ``Deconvolution``, ``Pooling`` (1-3-D,
 max/avg/sum/lp), ``Activation``, ``LeakyReLU`` (and ``_rrelu_train``),
 ``Dropout``, ``FullyConnected``, ``BatchNorm``, ``InstanceNorm``,
-``LayerNorm``, ``softmax``, ``log_softmax`` and ``SoftmaxOutput`` (whose
-fused backward is an autograd Function), and the sequence ops
-``SequenceMask``, ``SequenceLast`` and ``SequenceReverse``. The
+``LayerNorm``, ``softmax``, ``log_softmax``, ``softmin``,
+``SoftmaxActivation``, ``LRN``, ``UpSampling``, ``SoftmaxOutput`` and the
+three regression heads (whose fused backwards are autograd Functions), and
+the sequence ops ``SequenceMask``, ``SequenceLast`` and
+``SequenceReverse``. The
 parameter-shape rules at the end fill the weights' shapes that ``Symbol.infer_shape`` does not know. Keywords that only tune
 the reference's cuDNN calls (``workspace``, ``cudnn_tune``, ``cudnn_off``)
 are accepted and ignored, as the JAX package does.
@@ -35,7 +37,9 @@ from .registry import register, register_param_shapes
 __all__ = ["FullyConnected", "Convolution", "Deconvolution", "Pooling",
            "Activation", "LeakyReLU", "Dropout", "BatchNorm", "InstanceNorm",
            "LayerNorm", "softmax", "log_softmax", "SoftmaxOutput",
-           "SequenceMask", "SequenceLast", "SequenceReverse"]
+           "SequenceMask", "SequenceLast", "SequenceReverse", "softmin",
+           "SoftmaxActivation", "UpSampling", "LRN", "LinearRegressionOutput",
+           "LogisticRegressionOutput", "MAERegressionOutput"]
 
 
 def _pair(v, n=2):
@@ -421,6 +425,108 @@ def SoftmaxOutput(data, label, grad_scale=1.0, ignore_label=-1.0,
             data, label, axis, (grad_scale, ignore_label, bool(use_ignore),
                                 normalization, smooth_alpha))
     return torch.softmax(data, dim=axis)
+
+
+@register("softmin")
+def softmin(x, axis=-1, **_ig):
+    """softmax(-x) over ``axis``."""
+    return torch.softmax(-x, dim=axis)
+
+
+@register("SoftmaxActivation")
+def SoftmaxActivation(x, mode="instance"):
+    """softmax over the channel axis (``mode="channel"``) or the last one
+    (ref: softmax_activation.cc, deprecated there)."""
+    return torch.softmax(x, dim=1 if mode == "channel" else -1)
+
+
+@register("UpSampling")
+def UpSampling(*data, scale=1, sample_type="nearest", num_args=1,
+               num_filter=0, multi_input_mode="concat", workspace=None):
+    """[N, C, H, W] -> [N, C, H scale, W scale] (ref: upsampling.cc):
+    ``nearest`` repeats each pixel, ``bilinear`` interpolates with
+    half-pixel centres and clamped edges (``jax.image.resize``). Only the
+    first input is read, as in the JAX package."""
+    x = data[0]
+    if sample_type == "nearest":
+        return x.repeat_interleave(scale, dim=2).repeat_interleave(scale,
+                                                                   dim=3)
+    n, c, h, w = x.shape
+    return F.interpolate(x, size=(h * scale, w * scale), mode="bilinear",
+                         align_corners=False)
+
+
+@register("LRN")
+def LRN(data, alpha=1e-4, beta=0.75, knorm=2.0, nsize=5):
+    """Local response normalization across channels (ref: lrn.cc):
+    ``data / (knorm + alpha / nsize * window_sum(data^2))^beta``, the
+    window ``nsize`` channels centred on each, zero-padded."""
+    sq = data * data
+    half = nsize // 2
+    pad = [0, 0] * (data.ndim - 2) + [half, half]
+    sq = F.pad(sq, pad)
+    c = data.shape[1]
+    s = sq[:, 0:c]
+    for i in range(1, nsize):
+        s = s + sq[:, i:i + c]
+    return data / torch.pow(knorm + alpha / nsize * s, beta)
+
+
+# ------------------------------------------------------------ regression heads
+_LINKS = {"linear": lambda d: d, "logistic": torch.sigmoid}
+
+
+class _Regression(torch.autograd.Function):
+    """``link(data)`` forward; the reference's backward, which ignores the
+    output's cotangent: ``(link(data) - label) * grad_scale / (size /
+    batch)`` (its sign for MAE), the label reshaped to the prediction's
+    shape (a (N,) label against an (N, 1) prediction must not broadcast to
+    (N, N)) and given a zero gradient (ref: regression_output-inl.h)."""
+
+    @staticmethod
+    def forward(ctx, data, label, link, grad_scale, mae):
+        p = _LINKS[link](data)
+        ctx.save_for_backward(p, label)
+        ctx.grad_scale, ctx.mae = grad_scale, mae
+        return p
+
+    @staticmethod
+    def backward(ctx, _g):
+        p, lab = ctx.saved_tensors
+        diff = p - lab.reshape(p.shape).to(p.dtype)
+        if ctx.mae:
+            diff = torch.sign(diff)
+        num_output = p.numel() // p.shape[0] if p.ndim > 0 and p.shape[0] \
+            else 1
+        d_lab = torch.zeros_like(lab) if ctx.needs_input_grad[1] else None
+        return diff * (ctx.grad_scale / num_output), d_lab, None, None, None
+
+
+def _regression(data, label, grad_scale, link, mae=False):
+    if torch.is_grad_enabled() and (data.requires_grad or label.requires_grad):
+        return _Regression.apply(data, label, link, float(grad_scale), mae)
+    return _LINKS[link](data)
+
+
+@register("LinearRegressionOutput", aliases=("linear_regression_output",))
+def LinearRegressionOutput(data, label, grad_scale=1.0):
+    """Identity forward; backward ``(data - label) * grad_scale / n``."""
+    return _regression(data, label, grad_scale, "linear")
+
+
+@register("LogisticRegressionOutput",
+          aliases=("logistic_regression_output",))
+def LogisticRegressionOutput(data, label, grad_scale=1.0):
+    """sigmoid forward; backward ``(sigmoid(data) - label) * grad_scale /
+    n``."""
+    return _regression(data, label, grad_scale, "logistic")
+
+
+@register("MAERegressionOutput", aliases=("mae_regression_output",))
+def MAERegressionOutput(data, label, grad_scale=1.0):
+    """Identity forward; backward ``sign(data - label) * grad_scale /
+    n``."""
+    return _regression(data, label, grad_scale, "linear", mae=True)
 
 
 # ------------------------------------------------------------ sequence ops

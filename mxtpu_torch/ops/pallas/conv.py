@@ -45,24 +45,39 @@ shape class: N, H, W, C_in, kh, kw, C_out, strides, padding and dtype),
 ``_launch_args`` takes its tiles and recomputes the threads and the grid
 from them. The shape classes swept are ResNet-50 v1's five gated convs at
 batch 8 and 128 in bfloat16.
+
+``DISPATCH_STATS`` is the reference's view over the telemetry counters
+``pallas_conv.{pallas,xla,fallback}``: ``pallas`` counts a call the gate
+admitted to the kernel's route (the kernel on the card, its plain version
+on the CPU, as the reference's interpreter runs its kernel there), ``xla``
+a conv that ``conv_acc.conv_fast`` sent to the library conv, and the
+reason-tagged ``fallback`` why. They count each eager call and a graph's
+capture pass once (``graphs.counts_dispatch``), never a replay:
+``fused_conv.launches`` counts every launch. ``shape_class_of(x, w,
+cfg)`` is the reference's shape class (its dict, with the ``scale`` and
+``res`` flags of the ``_Cfg``); the autotuner keys on ``shape_class``,
+which leaves out the two flags, since the port's plans do not depend on
+them.
 """
 from __future__ import annotations
 
 import collections
 import ctypes
 import functools
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ...base import MXNetError
-from ... import xprof
-from ...graphs import launched
+from ... import telemetry, xprof
+from ...graphs import counts_dispatch, launched
 from ..precision_util import promote
 from . import autotune
 
 __all__ = ["fused_conv", "fused_conv_with_raw", "fused_conv_reference",
-           "fused_conv_backward", "pallas_applicable", "out_hw"]
+           "fused_conv_backward", "pallas_applicable", "out_hw",
+           "shape_class_of", "DISPATCH_STATS", "reset_dispatch_stats"]
 
 _MXU_LANES = 128
 _LOW = (torch.bfloat16, torch.float32)
@@ -108,6 +123,69 @@ def pallas_applicable(x, w, strides, padding, lhs_dilation, rhs_dilation,
     if oh < 1 or ow < 1:
         return False, "degenerate output"
     return True, None
+
+
+class _Cfg(NamedTuple):
+    """A conv's static configuration, as the reference's ``_Cfg``."""
+    strides: Tuple[int, int]
+    padding: Tuple[Tuple[int, int], Tuple[int, int]]
+    relu: bool
+    has_scale: bool
+    has_bias: bool
+    has_residual: bool
+    res_dtype: str = ""
+
+
+class _DispatchStatsView:
+    """Read-only dict-shaped view over the ``pallas_conv.*`` counters
+    (the reference's ``DISPATCH_STATS``)."""
+
+    _KEYS = ("pallas", "xla", "fallback_reasons")
+
+    def __getitem__(self, key):
+        if key == "fallback_reasons":
+            return telemetry.tagged("pallas_conv.fallback")
+        if key not in self._KEYS:
+            raise KeyError(key)
+        return int(telemetry.value("pallas_conv." + key))
+
+    def get(self, key, default=None):
+        try:
+            return self[key]
+        except KeyError:
+            return default
+
+    def __iter__(self):
+        return iter(self._KEYS)
+
+    def __len__(self):
+        return len(self._KEYS)
+
+    def keys(self):
+        return list(self._KEYS)
+
+    def items(self):
+        return [(k, self[k]) for k in self._KEYS]
+
+    def __repr__(self):
+        return repr(dict(self.items()))
+
+
+DISPATCH_STATS = _DispatchStatsView()
+
+
+def reset_dispatch_stats():
+    for name in ("pallas_conv.pallas", "pallas_conv.xla",
+                 "pallas_conv.fallback"):
+        telemetry.reset_metric(name)
+
+
+def count_fallback(reason):
+    """One conv the gate sent to the library conv, with the gate's
+    reason."""
+    if counts_dispatch():
+        telemetry.inc("pallas_conv.xla")
+        telemetry.inc("pallas_conv.fallback", tag=reason)
 
 
 def fused_conv_reference(x, w, strides=(1, 1), padding=((0, 0), (0, 0)),
@@ -258,6 +336,14 @@ def _smem_bytes(block_m, block_n, k, dtype):
     chunks = -(-k_pad // _F32_BK)
     return 4 * min(chunks, _F32_STAGES) * (
         block_m * (_F32_BK + 4) + _F32_BK * (block_n + 4))
+
+
+def shape_class_of(x, w, cfg):
+    """The reference's shape class of a conv: ``shape_class`` with the
+    ``scale`` and ``res`` flags of ``cfg`` (a ``_Cfg``)."""
+    sc = shape_class(x, w, cfg.strides, cfg.padding)
+    sc.update(scale=int(cfg.has_scale), res=int(cfg.has_residual))
+    return sc
 
 
 def shape_class(x, w, strides, padding):
@@ -417,6 +503,8 @@ def _launch(x, w, strides, padding, scale, bias, residual, relu, oh, ow):
 def _forward(x, w, strides, padding, scale, bias, residual, relu, oh, ow):
     """(out, craw): the kernel on a CUDA tensor, the plain version on a
     CPU tensor."""
+    if counts_dispatch():
+        telemetry.inc("pallas_conv.pallas")
     if x.device.type == "cuda":
         return _launch(x, w, strides, padding, scale, bias, residual, relu,
                        oh, ow)

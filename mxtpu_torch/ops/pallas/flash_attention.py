@@ -45,7 +45,12 @@ classes swept are BERT-base's attention at [8, 12, 512, 64] and [16, 12,
 ``DISPATCH_STATS`` is the reference's view over the telemetry counters
 ``pallas_flash.{pallas,xla,fallback}``: ``pallas`` counts a kernel launch
 on the card and ``xla`` a call of the plain version on the CPU; the port
-has no fallback, so ``fallback_reasons`` stays empty.
+has no fallback, so ``fallback_reasons`` stays empty. Like B1's, the
+counters count each eager call and a graph's capture pass once
+(``graphs.counts_dispatch``), never a replay.
+
+``shape_class_of`` is the reference's name for ``shape_class``: the same
+dict.
 """
 from __future__ import annotations
 
@@ -57,12 +62,12 @@ import torch
 
 from ...base import MXNetError
 from ... import telemetry, xprof
-from ...graphs import launched
+from ...graphs import counts_dispatch, launched
 from . import autotune
 
 __all__ = ["flash_attention", "flash_attention_with_lse",
            "flash_attention_reference", "flash_attention_backward",
-           "DISPATCH_STATS", "reset_dispatch_stats"]
+           "DISPATCH_STATS", "reset_dispatch_stats", "shape_class_of"]
 
 _NEG_INF = -1e30   # mask value: the online rescale never sees -inf - -inf
 _SLICE = 128   # columns of out per block past D 128 (the sliced kernels)
@@ -194,6 +199,9 @@ def shape_class(q, k):
             "d": int(d), "dtype": _DTYPE_NAME[q.dtype]}
 
 
+shape_class_of = shape_class
+
+
 def _default_sms():
     return _sm_count(0) if torch.cuda.is_available() else 132
 
@@ -294,7 +302,8 @@ def _launch(q, k, v, causal, scale):
         raise MXNetError("flash_attention kernel launch failed: CUDA error %d"
                          % rc)
     launched(flash_attention)
-    telemetry.inc("pallas_flash.pallas")
+    if counts_dispatch():
+        telemetry.inc("pallas_flash.pallas")
     # the FLOP ledger's count of the launch: QK^T and PV, a multiply-add a
     # product, half the scores under a causal mask
     xprof.add_flops(4.0 * b * h * t * k.shape[2] * d

@@ -277,6 +277,7 @@ class ShardedTrainStep:
         from .. import autograd
         from ..ndarray import NDArray
         args = self._inputs(batch)
+        self._last_args = args
         with autograd.record():
             if self._forward is not None:
                 out = self._forward(self._block, *args)
@@ -303,6 +304,44 @@ class ShardedTrainStep:
                     collectives.all_reduce_(t, axis)
                     t.div_(axis.size)
         return NDArray(loss / self._mesh.size)
+
+    def compiled_step_flops(self):
+        """FLOPs of one step's forward and backward, counted by the port's
+        FLOP ledger (``xprof.measuring``: torch's op counts plus the kernel
+        wrappers' own) on the last step's batch. The pass runs the block
+        eagerly, as a child inside a capture runs, gives back the state it
+        moves (BatchNorm's statistics, the generator) and writes no
+        gradient; the update's few FLOPs a weight are left out. In a
+        process group every rank calls it (the forward's collectives run).
+        Raises before the first step (the shapes are not known)."""
+        from .. import autograd, graphs, random, xprof
+        args = getattr(self, "_last_args", None)
+        if args is None:
+            raise MXNetError("run at least one step before asking for FLOPs")
+        params = self._params
+        diff = [params[i].data()._data for i in self._trainable]
+        aux = [params[i].data()._data for i in self._aux]
+        device = (diff or aux)[0].device
+        diff = [t for t in diff if t.requires_grad]
+        gen = random.generator(device)
+        state = graphs._STATE
+        prev_gens = getattr(state, "generators", ())
+        with graphs.keeping(aux), graphs.keeping_generators([gen]), \
+                xprof.measuring() as counted:
+            state.depth = getattr(state, "depth", 0) + 1
+            state.generators = set(prev_gens) | {id(gen)}
+            try:
+                with autograd.record():
+                    if self._forward is not None:
+                        out = self._forward(self._block, *args)
+                    else:
+                        out = self._loss(self._block(*args[:-1]), args[-1])
+                    scalar = out.mean()._data
+                torch.autograd.grad(scalar, diff, allow_unused=True)
+            finally:
+                state.generators = prev_gens
+                state.depth -= 1
+        return counted["flops"]
 
     @property
     def learning_rate(self):

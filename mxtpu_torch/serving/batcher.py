@@ -158,7 +158,7 @@ class MicroBatcher:
     def __init__(self, predictor, max_batch_size=MAX_BATCH,
                  max_wait_ms=MAX_WAIT_MS, max_queue=MAX_QUEUE,
                  clock=time.monotonic, start=True, allow_cold=False,
-                 batch_aging_ms=BATCH_AGING_MS, admission_gate=None):
+                 admission_gate=None, batch_aging_ms=BATCH_AGING_MS):
         self._pred = predictor
         # called with the request's item count: a shed reason to refuse,
         # None to admit; the unit is the gate's (the accountant's

@@ -101,24 +101,24 @@ def pool_bytes(pool, device):
                and tuple(seg["segment_pool_id"]) == pool)
 
 
-def pad_nd(t, batch, seq_len=None, seq_axis=1, pad_value=0):
-    """``t`` padded with ``pad_value`` up to ``batch`` rows on axis 0 and,
-    when ``seq_len`` is given and ``t`` has a ``seq_axis`` dimension, up
-    to ``seq_len`` on that axis; ``t`` itself when nothing is padded."""
-    shape = list(t.shape)
+def pad_nd(arr, batch, seq_len=None, seq_axis=1, pad_value=0):
+    """``arr`` padded with ``pad_value`` up to ``batch`` rows on axis 0 and,
+    when ``seq_len`` is given and ``arr`` has a ``seq_axis`` dimension, up
+    to ``seq_len`` on that axis; ``arr`` itself when nothing is padded."""
+    shape = list(arr.shape)
     if shape[0] > batch:
         raise MXNetError("pad_nd: batch %d exceeds bucket %d"
                          % (shape[0], batch))
     shape[0] = batch
-    if seq_len is not None and t.ndim > seq_axis:
-        if t.shape[seq_axis] > seq_len:
+    if seq_len is not None and arr.ndim > seq_axis:
+        if arr.shape[seq_axis] > seq_len:
             raise MXNetError("pad_nd: axis %d size %d exceeds bucket %d"
-                             % (seq_axis, t.shape[seq_axis], seq_len))
+                             % (seq_axis, arr.shape[seq_axis], seq_len))
         shape[seq_axis] = seq_len
-    if tuple(shape) == tuple(t.shape):
-        return t
-    out = t.new_full(shape, pad_value)
-    out[tuple(slice(0, n) for n in t.shape)] = t
+    if tuple(shape) == tuple(arr.shape):
+        return arr
+    out = arr.new_full(shape, pad_value)
+    out[tuple(slice(0, n) for n in arr.shape)] = arr
     return out
 
 

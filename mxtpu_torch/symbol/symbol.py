@@ -135,7 +135,10 @@ def _topo(heads):
 
 # ops whose forward draws from the device's generator: a graph that runs
 # them registers it, so each replay draws afresh
-_DRAWS = ("Dropout", "_rrelu_train", "LeakyReLU")
+_DRAWS = ("Dropout", "_rrelu_train", "LeakyReLU", "uniform", "normal",
+          "_random_gamma", "exponential", "poisson", "negative_binomial",
+          "generalized_negative_binomial", "randint", "multinomial",
+          "_sample_unique_zipfian", "shuffle", "uniform_like", "normal_like")
 
 
 def draws(symbol):
@@ -144,13 +147,21 @@ def draws(symbol):
 
 
 # ops that make an array from nothing: a node of one gets the device its
-# graph runs on (``begin_state``'s zeros in an unrolled RNN)
-_CREATION = ("zeros", "ones", "full", "empty", "arange", "linspace", "eye")
+# graph runs on (``begin_state``'s zeros in an unrolled RNN, a draw whose
+# parameters are numbers)
+_CREATION = ("zeros", "ones", "full", "empty", "arange", "linspace", "eye",
+             "uniform", "normal", "_random_gamma", "exponential", "poisson",
+             "negative_binomial", "generalized_negative_binomial", "randint",
+             "_sample_unique_zipfian")
+# ops whose output lands on the current context whatever their input's
+# device: in a graph, the graph's device
+_ON_CONTEXT = ("arange_like", "_contrib_arange_like")
 
 
 def _on_device(node, kwargs, device):
-    if device is not None and not node.inputs and node.op in _CREATION \
-            and kwargs.get("ctx") is None:
+    if device is not None and kwargs.get("ctx") is None and (
+            (not node.inputs and node.op in _CREATION)
+            or node.op in _ON_CONTEXT):
         kwargs["ctx"] = device
     return kwargs
 

@@ -807,11 +807,16 @@ def d2h_count():
 
 
 # --------------------------------------------------------- retrace watchdog
-def record_retrace(site, provenance=None):
+def record_retrace(site, provenance=None, compiled=None, compile_s=None):
     """Count one build at ``site`` with its provenance; past the budget the
     watchdog counts a trip and warns (the log is rate-limited, the count is
-    exact)."""
+    exact). The reference's ``compiled`` (an executable for its FLOP
+    ledger) is returned as given: a captured graph enters the port's
+    ledger where it is built (``graphs.ledger_site``). ``compile_s``, a
+    measured build time, is observed into ``compile.wall_s``."""
     inc("retrace." + site)
+    if compile_s is not None:
+        observe("compile.wall_s", compile_s)
     budget = retrace_budget()
     with _LOCK:
         st = _RETRACE.setdefault(site,
@@ -832,6 +837,7 @@ def record_retrace(site, provenance=None):
             _log.warning("retrace watchdog: '%s' built %d times, over the "
                          "budget of %d. Last provenance: %s", site,
                          compiles, budget, provenance)
+    return compiled
 
 
 def retrace_stats(site=None):

@@ -194,6 +194,24 @@ def test_refusals_and_the_async_error_at_the_next_save(tmp_path,
         tck.load_trainer(tr3, d, step=1)
 
 
+def test_a_rank_that_does_not_write_never_meets_the_writers_step(
+        tmp_path, monkeypatch):
+    """On a mesh the first rank writes and may finalize the step before
+    another rank reaches its save (the two-rank test below lost a rank to
+    that race): a rank that does not write neither guards nor writes."""
+    d = str(tmp_path)
+    tr, params = _trainer(mt)
+    tck.save_trainer(tr, d, step=1)
+    monkeypatch.setattr(tck, "_rank", lambda: 1)
+    before = sorted(os.listdir(d))
+    w = tck.save_trainer(tr, d, step=1)
+    assert w.wait_until_finished() is w and w.write_s is None
+    assert sorted(os.listdir(d)) == before
+    monkeypatch.setattr(tck, "_rank", lambda: 0)
+    with pytest.raises(mt.MXNetError, match="force=True"):
+        tck.save_trainer(tr, d, step=1)
+
+
 def test_the_reference_cannot_read_the_ports_format(tmp_path):
     """A deliberate difference (ROADMAP §C): each package reads its own
     format only."""

@@ -215,6 +215,29 @@ def test_import_scan_covers_the_fleet():
         assert "environ.get(" not in src and "getenv(" not in src, rel
 
 
+def test_import_scan_covers_the_dense_random_and_linalg_ops():
+    """The scans walk A10.1 and A10.2's modules, and their creation ops
+    default to the card: a draw, ``randint`` and ``arange_like`` of a CPU
+    array raise without one."""
+    scanned = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for rel in ("ops/matrix.py", "ops/nn.py", "ops/init_ops.py",
+                "ops/contrib_ops.py", "ops/random_ops.py",
+                "ops/linalg_ops.py", "ndarray/random.py",
+                "ndarray/linalg.py", "base.py"):
+        assert os.path.join("mxtpu_torch", rel) in scanned, rel
+
+
+def test_creation_ops_default_to_the_card(no_cuda):
+    x = mt.nd.array(np.zeros((2, 3), np.float32), ctx=mt.cpu())
+    for call in (lambda: mt.nd.random.normal(shape=(2,)),
+                 lambda: mt.nd.randint(0, 5, shape=(2,)),
+                 lambda: mt.nd.arange_like(x),
+                 lambda: mt.nd._sample_unique_zipfian(10, shape=(1, 2))):
+        with pytest.raises(mt.MXNetError, match="no CUDA device"):
+            call()
+    assert mt.nd.topk(x, k=1).context == torch.device("cpu")
+
+
 def test_rnn_entry_points_default_to_the_card(no_cuda):
     """The RNN layers and cells, their begin states, the symbolic cells'
     executor, the sentence iterator and a fused cell's unpacked weights

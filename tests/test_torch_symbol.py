@@ -272,8 +272,9 @@ def test_flatten_and_softmax_output_registered():
     # 166 after the symbolic slice; the RNN slice added SliceChannel, the
     # three Sequence* ops, RNN, CTCLoss, foreach, while_loop and cond, the
     # multi-device slice _contrib_ring_attention, its second part
-    # _contrib_switch_moe
-    assert len(names) == 177
+    # _contrib_switch_moe, and A10.1 and A10.2 the 57 dense, random and
+    # linear-algebra ops
+    assert len(names) == 234
     x = np.random.RandomState(3).standard_normal((2, 3, 4)).astype(
         np.float32)
     j, t = _both(lambda pkg: pkg.sym.Flatten(pkg.sym.var("x")))
