@@ -2,12 +2,12 @@
 ``Concurrent``, ``HybridConcurrent`` and ``Identity`` are Gluon's own
 layers; ``SyncBatchNorm`` takes its batch statistics over the ranks of a
 mesh axis (or the world); ``SwitchMoE`` is the top-1 mixture of experts
-(``parallel.moe``); ``SparseEmbedding`` (row-sparse gradients) is not
-ported yet and raises naming its ROADMAP item."""
+(``parallel.moe``); ``SparseEmbedding`` is the ``Embedding`` op over a
+weight whose ``grad_stype`` is row_sparse (its gradient stays dense, as
+the JAX package's)."""
 import torch
 
 from .... import autograd
-from ....base import MXNetError
 from ...block import HybridBlock
 from ...nn import BatchNorm, Concurrent, HybridConcurrent, Identity
 
@@ -15,16 +15,28 @@ __all__ = ["Concurrent", "HybridConcurrent", "Identity", "SparseEmbedding",
            "SyncBatchNorm", "SwitchMoE"]
 
 
-def _not_ported(name, item, what):
-    def __init__(self, *args, **kwargs):
-        raise MXNetError("%s is not ported yet: it needs %s (ROADMAP %s)"
-                         % (name, what, item))
-    return type(name, (), {"__init__": __init__,
-                           "__doc__": "Not ported yet (ROADMAP %s)." % item})
+class SparseEmbedding(HybridBlock):
+    """An Embedding whose weight's ``grad_stype`` is row_sparse (ref:
+    contrib SparseEmbedding); the same ``Embedding`` op, and a dense
+    gradient, as in the JAX package."""
 
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, **kwargs):
+        super().__init__(**kwargs)
+        self._kwargs = {"input_dim": input_dim, "output_dim": output_dim,
+                        "dtype": dtype, "sparse_grad": True}
+        with self.name_scope():
+            self.weight = self.params.get(
+                "weight", shape=(input_dim, output_dim), dtype=dtype,
+                init=weight_initializer, grad_stype="row_sparse")
 
-SparseEmbedding = _not_ported("SparseEmbedding", "A10",
-                              "row-sparse gradients")
+    def hybrid_forward(self, F, x, weight):
+        return F.Embedding(x, weight, **{k: v for k, v in self._kwargs.items()
+                                         if k != "sparse_grad"})
+
+    def __repr__(self):
+        return "SparseEmbedding({input_dim} -> {output_dim}, {dtype})".format(
+            **self._kwargs)
 
 
 class SyncBatchNorm(BatchNorm):

@@ -286,17 +286,20 @@ class LayerNorm(HybridBlock):
 class Embedding(HybridBlock):
     """Index -> vector lookup with an (input_dim, output_dim) weight (ref:
     basic_layers.py:Embedding). Ids are clipped into range; the ids
-    themselves are never cast."""
+    themselves are never cast. ``sparse_grad`` sets the weight's
+    ``grad_stype``; the gradient stays dense, as the JAX package's."""
 
     def __init__(self, input_dim, output_dim, dtype="float32",
-                 weight_initializer=None, **kwargs):
+                 weight_initializer=None, sparse_grad=False, **kwargs):
         super().__init__(**kwargs)
         self._input_dim = input_dim
         self._output_dim = output_dim
+        self._sparse_grad = sparse_grad
         with self.name_scope():
             self.weight = self.params.get(
                 "weight", shape=(input_dim, output_dim), dtype=dtype,
-                init=weight_initializer)
+                init=weight_initializer,
+                grad_stype="row_sparse" if sparse_grad else "default")
 
     def hybrid_forward(self, F, x, weight):
         return F.Embedding(x, weight, input_dim=self._input_dim,

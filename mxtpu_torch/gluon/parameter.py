@@ -69,8 +69,13 @@ class Parameter:
 
     def __init__(self, name, grad_req="write", shape=None, dtype="float32",
                  lr_mult=1.0, wd_mult=1.0, init=None,
-                 allow_deferred_init=False, differentiable=True):
+                 allow_deferred_init=False, differentiable=True,
+                 stype="default", grad_stype="default"):
         self.name = name
+        # stored as the JAX package stores them: the data and the gradient
+        # stay dense (a row-sparse gradient is built by the caller)
+        self._stype = stype
+        self._grad_stype = grad_stype
         self.lr_mult = lr_mult
         self.wd_mult = wd_mult
         self._trainer = None
@@ -256,6 +261,17 @@ class Parameter:
         g = self.data()._grad
         if g is not None:
             g._set_data(torch.zeros_like(g._data))
+
+    def row_sparse_data(self, row_id):
+        """The given rows of the data as a RowSparseNDArray (ref:
+        parameter.py:row_sparse_data)."""
+        from ..ndarray.sparse import RowSparseNDArray
+        d = self.data()
+        rows = row_id._data if isinstance(row_id, NDArray) \
+            else torch.as_tensor(row_id, device=d.context)
+        rows = rows.to(device=d.context, dtype=torch.int32)
+        return RowSparseNDArray(d._data.detach().index_select(0, rows),
+                                rows, d.shape)
 
     def _update_aux(self, value):
         """Overwrite a statistic (BatchNorm's moving mean and variance) in

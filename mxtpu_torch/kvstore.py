@@ -12,8 +12,10 @@ compression, one all-gather of the packed codes, each worker's
 dequantized and summed); ``init`` broadcasts the first rank's value, as
 MXNet's rank 0 does. ``dist_async`` raises, as the reference's does.
 ``attach_mesh`` records the Trainer's mesh (the store stays the control
-plane: a mesh Trainer never pushes). Row-sparse pulls come with the
-sparse arrays (ROADMAP A10).
+plane: a mesh Trainer never pushes). ``row_sparse_pull`` copies only the
+given rows of the stored value out: into a ``RowSparseNDArray`` (its
+values and row ids replaced) or, in place, into those rows of a dense
+array.
 """
 from __future__ import annotations
 
@@ -139,8 +141,33 @@ class KVStore:
         self.pull(key, out if out is not None else value, priority)
 
     def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
-        raise MXNetError("row_sparse_pull needs the row-sparse arrays, which "
-                         "are not ported yet (ROADMAP A10)")
+        """Pull only the rows ``row_ids`` (ref: KVStore::PullRowSparse): a
+        row_sparse ``out`` becomes those rows; a dense ``out`` takes them
+        in place and keeps every other row."""
+        from .ndarray.sparse import RowSparseNDArray
+        if row_ids is None:
+            raise MXNetError("row_sparse_pull requires row_ids")
+        keys, outs = _normalize_grouped(key, out)
+        rids = row_ids if isinstance(row_ids, (list, tuple)) else [row_ids]
+        with torch.no_grad():
+            for k, os_ in zip(keys, outs):
+                if k not in self._store:
+                    raise MXNetError("key %s has not been initialized" % k)
+                src = self._store[k]._data
+                for o, rid in zip(os_, rids * len(os_)):
+                    dev = o._data.device
+                    rows = rid._data.to(device=src.device, dtype=torch.int64)
+                    vals = src.index_select(0, rows).to(dev)
+                    if isinstance(o, RowSparseNDArray):
+                        shape = o.shape
+                        o._set_data(vals)
+                        o._aux = {"indices": rows.to(device=dev,
+                                                     dtype=torch.int32),
+                                  "shape": tuple(shape)}
+                    else:
+                        o._data.index_copy_(0, rows.to(dev),
+                                            vals.to(o._data.dtype))
+                        o._version += 1
 
     def set_updater(self, updater):
         """Run ``updater`` on the merged values (ref: set_updater)."""

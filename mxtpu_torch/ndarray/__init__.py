@@ -59,8 +59,10 @@ from . import random  # noqa: E402,F401
 from . import linalg  # noqa: E402,F401
 from . import image  # noqa: E402,F401
 from . import sparse  # noqa: E402,F401
-from .sparse import CSRNDArray  # noqa: E402,F401
+from .sparse import CSRNDArray, RowSparseNDArray  # noqa: E402,F401
 from .utils import load, save  # noqa: E402,F401
+from .dlpack import (from_dlpack, from_numpy, to_dlpack_for_read,  # noqa: E402,F401
+                     to_dlpack_for_write)
 
 
 def __getattr__(name):

@@ -262,14 +262,31 @@ class NDArray:
         return self
 
     def tostype(self, stype):
-        if stype != "default":
-            raise MXNetError("sparse storage is not ported (stype %r)" % stype)
-        return self
+        if stype == "default":
+            return self
+        from .sparse import cast_storage  # late: sparse is built on NDArray
+        return cast_storage(self, stype)
 
     def to_torch(self):
         """The underlying tensor (takes the place of the JAX package's
         ``to_jax``)."""
         return self._data
+
+    def __dlpack__(self, *a, **kw):
+        return self._data.detach().__dlpack__(*a, **kw)
+
+    def __dlpack_device__(self):
+        return self._data.__dlpack_device__()
+
+    def to_dlpack_for_read(self):
+        """A one-shot "dltensor" capsule over this array's memory (ref:
+        NDArray.to_dlpack_for_read)."""
+        from .dlpack import to_dlpack_for_read
+        return to_dlpack_for_read(self)
+
+    def to_dlpack_for_write(self):
+        from .dlpack import to_dlpack_for_write
+        return to_dlpack_for_write(self)
 
     # --------------------------------------------------------------- autograd
     def attach_grad(self, grad_req="write", stype=None):
@@ -315,7 +332,8 @@ class NDArray:
     # ------------------------------------------------------------- arithmetic
     def _operand(self, other):
         if isinstance(other, NDArray):
-            return other
+            # a sparse operand's _data is its values: the dense fallback
+            return other if other.stype == "default" else other.todense()
         if isinstance(other, _np.number):
             return other.item()
         if isinstance(other, (int, float, bool)):

@@ -15,8 +15,10 @@ Two on-disk formats, told apart by their magic on load:
   header and buffers are byte for byte the JAX package's.
 
 Arrays load onto the current context (``with ctx:``; ``cuda:0`` outside
-one). Sparse records (``row_sparse``, ``csr``) raise: sparse arrays come
-with ROADMAP A10.
+one). Sparse arrays (``row_sparse``, ``csr``) are written and read as
+the JAX package writes and reads them: in the reference format, one
+record of their parts each; in the native one, an entry whose parts
+follow one another.
 """
 from __future__ import annotations
 
@@ -29,15 +31,11 @@ import torch
 from ..base import MXNetError
 from . import mxnet_format
 from .ndarray import NDArray, array
+from .sparse import BaseSparseNDArray, _deserialize_parts
 
 __all__ = ["save", "load"]
 
 _MAGIC = b"MXTPU001"
-
-
-def _sparse_error(stype):
-    return MXNetError("%s arrays are not ported yet (sparse NDArrays come "
-                      "with ROADMAP A10)" % stype)
 
 
 def _host(arr):
@@ -73,9 +71,16 @@ def save(fname, data, format=None):  # noqa: A002 - the reference's name
                                 and len(a.shape) > 0
                                 for a in arrays) else "mxtpu"
     if format == "mxnet":
+        items = []
+        for arr in arrays:
+            if isinstance(arr, BaseSparseNDArray):
+                parts = dict(arr._serialize_parts())
+                parts["shape"] = arr.shape
+                items.append((arr.stype, parts))
+            else:
+                items.append(("default", _host(arr)[0]))
         blob = mxnet_format.dumps(
-            [("default", _host(a)[0]) for a in arrays],
-            names if isinstance(data, dict) else [])
+            items, names if isinstance(data, dict) else [])
         with open(fname, "wb") as f:
             f.write(blob)
         return
@@ -83,6 +88,18 @@ def save(fname, data, format=None):  # noqa: A002 - the reference's name
         raise MXNetError("unknown save format %r" % (format,))
     entries, blobs, offset = [], [], 0
     for name, arr in zip(names, arrays):
+        if isinstance(arr, BaseSparseNDArray):
+            part_entries = []
+            for pname, pa in arr._serialize_parts():
+                b = pa.tobytes()
+                part_entries.append({"part": pname, "dtype": str(pa.dtype),
+                                     "shape": list(pa.shape),
+                                     "offset": offset, "nbytes": len(b)})
+                blobs.append(b)
+                offset += len(b)
+            entries.append({"name": name, "stype": arr.stype,
+                            "shape": list(arr.shape), "parts": part_entries})
+            continue
         a, dt = _host(arr)
         b = a.tobytes()
         entries.append({"name": name, "stype": "default", "dtype": dt,
@@ -116,10 +133,22 @@ def load(fname):
         (hlen,) = struct.unpack("<Q", head)
         header = json.loads(f.read(hlen).decode())
         payload = f.read()
+    def part(pe):
+        count = int(_np.prod(pe["shape"], dtype=_np.int64)) \
+            if pe["shape"] else 1
+        np_dt = _np.dtype(pe["dtype"])
+        if pe["offset"] + count * np_dt.itemsize > len(payload):
+            raise MXNetError("truncated NDArray file %s" % fname)
+        return _np.frombuffer(payload, dtype=np_dt, count=count,
+                              offset=pe["offset"]).reshape(pe["shape"])
+
     out = []
     for e in header["entries"]:
         if e["stype"] != "default":
-            raise _sparse_error(e["stype"])
+            parts = {pe["part"]: part(pe) for pe in e["parts"]}
+            out.append((e["name"], _deserialize_parts(
+                e["stype"], tuple(e["shape"]), parts)))
+            continue
         dt = e["dtype"]
         np_dt = _np.float32 if dt == "bfloat16" else _np.dtype(dt)
         count = int(_np.prod(e["shape"], dtype=_np.int64)) \
@@ -141,9 +170,11 @@ def _load_mxnet(buf):
     items, names = mxnet_format.loads(buf)
     arrays = []
     for stype, payload in items:
-        if stype != "default":
-            raise _sparse_error(stype)
-        arrays.append(array(payload))
+        if stype == "default":
+            arrays.append(array(payload))
+        else:
+            shape = tuple(int(d) for d in payload.pop("shape"))
+            arrays.append(_deserialize_parts(stype, shape, payload))
     if names:
         return dict(zip(names, arrays))
     return arrays

@@ -5,7 +5,8 @@ Each op is one PyTorch expression on tensors. ``elemwise_*``, ``broadcast_*``
 and the ``_*_scalar`` names share one function (numpy broadcasting; a
 Python scalar operand takes the tensor's type, as JAX's weak types do).
 Logic and comparison results are float32, as in the JAX package. The
-sparse scatter ops (``_scatter_*``) wait for sparse storage.
+scatter ops (``_scatter_*``) apply at a sparse lhs's stored values only,
+keeping its storage.
 """
 from __future__ import annotations
 
@@ -226,3 +227,57 @@ def hard_sigmoid(x, alpha=0.2, beta=0.5):
     y = alpha * x + beta
     return torch.where(y <= 0.0, torch.zeros_like(y),
                        torch.where(y >= 1.0, torch.ones_like(y), y))
+
+
+# ------------------------------------------------------ scatter-family ops
+# Ref: tensor/elemwise_scatter_op.cc. A sparse lhs: the op applies at its
+# stored values only and the result keeps its storage and pattern (a
+# non-zero-preserving ``+ scalar`` does not densify); a dense lhs gives the
+# ordinary elementwise op. The sparse optimizer updates use them.
+
+def _emit(res, out):
+    """Return ``res``, or copy it into ``out`` (``copyto`` moves a sparse
+    result's indices and shape with its values)."""
+    if out is None:
+        return res
+    return res.copyto(out)
+
+
+def _scatter_scalar(name, tfn):
+    @register(name, wrap=False)
+    def fn(lhs, scalar=0.0, out=None, **_ig):
+        from ..ndarray.ndarray import _apply
+        from ..ndarray.sparse import BaseSparseNDArray
+        vals = _apply(lambda a: tfn(a, scalar), (lhs,), name=name)
+        res = lhs._replace_values(vals._data) \
+            if isinstance(lhs, BaseSparseNDArray) else vals
+        return _emit(res, out)
+    fn.__name__ = name
+    return fn
+
+
+_scatter_plus_scalar = _scatter_scalar("_scatter_plus_scalar",
+                                       lambda a, s: a + s)
+_scatter_minus_scalar = _scatter_scalar("_scatter_minus_scalar",
+                                        lambda a, s: a - s)
+
+
+@register("_scatter_elemwise_div", wrap=False)
+def _scatter_elemwise_div(lhs, rhs, out=None, **_ig):
+    """Divide, at a row_sparse lhs's stored rows only (ref:
+    elemwise_scatter_op.cc:69): the result's rows are lhs.values /
+    rhs[row ids], in lhs's storage."""
+    from ..ndarray.ndarray import _apply
+    from ..ndarray.sparse import BaseSparseNDArray, RowSparseNDArray
+    if isinstance(rhs, BaseSparseNDArray):
+        rhs = rhs.todense()   # the storage fallback: rhs is read densely
+    if isinstance(lhs, RowSparseNDArray):
+        idx = lhs._aux["indices"]
+        vals = _apply(lambda v, d: v / d.index_select(0, idx), (lhs, rhs),
+                      name="_scatter_elemwise_div")
+        res = lhs._replace_values(vals._data)
+    else:
+        if isinstance(lhs, BaseSparseNDArray):
+            lhs = lhs.todense()   # a csr lhs falls back to dense
+        res = _apply(torch.div, (lhs, rhs), name="_scatter_elemwise_div")
+    return _emit(res, out)

@@ -28,7 +28,7 @@ __all__ = ["reshape", "Flatten", "transpose", "Embedding", "expand_dims", "squee
            "size_array", "take", "batch_take", "gather_nd", "scatter_nd",
            "_scatter_set_nd", "one_hot", "index_copy", "sort", "argsort",
            "topk", "khatri_rao", "reshape_like", "_ravel_multi_index",
-           "_unravel_index"]
+           "_unravel_index", "SparseEmbedding", "getnnz"]
 
 
 def _reshape_target(src, shape):
@@ -120,6 +120,24 @@ def Embedding(data, weight, input_dim=None, output_dim=None, dtype="float32",
     idx = data.to(torch.int32).clamp(0, weight.shape[0] - 1)
     return weight.index_select(0, idx.reshape(-1)).reshape(
         tuple(idx.shape) + tuple(weight.shape[1:]))
+
+
+@register("_contrib_SparseEmbedding", aliases=("SparseEmbedding",))
+def SparseEmbedding(data, weight, input_dim=None, output_dim=None,
+                    dtype="float32", deterministic=False):
+    """``Embedding`` (ref: indexing_op.cc SparseEmbedding): the JAX
+    package's gradient is dense, and so is this one."""
+    return Embedding(data, weight, input_dim=input_dim,
+                     output_dim=output_dim, dtype=dtype)
+
+
+@register("_contrib_getnnz", aliases=("getnnz",))
+def getnnz(data, axis=None):
+    """The count of non-zeros, int32 (ref: contrib/nnz.cc; a dense
+    reduction, as in the JAX package)."""
+    nz = data != 0
+    out = nz.sum() if axis is None else nz.sum(dim=axis)
+    return out.to(torch.int32)
 
 
 @register_param_shapes("Embedding")

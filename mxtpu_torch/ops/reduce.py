@@ -171,3 +171,49 @@ def softmax_cross_entropy(data, label):
     picked = torch.take_along_dim(logp, label.to(torch.int64)[:, None],
                                   dim=-1)
     return -torch.sum(picked)
+
+
+@register("_square_sum", wrap=False)
+def _square_sum(data, axis=None, keepdims=False, exclude=False, out=None,
+                **_ig):
+    """The sum of squares over axes (ref: tensor/square_sum.cc): a
+    row_sparse input with ``axis=1, keepdims=True`` gives a row_sparse
+    output over the input's row ids; every other case is dense, and a
+    row_sparse input reduces its stored values alone (a csr input is
+    densified first)."""
+    from ..ndarray.ndarray import NDArray, _apply
+    from ..ndarray.sparse import BaseSparseNDArray, RowSparseNDArray
+    if isinstance(data, BaseSparseNDArray) \
+            and not isinstance(data, RowSparseNDArray):
+        data = data.todense()
+    if isinstance(data, RowSparseNDArray):
+        ax = _norm_axis(axis, len(data.shape), exclude)
+        idx, shape = data._aux["indices"], data.shape
+        if ax == (1,) and keepdims:
+            vals = _apply(lambda v: torch.sum(v * v, dim=1, keepdim=True),
+                          (data,), name="_square_sum")
+            res = RowSparseNDArray(vals._data, idx, (shape[0], 1))
+        elif ax == (1,):
+            res = _apply(lambda v: torch.zeros(
+                shape[0], dtype=v.dtype, device=v.device).index_add(
+                    0, idx, torch.sum(v * v, dim=1)), (data,),
+                name="_square_sum")
+        elif ax == (0,):
+            res = _apply(lambda v: torch.sum(v * v, dim=0, keepdim=keepdims),
+                         (data,), name="_square_sum")
+        else:   # a full reduction (axis None, or both axes)
+            res = _apply(lambda v: _sum_all(v * v, keepdims), (data,),
+                         name="_square_sum")
+    else:
+        ax = _norm_axis(axis, data.ndim, exclude)
+        res = _apply(lambda v: _sum_all(v * v, keepdims) if ax is None
+                     else torch.sum(v * v, dim=ax, keepdim=keepdims),
+                     (data,), name="_square_sum")
+    if out is not None:
+        return res.copyto(out)
+    return res
+
+
+def _sum_all(x, keepdims):
+    s = torch.sum(x)
+    return s.reshape((1,) * x.ndim) if keepdims else s

@@ -23,7 +23,12 @@ formulas (``ops/optimizer_ops.py``), never ``torch.optim``.
 
 ``get_updater`` gives ``optimizer_fused.FusedUpdater``, whose batch path
 groups the parameters and updates them with ``torch._foreach_*`` ops.
-Sparse (row_sparse) gradients are not ported.
+
+A ``RowSparseNDArray`` gradient takes the lazy update of SGD (with or
+without momentum), Adam, AdaGrad and GroupAdaGrad, as in the JAX package:
+only the gradient's rows of the weight and of its states move, read with
+``index_select`` and written in place with ``index_copy_``/``index_add_``;
+every other row keeps its bits.
 """
 from __future__ import annotations
 
@@ -52,6 +57,29 @@ _LOW = (torch.float16, torch.bfloat16)
 def _t(arr):
     """An NDArray's tensor, outside autograd."""
     return arr._data.detach()
+
+
+def _sparse_grad(grad):
+    """(row ids as int64, the rows' values) of a RowSparseNDArray gradient,
+    or None for a dense one."""
+    from .ndarray.sparse import RowSparseNDArray
+    if not isinstance(grad, RowSparseNDArray):
+        return None
+    return grad._aux["indices"].long(), _t(grad)
+
+
+def _set_rows(arr, rows, values):
+    """arr[rows] = values, in place, outside autograd."""
+    with torch.no_grad():
+        arr._data.index_copy_(0, rows, values.to(arr._data.dtype))
+    arr._version += 1
+
+
+def _add_rows(arr, rows, values):
+    """arr[rows] += values, in place, outside autograd."""
+    with torch.no_grad():
+        arr._data.index_add_(0, rows, values.to(arr._data.dtype))
+    arr._version += 1
 
 
 class Optimizer:
@@ -213,6 +241,10 @@ class SGD(Optimizer):
     def update(self, index, weight, grad, state):
         self._update_count(index)
         lr, wd = self._get_lr(index), self._get_wd(index)
+        sparse = _sparse_grad(grad)
+        if sparse is not None:
+            self._sparse_update(weight, sparse, state, lr, wd)
+            return
         if state is None:
             _uo.sgd_update(weight, grad, lr, wd=wd,
                            **self._common_kwargs(index))
@@ -220,6 +252,20 @@ class SGD(Optimizer):
             _uo.sgd_mom_update(weight, grad, state, lr,
                                momentum=self.momentum, wd=wd,
                                **self._common_kwargs(index))
+
+    def _sparse_update(self, weight, sparse, state, lr, wd):
+        """The lazy update: only the gradient's rows move."""
+        rows, g = sparse
+        g = g * self.rescale_grad
+        if self.clip_gradient:
+            g = torch.clamp(g, -self.clip_gradient, self.clip_gradient)
+        g = g + _t(weight).index_select(0, rows) * wd
+        if state is None:
+            _add_rows(weight, rows, g * -lr)
+            return
+        m_rows = _t(state).index_select(0, rows) * self.momentum - g * lr
+        _set_rows(state, rows, m_rows)
+        _add_rows(weight, rows, m_rows)
 
 
 @register
@@ -366,6 +412,22 @@ class Adam(Optimizer):
         self._update_count(index)
         wd = self._get_wd(index)
         mean, var = state
+        sparse = _sparse_grad(grad)
+        if sparse is not None:   # the lazy update: only the gradient's rows
+            rows, g = sparse
+            g = g * self.rescale_grad
+            if self.clip_gradient:
+                g = torch.clamp(g, -self.clip_gradient, self.clip_gradient)
+            g = g + _t(weight).index_select(0, rows) * wd
+            m_new = _t(mean).index_select(0, rows) * self.beta1 \
+                + g * (1 - self.beta1)
+            v_new = _t(var).index_select(0, rows) * self.beta2 \
+                + (g * g) * (1 - self.beta2)
+            _set_rows(mean, rows, m_new)
+            _set_rows(var, rows, v_new)
+            _add_rows(weight, rows, (m_new * -self._lr_t(index))
+                      / (torch.sqrt(v_new) + self.epsilon))
+            return
         _uo.adam_update(weight, grad, mean, var, self._lr_t(index),
                         beta1=self.beta1, beta2=self.beta2,
                         epsilon=self.epsilon, wd=wd,
@@ -386,6 +448,15 @@ class AdaGrad(Optimizer):
     def update(self, index, weight, grad, state):
         self._update_count(index)
         lr, wd = self._get_lr(index), self._get_wd(index)
+        sparse = _sparse_grad(grad)
+        if sparse is not None:   # lazy, and (as the JAX package's) no wd
+            rows, g = sparse
+            g = g * self.rescale_grad
+            h_new = _t(state).index_select(0, rows) + g * g
+            _set_rows(state, rows, h_new)
+            _add_rows(weight, rows, (g * -lr)
+                      / torch.sqrt(h_new + self.float_stable_eps))
+            return
         _uo.adagrad_update(weight, grad, state, lr,
                            epsilon=self.float_stable_eps, wd=wd,
                            **self._common_kwargs(index))
@@ -595,10 +666,20 @@ class GroupAdaGrad(Optimizer):
     def update(self, index, weight, grad, state):
         self._update_count(index)
         lr = self._get_lr(index)
+        sparse = _sparse_grad(grad)
         g = _t(grad) * self.rescale_grad
         if self.clip_gradient is not None:
             g = torch.clamp(g, -self.clip_gradient, self.clip_gradient)
         red = tuple(range(1, g.ndim))
+        if sparse is not None:   # the lazy update: only the gradient's rows
+            rows = sparse[0]
+            h_new = _t(state).index_select(0, rows) + (
+                torch.mean(g * g, dim=red) if red else g * g)
+            _set_rows(state, rows, h_new)
+            div = torch.sqrt(h_new + self.float_stable_eps)
+            _add_rows(weight, rows, (g * -lr)
+                      / div.reshape((-1,) + (1,) * (g.ndim - 1)))
+            return
         h_new = _t(state) + torch.mean(g * g, dim=red) if red \
             else _t(state) + g * g
         _write(state, h_new)

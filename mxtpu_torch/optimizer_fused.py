@@ -610,7 +610,10 @@ def _bump(arrays):
 
 def _split_aliased(items):
     """(items, items whose weight or state shares storage with another
-    item's): the second run per index, as the reference's donation rule."""
+    item's, or whose gradient or weight is sparse): the second run per
+    index, as the reference's donation rule and its eager fallback for
+    row-sparse gradients (a lazy update never joins a group)."""
+    from .ndarray.sparse import BaseSparseNDArray
     seen = collections.Counter()
     ptrs = []
     for it in items:
@@ -620,7 +623,10 @@ def _split_aliased(items):
         seen.update(mine)
     keep, aliased = [], []
     for it, mine in zip(items, ptrs):
-        (aliased if any(seen[p] > 1 for p in mine) else keep).append(it)
+        sparse = isinstance(it[1], BaseSparseNDArray) \
+            or isinstance(it[2], BaseSparseNDArray)
+        (aliased if sparse or any(seen[p] > 1 for p in mine)
+         else keep).append(it)
     return keep, aliased
 
 

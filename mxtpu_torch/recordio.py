@@ -6,7 +6,7 @@ IRHeader struct.
 
 The port reads and writes the wire format in Python only (the JAX
 package's pure-Python reader and writer); its ctypes-bound C++ reader is
-ROADMAP A10. The files written are byte-identical to the reference's.
+ROADMAP A10.6. The files written are byte-identical to the reference's.
 ``pack_img``/``unpack_img`` import ``cv2`` when called and raise
 ``MXNetError`` naming it when it is missing.
 """
@@ -33,8 +33,16 @@ class _PyWriter:
         self._f = open(path, mode)
 
     def write(self, data):
-        cuts = [i for i in range(0, len(data) - 3, 4)
-                if data[i:i + 4] == _MAGIC_BYTES]
+        # the magic at a 4-byte aligned offset splits the record; found
+        # with bytes.find (a Python loop over every aligned word was the
+        # writer's whole cost)
+        cuts, i = [], data.find(_MAGIC_BYTES)
+        while i >= 0:
+            if i % 4 == 0:
+                cuts.append(i)
+                i = data.find(_MAGIC_BYTES, i + 4)
+            else:
+                i = data.find(_MAGIC_BYTES, i + 1)
         if not cuts:
             self._chunk(0, data)
             return

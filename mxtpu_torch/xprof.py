@@ -198,12 +198,28 @@ def add_flops(n):
             _MEASURE["extra"] += float(n)
 
 
+def _without_dynamo_import():
+    """torch wraps a dispatch mode's ``__torch_dispatch__`` in
+    ``torch._disable_dynamo``, whose first call in a process imports
+    ``torch._dynamo`` (seconds, before the first FLOP pass of every fresh
+    process) only to keep ``torch.compile``, which this
+    package never runs, out of the mode. Mark the counter's dispatch as
+    already disabled, so the wrapper calls it as it is."""
+    from torch.utils import flop_counter
+    mode = getattr(flop_counter, "_FlopCounterMode", None)
+    fn = getattr(getattr(mode, "__torch_dispatch__", None), "__wrapped__",
+                 None)
+    if fn is not None and getattr(fn, "__dynamo_disable", None) is None:
+        setattr(fn, "__dynamo_disable", fn)
+
+
 @contextlib.contextmanager
 def measuring():
     """Count the FLOPs of the block's torch ops (``FlopCounterMode``) and
     of the kernels launched in it (``add_flops``); yields a dict whose
     ``flops`` is set on exit. Each pass counts ``xprof.flop_passes``."""
     from torch.utils.flop_counter import FlopCounterMode
+    _without_dynamo_import()
     telemetry.inc("xprof.flop_passes")
     out = {"flops": None}
     with _LOCK:

@@ -461,8 +461,10 @@ def test_contrib_nn_names():
     assert cnn.Identity is mt.gluon.nn.Identity
     assert cnn.HybridConcurrent is mt.gluon.nn.HybridConcurrent
     assert cnn.Concurrent is mt.gluon.nn.Concurrent
-    with pytest.raises(mt.MXNetError, match="A10"):
-        cnn.SparseEmbedding(4, 4)
+    # SparseEmbedding is ported (held to mxtpu in tests/test_torch_sparse.py)
+    emb = cnn.SparseEmbedding(4, 4)
+    assert emb.weight._grad_stype == "row_sparse"
+    assert repr(emb) == "SparseEmbedding(4 -> 4, float32)"
     # SwitchMoE is ported (held to mxtpu in tests/test_torch_moe.py)
     moe = cnn.SwitchMoE(4, 8, 2)
     assert [tuple(p.shape) for p in moe.collect_params().values()] == \

@@ -132,8 +132,9 @@ def test_registry_holds_the_13_ops():
     # SoftmaxOutput, _subgraph_exec and _sg_flash_attention, the RNN
     # slice SliceChannel, the three Sequence* ops, RNN, CTCLoss, foreach,
     # while_loop and cond, the multi-device slice _contrib_ring_attention, its
-    # second part _contrib_switch_moe; A10.1 and A10.2 added 57
-    assert len(names & ref) == 234
+    # second part _contrib_switch_moe; A10.1 and A10.2 added 57, A10.3 the
+    # six sparse ops
+    assert len(names & ref) == 240
 
 
 def _transforms_pair(build, x, seed=9, exact=False):

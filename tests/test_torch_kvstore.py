@@ -96,11 +96,14 @@ def _ranks(rank, world, out_dir):
         save(**{"tr%d_%s" % (comp is not None, n.split("_")[-1]):
                 p.data().asnumpy()
                 for n, p in net.collect_params().items()})
-    try:
-        kv.row_sparse_pull(0, out=outs[0], row_ids=arr(np.zeros(1)))
-        save(rsp="")
-    except mt.MXNetError as e:
-        save(rsp=str(e))
+    # the pushpull's sum, row 0 only, into a dense out and a row_sparse one
+    rows = arr(np.zeros(1))
+    dense = arr(np.full(SHAPES[0], 5.0, np.float32))
+    kv.row_sparse_pull(0, out=dense, row_ids=rows)
+    rsp = mt.nd.sparse.zeros("row_sparse", SHAPES[0], ctx=mt.cpu())
+    kv.row_sparse_pull(0, out=rsp, row_ids=rows)
+    save(rsp_dense=dense.asnumpy(), rsp_indices=rsp.indices.asnumpy(),
+         rsp_values=rsp.data.asnumpy())
     save(host_sum=mt.distributed.allreduce_host(np.full(3, rank + 1.0)),
          host_all=mt.distributed.allgather_host(np.full(2, rank)))
 
@@ -210,7 +213,11 @@ def test_dist_trainer_matches_mxtpu_on_the_whole_batch(ranks):
 def test_host_collectives_and_refusals(ranks):
     import mxtpu_torch as mt
     for got in ranks:
-        assert "ROADMAP A10" in str(got["rsp"])
+        want = np.full(SHAPES[0], 5.0, np.float32)
+        want[0] = got["pushpull"][0]
+        np.testing.assert_array_equal(got["rsp_dense"], want)
+        np.testing.assert_array_equal(got["rsp_indices"], [0])
+        np.testing.assert_array_equal(got["rsp_values"], want[:1])
         np.testing.assert_array_equal(got["host_sum"], np.full(3, 10.0))
         np.testing.assert_array_equal(got["host_all"],
                                       np.repeat(np.arange(4)[:, None], 2, 1))

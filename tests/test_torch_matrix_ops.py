@@ -375,10 +375,10 @@ def test_executor_captures_the_new_ops(monkeypatch):
 def test_every_registry_name_resolves_like_mxtpu():
     """Each of the reference's registry names (aliases included) whose op
     the port has resolves in ``mx.nd`` and ``mx.sym`` to the same
-    canonical op; the 38 ops left are ROADMAP A10.3's and A10.4's."""
+    canonical op; the 32 ops left are ROADMAP A10.4's."""
     jreg, treg = mx.ops.registry.REGISTRY, mt.ops.registry.REGISTRY
     ported = {op.name for op in treg.values()}
-    assert len(ported & {op.name for op in jreg.values()}) == 234
+    assert len(ported & {op.name for op in jreg.values()}) == 240
     for name, op in jreg.items():
         if op.name not in ported:
             continue
@@ -389,4 +389,4 @@ def test_every_registry_name_resolves_like_mxtpu():
             short = name[len("_contrib_"):] if name.startswith(
                 "_contrib_") else name
             assert callable(getattr(mt.nd.contrib, short)), name
-    assert len({op.name for op in jreg.values()} - ported) == 38
+    assert len({op.name for op in jreg.values()} - ported) == 32

@@ -195,9 +195,35 @@ def test_truncated_file_raises_in_both(tmp_path):
         _load_mt(tmp_path / "n")
 
 
-def test_sparse_records_raise_naming_a10(tmp_path):
-    """A deliberate difference: the reference loads a csr record, the port
-    (no sparse arrays yet) raises naming ROADMAP A10."""
+@pytest.mark.parametrize("fmt", ["mxnet", "mxtpu"])
+def test_sparse_records_round_trip_like_mxtpu(tmp_path, fmt):
+    """A csr and a row_sparse array: the port's file is byte for byte the
+    JAX package's, and each package loads the other's file to the same
+    parts; a handwritten csr record loads alike."""
+    rng = np.random.RandomState(5)
+    dense = rng.standard_normal((6, 4)).astype(np.float32)
+    dense[[0, 2, 5]] = 0
+    dense[dense < -0.5] = 0
+    j = {"rs": mx.nd.array(dense).tostype("row_sparse"),
+         "csr": mx.nd.array(dense).tostype("csr")}
+    with mt.cpu():
+        t = {"rs": mt.nd.array(dense).tostype("row_sparse"),
+             "csr": mt.nd.array(dense).tostype("csr")}
+    mx.nd.save(str(tmp_path / "j"), j, format=fmt)
+    mt.nd.save(str(tmp_path / "t"), t, format=fmt)
+    assert (tmp_path / "j").read_bytes() == (tmp_path / "t").read_bytes()
+    for got, ref in ((_load_mt(tmp_path / "j"), mx.nd.load(
+            str(tmp_path / "t"))), (_load_mt(tmp_path / "t"), j)):
+        for k in ("rs", "csr"):
+            assert got[k].stype == ref[k].stype and got[k].shape == \
+                ref[k].shape
+            np.testing.assert_array_equal(got[k].asnumpy(), dense)
+            np.testing.assert_array_equal(got[k].indices.asnumpy(),
+                                          np.asarray(ref[k].indices.asnumpy()))
+            np.testing.assert_array_equal(got[k].data.asnumpy(),
+                                          np.asarray(ref[k].data.asnumpy()))
+        np.testing.assert_array_equal(got["csr"].indptr.asnumpy(),
+                                      np.asarray(ref["csr"].indptr.asnumpy()))
     vals = np.array([1.0, 2.0, 3.0], np.float32)
     indptr = np.array([0, 2, 3], np.int64)
     idx = np.array([0, 3, 1], np.int64)
@@ -206,15 +232,10 @@ def test_sparse_records_raise_naming_a10(tmp_path):
            + struct.pack("<i", 6) + _tshape(3) + struct.pack("<i", 6)
            + _tshape(3) + vals.tobytes() + indptr.tobytes() + idx.tobytes())
     (tmp_path / "csr").write_bytes(_file([rec], ["w"]))
-    assert mx.nd.load(str(tmp_path / "csr"))["w"].stype == "csr"
-    with pytest.raises(MXNetError, match="A10"):
-        _load_mt(tmp_path / "csr")
-    dense = np.array([[0, 1], [2, 0]], np.float32)
-    mx.nd.save(str(tmp_path / "rs"),
-               {"rs": mx.nd.array(dense).tostype("row_sparse")},
-               format="mxtpu")
-    with pytest.raises(MXNetError, match="A10"):
-        _load_mt(tmp_path / "rs")
+    ref, got = mx.nd.load(str(tmp_path / "csr"))["w"], \
+        _load_mt(tmp_path / "csr")["w"]
+    assert got.stype == ref.stype == "csr"
+    np.testing.assert_array_equal(got.asnumpy(), np.asarray(ref.asnumpy()))
 
 
 # ------------------------------------------------------ gluon parameters

@@ -846,11 +846,9 @@ _QUEUED = {
     # the reference's environment reader (a deliberate difference)
     "base": {"getenv"},
 }
-# mx.nd names still queued: A10.3's sparse arrays and dlpack, A10.4's
-# detection, legacy vision and custom ops (ROADMAP §A)
+# mx.nd names still queued: A10.4's detection, legacy vision and custom
+# ops (ROADMAP §A)
 _QUEUED_ND = {
-    "RowSparseNDArray", "SparseEmbedding", "getnnz", "dlpack",
-    "from_dlpack", "from_numpy", "to_dlpack_for_read", "to_dlpack_for_write",
     "AdaptiveAvgPooling2D", "BatchNorm_v1", "BilinearResize2D",
     "BilinearSampler", "Convolution_v1", "Correlation", "Crop", "Custom",
     "DeformableConvolution", "DeformablePSROIPooling", "GridGenerator",
@@ -896,11 +894,13 @@ def test_c16_public_names_are_the_references(path):
         for sub in ("random", "linalg"):
             assert _public(getattr(ref, sub)) <= _public(getattr(port, sub))
         assert port.random.__all__ == ref.random.__all__
-        # NDArray methods: A10.3's dlpack pair and JAX's own still missing
+        # NDArray methods: only JAX's own missing
         methods = {n for n in dir(ref.NDArray) if not n.startswith("_")} \
             - {n for n in dir(port.NDArray) if not n.startswith("_")}
-        assert methods == {"to_dlpack_for_read", "to_dlpack_for_write",
-                           "to_jax"}, sorted(methods)
+        assert methods == {"to_jax"}, sorted(methods)
+        assert {"RowSparseNDArray", "SparseEmbedding", "getnnz", "dlpack",
+                "from_dlpack", "from_numpy", "to_dlpack_for_read",
+                "to_dlpack_for_write", "sparse"} <= _public(port)
     else:   # a queued submodule is in dir() once any test imported it
         assert missing <= _QUEUED[path], sorted(missing - _QUEUED[path])
     for name in ("REGISTRY", "register", "get_op", "list_ops", "invoke",
@@ -1178,8 +1178,7 @@ def test_c24_base_names_work_like_mxtpu():
 # deliberate, each listed as (the reference's parameters the port lacks,
 # the port's extra ones): levers as arguments (the reference reads them
 # from its environment), ``generator=``/``root=``/``mesh=``/``ctx=``,
-# JAX-only arguments (``compiled``, ``in_specs``, ``interpret``), and the
-# sparse storage of A10.3 (``sparse_grad``, ``stype``, ``grad_stype``).
+# and JAX-only arguments (``compiled``, ``in_specs``, ``interpret``).
 _SIG_DIFFERENCES = {
     "compile_service:get_or_build": ((), ("persist", "_preread")),
     "distributed:init": ((), ("backend", "timeout")),
@@ -1210,7 +1209,6 @@ _SIG_DIFFERENCES = {
                                                          "params")),
     "gluon.nn.activations:SELU.__init__": (("kwargs",), ("prefix",
                                                          "params")),
-    "gluon.nn.basic_layers:Embedding.__init__": (("sparse_grad",), ()),
     "gluon.nn.basic_layers:Flatten.__init__": (("kwargs",), ("prefix",
                                                              "params")),
     "gluon.nn.conv_layers:MaxPool1D.__init__": ((), ("count_include_pad",)),
@@ -1219,7 +1217,6 @@ _SIG_DIFFERENCES = {
     "gluon.parameter:Constant.initialize": (
         ("args", "kwargs"),
         ("init", "ctx", "default_init", "force_reinit", "generator")),
-    "gluon.parameter:Parameter.__init__": (("stype", "grad_stype"), ()),
     "gluon.parameter:Parameter.initialize": ((), ("generator",)),
     "gluon.parameter:ParameterDict.initialize": ((), ("generator",)),
     "io.stream:DevicePrefetcher.__init__": ((), ("max_restarts",)),
